@@ -30,8 +30,7 @@
 // kernel that folds the partial rows in row order.  Counts are integers from
 // the thread to the final int64 totals.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 #define HIST_BINS 128
 #define N_COUNTS 5                       // n, entered, tp, stop, open
@@ -54,26 +53,6 @@ struct McArgs {
     int use_noise, antithetic;
 };
 
-__device__ __forceinline__ float two_pi() { return (float)6.283185307179586; }
-
-// Philox4x32-10 (Salmon et al., SC'11); utils/prng.py computes the same bits.
-// Not inlined: one copy serves every draw site of the unrolled walk, which
-// keeps the kernel's code within the instruction cache (and nvcc quick).
-__device__ __noinline__ uint32_t philox_word(uint32_t c0, uint32_t c1,
-                                             uint32_t c2, uint32_t c3,
-                                             uint32_t k0, uint32_t k1,
-                                             int word) {
-#pragma unroll
-    for (int r = 0; r < 10; ++r) {
-        if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
-        const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-        const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-        c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
-    }
-    return word == 0 ? c0 : word == 1 ? c1 : word == 2 ? c2 : c3;
-}
-
 // Uniform (block, row, lane) of the layout in ops/draws.py: injected, or
 // word row%4 of Philox with counter (lane, row/4, block lo, block hi).
 struct Draw {
@@ -84,10 +63,10 @@ struct Draw {
 
     __device__ __forceinline__ float operator()(int row, int lane) const {
         if (ext) return ext[(blk * n_rows + row) * (long long)lanes + lane];
-        const uint32_t bits = philox_word(
+        const uint4 w = philox4(
             (uint32_t)lane, (uint32_t)(row >> 2), (uint32_t)blk,
-            (uint32_t)((unsigned long long)blk >> 32), seed, stream, row & 3);
-        return (float)(bits >> 8) * 5.9604644775390625e-08f + 1e-12f;
+            (uint32_t)((unsigned long long)blk >> 32), seed, stream);
+        return to_uniform(word_of(w, row & 3));
     }
 };
 
@@ -98,7 +77,7 @@ struct PathState {
 };
 
 // One bar of one path: contact search before entry, stop/target after it.
-// Not inlined, for the same reason as philox_word.
+// Not inlined, for the same reason as philox4 (common.cuh).
 __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
                                       PathState& st, int lane, int k,
                                       float z, float sig2dt) {
@@ -162,30 +141,6 @@ __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
     } else {
         st.target_first = tgt_hit;
     }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ unsigned warp_count(unsigned v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
 }
 
 template <int MAXHALF>
@@ -260,7 +215,7 @@ mc_first_contact_kernel(const McArgs a, const float* __restrict__ ext,
     const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
 #pragma unroll
     for (int j = 0; j < N_COUNTS; ++j) {
-        const unsigned v = warp_count(cnt[j]);
+        const unsigned v = warp_count<unsigned>(cnt[j]);
         if (wl == 0) atomicAdd(&s_counts[j], v);
     }
     sum_r = warp_sum(sum_r);

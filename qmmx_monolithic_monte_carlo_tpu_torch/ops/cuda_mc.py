@@ -26,7 +26,6 @@ being exact past 2^24 entered paths.)
 from __future__ import annotations
 
 import ctypes
-import math
 
 import numpy as np
 import torch
@@ -34,14 +33,13 @@ import torch
 from ..sim.pathsim import HIST_BINS, HIST_HI, HIST_LO, PathStats
 from ..types import Levels
 from ..utils import build, prng
+from ..utils import device as devices
 from .draws import FUSED_STREAM, GbmLayout, fused_uniforms
+from .kernel_args import MAX_LEVELS, consts, f32, grid_size, knobs, level_slots
 from .pathgen import cumsum_f32
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
-MAX_LEVELS = 8           # level slots the kernel holds in its arguments
 MAX_KERNEL_BARS = 128    # the kernel keeps W/2 sine normals in registers
-BLOCK = 256              # CUDA threads per CTA (matches the .cu)
-MAX_CTAS = 4096          # pass-1 grid cap: fixed, so results do not depend on the card
 N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
 ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
@@ -77,44 +75,6 @@ class _McArgs(ctypes.Structure):
     ]
 
 
-def _f32(x) -> float:
-    """A Python float holding the float32 rounding of ``x``."""
-    return float(np.float32(float(x)))
-
-
-def _consts(s0, mu, sigma, dt) -> tuple[float, float, float]:
-    """(drift, sig_dt, log_s0) computed in float64 on the host and rounded to
-    float32, as ``_mc_paths_pallas_jit`` does (pallas_mc.py:741-742, :652)."""
-    drift = (mu - 0.5 * sigma * sigma) * dt
-    sig_dt = sigma * math.sqrt(dt)
-    return _f32(drift), _f32(sig_dt), _f32(math.log(float(s0)))
-
-
-def _knobs(params, noise) -> dict:
-    """The TPU kernel's (1, 8) knob row as float32 values; zero noise stds
-    when ``noise`` is None."""
-    def std(name):
-        return _f32(getattr(noise, name)) if noise is not None else 0.0
-
-    return {
-        "prox": _f32(params.contact_prox), "stop_pad": _f32(params.stop_padding),
-        "tp_pad": _f32(params.tp_padding),
-        "lvl_jit": std("level_jitter_std"), "entry_slip": std("entry_slip_std"),
-        "stop_slip": std("stop_slip_std"), "tgt_slip": std("target_slip_std"),
-    }
-
-
-def _level_slots(levels: Levels) -> tuple[list[float], list[float]]:
-    """Level prices (invalid slots zeroed, as ``_level_rows`` does) and 1/0
-    validity, padded to MAX_LEVELS."""
-    price = levels.price.detach().cpu().to(torch.float32)
-    valid = levels.valid.detach().cpu()
-    lp = torch.where(torch.isfinite(price), price, 0.0).tolist()
-    lv = valid.to(torch.float32).tolist()
-    pad = MAX_LEVELS - len(lp)
-    return lp + [0.0] * pad, lv + [0.0] * pad
-
-
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
            external_uniforms) -> GbmLayout:
     """The checks of ``_mc_paths_pallas_jit`` (pallas_mc.py:724-738)."""
@@ -137,24 +97,6 @@ def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
         if external_uniforms.dtype != torch.float32:
             raise ValueError("external_uniforms must be float32")
     return layout
-
-
-def _resolve_device(device, external_uniforms) -> torch.device:
-    if device is None:
-        device = (external_uniforms.device if external_uniforms is not None
-                  else torch.device("cpu"))
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was requested but "
-                           "torch.cuda.is_available() is false")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    if external_uniforms is not None:
-        ed = external_uniforms.device
-        if ed.type != device.type or (device.index is not None
-                                      and ed.index != device.index):
-            raise ValueError(f"external_uniforms lie on {ed}, not {device}")
-    return device
 
 
 # --------------------------------------------------------------------------
@@ -181,8 +123,8 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
     log_open = log_close - incr
     close = torch.exp(log_close)
     opens = torch.exp(log_open)
-    sig2dt = _f32(np.float32(sig_dt) * np.float32(sig_dt))
-    two_s2 = _f32(np.float32(2.0) * np.float32(sig2dt))
+    sig2dt = f32(np.float32(sig_dt) * np.float32(sig_dt))
+    two_s2 = f32(np.float32(2.0) * np.float32(sig2dt))
     diff = log_close - log_open
     d2 = diff * diff
     mid = log_open + log_close
@@ -241,6 +183,11 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
     risk = torch.clamp((entry - stop).abs(), min=1e-9)
     reward = (target - entry).abs()
     r = torch.where(none_hit, 0.0, torch.where(target_first, reward / risk, -1.0))
+    # the kernel's walk: bars to the first hit (else all W), the Box-Muller
+    # pairs that takes, and the bars after contact (bridge extremes evaluated)
+    walked = torch.where(entered & ~none_hit, torch.minimum(j_stop, j_tgt) + 1, w)
+    work = torch.stack([torch.clamp(walked, max=w // 2).sum(), walked.sum(),
+                        torch.where(entered, walked - ebar - 1, 0).sum()])
 
     rr = r[entered]
     counts = torch.zeros(ROW_COUNTS, dtype=torch.int64, device=dev)
@@ -258,7 +205,7 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
         rr.min().double() if has else torch.tensor(_BIG, dtype=torch.float64, device=dev),
         rr.max().double() if has else torch.tensor(-_BIG, dtype=torch.float64, device=dev),
     ])
-    return counts, floats
+    return counts, floats, work
 
 
 def _merge_totals(a, b):
@@ -267,7 +214,7 @@ def _merge_totals(a, b):
     fa, fb = a[1], b[1]
     return a[0] + b[0], torch.stack([fa[0] + fb[0], fa[1] + fb[1],
                                      torch.minimum(fa[2], fb[2]),
-                                     torch.maximum(fa[3], fb[3])])
+                                     torch.maximum(fa[3], fb[3])]), a[2] + b[2]
 
 
 def stats_from_totals(counts: torch.Tensor, floats: torch.Tensor) -> PathStats:
@@ -298,18 +245,20 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
                            dt: float = 1.0 / (390.0 * 252.0),
                            lanes: int = SINGLE_LANES, noise=None,
                            antithetic: bool = False, external_uniforms=None,
-                           device=None, chunk_blocks: int = 16):
+                           device=None, chunk_blocks: int = 16,
+                           work: bool = False):
     """The plain version's (int64 counts, float64 floats) totals, computed on
-    ``device`` in chunks of ``chunk_blocks`` blocks."""
+    ``device`` (default: that of ``external_uniforms``, else the CUDA device)
+    in chunks of ``chunk_blocks`` blocks.  ``work=True`` adds the kernel's
+    work on these paths, int64 [Box-Muller pairs, bars walked, bars walked
+    after contact], for bounding its time."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
-    device = torch.device(device) if device is not None else (
-        external_uniforms.device if external_uniforms is not None
-        else torch.device("cpu"))
-    lp, lv = _level_slots(levels)
-    knobs = _knobs(params, noise)
-    consts = _consts(s0, mu, sigma, dt)
+    device = devices.resolve(device, external_uniforms)
+    lp, lv = level_slots(levels)
+    kn = knobs(params, noise)
+    cs = consts(s0, mu, sigma, dt)
     n_blocks = num_paths // lanes
     tot = None
     for b0 in range(0, n_blocks, chunk_blocks):
@@ -320,13 +269,13 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, device=device)
         tot = _merge_totals(tot, _chunk_totals(
-            u, layout, lp, lv, levels.max_levels, knobs, consts, antithetic))
-    return tot
+            u, layout, lp, lv, levels.max_levels, kn, cs, antithetic))
+    return tot if work else tot[:2]
 
 
 def mc_paths_fused_reference(seed, levels: Levels, params, **kw) -> PathStats:
     """The plain PyTorch version of ``mc_paths_fused`` (same arguments, plus
-    ``chunk_blocks``); runs on ``device``, the CPU by default."""
+    ``chunk_blocks``); runs on ``device`` as ``fused_totals_reference``."""
     return stats_from_totals(*fused_totals_reference(seed, levels, params, **kw))
 
 
@@ -371,11 +320,6 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def grid_size(num_paths: int) -> int:
-    """Pass-1 CTAs: a function of num_paths only, never of the card."""
-    return max(1, min(-(-num_paths // BLOCK), MAX_CTAS))
-
-
 def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
                        num_bars: int, s0: float, mu: float, sigma: float,
                        dt: float, lanes: int, noise, antithetic: bool,
@@ -397,9 +341,8 @@ def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
         if not external_uniforms.is_contiguous():
             raise ValueError("external_uniforms must be contiguous")
         ext_ptr = external_uniforms.data_ptr()
-    lp, lv = _level_slots(levels)
-    knobs = _knobs(params, noise)
-    drift, sig_dt, log_s0 = _consts(s0, mu, sigma, dt)
+    lp, lv = level_slots(levels)
+    drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
     args = _McArgs(
         num_paths=num_paths,
         level_price=(ctypes.c_float * MAX_LEVELS)(*lp),
@@ -409,7 +352,7 @@ def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
         max_levels=levels.max_levels, num_bars=num_bars, lanes=lanes,
         n_rows=layout.n_rows, use_noise=int(noise is not None),
         antithetic=int(bool(antithetic)),
-        **knobs,
+        **knobs(params, noise),
     )
     grid = grid_size(num_paths)
     part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
@@ -462,14 +405,15 @@ def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
     the same PathStats contract as ``sim.pathsim.mc_paths``, with the McNoise
     execution-noise knobs and antithetic lane pairs.
 
-    ``device`` (default: that of ``external_uniforms``, else the CPU) picks
-    the path: a CUDA device launches the kernel or raises; the CPU runs the
-    plain version.  Draws agree with ``sim.pathsim.mc_paths`` statistically,
-    not bitwise (different stream layouts)."""
+    ``device`` (default: that of ``external_uniforms``, else the CUDA device,
+    which raises where there is none) picks the path: a CUDA device launches
+    the kernel or raises; the CPU runs the plain version.  Draws agree with
+    ``sim.pathsim.mc_paths`` statistically, not bitwise (different stream
+    layouts)."""
     _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
            noise=noise, antithetic=antithetic,
            external_uniforms=external_uniforms)
-    device = _resolve_device(device, external_uniforms)
+    device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
               sigma=sigma, dt=dt, lanes=lanes, noise=noise,
               antithetic=antithetic, external_uniforms=external_uniforms)

@@ -1,8 +1,8 @@
-"""The uniform-row layout of the first-contact kernel, in one place.
+"""The uniform-row layouts of the fused kernels, in one place.
 
-The JAX package spells this layout inline in ``ops/pallas_mc.py:606-622`` and
-sizes it at ``:744-754``.  Here the plain version
-(``ops/cuda_mc.mc_paths_fused_reference``), the kernel wrapper
+First contact (``GbmLayout``).  The JAX package spells this layout inline
+in ``ops/pallas_mc.py:606-622`` and sizes it at ``:744-754``.  Here the plain
+version (``ops/cuda_mc.mc_paths_fused_reference``), the kernel wrapper
 (``ops/cuda_mc.mc_paths_fused``, which checks injected uniforms against it)
 and the tests read this one spec; ``ops/csrc/mc_first_contact.cu`` computes
 the same row offsets.
@@ -17,6 +17,25 @@ GBM, one block of ``lanes`` paths × ``W`` bars, rows of ``lanes`` uniforms:
     rows 3W+1 .. 3W+4    (with execution noise) two more Box-Muller pairs
 
 Normal pair k (cos, sin) drives bars k and k + W/2.
+
+Gated lifecycle (``GatedLayout``), the JAX package's ``_gated_stride`` layout
+(``ops/pallas_mc.py:1052-1064``, ``:1119-1124``, ``:1273-1305``): one block
+is 8 rows of ``lanes`` paths (path ``block * 8 * lanes + s * lanes + j``),
+and double-bar step t2 (bars 2·t2 and 2·t2+1) takes uniforms
+``t2 * stride + k``:
+
+    k = 0, 1        Box-Muller (u1, u2): cos drives bar 2·t2, sin bar 2·t2+1
+    k = 2, 3, 4     (u3, u4, tie) of bar 2·t2: bridge high, bridge low, tie coin
+    k = 5, 6, 7     the same of bar 2·t2+1
+    k = 8 .. 11     (with noise) radius, angle, radius, angle of the two
+                    noise pairs of bar 2·t2: (level jitter, entry slip) and
+                    (stop slip, target slip)
+    k = 12 .. 15    the same of bar 2·t2+1
+
+stride = 8, or 16 with noise, so ``u_rows = stride * W / 2``.  Injected
+uniforms keep the JAX shape f32[n_blocks, u_rows, 8, lanes]; in Philox mode
+row r of a block is one row of 8·lanes paths on the stream ``GATED_STREAM``,
+so four consecutive rows of a path are the four words of one Philox call.
 """
 
 from __future__ import annotations
@@ -27,8 +46,10 @@ import torch
 
 from ..utils import prng
 
-# The stream of the fused kernel's uniforms (one stream, rows laid out below).
+# The streams of the fused kernels' uniforms (one each, rows laid out below).
 FUSED_STREAM = prng.STREAM_PATH
+GATED_STREAM = prng.STREAM_GATED
+GATED_SUB = 8        # rows of paths in one gated block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +104,35 @@ def fused_uniforms(seed: int, layout: GbmLayout, *, block0: int,
     return prng.uniform_rows(seed, FUSED_STREAM, block0=block0,
                              n_blocks=n_blocks, n_rows=layout.n_rows,
                              lanes=lanes, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatedLayout:
+    num_bars: int
+    noise: bool = False
+
+    def __post_init__(self):
+        if self.num_bars <= 0 or self.num_bars % 2:
+            raise ValueError("num_bars must be even and positive "
+                             "(paired Box-Muller draws)")
+
+    @property
+    def stride(self) -> int:
+        return 16 if self.noise else 8
+
+    @property
+    def u_rows(self) -> int:
+        return self.stride * (self.num_bars // 2)
+
+    def row(self, t2: int, k: int) -> int:
+        return t2 * self.stride + k
+
+
+def gated_uniforms(seed: int, layout: GatedLayout, *, block0: int,
+                   n_blocks: int, lanes: int, device=None) -> torch.Tensor:
+    """f32[n_blocks, layout.u_rows, 8, lanes]: the uniforms the gated kernel
+    draws in Philox mode for global blocks ``block0 ..``, bit for bit."""
+    u = prng.uniform_rows(seed, GATED_STREAM, block0=block0, n_blocks=n_blocks,
+                          n_rows=layout.u_rows, lanes=GATED_SUB * lanes,
+                          device=device)
+    return u.view(n_blocks, layout.u_rows, GATED_SUB, lanes)

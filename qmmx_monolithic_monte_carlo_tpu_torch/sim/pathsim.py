@@ -25,6 +25,7 @@ from ..ops import hitscan as H
 from ..ops import pathgen as PG
 from ..types import (OUTCOME_OPEN, OUTCOME_STOP, OUTCOME_TP, SIDE_LONG,
                      SIDE_SHORT, Levels)
+from ..utils import device as devices
 from ..utils import prng
 
 HIST_BINS = 128  # R histogram bins
@@ -106,6 +107,44 @@ class PathStats:
             sum_dd=dd.sum(),
             max_dd=torch.clamp(dd.max(), min=0.0),
             hist=hist,
+        )
+
+    @classmethod
+    def from_lifecycle(cls, *, equity, trades, wins, losses, open_at_end,
+                       max_dd, hist_lo: float = LIFE_HIST_LO,
+                       hist_hi: float = LIFE_HIST_HI) -> "PathStats":
+        """Multi-trade per-path accumulator (sim/gatedpath.py): ``equity`` is
+        the per-path total R; hist/min/max/moments cover path totals;
+        n_tp/n_stop count trades; n_open counts paths left holding a
+        position."""
+        equity = torch.as_tensor(equity, dtype=_F32)
+        dev = equity.device
+        trades = torch.as_tensor(trades, device=dev).to(_F32)
+        entered = trades > 0
+        w = entered.to(_F32)
+        bin_idx = torch.clamp(
+            ((equity - hist_lo) / (hist_hi - hist_lo) * HIST_BINS).to(torch.int32),
+            0, HIST_BINS - 1)
+        hist = torch.zeros((HIST_BINS,), dtype=_F32, device=dev)
+        hist.index_add_(0, bin_idx.to(torch.int64), w)
+        inf = float("inf")
+        dd = torch.as_tensor(max_dd, device=dev).to(_F32) * w
+        return cls(
+            n=torch.ones_like(equity).sum(),
+            n_tp=torch.as_tensor(wins, device=dev).to(_F32).sum(),
+            n_stop=torch.as_tensor(losses, device=dev).to(_F32).sum(),
+            n_open=(torch.as_tensor(open_at_end, device=dev).to(_F32) * w).sum(),
+            n_entered=w.sum(),
+            sum_r=(w * equity).sum(),
+            sum_r2=(w * equity * equity).sum(),
+            min_r=torch.where(entered, equity, inf).min(),
+            max_r=torch.where(entered, equity, -inf).max(),
+            sum_trades=trades.sum(),
+            sum_dd=dd.sum(),
+            max_dd=torch.clamp(dd.max(), min=0.0),
+            hist=hist,
+            hist_lo=float(hist_lo),
+            hist_hi=float(hist_hi),
         )
 
     def merge(self, other: "PathStats") -> "PathStats":
@@ -244,14 +283,21 @@ def sample_block(seed: int, block: int, *, block_paths, num_bars, s0, mu,
                         device=device)
 
 
-def noise_normals(seed: int, block: int, n: int, device=None) -> tuple:
+def noise_normals(seed: int, block: int, n: int, device=None,
+                  num_bars: int | None = None) -> tuple:
     """The four execution-noise standard-normal draws (level jitter, entry
-    slip, stop slip, target slip) of one block, each on its own stream."""
-    return tuple(
-        prng.normal_rows(seed, s, block=block, n_rows=1, lanes=n,
-                         device=device)[0]
+    slip, stop slip, target slip) of one block, each on its own stream:
+    f32[n] each, or f32[n, num_bars] (one draw per path and bar, the shape
+    the gated lifecycle takes) when ``num_bars`` is given."""
+    rows = 1 if num_bars is None else num_bars
+    out = tuple(
+        prng.normal_rows(seed, s, block=block, n_rows=rows, lanes=n,
+                         device=device)
         for s in (prng.STREAM_LEVEL_JITTER, prng.STREAM_ENTRY_SLIP,
                   prng.STREAM_STOP_SLIP, prng.STREAM_TARGET_SLIP))
+    if num_bars is None:
+        return tuple(x[0] for x in out)
+    return tuple(x.T for x in out)
 
 
 def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
@@ -263,10 +309,12 @@ def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
     """Streamed generated-path MC: ``num_paths`` paths in blocks of
     ``block_paths``; returns the merged PathStats.  ``noise``
     (sim.montecarlo.McNoise) adds the reference MC's execution-noise
-    gaussians per path."""
+    gaussians per path.  Runs on ``device``: the CUDA device by default
+    (raising where there is none), the CPU when asked."""
     if num_paths % block_paths != 0:
         raise ValueError("num_paths must be a multiple of block_paths")
-    levels = levels.to(device) if device is not None else levels
+    device = devices.resolve(device)
+    levels = levels.to(device)
     out = PathStats.zero(device=device)
     for b in range(num_paths // block_paths):
         paths = sample_block(seed, b, block_paths=block_paths,

@@ -2,8 +2,10 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled into
 its own shared library under ``build/kernels/`` at the repository root, then
-loaded with ``ctypes``.  The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and a built one is reused.
+loaded with ``ctypes``.  The library's file name carries a hash of the source,
+the shared headers (``ops/csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a built one is reused.  ``build_all`` runs one ``nvcc`` per
+source, all at once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises with the
 compiler's output.
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "ops" / "csrc"
@@ -47,8 +50,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -73,6 +78,13 @@ def build(name: str) -> Path:
     BUILD_LOG[name] = {"seconds": secs, "log": proc.stderr + proc.stdout,
                        "path": str(out)}
     return out
+
+
+def build_all(names) -> list[Path]:
+    """``build`` each source, one ``nvcc`` per source, started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

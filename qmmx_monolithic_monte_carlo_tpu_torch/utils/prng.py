@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-# Stream tags (arbitrary but fixed small ints), the JAX package's values.
+# Stream tags (arbitrary but fixed small ints): the JAX package's values,
+# then the port's own.
 STREAM_LEVEL_JITTER = 0
 STREAM_ENTRY_SLIP = 1
 STREAM_STOP_SLIP = 2
@@ -30,6 +31,7 @@ STREAM_BRIDGE_HI = 7
 STREAM_BRIDGE_LO = 8
 STREAM_VOLUME = 9
 STREAM_MARKET = 10
+STREAM_GATED = 11    # the port's gated lifecycle kernel (ops/draws.GatedLayout)
 
 _M32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53

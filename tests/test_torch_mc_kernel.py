@@ -95,7 +95,7 @@ def test_philox_mode_draws_the_layout_uniforms():
               antithetic=True)
     u = fused_uniforms(9, GbmLayout(16), block0=0, n_blocks=6, lanes=256)
     a = cuda_mc.fused_totals_reference(9, levels, EngineParams.default(),
-                                       chunk_blocks=4, **kw)
+                                       device="cpu", chunk_blocks=4, **kw)
     b = cuda_mc.fused_totals_reference(9, levels, EngineParams.default(),
                                        external_uniforms=u, chunk_blocks=6, **kw)
     assert torch.equal(a[0], b[0])

@@ -116,7 +116,8 @@ def test_mc_paths_agrees_with_jax_statistically(antithetic):
                       antithetic=antithetic)
     ts = PS.mc_paths(0, Levels.from_rows(ROWS, max_levels=8),
                      EngineParams.default(), num_paths=n, num_bars=40,
-                     sigma=0.3, block_paths=1 << 14, antithetic=antithetic)
+                     sigma=0.3, block_paths=1 << 14, antithetic=antithetic,
+                     device="cpu")
     assert float(ts.n) == n
     assert float(ts.n_tp + ts.n_stop + ts.n_open) == float(ts.n_entered)
     assert float(ts.sum_dd) == float(ts.n_stop)
@@ -133,7 +134,8 @@ def test_mc_paths_agrees_with_jax_statistically(antithetic):
 def test_mc_paths_with_noise_and_unported_samplers():
     tl = Levels.from_rows(ROWS, max_levels=8)
     s = PS.mc_paths(3, tl, EngineParams.default(), num_paths=4096, num_bars=24,
-                    sigma=0.3, block_paths=2048, noise=McNoise.make(**STDS))
+                    sigma=0.3, block_paths=2048, noise=McNoise.make(**STDS),
+                    device="cpu")
     assert float(s.n) == 4096 and float(s.n_entered) > 0
     assert np.isfinite(float(s.cvar(0.05)))
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -141,4 +143,4 @@ def test_mc_paths_with_noise_and_unported_samplers():
                         sigma=0.3, dt=1e-5, sampler="heston")
     with pytest.raises(ValueError):
         PS.mc_paths(0, tl, EngineParams.default(), num_paths=1000,
-                    block_paths=512)
+                    block_paths=512, device="cpu")
