@@ -31,7 +31,22 @@ Phases (any failure exits non-zero and prints no result line):
    plain timed at 2^24 paths;
 8. main path — the port CLI's ``paths --gated --backend cuda`` at 2^28 paths
    x 40 bars, launch counts set to 0 just before and read just after, the
-   output checked, paths/s timed; the kernel alone timed at 2^28.
+   output checked, paths/s timed; the kernel alone timed at 2^28;
+   full 12-gate engine (kernel #8, ops/csrc/mc_engine.cu):
+9. injected uniforms — kernel on the card vs plain version on CPU copies,
+   path by path (W = 40, 16 blocks of 8 x 256 = 32768 paths, levels 100.0 /
+   100.4 / 99.6; engine defaults, accumulation gates active, ML and policy
+   gates armed, the same with a policy that lets entries through and with the
+   blended gate, execution noise, antithetic); every differing path is traced
+   bar by bar as in phase 6 (the card's bars run through the plain engine on
+   the card, so its sigmoid is CUDA's too);
+10. Philox — kernel vs plain version, both on the card, path by path at 2^22
+   paths with and without noise; the row fold vs its plain fold; the work
+   counts for the bound; kernel and plain timed at 2^22;
+11. main path — the port CLI's ``paths --engine --backend cuda`` at 2^28
+   paths x 40 bars, launch counts set to 0 just before and read just after
+   (``mc_engine`` and its fold once a run, no other kernel), the output
+   checked, paths/s timed; the kernel alone timed at 2^28.
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -47,6 +62,12 @@ is the drift of paths that agree, because a log-price ulp (4.8e-7 near log
 carries it on.  On totals: n exact; entered within F; histogram L1 within
 2F; sums within F * max|equity|.  The row folds: counts exact, float64 sums
 within 1e-9 relative.
+Engine (phases 9-10): the gated rules, a path also differing when its
+escalations or any of its 16 per-path skip counts differ (a ulp can move a
+first-fail reason from one gate to another and change no trade); each skip
+counter's total within W times the number of differing paths (a path moves
+at most one reason a bar, so 0 where no path differs) and escalations
+within F.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -56,7 +77,9 @@ each take one MUFU operation, 16 per SM per clock) and of 32-bit integer
 multiplies (Philox4x32-10: 40 per call, 64 per SM per clock), at the card's
 ``clocks.max.sm`` and SM count.  The work depends on the data (where paths
 enter, how long they hold), so it is counted by the plain versions on the
-first 2^22 paths of the timed inputs and scaled to their size.
+first 2^22 paths of the timed inputs and scaled to their size.  For the
+engine the count is a floor: the work every bar does, plus the gates that the
+plain version's skip table shows were reached (engine_ops).
 
 The line before last is a JSON object of the kernels (route, source, the TPU
 kernel each replaces, launches in its main-path run, max error, times and
@@ -87,8 +110,16 @@ GATED_INJECT_BLOCKS = 16
 CSRC = "qmmx_monolithic_monte_carlo_tpu_torch/ops/csrc/"
 FC_SOURCE = CSRC + "mc_first_contact.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
+ENGINE_SOURCE = CSRC + "mc_engine.cu"
 FC_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:584"
 GATED_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067"
+ENGINE_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1415"
+ENGINE_LANES = 256
+ENGINE_INJECT_BLOCKS = 16
+# the JAX engine kernel tests' levels (tests/test_pallas_engine.py:25-32)
+ENGINE_ROWS = [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
+               {"color": "orange", "type": "dashed", "index": 0, "price": 100.4},
+               {"color": "teal", "type": "solid", "index": 0, "price": 99.6}]
 # the port CLI's levels when its DB is empty (host/cli.py), for the work counts
 CLI_ROWS = [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
             {"color": "orange", "type": "dashed", "index": 0, "price": 100.4},
@@ -169,6 +200,31 @@ def gated_ops(n_paths: float, held: float, trades: float) -> dict:
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
 
 
+def engine_ops(n_paths: float, counts, scale: float) -> dict:
+    """A floor on the engine kernel's operations (no noise) for ``n_paths``
+    paths of NUM_BARS bars, from the plain version's int64 totals ``counts``
+    (n, entered, wins, losses, open, trades, escalations, 16 skips, ...) on a
+    sample, scaled by ``scale``.  Every bar: the close, bridge high/low and
+    volume (3 logf, 3 sqrtf, 4 expf, half of two sincosf pairs), 4 divisions
+    (minute of day, volume coupling, two minute-close MAs) and the guard's
+    MAs once defined; a bar that reaches the contact latch adds the
+    confidence division, one that reaches the veto the slope's 3; a close,
+    the R division.  ~100 float32 operations of logic a bar besides."""
+    c = [float(x) for x in counts]
+    bars = n_paths * NUM_BARS
+    evals = c[0] * NUM_BARS
+    skips = c[7:23]
+    reached7 = (evals - sum(skips[:5])) * scale
+    reached10 = reached7 - sum(skips[5:11]) * scale
+    closes = (c[2] + c[3]) * scale
+    guard_divs = n_paths * sum((t + 1 >= 5) + (t + 1 >= 20) for t in range(NUM_BARS))
+    logf, sqrtf, expf = 3 * bars, 3 * bars, 4 * bars
+    div = 4 * bars + guard_divs + reached7 + 3 * reached10 + closes
+    philox = n_paths * math.ceil(10 * NUM_BARS / 2 / 4)   # 10 rows a step, 4 a call
+    f32 = logf + sqrtf + expf + 2 * bars + div + 100 * bars
+    return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
+
+
 def compare(name: str, want, got, n_paths: int) -> float:
     """Hold first-contact kernel totals ``got`` against plain totals ``want``
     (both (int64 counts, float64 floats)); returns |delta mean R|."""
@@ -201,22 +257,26 @@ def compare(name: str, want, got, n_paths: int) -> float:
     return d_mean
 
 
-def compare_gated(name: str, want, got, n_paths: int):
-    """Hold gated kernel output ``got`` against the plain version's ``want``
-    (both (int64 counts, float64 floats, f32[P, 6] per-path rows)), path by
-    path and on totals; returns the largest |d equity| or |d dd| on the paths
-    that agree, and the bool[P] mask of the paths that differ."""
+def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False):
+    """Hold gated (or, with ``engine``, engine) kernel output ``got`` against
+    the plain version's ``want`` (both (int64 counts, float64 floats, f32[P,
+    6] per-path rows; the engine's counts carry escalations and 16 skip
+    counters before the histogram, its rows an escalation column and the
+    path's 16 skip counts)), path by path and on totals; returns the largest
+    |d equity| or |d dd| on the paths that agree, and the bool[P] mask of the
+    paths that differ."""
     import torch
 
     wc, wf, wr = (t.cpu() for t in want[:3])
     gc, gf, gr = (t.cpu() for t in got[:3])
     flips = 2 + n_paths // 1024
+    hist = 23 if engine else 6
     bad = []
     if int(gc[0]) != int(wc[0]) or int(wc[0]) != n_paths:
         bad.append(f"n {int(gc[0])} vs {int(wc[0])}")
     if abs(int(gc[1]) - int(wc[1])) > flips:
         bad.append(f"entered {int(gc[1])} vs {int(wc[1])} (budget {flips})")
-    l1 = int((gc[6:] - wc[6:]).abs().sum())
+    l1 = int((gc[hist:] - wc[hist:]).abs().sum())
     if l1 > 2 * flips:
         bad.append(f"hist L1 {l1} > {2 * flips}")
     max_eq = float(wr[:, 0].abs().max())
@@ -226,20 +286,99 @@ def compare_gated(name: str, want, got, n_paths: int):
     # a flipped decision may keep a path's counts and still move its trades,
     # so a path differs when its counts differ or its equity/dd moved more
     # than the ulp drift allows (1e-3 per trade)
+    # the engine's rows add escalations and the path's skip counts
+    cols = [1, 2, 3, 4] + (list(range(6, 23)) if engine else [])
     err = (gr[:, [0, 5]] - wr[:, [0, 5]]).abs().amax(dim=1)
-    differ = ((gr[:, 1:5] != wr[:, 1:5]).any(dim=1)
+    differ = ((gr[:, cols] != wr[:, cols]).any(dim=1)
               | (err > 1e-3 * torch.clamp(wr[:, 1], min=1.0)))
-    if int(differ.sum()) > flips:
-        bad.append(f"{int(differ.sum())} paths differ (budget {flips})")
+    n_differ = int(differ.sum())
+    if n_differ > flips:
+        bad.append(f"{n_differ} paths differ (budget {flips})")
+    extra = ""
+    if engine:
+        if abs(int(gc[6]) - int(wc[6])) > flips:
+            bad.append(f"escalations {int(gc[6])} vs {int(wc[6])} (budget {flips})")
+        d_skips = (gc[7:23] - wc[7:23]).abs()
+        if int(d_skips.max()) > NUM_BARS * n_differ:
+            bad.append(f"skip counters differ by {d_skips.tolist()} "
+                       f"(budget {NUM_BARS * n_differ})")
+        if not torch.equal(gc[7:23], gr[:, 7:23].to(torch.int64).sum(dim=0)):
+            bad.append("the kernel's skip totals differ from its per-path skip counts")
+        extra = (f" escalations {int(gc[6])}/{int(wc[6])}; skip counters "
+                 f"{gc[7:23].tolist()} (max |d| {int(d_skips.max())});")
     max_err = float(err[~differ].max()) if bool((~differ).any()) else 0.0
     log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} trades {int(gc[5])}/{int(wc[5])} "
         f"wins {int(gc[2])}/{int(wc[2])} losses {int(gc[3])}/{int(wc[3])} "
         f"open {int(gc[4])}/{int(wc[4])} sum_eq {float(gf[0]):.6f}/{float(wf[0]):.6f} "
-        f"hist L1 {l1}; paths differing {int(differ.sum())}, max |d eq|,|d dd| "
+        f"hist L1 {l1};{extra} paths differing {n_differ}, max |d eq|,|d dd| "
         f"elsewhere {max_err:.3e}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with plain: {bad}")
     return max_err, differ
+
+
+def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
+    """Drive the plain ``EngineLifecycle`` over ``bars`` on ``device``,
+    recording after every bar (side, trades, wins, losses, escalations,
+    first-fail reason) as int[P, W, 6]; returns (per-path rows, ints)."""
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_engine import path_rows
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import (
+        EngineLifecycle, skip_columns)
+
+    life = EngineLifecycle(bars.open[:, 0].to(device), levels, params, noise=noise, **kw)
+    ints, skips = [], 0
+    for t in range(bars.close.shape[1]):
+        cols = (bars.high, bars.low, bars.close, bars.volume, tie)
+        nz = tuple(n[:, t].to(device) for n in nzs) if nzs is not None else None
+        reason = life.step(t, *(x[:, t].to(device) for x in cols), nz)
+        skips = skips + skip_columns(reason)
+        ints.append(torch.stack([life.side, life.trades, life.wins, life.losses,
+                                 life.escal, reason], 1).cpu())
+    return path_rows(life.outcome(), skips).cpu(), torch.stack(ints, 1)
+
+
+def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
+                       sigma, noise, antithetic, dev) -> dict:
+    """Phase 6's trace for the engine: the plain engine over the bars the
+    plain version makes on the CPU (run on the CPU) and over those it makes
+    on the card (run on the card).  For every differing path the card run
+    equals the kernel's row exactly, the CPU run the plain row, and the two
+    runs part at some bar (a decision or a first-fail reason went the other
+    way)."""
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import engine_knobs
+
+    idx = torch.nonzero(differ).flatten()
+    if idx.numel() == 0:
+        return {"paths": 0}
+    layout = EngineLayout(NUM_BARS, noise is not None)
+    kw = engine_knobs(**gates)
+    runs = []
+    for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
+        bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
+            src, layout, s0=100.0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
+        pick = type(bars)(*(x[idx.to(x.device)] for x in bars))
+        runs.append(engine_trace(pick, tie[idx.to(tie.device)],
+                                 None if nzs is None else nzs[:, idx.to(nzs.device)],
+                                 levels, params, kw, noise, where))
+    (rows_cpu, i_cpu), (rows_dev, i_dev) = runs
+    if not torch.equal(rows_dev, kernel_rows[idx]):
+        raise AssertionError(f"{name}: the kernel differs from the plain engine "
+                             "on the card's own bars")
+    if not torch.equal(rows_cpu, cpu_rows[idx]):
+        raise AssertionError(f"{name}: the traced engine differs from the plain version")
+    parted = (i_cpu != i_dev).any(dim=2)
+    if not bool(parted.any(dim=1).all()):
+        raise AssertionError(f"{name}: a differing path shows no flipped decision")
+    flip_bar = parted.int().argmax(dim=1)
+    log(f"  {name}: {idx.numel()} differing paths, each traced to a flipped decision "
+        f"at bars {flip_bar.tolist()}; kernel == plain engine on the card's bars")
+    return {"paths": idx.numel()}
 
 
 def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
@@ -386,7 +525,8 @@ def run_cli(cli, argv, reset, launches) -> tuple[dict, list[float], dict]:
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    if not all(isinstance(v, float) and math.isfinite(v) for v in out.values()):
+    floats = {k: v for k, v in out.items() if k not in ("escalations", "skips")}
+    if not all(isinstance(v, float) and math.isfinite(v) for v in floats.values()):
         raise AssertionError(f"non-finite cli output: {out}")
     if out["paths"] != float(MAIN_PATHS) or not out["entered"] > 0:
         raise AssertionError(f"unexpected path counts: {out}")
@@ -411,8 +551,13 @@ def main() -> int:
 
     from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
     from qmmx_monolithic_monte_carlo_tpu_torch.host import cli
-    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated, cuda_mc
-    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import GatedLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.engine.state import MlModel
+    from qmmx_monolithic_monte_carlo_tpu_torch.models.online_policy import PolicyParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout, GatedLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.guard import GuardParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.touch import TouchMemoryParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import SKIP_REASONS
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
@@ -435,7 +580,7 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    build.build_all(["mc_first_contact", "mc_gated"])
+    build.build_all(["mc_first_contact", "mc_gated", "mc_engine"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -443,6 +588,15 @@ def main() -> int:
             if any(k in line for k in ("Compiling entry", "registers", "spill",
                                        "error")):
                 log(f"    ptxas: {line.strip()}")
+
+    def reset_all():
+        for mod in (cuda_mc, cuda_gated, cuda_engine):
+            mod.reset_launches()
+
+    def others_idle(*mods):
+        busy = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        if busy:
+            raise AssertionError(f"the main path launched other kernels: {busy}")
 
     levels = Levels.from_rows(
         [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
@@ -531,8 +685,8 @@ def main() -> int:
                 "cuda", "--num-paths", str(MAIN_PATHS), "--num-bars",
                 str(NUM_BARS), "--sigma", str(SIGMA)]
         _, fc_secs, fc_launches = run_cli(
-            cli, argv, lambda: (cuda_mc.reset_launches(), cuda_gated.reset_launches()),
-            cuda_mc.LAUNCHES)
+            cli, argv, reset_all, cuda_mc.LAUNCHES)
+    others_idle(cuda_gated, cuda_engine)
     fc_main_ms = cuda_ms(lambda: run_fc(MAIN_PATHS), 2)
     fc_main_bound = card.bound(
         bytes_=fc_rows[0].numel() * 8 + fc_rows[1].numel() * 4,
@@ -568,7 +722,7 @@ def main() -> int:
                                              per_path=True, **kw)
         got = (*cuda_gated.reduce_rows(pc, pf), rows)
         torch.cuda.synchronize()
-        err, differ = compare_gated(case, want, got, n_inj)
+        err, differ = compare_lifecycle(case, want, got, n_inj)
         gated_err = max(gated_err, err)
         trace_flips(case, u, differ, rows.cpu(), want[2].cpu(), levels, params,
                     gate, nz, anti, dev)
@@ -588,7 +742,7 @@ def main() -> int:
                                              per_path=True, **kw)
         got = (*cuda_gated.reduce_rows(pc, pf), rows)
         torch.cuda.synchronize()
-        gated_err = max(gated_err, compare_gated(case, want, got, PHILOX_PATHS)[0])
+        gated_err = max(gated_err, compare_lifecycle(case, want, got, PHILOX_PATHS)[0])
         gated_red_err = max(gated_red_err, check_fold(
             "mc_gated_reduce_rows", cuda_gated.reduce_rows_reference(pc, pf), got[:2]))
         if nz is None:
@@ -634,19 +788,153 @@ def main() -> int:
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
         g_out, g_secs, g_launches = run_cli(
-            cli, argv, lambda: (cuda_mc.reset_launches(), cuda_gated.reset_launches()),
-            cuda_gated.LAUNCHES)
+            cli, argv, reset_all, cuda_gated.LAUNCHES)
     if not g_out["trades"] >= g_out["entered"] > 0:
         raise AssertionError(f"trades < entered: {g_out}")
     if not g_out["mean_trades"] >= 1.0 or not g_out["max_dd"] >= 0.0:
         raise AssertionError(f"mean_trades < 1 or max_dd < 0: {g_out}")
-    if cuda_mc.LAUNCHES["mc_first_contact"] != 0:
-        raise AssertionError("the gated main path launched the first-contact kernel")
+    others_idle(cuda_mc, cuda_engine)
     g_main_ms = cuda_ms(lambda: run_gated(MAIN_PATHS), 3)
     g_main_bound = g_bound(MAIN_PATHS)
     log(f"  kernel alone at {MAIN_PATHS} paths: {g_main_ms:.3f} ms "
         f"({MAIN_PATHS / g_main_ms * 1e3:.6e} paths/s), bound "
         f"{g_main_bound['bound_ms']:.3f} ms {g_main_bound['bound_parts']}")
+
+    # ---- phase 9: engine, injected uniforms
+    ecommon = dict(num_bars=NUM_BARS, s0=100.0, mu=0.0, dt=DT, lanes=ENGINE_LANES)
+    e_levels = Levels.from_rows(ENGINE_ROWS, max_levels=8)
+    n_einj = ENGINE_INJECT_BLOCKS * 8 * ENGINE_LANES
+    rng = np.random.default_rng(7)
+    w_entry = rng.normal(0, 0.8, (3, 7)).astype(np.float32)
+    w_entry[0, 0] += 0.8
+    w_entry[1, 0] += 0.8
+    w_entry[2, 0] -= 0.5
+    armed = dict(policy=PolicyParams.init().replace(w_entry=torch.from_numpy(w_entry)),
+                 ml_model=MlModel.from_weights(np.array([0.4, -0.8, -0.3, 0.2],
+                                                        np.float32), 0.55))
+    w_pass = np.zeros((3, 7), np.float32)
+    w_pass[0, 0], w_pass[0, 6] = -0.6, 20.0     # longs pass from bar ~20,
+    w_pass[1, 0], w_pass[1, 6] = -0.2, 20.0     # shorts from bar ~12
+    w_pass[2, 0] = -1.0
+    passing = dict(armed, policy=PolicyParams.init().replace(w_entry=torch.from_numpy(w_pass)))
+    accumulating = dict(
+        guard_params=GuardParams.default().replace(min_bars=6, compression_bp=300.0),
+        touch_params=TouchMemoryParams.default().replace(
+            max_bounces=1, min_time_gap_ms=120_000, fatigue_vol_k=0.0))
+    log(f"[9] engine, injected uniforms: kernel vs plain (plain on CPU copies), "
+        f"{n_einj} paths")
+    engine_err = 0.0
+    blend = EngineParams.default(use_blend=True, w_rules=0.5, w_ml=0.7, q_min_prob=0.62)
+    for case, sig, gates, nz, anti, e_params in (
+            ("defaults", SIGMA, {}, None, False, params),
+            ("accumulation", 0.05, accumulating, None, False, params),
+            ("ml+policy", SIGMA, armed, None, False, params),
+            ("ml+policy passing", SIGMA, passing, None, False, params),
+            ("blend", SIGMA, passing, None, False, blend),
+            ("noise", SIGMA, {}, noise, False, params),
+            ("antithetic", SIGMA, {}, None, True, params)):
+        rng = np.random.default_rng(200 + len(case))
+        u = torch.from_numpy(rng.uniform(
+            1e-6, 1.0, (ENGINE_INJECT_BLOCKS, EngineLayout(NUM_BARS, nz is not None).u_rows,
+                        8, ENGINE_LANES)).astype(np.float32))
+        kw = dict(ecommon, sigma=sig, num_paths=n_einj, noise=nz, antithetic=anti, **gates)
+        want = cuda_engine.engine_totals_reference(0, e_levels, e_params,
+                                                   external_uniforms=u, per_path=True, **kw)
+        pc, pf, rows = cuda_engine.engine_rows(0, e_levels, e_params, device=dev,
+                                               external_uniforms=u.to(dev),
+                                               per_path=True, **kw)
+        got = (*cuda_engine.reduce_rows(pc, pf), rows)
+        torch.cuda.synchronize()
+        err, differ = compare_lifecycle(case, want, got, n_einj, engine=True)
+        engine_err = max(engine_err, err)
+        skips = dict(zip((r.name for r in SKIP_REASONS), got[0][7:23].tolist()))
+        if case == "accumulation" and not (skips["EDGE_FATIGUE"] + skips["TOUCH_BUDGET"]
+                                           + skips["TOUCH_COOLDOWN"]) > 0:
+            raise AssertionError(f"accumulation case: no accumulation gate fired: {skips}")
+        if case.startswith("ml+policy") and not (skips["ML_CONF_LOW"] > 0
+                                                 or skips["ONLINE_POLICY"] > 0):
+            raise AssertionError(f"{case} case: neither gate fired: {skips}")
+        if case in ("ml+policy passing", "blend") and not int(got[0][5]) > 0:
+            raise AssertionError(f"{case} case: no entry passed the gates")
+        if case == "blend" and not skips["COMBINED_LOW"] > 0:
+            raise AssertionError(f"blend case: the blended gate never fired: {skips}")
+        trace_engine_flips(case, u, differ, rows.cpu(), want[2].cpu(), e_levels, e_params,
+                           gates, sig, nz, anti, dev)
+
+    # ---- phase 10: engine, Philox stream, and the row fold
+    log(f"[10] engine, Philox: kernel vs plain at {PHILOX_PATHS} paths (plain on "
+        "the card), the main path's inputs")
+    engine_red_err = 0.0
+    for case, nz in (("philox", None), ("philox+noise", noise)):
+        kw = dict(ecommon, sigma=SIGMA, num_paths=PHILOX_PATHS, noise=nz, antithetic=False)
+        t0 = time.perf_counter()
+        want = cuda_engine.engine_totals_reference(
+            0, cli_levels, params, device=dev, chunk_blocks=512, per_path=True, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        pc, pf, rows = cuda_engine.engine_rows(0, cli_levels, params, device=dev,
+                                               per_path=True, **kw)
+        got = (*cuda_engine.reduce_rows(pc, pf), rows)
+        torch.cuda.synchronize()
+        engine_err = max(engine_err, compare_lifecycle(case, want, got, PHILOX_PATHS, engine=True)[0])
+        engine_red_err = max(engine_red_err, check_fold(
+            "mc_engine_reduce_rows", cuda_engine.reduce_rows_reference(pc, pf), got[:2]))
+        if nz is None:
+            e_counts, e_plain_ms = want[0].cpu(), plain_s * 1e3
+    log(f"  mc_engine_reduce_rows: counts exact, float max abs err {engine_red_err:.3e}")
+    log(f"  plain version at {PHILOX_PATHS} paths (no noise, plain on the card): "
+        f"{e_plain_ms:.3f} ms")
+    log(f"  work per path (first {PHILOX_PATHS} paths): trades "
+        f"{float(e_counts[5]) / PHILOX_PATHS:.4f}, escalations "
+        f"{float(e_counts[6]) / PHILOX_PATHS:.4f}, skips per path "
+        f"{[round(float(x) / PHILOX_PATHS, 4) for x in e_counts[7:23]]}")
+
+    kw = dict(ecommon, sigma=SIGMA, noise=None, antithetic=False, external_uniforms=None)
+
+    def run_engine(n=PHILOX_PATHS):
+        return cuda_engine.engine_rows(0, cli_levels, params, device=dev,
+                                       **dict(kw, num_paths=n))
+
+    run_engine()
+    e_ms = cuda_ms(run_engine, 3)
+    e_rows = run_engine()
+    e_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(*e_rows), 20)
+    e_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*e_rows), 20)
+    e_row_bytes = e_rows[0].numel() * 8 + e_rows[1].numel() * 4
+
+    def e_bound(n):
+        return card.bound(bytes_=e_row_bytes, **engine_ops(n, e_counts, n / PHILOX_PATHS))
+
+    e_bound_philox = e_bound(PHILOX_PATHS)
+    e_red_bound = card.bound(bytes_=e_row_bytes + cuda_engine.ROW_COUNTS * 8
+                             + cuda_engine.ROW_FLOATS * 8, f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  at {PHILOX_PATHS} paths: kernel {e_ms:.3f} ms "
+        f"({PHILOX_PATHS / e_ms * 1e3:.6e} paths/s), bound {e_bound_philox['bound_ms']:.3f} ms "
+        f"{e_bound_philox['bound_parts']}, plain {e_plain_ms:.3f} ms")
+    log(f"  row fold ({e_rows[0].shape[0]} rows): kernel {e_red_ms:.4f} ms, "
+        f"plain {e_red_plain_ms:.4f} ms, bound {e_red_bound['bound_ms']:.4f} ms")
+
+    # ---- phase 11: the engine main path through the CLI
+    log(f"[11] main path: cli paths --engine --backend cuda --num-paths {MAIN_PATHS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "paths", "--engine",
+                "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
+                "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
+        e_out, e_secs, e_launches = run_cli(cli, argv, reset_all, cuda_engine.LAUNCHES)
+    others_idle(cuda_mc, cuda_gated)
+    if e_launches != {"mc_engine": 4, "mc_engine_reduce_rows": 4}:
+        raise AssertionError(f"expected one launch of each engine kernel a run: {e_launches}")
+    if not e_out["trades"] >= e_out["entered"] > 0 or not e_out["escalations"] > 0:
+        raise AssertionError(f"trades < entered, or no escalation: {e_out}")
+    sk = e_out["skips"]
+    if not (sk.get("TOO_FAR", 0) > 0 and sk.get("CONF_LOW", 0) > 0
+            and sk.get("CONTRA_VOL_LONG", 0) + sk.get("CONTRA_VOL_SHORT", 0) > 0):
+        raise AssertionError(f"skips lack TOO_FAR, CONF_LOW or a CONTRA_VOL entry: {sk}")
+    e_main_ms = cuda_ms(lambda: run_engine(MAIN_PATHS), 2)
+    e_main_bound = e_bound(MAIN_PATHS)
+    log(f"  kernel alone at {MAIN_PATHS} paths: {e_main_ms:.3f} ms "
+        f"({MAIN_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
+        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
 
     def entry(name, source, replaces, launches, err, ms, plain, bound, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -671,6 +959,13 @@ def main() -> int:
         entry("mc_gated_reduce_rows", GATED_SOURCE, GATED_REPLACES,
               g_launches["mc_gated_reduce_rows"], gated_red_err, g_red_ms,
               g_red_plain_ms, g_red_bound, rows=int(g_rows[0].shape[0])),
+        entry("mc_engine", ENGINE_SOURCE, ENGINE_REPLACES, e_launches["mc_engine"],
+              engine_err, e_ms, e_plain_ms, e_bound_philox, paths=PHILOX_PATHS,
+              main_path_ms=e_main_ms, main_path_bound_ms=e_main_bound["bound_ms"],
+              cli_s=e_secs[1:]),
+        entry("mc_engine_reduce_rows", ENGINE_SOURCE, ENGINE_REPLACES,
+              e_launches["mc_engine_reduce_rows"], engine_red_err, e_red_ms,
+              e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[0])),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

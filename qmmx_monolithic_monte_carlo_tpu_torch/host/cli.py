@@ -4,19 +4,23 @@ Counterpart of ``qmmx_monolithic_monte_carlo_tpu/host/cli.py`` for the
 subcommand the port carries so far:
 
   paths   — generated-path Monte Carlo at scale (gbm sampler): first-contact
-            replay, or with ``--gated`` the engine-gated multi-trade lifecycle
+            replay, with ``--gated`` the engine-gated multi-trade lifecycle,
+            with ``--engine`` the full 12-gate engine
 
 ``--device`` (default ``cuda``) says where it runs; without a GPU the CLI
 exits unless ``--device cpu`` is given.  ``--backend cuda`` runs the fused
-CUDA kernel (``ops/cuda_mc.py``, or ``ops/cuda_gated.py`` with ``--gated``),
-``--backend torch`` the streamed PyTorch pipeline (``sim/pathsim.py`` or
-``sim/gatedpath.py``) on ``--device``, and ``auto`` the kernel on a CUDA
-device when the shape fits it and the pipeline otherwise; it never changes
-the device.  The output JSON carries the JAX CLI's keys.  Options of the JAX
-CLI whose code is not ported yet exit with a "not ported yet" message.
+CUDA kernel (``ops/cuda_mc.py``, ``ops/cuda_gated.py`` with ``--gated``,
+``ops/cuda_engine.py`` with ``--engine``), ``--backend torch`` the streamed
+PyTorch pipeline (``sim/pathsim.py``, ``sim/gatedpath.py`` or
+``sim/enginepath.py``) on ``--device``, and ``auto`` the kernel on a CUDA
+device when the shape fits it (``_fits``) and the pipeline otherwise; it
+never changes the device.  The output JSON carries the JAX CLI's keys.
+Options of the JAX CLI whose code is not ported yet exit with a "not ported
+yet" message.
 
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --engine --backend cuda
 """
 
 from __future__ import annotations
@@ -56,47 +60,59 @@ def _levels_and_params(conn, args):
 
 
 def _not_ported(args) -> None:
-    for flag, on in (("--engine", args.engine),
-                     ("--exact-tail", args.exact_tail),
+    for flag, on in (("--exact-tail", args.exact_tail),
                      ("--ckpt-dir", args.ckpt_dir is not None),
                      (f"--sampler {args.sampler}", args.sampler != "gbm")):
         if on:
             raise SystemExit(
-                f"{flag} is not ported yet: the port runs the gbm "
-                "first-contact and gated paths (use qmmx_monolithic_monte_carlo_tpu)")
+                f"{flag} is not ported yet: the port runs the gbm first-contact, "
+                "gated and engine paths (use qmmx_monolithic_monte_carlo_tpu)")
+
+
+def _fits(args, rows) -> str | None:
+    """None when the shape fits the path's CUDA kernel, else what it needs."""
+    from ..ops import cuda_engine, cuda_gated, cuda_mc
+    from ..ops.regular import GUARD_WINDOW_BARS
+
+    if len(rows) > cuda_mc.MAX_LEVELS:
+        return f"at most {cuda_mc.MAX_LEVELS} levels"
+    if args.num_bars <= 0 or args.num_bars % 2:
+        return "an even --num-bars"
+    if args.engine:
+        block = cuda_engine.ENGINE_SUB * cuda_engine.ENGINE_LANES
+        if args.num_paths % block or args.num_bars > GUARD_WINDOW_BARS:
+            return (f"--num-paths a multiple of {block} and --num-bars <= "
+                    f"{GUARD_WINDOW_BARS}")
+    elif args.gated:
+        block = cuda_gated.GATED_SUB * cuda_gated.GATED_LANES
+        if args.num_paths % block:
+            return f"--num-paths a multiple of {block}"
+    elif args.num_bars > cuda_mc.MAX_KERNEL_BARS:
+        return f"--num-bars <= {cuda_mc.MAX_KERNEL_BARS}"
+    return None
 
 
 def _backend(args, rows) -> str:
     """``cuda`` or ``torch``: the kernel or the pipeline, on ``--device``."""
     import torch
 
-    from ..ops import cuda_gated, cuda_mc
-
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is false); "
                          "pass --device cpu to run on the CPU")
-    block = cuda_gated.GATED_SUB * cuda_gated.GATED_LANES
-    fits = len(rows) <= cuda_mc.MAX_LEVELS and (
-        args.num_paths % block == 0 and args.num_bars % 2 == 0
-        if args.gated else args.num_bars <= cuda_mc.MAX_KERNEL_BARS)
+    need = _fits(args, rows)
     if args.backend == "auto":
-        return "cuda" if args.device == "cuda" and fits else "torch"
+        return "cuda" if args.device == "cuda" and need is None else "torch"
     if args.backend == "cuda":
         if args.device != "cuda":
             raise SystemExit("--backend cuda launches the CUDA kernel and "
                              "needs --device cuda (a CUDA device)")
-        if len(rows) > cuda_mc.MAX_LEVELS:
-            raise SystemExit(f"the cuda backend supports up to "
-                             f"{cuda_mc.MAX_LEVELS} levels; use --backend torch")
-        if args.gated and not fits:
-            raise SystemExit(
-                f"the cuda gated backend needs --num-paths a multiple of {block} "
-                "and an even --num-bars; use --backend torch")
+        if need is not None:
+            raise SystemExit(f"the cuda backend needs {need}; use --backend torch")
     return args.backend
 
 
 def cmd_paths(args):
-    from ..sim import gatedpath, pathsim
+    from ..sim import enginepath, gatedpath, pathsim
     from ..sim.montecarlo import McNoise
     from ..types import Levels
 
@@ -121,8 +137,15 @@ def cmd_paths(args):
 
         levels = Levels.from_rows(rows, max_levels=MAX_LEVELS)
     else:
-        common["block_paths"] = min(args.num_paths, 1 << 17)
-    if args.gated:
+        common["block_paths"] = min(args.num_paths, 1 << (15 if args.engine else 17))
+    skips = escal = None
+    if args.engine:
+        if backend == "cuda":
+            from ..ops.cuda_engine import mc_paths_engine_fused as run
+        else:
+            run = enginepath.mc_paths_engine
+        stats, skips, escal = run(args.seed, levels, params, **common)
+    elif args.gated:
         gate = gatedpath.GateConfig.from_params(
             params, touch_limit=args.touch_limit,
             cooldown_bars=args.cooldown_bars)
@@ -144,12 +167,16 @@ def cmd_paths(args):
         "cvar_05": float(stats.cvar(0.05)),
         "best_r": float(stats.max_r), "worst_r": float(stats.min_r),
     }
-    if args.gated:
+    if args.gated or args.engine:
         out.update({
             "trades": float(stats.sum_trades),
             "mean_trades": float(stats.mean_trades),
             "mean_dd": float(stats.mean_dd), "max_dd": float(stats.max_dd),
         })
+    if args.engine:
+        out["escalations"] = int(escal)
+        out["skips"] = {r.name: int(n) for r, n in
+                        zip(enginepath.SKIP_REASONS, skips.tolist()) if n}
     print(json.dumps(out))
     return 0
 
@@ -177,7 +204,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where to run; without a GPU, pass --device cpu")
     pa.add_argument("--backend", choices=["auto", "torch", "cuda"],
                     default="auto",
-                    help="cuda = the fused CUDA kernel (<=8 levels); torch = "
+                    help="cuda = the fused CUDA kernel (<=8 levels, even bars; "
+                         "--engine: <=61 bars); torch = "
                          "the streamed PyTorch pipeline on --device; auto = "
                          "the kernel on a CUDA device when the shape fits, "
                          "else the pipeline")
@@ -185,7 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the engine-gated multi-trade lifecycle per path "
                          "(cooldown/touch-budget/confidence gates, per-path "
                          "equity+drawdown)")
-    pa.add_argument("--engine", action="store_true", help="not ported yet")
+    pa.add_argument("--engine", action="store_true",
+                    help="FULL 12-gate engine lifecycle (guard/veto/ML/policy"
+                         "/escalation over generated paths, volume-aware)")
     pa.add_argument("--touch-limit", type=int, default=4)
     pa.add_argument("--cooldown-bars", type=int, default=0)
     # execution-noise knobs (reference MC), default off

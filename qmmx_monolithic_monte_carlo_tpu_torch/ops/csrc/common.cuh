@@ -1,5 +1,6 @@
 // Pieces shared by the port's CUDA kernels: the Philox4x32-10 generator,
-// the uniform conversion of utils/prng.py, and warp-shuffle reductions.
+// the uniform conversion of utils/prng.py, warp-shuffle reductions, and the
+// row fold of the lifecycle kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,4 +57,31 @@ __device__ __forceinline__ T warp_count(T v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
+}
+
+// Second pass of the lifecycle kernels (gated, engine): fold the partial rows
+// in row order (one CTA of 256 threads).  Thread t owns count column t;
+// threads 0-5 own the float columns [sum_eq, sum_eq2, sum_dd, min_eq, max_eq,
+// max_dd] and accumulate them in float64 (sums, then min, max, max; the
+// empty min/max sentinel is the kernels' +-3.4e38).
+template <int ROW_COUNTS>
+__global__ void __launch_bounds__(256)
+fold_lifecycle_rows(const long long* __restrict__ part_counts,
+                    const float* __restrict__ part_floats, int rows,
+                    long long* __restrict__ tot_counts, double* __restrict__ tot_floats) {
+    for (int col = threadIdx.x; col < ROW_COUNTS; col += blockDim.x) {
+        long long s = 0;
+        for (int r = 0; r < rows; ++r) s += part_counts[(long long)r * ROW_COUNTS + col];
+        tot_counts[col] = s;
+    }
+    if (threadIdx.x < 6) {
+        const int col = threadIdx.x;
+        const double big = (double)3.4e38f;
+        double acc = col == 3 ? big : col == 4 ? -big : 0.0;
+        for (int r = 0; r < rows; ++r) {
+            const double v = (double)part_floats[(long long)r * 6 + col];
+            acc = col < 3 ? acc + v : col == 3 ? fmin(acc, v) : fmax(acc, v);
+        }
+        tot_floats[col] = acc;
+    }
 }

@@ -327,30 +327,6 @@ mc_gated_kernel(const GatedArgs a, const float* __restrict__ ext,
     }
 }
 
-// Second pass: fold the partial rows in row order (one CTA).  Thread t owns
-// count column t; threads 0-5 own the float columns and accumulate them in
-// float64 (sums, then min, max, max).
-__global__ void __launch_bounds__(BLOCK)
-mc_gated_reduce_rows_kernel(const long long* __restrict__ part_counts,
-                            const float* __restrict__ part_floats, int rows,
-                            long long* __restrict__ tot_counts,
-                            double* __restrict__ tot_floats) {
-    for (int col = threadIdx.x; col < ROW_COUNTS; col += BLOCK) {
-        long long s = 0;
-        for (int r = 0; r < rows; ++r) s += part_counts[(long long)r * ROW_COUNTS + col];
-        tot_counts[col] = s;
-    }
-    if (threadIdx.x < ROW_FLOATS) {
-        const int col = threadIdx.x;
-        double acc = col == 3 ? (double)BIG : col == 4 ? -(double)BIG : 0.0;
-        for (int r = 0; r < rows; ++r) {
-            const double v = (double)part_floats[(long long)r * ROW_FLOATS + col];
-            acc = col < 3 ? acc + v : col == 3 ? fmin(acc, v) : fmax(acc, v);
-        }
-        tot_floats[col] = acc;
-    }
-}
-
 extern "C" {
 
 int qmmx_gated_args_size(void) { return (int)sizeof(GatedArgs); }
@@ -373,7 +349,7 @@ int qmmx_mc_gated(const GatedArgs* a, const float* ext, long long* part_counts,
 int qmmx_mc_gated_reduce_rows(const long long* part_counts, const float* part_floats,
                               int rows, long long* tot_counts, double* tot_floats,
                               void* stream) {
-    mc_gated_reduce_rows_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(
+    fold_lifecycle_rows<ROW_COUNTS><<<1, BLOCK, 0, (cudaStream_t)stream>>>(
         part_counts, part_floats, rows, tot_counts, tot_floats);
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,485 @@
+"""Fused full engine: generate -> 12-gate engine lifecycle -> reduce, as one CUDA kernel.
+
+Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1506-1806``
+(kernel #8, ``_engine_kernel`` with ``_engine_lifecycle_loop`` and
+``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), gbm
+sampler with execution noise and antithetic lanes, up to 8 levels and an even
+horizon of at most 61 bars.  The bootstrap, block-bootstrap and Heston
+branches, 9-64 levels, odd horizons, longer horizons (the windowed guard)
+and the closed-trade harvest are not ported yet; ``sim/enginepath`` runs the
+same engine at any horizon.
+
+* ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
+  ``ops/csrc/mc_engine.cu`` (pass 1: one thread per path, one partial row per
+  CTA; pass 2: a fixed-order fold of the rows) or raises.  For the CPU it
+  runs the plain version.
+* ``engine_totals_reference`` -- the plain PyTorch version: the TPU kernel's
+  double-bar streaming loop over (block, 8, lanes) tensors, driving
+  ``sim.enginepath.EngineLifecycle.step``; optionally per path.
+* ``LAUNCHES`` -- how many times each kernel was launched.
+
+Uniforms follow ``ops/draws.EngineLayout``: injected as ``external_uniforms``
+f32[n_blocks, u_rows, 8, lanes] (the JAX shape), or drawn from Philox
+(``ops/draws.engine_uniforms``; the kernel computes the same bits).  Counts,
+the 16-reason skip table and escalations stay int64 until
+``stats_from_engine_totals``.  (The TPU kernel sums them as float32, which
+stops counting exactly past 2^24.)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..ops.pathgen import PathBars, VolumeModel
+from ..sim.enginepath import (SKIP_REASONS, EngineLifecycle, blend_weights,
+                              cooldown_ms, engine_knobs, skip_columns)
+from ..sim.pathsim import HIST_BINS
+from ..types import KIND_SOLID, Levels
+from ..utils import build
+from ..utils import device as devices
+from ..utils.floats import div
+from .cuda_gated import (box_muller, gated_bar, lifecycle_totals, merge_totals,
+                         reduce_rows_reference, stats_from_gated_totals)
+from .draws import ENGINE_STREAM, ENGINE_SUB, EngineLayout, engine_uniforms
+from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, f32,
+                          grid_size, knobs, level_slots)
+from .regular import GUARD_WINDOW_BARS
+
+ENGINE_LANES = 256       # logical lanes per block row (one block = 8 x lanes paths)
+TAP_SLOTS = 3            # the kernel's edge-tap stack depth == fatigue_hits
+N_COUNTS = 7             # n, entered, wins, losses, open, trades, escalations
+N_SKIPS = len(SKIP_REASONS)
+ROW_COUNTS = N_COUNTS + N_SKIPS + HIST_BINS
+ROW_FLOATS = 6           # sum_eq, sum_eq2, sum_dd, min_eq, max_eq, max_dd
+PATH_COLS = 7 + N_SKIPS  # per-path output: equity, trades, wins, losses, open, dd,
+                         # escalations, the 16 skip counts
+_SOURCE = "mc_engine"
+_F32 = torch.float32
+
+# Kernel launches, counted by the wrappers where they launch and nowhere else.
+LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_F, _I = ctypes.c_float, ctypes.c_int32
+
+
+class _EngineArgs(ctypes.Structure):
+    """Mirror of ``struct EngineArgs`` in ops/csrc/mc_engine.cu."""
+
+    _fields_ = [("num_paths", ctypes.c_int64),
+                ("level_price", _F * MAX_LEVELS), ("level_round", _F * MAX_LEVELS),
+                ("level_valid", _I * MAX_LEVELS), ("level_kind", _I * MAX_LEVELS)]
+    _fields_ += [(k, _F) for k in (
+        "prox", "prox_conf", "stop_pad", "tp_pad", "qmin", "veto_strong",
+        "veto_near", "confl_within", "w_rules", "w_ml", "lvl_jit", "entry_slip",
+        "stop_slip", "tgt_slip")]
+    _fields_ += [("ml_coef", _F * 4), ("ml_intercept", _F), ("pol_w", (_F * 7) * 3)]
+    _fields_ += [(k, _F) for k in (
+        "tm_tol_bps", "tm_min_px_bps", "tm_decay", "tm_fat_vol_k", "g_comp",
+        "g_vol_k", "drift", "sig_dt", "two_s2", "log_s0", "vm_base", "vm_uamp",
+        "vm_sigma", "vm_rc", "vm_day", "vm_open", "vm_den", "vm_third",
+        "vm_half_s2", "vm_mean_abs", "vm_sd_abs", "vm_floor")]
+    _fields_ += [("seed", ctypes.c_uint32), ("stream", ctypes.c_uint32)]
+    _fields_ += [(k, _I) for k in (
+        "cooldown_ms", "overtouch_limit", "enable_veto", "use_blend", "ml_usable",
+        "ml_ran", "policy_on", "bar0_minute", "has_levels", "tm_min_gap_ms",
+        "tm_max_bounces", "tm_fat_win_ms", "g_min_bars", "g_clear_bars",
+        "max_levels", "num_bars", "lanes", "u_rows", "stride", "use_noise",
+        "antithetic", "escalation")]
+
+
+def _check(seed, levels, kw: dict, *, num_paths, num_bars, lanes, noise,
+           antithetic, external_uniforms) -> EngineLayout:
+    """The checks of ``mc_paths_pallas_engine`` (pallas_engine.py:1678-1698)
+    and this kernel's envelope."""
+    check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=ENGINE_SUB,
+                 what="engine")
+    layout = EngineLayout(num_bars, noise is not None)
+    if num_bars > GUARD_WINDOW_BARS:
+        raise ValueError(f"the engine kernel takes num_bars <= {GUARD_WINDOW_BARS} "
+                         "(the running guard box); longer horizons are not "
+                         "ported yet (sim.enginepath runs them)")
+    if int(kw["touch_params"].fatigue_hits) != TAP_SLOTS:
+        raise ValueError(f"the engine kernel is built for fatigue_hits == {TAP_SLOTS}")
+    gp = kw["guard_params"]
+    if int(gp.vol_short) != 5 or int(gp.vol_long) != 20:
+        raise ValueError("the engine kernel is built for 5/20-bar guard MAs")
+    check_uniforms(external_uniforms,
+                   (num_paths // (ENGINE_SUB * lanes), layout.u_rows, ENGINE_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
+    return layout
+
+
+# --------------------------------------------------------------------------
+# the plain PyTorch version
+# --------------------------------------------------------------------------
+
+class _VolumeConsts:
+    """The volume model's float32 constants, computed on the host in float64
+    (or, where the JAX kernel rounds twice, as it does) and rounded once."""
+
+    def __init__(self, vm: VolumeModel):
+        sig = f32(vm.noise_sigma)
+        self.base, self.uamp, self.sigma = f32(vm.base), f32(vm.u_amp), sig
+        self.rc, self.day, self.open = f32(vm.ret_coupling), f32(vm.day_minutes), f32(vm.open_minute)
+        self.den = f32(max(vm.day_minutes - 1, 1))
+        self.third = f32(1.0 / 3.0)
+        self.half_s2 = f32(0.5 * sig * sig)       # the f32 product, halved
+        self.mean_abs = f32(math.sqrt(2.0 / math.pi))
+        self.sd_abs = f32(math.sqrt(1.0 - 2.0 / math.pi))
+        self.floor = f32(0.05 * vm.base)
+
+    def volume(self, t: int, z: torch.Tensor, zv: torch.Tensor) -> torch.Tensor:
+        """VolumeModel.volumes for bar ``t`` (pallas_engine.py:528-539):
+        float32 in the kernel's order."""
+        def s(x):
+            return torch.tensor(x, dtype=_F32)
+
+        m_min = torch.remainder(s(self.open) + float(t), s(self.day))
+        xu = 2.0 * m_min / s(self.den) - 1.0
+        ushape = 1.0 + s(self.uamp) * (xu * xu - s(self.third))
+        v = s(self.base) * ushape.to(z.device) * torch.exp(self.sigma * zv - self.half_s2)
+        if self.rc != 0.0:
+            v = v * (1.0 + s(self.rc) * div(z.abs() - self.mean_abs, self.sd_abs))
+        return torch.clamp(v, min=self.floor)
+
+
+def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts):
+    """Per bar, in order: (t, log open, high, low, close, volume, tie coin,
+    noise normals or None), each [nb, 8, lanes], as
+    ``_engine_lifecycle_loop`` draws and builds them from uniforms u
+    f32[nb, u_rows, 8, lanes]."""
+    drift, sig_dt, log_s0 = cs
+    nb, _, sub, lanes = u.shape
+    log_s = torch.full((nb, sub, lanes), log_s0, dtype=_F32, device=u.device)
+    for t2 in range(layout.num_bars // 2):
+        def draw(k):
+            return u[:, layout.row(t2, k)]
+
+        z_pair = box_muller(draw(0), draw(1))
+        if antithetic:
+            h = lanes // 2
+            z_pair = tuple(torch.cat([z[..., :h], -z[..., :h]], dim=-1) for z in z_pair)
+        zv_pair = box_muller(draw(2), draw(3))
+        for half in range(2):
+            t, z = 2 * t2 + half, z_pair[half]
+            u3, u4, tie = (draw(4 + 3 * half + i) for i in range(3))
+            nz = None
+            if layout.noise:
+                k = 10 + 4 * half
+                nz = box_muller(draw(k), draw(k + 1)) + box_muller(draw(k + 2), draw(k + 3))
+            log_open = log_s
+            log_s, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
+            yield t, log_open, high, low, c, vc.volume(t, z, zv_pair[half]), tie, nz
+
+
+def engine_bars_from_uniforms(u: torch.Tensor, layout: EngineLayout, *,
+                              s0=100.0, mu: float = 0.0, sigma: float = 0.15,
+                              dt: float = 1.0 / (390.0 * 252.0),
+                              antithetic: bool = False, volume_model=None):
+    """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
+    lanes]: (PathBars f32[P, W] with volumes, tie f32[P, W], noise normals
+    f32[4, P, W] or None), path p = block * 8 * lanes + s * lanes + j.  For
+    replaying them through ``sim.enginepath.engine_path_replay``."""
+    vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
+    nb, _, sub, lanes = u.shape
+    cols = {k: [] for k in ("open", "high", "low", "close", "volume", "tie", "nz")}
+    for _, log_open, high, low, c, v, tie, nz in _bars(
+            u, layout, antithetic, consts(s0, mu, sigma, dt), vc):
+        for k, x in (("open", torch.exp(log_open)), ("high", high), ("low", low),
+                     ("close", c), ("volume", v), ("tie", tie)):
+            cols[k].append(x)
+        if nz is not None:
+            cols["nz"].append(torch.stack(nz))
+
+    def flat(rows):
+        return torch.stack(rows, dim=-1).reshape(nb * sub * lanes, -1)
+
+    bars = PathBars(*(flat(cols[k]) for k in ("open", "high", "low", "close", "volume")))
+    nzs = (torch.stack(cols["nz"], dim=-1).reshape(4, nb * sub * lanes, -1)
+           if layout.noise else None)
+    return bars, flat(cols["tie"]), nzs
+
+
+def path_rows(out, path_skips: torch.Tensor) -> torch.Tensor:
+    """f32[P, PATH_COLS] per-path rows of an engine outcome and its per-path
+    skip table int[P, 16]: equity, trades, wins, losses, open, dd,
+    escalations, then the skip counts ordered as SKIP_REASONS."""
+    return torch.cat([torch.stack([out.equity, out.trades.float(), out.wins.float(),
+                                   out.losses.float(), out.open_at_end.float(),
+                                   out.max_dd, out.escalations.float()], dim=1),
+                      path_skips.float()], dim=1)
+
+
+def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
+                  antithetic, per_path: bool):
+    """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
+    8, lanes]: the TPU kernel's block computation with the engine of
+    ``sim.enginepath``, binned as ``_engine_accumulate`` bins."""
+    life, path_skips = None, 0
+    for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc):
+        if life is None:
+            life = EngineLifecycle(torch.exp(log_open).reshape(-1), levels, params,
+                                   noise=noise, **kw)
+        reason = life.step(t, *(x.reshape(-1) for x in bar),
+                           None if nz is None else tuple(x.reshape(-1) for x in nz))
+        if per_path:
+            path_skips = path_skips + skip_columns(reason)
+    out = life.outcome()
+    counts, floats = lifecycle_totals(out, N_COUNTS + N_SKIPS)
+    counts[6] = out.escalations.sum()
+    counts[N_COUNTS:N_COUNTS + N_SKIPS] = out.skip_counts
+    return counts, floats, path_rows(out, path_skips) if per_path else None
+
+
+def stats_from_engine_totals(counts: torch.Tensor, floats: torch.Tensor):
+    """int64 counts [n, entered, wins, losses, open, trades, escalations,
+    skips..., hist...] and float64 [sum_eq, sum_eq2, sum_dd, min_eq, max_eq,
+    max_dd] -> (float32 lifecycle PathStats, int64[16] skip table, int64
+    escalations), the triple of ``_unpack_acc_engine``."""
+    lifecycle = torch.cat([counts[:6], counts[N_COUNTS + N_SKIPS:]])
+    return (stats_from_gated_totals(lifecycle, floats),
+            counts[N_COUNTS:N_COUNTS + N_SKIPS], counts[6])
+
+
+def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
+                            ml_model=None, touch_params=None, guard_params=None,
+                            policy_gate_disabled=None, escalation: bool = True,
+                            bar0_minute: int = 0, volume_model=None, noise=None,
+                            antithetic: bool = False, num_paths: int,
+                            num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
+                            sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                            lanes: int = ENGINE_LANES, external_uniforms=None,
+                            device=None, chunk_blocks: int = 16,
+                            per_path: bool = False):
+    """The plain version's (int64 counts, float64 floats) totals, computed
+    on ``device`` (default: that of ``external_uniforms``, else the CUDA
+    device) in chunks of ``chunk_blocks`` blocks; then, when ``per_path``,
+    the f32[P, PATH_COLS] per-path rows of ``path_rows``."""
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                    policy_gate_disabled, escalation, bar0_minute)
+    layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    levels = levels.to(device)
+    cs = consts(s0, mu, sigma, dt)
+    vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
+    n_blocks = num_paths // (ENGINE_SUB * lanes)
+    tot, rows = None, []
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        if external_uniforms is not None:
+            u = external_uniforms[b0:b0 + nb]
+        else:
+            u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                                device=device)
+        *part, part_rows = _chunk_engine(u, layout, levels, params, kw, noise, cs,
+                                         vc, antithetic, per_path)
+        tot = merge_totals(tot, part)
+        if per_path:
+            rows.append(part_rows)
+    return (*tot, torch.cat(rows)) if per_path else tot
+
+
+# --------------------------------------------------------------------------
+# the kernel wrappers
+# --------------------------------------------------------------------------
+
+_BOUND: set[int] = set()
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signatures set."""
+    lib = build.load(_SOURCE)
+    if id(lib) not in _BOUND:
+        vp = ctypes.c_void_p
+        lib.qmmx_engine_args_size.argtypes = []
+        lib.qmmx_engine_args_size.restype = ctypes.c_int
+        lib.qmmx_engine_error_string.argtypes = [ctypes.c_int]
+        lib.qmmx_engine_error_string.restype = ctypes.c_char_p
+        lib.qmmx_mc_engine.argtypes = [
+            ctypes.POINTER(_EngineArgs), vp, vp, vp, vp, ctypes.c_int, vp]
+        lib.qmmx_mc_engine.restype = ctypes.c_int
+        lib.qmmx_mc_engine_reduce_rows.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp]
+        lib.qmmx_mc_engine_reduce_rows.restype = ctypes.c_int
+        if lib.qmmx_engine_args_size() != ctypes.sizeof(_EngineArgs):
+            raise RuntimeError("EngineArgs layout differs between "
+                               "mc_engine.cu and cuda_engine._EngineArgs")
+        _BOUND.add(id(lib))
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.qmmx_engine_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
+               num_paths, s0, mu, sigma, dt, lanes, noise, antithetic,
+               volume_model) -> _EngineArgs:
+    """The kernel's arguments, every float32 computed as the plain version
+    computes it (torch float32 on the CPU, or float64 rounded once)."""
+    tp, gp, ml, pol = (kw["touch_params"], kw["guard_params"], kw["ml_model"],
+                       kw["policy"])
+    lp, lv = level_slots(levels)
+    cpu = levels.to("cpu")
+    lr = (torch.round(cpu.price * 100.0) / 100.0)
+    lr = torch.where(cpu.valid, lr, 0.0).tolist()
+    lk = [int(k == KIND_SOLID) for k in cpu.kind.tolist()]
+    pad = MAX_LEVELS - len(lk)
+    w_rules, w_ml = blend_weights(params)
+    prox = params.contact_prox.to(_F32)
+    drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
+    vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
+    return _EngineArgs(
+        num_paths=num_paths,
+        level_price=(_F * MAX_LEVELS)(*lp), level_round=(_F * MAX_LEVELS)(*(lr + [0.0] * pad)),
+        level_valid=(_I * MAX_LEVELS)(*[int(x > 0) for x in lv]),
+        level_kind=(_I * MAX_LEVELS)(*(lk + [0] * pad)),
+        prox_conf=f32(torch.clamp(prox, min=1e-4)), qmin=f32(params.q_min_prob),
+        veto_strong=f32(params.veto_vol_strong),
+        veto_near=f32(torch.maximum(params.veto_prox.to(_F32), prox * 0.12)),
+        confl_within=f32(params.confluence_within), w_rules=f32(w_rules),
+        w_ml=f32(w_ml), ml_coef=(_F * 4)(*ml.coef.tolist()),
+        ml_intercept=f32(ml.intercept),
+        pol_w=((_F * 7) * 3)(*[(_F * 7)(*row) for row in pol.w_entry.tolist()]),
+        tm_tol_bps=f32(tp.tol_bps), tm_min_px_bps=f32(tp.min_price_gap_bps),
+        tm_decay=f32(tp.decay), tm_fat_vol_k=f32(tp.fatigue_vol_k),
+        g_comp=f32(gp.compression_bp.to(_F32) / 10000.0), g_vol_k=f32(gp.vol_k),
+        drift=drift, sig_dt=sig_dt, two_s2=f32(2.0 * f32(sig_dt * sig_dt)),
+        log_s0=log_s0, vm_base=vc.base, vm_uamp=vc.uamp, vm_sigma=vc.sigma,
+        vm_rc=vc.rc, vm_day=vc.day, vm_open=vc.open, vm_den=vc.den,
+        vm_third=vc.third, vm_half_s2=vc.half_s2, vm_mean_abs=vc.mean_abs,
+        vm_sd_abs=vc.sd_abs, vm_floor=vc.floor,
+        seed=int(seed), stream=ENGINE_STREAM,
+        cooldown_ms=cooldown_ms(params), overtouch_limit=int(params.overtouch_limit),
+        enable_veto=int(bool(params.enable_veto)), use_blend=int(bool(params.use_blend)),
+        ml_usable=int(ml.usable), ml_ran=int(not bool(params.disable_ml_gate)),
+        policy_on=int(not kw["policy_gate_disabled"]), bar0_minute=kw["bar0_minute"],
+        has_levels=int(bool(levels.count > 0)),
+        tm_min_gap_ms=int(tp.min_time_gap_ms), tm_max_bounces=int(tp.max_bounces),
+        tm_fat_win_ms=int(tp.fatigue_window_ms), g_min_bars=int(gp.min_bars),
+        g_clear_bars=int(gp.reenter_clear_bars), max_levels=levels.max_levels,
+        num_bars=layout.num_bars, lanes=lanes, u_rows=layout.u_rows,
+        stride=layout.stride, use_noise=int(noise is not None),
+        antithetic=int(bool(antithetic)), escalation=int(kw["escalation"]),
+        **knobs(params, noise))
+
+
+def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
+                touch_params=None, guard_params=None, policy_gate_disabled=None,
+                escalation: bool = True, bar0_minute: int = 0, volume_model=None,
+                noise=None, antithetic: bool = False, num_paths: int,
+                num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
+                sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
+                per_path: bool = False):
+    """Launch pass 1 on a CUDA device: int64 [grid, 151] count rows and f32
+    [grid, 6] float rows, one row per CTA, plus the f32[P, PATH_COLS]
+    per-path rows of ``path_rows`` when ``per_path``."""
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                    policy_gate_disabled, escalation, bar0_minute)
+    layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=external_uniforms)
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError(f"engine_rows launches the CUDA kernel; got device {device}")
+    if num_paths >= 1 << 40:
+        raise ValueError("num_paths must be below 2^40 (per-CTA uint32 histogram)")
+    ext_ptr = None
+    if external_uniforms is not None:
+        if not external_uniforms.is_cuda or not external_uniforms.is_contiguous():
+            raise ValueError("external_uniforms must be a contiguous CUDA tensor")
+        ext_ptr = external_uniforms.data_ptr()
+    args = _pack_args(seed, levels, params, kw, layout, num_paths=num_paths, s0=s0,
+                      mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
+                      antithetic=antithetic, volume_model=volume_model)
+    grid = grid_size(num_paths)
+    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((grid, ROW_FLOATS), dtype=_F32, device=device)
+    rows = (torch.empty((num_paths, PATH_COLS), dtype=_F32, device=device)
+            if per_path else None)
+    lib = _library()
+    rc = lib.qmmx_mc_engine(ctypes.byref(args), ext_ptr, part_counts.data_ptr(),
+                            part_floats.data_ptr(),
+                            rows.data_ptr() if per_path else None, grid,
+                            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, rc, "mc_engine")
+    LAUNCHES["mc_engine"] += 1
+    return (part_counts, part_floats, rows) if per_path else (part_counts, part_floats)
+
+
+def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
+    """Pass 2: partial rows -> (int64 [151] counts, float64 [6] floats).  CUDA
+    tensors go through the kernel, CPU tensors through the plain version."""
+    if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
+        return reduce_rows_reference(part_counts, part_floats)
+    if (part_counts.device != part_floats.device
+            or part_counts.device.type != "cuda"):
+        raise ValueError("part_counts and part_floats must lie on one CUDA device")
+    rows = part_counts.shape[0]
+    if (part_counts.dtype != torch.int64 or part_floats.dtype != _F32
+            or tuple(part_counts.shape) != (rows, ROW_COUNTS)
+            or tuple(part_floats.shape) != (rows, ROW_FLOATS)
+            or not part_counts.is_contiguous() or not part_floats.is_contiguous()):
+        raise ValueError(f"partial rows must be contiguous int64 [R, {ROW_COUNTS}] "
+                         f"and float32 [R, {ROW_FLOATS}]")
+    dev = part_counts.device
+    tot_counts = torch.empty((ROW_COUNTS,), dtype=torch.int64, device=dev)
+    tot_floats = torch.empty((ROW_FLOATS,), dtype=torch.float64, device=dev)
+    lib = _library()
+    rc = lib.qmmx_mc_engine_reduce_rows(part_counts.data_ptr(), part_floats.data_ptr(),
+                                        rows, tot_counts.data_ptr(),
+                                        tot_floats.data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "mc_engine_reduce_rows")
+    LAUNCHES["mc_engine_reduce_rows"] += 1
+    return tot_counts, tot_floats
+
+
+def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
+                          ml_model=None, touch_params=None, guard_params=None,
+                          policy_gate_disabled=None, escalation: bool = True,
+                          bar0_minute: int = 0, volume_model=None, noise=None,
+                          antithetic: bool = False, num_paths: int,
+                          num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
+                          sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                          lanes: int = ENGINE_LANES, external_uniforms=None,
+                          device=None):
+    """Fused full-engine MC, the counterpart of ``mc_paths_pallas_engine``
+    (gbm): returns (PathStats, int64[16] skip table ordered as
+    ``sim.enginepath.SKIP_REASONS``, int64 escalations), the contract of
+    ``sim.enginepath.mc_paths_engine``, with McNoise per-entry execution
+    noise and antithetic lane pairs.
+
+    ``device`` (default: that of ``external_uniforms``, else the CUDA device,
+    which raises where there is none) picks the path: a CUDA device launches
+    the kernel or raises; the CPU runs the plain version.  Draws agree with
+    ``sim.enginepath.mc_paths_engine`` statistically, not bitwise."""
+    kw = dict(policy=policy, ml_model=ml_model, touch_params=touch_params,
+              guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
+              escalation=escalation, bar0_minute=bar0_minute,
+              volume_model=volume_model, noise=noise, antithetic=antithetic,
+              num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
+              dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+    _check(seed, levels, engine_knobs(policy, ml_model, touch_params, guard_params,
+                                    policy_gate_disabled, escalation, bar0_minute),
+           num_paths=num_paths, num_bars=num_bars, lanes=lanes, noise=noise,
+           antithetic=antithetic, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        return stats_from_engine_totals(*engine_totals_reference(
+            seed, levels, params, device=device, **kw))
+    rows = engine_rows(seed, levels, params, device=device, **kw)
+    return stats_from_engine_totals(*reduce_rows(*rows))

@@ -35,7 +35,8 @@ from ..types import KIND_SOLID, Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from .draws import GATED_STREAM, GATED_SUB, GatedLayout, gated_uniforms
-from .kernel_args import MAX_LEVELS, consts, f32, grid_size, knobs, level_slots
+from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, f32,
+                          grid_size, knobs, level_slots)
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -82,26 +83,12 @@ class _GatedArgs(ctypes.Structure):
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
            external_uniforms) -> GatedLayout:
     """The checks of ``_mc_paths_pallas_gated_jit`` (pallas_mc.py:1882-1899)."""
-    prng.check_seed(seed)
-    block = GATED_SUB * lanes
-    if lanes <= 0 or num_paths <= 0 or num_paths % block != 0:
-        raise ValueError(f"num_paths must be a positive multiple of {block} "
-                         f"(8 x lanes)")
+    check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=GATED_SUB,
+                 what="gated")
     layout = GatedLayout(num_bars, noise is not None)
-    if levels.max_levels > MAX_LEVELS:
-        raise ValueError(f"the gated kernel supports up to {MAX_LEVELS} "
-                         "level slots")
-    if antithetic and lanes % 256 != 0:
-        raise ValueError("antithetic needs lanes % 256 == 0 (half-row pairs)")
-    if external_uniforms is not None:
-        if not torch.is_tensor(external_uniforms):
-            raise ValueError("external_uniforms must be a torch tensor")
-        want = (num_paths // block, layout.u_rows, GATED_SUB, lanes)
-        if tuple(external_uniforms.shape) != want:
-            raise ValueError(f"external_uniforms must have shape {want}, "
-                             f"got {tuple(external_uniforms.shape)}")
-        if external_uniforms.dtype != torch.float32:
-            raise ValueError("external_uniforms must be float32")
+    check_uniforms(external_uniforms,
+                   (num_paths // (GATED_SUB * lanes), layout.u_rows, GATED_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
     return layout
 
 
@@ -207,8 +194,24 @@ def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
                   None if nz is None else tuple(x.reshape(-1) for x in nz))
     out = life.outcome()
     eq, dd = out.equity, out.max_dd
+    counts, floats = lifecycle_totals(out, N_COUNTS)
+    rows = None
+    if per_path:
+        rows = torch.stack([eq, out.trades.float(), out.wins.float(),
+                            out.losses.float(), out.open_at_end.float(), dd],
+                           dim=1)
+    return counts, floats, held, rows
+
+
+def lifecycle_totals(out, n_counts: int):
+    """int64 [n, entered, wins, losses, open, trades, 0 ..., hist...] of
+    length ``n_counts + HIST_BINS`` and float64 [sum_eq, sum_eq2, sum_dd,
+    min_eq, max_eq, max_dd] of a lifecycle outcome (per-path equity, trades,
+    wins, losses, open_at_end, max_dd), binned as the TPU kernels bin."""
+    eq, dd = out.equity, out.max_dd
+    dev = eq.device
     entered = out.trades > 0
-    counts = torch.zeros(ROW_COUNTS, dtype=torch.int64, device=dev)
+    counts = torch.zeros(n_counts + HIST_BINS, dtype=torch.int64, device=dev)
     counts[0] = eq.numel()
     counts[1] = entered.sum()
     counts[2] = out.wins.sum()
@@ -217,7 +220,7 @@ def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
     counts[5] = out.trades.sum()
     bins = torch.clamp(((eq - LIFE_HIST_LO) * LIFE_BIN_SCALE).to(torch.int32),
                        0, HIST_BINS - 1)
-    counts[N_COUNTS:] = torch.bincount(bins[entered].to(torch.int64),
+    counts[n_counts:] = torch.bincount(bins[entered].to(torch.int64),
                                        minlength=HIST_BINS)
     ee = eq[entered]
     has = ee.numel() > 0
@@ -228,22 +231,18 @@ def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
         ee.max().double() if has else torch.tensor(-_BIG, **f64),
         torch.clamp(dd.max().double(), min=0.0),
     ])
-    rows = None
-    if per_path:
-        rows = torch.stack([eq, out.trades.float(), out.wins.float(),
-                            out.losses.float(), out.open_at_end.float(), dd],
-                           dim=1)
-    return counts, floats, held, rows
+    return counts, floats
 
 
-def _merge_totals(a, b):
+def merge_totals(a, b):
+    """Two chunks' (counts, floats) totals -> one."""
     if a is None:
         return b
-    fa, fb = a[1], b[1]
-    return a[0] + b[0], torch.stack([
+    (ca, fa), (cb, fb) = a, b
+    return ca + cb, torch.stack([
         fa[0] + fb[0], fa[1] + fb[1], fa[2] + fb[2],
         torch.minimum(fa[3], fb[3]), torch.maximum(fa[4], fb[4]),
-        torch.maximum(fa[5], fb[5])]), a[2] + b[2]
+        torch.maximum(fa[5], fb[5])])
 
 
 def stats_from_gated_totals(counts: torch.Tensor, floats: torch.Tensor) -> PathStats:
@@ -284,7 +283,7 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
     gate = GateConfig.from_params(params) if gate is None else gate
     cs = consts(s0, mu, sigma, dt)
     n_blocks = num_paths // (GATED_SUB * lanes)
-    tot, rows = None, []
+    tot, rows, held = None, [], 0
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         if external_uniforms is not None:
@@ -292,16 +291,17 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
         else:
             u = gated_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, device=device)
-        *part, part_rows = _chunk_gated(u, layout, levels, params, gate,
-                                        noise, cs, antithetic, per_path)
-        tot = _merge_totals(tot, part)
+        counts, floats, part_held, part_rows = _chunk_gated(
+            u, layout, levels, params, gate, noise, cs, antithetic, per_path)
+        tot = merge_totals(tot, (counts, floats))
+        held = held + part_held
         if per_path:
             rows.append(part_rows)
-    out = tot[:2]
+    out = tot
     if per_path:
         out += (torch.cat(rows),)
     if work:
-        out += (tot[2],)
+        out += (held,)
     return out
 
 

@@ -36,6 +36,25 @@ stride = 8, or 16 with noise, so ``u_rows = stride * W / 2``.  Injected
 uniforms keep the JAX shape f32[n_blocks, u_rows, 8, lanes]; in Philox mode
 row r of a block is one row of 8·lanes paths on the stream ``GATED_STREAM``,
 so four consecutive rows of a path are the four words of one Philox call.
+
+Full engine (``EngineLayout``), the JAX package's ``_draw_stride`` layout for
+gbm (``ops/pallas_engine.py:108-144``, ``:374-435``): blocks of 8 rows of
+``lanes`` paths as above, and double-bar step t2 takes uniforms
+``t2 * stride + k``:
+
+    k = 0, 1        price Box-Muller (u1, u2): cos drives bar 2·t2, sin bar 2·t2+1
+    k = 2, 3        volume Box-Muller pair, the same way
+    k = 4, 5, 6     (u_high, u_low, tie) of bar 2·t2
+    k = 7, 8, 9     the same of bar 2·t2+1
+    k = 10 .. 13    (with noise) radius, angle, radius, angle of bar 2·t2's
+                    two noise pairs: (level jitter, entry slip), (stop slip,
+                    target slip)
+    k = 14 .. 17    the same of bar 2·t2+1
+
+stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  Ten is not a
+multiple of four, so a Philox call (four rows) feeds parts of two steps: the
+kernel keeps the last call's four words and draws a new call only when a row
+leaves them.
 """
 
 from __future__ import annotations
@@ -49,7 +68,9 @@ from ..utils import prng
 # The streams of the fused kernels' uniforms (one each, rows laid out below).
 FUSED_STREAM = prng.STREAM_PATH
 GATED_STREAM = prng.STREAM_GATED
+ENGINE_STREAM = prng.STREAM_ENGINE
 GATED_SUB = 8        # rows of paths in one gated block
+ENGINE_SUB = 8       # rows of paths in one engine block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,3 +157,35 @@ def gated_uniforms(seed: int, layout: GatedLayout, *, block0: int,
                           n_rows=layout.u_rows, lanes=GATED_SUB * lanes,
                           device=device)
     return u.view(n_blocks, layout.u_rows, GATED_SUB, lanes)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineLayout:
+    num_bars: int
+    noise: bool = False
+
+    def __post_init__(self):
+        if self.num_bars <= 0 or self.num_bars % 2:
+            raise ValueError("num_bars must be even and positive "
+                             "(paired Box-Muller draws)")
+
+    @property
+    def stride(self) -> int:
+        return 18 if self.noise else 10
+
+    @property
+    def u_rows(self) -> int:
+        return self.stride * (self.num_bars // 2)
+
+    def row(self, t2: int, k: int) -> int:
+        return t2 * self.stride + k
+
+
+def engine_uniforms(seed: int, layout: EngineLayout, *, block0: int,
+                    n_blocks: int, lanes: int, device=None) -> torch.Tensor:
+    """f32[n_blocks, layout.u_rows, 8, lanes]: the uniforms the engine kernel
+    draws in Philox mode for global blocks ``block0 ..``, bit for bit."""
+    u = prng.uniform_rows(seed, ENGINE_STREAM, block0=block0, n_blocks=n_blocks,
+                          n_rows=layout.u_rows, lanes=ENGINE_SUB * lanes,
+                          device=device)
+    return u.view(n_blocks, layout.u_rows, ENGINE_SUB, lanes)

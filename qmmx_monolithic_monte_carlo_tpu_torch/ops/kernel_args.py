@@ -8,7 +8,9 @@ the same float32 constants, noise knobs, level slots and grid:
 * ``consts`` -- (drift, sig_dt, log_s0), float64 on the host, rounded to float32;
 * ``knobs`` -- padding, proximity and execution-noise stds as float32;
 * ``level_slots`` -- level prices and validity padded to ``MAX_LEVELS``;
-* ``grid_size`` -- the pass-1 grid, a function of num_paths alone.
+* ``grid_size`` -- the pass-1 grid, a function of num_paths alone;
+* ``check_blocks`` / ``check_uniforms`` -- the launch checks the gated and
+  engine wrappers share (blocks of 8 x lanes paths, injected uniforms).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..types import Levels
+from ..utils import prng
 
 MAX_LEVELS = 8           # level slots a kernel holds in its arguments
 BLOCK = 256              # CUDA threads per CTA (matches the .cu sources)
@@ -66,3 +69,33 @@ def level_slots(levels: Levels) -> tuple[list[float], list[float]]:
 def grid_size(num_paths: int) -> int:
     """Pass-1 CTAs: a function of num_paths only, never of the card."""
     return max(1, min(-(-num_paths // BLOCK), MAX_CTAS))
+
+
+def check_blocks(seed, levels: Levels, *, num_paths: int, lanes: int, sub: int,
+                 what: str) -> None:
+    """The seed, whole blocks of ``sub`` x ``lanes`` paths, and at most
+    MAX_LEVELS level slots for the ``what`` kernel."""
+    prng.check_seed(seed)
+    block = sub * lanes
+    if lanes <= 0 or num_paths <= 0 or num_paths % block != 0:
+        raise ValueError(f"num_paths must be a positive multiple of {block} "
+                         f"({sub} x lanes)")
+    if levels.max_levels > MAX_LEVELS:
+        raise ValueError(f"the {what} kernel supports up to {MAX_LEVELS} level slots")
+
+
+def check_uniforms(external_uniforms, want: tuple, *, antithetic: bool,
+                   lanes: int) -> None:
+    """Antithetic half-row pairs, and injected uniforms: a float32 torch
+    tensor of shape ``want``."""
+    if antithetic and lanes % 256 != 0:
+        raise ValueError("antithetic needs lanes % 256 == 0 (half-row pairs)")
+    if external_uniforms is None:
+        return
+    if not torch.is_tensor(external_uniforms):
+        raise ValueError("external_uniforms must be a torch tensor")
+    if tuple(external_uniforms.shape) != want:
+        raise ValueError(f"external_uniforms must have shape {want}, "
+                         f"got {tuple(external_uniforms.shape)}")
+    if external_uniforms.dtype != torch.float32:
+        raise ValueError("external_uniforms must be float32")

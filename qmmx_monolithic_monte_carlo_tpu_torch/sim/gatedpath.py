@@ -29,16 +29,16 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import EngineParams
 from ..ops import confidence as C
 from ..ops import features as F
 from ..ops import pathgen as PG
-from ..types import DIR_DOWN, DIR_UP, SIDE_FLAT, SIDE_LONG, SIDE_SHORT, Levels
+from ..types import DIR_DOWN, DIR_UP, SIDE_FLAT, SIDE_LONG, SIDE_SHORT, Levels, TensorRecord
 from ..utils import device as devices
 from ..utils import prng
+from ..utils.floats import fma
 from . import pathsim
 from .hits import bar_hit_outcome
 from .pathsim import LIFE_HIST_HI, LIFE_HIST_LO, PathStats
@@ -48,8 +48,9 @@ _I32 = torch.int32
 
 
 @dataclasses.dataclass
-class GateConfig:
-    """Gate knobs of the generated-path lifecycle, as 0-d tensors."""
+class GateConfig(TensorRecord):
+    """Gate knobs of the generated-path lifecycle, as 0-d tensors
+    (``from_numpy`` takes the JAX ``GateConfig``'s fields)."""
 
     touch_limit: torch.Tensor     # i32: skip when a level's touch count
                                   # reaches this (LEVEL_OVERTOUCHED at 4)
@@ -82,16 +83,6 @@ class GateConfig:
                            touch_gap_bars=touch_gap_bars,
                            use_confidence=use_confidence)
 
-    @classmethod
-    def from_numpy(cls, d: dict, device=None) -> "GateConfig":
-        """From a dict of numpy values, e.g. the fields of the JAX
-        ``GateConfig`` (``{k: np.asarray(v) for k, v in vars(g).items()}``)."""
-        return cls(**{k: torch.as_tensor(np.array(d[k]), dtype=dt, device=device)
-                      for k, dt in cls._DTYPES.items()})
-
-    def to(self, device) -> "GateConfig":
-        return GateConfig(**{f.name: getattr(self, f.name).to(device)
-                             for f in dataclasses.fields(self)})
 
 
 class LifecycleOutcome(NamedTuple):
@@ -103,15 +94,6 @@ class LifecycleOutcome(NamedTuple):
     losses: torch.Tensor       # i32 stop closes
     open_at_end: torch.Tensor  # bool position still open after the last bar
     max_dd: torch.Tensor       # f32 peak-tracked max drawdown in R (>= 0)
-
-
-def fma(x, y, z) -> torch.Tensor:
-    """float32 ``x * y + z`` rounded once.  The JAX replay's noise terms
-    (``level + normal * std``) are contracted into fused multiply-adds by
-    XLA's CPU compiler; float64 holds the product of two float32 exactly, so
-    one float64 add and one rounding to float32 give the fused result (but
-    for a double rounding, about once in 2^29)."""
-    return (x.double() * y.double() + z.double()).float()
 
 
 class Lifecycle:

@@ -43,13 +43,30 @@ OUTCOME_TP = 1
 OUTCOME_STOP = 2
 
 
-def _fields_from_numpy(cls, d: dict, dtypes: dict, device=None):
-    return cls(**{k: torch.as_tensor(np.array(d[k]), dtype=dt, device=device)
-                  for k, dt in dtypes.items()})
+class TensorRecord:
+    """Mixin for a dataclass of tensors whose field dtypes are ``_DTYPES``:
+    the port's form of a JAX pytree of parameters.  ``from_numpy`` takes the
+    JAX pytree's leaves as numpy arrays (``{k: np.asarray(v) for k, v in
+    vars(jax_obj).items()}``), so both sides can be handed the same values."""
+
+    _DTYPES: dict = {}
+
+    @classmethod
+    def from_numpy(cls, d: dict, device=None):
+        return cls(**{k: torch.as_tensor(np.array(d[k]), dtype=dt, device=device)
+                      for k, dt in cls._DTYPES.items()})
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **{
+            k: torch.as_tensor(v, dtype=self._DTYPES[k]) for k, v in changes.items()})
+
+    def to(self, device):
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
-class Levels:
+class Levels(TensorRecord):
     """Padded SoA of price levels; invalid slots masked out.
 
     ``price`` for invalid slots is +inf so a nearest-level search never
@@ -98,16 +115,6 @@ class Levels:
             d["index"][i] = int(r["index"])
             d["valid"][i] = True
         return cls.from_numpy(d, device=device)
-
-    @classmethod
-    def from_numpy(cls, d: dict, device=None) -> "Levels":
-        """From a dict of numpy arrays, e.g. the fields of the JAX ``Levels``
-        (``{k: np.asarray(v) for k, v in vars(jax_levels).items()}``)."""
-        return _fields_from_numpy(cls, d, cls._DTYPES, device)
-
-    def to(self, device) -> "Levels":
-        return Levels(**{f.name: getattr(self, f.name).to(device)
-                         for f in dataclasses.fields(self)})
 
     def to_rows(self) -> list[dict[str, Any]]:
         out = []

@@ -32,6 +32,7 @@ STREAM_BRIDGE_LO = 8
 STREAM_VOLUME = 9
 STREAM_MARKET = 10
 STREAM_GATED = 11    # the port's gated lifecycle kernel (ops/draws.GatedLayout)
+STREAM_ENGINE = 12   # the port's full-engine kernel (ops/draws.EngineLayout)
 
 _M32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53

@@ -68,7 +68,7 @@ def test_paths_cuda_backend_without_gpu_raises(tmp_path):
         cli.main(["--db", str(tmp_path / "t.db"), *ARGS, "--backend", "cuda"])
 
 
-@pytest.mark.parametrize("flags", [["--sampler", "heston"], ["--engine"],
+@pytest.mark.parametrize("flags", [["--sampler", "heston"], ["--engine", "--exact-tail"],
                                    ["--exact-tail"], ["--ckpt-dir", "ck"],
                                    ["--sampler", "bootstrap"]])
 def test_unported_options_exit_clearly(tmp_path, flags):
@@ -115,7 +115,7 @@ def test_paths_gated_cuda_backend_without_gpu_raises(tmp_path):
     (True, 16384, 24, "cuda"),
     (True, 16384, 25, "torch"),      # the gated kernel takes an even W only
     (True, 12288, 24, "torch"),      # not a multiple of 8 x 1024
-    (False, 16384, 25, "cuda"),
+    (False, 16384, 25, "torch"),     # the first-contact layout takes an even W only
     (False, 16384, 130, "torch"),    # above the first-contact kernel's 128 bars
 ])
 def test_paths_auto_takes_the_kernel_only_when_the_shape_fits(
@@ -126,6 +126,63 @@ def test_paths_auto_takes_the_kernel_only_when_the_shape_fits(
             "--backend", "auto", *(["--gated"] if gated else [])]
     args = cli.build_parser().parse_args(argv)
     assert cli._backend(args, [{"price": 100.0}] * 3) == want
+
+
+@pytest.mark.parametrize("path", ["first-contact", "gated", "engine"])
+@pytest.mark.parametrize("num_bars", [40, 41])
+def test_fits_takes_an_even_bar_count_only(path, num_bars):
+    flags = {"first-contact": [], "gated": ["--gated"], "engine": ["--engine"]}[path]
+    args = cli.build_parser().parse_args(
+        ["paths", "--num-paths", "16384", "--num-bars", str(num_bars), *flags])
+    rows = [{"price": 100.0}] * 3
+    if num_bars % 2:
+        assert "even --num-bars" in cli._fits(args, rows)
+    else:
+        assert cli._fits(args, rows) is None
+    assert "8 levels" in cli._fits(args, rows * 3)
+
+
+@pytest.mark.parametrize("num_paths, num_bars, fits", [
+    (16384, 40, True), (16384 + 1024, 40, False), (16384, 62, False)])
+def test_fits_engine_envelope(num_paths, num_bars, fits):
+    args = cli.build_parser().parse_args(
+        ["paths", "--engine", "--num-paths", str(num_paths), "--num-bars", str(num_bars)])
+    assert (cli._fits(args, [{"price": 100.0}] * 3) is None) == fits
+
+
+def test_paths_cuda_backend_refuses_an_odd_first_contact_bar_count(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="even --num-bars"):
+        cli.main(["--db", str(tmp_path / "t.db"), "paths", "--num-paths", "16384",
+                  "--num-bars", "41", "--backend", "cuda"])
+
+
+ENGINE = ["paths", "--engine", "--num-paths", "4096", "--num-bars", "24"]
+
+
+def test_paths_engine_prints_the_jax_cli_engine_keys(tmp_path, capsys):
+    out = _run(cli.main, ["--db", str(tmp_path / "t.db"), *ENGINE, "--backend",
+                          "torch", *CPU], capsys)
+    want = _run(jcli.main, ["--db", str(tmp_path / "j.db"), *ENGINE,
+                            "--backend", "xla"], capsys)
+    assert set(out) == set(want)
+    assert isinstance(out["escalations"], int) and isinstance(out["skips"], dict)
+    assert {"TOO_FAR", "CONF_LOW"} <= set(out["skips"])
+    assert all(isinstance(n, int) and n > 0 for n in out["skips"].values())
+    assert out["paths"] == want["paths"] == 4096.0
+    assert out["trades"] >= out["entered"] > 0 and 0.0 < out["hit_rate"] < 1.0
+    # same model, different streams: close, not equal
+    assert abs(out["mean_trades"] - want["mean_trades"]) < 0.1
+    evals = 4096 * 24
+    for name in ("TOO_FAR", "IN_POSITION"):
+        assert abs(out["skips"][name] - want["skips"][name]) < 0.05 * evals
+
+
+def test_paths_engine_auto_on_the_cpu_runs_the_pipeline(tmp_path, capsys):
+    out = _run(cli.main, ["--db", str(tmp_path / "t.db"), *ENGINE, "--num-bars",
+                          "25", "--backend", "auto", "--antithetic",
+                          "--entry-slip-std", "0.01", *CPU], capsys)
+    assert out["paths"] == 4096.0 and out["trades"] > 0
 
 
 def test_paths_gated_cuda_backend_refuses_an_odd_bar_count(tmp_path, monkeypatch):

@@ -131,23 +131,38 @@ def test_bars_from_rows_match():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, found by walking the package, imports
+    without pulling in JAX, flax or the JAX package, and builds no kernel."""
     code = (
-        "import sys\n"
-        "import qmmx_monolithic_monte_carlo_tpu_torch\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch import config, types\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch.host import cli\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch.io import db\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch.ops import (\n"
-        "    cuda_mc, draws, features, hitscan, pathgen)\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch.sim import montecarlo, pathsim\n"
-        "from qmmx_monolithic_monte_carlo_tpu_torch.utils import build, prng\n"
+        "import importlib, pkgutil, sys\n"
+        "import qmmx_monolithic_monte_carlo_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from qmmx_monolithic_monte_carlo_tpu_torch.utils import build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',\n"
         "       'qmmx_monolithic_monte_carlo_tpu')]\n"
         "assert not bad, bad\n"
         "assert not build._LOADED\n"
-        "print('clean')\n"
+        "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "clean"
+    # the modules of slices 1-3 at least, engine and models packages included
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_chip_smoke_imports_no_jax():
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parent.parent / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "flax", "qmmx_monolithic_monte_carlo_tpu"}, roots
+    assert "qmmx_monolithic_monte_carlo_tpu_torch" in roots
