@@ -46,7 +46,35 @@ Phases (any failure exits non-zero and prints no result line):
 11. main path — the port CLI's ``paths --engine --backend cuda`` at 2^28
    paths x 40 bars, launch counts set to 0 just before and read just after
    (``mc_engine`` and its fold once a run, no other kernel), the output
-   checked, paths/s timed; the kernel alone timed at 2^28.
+   checked, paths/s timed; the kernel alone timed at 2^28;
+   the common-random-number grid sweeps (kernels #3, #6, #9):
+12. first-contact sweep (``mc_sweep_kernel``, mc_first_contact.cu): injected
+   uniforms, the CLI's 3 x 3 (stop, tp) grid (BASELINE config #5's three
+   rows among them), each row against the plain version on CPU copies;
+   Philox at 2^22 on the same 9 rows, each row equal to
+   ``mc_first_contact_kernel`` bit for bit and within budget of the plain
+   version on the card, the fold against its plain fold; config #5 at its
+   full size (2^30 paths x 40 bars x 3 rows), kernel alone, timed; the
+   port CLI's ``sweep --backend cuda`` at 2^28 paths (the 3 x 3 grid),
+   launch counts set to 0 just before and read just after (one sweep launch
+   and one fold a run, nothing else), rows and keys in the JAX CLI's order;
+13. gated sweep (``mc_gated_sweep_kernel``, mc_gated.cu): injected uniforms
+   path by path, 3 rows with a noise-std row, every differing path traced
+   as in phase 6; Philox at 2^22, each row equal to the one-row launch of
+   the same kernel (``mc_paths_gated_fused``'s) bit for bit, per path
+   included, and the plain version on the card equal to the kernel on every
+   path; ``PathStats.from_lifecycle`` / ``from_outcomes``
+   bins on the card equal to the CPU's; the CLI's ``sweep --gated --backend
+   cuda --num-paths 2^26 --touch-limits 2 4`` (18 rows) with its launches;
+14. engine sweep (``mc_engine_sweep_kernel``, mc_engine.cu): injected uniforms
+   path by path with the four configurations of the JAX engine sweep test,
+   then with [G] noise stds (level jitter 0 and 0.02, the main path's rows,
+   and a slip row), every differing path traced as in phase 9; Philox at
+   2^22, each row of both grids equal to the one-row launch
+   (``mc_paths_engine_fused``'s) bit for bit, skip counts included; kernel
+   vs plain on the card path by path at 2^20 x both grids; the CLI's ``sweep
+   --engine --backend cuda --num-paths 2^24 --jitter-stds 0 0.02`` (18 rows)
+   with its launches; the kernel alone at 2^26 paths x 9 rows.
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -68,6 +96,9 @@ first-fail reason from one gate to another and change no trade); each skip
 counter's total within W times the number of differing paths (a path moves
 at most one reason a bar, so 0 where no path differs) and escalations
 within F.
+Sweeps (phases 12-14): each row under its family's rules above; a row of a
+sweep kernel and the single-configuration launch under that row's knobs:
+equal, bit for bit.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -79,7 +110,10 @@ multiplies (Philox4x32-10: 40 per call, 64 per SM per clock), at the card's
 enter, how long they hold), so it is counted by the plain versions on the
 first 2^22 paths of the timed inputs and scaled to their size.  For the
 engine the count is a floor: the work every bar does, plus the gates that the
-plain version's skip table shows were reached (engine_ops).
+plain version's skip table shows were reached (engine_ops).  A sweep's bound
+counts each path's bars once and each row's decisions on them (sweep_ops,
+gated_sweep_ops, engine_sweep_ops), so the gated and engine sweeps'
+regeneration of the bars for every row shows against it.
 
 The line before last is a JSON object of the kernels (route, source, the TPU
 kernel each replaces, launches in its main-path run, max error, times and
@@ -114,6 +148,14 @@ ENGINE_SOURCE = CSRC + "mc_engine.cu"
 FC_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:584"
 GATED_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067"
 ENGINE_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1415"
+SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1978"
+GATED_SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:2163"
+ENGINE_SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1813"
+# BASELINE config #5 (benchmarks/run_all.py:221-260): three (stop, tp) rows,
+# 2^30 paths x 40 bars
+CONFIG5 = [(0.25, 0.15), (0.35, 0.25), (0.45, 0.35)]
+CONFIG5_PATHS = 1 << 30
+SWEEP_INJECT_BLOCKS = 8
 ENGINE_LANES = 256
 ENGINE_INJECT_BLOCKS = 16
 # the JAX engine kernel tests' levels (tests/test_pallas_engine.py:25-32)
@@ -200,6 +242,18 @@ def gated_ops(n_paths: float, held: float, trades: float) -> dict:
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
 
 
+def engine_gate_divs(counts, scale: float) -> float:
+    """The divisions of the gates a configuration reached (the confidence
+    division past the contact latch, the slope's 3 past the veto, one a
+    close), from the plain version's int64 totals ``counts`` on a sample,
+    scaled by ``scale``."""
+    c = [float(x) for x in counts]
+    skips = c[7:23]
+    reached7 = (c[0] * NUM_BARS - sum(skips[:5])) * scale
+    reached10 = reached7 - sum(skips[5:11]) * scale
+    return reached7 + 3 * reached10 + (c[2] + c[3]) * scale
+
+
 def engine_ops(n_paths: float, counts, scale: float) -> dict:
     """A floor on the engine kernel's operations (no noise) for ``n_paths``
     paths of NUM_BARS bars, from the plain version's int64 totals ``counts``
@@ -210,19 +264,50 @@ def engine_ops(n_paths: float, counts, scale: float) -> dict:
     MAs once defined; a bar that reaches the contact latch adds the
     confidence division, one that reaches the veto the slope's 3; a close,
     the R division.  ~100 float32 operations of logic a bar besides."""
-    c = [float(x) for x in counts]
     bars = n_paths * NUM_BARS
-    evals = c[0] * NUM_BARS
-    skips = c[7:23]
-    reached7 = (evals - sum(skips[:5])) * scale
-    reached10 = reached7 - sum(skips[5:11]) * scale
-    closes = (c[2] + c[3]) * scale
     guard_divs = n_paths * sum((t + 1 >= 5) + (t + 1 >= 20) for t in range(NUM_BARS))
     logf, sqrtf, expf = 3 * bars, 3 * bars, 4 * bars
-    div = 4 * bars + guard_divs + reached7 + 3 * reached10 + closes
+    div = 4 * bars + guard_divs + engine_gate_divs(counts, scale)
     philox = n_paths * math.ceil(10 * NUM_BARS / 2 / 4)   # 10 rows a step, 4 a call
     f32 = logf + sqrtf + expf + 2 * bars + div + 100 * bars
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
+
+
+def sweep_ops(work, entered: int, rows: int, scale: float) -> dict:
+    """Operations of the first-contact sweep for its work counts [Box-Muller
+    pairs, bars walked (to the last row's hit), bars walked after contact,
+    bars x rows checked after contact], scaled by ``scale``: each path's bars
+    and contact once (``fc_ops``), plus every row's stop/target recomputed
+    and checked (~8 float32 operations a row and bar) and its R division."""
+    ops = fc_ops(work[:3], entered, scale)
+    row_bars = float(work[3]) * scale
+    extra_div = (rows - 1) * entered * scale
+    ops["f32"] += 8 * row_bars + extra_div
+    ops["sfu"] += extra_div
+    return ops
+
+
+def gated_sweep_ops(n_paths: float, held_rows, trades_rows) -> dict:
+    """A floor on the gated sweep's operations with each path's bars made
+    once: ``gated_ops`` for the bars (bridge extremes on the bars the row
+    that holds longest holds), plus each further row's decisions (~30
+    float32 operations a bar) and its confidence and R divisions."""
+    ops = gated_ops(n_paths, max(held_rows), sum(trades_rows))
+    ops["f32"] += (len(held_rows) - 1) * 30 * n_paths * NUM_BARS
+    return ops
+
+
+def engine_sweep_ops(n_paths: float, counts_rows, scale: float) -> dict:
+    """A floor on the engine sweep's operations with each path's bars, its
+    volumes and their MAs made once: ``engine_ops`` for the first row, plus
+    for each further row the divisions of the gates it reached and ~100
+    float32 operations of logic a bar."""
+    ops = engine_ops(n_paths, counts_rows[0], scale)
+    for c in counts_rows[1:]:
+        div = engine_gate_divs(c, scale)
+        ops["sfu"] += div
+        ops["f32"] += div + 100 * n_paths * NUM_BARS
+    return ops
 
 
 def compare(name: str, want, got, n_paths: int) -> float:
@@ -502,9 +587,18 @@ def check_fold(name, plain, got) -> float:
     return float(diff.max())
 
 
-def run_cli(cli, argv, reset, launches) -> tuple[dict, list[float], dict]:
+def launch_counts() -> dict:
+    """Every kernel's launch count, across the port's three kernel modules."""
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+
+    return {k: v for m in (cuda_mc, cuda_gated, cuda_engine) for k, v in m.LAUNCHES.items()}
+
+
+def run_cli(cli, argv, reset, expect: dict, n_paths: int = None) -> tuple[list, list, dict]:
     """The CLI four times (one warm-up, three timed), the launch counts set to
-    0 just before and read just after; returns (output, seconds, launches)."""
+    0 just before and read just after; the kernels named in ``expect`` must
+    have been launched exactly that often and no other kernel at all.
+    Returns (the last run's JSON lines, seconds, the counts of ``expect``)."""
     import torch
 
     reset()
@@ -518,25 +612,55 @@ def run_cli(cli, argv, reset, launches) -> tuple[dict, list[float], dict]:
         secs.append(time.perf_counter() - t0)
         if rc != 0:
             raise AssertionError(f"cli exited {rc}")
-    counts = dict(launches)
-    out = json.loads(buf.getvalue().strip().splitlines()[-1])
-    log(f"  cli output: {json.dumps(out)}")
-    log(f"  launches in the main-path runs: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    floats = {k: v for k, v in out.items() if k not in ("escalations", "skips")}
-    if not all(isinstance(v, float) and math.isfinite(v) for v in floats.values()):
-        raise AssertionError(f"non-finite cli output: {out}")
-    if out["paths"] != float(MAIN_PATHS) or not out["entered"] > 0:
-        raise AssertionError(f"unexpected path counts: {out}")
-    if not 0.0 < out["hit_rate"] < 1.0:
-        raise AssertionError(f"hit_rate out of (0, 1): {out}")
+    counts = launch_counts()
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    log(f"  cli output: {json.dumps(lines[-1])}" + (f" (last of {len(lines)} rows)"
+                                                    if len(lines) > 1 else ""))
+    log(f"  launches in the main-path runs: { {k: v for k, v in counts.items() if v} }")
+    if {k: v for k, v in counts.items() if v} != expect:
+        raise AssertionError(f"the main path launched {counts}, not exactly {expect}")
+    for out in lines:
+        floats = {k: v for k, v in out.items() if isinstance(v, float)}
+        if not all(math.isfinite(v) for v in floats.values()):
+            raise AssertionError(f"non-finite cli output: {out}")
+        if not 0.0 < out["hit_rate"] < 1.0:
+            raise AssertionError(f"hit_rate out of (0, 1): {out}")
     rep_s = sum(secs[1:]) / 3
+    work = (n_paths or MAIN_PATHS) * len(lines)
     log(f"  cli wall per run: warm-up {secs[0]:.3f} s, reps "
         f"{', '.join(f'{s:.3f}' for s in secs[1:])} s -> "
-        f"{MAIN_PATHS / rep_s:.6e} paths/s end to end")
-    return out, secs, counts
+        f"{work / rep_s:.6e} paths{' x rows' if len(lines) > 1 else ''}/s end to end")
+    return lines, secs, {k: counts[k] for k in expect}
+
+
+def check_sweep_output(lines: list, combos: list, keys: list) -> None:
+    """A ``sweep`` run's rows: the JAX CLI's keys in its order, one row per
+    grid point in the JAX CLI's row order."""
+    if len(lines) != len(combos):
+        raise AssertionError(f"{len(lines)} sweep rows, not {len(combos)}")
+    for out, combo in zip(lines, combos):
+        if list(out) != keys:
+            raise AssertionError(f"sweep row keys {list(out)}, not {keys}")
+        grid = [out[k] for k in keys if k in ("stop_padding", "tp_padding", "touch_limit",
+                                               "q_min_prob", "level_jitter_std")]
+        if grid != list(combo):
+            raise AssertionError(f"sweep row {grid} out of the grid's order ({combo})")
+
+
+def stack_params(cfgs):
+    """EngineParams whose leaves stack the configurations ``cfgs`` ([G])."""
+    import dataclasses
+
+    import torch
+
+    return type(cfgs[0])(**{f.name: torch.stack([getattr(c, f.name) for c in cfgs])
+                            for f in dataclasses.fields(cfgs[0])})
+
+
+def check_paths_output(out: dict) -> None:
+    """The ``paths`` main paths' output: every path counted, some entered."""
+    if out["paths"] != float(MAIN_PATHS) or not out["entered"] > 0:
+        raise AssertionError(f"unexpected path counts: {out}")
 
 
 def main() -> int:
@@ -556,10 +680,13 @@ def main() -> int:
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout, GatedLayout
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.guard import GuardParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.touch import TouchMemoryParams
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import SKIP_REASONS
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.pathsim import (LIFE_HIST_HI,
+                                                                   LIFE_HIST_LO, PathStats)
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
     from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
 
@@ -592,11 +719,6 @@ def main() -> int:
     def reset_all():
         for mod in (cuda_mc, cuda_gated, cuda_engine):
             mod.reset_launches()
-
-    def others_idle(*mods):
-        busy = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
-        if busy:
-            raise AssertionError(f"the main path launched other kernels: {busy}")
 
     levels = Levels.from_rows(
         [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
@@ -684,9 +806,9 @@ def main() -> int:
         argv = ["--db", os.path.join(tmp, "smoke.db"), "paths", "--backend",
                 "cuda", "--num-paths", str(MAIN_PATHS), "--num-bars",
                 str(NUM_BARS), "--sigma", str(SIGMA)]
-        _, fc_secs, fc_launches = run_cli(
-            cli, argv, reset_all, cuda_mc.LAUNCHES)
-    others_idle(cuda_gated, cuda_engine)
+        (fc_out,), fc_secs, fc_launches = run_cli(
+            cli, argv, reset_all, {"mc_first_contact": 4, "mc_reduce_rows": 4})
+    check_paths_output(fc_out)
     fc_main_ms = cuda_ms(lambda: run_fc(MAIN_PATHS), 2)
     fc_main_bound = card.bound(
         bytes_=fc_rows[0].numel() * 8 + fc_rows[1].numel() * 4,
@@ -787,13 +909,13 @@ def main() -> int:
         argv = ["--db", os.path.join(tmp, "smoke.db"), "paths", "--gated",
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
-        g_out, g_secs, g_launches = run_cli(
-            cli, argv, reset_all, cuda_gated.LAUNCHES)
+        (g_out,), g_secs, g_launches = run_cli(
+            cli, argv, reset_all, {"mc_gated": 4, "mc_gated_reduce_rows": 4})
+    check_paths_output(g_out)
     if not g_out["trades"] >= g_out["entered"] > 0:
         raise AssertionError(f"trades < entered: {g_out}")
     if not g_out["mean_trades"] >= 1.0 or not g_out["max_dd"] >= 0.0:
         raise AssertionError(f"mean_trades < 1 or max_dd < 0: {g_out}")
-    others_idle(cuda_mc, cuda_engine)
     g_main_ms = cuda_ms(lambda: run_gated(MAIN_PATHS), 3)
     g_main_bound = g_bound(MAIN_PATHS)
     log(f"  kernel alone at {MAIN_PATHS} paths: {g_main_ms:.3f} ms "
@@ -920,10 +1042,9 @@ def main() -> int:
         argv = ["--db", os.path.join(tmp, "smoke.db"), "paths", "--engine",
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
-        e_out, e_secs, e_launches = run_cli(cli, argv, reset_all, cuda_engine.LAUNCHES)
-    others_idle(cuda_mc, cuda_gated)
-    if e_launches != {"mc_engine": 4, "mc_engine_reduce_rows": 4}:
-        raise AssertionError(f"expected one launch of each engine kernel a run: {e_launches}")
+        (e_out,), e_secs, e_launches = run_cli(
+            cli, argv, reset_all, {"mc_engine": 4, "mc_engine_reduce_rows": 4})
+    check_paths_output(e_out)
     if not e_out["trades"] >= e_out["entered"] > 0 or not e_out["escalations"] > 0:
         raise AssertionError(f"trades < entered, or no escalation: {e_out}")
     sk = e_out["skips"]
@@ -935,6 +1056,383 @@ def main() -> int:
     log(f"  kernel alone at {MAIN_PATHS} paths: {e_main_ms:.3f} ms "
         f"({MAIN_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
         f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
+
+    # ---- phase 12: first-contact sweep (kernel #3)
+    stops5, tps5 = [c[0] for c in CONFIG5], [c[1] for c in CONFIG5]
+    # the CLI sweep's default 3 x 3 grid, the main path's rows (config #5's
+    # three rows among them)
+    grid9 = [(sp, tp) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)]
+    stops9, tps9 = [c[0] for c in grid9], [c[1] for c in grid9]
+    n_sinj = 16 * LANES
+    log(f"[12] first-contact sweep, injected uniforms: kernel vs plain (plain on CPU "
+        f"copies), {n_sinj} paths, the CLI's 3 x 3 grid {grid9}")
+    rng = np.random.default_rng(300)
+    u = torch.from_numpy(rng.uniform(
+        1e-9, 1.0, (16, 3 * NUM_BARS + 1, LANES)).astype(np.float32))
+    kw = dict(common, num_paths=n_sinj)
+    want = cuda_mc.sweep_totals_reference(0, levels, params, stops9, tps9,
+                                          external_uniforms=u, **kw)
+    got = cuda_mc.reduce_rows(*cuda_mc.sweep_rows(
+        0, levels, params, stops9, tps9, device=dev, external_uniforms=u.to(dev), **kw))
+    torch.cuda.synchronize()
+    sw_err = 0.0
+    for g, (sp, tp) in enumerate(grid9):
+        sw_err = max(sw_err, compare(f"row {g} ({sp}, {tp})", (want[0][g], want[1][g]),
+                                     (got[0][g], got[1][g]), n_sinj))
+    log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs and 9 rows: each row "
+        "vs mc_first_contact_kernel bit for bit, vs the plain version on the card")
+    kw = dict(common, num_paths=PHILOX_PATHS, external_uniforms=None)
+    sw_rows = cuda_mc.sweep_rows(0, cli_levels, params, stops9, tps9, device=dev, **kw)
+    got = cuda_mc.reduce_rows(*sw_rows)
+    want = cuda_mc.sweep_totals_reference(0, cli_levels, params, stops9, tps9,
+                                          device=dev, **kw)
+    for g, (sp, tp) in enumerate(grid9):
+        one_rows = cuda_mc.first_contact_rows(
+            0, cli_levels, params.replace(stop_padding=sp, tp_padding=tp), device=dev,
+            noise=None, antithetic=False, **kw)
+        one = cuda_mc.reduce_rows(*one_rows)
+        if not (torch.equal(one_rows[0], sw_rows[0][g]) and torch.equal(one_rows[1], sw_rows[1][g])
+                and torch.equal(one[0], got[0][g]) and torch.equal(one[1], got[1][g])):
+            raise AssertionError(f"sweep row {g} differs from mc_first_contact_kernel")
+        sw_err = max(sw_err, compare(f"philox row {g}", (want[0][g], want[1][g]),
+                                     (got[0][g], got[1][g]), PHILOX_PATHS))
+    log("  every row equals mc_first_contact_kernel bit for bit (partial rows and totals)")
+    sw_red_err = check_fold("mc_sweep_reduce_rows", cuda_mc.reduce_rows_reference(*sw_rows), got)
+    log(f"  mc_sweep_reduce_rows: counts exact, float max abs err {sw_red_err:.3e}")
+
+    kw = dict(common, num_paths=PLAIN_PATHS, external_uniforms=None)
+
+    def run_sw(n=PLAIN_PATHS, rows=CONFIG5):
+        return cuda_mc.sweep_rows(0, cli_levels, params, [r[0] for r in rows],
+                                  [r[1] for r in rows], device=dev, **dict(kw, num_paths=n))
+
+    run_sw()
+    sw_ms = cuda_ms(run_sw, 3)
+    sw_rows = run_sw()
+    sw_plain_ms = cuda_ms(lambda: cuda_mc.sweep_totals_reference(
+        0, cli_levels, params, stops5, tps5, device=dev, **kw), 1)
+    sw_red_ms = cuda_ms(lambda: cuda_mc.reduce_rows(*sw_rows), 20)
+    sw_red_plain_ms = cuda_ms(lambda: cuda_mc.reduce_rows_reference(*sw_rows), 20)
+    sc, _, swork = cuda_mc.sweep_totals_reference(
+        0, cli_levels, params, stops5, tps5, device=dev, work=True,
+        **dict(kw, num_paths=PHILOX_PATHS))
+    sw_row_bytes = sw_rows[0].numel() * 8 + sw_rows[1].numel() * 4
+
+    def sw_bound(n):
+        return card.bound(bytes_=sw_row_bytes, **sweep_ops(swork.cpu(), int(sc[0, 1]), 3,
+                                                            n / PHILOX_PATHS))
+
+    sw_bound_plain = sw_bound(PLAIN_PATHS)
+    sw_red_bound = card.bound(bytes_=sw_row_bytes + 3 * (cuda_mc.ROW_COUNTS * 8
+                                                         + cuda_mc.ROW_FLOATS * 8),
+                              f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  at {PLAIN_PATHS} paths x 3 rows: kernel {sw_ms:.3f} ms "
+        f"({PLAIN_PATHS / sw_ms * 1e3:.6e} paths/s), bound {sw_bound_plain['bound_ms']:.3f} ms "
+        f"{sw_bound_plain['bound_parts']}, plain {sw_plain_ms:.3f} ms")
+    log(f"  work per path (first {PHILOX_PATHS} paths): pairs, walked, after contact, "
+        f"rows x bars after contact {[round(float(x) / PHILOX_PATHS, 4) for x in swork.cpu()]}")
+    log(f"  row fold (3 x {sw_rows[0].shape[1]} rows): kernel {sw_red_ms:.4f} ms, plain "
+        f"{sw_red_plain_ms:.4f} ms, bound {sw_red_bound['bound_ms']:.4f} ms")
+    c5_ms = cuda_ms(lambda: run_sw(CONFIG5_PATHS), 2)
+    c5_bound = sw_bound(CONFIG5_PATHS)
+    log(f"  BASELINE config #5 at full size ({CONFIG5_PATHS} paths x {NUM_BARS} bars x 3 "
+        f"rows), kernel alone: {c5_ms:.3f} ms ({CONFIG5_PATHS / c5_ms * 1e3:.6e} paths/s), "
+        f"bound {c5_bound['bound_ms']:.3f} ms {c5_bound['bound_parts']}")
+    log(f"[12] main path: cli sweep --backend cuda --num-paths {MAIN_PATHS} (3 x 3 grid)")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "sweep", "--backend", "cuda",
+                "--num-paths", str(MAIN_PATHS), "--num-bars", str(NUM_BARS),
+                "--sigma", str(SIGMA)]
+        sw_out, sw_secs, sw_launches = run_cli(
+            cli, argv, reset_all, {"mc_sweep": 4, "mc_sweep_reduce_rows": 4})
+    check_sweep_output(sw_out, grid9, ["stop_padding", "tp_padding", "hit_rate", "mean_r"])
+    sw_main_ms = cuda_ms(lambda: run_sw(MAIN_PATHS, grid9), 2)
+    log(f"  kernel alone on the CLI's grid ({MAIN_PATHS} paths x 9 rows): {sw_main_ms:.3f} ms")
+
+    # ---- phase 13: gated sweep (kernel #6)
+    g_stops, g_tps = [0.35, 0.35, 0.25], [0.25, 0.25, 0.15]
+    g_gate = GateConfig.from_params(params).replace(touch_limit=[4, 4, 2],
+                                                    cooldown_bars=[0, 0, 3])
+    g_noise = McNoise(entry_slip_std=torch.tensor([0.0, 0.01, 0.0]),
+                      level_jitter_std=torch.tensor([0.0, 0.02, 0.0]),
+                      stop_slip_std=torch.tensor([0.0, 0.015, 0.0]),
+                      target_slip_std=torch.tensor([0.0, 0.015, 0.0]))
+    n_ginj = SWEEP_INJECT_BLOCKS * 8 * GATED_LANES
+    log(f"[13] gated sweep, injected uniforms: kernel vs plain (plain on CPU copies), "
+        f"{n_ginj} paths x 3 rows (defaults; a noise-std row; touch limit 2 with "
+        "cooldown 3)")
+    rng = np.random.default_rng(400)
+    u = torch.from_numpy(rng.uniform(
+        1e-9, 1.0, (SWEEP_INJECT_BLOCKS, GatedLayout(NUM_BARS, True).u_rows, 8,
+                    GATED_LANES)).astype(np.float32))
+    kw = dict(gcommon, num_paths=n_ginj, noise=g_noise)
+    want = cuda_gated.gated_sweep_totals_reference(0, levels, params, g_stops, g_tps, g_gate,
+                                                   external_uniforms=u, per_path=True, **kw)
+    pc, pf, rows = cuda_gated.gated_sweep_rows(0, levels, params, g_stops, g_tps, g_gate,
+                                               device=dev, external_uniforms=u.to(dev),
+                                               per_path=True, **kw)
+    gc, gf = cuda_gated.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    gs_err = 0.0
+    for g in range(3):
+        err, differ = compare_lifecycle(f"row {g}", (want[0][g], want[1][g], want[2][g]),
+                                        (gc[g], gf[g], rows[g]), n_ginj)
+        gs_err = max(gs_err, err)
+        trace_flips(f"row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(), levels,
+                    params.replace(stop_padding=g_stops[g], tp_padding=g_tps[g]),
+                    grid_row(g_gate, g), grid_row(g_noise, g), False, dev)
+    log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs: each row vs the "
+        "one-row launch (gated_rows) bit for bit, vs the plain version on the card path "
+        "by path")
+    ps_gate = GateConfig.from_params(params).replace(touch_limit=[2, 4, 4],
+                                                     cooldown_bars=[0, 0, 3])
+    kw = dict(gcommon, num_paths=PHILOX_PATHS, noise=None)
+    t0 = time.perf_counter()
+    want = cuda_gated.gated_sweep_totals_reference(
+        0, cli_levels, params, stops5, tps5, ps_gate, device=dev, chunk_blocks=64,
+        per_path=True, work=True, **kw)
+    torch.cuda.synchronize()
+    gs_plain_ms = (time.perf_counter() - t0) * 1e3
+    gs_rows = cuda_gated.gated_sweep_rows(0, cli_levels, params, stops5, tps5, ps_gate,
+                                          device=dev, external_uniforms=None,
+                                          per_path=True, **kw)
+    gc, gf = cuda_gated.reduce_rows(*gs_rows[:2])
+    for g in range(3):
+        one = cuda_gated.gated_rows(0, cli_levels, params.replace(
+            stop_padding=stops5[g], tp_padding=tps5[g]), grid_row(ps_gate, g), device=dev,
+            external_uniforms=None, antithetic=False, per_path=True, **kw)
+        if not all(torch.equal(a, b[g]) for a, b in zip(one, gs_rows)):
+            raise AssertionError(f"gated sweep row {g} differs from the one-row launch")
+        err, differ = compare_lifecycle(f"philox row {g}", (want[0][g], want[1][g], want[2][g]),
+                                        (gc[g], gf[g], gs_rows[2][g]), PHILOX_PATHS)
+        gs_err = max(gs_err, err)
+        if bool(differ.any()):
+            raise AssertionError(f"philox row {g}: the kernel and the plain version on "
+                                 "the card differ")
+    log("  every row equals the one-row launch bit for bit (partial rows, per-path rows); "
+        "the plain version on the card equals the kernel on every path")
+    gs_red_err = check_fold("mc_gated_sweep_reduce_rows",
+                            cuda_gated.reduce_rows_reference(*gs_rows[:2]), (gc, gf))
+    log(f"  mc_gated_sweep_reduce_rows: counts exact, float max abs err {gs_red_err:.3e}")
+    # repair: the lifecycle histogram's scalar division on the card
+    eq, tr = gs_rows[2][0][:, 0], gs_rows[2][0][:, 1]
+    stats_on = {}
+    for where in (dev, torch.device("cpu")):
+        e, t = eq.to(where), tr.to(where)
+        z = torch.zeros_like(e)
+        stats_on[where.type] = (
+            PathStats.from_lifecycle(equity=e, trades=t, wins=t, losses=z,
+                                     open_at_end=z.bool(), max_dd=z).hist.cpu(),
+            PathStats.from_outcomes(e, torch.ones_like(t, dtype=torch.int32),
+                                    t > 0).hist.cpu())
+    if not all(torch.equal(a, b) for a, b in zip(stats_on["cuda"], stats_on["cpu"])):
+        raise AssertionError("from_lifecycle / from_outcomes bins differ between the card "
+                             "and the CPU")
+    lo, span = LIFE_HIST_LO, LIFE_HIST_HI - LIFE_HIST_LO
+    moved = int((((eq - lo) / span * 128).int() != ((eq.cpu() - lo) / span * 128).int()
+                 .to(dev)).sum())
+    log(f"  from_lifecycle / from_outcomes bins of {eq.numel()} equities: card == CPU; "
+        f"a division by the CPU scalar on the card would move {moved} of them")
+
+    kw = dict(gcommon, num_paths=PHILOX_PATHS, noise=None, external_uniforms=None)
+
+    def run_gs(n=PHILOX_PATHS, stops=stops5, tps=tps5, gate=ps_gate):
+        return cuda_gated.gated_sweep_rows(0, cli_levels, params, stops, tps, gate,
+                                           device=dev, **dict(kw, num_paths=n))
+
+    run_gs()
+    gs_ms = cuda_ms(run_gs, 3)
+    g_sw_rows = run_gs()
+    gs_red_ms = cuda_ms(lambda: cuda_gated.reduce_rows(*g_sw_rows), 20)
+    gs_red_plain_ms = cuda_ms(lambda: cuda_gated.reduce_rows_reference(*g_sw_rows), 20)
+    gs_row_bytes = g_sw_rows[0].numel() * 8 + g_sw_rows[1].numel() * 4
+    gs_held, gs_trades = [float(x) for x in want[3]], [float(x) for x in want[0][:, 5]]
+    gs_bound = card.bound(bytes_=gs_row_bytes,
+                          **gated_sweep_ops(PHILOX_PATHS, gs_held, gs_trades))
+    gs_red_bound = card.bound(bytes_=gs_row_bytes + 3 * (cuda_gated.ROW_COUNTS * 8
+                                                         + cuda_gated.ROW_FLOATS * 8),
+                              f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  at {PHILOX_PATHS} paths x 3 rows: kernel {gs_ms:.3f} ms, bound "
+        f"{gs_bound['bound_ms']:.3f} ms {gs_bound['bound_parts']}, plain {gs_plain_ms:.3f} ms")
+    log(f"  work per path and row: trades {[round(x / PHILOX_PATHS, 4) for x in gs_trades]}, "
+        f"bars held {[round(x / PHILOX_PATHS, 4) for x in gs_held]}")
+    log(f"  row fold (3 x {g_sw_rows[0].shape[1]} rows): kernel {gs_red_ms:.4f} ms, plain "
+        f"{gs_red_plain_ms:.4f} ms, bound {gs_red_bound['bound_ms']:.4f} ms")
+    gs_cli_paths = 1 << 26
+    log(f"[13] main path: cli sweep --gated --backend cuda --num-paths {gs_cli_paths} "
+        "--touch-limits 2 4 (18 rows)")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "sweep", "--gated", "--backend",
+                "cuda", "--num-paths", str(gs_cli_paths), "--num-bars", str(NUM_BARS),
+                "--sigma", str(SIGMA), "--touch-limits", "2", "4"]
+        gs_out, gs_secs, gs_launches = run_cli(
+            cli, argv, reset_all, {"mc_gated_sweep": 4, "mc_gated_sweep_reduce_rows": 4},
+            n_paths=gs_cli_paths)
+    check_sweep_output(gs_out, [(sp, tp, tl) for sp, tp in grid9 for tl in (2, 4)],
+                       ["stop_padding", "tp_padding", "hit_rate", "mean_r", "touch_limit",
+                        "mean_trades", "mean_dd"])
+    gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in grid9
+                                                                 for tl in (2, 4)])
+    gs_main_ms = cuda_ms(lambda: run_gs(gs_cli_paths, [r[0] for r in grid9 for _ in (2, 4)],
+                                        [r[1] for r in grid9 for _ in (2, 4)], gate18), 1)
+    log(f"  kernel alone on the CLI's grid ({gs_cli_paths} paths x 18 rows): "
+        f"{gs_main_ms:.3f} ms")
+
+    # ---- phase 14: engine sweep (kernel #9)
+    e_cfgs = [EngineParams.default(),
+              EngineParams.default(stop_padding=0.20, tp_padding=0.40),
+              EngineParams.default(q_min_prob=0.40, enable_veto=False),
+              EngineParams.default(overtouch_limit=2, cooldown_s=180.0)]
+    e_grid = stack_params(e_cfgs)
+    n_einj = SWEEP_INJECT_BLOCKS * 8 * ENGINE_LANES
+    log(f"[14] engine sweep, injected uniforms: kernel vs plain (plain on CPU copies), "
+        f"{n_einj} paths x the 4 configurations of tests/test_pallas_engine.py:320-325")
+    rng = np.random.default_rng(500)
+    u = torch.from_numpy(rng.uniform(
+        1e-6, 1.0, (SWEEP_INJECT_BLOCKS, EngineLayout(NUM_BARS).u_rows, 8,
+                    ENGINE_LANES)).astype(np.float32))
+    kw = dict(ecommon, sigma=SIGMA, num_paths=n_einj)
+    want = cuda_engine.engine_sweep_totals_reference(0, e_levels, e_grid, external_uniforms=u,
+                                                     per_path=True, **kw)
+    pc, pf, rows = cuda_engine.engine_sweep_rows(0, e_levels, e_grid, device=dev,
+                                                 external_uniforms=u.to(dev),
+                                                 per_path=True, **kw)
+    ec, ef = cuda_engine.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    es_err = 0.0
+    for g in range(4):
+        err, differ = compare_lifecycle(f"row {g}", (want[0][g], want[1][g], want[2][g]),
+                                        (ec[g], ef[g], rows[g]), n_einj, engine=True)
+        es_err = max(es_err, err)
+        trace_engine_flips(f"row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(), e_levels,
+                           e_cfgs[g], {}, SIGMA, None, False, dev)
+    # [G] noise stds: the main path's rows (`--jitter-stds 0 0.02`) and a slip row
+    e_noise = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.02]),
+                      entry_slip_std=torch.tensor([0.0, 0.0, 0.01]),
+                      stop_slip_std=torch.tensor([0.0, 0.0, 0.015]),
+                      target_slip_std=torch.tensor([0.0, 0.0, 0.015]))
+    log(f"  injected uniforms with [G] noise stds, {n_einj} paths x 3 rows (level "
+        "jitter 0 and 0.02, as `--jitter-stds 0 0.02`; jitter 0.02 with slips)")
+    u = torch.from_numpy(rng.uniform(
+        1e-6, 1.0, (SWEEP_INJECT_BLOCKS, EngineLayout(NUM_BARS, True).u_rows, 8,
+                    ENGINE_LANES)).astype(np.float32))
+    kw = dict(ecommon, sigma=SIGMA, num_paths=n_einj, n_grid=3, noise=e_noise)
+    want = cuda_engine.engine_sweep_totals_reference(0, e_levels, params, external_uniforms=u,
+                                                     per_path=True, **kw)
+    pc, pf, rows = cuda_engine.engine_sweep_rows(0, e_levels, params, device=dev,
+                                                 external_uniforms=u.to(dev),
+                                                 per_path=True, **kw)
+    ec, ef = cuda_engine.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    for g in range(3):
+        err, differ = compare_lifecycle(f"noise row {g}", (want[0][g], want[1][g], want[2][g]),
+                                        (ec[g], ef[g], rows[g]), n_einj, engine=True)
+        es_err = max(es_err, err)
+        trace_engine_flips(f"noise row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(),
+                           e_levels, params, {}, SIGMA, grid_row(e_noise, g), False, dev)
+    log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs: each row vs the "
+        "one-row launch (engine_rows) bit for bit (the four configurations, then the "
+        "three noise rows)")
+    kw = dict(ecommon, sigma=SIGMA, external_uniforms=None)
+    for grid, n_grid, nz, singles in (
+            (e_grid, None, None, [(c, None) for c in e_cfgs]),
+            (params, 3, e_noise, [(params, grid_row(e_noise, g)) for g in range(3)])):
+        es_rows = cuda_engine.engine_sweep_rows(0, cli_levels, grid, n_grid=n_grid, noise=nz,
+                                                device=dev, per_path=True,
+                                                **dict(kw, num_paths=PHILOX_PATHS))
+        for g, (p_g, nz_g) in enumerate(singles):
+            one = cuda_engine.engine_rows(0, cli_levels, p_g, noise=nz_g, device=dev,
+                                          per_path=True, **dict(kw, num_paths=PHILOX_PATHS))
+            if not all(torch.equal(a, b[g]) for a, b in zip(one, es_rows)):
+                raise AssertionError(f"engine sweep row {g} (noise {nz_g}) differs from "
+                                     "the one-row launch")
+    log("  every row equals the one-row launch bit for bit (partial rows, per-path rows "
+        "with their skip counts)")
+    es_paths = 1 << 20
+    log(f"  kernel vs plain, both on the card, path by path at {es_paths} paths x 4 rows, "
+        "then x the 3 noise rows")
+    t0 = time.perf_counter()
+    want = cuda_engine.engine_sweep_totals_reference(
+        0, cli_levels, e_grid, device=dev, chunk_blocks=512, per_path=True,
+        **dict(kw, num_paths=es_paths))
+    torch.cuda.synchronize()
+    es_plain_ms = (time.perf_counter() - t0) * 1e3
+    pc, pf, rows = cuda_engine.engine_sweep_rows(0, cli_levels, e_grid, device=dev,
+                                                 per_path=True, **dict(kw, num_paths=es_paths))
+    ec, ef = cuda_engine.reduce_rows(pc, pf)
+    nkw = dict(kw, num_paths=es_paths, n_grid=3, noise=e_noise)
+    n_want = cuda_engine.engine_sweep_totals_reference(
+        0, cli_levels, params, device=dev, chunk_blocks=512, per_path=True, **nkw)
+    n_pc, n_pf, n_rows = cuda_engine.engine_sweep_rows(0, cli_levels, params, device=dev,
+                                                       per_path=True, **nkw)
+    n_ec, n_ef = cuda_engine.reduce_rows(n_pc, n_pf)
+    for name, w, got in (("card row", want, (ec, ef, rows)),
+                         ("card noise row", n_want, (n_ec, n_ef, n_rows))):
+        for g in range(w[0].shape[0]):
+            err, differ = compare_lifecycle(f"{name} {g}", (w[0][g], w[1][g], w[2][g]),
+                                            (got[0][g], got[1][g], got[2][g]), es_paths,
+                                            engine=True)
+            es_err = max(es_err, err)
+            if bool(differ.any()):
+                raise AssertionError(f"{name} {g}: the kernel and the plain version on the "
+                                     "card differ")
+    es_red_err = check_fold("mc_engine_sweep_reduce_rows",
+                            cuda_engine.reduce_rows_reference(pc, pf), (ec, ef))
+    log(f"  mc_engine_sweep_reduce_rows: counts exact, float max abs err {es_red_err:.3e}")
+    es_counts = want[0].cpu()
+
+    def run_es(n=es_paths, grid=e_grid, noise=None):
+        return cuda_engine.engine_sweep_rows(0, cli_levels, grid, device=dev, noise=noise,
+                                             **dict(kw, num_paths=n))
+
+    run_es()
+    es_ms = cuda_ms(run_es, 3)
+    e_sw_rows = run_es()
+    es_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(*e_sw_rows), 20)
+    es_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*e_sw_rows), 20)
+    es_row_bytes = e_sw_rows[0].numel() * 8 + e_sw_rows[1].numel() * 4
+    es_bound = card.bound(bytes_=es_row_bytes, **engine_sweep_ops(es_paths, es_counts, 1.0))
+    es_red_bound = card.bound(bytes_=es_row_bytes + 4 * (cuda_engine.ROW_COUNTS * 8
+                                                         + cuda_engine.ROW_FLOATS * 8),
+                              f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  at {es_paths} paths x 4 rows: kernel {es_ms:.3f} ms, bound "
+        f"{es_bound['bound_ms']:.3f} ms {es_bound['bound_parts']}, plain {es_plain_ms:.3f} ms")
+    log(f"  row fold (4 x {e_sw_rows[0].shape[1]} rows): kernel {es_red_ms:.4f} ms, plain "
+        f"{es_red_plain_ms:.4f} ms, bound {es_red_bound['bound_ms']:.4f} ms")
+    es_cli_paths = 1 << 24
+    log(f"[14] main path: cli sweep --engine --backend cuda --num-paths {es_cli_paths} "
+        "--jitter-stds 0 0.02 (18 rows)")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "sweep", "--engine", "--backend",
+                "cuda", "--num-paths", str(es_cli_paths), "--num-bars", str(NUM_BARS),
+                "--sigma", str(SIGMA), "--jitter-stds", "0", "0.02"]
+        es_out, es_secs, es_launches = run_cli(
+            cli, argv, reset_all, {"mc_engine_sweep": 4, "mc_engine_sweep_reduce_rows": 4},
+            n_paths=es_cli_paths)
+    check_sweep_output(es_out, [(sp, tp, j) for sp, tp in grid9 for j in (0.0, 0.02)],
+                       ["stop_padding", "tp_padding", "hit_rate", "mean_r", "mean_trades",
+                        "mean_dd", "escalations", "level_jitter_std"])
+    if not all(o["escalations"] > 0 for o in es_out):
+        raise AssertionError("a row of the engine sweep took no escalation")
+    jit18 = torch.tensor([j for _ in grid9 for j in (0.0, 0.02)])
+    grid18_e = params.replace(stop_padding=[r[0] for r in grid9 for _ in (0, 1)],
+                              tp_padding=[r[1] for r in grid9 for _ in (0, 1)])
+    noise18 = McNoise(level_jitter_std=jit18, entry_slip_std=torch.zeros(18),
+                      stop_slip_std=torch.zeros(18), target_slip_std=torch.zeros(18))
+    es_cli_ms = cuda_ms(lambda: run_es(es_cli_paths, grid18_e, noise18), 1)
+    log(f"  kernel alone on the CLI's grid ({es_cli_paths} paths x 18 rows, with noise): "
+        f"{es_cli_ms:.3f} ms")
+    grid9_e = params.replace(stop_padding=[r[0] for r in grid9], tp_padding=[r[1] for r in grid9])
+    es9_counts = cuda_engine.engine_sweep_totals_reference(
+        0, cli_levels, grid9_e, device=dev, chunk_blocks=512,
+        **dict(kw, num_paths=1 << 18))[0].cpu()
+    es_big = 1 << 26
+    es_main_ms = cuda_ms(lambda: run_es(es_big, grid9_e), 1)
+    es_main_bound = card.bound(bytes_=es_row_bytes,
+                               **engine_sweep_ops(es_big, es9_counts, es_big / (1 << 18)))
+    log(f"  kernel alone at {es_big} paths x 9 rows: {es_main_ms:.3f} ms "
+        f"({es_big * 9 / es_main_ms * 1e3:.6e} paths x rows/s), bound "
+        f"{es_main_bound['bound_ms']:.3f} ms {es_main_bound['bound_parts']}")
 
     def entry(name, source, replaces, launches, err, ms, plain, bound, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -966,6 +1464,27 @@ def main() -> int:
         entry("mc_engine_reduce_rows", ENGINE_SOURCE, ENGINE_REPLACES,
               e_launches["mc_engine_reduce_rows"], engine_red_err, e_red_ms,
               e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[0])),
+        entry("mc_sweep", FC_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep"], sw_err, sw_ms,
+              sw_plain_ms, sw_bound_plain, paths=PLAIN_PATHS, grid_rows=3,
+              config5_ms=c5_ms, config5_bound_ms=c5_bound["bound_ms"],
+              cli_kernel_ms=sw_main_ms, cli_s=sw_secs[1:]),
+        entry("mc_sweep_reduce_rows", FC_SOURCE, SWEEP_REPLACES,
+              sw_launches["mc_sweep_reduce_rows"], sw_red_err, sw_red_ms, sw_red_plain_ms,
+              sw_red_bound, rows=int(sw_rows[0].shape[1]), grid_rows=3),
+        entry("mc_gated_sweep", GATED_SOURCE, GATED_SWEEP_REPLACES,
+              gs_launches["mc_gated_sweep"], gs_err, gs_ms, gs_plain_ms, gs_bound,
+              paths=PHILOX_PATHS, grid_rows=3, cli_kernel_ms=gs_main_ms, cli_s=gs_secs[1:]),
+        entry("mc_gated_sweep_reduce_rows", GATED_SOURCE, GATED_SWEEP_REPLACES,
+              gs_launches["mc_gated_sweep_reduce_rows"], gs_red_err, gs_red_ms,
+              gs_red_plain_ms, gs_red_bound, rows=int(g_sw_rows[0].shape[1]), grid_rows=3),
+        entry("mc_engine_sweep", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
+              es_launches["mc_engine_sweep"], es_err, es_ms, es_plain_ms, es_bound,
+              paths=es_paths, grid_rows=4, main_path_ms=es_main_ms,
+              main_path_bound_ms=es_main_bound["bound_ms"], cli_kernel_ms=es_cli_ms,
+              cli_s=es_secs[1:]),
+        entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
+              es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
+              es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """Command-line interface of the port.
 
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/host/cli.py`` for the
-subcommand the port carries so far:
+subcommands the port carries so far:
 
   paths   — generated-path Monte Carlo at scale (gbm sampler): first-contact
             replay, with ``--gated`` the engine-gated multi-trade lifecycle,
             with ``--engine`` the full 12-gate engine
+  sweep   — the same three over a grid of settings (stop x tp, with
+            ``--gated`` x touch limit x Q_MIN_PROB, with ``--engine`` x
+            level-jitter std) under common random numbers: every row
+            replays the same simulated paths; one JSON line per row
 
 ``--device`` (default ``cuda``) says where it runs; without a GPU the CLI
 exits unless ``--device cpu`` is given.  ``--backend cuda`` runs the fused
@@ -21,6 +25,7 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --engine --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --gated --backend cuda
 """
 
 from __future__ import annotations
@@ -60,8 +65,10 @@ def _levels_and_params(conn, args):
 
 
 def _not_ported(args) -> None:
-    for flag, on in (("--exact-tail", args.exact_tail),
-                     ("--ckpt-dir", args.ckpt_dir is not None),
+    for flag, on in (("--exact-tail", getattr(args, "exact_tail", False)),
+                     ("--ckpt-dir", getattr(args, "ckpt_dir", None) is not None),
+                     ("--bars-csv", getattr(args, "bars_csv", None) is not None),
+                     ("--block-len", getattr(args, "block_len", None) is not None),
                      (f"--sampler {args.sampler}", args.sampler != "gbm")):
         if on:
             raise SystemExit(
@@ -70,10 +77,14 @@ def _not_ported(args) -> None:
 
 
 def _fits(args, rows) -> str | None:
-    """None when the shape fits the path's CUDA kernel, else what it needs."""
+    """None when the shape fits the path's CUDA kernel (``paths`` or
+    ``sweep``), else what it needs."""
     from ..ops import cuda_engine, cuda_gated, cuda_mc
+    from ..ops.kernel_args import MAX_GRID_ROWS
     from ..ops.regular import GUARD_WINDOW_BARS
 
+    if getattr(args, "cmd", None) == "sweep" and len(_grid(args)) > MAX_GRID_ROWS:
+        return f"at most {MAX_GRID_ROWS} grid rows"
     if len(rows) > cuda_mc.MAX_LEVELS:
         return f"at most {cuda_mc.MAX_LEVELS} levels"
     if args.num_bars <= 0 or args.num_bars % 2:
@@ -87,8 +98,9 @@ def _fits(args, rows) -> str | None:
         block = cuda_gated.GATED_SUB * cuda_gated.GATED_LANES
         if args.num_paths % block:
             return f"--num-paths a multiple of {block}"
-    elif args.num_bars > cuda_mc.MAX_KERNEL_BARS:
-        return f"--num-bars <= {cuda_mc.MAX_KERNEL_BARS}"
+    elif args.num_bars > cuda_mc.MAX_KERNEL_BARS or args.num_paths % cuda_mc.SINGLE_LANES:
+        return (f"--num-bars <= {cuda_mc.MAX_KERNEL_BARS} and --num-paths a multiple "
+                f"of {cuda_mc.SINGLE_LANES}")
     return None
 
 
@@ -181,6 +193,136 @@ def cmd_paths(args):
     return 0
 
 
+def _grid(args) -> list[tuple]:
+    """The sweep's rows in the JAX CLI's order: (stop, tp, touch limit, q_min)
+    for the first-contact and gated forms (None where an axis is not given),
+    (stop, tp, level-jitter std) for the engine."""
+    import itertools
+
+    if args.engine:
+        return list(itertools.product(args.stops, args.tps, args.jitter_stds or [None]))
+    gate_axes = ((args.touch_limits or [None]), (args.qmins or [None])) if args.gated \
+        else ([None], [None])
+    return list(itertools.product(args.stops, args.tps, *gate_axes))
+
+
+def _sweep_engine(args, backend, levels, params, combos):
+    """(stop, tp[, level-jitter std]) rows over the full engine: one kernel
+    launch for the grid (``--backend cuda``), or per-row pipeline runs at
+    the same seed (identical paths, exact CRN), as the JAX CLI runs it on the
+    CPU.  With ``--jitter-stds`` every row scales the same per-entry noise
+    normals by its own level-jitter std."""
+    import torch
+
+    from ..ops.kernel_args import grid_row
+    from ..sim import enginepath
+    from ..sim.montecarlo import McNoise
+    from ..sim.pathsim import PathStats
+
+    grid = params.replace(stop_padding=[c[0] for c in combos],
+                          tp_padding=[c[1] for c in combos])
+    noise = None
+    if args.jitter_stds is not None:
+        jit = torch.tensor([c[2] for c in combos], dtype=torch.float32)
+        noise = McNoise(level_jitter_std=jit,
+                        entry_slip_std=torch.full_like(jit, args.entry_slip_std),
+                        stop_slip_std=torch.full_like(jit, args.stop_slip_std),
+                        target_slip_std=torch.full_like(jit, args.target_slip_std))
+    common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
+                  sigma=args.sigma, device=args.device)
+    if backend == "cuda":
+        from ..ops.cuda_engine import mc_paths_engine_sweep_fused
+
+        stats, _skips, escal = mc_paths_engine_sweep_fused(
+            args.seed, levels, grid, noise=noise, **common)
+        return stats, escal.tolist()
+    per = [enginepath.mc_paths_engine(
+        args.seed, levels, grid_row(grid, g), noise=grid_row(noise, g),
+        block_paths=min(args.num_paths, 1 << 13), **common) for g in range(len(combos))]
+    return PathStats.stack([p[0] for p in per]), [int(p[2]) for p in per]
+
+
+def cmd_sweep(args):
+    from ..parallel import sweep as PS
+    from ..sim.gatedpath import GateConfig
+    from ..types import Levels
+
+    if not args.gated and (args.touch_limits or args.qmins):
+        raise SystemExit("--touch-limits/--qmins require --gated")
+    _not_ported(args)
+    conn = _connect(args)
+    try:
+        rows, levels, params = _levels_and_params(conn, args)
+    finally:
+        conn.close()
+    backend = _backend(args, rows)
+    if backend == "cuda":
+        from ..ops.cuda_mc import MAX_LEVELS
+
+        levels = Levels.from_rows(rows, max_levels=MAX_LEVELS)
+    combos = _grid(args)
+    common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
+                  sigma=args.sigma, device=args.device)
+    block = dict(block_paths=min(args.num_paths, 1 << 14))
+    escal = None
+    if args.engine:
+        stats, escal = _sweep_engine(args, backend, levels, params, combos)
+    elif args.gated:
+        # --qmin sets the base gate (GateConfig.from_params); --touch-limits
+        # and --qmins put gate knobs on the grid axis
+        grid, gate_g = PS.grid_params_gated(
+            params, GateConfig.from_params(params), stop_paddings=args.stops,
+            tp_paddings=args.tps, touch_limits=args.touch_limits,
+            q_min_probs=args.qmins)
+        if backend == "cuda":
+            from ..ops.cuda_gated import mc_paths_gated_sweep_fused
+
+            stats = mc_paths_gated_sweep_fused(args.seed, levels, params, grid.stop_padding,
+                                               grid.tp_padding, gate_g, **common)
+        else:
+            stats = PS.sweep_paths_gated(args.seed, levels, grid, gate=gate_g,
+                                         **common, **block)
+    else:
+        grid = PS.grid_params(params, stop_paddings=args.stops, tp_paddings=args.tps)
+        if backend == "cuda":
+            from ..ops.cuda_mc import mc_paths_sweep_fused
+
+            stats = mc_paths_sweep_fused(args.seed, levels, params, grid.stop_padding,
+                                         grid.tp_padding, **common)
+        else:
+            stats = PS.sweep_paths(args.seed, levels, grid, **common, **block)
+    for g, combo in enumerate(combos):
+        row = {"stop_padding": combo[0], "tp_padding": combo[1],
+               "hit_rate": float(stats.hit_rate[g]), "mean_r": float(stats.mean_r[g])}
+        if args.engine:
+            row.update({"mean_trades": float(stats.mean_trades[g]),
+                        "mean_dd": float(stats.mean_dd[g]), "escalations": int(escal[g])})
+            if combo[2] is not None:
+                row["level_jitter_std"] = combo[2]
+        else:
+            if combo[2] is not None:
+                row["touch_limit"] = combo[2]
+            if combo[3] is not None:
+                row["q_min_prob"] = combo[3]
+            if args.gated:
+                row.update({"mean_trades": float(stats.mean_trades[g]),
+                            "mean_dd": float(stats.mean_dd[g])})
+        print(json.dumps(row))
+    return 0
+
+
+def _device_flags(parser) -> None:
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where to run; without a GPU, pass --device cpu")
+    parser.add_argument("--backend", choices=["auto", "torch", "cuda"],
+                        default="auto",
+                        help="cuda = the fused CUDA kernel (<=8 levels, even bars; "
+                             "--engine: <=61 bars); torch = "
+                             "the streamed PyTorch pipeline on --device; auto = "
+                             "the kernel on a CUDA device when the shape fits, "
+                             "else the pipeline")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="qmmx-torch",
@@ -200,15 +342,7 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--sampler",
                     choices=["gbm", "bootstrap", "block_bootstrap", "heston"],
                     default="gbm", help="path sampler (only gbm is ported)")
-    pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where to run; without a GPU, pass --device cpu")
-    pa.add_argument("--backend", choices=["auto", "torch", "cuda"],
-                    default="auto",
-                    help="cuda = the fused CUDA kernel (<=8 levels, even bars; "
-                         "--engine: <=61 bars); torch = "
-                         "the streamed PyTorch pipeline on --device; auto = "
-                         "the kernel on a CUDA device when the shape fits, "
-                         "else the pipeline")
+    _device_flags(pa)
     pa.add_argument("--gated", action="store_true",
                     help="run the engine-gated multi-trade lifecycle per path "
                          "(cooldown/touch-budget/confidence gates, per-path "
@@ -226,6 +360,40 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--exact-tail", action="store_true", help="not ported yet")
     pa.add_argument("--ckpt-dir", default=None, help="not ported yet")
     pa.set_defaults(fn=cmd_paths)
+
+    sw = sub.add_parser("sweep")
+    sw.add_argument("--num-paths", type=int, default=1 << 18)
+    sw.add_argument("--num-bars", type=int, default=40)
+    sw.add_argument("--s0", type=float, default=100.0)
+    sw.add_argument("--sigma", type=float, default=0.3)
+    sw.add_argument("--seed", type=int, default=0)
+    sw.add_argument("--stops", type=float, nargs="+", default=[0.25, 0.35, 0.45])
+    sw.add_argument("--tps", type=float, nargs="+", default=[0.15, 0.25, 0.35])
+    sw.add_argument("--qmin", type=float, default=None)
+    sw.add_argument("--gated", action="store_true",
+                    help="sweep the engine-gated multi-trade lifecycle "
+                         "(CRN: every config replays the same paths)")
+    sw.add_argument("--touch-limits", type=int, nargs="+", default=None,
+                    help="gated only: put LEVEL_OVERTOUCHED budgets on the "
+                         "grid axis (cartesian with stops/tps/qmins)")
+    sw.add_argument("--qmins", type=float, nargs="+", default=None,
+                    help="gated only: put Q_MIN_PROB values on the grid axis")
+    sw.add_argument("--engine", action="store_true",
+                    help="sweep the FULL 12-gate engine lifecycle (CRN; one "
+                         "kernel launch for the grid with --backend cuda)")
+    sw.add_argument("--sampler", choices=["gbm", "bootstrap", "block_bootstrap"],
+                    default="gbm", help="path sampler (only gbm is ported)")
+    sw.add_argument("--bars-csv", default=None, help="not ported yet")
+    sw.add_argument("--block-len", type=int, default=None, help="not ported yet")
+    sw.add_argument("--jitter-stds", type=float, nargs="+", default=None,
+                    help="engine only: put level-jitter stds on the grid axis "
+                         "(cartesian with stops/tps); every row replays the "
+                         "same noise normals scaled by its std")
+    sw.add_argument("--entry-slip-std", type=float, default=0.0)
+    sw.add_argument("--stop-slip-std", type=float, default=0.0)
+    sw.add_argument("--target-slip-std", type=float, default=0.0)
+    _device_flags(sw)
+    sw.set_defaults(fn=cmd_sweep)
     return p
 
 

@@ -60,15 +60,20 @@ __device__ __forceinline__ T warp_count(T v) {
 }
 
 // Second pass of the lifecycle kernels (gated, engine): fold the partial rows
-// in row order (one CTA of 256 threads).  Thread t owns count column t;
-// threads 0-5 own the float columns [sum_eq, sum_eq2, sum_dd, min_eq, max_eq,
-// max_dd] and accumulate them in float64 (sums, then min, max, max; the
-// empty min/max sentinel is the kernels' +-3.4e38).
+// in row order, one CTA of 256 threads for each segment of ``rows`` rows (one
+// segment for a single run, one per grid row for a sweep).  Thread t owns
+// count column t; threads 0-5 own the float columns [sum_eq, sum_eq2, sum_dd,
+// min_eq, max_eq, max_dd] and accumulate them in float64 (sums, then min,
+// max, max; the empty min/max sentinel is the kernels' +-3.4e38).
 template <int ROW_COUNTS>
 __global__ void __launch_bounds__(256)
 fold_lifecycle_rows(const long long* __restrict__ part_counts,
                     const float* __restrict__ part_floats, int rows,
                     long long* __restrict__ tot_counts, double* __restrict__ tot_floats) {
+    part_counts += (long long)blockIdx.x * rows * ROW_COUNTS;
+    part_floats += (long long)blockIdx.x * rows * 6;
+    tot_counts += (long long)blockIdx.x * ROW_COUNTS;
+    tot_floats += (long long)blockIdx.x * 6;
     for (int col = threadIdx.x; col < ROW_COUNTS; col += blockDim.x) {
         long long s = 0;
         for (int r = 0; r < rows; ++r) s += part_counts[(long long)r * ROW_COUNTS + col];

@@ -47,6 +47,10 @@
 // bar that enters; every Philox call's four words are used (a thread keeps
 // the last call's words, and ten rows a step straddle calls); the Philox
 // call and the bar step are called functions, not inlined.
+// Each CTA copies its EngineArgs into shared memory and hands the bar step a
+// reference to that copy: a reference to the kernel parameter itself makes
+// every thread copy the struct into its stack frame (1072 bytes against
+// 624), which cost 28% of the kernel's time at 2^28 paths on the H100.
 //
 // Numerics: logf, sqrtf, sincosf and expf -- never the fast-math intrinsics
 // or nvcc's fast-math flag.  The build passes -fmad=false, so a*b+c rounds
@@ -62,6 +66,21 @@
 // fixed path-to-thread map, warp-shuffle trees for the float sums and a
 // second kernel that folds the partial rows in row order.  Counts, the skip
 // table and escalations are integers from the thread to the int64 totals.
+//
+// mc_engine_sweep_kernel replaces the TPU kernel pallas_engine.py
+// _engine_sweep_kernel: the full engine re-run for each of G knob rows (the
+// 17 engine knobs of _pack_eng and the four noise stds; the ML model, policy,
+// touch and guard settings shared), every row on the same uniforms (common
+// random numbers).  What bounds it: G times what bounds one configuration,
+// since the TPU kernel's design regenerates the bars for every row.  Design:
+// a grid of (CTAs x G), blockIdx.y the row; a CTA copies its row's
+// EngineArgs (packed on the host, the per-row derived values included) into
+// shared memory and runs the per-path loop (engine_block, bar_step) on it.
+// The single configuration (_engine_kernel's counterpart) is the same kernel
+// at one row.  The Philox key and counters ignore the row, so row g equals
+// the one-row launch under row g's arguments bit for bit, per-path skip
+// counts included; partial rows are laid out [row][CTA] and the fold takes
+// one CTA per row.  No per-path state is added.
 
 #include "common.cuh"
 
@@ -583,11 +602,14 @@ __device__ __noinline__ void bar_step(const EngineArgs& a, EngineState<MAXL>& st
     st.prev_c = c;
 }
 
+// The paths of this CTA (blockIdx.x of gridDim.x) under arguments ``a``:
+// the engine along each, reduced to one partial row (crow, frow); per-path
+// rows at per_path[p] when per_path is not null.
 template <int MAXL>
-__global__ void __launch_bounds__(BLOCK)
-mc_engine_kernel(const EngineArgs a, const float* __restrict__ ext,
-                 long long* __restrict__ part_counts,
-                 float* __restrict__ part_floats, float* __restrict__ per_path) {
+__device__ __forceinline__ void engine_block(const EngineArgs& a, const float* __restrict__ ext,
+                                             long long* __restrict__ crow,
+                                             float* __restrict__ frow,
+                                             float* __restrict__ per_path) {
     __shared__ float s_vol[VOL_RING * BLOCK];
     __shared__ float s_close[CLOSE_RING * BLOCK];
     __shared__ unsigned long long s_counts[N_COUNTS + N_SKIPS];
@@ -709,7 +731,6 @@ mc_engine_kernel(const EngineArgs a, const float* __restrict__ ext,
         s_red[3][warp] = min_eq; s_red[4][warp] = max_eq; s_red[5][warp] = max_dd;
     }
     __syncthreads();
-    long long* crow = part_counts + (long long)blockIdx.x * ROW_COUNTS;
     if (threadIdx.x < N_COUNTS + N_SKIPS) crow[threadIdx.x] = (long long)s_counts[threadIdx.x];
     for (int i = threadIdx.x; i < HIST_BINS; i += BLOCK)
         crow[N_COUNTS + N_SKIPS + i] = (long long)s_hist[i];
@@ -720,9 +741,25 @@ mc_engine_kernel(const EngineArgs a, const float* __restrict__ ext,
             mn = fminf(mn, s_red[3][w]); mx = fmaxf(mx, s_red[4][w]);
             md = fmaxf(md, s_red[5][w]);
         }
-        float* row = part_floats + (long long)blockIdx.x * ROW_FLOATS;
-        row[0] = s0; row[1] = s1; row[2] = s2; row[3] = mn; row[4] = mx; row[5] = md;
+        frow[0] = s0; frow[1] = s1; frow[2] = s2; frow[3] = mn; frow[4] = mx; frow[5] = md;
     }
+}
+
+// Row blockIdx.y of the grid ``rows`` (one row for a single configuration):
+// partial rows [row][CTA], per-path rows [row][path].
+template <int MAXL>
+__global__ void __launch_bounds__(BLOCK)
+mc_engine_sweep_kernel(const EngineArgs* __restrict__ rows, const float* __restrict__ ext,
+                       long long* __restrict__ part_counts,
+                       float* __restrict__ part_floats, float* __restrict__ per_path) {
+    __shared__ EngineArgs s_a;
+    if (threadIdx.x == 0) s_a = rows[blockIdx.y];
+    __syncthreads();
+    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    engine_block<MAXL>(s_a, ext, part_counts + seg * ROW_COUNTS,
+                       part_floats + seg * ROW_FLOATS,
+                       per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
+                                : nullptr);
 }
 
 extern "C" {
@@ -733,22 +770,26 @@ const char* qmmx_engine_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Pass 1.  ext and per_path may be null (Philox mode; no per-path output).
-// Returns cudaGetLastError().
-int qmmx_mc_engine(const EngineArgs* a, const float* ext, long long* part_counts,
-                   float* part_floats, float* per_path, int grid, void* stream) {
-    if (a->max_levels > MAX_LEVELS || a->num_bars > 61 || (a->num_bars & 1))
+// Pass 1: the n_rows argument rows at ``rows`` (device memory), one grid row
+// per blockIdx.y.  ext and per_path may be null (Philox mode; no per-path
+// output).  Returns cudaGetLastError().
+int qmmx_mc_engine_sweep(const EngineArgs* rows, int n_rows, int max_levels, int num_bars,
+                         const float* ext, long long* part_counts, float* part_floats,
+                         float* per_path, int grid, void* stream) {
+    if (max_levels > MAX_LEVELS || num_bars > 61 || (num_bars & 1) || n_rows < 1
+            || n_rows > 65535)
         return (int)cudaErrorInvalidValue;
-    mc_engine_kernel<MAX_LEVELS><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        *a, ext, part_counts, part_floats, per_path);
+    mc_engine_sweep_kernel<MAX_LEVELS><<<dim3(grid, n_rows), BLOCK, 0, (cudaStream_t)stream>>>(
+        rows, ext, part_counts, part_floats, per_path);
     return (int)cudaGetLastError();
 }
 
-// Pass 2.  Returns cudaGetLastError().
+// Pass 2 over ``segments`` segments of ``rows`` partial rows each.  Returns
+// cudaGetLastError().
 int qmmx_mc_engine_reduce_rows(const long long* part_counts, const float* part_floats,
-                               int rows, long long* tot_counts, double* tot_floats,
-                               void* stream) {
-    fold_lifecycle_rows<ROW_COUNTS><<<1, BLOCK, 0, (cudaStream_t)stream>>>(
+                               int rows, int segments, long long* tot_counts,
+                               double* tot_floats, void* stream) {
+    fold_lifecycle_rows<ROW_COUNTS><<<segments, BLOCK, 0, (cudaStream_t)stream>>>(
         part_counts, part_floats, rows, tot_counts, tot_floats);
     return (int)cudaGetLastError();
 }

@@ -29,6 +29,24 @@
 // fixed path-to-thread map, warp-shuffle trees for the float sums and a second
 // kernel that folds the partial rows in row order.  Counts are integers from
 // the thread to the final int64 totals.
+//
+// mc_sweep_kernel replaces the TPU kernel pallas_mc.py _sweep_kernel: the
+// stop/target grid under common random numbers.  Each path's bars and its
+// first contact are computed once; the stop/target replay (with the tie coin)
+// then runs for every grid row.  What bounds it is what bounds the single
+// kernel, plus a few float32 compares per row and bar after contact.  Design:
+// one thread per path, as above, on the same draws and the same bar
+// arithmetic (contact() and bridge(), shared with bar_step); a row's state is
+// two bits (resolved, target first) of two masks, its stop and target are
+// recomputed from the level and the row's paddings on each bar (two adds),
+// and the walk ends when every row has resolved.  At the end of a path each
+// row's R is folded into that row's per-thread sums, in the order the single
+// kernel folds them, so row g's partial row (row-major [row][CTA]) equals
+// mc_first_contact_kernel's for (stop_g, tp_g) bit for bit.  The per-row
+// sums live in a per-thread array (local memory, touched once per path); a
+// launch takes at most SWEEP_ROWS rows, and the wrapper launches again for
+// more (the draws do not depend on the row, so every launch sees the same
+// paths).
 
 #include "common.cuh"
 
@@ -39,6 +57,7 @@
 #define BLOCK 256
 #define MAX_LEVELS 8
 #define BIG 3.4e38f                      // the TPU kernel's empty sentinel
+#define SWEEP_ROWS 16                    // grid rows a sweep launch takes
 
 // The host mirror of this struct is ops/cuda_mc.py:_McArgs.
 struct McArgs {
@@ -76,6 +95,71 @@ struct PathState {
     bool entered, is_long, done, target_first;
 };
 
+// The (stop, tp) rows of one sweep launch.  The host mirror of this struct is
+// ops/cuda_mc.py:_SweepGrid.
+struct SweepGrid {
+    int n_rows;
+    float stop_pad[SWEEP_ROWS], tp_pad[SWEEP_ROWS];
+};
+
+// A path against every row: the contact once, a row's state in two masks.
+struct SweepState {
+    float acc, entry, lvl;
+    bool entered, is_long;
+    unsigned done, target_first;   // bit g: row g resolved / took the target
+};
+
+// Row g's stop and target, as bar_step sets them at entry (no noise).
+__device__ __forceinline__ float row_stop(const SweepState& st, float pad) {
+    return (st.is_long ? st.lvl - pad : st.lvl + pad) + 0.f;
+}
+__device__ __forceinline__ float row_target(const SweepState& st, float pad) {
+    return (st.is_long ? st.lvl + pad : st.lvl - pad) + 0.f;
+}
+
+// The first contact at a bar's close: the nearest valid level within prox.
+// Sets entry (the close), lvl and the side; false when no level is near.
+__device__ __forceinline__ bool contact(const McArgs& a, float log_close,
+                                        float log_open, float& entry, float& lvl,
+                                        bool& is_long) {
+    const float close = expf(log_close);
+    float best_d = BIG, best_p = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_LEVELS; ++i) {
+        if (i < a.max_levels) {
+            const float d = a.level_valid[i] > 0.f
+                ? fabsf(close - a.level_price[i]) : BIG;
+            if (d < best_d) { best_d = d; best_p = a.level_price[i]; }
+        }
+    }
+    if (!(best_d <= a.prox)) return false;
+    entry = close;
+    lvl = best_p;
+    is_long = close > expf(log_open);
+    return true;
+}
+
+// Brownian-bridge high and low of bar k (for bars after the entry bar).
+__device__ __forceinline__ void bridge(const McArgs& a, const Draw& draw, int lane,
+                                       int k, float log_close, float log_open,
+                                       float sig2dt, float& high, float& low) {
+    const float d2 = (log_close - log_open) * (log_close - log_open);
+    const float mid = log_open + log_close;
+    const float two_s2 = 2.0f * sig2dt;
+    high = expf(0.5f * (mid + sqrtf(
+        d2 - two_s2 * logf(draw(a.num_bars + k, lane)))));
+    low = expf(0.5f * (mid - sqrtf(
+        d2 - two_s2 * logf(draw(2 * a.num_bars + k, lane)))));
+}
+
+// Same-bar tie: distance-weighted coin, up share for both sides.
+__device__ __forceinline__ bool tie_coin(const McArgs& a, const Draw& draw, int lane,
+                                         float high, float low, float entry) {
+    const float up = fmaxf(0.f, high - entry);
+    const float dn = fmaxf(0.f, entry - low);
+    return draw(3 * a.num_bars, lane) < up / (up + dn + 1e-9f);
+}
+
 // One bar of one path: contact search before entry, stop/target after it.
 // Not inlined, for the same reason as philox4 (common.cuh).
 __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
@@ -86,21 +170,8 @@ __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
     const float log_close = a.log_s0 + st.acc;
     const float log_open = log_close - incr;
     if (!st.entered) {
-        const float close = expf(log_close);
-        float best_d = BIG, best_p = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAX_LEVELS; ++i) {
-            if (i < a.max_levels) {
-                const float d = a.level_valid[i] > 0.f
-                    ? fabsf(close - a.level_price[i]) : BIG;
-                if (d < best_d) { best_d = d; best_p = a.level_price[i]; }
-            }
-        }
-        if (best_d <= a.prox) {
+        if (contact(a, log_close, log_open, st.entry, st.lvl, st.is_long)) {
             st.entered = true;
-            st.entry = close;
-            st.lvl = best_p;
-            st.is_long = close > expf(log_open);
             float stop_slip = 0.f, tgt_slip = 0.f;
             if (a.use_noise) {
                 const int t = 3 * a.num_bars;
@@ -121,26 +192,14 @@ __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
         }
         return;
     }
-    // Brownian-bridge extremes, only for bars after the entry bar
-    const float d2 = (log_close - log_open) * (log_close - log_open);
-    const float mid = log_open + log_close;
-    const float two_s2 = 2.0f * sig2dt;
-    const float high = expf(0.5f * (mid + sqrtf(
-        d2 - two_s2 * logf(draw(a.num_bars + k, lane)))));
-    const float low = expf(0.5f * (mid - sqrtf(
-        d2 - two_s2 * logf(draw(2 * a.num_bars + k, lane)))));
+    float high, low;
+    bridge(a, draw, lane, k, log_close, log_open, sig2dt, high, low);
     const bool stop_hit = st.is_long ? low <= st.stop : high >= st.stop;
     const bool tgt_hit = st.is_long ? high >= st.target : low <= st.target;
     if (!(stop_hit || tgt_hit)) return;
     st.done = true;
-    if (stop_hit && tgt_hit) {
-        // same-bar tie: distance-weighted coin, up share for both sides
-        const float up = fmaxf(0.f, high - st.entry);
-        const float dn = fmaxf(0.f, st.entry - low);
-        st.target_first = draw(3 * a.num_bars, lane) < up / (up + dn + 1e-9f);
-    } else {
-        st.target_first = tgt_hit;
-    }
+    st.target_first = stop_hit && tgt_hit
+        ? tie_coin(a, draw, lane, high, low, st.entry) : tgt_hit;
 }
 
 template <int MAXHALF>
@@ -240,14 +299,165 @@ mc_first_contact_kernel(const McArgs a, const float* __restrict__ ext,
     }
 }
 
-// Second pass: fold the partial rows in row order (one CTA).  Thread t owns
-// count column t (coalesced across threads); threads 0-3 own the float columns
-// and accumulate them in float64.
+// One bar of one path against every row of the grid (bar_step's arithmetic).
+__device__ __noinline__ void sweep_bar_step(const McArgs& a, const SweepGrid& gr,
+                                            const Draw& draw, SweepState& st,
+                                            int lane, int k, float z, float sig2dt) {
+    const float incr = a.drift + a.sig_dt * z;
+    st.acc = st.acc + incr;
+    const float log_close = a.log_s0 + st.acc;
+    const float log_open = log_close - incr;
+    if (!st.entered) {
+        st.entered = contact(a, log_close, log_open, st.entry, st.lvl, st.is_long);
+        return;
+    }
+    float high, low;
+    bridge(a, draw, lane, k, log_close, log_open, sig2dt, high, low);
+    int coin = -1;                       // the tie coin, drawn once a bar if needed
+    for (int g = 0; g < gr.n_rows; ++g) {
+        if ((st.done >> g) & 1u) continue;
+        const float stop = row_stop(st, gr.stop_pad[g]);
+        const float target = row_target(st, gr.tp_pad[g]);
+        const bool stop_hit = st.is_long ? low <= stop : high >= stop;
+        const bool tgt_hit = st.is_long ? high >= target : low <= target;
+        if (!(stop_hit || tgt_hit)) continue;
+        st.done |= 1u << g;
+        bool tf = tgt_hit;
+        if (stop_hit && tgt_hit) {
+            if (coin < 0) coin = tie_coin(a, draw, lane, high, low, st.entry) ? 1 : 0;
+            tf = coin == 1;
+        }
+        if (tf) st.target_first |= 1u << g;
+    }
+}
+
+template <int MAXHALF>
+__global__ void __launch_bounds__(BLOCK)
+mc_sweep_kernel(const McArgs a, const SweepGrid grid, const float* __restrict__ ext,
+                long long* __restrict__ part_counts, float* __restrict__ part_floats) {
+    __shared__ SweepGrid s_grid;
+    __shared__ unsigned s_counts[SWEEP_ROWS][ROW_COUNTS];
+    __shared__ float s_red[SWEEP_ROWS][ROW_FLOATS][BLOCK / 32];
+    const int n = grid.n_rows;
+    if (threadIdx.x == 0) s_grid = grid;
+    for (int i = threadIdx.x; i < n * ROW_COUNTS; i += BLOCK)
+        s_counts[i / ROW_COUNTS][i % ROW_COUNTS] = 0u;
+    __syncthreads();
+
+    const int half = a.num_bars >> 1;
+    const float sig2dt = a.sig_dt * a.sig_dt;
+    const unsigned all = (1u << n) - 1u;   // n <= SWEEP_ROWS
+    // per-row sums, folded path by path in the single kernel's order
+    unsigned n_paths = 0u, n_entered = 0u;
+    unsigned n_tp[SWEEP_ROWS], n_stop[SWEEP_ROWS];
+    float sum_r[SWEEP_ROWS], sum_r2[SWEEP_ROWS], min_r[SWEEP_ROWS], max_r[SWEEP_ROWS];
+    for (int g = 0; g < n; ++g) {
+        n_tp[g] = n_stop[g] = 0u;
+        sum_r[g] = sum_r2[g] = 0.f; min_r[g] = BIG; max_r[g] = -BIG;
+    }
+
+    const long long stride = (long long)gridDim.x * BLOCK;
+    for (long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
+         p < a.num_paths; p += stride) {
+        const long long blk = p / a.lanes;
+        const int lane = (int)(p - blk * a.lanes);
+        const Draw draw{ext, blk, a.lanes, a.n_rows, a.seed, a.stream};
+
+        SweepState st;
+        st.acc = 0.f; st.entry = 0.f; st.lvl = 0.f;
+        st.entered = false; st.is_long = false;
+        st.done = 0u; st.target_first = 0u;
+        float zsin[MAXHALF];
+#pragma unroll
+        for (int k = 0; k < MAXHALF; ++k) {
+            if (k >= half || st.done == all) break;
+            const float rad = sqrtf(-2.0f * logf(draw(k, lane)));
+            float sn, cs;
+            sincosf(two_pi() * draw(half + k, lane), &sn, &cs);
+            zsin[k] = rad * sn;
+            sweep_bar_step(a, s_grid, draw, st, lane, k, rad * cs, sig2dt);
+        }
+#pragma unroll
+        for (int k = 0; k < MAXHALF; ++k) {
+            if (k >= half || st.done == all) break;
+            sweep_bar_step(a, s_grid, draw, st, lane, half + k, zsin[k], sig2dt);
+        }
+
+        n_paths += 1u;
+        if (!st.entered) continue;
+        n_entered += 1u;
+        for (int g = 0; g < n; ++g) {
+            float r = 0.f;
+            if ((st.done >> g) & 1u) {
+                if ((st.target_first >> g) & 1u) {
+                    n_tp[g] += 1u;
+                    const float stop = row_stop(st, s_grid.stop_pad[g]);
+                    const float target = row_target(st, s_grid.tp_pad[g]);
+                    r = fabsf(target - st.entry) / fmaxf(fabsf(st.entry - stop), 1e-9f);
+                } else {
+                    n_stop[g] += 1u;
+                    r = -1.f;
+                }
+            }
+            sum_r[g] += r;
+            sum_r2[g] += r * r;
+            min_r[g] = fminf(min_r[g], r);
+            max_r[g] = fmaxf(max_r[g], r);
+            const int bin = min(max((int)((r - (-1.5f)) * 32.0f), 0), HIST_BINS - 1);
+            atomicAdd(&s_counts[g][N_COUNTS + bin], 1u);
+        }
+    }
+
+    const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+    const unsigned w_paths = warp_count<unsigned>(n_paths);
+    const unsigned w_entered = warp_count<unsigned>(n_entered);
+    for (int g = 0; g < n; ++g) {
+        const unsigned w_tp = warp_count<unsigned>(n_tp[g]);
+        const unsigned w_stop = warp_count<unsigned>(n_stop[g]);
+        const float s0 = warp_sum(sum_r[g]), s1 = warp_sum(sum_r2[g]);
+        const float mn = warp_min(min_r[g]), mx = warp_max(max_r[g]);
+        if (wl == 0) {
+            atomicAdd(&s_counts[g][0], w_paths);
+            atomicAdd(&s_counts[g][1], w_entered);
+            atomicAdd(&s_counts[g][2], w_tp);
+            atomicAdd(&s_counts[g][3], w_stop);
+            atomicAdd(&s_counts[g][4], w_entered - w_tp - w_stop);
+            s_red[g][0][warp] = s0; s_red[g][1][warp] = s1;
+            s_red[g][2][warp] = mn; s_red[g][3][warp] = mx;
+        }
+    }
+    __syncthreads();
+    // partial rows are laid out [row][CTA]: row g of this launch is segment g
+    for (int i = threadIdx.x; i < n * ROW_COUNTS; i += BLOCK) {
+        const int g = i / ROW_COUNTS, c = i % ROW_COUNTS;
+        part_counts[((long long)g * gridDim.x + blockIdx.x) * ROW_COUNTS + c] =
+            (long long)s_counts[g][c];
+    }
+    if (threadIdx.x < n) {
+        const int g = threadIdx.x;
+        float s0 = 0.f, s1 = 0.f, mn = BIG, mx = -BIG;
+        for (int w = 0; w < BLOCK / 32; ++w) {
+            s0 += s_red[g][0][w]; s1 += s_red[g][1][w];
+            mn = fminf(mn, s_red[g][2][w]); mx = fmaxf(mx, s_red[g][3][w]);
+        }
+        float* row = part_floats + ((long long)g * gridDim.x + blockIdx.x) * ROW_FLOATS;
+        row[0] = s0; row[1] = s1; row[2] = mn; row[3] = mx;
+    }
+}
+
+// Second pass: fold the partial rows in row order, one CTA for each segment
+// of ``rows`` rows (one segment for a single run, one per grid row for a
+// sweep).  Thread t owns count column t (coalesced across threads); threads
+// 0-3 own the float columns and accumulate them in float64.
 __global__ void __launch_bounds__(BLOCK)
 mc_reduce_rows_kernel(const long long* __restrict__ part_counts,
                       const float* __restrict__ part_floats, int rows,
                       long long* __restrict__ tot_counts,
                       double* __restrict__ tot_floats) {
+    part_counts += (long long)blockIdx.x * rows * ROW_COUNTS;
+    part_floats += (long long)blockIdx.x * rows * ROW_FLOATS;
+    tot_counts += (long long)blockIdx.x * ROW_COUNTS;
+    tot_floats += (long long)blockIdx.x * ROW_FLOATS;
     for (int col = threadIdx.x; col < ROW_COUNTS; col += BLOCK) {
         long long s = 0;
         for (int r = 0; r < rows; ++r) s += part_counts[(long long)r * ROW_COUNTS + col];
@@ -267,6 +477,8 @@ mc_reduce_rows_kernel(const long long* __restrict__ part_counts,
 extern "C" {
 
 int qmmx_mc_args_size(void) { return (int)sizeof(McArgs); }
+
+int qmmx_sweep_grid_size(void) { return (int)sizeof(SweepGrid); }
 
 const char* qmmx_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
@@ -288,11 +500,29 @@ int qmmx_mc_first_contact(const McArgs* a, const float* ext,
     return (int)cudaGetLastError();
 }
 
-// Pass 2.  Returns cudaGetLastError().
+// Sweep pass 1 over the rows of ``grid`` (at most SWEEP_ROWS): partial rows
+// [row][CTA] at part_counts / part_floats.  Returns cudaGetLastError().
+int qmmx_mc_sweep(const McArgs* a, const SweepGrid* grid, const float* ext,
+                  long long* part_counts, float* part_floats, int ctas, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (grid->n_rows < 1 || grid->n_rows > SWEEP_ROWS) return (int)cudaErrorInvalidValue;
+    const int half = a->num_bars / 2;
+    if (half <= 20) {
+        mc_sweep_kernel<20><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
+    } else if (half <= 64) {
+        mc_sweep_kernel<64><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// Pass 2 over ``segments`` segments of ``rows`` partial rows each.  Returns
+// cudaGetLastError().
 int qmmx_mc_reduce_rows(const long long* part_counts, const float* part_floats,
-                        int rows, long long* tot_counts, double* tot_floats,
-                        void* stream) {
-    mc_reduce_rows_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(
+                        int rows, int segments, long long* tot_counts,
+                        double* tot_floats, void* stream) {
+    mc_reduce_rows_kernel<<<segments, BLOCK, 0, (cudaStream_t)stream>>>(
         part_counts, part_floats, rows, tot_counts, tot_floats);
     return (int)cudaGetLastError();
 }

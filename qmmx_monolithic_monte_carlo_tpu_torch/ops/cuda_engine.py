@@ -10,12 +10,20 @@ and the closed-trade harvest are not ported yet; ``sim/enginepath`` runs the
 same engine at any horizon.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
-  ``ops/csrc/mc_engine.cu`` (pass 1: one thread per path, one partial row per
-  CTA; pass 2: a fixed-order fold of the rows) or raises.  For the CPU it
-  runs the plain version.
+  ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
+  thread per path, one partial row per CTA; pass 2: a fixed-order fold of
+  the rows) or raises.  For the CPU it runs the plain version.
 * ``engine_totals_reference`` -- the plain PyTorch version: the TPU kernel's
   double-bar streaming loop over (block, 8, lanes) tensors, driving
   ``sim.enginepath.EngineLifecycle.step``; optionally per path.
+* ``mc_paths_engine_sweep_fused`` -- the engine-knob grid sweep under common
+  random numbers, the counterpart of ``mc_paths_pallas_engine_sweep``
+  (kernel #9, ``_engine_sweep_kernel``, ``pallas_engine.py:1813-2091``): the
+  whole engine re-run for every row of EngineParams (and McNoise stds) with
+  [G] leaves on the same uniforms; row g equals ``mc_paths_engine_fused``
+  under row g's knobs, bit for bit.  A CUDA device launches
+  ``mc_engine_sweep_kernel`` (CTAs x G) and one fold of all rows, or raises;
+  the CPU runs ``engine_sweep_totals_reference``.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.EngineLayout``: injected as ``external_uniforms``
@@ -44,8 +52,9 @@ from ..utils.floats import div
 from .cuda_gated import (box_muller, gated_bar, lifecycle_totals, merge_totals,
                          reduce_rows_reference, stats_from_gated_totals)
 from .draws import ENGINE_STREAM, ENGINE_SUB, EngineLayout, engine_uniforms
-from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, f32,
-                          grid_size, knobs, level_slots)
+from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
+                          f32, fold_rows, grid_size, knob_rows, knobs, launch_pointer,
+                          level_slots)
 from .regular import GUARD_WINDOW_BARS
 
 ENGINE_LANES = 256       # logical lanes per block row (one block = 8 x lanes paths)
@@ -60,7 +69,8 @@ _SOURCE = "mc_engine"
 _F32 = torch.float32
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
-LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0}
+LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sweep": 0,
+            "mc_engine_sweep_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -241,13 +251,14 @@ def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
 
 
 def stats_from_engine_totals(counts: torch.Tensor, floats: torch.Tensor):
-    """int64 counts [n, entered, wins, losses, open, trades, escalations,
-    skips..., hist...] and float64 [sum_eq, sum_eq2, sum_dd, min_eq, max_eq,
-    max_dd] -> (float32 lifecycle PathStats, int64[16] skip table, int64
-    escalations), the triple of ``_unpack_acc_engine``."""
-    lifecycle = torch.cat([counts[:6], counts[N_COUNTS + N_SKIPS:]])
+    """int64 counts [..., n, entered, wins, losses, open, trades,
+    escalations, skips..., hist...] and float64 [..., sum_eq, sum_eq2, sum_dd,
+    min_eq, max_eq, max_dd] -> (float32 lifecycle PathStats, int64[..., 16]
+    skip table, int64 escalations), the triple of ``_unpack_acc_engine``,
+    with a leading [G] axis for a sweep's totals."""
+    lifecycle = torch.cat([counts[..., :6], counts[..., N_COUNTS + N_SKIPS:]], dim=-1)
     return (stats_from_gated_totals(lifecycle, floats),
-            counts[N_COUNTS:N_COUNTS + N_SKIPS], counts[6])
+            counts[..., N_COUNTS:N_COUNTS + N_SKIPS], counts[..., 6])
 
 
 def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
@@ -290,6 +301,49 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
     return (*tot, torch.cat(rows)) if per_path else tot
 
 
+def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=None,
+                                  policy=None, ml_model=None, touch_params=None,
+                                  guard_params=None, policy_gate_disabled=None,
+                                  escalation: bool = True, bar0_minute: int = 0,
+                                  volume_model=None, noise=None, num_paths: int,
+                                  num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
+                                  sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                                  lanes: int = ENGINE_LANES, external_uniforms=None,
+                                  device=None, chunk_blocks: int = 16,
+                                  per_path: bool = False):
+    """The plain version of the sweep: int64 [G, 151] counts and float64
+    [G, 6] floats, then f32[G, P, PATH_COLS] per-(row, path) rows when
+    ``per_path``.  Each chunk's uniforms are drawn once and every row runs
+    the whole engine on them (the TPU kernel's reseeding)."""
+    rows = knob_rows(grid_params, noise, n_grid)
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                      policy_gate_disabled, escalation, bar0_minute)
+    layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=False,
+                    external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    levels = levels.to(device)
+    cs = consts(s0, mu, sigma, dt)
+    vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
+    n_blocks = num_paths // (ENGINE_SUB * lanes)
+    tot, path_rows = [None] * len(rows), [[] for _ in rows]
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        if external_uniforms is not None:
+            u = external_uniforms[b0:b0 + nb]
+        else:
+            u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                                device=device)
+        for g, (p_g, noise_g) in enumerate(rows):
+            *part, part_rows = _chunk_engine(u, layout, levels, p_g, kw, noise_g, cs, vc,
+                                             False, per_path)
+            tot[g] = merge_totals(tot[g], part)
+            if per_path:
+                path_rows[g].append(part_rows)
+    out = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
+    return out + (torch.stack([torch.cat(r) for r in path_rows]),) if per_path else out
+
+
 # --------------------------------------------------------------------------
 # the kernel wrappers
 # --------------------------------------------------------------------------
@@ -306,11 +360,11 @@ def _library() -> ctypes.CDLL:
         lib.qmmx_engine_args_size.restype = ctypes.c_int
         lib.qmmx_engine_error_string.argtypes = [ctypes.c_int]
         lib.qmmx_engine_error_string.restype = ctypes.c_char_p
-        lib.qmmx_mc_engine.argtypes = [
-            ctypes.POINTER(_EngineArgs), vp, vp, vp, vp, ctypes.c_int, vp]
-        lib.qmmx_mc_engine.restype = ctypes.c_int
-        lib.qmmx_mc_engine_reduce_rows.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp]
-        lib.qmmx_mc_engine_reduce_rows.restype = ctypes.c_int
+        ci = ctypes.c_int
+        lib.qmmx_mc_engine_sweep.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_sweep.restype = ci
+        lib.qmmx_mc_engine_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        lib.qmmx_mc_engine_reduce_rows.restype = ci
         if lib.qmmx_engine_args_size() != ctypes.sizeof(_EngineArgs):
             raise RuntimeError("EngineArgs layout differs between "
                                "mc_engine.cu and cuda_engine._EngineArgs")
@@ -318,16 +372,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
+def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        msg = lib.qmmx_engine_error_string(rc).decode(errors="replace")
+        msg = _library().qmmx_engine_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
 def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
                num_paths, s0, mu, sigma, dt, lanes, noise, antithetic,
                volume_model) -> _EngineArgs:
-    """The kernel's arguments, every float32 computed as the plain version
+    """The kernel's arguments for one configuration (a sweep packs one per
+    row), every float32 computed as the plain version
     computes it (torch float32 on the CPU, or float64 rounded once)."""
     tp, gp, ml, pol = (kw["touch_params"], kw["guard_params"], kw["ml_model"],
                        kw["policy"])
@@ -376,6 +431,28 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
         **knobs(params, noise))
 
 
+def _launch(args, max_levels: int, num_bars: int, *, num_paths: int, ext_ptr,
+            device: torch.device, per_path: bool, what: str):
+    """One launch of ``mc_engine_sweep_kernel`` over the argument structs
+    ``args`` (one per grid row), counted in ``LAUNCHES[what]``: int64 [G,
+    grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
+    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    args_dev = device_rows(args, device)
+    g, grid = len(args), grid_size(num_paths)
+    part_counts = torch.empty((g, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((g, grid, ROW_FLOATS), dtype=_F32, device=device)
+    path_rows = (torch.empty((g, num_paths, PATH_COLS), dtype=_F32, device=device)
+                 if per_path else None)
+    rc = _library().qmmx_mc_engine_sweep(
+        args_dev.data_ptr(), g, max_levels, num_bars, ext_ptr, part_counts.data_ptr(),
+        part_floats.data_ptr(), path_rows.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
+
+
 def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 touch_params=None, guard_params=None, policy_gate_disabled=None,
                 escalation: bool = True, bar0_minute: int = 0, volume_model=None,
@@ -384,68 +461,67 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
                 per_path: bool = False):
-    """Launch pass 1 on a CUDA device: int64 [grid, 151] count rows and f32
-    [grid, 6] float rows, one row per CTA, plus the f32[P, PATH_COLS]
-    per-path rows of ``path_rows`` when ``per_path``."""
+    """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
+    [grid, 151] count rows and f32 [grid, 6] float rows, one row per CTA,
+    plus the f32[P, PATH_COLS] per-path rows of ``path_rows`` when
+    ``per_path``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
     device = torch.device("cuda" if device is None else device)
-    if device.type != "cuda":
-        raise ValueError(f"engine_rows launches the CUDA kernel; got device {device}")
-    if num_paths >= 1 << 40:
-        raise ValueError("num_paths must be below 2^40 (per-CTA uint32 histogram)")
-    ext_ptr = None
-    if external_uniforms is not None:
-        if not external_uniforms.is_cuda or not external_uniforms.is_contiguous():
-            raise ValueError("external_uniforms must be a contiguous CUDA tensor")
-        ext_ptr = external_uniforms.data_ptr()
+    ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "engine_rows")
     args = _pack_args(seed, levels, params, kw, layout, num_paths=num_paths, s0=s0,
                       mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
                       antithetic=antithetic, volume_model=volume_model)
-    grid = grid_size(num_paths)
-    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((grid, ROW_FLOATS), dtype=_F32, device=device)
-    rows = (torch.empty((num_paths, PATH_COLS), dtype=_F32, device=device)
-            if per_path else None)
-    lib = _library()
-    rc = lib.qmmx_mc_engine(ctypes.byref(args), ext_ptr, part_counts.data_ptr(),
-                            part_floats.data_ptr(),
-                            rows.data_ptr() if per_path else None, grid,
-                            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, rc, "mc_engine")
-    LAUNCHES["mc_engine"] += 1
-    return (part_counts, part_floats, rows) if per_path else (part_counts, part_floats)
+    out = _launch((_EngineArgs * 1)(args), levels.max_levels, num_bars,
+                  num_paths=num_paths, ext_ptr=ext_ptr, device=device, per_path=per_path,
+                  what="mc_engine")
+    return tuple(x[0] for x in out)
+
+
+def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=None,
+                      ml_model=None, touch_params=None, guard_params=None,
+                      policy_gate_disabled=None, escalation: bool = True,
+                      bar0_minute: int = 0, volume_model=None, noise=None,
+                      num_paths: int, num_bars: int = 40, s0: float = 100.0,
+                      mu: float = 0.0, sigma: float = 0.15,
+                      dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
+                      external_uniforms=None, device=None, per_path: bool = False):
+    """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
+    grid: int64 [G, grid, 151] and f32 [G, grid, 6] partial rows, one per
+    (grid row, CTA), plus f32[G, P, PATH_COLS] per-(row, path) rows when
+    ``per_path``."""
+    rows = knob_rows(grid_params, noise, n_grid)
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                      policy_gate_disabled, escalation, bar0_minute)
+    layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=False,
+                    external_uniforms=external_uniforms)
+    device = torch.device("cuda" if device is None else device)
+    ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
+                             "engine_sweep_rows")
+    # one argument struct per row, the per-row derived values (cooldown ms,
+    # blend weights, ...) computed per row
+    args = (_EngineArgs * len(rows))(*(
+        _pack_args(seed, levels, p_g, kw, layout, num_paths=num_paths, s0=s0, mu=mu,
+                   sigma=sigma, dt=dt, lanes=lanes, noise=noise_g, antithetic=False,
+                   volume_model=volume_model)
+        for p_g, noise_g in rows))
+    return _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+                   device=device, per_path=per_path, what="mc_engine_sweep")
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
-    """Pass 2: partial rows -> (int64 [151] counts, float64 [6] floats).  CUDA
-    tensors go through the kernel, CPU tensors through the plain version."""
+    """Pass 2: partial rows [R, ...] -> (int64 [151] counts, float64 [6]
+    floats), or a sweep's [G, R, ...] -> ([G, 151], [G, 6]) in one launch, one
+    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
-    if (part_counts.device != part_floats.device
-            or part_counts.device.type != "cuda"):
-        raise ValueError("part_counts and part_floats must lie on one CUDA device")
-    rows = part_counts.shape[0]
-    if (part_counts.dtype != torch.int64 or part_floats.dtype != _F32
-            or tuple(part_counts.shape) != (rows, ROW_COUNTS)
-            or tuple(part_floats.shape) != (rows, ROW_FLOATS)
-            or not part_counts.is_contiguous() or not part_floats.is_contiguous()):
-        raise ValueError(f"partial rows must be contiguous int64 [R, {ROW_COUNTS}] "
-                         f"and float32 [R, {ROW_FLOATS}]")
-    dev = part_counts.device
-    tot_counts = torch.empty((ROW_COUNTS,), dtype=torch.int64, device=dev)
-    tot_floats = torch.empty((ROW_FLOATS,), dtype=torch.float64, device=dev)
-    lib = _library()
-    rc = lib.qmmx_mc_engine_reduce_rows(part_counts.data_ptr(), part_floats.data_ptr(),
-                                        rows, tot_counts.data_ptr(),
-                                        tot_floats.data_ptr(),
-                                        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "mc_engine_reduce_rows")
-    LAUNCHES["mc_engine_reduce_rows"] += 1
-    return tot_counts, tot_floats
+    return fold_rows(_library().qmmx_mc_engine_reduce_rows, _raise_on, part_counts,
+                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_engine", LAUNCHES)
 
 
 def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
@@ -482,4 +558,40 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
         return stats_from_engine_totals(*engine_totals_reference(
             seed, levels, params, device=device, **kw))
     rows = engine_rows(seed, levels, params, device=device, **kw)
+    return stats_from_engine_totals(*reduce_rows(*rows))
+
+
+def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=None,
+                                policy=None, ml_model=None, touch_params=None,
+                                guard_params=None, policy_gate_disabled=None,
+                                noise=None, escalation: bool = True,
+                                bar0_minute: int = 0, volume_model=None,
+                                num_paths: int, num_bars: int = 40, s0: float = 100.0,
+                                mu: float = 0.0, sigma: float = 0.15,
+                                dt: float = 1.0 / (390.0 * 252.0),
+                                lanes: int = ENGINE_LANES, external_uniforms=None,
+                                device=None):
+    """Fused engine-knob grid sweep, the counterpart of
+    ``mc_paths_pallas_engine_sweep`` (gbm): ``grid_params`` (EngineParams
+    whose leaves are [G] vectors or shared scalars) and ``noise`` (McNoise,
+    scalar or [G] stds) give G rows, every row on the same uniforms (CRN).
+    Returns ([G] PathStats, int64 [G, 16] skip tables, int64 [G]
+    escalations); row g equals ``mc_paths_engine_fused`` under row g's knobs
+    at the same seed, bit for bit.  ``device`` as in
+    ``mc_paths_engine_fused``."""
+    kw = dict(n_grid=n_grid, policy=policy, ml_model=ml_model, touch_params=touch_params,
+              guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
+              escalation=escalation, bar0_minute=bar0_minute, volume_model=volume_model,
+              noise=noise, num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
+              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+    knob_rows(grid_params, noise, n_grid)
+    _check(seed, levels, engine_knobs(policy, ml_model, touch_params, guard_params,
+                                    policy_gate_disabled, escalation, bar0_minute),
+           num_paths=num_paths, num_bars=num_bars, lanes=lanes, noise=noise,
+           antithetic=False, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        return stats_from_engine_totals(*engine_sweep_totals_reference(
+            seed, levels, grid_params, device=device, **kw))
+    rows = engine_sweep_rows(seed, levels, grid_params, device=device, **kw)
     return stats_from_engine_totals(*reduce_rows(*rows))

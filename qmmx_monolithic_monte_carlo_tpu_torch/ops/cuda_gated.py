@@ -7,12 +7,20 @@ gbm sampler only; the bootstrap, block-bootstrap and Heston branches are not
 ported yet.
 
 * ``mc_paths_gated_fused`` -- the entry.  For a CUDA device it launches
-  ``ops/csrc/mc_gated.cu`` (pass 1: one thread per path, one partial row per
-  CTA; pass 2: a fixed-order fold of the rows) or raises.  For the CPU it
-  runs the plain version.
+  ``ops/csrc/mc_gated.cu`` (pass 1: the sweep kernel at one grid row, one
+  thread per path, one partial row per CTA; pass 2: a fixed-order fold of
+  the rows) or raises.  For the CPU it runs the plain version.
 * ``gated_totals_reference`` -- the plain PyTorch version: the TPU kernel's
   double-bar streaming loop over (block, 8, lanes) tensors, driving the
   ``sim.gatedpath.Lifecycle`` state machine; optionally per path.
+* ``mc_paths_gated_sweep_fused`` -- the gate-knob grid sweep under common
+  random numbers, the counterpart of ``mc_paths_pallas_gated_sweep``
+  (kernel #6, ``_gated_sweep_kernel``, ``pallas_mc.py:2163-2401``): the whole
+  lifecycle re-run for every row of (stop, tp, gate knobs, noise stds) on the
+  same uniforms; row g equals ``mc_paths_gated_fused`` under row g's knobs,
+  bit for bit.  A CUDA device launches ``mc_gated_sweep_kernel`` (CTAs x G)
+  and one fold of all rows, or raises; the CPU runs
+  ``gated_sweep_totals_reference``.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.GatedLayout``: injected as
@@ -35,8 +43,9 @@ from ..types import KIND_SOLID, Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from .draws import GATED_STREAM, GATED_SUB, GatedLayout, gated_uniforms
-from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, f32,
-                          grid_size, knobs, level_slots)
+from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
+                          f32, fold_rows, grid_rows, grid_size, knobs, launch_pointer,
+                          level_slots)
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -49,7 +58,8 @@ _BIG = 3.4e38
 _SOURCE = "mc_gated"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
-LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0}
+LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
+            "mc_gated_sweep_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -246,19 +256,20 @@ def merge_totals(a, b):
 
 
 def stats_from_gated_totals(counts: torch.Tensor, floats: torch.Tensor) -> PathStats:
-    """int64 counts [n, entered, wins, losses, open, trades, hist...] and
-    float64 [sum_eq, sum_eq2, sum_dd, min_eq, max_eq, max_dd] -> the float32
-    lifecycle PathStats (``_unpack_acc_gated``)."""
+    """int64 counts [..., n, entered, wins, losses, open, trades, hist...] and
+    float64 [..., sum_eq, sum_eq2, sum_dd, min_eq, max_eq, max_dd] -> the
+    float32 lifecycle PathStats (``_unpack_acc_gated``), with a leading [G]
+    axis for a sweep's totals."""
     c = counts.to(torch.float32)
     f = floats.to(torch.float32)
-    has = c[1] > 0
+    has = c[..., 1] > 0
     inf = float("inf")
     return PathStats(
-        n=c[0], n_entered=c[1], n_tp=c[2], n_stop=c[3], n_open=c[4],
-        sum_r=f[0], sum_r2=f[1], min_r=torch.where(has, f[3], inf),
-        max_r=torch.where(has, f[4], -inf), sum_trades=c[5], sum_dd=f[2],
-        max_dd=f[5], hist=c[N_COUNTS:], hist_lo=LIFE_HIST_LO,
-        hist_hi=LIFE_HIST_HI)
+        n=c[..., 0], n_entered=c[..., 1], n_tp=c[..., 2], n_stop=c[..., 3],
+        n_open=c[..., 4], sum_r=f[..., 0], sum_r2=f[..., 1],
+        min_r=torch.where(has, f[..., 3], inf), max_r=torch.where(has, f[..., 4], -inf),
+        sum_trades=c[..., 5], sum_dd=f[..., 2], max_dd=f[..., 5],
+        hist=c[..., N_COUNTS:], hist_lo=LIFE_HIST_LO, hist_hi=LIFE_HIST_HI)
 
 
 def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
@@ -305,12 +316,59 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
     return out
 
 
+def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps,
+                                 grid_gate=None, *, num_paths: int, num_bars: int = 40,
+                                 s0: float = 100.0, mu: float = 0.0,
+                                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                                 lanes: int = GATED_LANES, noise=None,
+                                 external_uniforms=None, device=None,
+                                 chunk_blocks: int = 16, per_path: bool = False,
+                                 work: bool = False):
+    """The plain version of the sweep: int64 [G, 134] counts and float64
+    [G, 6] floats; then f32[G, P, 6] per-(row, path) rows when ``per_path``;
+    then int64 [G] held bars when ``work``.  Each chunk's uniforms are drawn
+    once and every row runs the whole lifecycle on them (the TPU kernel's
+    reseeding); ``grid_gate`` (default ``GateConfig.from_params(params)``)
+    and ``noise`` may carry [G] leaves."""
+    rows = grid_rows(params, grid_stops, grid_tps,
+                     GateConfig.from_params(params) if grid_gate is None else grid_gate, noise)
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                    noise=noise, antithetic=False, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    cs = consts(s0, mu, sigma, dt)
+    n_blocks = num_paths // (GATED_SUB * lanes)
+    tot = [None] * len(rows)
+    held = [0] * len(rows)
+    path_rows = [[] for _ in rows]
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        if external_uniforms is not None:
+            u = external_uniforms[b0:b0 + nb]
+        else:
+            u = gated_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                               device=device)
+        for g, (p_g, gate_g, noise_g) in enumerate(rows):
+            counts, floats, part_held, part_rows = _chunk_gated(
+                u, layout, levels, p_g, gate_g, noise_g, cs, False, per_path)
+            tot[g] = merge_totals(tot[g], (counts, floats))
+            held[g] = held[g] + part_held
+            if per_path:
+                path_rows[g].append(part_rows)
+    out = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
+    if per_path:
+        out += (torch.stack([torch.cat(r) for r in path_rows]),)
+    if work:
+        out += (torch.stack(held),)
+    return out
+
+
 def reduce_rows_reference(part_counts: torch.Tensor, part_floats: torch.Tensor):
-    """Plain version of the pass-2 kernel: partial rows -> totals."""
+    """Plain version of the pass-2 kernel: partial rows [..., R, C] ->
+    totals [..., C] (one segment, or one per grid row of a sweep)."""
     f = part_floats.double()
-    return part_counts.sum(dim=0), torch.stack(
-        [f[:, 0].sum(), f[:, 1].sum(), f[:, 2].sum(), f[:, 3].min(),
-         f[:, 4].max(), f[:, 5].max()])
+    return part_counts.sum(dim=-2), torch.stack(
+        [f[..., 0].sum(-1), f[..., 1].sum(-1), f[..., 2].sum(-1), f[..., 3].amin(-1),
+         f[..., 4].amax(-1), f[..., 5].amax(-1)], dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -324,16 +382,15 @@ def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures set."""
     lib = build.load(_SOURCE)
     if id(lib) not in _BOUND:
-        vp = ctypes.c_void_p
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_gated_args_size.argtypes = []
-        lib.qmmx_gated_args_size.restype = ctypes.c_int
-        lib.qmmx_gated_error_string.argtypes = [ctypes.c_int]
+        lib.qmmx_gated_args_size.restype = ci
+        lib.qmmx_gated_error_string.argtypes = [ci]
         lib.qmmx_gated_error_string.restype = ctypes.c_char_p
-        lib.qmmx_mc_gated.argtypes = [
-            ctypes.POINTER(_GatedArgs), vp, vp, vp, vp, ctypes.c_int, vp]
-        lib.qmmx_mc_gated.restype = ctypes.c_int
-        lib.qmmx_mc_gated_reduce_rows.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp]
-        lib.qmmx_mc_gated_reduce_rows.restype = ctypes.c_int
+        lib.qmmx_mc_gated_sweep.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_gated_sweep.restype = ci
+        lib.qmmx_mc_gated_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        lib.qmmx_mc_gated_reduce_rows.restype = ci
         if lib.qmmx_gated_args_size() != ctypes.sizeof(_GatedArgs):
             raise RuntimeError("GatedArgs layout differs between "
                                "mc_gated.cu and cuda_gated._GatedArgs")
@@ -341,40 +398,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
+def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        msg = lib.qmmx_gated_error_string(rc).decode(errors="replace")
+        msg = _library().qmmx_gated_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
-               num_bars: int, s0: float, mu: float, sigma: float, dt: float,
-               lanes: int, noise, antithetic: bool, external_uniforms,
-               device: torch.device, per_path: bool = False):
-    """Launch pass 1 on a CUDA device: int64 [grid, 134] count rows and f32
-    [grid, 6] float rows, one row per CTA, plus the f32[P, 6] per-path rows
-    when ``per_path``."""
-    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
-                    lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"gated_rows launches the CUDA kernel; got device {device}")
-    if num_paths >= 1 << 40:
-        raise ValueError("num_paths must be below 2^40 (per-CTA uint32 histogram)")
-    if num_bars >= 1 << 29:
-        raise ValueError("num_bars must be below 2^29")
-    gate = GateConfig.from_params(params) if gate is None else gate
-    ext_ptr = None
-    if external_uniforms is not None:
-        if not external_uniforms.is_cuda or not external_uniforms.is_contiguous():
-            raise ValueError("external_uniforms must be a contiguous CUDA tensor")
-        ext_ptr = external_uniforms.data_ptr()
+def _gated_args(seed, levels: Levels, params, gate, layout: GatedLayout, *,
+                num_paths: int, s0, mu, sigma, dt, lanes: int, noise,
+                antithetic: bool) -> _GatedArgs:
+    """The kernel's arguments for one configuration."""
     lp, lv = level_slots(levels)
     lk = levels.kind.detach().cpu().tolist()
     lk = [int(k == KIND_SOLID) for k in lk] + [0] * (MAX_LEVELS - len(lk))
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
-    args = _GatedArgs(
+    return _GatedArgs(
         num_paths=num_paths,
         level_price=(ctypes.c_float * MAX_LEVELS)(*lp),
         level_valid=(ctypes.c_float * MAX_LEVELS)(*lv),
@@ -383,52 +421,88 @@ def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
         seed=int(seed), stream=GATED_STREAM,
         touch_limit=int(gate.touch_limit), cooldown_bars=int(gate.cooldown_bars),
         touch_gap=int(gate.touch_gap_bars), use_conf=int(bool(gate.use_confidence)),
-        max_levels=levels.max_levels, num_bars=num_bars, lanes=lanes,
+        max_levels=levels.max_levels, num_bars=layout.num_bars, lanes=lanes,
         u_rows=layout.u_rows, use_noise=int(noise is not None),
         antithetic=int(bool(antithetic)),
         **knobs(params, noise),
     )
-    grid = grid_size(num_paths)
-    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((grid, ROW_FLOATS), dtype=torch.float32, device=device)
-    rows = (torch.empty((num_paths, PATH_COLS), dtype=torch.float32, device=device)
-            if per_path else None)
-    lib = _library()
-    rc = lib.qmmx_mc_gated(ctypes.byref(args), ext_ptr, part_counts.data_ptr(),
-                           part_floats.data_ptr(),
-                           rows.data_ptr() if per_path else None, grid,
-                           torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(lib, rc, "mc_gated")
-    LAUNCHES["mc_gated"] += 1
-    return (part_counts, part_floats, rows) if per_path else (part_counts, part_floats)
+
+
+def _launch(args, max_levels: int, *, num_paths: int, ext_ptr, device: torch.device,
+            per_path: bool, what: str):
+    """One launch of ``mc_gated_sweep_kernel`` over the argument structs
+    ``args`` (one per grid row), counted in ``LAUNCHES[what]``: int64 [G,
+    grid, 134] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
+    plus f32[G, P, 6] per-(row, path) rows when ``per_path``."""
+    args_dev = device_rows(args, device)
+    g, grid = len(args), grid_size(num_paths)
+    part_counts = torch.empty((g, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((g, grid, ROW_FLOATS), dtype=torch.float32, device=device)
+    path_rows = (torch.empty((g, num_paths, PATH_COLS), dtype=torch.float32, device=device)
+                 if per_path else None)
+    rc = _library().qmmx_mc_gated_sweep(
+        args_dev.data_ptr(), g, max_levels, ext_ptr, part_counts.data_ptr(),
+        part_floats.data_ptr(), path_rows.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
+
+
+def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
+               num_bars: int, s0: float, mu: float, sigma: float, dt: float,
+               lanes: int, noise, antithetic: bool, external_uniforms,
+               device: torch.device, per_path: bool = False):
+    """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
+    [grid, 134] count rows and f32 [grid, 6] float rows, one row per CTA,
+    plus the f32[P, 6] per-path rows when ``per_path``."""
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=external_uniforms)
+    device = torch.device(device)
+    ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "gated_rows")
+    gate = GateConfig.from_params(params) if gate is None else gate
+    args = _gated_args(seed, levels, params, gate, layout, num_paths=num_paths, s0=s0,
+                       mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
+                       antithetic=antithetic)
+    out = _launch((_GatedArgs * 1)(args), levels.max_levels, num_paths=num_paths,
+                  ext_ptr=ext_ptr, device=device, per_path=per_path, what="mc_gated")
+    return tuple(x[0] for x in out)
+
+
+def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_gate=None,
+                     *, num_paths: int, num_bars: int, s0: float, mu: float,
+                     sigma: float, dt: float, lanes: int, noise, external_uniforms,
+                     device: torch.device, per_path: bool = False):
+    """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
+    grid: int64 [G, grid, 134] and f32 [G, grid, 6] partial rows, one per
+    (grid row, CTA), plus f32[G, P, 6] per-(row, path) rows when
+    ``per_path``."""
+    rows = grid_rows(params, grid_stops, grid_tps,
+                     GateConfig.from_params(params) if grid_gate is None else grid_gate, noise)
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                    noise=noise, antithetic=False, external_uniforms=external_uniforms)
+    device = torch.device(device)
+    ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
+                             "gated_sweep_rows")
+    args = (_GatedArgs * len(rows))(*(
+        _gated_args(seed, levels, p_g, gate_g, layout, num_paths=num_paths, s0=s0, mu=mu,
+                    sigma=sigma, dt=dt, lanes=lanes, noise=noise_g, antithetic=False)
+        for p_g, gate_g, noise_g in rows))
+    return _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
+                   device=device, per_path=per_path, what="mc_gated_sweep")
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
-    """Pass 2: partial rows -> (int64 [134] counts, float64 [6] floats).  CUDA
-    tensors go through the kernel, CPU tensors through the plain version."""
+    """Pass 2: partial rows [R, ...] -> (int64 [134] counts, float64 [6]
+    floats), or a sweep's [G, R, ...] -> ([G, 134], [G, 6]) in one launch, one
+    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
-    if (part_counts.device != part_floats.device
-            or part_counts.device.type != "cuda"):
-        raise ValueError("part_counts and part_floats must lie on one CUDA device")
-    rows = part_counts.shape[0]
-    if (part_counts.dtype != torch.int64 or part_floats.dtype != torch.float32
-            or tuple(part_counts.shape) != (rows, ROW_COUNTS)
-            or tuple(part_floats.shape) != (rows, ROW_FLOATS)
-            or not part_counts.is_contiguous() or not part_floats.is_contiguous()):
-        raise ValueError(f"partial rows must be contiguous int64 [R, {ROW_COUNTS}] "
-                         f"and float32 [R, {ROW_FLOATS}]")
-    dev = part_counts.device
-    tot_counts = torch.empty((ROW_COUNTS,), dtype=torch.int64, device=dev)
-    tot_floats = torch.empty((ROW_FLOATS,), dtype=torch.float64, device=dev)
-    lib = _library()
-    rc = lib.qmmx_mc_gated_reduce_rows(part_counts.data_ptr(), part_floats.data_ptr(),
-                                       rows, tot_counts.data_ptr(),
-                                       tot_floats.data_ptr(),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "mc_gated_reduce_rows")
-    LAUNCHES["mc_gated_reduce_rows"] += 1
-    return tot_counts, tot_floats
+    return fold_rows(_library().qmmx_mc_gated_reduce_rows, _raise_on, part_counts,
+                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_gated", LAUNCHES)
 
 
 def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
@@ -458,4 +532,31 @@ def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
         return stats_from_gated_totals(*gated_totals_reference(
             seed, levels, params, gate, device=device, **kw))
     rows = gated_rows(seed, levels, params, gate, device=device, **kw)
+    return stats_from_gated_totals(*reduce_rows(*rows))
+
+
+def mc_paths_gated_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tps,
+                               grid_gate=None, *, noise=None, num_paths: int,
+                               num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
+                               sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
+                               lanes: int = GATED_LANES, external_uniforms=None,
+                               device=None) -> PathStats:
+    """Fused gate-knob grid sweep, the counterpart of
+    ``mc_paths_pallas_gated_sweep`` (gbm): [G] lifecycle PathStats, row g
+    under (grid_stops[g], grid_tps[g]), row g of ``grid_gate`` (a GateConfig
+    with scalar or [G] leaves; default ``GateConfig.from_params(params)``)
+    and of ``noise`` (McNoise, scalar or [G] stds), every row on the same
+    uniforms (CRN).  Row g equals ``mc_paths_gated_fused`` under those knobs
+    at the same seed, bit for bit.  ``device`` as in ``mc_paths_gated_fused``."""
+    kw = dict(noise=noise, num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
+              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+    grid_rows(params, grid_stops, grid_tps, grid_gate, noise)
+    _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+           noise=noise, antithetic=False, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        return stats_from_gated_totals(*gated_sweep_totals_reference(
+            seed, levels, params, grid_stops, grid_tps, grid_gate, device=device, **kw))
+    rows = gated_sweep_rows(seed, levels, params, grid_stops, grid_tps, grid_gate,
+                            device=device, **kw)
     return stats_from_gated_totals(*reduce_rows(*rows))

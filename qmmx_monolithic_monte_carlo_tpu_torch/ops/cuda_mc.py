@@ -10,6 +10,14 @@ only; the bootstrap, block-bootstrap and Heston branches are not ported yet.
   it runs the plain version.
 * ``mc_paths_fused_reference`` — the plain PyTorch version: the TPU kernel's
   block computation, vectorised over (block, bar, lane) tensors.
+* ``mc_paths_sweep_fused`` — the stop/target grid sweep under common random
+  numbers, the counterpart of ``mc_paths_pallas_sweep`` (kernel #3,
+  ``_sweep_kernel``, ``pallas_mc.py:1978-2156``): each path's bars and first
+  contact once, replayed for every (stop, tp) row; row g equals
+  ``mc_paths_fused`` with (stop_g, tp_g) bit for bit.  For a CUDA device it
+  launches ``mc_sweep_kernel`` (partial rows per (row, CTA)) and one fold of
+  all rows, or raises; for the CPU it runs ``sweep_totals_reference``.  No
+  noise and no antithetic lanes, as the TPU sweep kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
@@ -35,7 +43,8 @@ from ..types import Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from .draws import FUSED_STREAM, GbmLayout, fused_uniforms
-from .kernel_args import MAX_LEVELS, consts, f32, grid_size, knobs, level_slots
+from .kernel_args import (MAX_LEVELS, consts, f32, fold_rows, grid_rows, grid_size, knobs,
+                          launch_pointer, level_slots)
 from .pathgen import cumsum_f32
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
@@ -44,10 +53,12 @@ N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
 ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
 _BIG = 3.4e38            # empty min/max sentinel, as the TPU kernel's
+SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu)
 _SOURCE = "mc_first_contact"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
-LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0}
+LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
+            "mc_sweep_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +86,14 @@ class _McArgs(ctypes.Structure):
     ]
 
 
+class _SweepGrid(ctypes.Structure):
+    """Mirror of ``struct SweepGrid`` in ops/csrc/mc_first_contact.cu."""
+
+    _fields_ = [("n_rows", ctypes.c_int32),
+                ("stop_pad", ctypes.c_float * SWEEP_ROWS),
+                ("tp_pad", ctypes.c_float * SWEEP_ROWS)]
+
+
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
            external_uniforms) -> GbmLayout:
     """The checks of ``_mc_paths_pallas_jit`` (pallas_mc.py:724-738)."""
@@ -99,15 +118,24 @@ def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
     return layout
 
 
+def _check_sweep(seed, levels, params, grid_stops, grid_tps, *, num_paths, num_bars,
+                 lanes, external_uniforms) -> tuple[GbmLayout, list[dict]]:
+    """The checks of ``_mc_paths_pallas_sweep_jit`` (pallas_mc.py:2083-2098):
+    the single kernel's, and the grid's; returns the layout and each row's
+    knobs."""
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                    noise=None, antithetic=False, external_uniforms=external_uniforms)
+    return layout, [knobs(p_g, None) for (p_g,) in grid_rows(params, grid_stops, grid_tps)]
+
+
 # --------------------------------------------------------------------------
 # the plain PyTorch version
 # --------------------------------------------------------------------------
 
-def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
-                  antithetic):
-    """Totals of one chunk of blocks, u f32[nb, n_rows, lanes]: the TPU
-    kernel's block computation (``_gbm_block`` → ``_first_contact`` →
-    ``_replay_config`` → ``_accumulate``), with a serial float32 cumsum."""
+def _contact(u, layout: GbmLayout, lp, lv, n_levels, prox, consts, antithetic) -> dict:
+    """One chunk of blocks, u f32[nb, n_rows, lanes], up to the first
+    contact: the TPU kernel's ``_gbm_block`` and ``_first_contact``, with a
+    serial float32 cumsum.  Every row of a sweep replays this once."""
     nb, _, lanes = u.shape
     w = layout.num_bars
     dev = u.device
@@ -141,16 +169,25 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
         take = d < best_d
         best_p = torch.where(take, lp[i], best_p)
         best_d = torch.where(take, d, best_d)
-    near = best_d <= knobs["prox"]
+    near = best_d <= prox
     iota = torch.arange(w, device=dev).view(1, w, 1)
     ebar = torch.where(near, iota, w).amin(dim=1)          # [nb, lanes]
-    entered = ebar < w
     at_entry = iota == ebar[:, None]
     entry = torch.where(at_entry, close, 0.0).sum(dim=1)
-    lvl = torch.where(at_entry, best_p, 0.0).sum(dim=1)
-    is_long = entry > torch.where(at_entry, opens, 0.0).sum(dim=1)
-    after = iota > ebar[:, None]
+    return dict(u=u, iota=iota, ebar=ebar, entered=ebar < w, high=high, low=low,
+                entry=entry, lvl=torch.where(at_entry, best_p, 0.0).sum(dim=1),
+                is_long=entry > torch.where(at_entry, opens, 0.0).sum(dim=1))
 
+
+def _replay(ct: dict, layout: GbmLayout, knobs) -> tuple:
+    """Totals of one chunk's contacts ``ct`` under one configuration
+    ``knobs``: the TPU kernel's ``_replay_config`` -> ``_accumulate``."""
+    u, iota, ebar, entered = ct["u"], ct["iota"], ct["ebar"], ct["entered"]
+    high, low, entry, lvl, is_long = ct["high"], ct["low"], ct["entry"], ct["lvl"], ct["is_long"]
+    nb, _, lanes = u.shape
+    w = layout.num_bars
+    dev = u.device
+    after = iota > ebar[:, None]
     stop_slip = tgt_slip = 0.0
     if layout.noise:
         r1_row, a1_row, r2_row, a2_row = layout.noise_rows
@@ -186,8 +223,6 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
     # the kernel's walk: bars to the first hit (else all W), the Box-Muller
     # pairs that takes, and the bars after contact (bridge extremes evaluated)
     walked = torch.where(entered & ~none_hit, torch.minimum(j_stop, j_tgt) + 1, w)
-    work = torch.stack([torch.clamp(walked, max=w // 2).sum(), walked.sum(),
-                        torch.where(entered, walked - ebar - 1, 0).sum()])
 
     rr = r[entered]
     counts = torch.zeros(ROW_COUNTS, dtype=torch.int64, device=dev)
@@ -205,37 +240,45 @@ def _chunk_totals(u, layout: GbmLayout, lp, lv, n_levels, knobs, consts,
         rr.min().double() if has else torch.tensor(_BIG, dtype=torch.float64, device=dev),
         rr.max().double() if has else torch.tensor(-_BIG, dtype=torch.float64, device=dev),
     ])
-    return counts, floats, work
+    return counts, floats, walked
+
+
+def _work(ct: dict, walked, w: int):
+    """int64 [Box-Muller pairs, bars walked, bars walked after contact] of
+    per-path ``walked`` bars (bars to the first hit, else all W)."""
+    return torch.stack([torch.clamp(walked, max=w // 2).sum(), walked.sum(),
+                        torch.where(ct["entered"], walked - ct["ebar"] - 1, 0).sum()])
 
 
 def _merge_totals(a, b):
     if a is None:
         return b
     fa, fb = a[1], b[1]
-    return a[0] + b[0], torch.stack([fa[0] + fb[0], fa[1] + fb[1],
-                                     torch.minimum(fa[2], fb[2]),
-                                     torch.maximum(fa[3], fb[3])]), a[2] + b[2]
+    return a[0] + b[0], torch.stack([fa[..., 0] + fb[..., 0], fa[..., 1] + fb[..., 1],
+                                     torch.minimum(fa[..., 2], fb[..., 2]),
+                                     torch.maximum(fa[..., 3], fb[..., 3])], dim=-1), a[2] + b[2]
 
 
 def stats_from_totals(counts: torch.Tensor, floats: torch.Tensor) -> PathStats:
-    """int64 counts [n, entered, tp, stop, open, hist...] and float64
-    [sum_r, sum_r2, min_r, max_r] → the float32 PathStats (``_unpack_acc``).
+    """int64 counts [..., n, entered, tp, stop, open, hist...] and float64
+    [..., sum_r, sum_r2, min_r, max_r] → the float32 PathStats
+    (``_unpack_acc``), with a leading [G] axis for a sweep's totals.
 
     Single-trade replay makes the trade and drawdown fields exact
     derivations: every entered path is one trade, and the only negative R is
     a stop's -1, so sum_dd = n_stop and max_dd = max(0, -min_r)."""
     c = counts.to(torch.float32)
     f = floats.to(torch.float32)
-    has = c[1] > 0
+    has = c[..., 1] > 0
     inf = float("inf")
-    min_r = torch.where(has, f[2], inf)
+    min_r = torch.where(has, f[..., 2], inf)
     return PathStats(
-        n=c[0], n_entered=c[1], n_tp=c[2], n_stop=c[3], n_open=c[4],
-        sum_r=f[0], sum_r2=f[1], min_r=min_r,
-        max_r=torch.where(has, f[3], -inf),
-        sum_trades=c[1], sum_dd=c[3],
+        n=c[..., 0], n_entered=c[..., 1], n_tp=c[..., 2], n_stop=c[..., 3],
+        n_open=c[..., 4], sum_r=f[..., 0], sum_r2=f[..., 1], min_r=min_r,
+        max_r=torch.where(has, f[..., 3], -inf),
+        sum_trades=c[..., 1], sum_dd=c[..., 3],
         max_dd=torch.where(has, torch.clamp(-min_r, min=0.0), 0.0),
-        hist=c[N_COUNTS:],
+        hist=c[..., N_COUNTS:],
     )
 
 
@@ -268,8 +311,9 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
         else:
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, device=device)
-        tot = _merge_totals(tot, _chunk_totals(
-            u, layout, lp, lv, levels.max_levels, kn, cs, antithetic))
+        ct = _contact(u, layout, lp, lv, levels.max_levels, kn["prox"], cs, antithetic)
+        counts, floats, walked = _replay(ct, layout, kn)
+        tot = _merge_totals(tot, (counts, floats, _work(ct, walked, num_bars)))
     return tot if work else tot[:2]
 
 
@@ -279,11 +323,50 @@ def mc_paths_fused_reference(seed, levels: Levels, params, **kw) -> PathStats:
     return stats_from_totals(*fused_totals_reference(seed, levels, params, **kw))
 
 
+def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *,
+                           num_paths: int, num_bars: int = 40, s0: float = 100.0,
+                           mu: float = 0.0, sigma: float = 0.15,
+                           dt: float = 1.0 / (390.0 * 252.0),
+                           lanes: int = SINGLE_LANES, external_uniforms=None,
+                           device=None, chunk_blocks: int = 16, work: bool = False):
+    """The plain version of the sweep: int64 [G, 133] counts and float64
+    [G, 4] floats, each chunk's bars and contacts computed once and replayed
+    for every (stop, tp) row; on ``device`` as ``fused_totals_reference``.
+    ``work=True`` adds the sweep kernel's work, int64 [Box-Muller pairs, bars
+    walked (to the last row's hit), bars walked after contact, bars x rows
+    checked after contact]."""
+    layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
+                                num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                                external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    lp, lv = level_slots(levels)
+    cs = consts(s0, mu, sigma, dt)
+    n_blocks = num_paths // lanes
+    tot = None
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        if external_uniforms is not None:
+            u = external_uniforms[b0:b0 + nb].to(device)
+        else:
+            u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                               device=device)
+        ct = _contact(u, layout, lp, lv, levels.max_levels, rows[0]["prox"], cs, False)
+        per_row = [_replay(ct, layout, row) for row in rows]
+        walked = torch.stack([x[2] for x in per_row]).amax(dim=0)
+        row_bars = sum(_work(ct, x[2], num_bars)[2] for x in per_row)
+        tot = _merge_totals(tot, (torch.stack([x[0] for x in per_row]),
+                                  torch.stack([x[1] for x in per_row]),
+                                  torch.cat([_work(ct, walked, num_bars), row_bars.view(1)])))
+    return tot if work else tot[:2]
+
+
 def reduce_rows_reference(part_counts: torch.Tensor, part_floats: torch.Tensor):
-    """Plain version of the pass-2 kernel: partial rows → totals."""
+    """Plain version of the pass-2 kernel: partial rows [..., R, C] → totals
+    [..., C] (one segment, or one per grid row of a sweep)."""
     f = part_floats.double()
-    return part_counts.sum(dim=0), torch.stack(
-        [f[:, 0].sum(), f[:, 1].sum(), f[:, 2].min(), f[:, 3].max()])
+    return part_counts.sum(dim=-2), torch.stack(
+        [f[..., 0].sum(-1), f[..., 1].sum(-1), f[..., 2].amin(-1), f[..., 3].amax(-1)],
+        dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -297,50 +380,42 @@ def _library() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures set."""
     lib = build.load(_SOURCE)
     if id(lib) not in _BOUND:
-        vp = ctypes.c_void_p
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_mc_args_size.argtypes = []
-        lib.qmmx_mc_args_size.restype = ctypes.c_int
-        lib.qmmx_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.qmmx_mc_args_size.restype = ci
+        lib.qmmx_sweep_grid_size.argtypes = []
+        lib.qmmx_sweep_grid_size.restype = ci
+        lib.qmmx_cuda_error_string.argtypes = [ci]
         lib.qmmx_cuda_error_string.restype = ctypes.c_char_p
         lib.qmmx_mc_first_contact.argtypes = [
-            ctypes.POINTER(_McArgs), vp, vp, vp, ctypes.c_int, vp]
-        lib.qmmx_mc_first_contact.restype = ctypes.c_int
-        lib.qmmx_mc_reduce_rows.argtypes = [vp, vp, ctypes.c_int, vp, vp, vp]
-        lib.qmmx_mc_reduce_rows.restype = ctypes.c_int
-        if lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs):
-            raise RuntimeError("McArgs layout differs between "
-                               "mc_first_contact.cu and cuda_mc._McArgs")
+            ctypes.POINTER(_McArgs), vp, vp, vp, ci, vp]
+        lib.qmmx_mc_first_contact.restype = ci
+        lib.qmmx_mc_sweep.argtypes = [
+            ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), vp, vp, vp, ci, vp]
+        lib.qmmx_mc_sweep.restype = ci
+        lib.qmmx_mc_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+        lib.qmmx_mc_reduce_rows.restype = ci
+        if (lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs)
+                or lib.qmmx_sweep_grid_size() != ctypes.sizeof(_SweepGrid)):
+            raise RuntimeError("McArgs or SweepGrid layout differs between "
+                               "mc_first_contact.cu and cuda_mc.py")
         _BOUND.add(id(lib))
     return lib
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
+def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
-        msg = lib.qmmx_cuda_error_string(rc).decode(errors="replace")
+        msg = _library().qmmx_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
-                       num_bars: int, s0: float, mu: float, sigma: float,
-                       dt: float, lanes: int, noise, antithetic: bool,
-                       external_uniforms, device: torch.device):
-    """Launch pass 1 on a CUDA device: int64 [grid, 133] count rows and f32
-    [grid, 4] float rows, one row per CTA."""
-    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
-                    lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
-    if device.type != "cuda":
-        raise ValueError("first_contact_rows launches the CUDA kernel; "
-                         f"got device {device}")
+def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: int,
+                 num_bars: int, s0, mu, sigma, dt, lanes: int, noise, antithetic,
+                 external_uniforms, device: torch.device, what: str):
+    """The launch checks of pass 1, and (McArgs, injected-uniform pointer)."""
+    ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, what)
     if num_bars > MAX_KERNEL_BARS:
         raise ValueError(f"the CUDA kernel takes num_bars <= {MAX_KERNEL_BARS}")
-    if num_paths >= 1 << 40:
-        raise ValueError("num_paths must be below 2^40 (per-CTA uint32 counts)")
-    ext_ptr = None
-    if external_uniforms is not None:
-        if not external_uniforms.is_contiguous():
-            raise ValueError("external_uniforms must be contiguous")
-        ext_ptr = external_uniforms.data_ptr()
     lp, lv = level_slots(levels)
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
     args = _McArgs(
@@ -354,6 +429,22 @@ def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
         antithetic=int(bool(antithetic)),
         **knobs(params, noise),
     )
+    return args, ext_ptr
+
+
+def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
+                       num_bars: int, s0: float, mu: float, sigma: float,
+                       dt: float, lanes: int, noise, antithetic: bool,
+                       external_uniforms, device: torch.device):
+    """Launch pass 1 on a CUDA device: int64 [grid, 133] count rows and f32
+    [grid, 4] float rows, one row per CTA."""
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=external_uniforms)
+    args, ext_ptr = _launch_args(
+        seed, levels, params, layout, num_paths=num_paths, num_bars=num_bars, s0=s0,
+        mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise, antithetic=antithetic,
+        external_uniforms=external_uniforms, device=device, what="first_contact_rows")
     grid = grid_size(num_paths)
     part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((grid, ROW_FLOATS), dtype=torch.float32, device=device)
@@ -362,37 +453,52 @@ def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
     rc = lib.qmmx_mc_first_contact(ctypes.byref(args), ext_ptr,
                                    part_counts.data_ptr(),
                                    part_floats.data_ptr(), grid, stream)
-    _raise_on(lib, rc, "mc_first_contact")
+    _raise_on(rc, "mc_first_contact")
     LAUNCHES["mc_first_contact"] += 1
     return part_counts, part_floats
 
 
+def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths: int,
+               num_bars: int, s0: float, mu: float, sigma: float, dt: float,
+               lanes: int, external_uniforms, device: torch.device):
+    """Launch the sweep's pass 1 on a CUDA device: int64 [G, grid, 133] count
+    rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA); one
+    launch per SWEEP_ROWS grid rows."""
+    layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
+                                num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                                external_uniforms=external_uniforms)
+    stops, tps = [r["stop_pad"] for r in rows], [r["tp_pad"] for r in rows]
+    args, ext_ptr = _launch_args(
+        seed, levels, params, layout, num_paths=num_paths, num_bars=num_bars, s0=s0,
+        mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=None, antithetic=False,
+        external_uniforms=external_uniforms, device=device, what="sweep_rows")
+    g, ctas = len(stops), grid_size(num_paths)
+    part_counts = torch.empty((g, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((g, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for g0 in range(0, g, SWEEP_ROWS):
+        sp, tp = stops[g0:g0 + SWEEP_ROWS], tps[g0:g0 + SWEEP_ROWS]
+        pad = [0.0] * (SWEEP_ROWS - len(sp))
+        rows = _SweepGrid(n_rows=len(sp), stop_pad=(ctypes.c_float * SWEEP_ROWS)(*sp, *pad),
+                          tp_pad=(ctypes.c_float * SWEEP_ROWS)(*tp, *pad))
+        rc = lib.qmmx_mc_sweep(ctypes.byref(args), ctypes.byref(rows), ext_ptr,
+                               part_counts[g0].data_ptr(), part_floats[g0].data_ptr(),
+                               ctas, stream)
+        _raise_on(rc, "mc_sweep")
+        LAUNCHES["mc_sweep"] += 1
+    return part_counts, part_floats
+
+
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
-    """Pass 2: partial rows → (int64 [133] counts, float64 [4] floats).  CUDA
-    tensors go through the kernel, CPU tensors through the plain version."""
+    """Pass 2: partial rows [R, ...] → (int64 [133] counts, float64 [4]
+    floats), or a sweep's [G, R, ...] → ([G, 133], [G, 4]) in one launch, one
+    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
-    if (part_counts.device != part_floats.device
-            or part_counts.device.type != "cuda"):
-        raise ValueError("part_counts and part_floats must lie on one CUDA device")
-    rows = part_counts.shape[0]
-    if (part_counts.dtype != torch.int64 or part_floats.dtype != torch.float32
-            or tuple(part_counts.shape) != (rows, ROW_COUNTS)
-            or tuple(part_floats.shape) != (rows, ROW_FLOATS)
-            or not part_counts.is_contiguous() or not part_floats.is_contiguous()):
-        raise ValueError(f"partial rows must be contiguous int64 [R, {ROW_COUNTS}] "
-                         f"and float32 [R, {ROW_FLOATS}]")
-    dev = part_counts.device
-    tot_counts = torch.empty((ROW_COUNTS,), dtype=torch.int64, device=dev)
-    tot_floats = torch.empty((ROW_FLOATS,), dtype=torch.float64, device=dev)
-    lib = _library()
-    rc = lib.qmmx_mc_reduce_rows(part_counts.data_ptr(), part_floats.data_ptr(),
-                                 rows, tot_counts.data_ptr(),
-                                 tot_floats.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "mc_reduce_rows")
-    LAUNCHES["mc_reduce_rows"] += 1
-    return tot_counts, tot_floats
+    return fold_rows(_library().qmmx_mc_reduce_rows, _raise_on, part_counts, part_floats,
+                     (ROW_COUNTS, ROW_FLOATS), "mc", LAUNCHES)
 
 
 def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
@@ -420,4 +526,26 @@ def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
     if device.type == "cpu":
         return mc_paths_fused_reference(seed, levels, params, device=device, **kw)
     rows = first_contact_rows(seed, levels, params, device=device, **kw)
+    return stats_from_totals(*reduce_rows(*rows))
+
+
+def mc_paths_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tps, *,
+                         num_paths: int, num_bars: int = 40, s0: float = 100.0,
+                         mu: float = 0.0, sigma: float = 0.15,
+                         dt: float = 1.0 / (390.0 * 252.0), lanes: int = SINGLE_LANES,
+                         device=None, external_uniforms=None) -> PathStats:
+    """Fused first-contact grid sweep, the counterpart of
+    ``mc_paths_pallas_sweep`` (gbm): [G] PathStats, row g for (grid_stops[g],
+    grid_tps[g]) with the other knobs of ``params``, every row over the same
+    paths (CRN); row g equals ``mc_paths_fused`` with those paddings at the
+    same seed, bit for bit.  ``device`` as in ``mc_paths_fused``."""
+    _check_sweep(seed, levels, params, grid_stops, grid_tps, num_paths=num_paths,
+                 num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt,
+              lanes=lanes, external_uniforms=external_uniforms)
+    if device.type == "cpu":
+        return stats_from_totals(*sweep_totals_reference(
+            seed, levels, params, grid_stops, grid_tps, device=device, **kw))
+    rows = sweep_rows(seed, levels, params, grid_stops, grid_tps, device=device, **kw)
     return stats_from_totals(*reduce_rows(*rows))

@@ -1,8 +1,8 @@
-"""How the host packs arguments for the port's CUDA kernels.
+"""How the host packs arguments for the port's CUDA kernels and launches them.
 
-Shared by the first-contact (``ops/cuda_mc.py``) and gated
-(``ops/cuda_gated.py``) wrappers and their plain versions, so both kernels see
-the same float32 constants, noise knobs, level slots and grid:
+Shared by the first-contact (``ops/cuda_mc.py``), gated (``ops/cuda_gated.py``)
+and engine (``ops/cuda_engine.py``) wrappers and their plain versions, so the
+kernels see the same float32 constants, noise knobs, level slots and grid:
 
 * ``f32`` -- the float32 rounding of a host number;
 * ``consts`` -- (drift, sig_dt, log_s0), float64 on the host, rounded to float32;
@@ -10,11 +10,22 @@ the same float32 constants, noise knobs, level slots and grid:
 * ``level_slots`` -- level prices and validity padded to ``MAX_LEVELS``;
 * ``grid_size`` -- the pass-1 grid, a function of num_paths alone;
 * ``check_blocks`` / ``check_uniforms`` -- the launch checks the gated and
-  engine wrappers share (blocks of 8 x lanes paths, injected uniforms).
+  engine wrappers share (blocks of 8 x lanes paths, injected uniforms);
+* ``launch_pointer`` -- the checks of a pass-1 launch, and the pointer of the
+  injected uniforms;
+* ``grid_row`` / ``grid_len`` -- row g of a record with [G] (or scalar)
+  leaves, and G;
+* ``grid_rows`` / ``knob_rows`` -- the rows of a fused sweep, as the JAX
+  sweep kernels take them: (stop, tp) columns beside records of scalar or
+  [G] leaves (first contact, gated), or EngineParams with [G] leaves (engine);
+* ``device_rows`` -- a sweep's argument structs, one per grid row, on the card;
+* ``fold_rows`` -- pass 2 over [R, C] partial rows, or a sweep's [G, R, C]
+  with one CTA per grid row.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -26,6 +37,9 @@ from ..utils import prng
 MAX_LEVELS = 8           # level slots a kernel holds in its arguments
 BLOCK = 256              # CUDA threads per CTA (matches the .cu sources)
 MAX_CTAS = 4096          # pass-1 grid cap: fixed, so results do not depend on the card
+MAX_GRID_ROWS = 65535    # grid rows of one fused sweep (the gated and engine
+                         # kernels take a row per gridDim.y)
+_F32 = torch.float32
 
 
 def f32(x) -> float:
@@ -99,3 +113,125 @@ def check_uniforms(external_uniforms, want: tuple, *, antithetic: bool,
                          f"got {tuple(external_uniforms.shape)}")
     if external_uniforms.dtype != torch.float32:
         raise ValueError("external_uniforms must be float32")
+
+
+def launch_pointer(num_paths: int, num_bars: int, external_uniforms, device,
+                   what: str):
+    """The checks of a pass-1 launch on ``device``; returns the pointer of the
+    injected uniforms (None in Philox mode)."""
+    if device.type != "cuda":
+        raise ValueError(f"{what} launches the CUDA kernel; got device {device}")
+    if num_paths >= 1 << 40:
+        raise ValueError("num_paths must be below 2^40 (per-CTA uint32 counts)")
+    if num_bars >= 1 << 29:
+        raise ValueError("num_bars must be below 2^29")
+    if external_uniforms is None:
+        return None
+    if not external_uniforms.is_cuda or not external_uniforms.is_contiguous():
+        raise ValueError("external_uniforms must be a contiguous CUDA tensor")
+    return external_uniforms.data_ptr()
+
+
+def tensor_leaves(obj) -> dict:
+    """The tensor fields of a dataclass record, by name."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))}
+
+
+def grid_len(*objs) -> int:
+    """G: the length of the [G] leaves of ``objs`` (records of tensors, or
+    None); 1 when every leaf is a scalar.  Leaves of two lengths raise."""
+    sizes = {int(v.shape[0]) for o in objs if o is not None
+             for v in tensor_leaves(o).values() if v.dim() >= 1}
+    if len(sizes) > 1:
+        raise ValueError(f"grid leaves of different lengths {sorted(sizes)}")
+    return sizes.pop() if sizes else 1
+
+
+def grid_row(obj, g: int):
+    """Row ``g`` of a record whose leaves are [G] vectors or scalars (which
+    every row shares); None stays None."""
+    if obj is None:
+        return None
+    return dataclasses.replace(obj, **{k: v[g] if v.dim() >= 1 else v
+                                       for k, v in tensor_leaves(obj).items()})
+
+
+def _check_rows(g: int) -> None:
+    if not 1 <= g <= MAX_GRID_ROWS:
+        raise ValueError(f"the grid takes 1 to {MAX_GRID_ROWS} rows, got {g}")
+
+
+def grid_rows(params, grid_stops, grid_tps, *records) -> list:
+    """[(params_g, *records_g)] for g < G: params_g (EngineParams) carries
+    (grid_stops[g], grid_tps[g]), each record (GateConfig, McNoise, ... or
+    None) its row g.  The checks of the JAX sweep kernels: the two columns of
+    one length, the records' leaves scalars or [G]."""
+    stops = torch.as_tensor(grid_stops, dtype=_F32).reshape(-1)
+    tps = torch.as_tensor(grid_tps, dtype=_F32).reshape(-1)
+    g = stops.shape[0]
+    if tps.shape[0] != g:
+        raise ValueError("grid_stops and grid_tps must have equal length")
+    _check_rows(g)
+    if grid_len(*records) not in (1, g):
+        raise ValueError(f"grid leaves must be scalars or of length {g}")
+    return [(params.replace(stop_padding=stops[i], tp_padding=tps[i]),
+             *(grid_row(r, i) for r in records)) for i in range(g)]
+
+
+def knob_rows(grid_params, noise=None, n_grid=None) -> list:
+    """[(params_g, noise_g)] of an engine sweep, with the checks of
+    ``mc_paths_pallas_engine_sweep`` (pallas_engine.py:1968-1976): G is
+    ``n_grid``, else the length of grid_params' [G] leaves (there must be
+    some, of one length); every leaf, noise stds included, is a scalar or [G]."""
+    if n_grid is None:
+        sizes = {int(v.shape[0]) for v in tensor_leaves(grid_params).values() if v.dim() == 1}
+        if len(sizes) != 1:
+            raise ValueError("pass n_grid or give grid_params at least one [G] leaf "
+                             f"(found sizes {sorted(sizes)})")
+        (n_grid,) = sizes
+    _check_rows(int(n_grid))
+    if grid_len(grid_params, noise) not in (1, n_grid):
+        raise ValueError(f"grid leaves must be scalars or of length {n_grid}")
+    return [(grid_row(grid_params, g), grid_row(noise, g)) for g in range(int(n_grid))]
+
+
+def device_rows(rows, device: torch.device) -> torch.Tensor:
+    """A ctypes array of argument structs (one per grid row) copied to the
+    card, as bytes."""
+    return torch.frombuffer(bytearray(bytes(rows)), dtype=torch.uint8).to(device)
+
+
+def fold_rows(fn, raise_on, part_counts: torch.Tensor, part_floats: torch.Tensor,
+              widths: tuple[int, int], family: str, launches: dict):
+    """Pass 2 through the C entry ``fn`` (``raise_on(rc, what)`` reports a
+    failed launch), over partial rows of int64 counts and float32 floats of
+    the kernel's ``widths``: [R, C] (one segment; -> int64 [C], float64
+    [row_floats]; counted in ``launches[family + "_reduce_rows"]``) or a
+    sweep's [G, R, C] (one CTA per grid row; -> [G, C], [G, row_floats];
+    counted in ``launches[family + "_sweep_reduce_rows"]``)."""
+    if (part_counts.device != part_floats.device
+            or part_counts.device.type != "cuda"):
+        raise ValueError("part_counts and part_floats must lie on one CUDA device")
+    sweep = part_counts.dim() == 3
+    what = f"{family}_sweep_reduce_rows" if sweep else f"{family}_reduce_rows"
+    if not sweep:
+        part_counts, part_floats = part_counts[None], part_floats[None]
+    row_counts, row_floats = widths
+    segs, rows = part_counts.shape[:2]
+    if (part_counts.dim() != 3 or part_counts.dtype != torch.int64
+            or part_floats.dtype != torch.float32
+            or tuple(part_counts.shape) != (segs, rows, row_counts)
+            or tuple(part_floats.shape) != (segs, rows, row_floats)
+            or not part_counts.is_contiguous() or not part_floats.is_contiguous()):
+        raise ValueError(f"partial rows must be contiguous int64 [R, {row_counts}] "
+                         f"and float32 [R, {row_floats}] (a sweep's: [G, R, ...])")
+    dev = part_counts.device
+    tot_counts = torch.empty((segs, row_counts), dtype=torch.int64, device=dev)
+    tot_floats = torch.empty((segs, row_floats), dtype=torch.float64, device=dev)
+    rc = fn(part_counts.data_ptr(), part_floats.data_ptr(), rows, segs,
+            tot_counts.data_ptr(), tot_floats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(rc, what)
+    launches[what] += 1
+    return (tot_counts, tot_floats) if sweep else (tot_counts[0], tot_floats[0])

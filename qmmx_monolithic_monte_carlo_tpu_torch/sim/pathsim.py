@@ -27,6 +27,7 @@ from ..types import (OUTCOME_OPEN, OUTCOME_STOP, OUTCOME_TP, SIDE_LONG,
                      SIDE_SHORT, Levels)
 from ..utils import device as devices
 from ..utils import prng
+from ..utils.floats import div
 
 HIST_BINS = 128  # R histogram bins
 HIST_LO = -1.5   # single-trade R range: stop = -1, tp = reward/risk (≈ 0.714)
@@ -86,7 +87,7 @@ class PathStats:
         outcome = torch.as_tensor(outcome, device=r.device)
         w = entered.to(_F32)
         bin_idx = torch.clamp(
-            ((r - HIST_LO) / (HIST_HI - HIST_LO) * HIST_BINS).to(torch.int32),
+            (div(r - HIST_LO, HIST_HI - HIST_LO) * HIST_BINS).to(torch.int32),
             0, HIST_BINS - 1)
         hist = torch.zeros((HIST_BINS,), dtype=_F32, device=r.device)
         hist.index_add_(0, bin_idx.to(torch.int64), w)
@@ -123,7 +124,7 @@ class PathStats:
         entered = trades > 0
         w = entered.to(_F32)
         bin_idx = torch.clamp(
-            ((equity - hist_lo) / (hist_hi - hist_lo) * HIST_BINS).to(torch.int32),
+            (div(equity - hist_lo, hist_hi - hist_lo) * HIST_BINS).to(torch.int32),
             0, HIST_BINS - 1)
         hist = torch.zeros((HIST_BINS,), dtype=_F32, device=dev)
         hist.index_add_(0, bin_idx.to(torch.int64), w)
@@ -171,6 +172,30 @@ class PathStats:
             hist_hi=self.hist_hi,
         )
 
+    @classmethod
+    def stack(cls, rows: list["PathStats"]) -> "PathStats":
+        """[G] PathStats from G of them (all over one histogram range): every
+        field gains a leading [G] axis, the form of JAX's vmapped PathStats.
+        ``merge`` and the derived metrics work elementwise on it; ``row``
+        takes one back out."""
+        ranges = {(r.hist_lo, r.hist_hi) for r in rows}
+        if len(ranges) != 1:
+            raise ValueError(f"cannot stack PathStats over histogram ranges {sorted(ranges)}")
+        ((lo, hi),) = ranges
+        return cls(**{f.name: torch.stack([getattr(r, f.name) for r in rows])
+                      for f in dataclasses.fields(cls) if f.name not in ("hist_lo", "hist_hi")},
+                   hist_lo=lo, hist_hi=hi)
+
+    def row(self, g: int) -> "PathStats":
+        """Row ``g`` of a stacked [G] PathStats."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[g] for f in dataclasses.fields(self)
+            if f.name not in ("hist_lo", "hist_hi")})
+
+    def _one_histogram(self, what: str) -> None:
+        if self.hist.dim() != 1:
+            raise ValueError(f"{what} of a stacked [G] PathStats: take .row(g) first")
+
     # ---- derived metrics ----
     @property
     def mean_r(self):
@@ -199,6 +224,7 @@ class PathStats:
     def quantile(self, q):
         """Histogram-estimated R quantile: binned-CDF inversion over this
         accumulator's own [hist_lo, hist_hi] range, interpolated in the bin."""
+        self._one_histogram("quantile")
         nb = self.hist.shape[-1]
         cdf = torch.cumsum(self.hist, dim=-1)
         target = _scalar(q, self.hist.device) * cdf[-1]
@@ -213,6 +239,7 @@ class PathStats:
 
     def cvar(self, q=0.05):
         """Histogram-estimated mean of the lower q tail."""
+        self._one_histogram("cvar")
         nb = self.hist.shape[-1]
         cdf = torch.cumsum(self.hist, dim=-1)
         cutoff = _scalar(q, self.hist.device) * cdf[-1]

@@ -196,3 +196,81 @@ def test_paths_cuda_backend_refuses_the_cpu_device(tmp_path):
     with pytest.raises(SystemExit, match="--device cuda"):
         cli.main(["--db", str(tmp_path / "t.db"), *GATED, "--backend", "cuda",
                   *CPU])
+
+
+SWEEP = ["sweep", "--num-paths", "16384", "--num-bars", "24"]
+SWEEP_FORMS = {
+    "first-contact": ["--stops", "0.25", "0.45", "--tps", "0.15", "0.3"],
+    "gated": ["--gated", "--stops", "0.3", "--tps", "0.2", "0.3", "--touch-limits", "2",
+              "4", "--qmins", "0.55"],
+    "engine": ["--engine", "--num-paths", "2048", "--num-bars", "16", "--stops", "0.3",
+               "--tps", "0.2", "--jitter-stds", "0", "0.02", "--entry-slip-std", "0.01"],
+}
+
+
+def _rows(main, argv, capsys):
+    assert main(argv) == 0
+    return [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+
+
+@pytest.mark.parametrize("form", list(SWEEP_FORMS))
+def test_sweep_prints_the_jax_cli_rows_and_keys(tmp_path, capsys, form):
+    """Each form's rows in the JAX CLI's order with its keys; the values are
+    close, not equal (the two packages draw different streams)."""
+    argv = [*SWEEP, *SWEEP_FORMS[form]]
+    out = _rows(cli.main, ["--db", str(tmp_path / "t.db"), *argv, "--backend", "torch",
+                           *CPU], capsys)
+    want = _rows(jcli.main, ["--db", str(tmp_path / "j.db"), *argv], capsys)
+    assert len(out) == len(want) == {"first-contact": 4, "gated": 4, "engine": 2}[form]
+    grid_keys = ("stop_padding", "tp_padding", "touch_limit", "q_min_prob",
+                 "level_jitter_std")
+    for o, w in zip(out, want):
+        assert list(o) == list(w)
+        assert [o.get(k) for k in grid_keys] == [w.get(k) for k in grid_keys]
+        assert 0.0 < o["hit_rate"] < 1.0 and np.isfinite(o["mean_r"])
+        assert abs(o["hit_rate"] - w["hit_rate"]) < 0.1
+    if form == "gated":
+        assert out[0]["mean_trades"] < out[1]["mean_trades"]   # touch limit 2 < 4
+    if form == "engine":
+        assert all(isinstance(o["escalations"], int) for o in out)
+
+
+def test_sweep_cuda_backend_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for form in SWEEP_FORMS.values():
+        with pytest.raises(SystemExit, match="CUDA device"):
+            cli.main(["--db", str(tmp_path / "t.db"), *SWEEP, *form, "--backend", "cuda"])
+
+
+@pytest.mark.parametrize("flags", [["--sampler", "bootstrap"],
+                                   ["--sampler", "block_bootstrap"],
+                                   ["--bars-csv", "bars.csv"], ["--block-len", "5"],
+                                   ["--engine", "--block-len", "5"]])
+def test_sweep_unported_options_exit_clearly(tmp_path, flags):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["--db", str(tmp_path / "t.db"), *SWEEP, *flags, *CPU])
+
+
+@pytest.mark.parametrize("flags", [["--touch-limits", "2"], ["--qmins", "0.5"],
+                                   ["--engine", "--touch-limits", "2"]])
+def test_sweep_gate_axes_require_gated(tmp_path, flags):
+    with pytest.raises(SystemExit, match="require --gated"):
+        cli.main(["--db", str(tmp_path / "t.db"), *SWEEP, *flags, *CPU])
+
+
+@pytest.mark.parametrize("form, num_paths, num_bars, want", [
+    ("first-contact", 16384, 40, "cuda"),
+    ("first-contact", 12288, 40, "torch"),   # not a multiple of 8192 lanes
+    ("gated", 16384, 40, "cuda"),
+    ("gated", 16384, 41, "torch"),           # the kernels take an even W only
+    ("engine", 4096, 40, "cuda"),
+    ("engine", 4096, 62, "torch"),           # above the engine kernel's 61 bars
+])
+def test_sweep_auto_takes_the_kernel_only_when_the_shape_fits(
+        monkeypatch, form, num_paths, num_bars, want):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    flags = {"first-contact": [], "gated": ["--gated"], "engine": ["--engine"]}[form]
+    args = cli.build_parser().parse_args(
+        ["sweep", "--num-paths", str(num_paths), "--num-bars", str(num_bars), *flags])
+    assert cli._backend(args, [{"price": 100.0}] * 3) == want
