@@ -51,8 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
 12. first-contact sweep (``mc_sweep_kernel``, mc_first_contact.cu): injected
    uniforms, the CLI's 3 x 3 (stop, tp) grid (BASELINE config #5's three
    rows among them), each row against the plain version on CPU copies;
-   Philox at 2^22 on the same 9 rows, each row equal to
-   ``mc_first_contact_kernel`` bit for bit and within budget of the plain
+   Philox at 2^22 on the same 9 rows, each row equal to the single
+   configuration's launch bit for bit and within budget of the plain
    version on the card, the fold against its plain fold; config #5 at its
    full size (2^30 paths x 40 bars x 3 rows), kernel alone, timed; the
    port CLI's ``sweep --backend cuda`` at 2^28 paths (the 3 x 3 grid),
@@ -74,7 +74,47 @@ Phases (any failure exits non-zero and prints no result line):
    (``mc_paths_engine_fused``'s) bit for bit, skip counts included; kernel
    vs plain on the card path by path at 2^20 x both grids; the CLI's ``sweep
    --engine --backend cuda --num-paths 2^24 --jitter-stds 0 0.02`` (18 rows)
-   with its launches; the kernel alone at 2^26 paths x 9 rows.
+   with its launches; the kernel alone at 2^26 paths x 9 rows;
+   the per-symbol universes (kernels #2, #5, #10, #11), three symbols with
+   their own levels, s0, sigma and [S] knobs (and [S] noise stds for the
+   lifecycles), and BASELINE config #4's universe (100 symbols, one blue
+   level at s0 = 100 + i, sigma 0.25, 2^20 paths a symbol, 40 bars):
+15. first-contact universe (``mc_universe_kernel``, mc_first_contact.cu):
+   injected uniforms, each symbol against the plain version on CPU copies;
+   Philox at 2^22 a symbol, each symbol equal to its one-symbol launch (the
+   single configuration's) at its inputs and key bit for bit and within
+   budget of the plain version
+   on the card (both timed), the fold against its plain fold; the
+   one-symbol universe equal to today's single run; on the main path's
+   inputs (config #4's 100 symbols) at 2^16 paths a symbol, each symbol
+   within budget of the plain version on the card; ``mc_paths_universe_fused``
+   on config #4's universe, warm-up then timed, with its launches;
+16. gated universe (``mc_gated_sweep_kernel``, a row per symbol): injected
+   uniforms path by path with [S] noise stds, every differing path traced as
+   in phase 6; Philox at 2^22 a symbol, each symbol equal to the single
+   kernel bit for bit (per path included), the plain version on the card
+   equal to the kernel on every path, at three symbols and on config #4's
+   100 symbols at 2^16 paths a symbol; ``mc_paths_gated_universe_fused`` on
+   config #4's universe with its launches;
+17. engine universe (``mc_engine_sweep_kernel``, a row per symbol, the sweep
+   of universes at one grid row): injected uniforms path by path with [S]
+   knobs (proximity, paddings, q_min) and noise stds, every differing path
+   traced as in phase 9; Philox, each symbol equal to the single kernel bit
+   for bit at 2^22 and to the plain version on the card on every path at
+   2^20, and config #4's 100 symbols equal to the plain version on the card
+   on every path at 2^16 a symbol; BASELINE config #4 through
+   ``mc_paths_engine_universe_fused``, one
+   warm-up then timed, with its launches; then the per-symbol refresh
+   (``universe_policy_refresh``) on run_all.py's [100, 64, 4] float32 shapes
+   on the card, timed and held against the float64 fit on the CPU (1e-4);
+18. sweep of universes (``mc_engine_sweep_kernel``, S x G rows): an [S, G]
+   grid ([S, G] stop paddings, [G] q_min and noise stds) on injected
+   uniforms path by path, every differing path traced; Philox, cell (s, g)
+   equal to the engine universe under row g's knobs bit for bit, the plain
+   version on the card equal to the kernel on every path, and so on the
+   main path's inputs (config #4's first 8 symbols x the 4 configurations)
+   at 2^16 paths a symbol; the entry ``mc_paths_engine_universe_sweep_fused``
+   at those 8 symbols x 4 rows x 2^20 paths with its launches.
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -90,15 +130,22 @@ is the drift of paths that agree, because a log-price ulp (4.8e-7 near log
 carries it on.  On totals: n exact; entered within F; histogram L1 within
 2F; sums within F * max|equity|.  The row folds: counts exact, float64 sums
 within 1e-9 relative.
-Engine (phases 9-10): the gated rules, a path also differing when its
-escalations or any of its 16 per-path skip counts differ (a ulp can move a
-first-fail reason from one gate to another and change no trade); each skip
-counter's total within W times the number of differing paths (a path moves
-at most one reason a bar, so 0 where no path differs) and escalations
-within F.
+Engine (phases 9-10): the gated rules, a path's trades also differing when
+its escalations differ; besides, a path whose trades agree differs when any
+of its 16 per-path skip counts differ (a ulp can move a first-fail reason
+from one gate to another and change no trade).  That is a threshold
+crossing of its own, at any of the gates a bar reaches, so those paths have
+a budget of their own: at most F paths whose trades differ and at most F
+whose first-fail reasons alone differ.  Every differing path of an injected
+comparison is traced (as in phase 6) before either budget is applied.  Each
+skip counter's total within W times the number of differing paths (a path
+moves at most one reason a bar, so 0 where no path differs) and
+escalations within F.
 Sweeps (phases 12-14): each row under its family's rules above; a row of a
 sweep kernel and the single-configuration launch under that row's knobs:
-equal, bit for bit.
+equal, bit for bit.  Universes (phases 15-18): each symbol (or cell) under
+its family's rules; a symbol of a universe kernel and the single kernel at
+the symbol's inputs and key: equal, bit for bit.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -108,7 +155,8 @@ each take one MUFU operation, 16 per SM per clock) and of 32-bit integer
 multiplies (Philox4x32-10: 40 per call, 64 per SM per clock), at the card's
 ``clocks.max.sm`` and SM count.  The work depends on the data (where paths
 enter, how long they hold), so it is counted by the plain versions on the
-first 2^22 paths of the timed inputs and scaled to their size.  For the
+first 2^22 paths of the timed inputs (the universes' main paths: 2^16 paths
+of each symbol) and scaled to their size.  For the
 engine the count is a floor: the work every bar does, plus the gates that the
 plain version's skip table shows were reached (engine_ops).  A sweep's bound
 counts each path's bars once and each row's decisions on them (sweep_ops,
@@ -310,9 +358,10 @@ def engine_sweep_ops(n_paths: float, counts_rows, scale: float) -> dict:
     return ops
 
 
-def compare(name: str, want, got, n_paths: int) -> float:
+def compare(name: str, want, got, n_paths: int, quiet: bool = False) -> float:
     """Hold first-contact kernel totals ``got`` against plain totals ``want``
-    (both (int64 counts, float64 floats)); returns |delta mean R|."""
+    (both (int64 counts, float64 floats)); returns |delta mean R|.  ``quiet``
+    logs only a failure."""
     wc, wf = (t.cpu() for t in want)
     gc, gf = (t.cpu() for t in got)
     flips = 2 + n_paths // 1024
@@ -333,23 +382,27 @@ def compare(name: str, want, got, n_paths: int) -> float:
             bad.append(f"{fld} {float(gf[j])} vs {float(wf[j])}")
     d_mean = abs(float(gf[0]) / max(int(gc[1]), 1)
                  - float(wf[0]) / max(int(wc[1]), 1))
-    log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} tp {int(gc[2])}/{int(wc[2])} "
-        f"stop {int(gc[3])}/{int(wc[3])} open {int(gc[4])}/{int(wc[4])} "
-        f"sum_r {float(gf[0]):.6f}/{float(wf[0]):.6f} hist L1 {l1} "
-        f"|d mean_r| {d_mean:.3e}")
+    if not quiet or bad:
+        log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} tp {int(gc[2])}/{int(wc[2])} "
+            f"stop {int(gc[3])}/{int(wc[3])} open {int(gc[4])}/{int(wc[4])} "
+            f"sum_r {float(gf[0]):.6f}/{float(wf[0]):.6f} hist L1 {l1} "
+            f"|d mean_r| {d_mean:.3e}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with plain: {bad}")
     return d_mean
 
 
-def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False):
+def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
+                      trace=None, quiet: bool = False):
     """Hold gated (or, with ``engine``, engine) kernel output ``got`` against
     the plain version's ``want`` (both (int64 counts, float64 floats, f32[P,
     6] per-path rows; the engine's counts carry escalations and 16 skip
     counters before the histogram, its rows an escalation column and the
     path's 16 skip counts)), path by path and on totals; returns the largest
     |d equity| or |d dd| on the paths that agree, and the bool[P] mask of the
-    paths that differ."""
+    paths that differ.  ``trace(differ)``, when given, runs on the differing
+    paths before any budget is applied (it raises unless each is a flipped
+    decision); ``quiet`` logs only a failure."""
     import torch
 
     wc, wf, wr = (t.cpu() for t in want[:3])
@@ -369,16 +422,26 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False):
         if abs(float(gf[j]) - float(wf[j])) > flips * max(max_eq, 1.0):
             bad.append(f"{fld} {float(gf[j])} vs {float(wf[j])}")
     # a flipped decision may keep a path's counts and still move its trades,
-    # so a path differs when its counts differ or its equity/dd moved more
-    # than the ulp drift allows (1e-3 per trade)
-    # the engine's rows add escalations and the path's skip counts
-    cols = [1, 2, 3, 4] + (list(range(6, 23)) if engine else [])
+    # so a path's trades differ when its counts (the engine's escalations
+    # too) differ or its equity/dd moved more than the ulp drift allows
+    # (1e-3 per trade); an engine path whose trades agree differs still when
+    # a first-fail reason moved from one gate to another (its skip counts)
+    cols = [1, 2, 3, 4] + ([6] if engine else [])
     err = (gr[:, [0, 5]] - wr[:, [0, 5]]).abs().amax(dim=1)
-    differ = ((gr[:, cols] != wr[:, cols]).any(dim=1)
-              | (err > 1e-3 * torch.clamp(wr[:, 1], min=1.0)))
+    trades_differ = ((gr[:, cols] != wr[:, cols]).any(dim=1)
+                     | (err > 1e-3 * torch.clamp(wr[:, 1], min=1.0)))
+    reason_only = torch.zeros_like(trades_differ)
+    if engine:
+        reason_only = (gr[:, 7:23] != wr[:, 7:23]).any(dim=1) & ~trades_differ
+    differ = trades_differ | reason_only
     n_differ = int(differ.sum())
-    if n_differ > flips:
-        bad.append(f"{n_differ} paths differ (budget {flips})")
+    if trace is not None:
+        trace(differ)
+    if int(trades_differ.sum()) > flips:
+        bad.append(f"{int(trades_differ.sum())} paths' trades differ (budget {flips})")
+    if int(reason_only.sum()) > flips:
+        bad.append(f"{int(reason_only.sum())} paths differ in first-fail reasons only "
+                   f"(budget {flips})")
     extra = ""
     if engine:
         if abs(int(gc[6]) - int(wc[6])) > flips:
@@ -392,11 +455,14 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False):
         extra = (f" escalations {int(gc[6])}/{int(wc[6])}; skip counters "
                  f"{gc[7:23].tolist()} (max |d| {int(d_skips.max())});")
     max_err = float(err[~differ].max()) if bool((~differ).any()) else 0.0
-    log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} trades {int(gc[5])}/{int(wc[5])} "
-        f"wins {int(gc[2])}/{int(wc[2])} losses {int(gc[3])}/{int(wc[3])} "
-        f"open {int(gc[4])}/{int(wc[4])} sum_eq {float(gf[0]):.6f}/{float(wf[0]):.6f} "
-        f"hist L1 {l1};{extra} paths differing {n_differ}, max |d eq|,|d dd| "
-        f"elsewhere {max_err:.3e}")
+    if engine:
+        extra += f" reasons only {int(reason_only.sum())};"
+    if not quiet or bad:
+        log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} trades {int(gc[5])}/{int(wc[5])} "
+            f"wins {int(gc[2])}/{int(wc[2])} losses {int(gc[3])}/{int(wc[3])} "
+            f"open {int(gc[4])}/{int(wc[4])} sum_eq {float(gf[0]):.6f}/{float(wf[0]):.6f} "
+            f"hist L1 {l1};{extra} paths differing {n_differ}, max |d eq|,|d dd| "
+            f"elsewhere {max_err:.3e}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with plain: {bad}")
     return max_err, differ
@@ -425,7 +491,7 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
 
 
 def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
-                       sigma, noise, antithetic, dev) -> dict:
+                       sigma, noise, antithetic, dev, s0: float = 100.0) -> dict:
     """Phase 6's trace for the engine: the plain engine over the bars the
     plain version makes on the CPU (run on the CPU) and over those it makes
     on the card (run on the card).  For every differing path the card run
@@ -446,12 +512,15 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     runs = []
     for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
         bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
-            src, layout, s0=100.0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
+            src, layout, s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
         pick = type(bars)(*(x[idx.to(x.device)] for x in bars))
         runs.append(engine_trace(pick, tie[idx.to(tie.device)],
                                  None if nzs is None else nzs[:, idx.to(nzs.device)],
                                  levels, params, kw, noise, where))
     (rows_cpu, i_cpu), (rows_dev, i_dev) = runs
+    trade_cols = [1, 2, 3, 4, 6]
+    equal_trades = int((kernel_rows[idx][:, trade_cols] == cpu_rows[idx][:, trade_cols])
+                       .all(dim=1).sum())
     if not torch.equal(rows_dev, kernel_rows[idx]):
         raise AssertionError(f"{name}: the kernel differs from the plain engine "
                              "on the card's own bars")
@@ -461,9 +530,10 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     if not bool(parted.any(dim=1).all()):
         raise AssertionError(f"{name}: a differing path shows no flipped decision")
     flip_bar = parted.int().argmax(dim=1)
-    log(f"  {name}: {idx.numel()} differing paths, each traced to a flipped decision "
-        f"at bars {flip_bar.tolist()}; kernel == plain engine on the card's bars")
-    return {"paths": idx.numel()}
+    log(f"  {name}: {idx.numel()} differing paths ({equal_trades} with equal trade "
+        f"counts), each traced to a flipped decision or first-fail reason at bars "
+        f"{flip_bar.tolist()}; kernel == plain engine on the card's bars")
+    return {"paths": idx.numel(), "equal_trade_counts": equal_trades}
 
 
 def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
@@ -488,7 +558,7 @@ def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
 
 
 def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
-                noise, antithetic, dev) -> dict:
+                noise, antithetic, dev, s0: float = 100.0, sigma: float = SIGMA) -> dict:
     """Show that the paths on which the kernel and the plain version on CPU
     copies differ are flipped decisions, not a kernel fault.
 
@@ -510,7 +580,7 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     if idx.numel() == 0:
         return {"paths": 0}
     layout = GatedLayout(NUM_BARS, noise is not None)
-    kw = dict(s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, antithetic=antithetic)
+    kw = dict(s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
     runs = []
     for src in (u, u.to(dev)):
         bars, tie, nzs = cuda_gated.gated_bars_from_uniforms(src, layout, **kw)
@@ -661,6 +731,641 @@ def check_paths_output(out: dict) -> None:
     """The ``paths`` main paths' output: every path counted, some entered."""
     if out["paths"] != float(MAIN_PATHS) or not out["entered"] > 0:
         raise AssertionError(f"unexpected path counts: {out}")
+
+
+# ---- the universes (kernels #2, #5, #10, #11) and BASELINE config #4
+UNI_SYMBOLS = 100          # BASELINE config #4 (benchmarks/run_all.py:147-220)
+UNI_PATHS = 1 << 20        # paths a symbol
+UNI_SIGMA = 0.25
+UNI_SAMPLE_PATHS = 1 << 16    # a symbol: config #4's inputs, kernel vs plain on the card
+UNI_ENGINE_PATHS = 1 << 20     # a symbol, for the engine universe's plain on the card
+UNI_SWEEP_PATHS = 1 << 18      # a symbol, for the sweep of universes' plain on the card
+UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:828"
+GATED_UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1568"
+ENGINE_UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2098"
+ENGINE_UNI_SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2282"
+# three symbols with their own levels, spot, volatility and knobs
+UNI3_ROWS = [[ENGINE_ROWS[0], ENGINE_ROWS[2]],
+             [{"color": "red", "type": "dashed", "index": 0, "price": 100.3}],
+             [{"color": "green", "type": "solid", "index": 0, "price": 99.7}, ENGINE_ROWS[1]]]
+UNI3_S0 = (100.0, 100.1, 99.9)
+UNI3_SIGMA = (0.3, 0.2, 0.35)
+# the engine universe sweep's main path: config #4's first 8 symbols x the 4
+# configurations of tests/test_pallas_engine.py:320-325
+UNI_SWEEP_SYMBOLS = 8
+
+
+def entry(name, source, replaces, launches, err, ms, plain, bound, **extra) -> dict:
+    """One kernel of the ``kernels`` line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "bound_parts": bound["bound_parts"], **extra}
+
+
+def run_entry(name: str, fn, reset, expect: dict, runs: int = 2):
+    """A user's entry point ``fn`` ``runs`` times (one warm-up, then timed),
+    the launch counts set to 0 just before and read just after: exactly the
+    kernels of ``expect`` ran, that often.  Returns (the last output, the
+    seconds of each run, the counts of ``expect``)."""
+    import torch
+
+    reset()
+    secs, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    log(f"  launches in the main-path runs: {counts}; wall per run "
+        f"{', '.join(f'{x:.3f}' for x in secs)} s")
+    if counts != expect:
+        raise AssertionError(f"{name} launched {counts}, not exactly {expect}")
+    return out, secs, {k: counts[k] for k in expect}
+
+
+def timed(fn):
+    """(fn(), milliseconds) on the host clock around fn and a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def config4(n_sym: int | None = None):
+    """BASELINE config #4's universe (benchmarks/run_all.py:153-162): symbol
+    i has one blue level at 100 + i, s0 100 + i and sigma 0.25, at most 4
+    level slots; its first ``n_sym`` symbols."""
+    import numpy as np
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+
+    n_sym = UNI_SYMBOLS if n_sym is None else n_sym
+    rows = [[{"color": "blue", "type": "solid", "index": 0, "price": 100.0 + i}]
+            for i in range(n_sym)]
+    return (U.stack_levels(rows, max_levels=4),
+            np.array([100.0 + i for i in range(n_sym)], np.float32),
+            np.full(n_sym, UNI_SIGMA, np.float32))
+
+
+def check_universe_stats(name: str, stats, n_sym: int, pps: int) -> None:
+    """A universe run's [S] PathStats: every symbol counted in full, every
+    symbol entered, finite sums, lifecycle accounting."""
+    import torch
+
+    if tuple(stats.n.shape) != (n_sym,) or not bool((stats.n == pps).all()):
+        raise AssertionError(f"{name}: path counts {stats.n.tolist()}, not {n_sym} x {pps}")
+    if not bool((stats.n_entered > 0).all()):
+        raise AssertionError(f"{name}: a symbol never entered")
+    for f in ("sum_r", "sum_r2", "sum_dd", "max_dd", "sum_trades"):
+        if not bool(torch.isfinite(getattr(stats, f)).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    if not bool((stats.sum_trades >= stats.n_entered).all()):
+        raise AssertionError(f"{name}: fewer trades than entered paths")
+
+
+def universe_phases(dev, card, reset) -> list:
+    """Phases 15-18: the four universe kernels against their plain versions
+    and their single kernels, BASELINE config #4 and its refresh; returns
+    their entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import (EngineLayout, GatedLayout,
+                                                                 GbmLayout)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+
+    params = EngineParams.default()
+    lv3 = U.stack_levels(UNI3_ROWS, max_levels=8)
+    s0_3, sg_3 = np.array(UNI3_S0, np.float32), np.array(UNI3_SIGMA, np.float32)
+    # per-symbol knobs ([S] leaves) and noise stds: proximity and paddings
+    # (tests/test_pallas_mc.py:260-305) for #2 and #5; those and q_min
+    # (tests/test_pallas_engine.py:352-405) for #10
+    p3 = params.replace(contact_prox=[0.05, 0.08, 0.03], stop_padding=[0.35, 0.20, 0.45],
+                        tp_padding=[0.25, 0.40, 0.15])
+    p3e = p3.replace(q_min_prob=[0.60, 0.40, 0.55])
+    noise3 = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.01]),
+                     entry_slip_std=torch.tensor([0.01, 0.0, 0.0]),
+                     stop_slip_std=torch.tensor([0.0, 0.015, 0.0]),
+                     target_slip_std=torch.tensor([0.015, 0.0, 0.0]))
+    c4 = config4()
+    main_scale = UNI_PATHS / UNI_SAMPLE_PATHS
+
+    def sym(s):
+        return dict(s0=float(s0_3[s]), sigma=float(sg_3[s]), symbol=s)
+
+    def row_bytes(mod, n_rows, pps):
+        """Bytes of the partial rows ``n_rows`` rows of ``pps`` paths write."""
+        return n_rows * grid_size(pps) * (mod.ROW_COUNTS * 8 + mod.ROW_FLOATS * 4)
+
+    def fold_cols(rows, mod):
+        return rows[0].numel() * 8 + rows[1].numel() * 4 + rows[0].shape[0] * (
+            mod.ROW_COUNTS * 8 + mod.ROW_FLOATS * 8)
+
+    def fold(mod, rows):
+        """Partial rows [S, R, C] (and per-path rows) -> ([S, C] totals, per-path rows)."""
+        return (*mod.reduce_rows(rows[0], rows[1]), rows[2])
+
+    def main_inputs(what, cells):
+        log(f"  {what} on the main path's inputs ({cells}) at {UNI_SAMPLE_PATHS} paths a "
+            "symbol, Philox: kernel vs plain on the card")
+
+    def same_on_card(name, want, got, n_cells, n_paths, cell, engine=True):
+        """Each cell's kernel output ``got`` (counts, floats, per-path rows)
+        equals the plain version's ``want`` on every path (a gated lifecycle
+        unless ``engine``); returns the largest float error."""
+        err = 0.0
+        for i in range(n_cells):
+            e, differ = compare_lifecycle(f"{name} {cell(i)}", *(
+                tuple(x[i] for x in t) for t in (want, got)), n_paths, engine=engine,
+                quiet=True)
+            if bool(differ.any()):
+                raise AssertionError(f"{name} {cell(i)}: kernel and plain on the card differ "
+                                     f"on {int(differ.sum())} paths")
+            err = max(err, e)
+        d = (got[0].cpu() - want[0].cpu()).abs().amax()
+        log(f"    every one of {n_cells} cells equals the plain version on every path "
+            f"(counts |d| {int(d)}, sum_eq |d| max "
+            f"{float((got[1][..., 0].cpu() - want[1][..., 0].cpu()).abs().max()):.3e})")
+        return err
+
+    out = []
+
+    # ---- phase 15: first-contact universe (kernel #2)
+    lanes = cuda_mc.UNIVERSE_LANES
+    nb = 4
+    log(f"[15] first-contact universe (mc_universe_kernel), injected uniforms: 3 symbols x "
+        f"{nb * lanes} paths (own levels, s0, sigma, prox, paddings), kernel vs plain on "
+        "CPU copies")
+    u = torch.from_numpy(np.random.default_rng(600).uniform(
+        1e-9, 1.0, (3, nb, GbmLayout(NUM_BARS).n_rows, lanes)).astype(np.float32))
+    kw = dict(paths_per_symbol=nb * lanes, num_bars=NUM_BARS, dt=DT, lanes=lanes)
+    want = cuda_mc.universe_totals_reference(0, lv3, p3, s0_3, sg_3, external_uniforms=u, **kw)
+    got = cuda_mc.reduce_rows(*cuda_mc.universe_rows(0, lv3, p3, s0_3, sg_3, device=dev,
+                                                     external_uniforms=u.to(dev), **kw))
+    torch.cuda.synchronize()
+    uni_err = 0.0
+    for s in range(3):
+        uni_err = max(uni_err, compare(f"symbol {s}", (want[0][s], want[1][s]),
+                                       (got[0][s], got[1][s]), nb * lanes))
+    log(f"  Philox at {PHILOX_PATHS} paths a symbol: each symbol vs the one-symbol launch "
+        "(first_contact_rows) at its inputs and key bit for bit; kernel vs plain on the card")
+    kw = dict(paths_per_symbol=PHILOX_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+              external_uniforms=None)
+    run = lambda: cuda_mc.universe_rows(7, lv3, p3, s0_3, sg_3, device=dev, **kw)
+    rows = run()
+    got = cuda_mc.reduce_rows(*rows)
+    for s in range(3):
+        one = cuda_mc.first_contact_rows(
+            7, grid_row(lv3, s), grid_row(p3, s), num_paths=PHILOX_PATHS, num_bars=NUM_BARS,
+            mu=0.0, dt=DT, lanes=lanes, noise=None, antithetic=False, external_uniforms=None,
+            device=dev, **sym(s))
+        tot = cuda_mc.reduce_rows(*one)
+        if not (torch.equal(one[0], rows[0][s]) and torch.equal(one[1], rows[1][s])
+                and torch.equal(tot[0], got[0][s]) and torch.equal(tot[1], got[1][s])):
+            raise AssertionError(f"universe symbol {s} differs from its one-symbol launch")
+    (wc, wf, work), uni_plain_ms = timed(lambda: cuda_mc.universe_totals_reference(
+        7, lv3, p3, s0_3, sg_3, device=dev, chunk_blocks=64, work=True, **kw))
+    for s in range(3):
+        uni_err = max(uni_err, compare(f"philox symbol {s}", (wc[s], wf[s]),
+                                       (got[0][s], got[1][s]), PHILOX_PATHS))
+    uni_red_err = check_fold("mc_universe_reduce_rows", cuda_mc.reduce_rows_reference(*rows),
+                             got)
+    uni_ms = cuda_ms(run, 3)
+    uni_bound = card.bound(bytes_=rows[0].numel() * 8 + rows[1].numel() * 4,
+                           **fc_ops(work.sum(0).cpu(), int(wc[:, 1].sum()), 1.0))
+    red_ms = cuda_ms(lambda: cuda_mc.reduce_rows(*rows, what="mc_universe_reduce_rows"), 20)
+    red_plain_ms = cuda_ms(lambda: cuda_mc.reduce_rows_reference(*rows), 20)
+    red_bound = card.bound(bytes_=fold_cols(rows, cuda_mc), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  every symbol equals its one-symbol launch bit for bit; at 3 x {PHILOX_PATHS} "
+        f"paths: kernel {uni_ms:.3f} ms, bound {uni_bound['bound_ms']:.3f} ms "
+        f"{uni_bound['bound_parts']}, plain {uni_plain_ms:.3f} ms; fold {red_ms:.4f} ms")
+    lv1, s0_1, sg_1 = config4(1)
+    a = cuda_mc.mc_paths_universe_fused(3, lv1, params, s0_1, sg_1,
+                                        paths_per_symbol=PHILOX_PATHS, device=dev)
+    b = cuda_mc.mc_paths_fused(3, grid_row(lv1, 0), params, num_paths=PHILOX_PATHS,
+                               s0=100.0, sigma=UNI_SIGMA, lanes=lanes, device=dev)
+    if not (torch.equal(a.sum_r[0], b.sum_r) and torch.equal(a.hist[0], b.hist)):
+        raise AssertionError("the one-symbol universe differs from the single run")
+    log("  the one-symbol universe equals today's single run (mc_paths_fused) bit for bit")
+    main_inputs("mc_universe_kernel", f"config #4's {UNI_SYMBOLS} symbols")
+    c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                external_uniforms=None, device=dev)
+    sc, sf, swork = cuda_mc.universe_totals_reference(0, c4[0], params, *c4[1:], work=True,
+                                                      **c4kw)
+    kc, kf = cuda_mc.reduce_rows(*cuda_mc.universe_rows(0, c4[0], params, *c4[1:], **c4kw))
+    c4_err = max(compare(f"config #4 symbol {s}", (sc[s], sf[s]), (kc[s], kf[s]),
+                         UNI_SAMPLE_PATHS, quiet=True) for s in range(UNI_SYMBOLS))
+    uni_err = max(uni_err, c4_err)
+    log(f"    every symbol within budget (2 + {UNI_SAMPLE_PATHS // 1024}): entered/tp/stop/open "
+        f"|d| max {int((kc[:, 1:5].cpu() - sc[:, 1:5].cpu()).abs().max())}, hist L1 max "
+        f"{int((kc[:, 5:].cpu() - sc[:, 5:].cpu()).abs().sum(1).max())}, |d mean_r| max "
+        f"{c4_err:.3e}")
+    log(f"[15] main path: mc_paths_universe_fused, config #4's universe ({UNI_SYMBOLS} symbols "
+        f"x {UNI_PATHS} paths x {NUM_BARS} bars)")
+    st, secs, launches = run_entry(
+        "mc_paths_universe_fused", lambda: cuda_mc.mc_paths_universe_fused(
+            0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
+        reset, {"mc_universe": 2, "mc_universe_reduce_rows": 2})
+    check_universe_stats("first-contact universe", st, UNI_SYMBOLS, UNI_PATHS)
+    if not bool((st.n_tp + st.n_stop + st.n_open == st.n_entered).all()):
+        raise AssertionError("first-contact universe: tp + stop + open != entered")
+    main_ms = cuda_ms(lambda: cuda_mc.universe_rows(
+        0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT,
+        lanes=lanes, external_uniforms=None, device=dev), 2)
+    main_bound = card.bound(bytes_=row_bytes(cuda_mc, UNI_SYMBOLS, UNI_PATHS),
+                            **fc_ops(swork.sum(0).cpu(), int(sc[:, 1].sum()), main_scale))
+    log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {main_ms:.3f} ms "
+        f"({UNI_SYMBOLS * UNI_PATHS / main_ms * 1e3:.6e} paths/s), bound "
+        f"{main_bound['bound_ms']:.3f} ms {main_bound['bound_parts']}")
+    out += [entry("mc_universe", FC_SOURCE, UNI_REPLACES, launches["mc_universe"], uni_err,
+                  uni_ms, uni_plain_ms, uni_bound, symbols=3, paths=PHILOX_PATHS,
+                  main_path_ms=main_ms, main_path_bound_ms=main_bound["bound_ms"],
+                  main_s=secs[1:]),
+            entry("mc_universe_reduce_rows", FC_SOURCE, UNI_REPLACES,
+                  launches["mc_universe_reduce_rows"], uni_red_err, red_ms, red_plain_ms,
+                  red_bound, rows=int(rows[0].shape[1]), symbols=3)]
+
+    # ---- phase 16: gated universe (kernel #5)
+    lanes = GATED_LANES
+    gate = GateConfig.from_params(params)
+    n_inj = nb * 8 * lanes
+    log(f"[16] gated universe (mc_gated_sweep_kernel, a row per symbol), injected uniforms: "
+        f"3 symbols x {n_inj} paths, [S] knobs and noise stds, kernel vs plain on CPU "
+        "copies path by path, every differing path traced")
+    u = torch.from_numpy(np.random.default_rng(601).uniform(
+        1e-9, 1.0, (3, nb, GatedLayout(NUM_BARS, True).u_rows, 8, lanes)).astype(np.float32))
+    kw = dict(paths_per_symbol=n_inj, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3)
+    want = cuda_gated.gated_universe_totals_reference(0, lv3, p3, s0_3, sg_3, gate,
+                                                      external_uniforms=u, per_path=True, **kw)
+    pc, pf, prow = cuda_gated.gated_universe_rows(0, lv3, p3, s0_3, sg_3, gate, device=dev,
+                                                  external_uniforms=u.to(dev), per_path=True,
+                                                  **kw)
+    gc, gf = cuda_gated.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    g_err = 0.0
+    for s in range(3):
+        err, _ = compare_lifecycle(
+            f"symbol {s}", (want[0][s], want[1][s], want[2][s]), (gc[s], gf[s], prow[s]), n_inj,
+            trace=lambda d: trace_flips(f"symbol {s}", u[s], d, prow[s].cpu(), want[2][s].cpu(),
+                                        grid_row(lv3, s), grid_row(p3, s), gate,
+                                        grid_row(noise3, s), False, dev, s0=float(s0_3[s]),
+                                        sigma=float(sg_3[s])))
+        g_err = max(g_err, err)
+    log(f"  Philox at {PHILOX_PATHS} paths a symbol: each symbol vs the single kernel "
+        "(gated_rows) at its inputs and key bit for bit, per path included; kernel vs plain "
+        "on the card path by path")
+    kw = dict(paths_per_symbol=PHILOX_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+              noise=noise3, external_uniforms=None)
+    rows = cuda_gated.gated_universe_rows(7, lv3, p3, s0_3, sg_3, gate, device=dev,
+                                          per_path=True, **kw)
+    gc, gf = cuda_gated.reduce_rows(*rows[:2])
+    for s in range(3):
+        one = cuda_gated.gated_rows(7, grid_row(lv3, s), grid_row(p3, s), gate,
+                                    num_paths=PHILOX_PATHS, num_bars=NUM_BARS, mu=0.0, dt=DT,
+                                    lanes=lanes, noise=grid_row(noise3, s), antithetic=False,
+                                    external_uniforms=None, device=dev, per_path=True, **sym(s))
+        if not all(torch.equal(a, b[s]) for a, b in zip(one, rows)):
+            raise AssertionError(f"gated universe symbol {s} differs from the single kernel")
+    (wc, wf, wrow, held), g_plain_ms = timed(lambda: cuda_gated.gated_universe_totals_reference(
+        7, lv3, p3, s0_3, sg_3, gate, device=dev, chunk_blocks=64, per_path=True, work=True,
+        **kw))
+    for s in range(3):
+        err, differ = compare_lifecycle(f"philox symbol {s}", (wc[s], wf[s], wrow[s]),
+                                        (gc[s], gf[s], rows[2][s]), PHILOX_PATHS)
+        g_err = max(g_err, err)
+        if bool(differ.any()):
+            raise AssertionError(f"gated universe symbol {s}: kernel and plain on the card "
+                                 "differ")
+    g_red_err = check_fold("mc_gated_universe_reduce_rows",
+                           cuda_gated.reduce_rows_reference(*rows[:2]), (gc, gf))
+    rows = rows[:2]
+    run = lambda: cuda_gated.gated_universe_rows(7, lv3, p3, s0_3, sg_3, gate, device=dev, **kw)
+    g_ms = cuda_ms(run, 3)
+    # the noise terms add 2 Philox calls a double bar and a Box-Muller pair an entry
+    g_ops = gated_ops(3 * PHILOX_PATHS, float(held.sum()), float(wc[:, 5].sum()))
+    g_ops["imul"] *= 2
+    g_bound = card.bound(bytes_=rows[0].numel() * 8 + rows[1].numel() * 4, **g_ops)
+    g_red_ms = cuda_ms(lambda: cuda_gated.reduce_rows(*rows, what="mc_gated_universe_reduce_rows"),
+                       20)
+    g_red_plain_ms = cuda_ms(lambda: cuda_gated.reduce_rows_reference(*rows), 20)
+    g_red_bound = card.bound(bytes_=fold_cols(rows, cuda_gated), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  every symbol equals the single kernel bit for bit; the plain version on the card "
+        f"equals the kernel on every path; at 3 x {PHILOX_PATHS} paths with noise: kernel "
+        f"{g_ms:.3f} ms, bound {g_bound['bound_ms']:.3f} ms {g_bound['bound_parts']}, plain "
+        f"{g_plain_ms:.3f} ms; fold {g_red_ms:.4f} ms")
+    main_inputs("the gated universe", f"config #4's {UNI_SYMBOLS} symbols, path by path")
+    c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                noise=None, external_uniforms=None, device=dev, per_path=True)
+    sc, sf, srow, held = cuda_gated.gated_universe_totals_reference(
+        0, c4[0], params, *c4[1:], chunk_blocks=64, work=True, **c4kw)
+    g_err = max(g_err, same_on_card(
+        "gated", (sc, sf, srow), fold(cuda_gated, cuda_gated.gated_universe_rows(
+            0, c4[0], params, *c4[1:], **c4kw)), UNI_SYMBOLS, UNI_SAMPLE_PATHS,
+        lambda s: f"symbol {s}", engine=False))
+    del srow
+    log(f"[16] main path: mc_paths_gated_universe_fused, config #4's universe "
+        f"({UNI_SYMBOLS} x {UNI_PATHS} paths)")
+    st, secs, launches = run_entry(
+        "mc_paths_gated_universe_fused", lambda: cuda_gated.mc_paths_gated_universe_fused(
+            0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
+        reset, {"mc_gated_universe": 2, "mc_gated_universe_reduce_rows": 2})
+    check_universe_stats("gated universe", st, UNI_SYMBOLS, UNI_PATHS)
+    g_main = dict(paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
+                  external_uniforms=None, device=dev)
+    g_main_ms = cuda_ms(lambda: cuda_gated.gated_universe_rows(0, c4[0], params, *c4[1:],
+                                                               **g_main), 2)
+    g_main_bound = card.bound(
+        bytes_=row_bytes(cuda_gated, UNI_SYMBOLS, UNI_PATHS),
+        **gated_ops(UNI_SYMBOLS * UNI_PATHS, float(held.sum()) * main_scale,
+                    float(sc[:, 5].sum()) * main_scale))
+    log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {g_main_ms:.3f} ms "
+        f"({UNI_SYMBOLS * UNI_PATHS / g_main_ms * 1e3:.6e} paths/s), bound "
+        f"{g_main_bound['bound_ms']:.3f} ms {g_main_bound['bound_parts']}")
+    out += [entry("mc_gated_universe", GATED_SOURCE, GATED_UNI_REPLACES,
+                  launches["mc_gated_universe"], g_err, g_ms, g_plain_ms, g_bound, symbols=3,
+                  paths=PHILOX_PATHS, noise=True, main_path_ms=g_main_ms,
+                  main_path_bound_ms=g_main_bound["bound_ms"], main_s=secs[1:]),
+            entry("mc_gated_universe_reduce_rows", GATED_SOURCE, GATED_UNI_REPLACES,
+                  launches["mc_gated_universe_reduce_rows"], g_red_err, g_red_ms,
+                  g_red_plain_ms, g_red_bound, rows=int(rows[0].shape[1]), symbols=3)]
+
+    # ---- phase 17: engine universe (kernel #10), BASELINE config #4 and its refresh
+    lanes = ENGINE_LANES
+    n_inj = nb * 8 * lanes
+    log(f"[17] engine universe (mc_engine_sweep_kernel, a row per symbol), injected "
+        f"uniforms: 3 symbols x {n_inj} paths, [S] knobs and noise stds, kernel vs plain on "
+        "CPU copies path by path, every differing path traced")
+    u = torch.from_numpy(np.random.default_rng(602).uniform(
+        1e-6, 1.0, (3, nb, EngineLayout(NUM_BARS, True).u_rows, 8, lanes)).astype(np.float32))
+    kw = dict(paths_per_symbol=n_inj, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3)
+    want = cuda_engine.engine_universe_totals_reference(0, lv3, p3e, s0_3, sg_3,
+                                                        external_uniforms=u, per_path=True, **kw)
+    pc, pf, prow = cuda_engine.engine_universe_rows(0, lv3, p3e, s0_3, sg_3, device=dev,
+                                                    external_uniforms=u.to(dev), per_path=True,
+                                                    **kw)
+    ec, ef = cuda_engine.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    e_err = 0.0
+    for s in range(3):
+        err, _ = compare_lifecycle(
+            f"symbol {s}", (want[0][s], want[1][s], want[2][s]), (ec[s], ef[s], prow[s]), n_inj,
+            engine=True,
+            trace=lambda d: trace_engine_flips(f"symbol {s}", u[s], d, prow[s].cpu(),
+                                               want[2][s].cpu(), grid_row(lv3, s),
+                                               grid_row(p3e, s), {}, float(sg_3[s]),
+                                               grid_row(noise3, s), False, dev,
+                                               s0=float(s0_3[s])))
+        e_err = max(e_err, err)
+    e_paths = UNI_ENGINE_PATHS
+    log(f"  Philox at {PHILOX_PATHS} paths a symbol: each symbol vs the single kernel "
+        f"(engine_rows) bit for bit, per path and skip counts included; at {e_paths} paths a "
+        "symbol kernel vs plain on the card path by path")
+    kw = dict(num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3, external_uniforms=None)
+    rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
+                                            paths_per_symbol=PHILOX_PATHS, **kw)
+    for s in range(3):
+        one = cuda_engine.engine_rows(7, grid_row(lv3, s), grid_row(p3e, s),
+                                      num_paths=PHILOX_PATHS, mu=0.0, device=dev,
+                                      per_path=True, **dict(kw, noise=grid_row(noise3, s)),
+                                      **sym(s))
+        if not all(torch.equal(a, b[s]) for a, b in zip(one, rows)):
+            raise AssertionError(f"engine universe symbol {s} differs from the single kernel")
+    del rows, one
+    kw = dict(kw, paths_per_symbol=e_paths)
+    rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
+                                            **kw)
+    ec, ef = cuda_engine.reduce_rows(*rows[:2])
+    (wc, wf, wrow), e_plain_ms = timed(lambda: cuda_engine.engine_universe_totals_reference(
+        7, lv3, p3e, s0_3, sg_3, device=dev, chunk_blocks=512, per_path=True, **kw))
+    for s in range(3):
+        err, differ = compare_lifecycle(f"card symbol {s}", (wc[s], wf[s], wrow[s]),
+                                        (ec[s], ef[s], rows[2][s]), e_paths, engine=True)
+        e_err = max(e_err, err)
+        if bool(differ.any()):
+            raise AssertionError(f"engine universe symbol {s}: kernel and plain on the card "
+                                 "differ")
+    e_red_err = check_fold("mc_engine_universe_reduce_rows",
+                           cuda_engine.reduce_rows_reference(*rows[:2]), (ec, ef))
+    rows = rows[:2]
+    e_ms = cuda_ms(lambda: cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev,
+                                                            **kw), 3)
+    e_bound = card.bound(bytes_=rows[0].numel() * 8 + rows[1].numel() * 4,
+                         **engine_ops(3 * e_paths, wc.sum(0).cpu(), 1.0))
+    e_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(
+        *rows, what="mc_engine_universe_reduce_rows"), 20)
+    e_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*rows), 20)
+    e_red_bound = card.bound(bytes_=fold_cols(rows, cuda_engine), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  every symbol equals the single kernel bit for bit; the plain version on the card "
+        f"equals the kernel on every path; at 3 x {e_paths} paths with noise: kernel "
+        f"{e_ms:.3f} ms, bound {e_bound['bound_ms']:.3f} ms {e_bound['bound_parts']}, plain "
+        f"{e_plain_ms:.3f} ms; fold {e_red_ms:.4f} ms")
+    main_inputs("the engine universe", f"config #4's {UNI_SYMBOLS} symbols, path by path")
+    c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                external_uniforms=None, device=dev, per_path=True)
+    sc, sf, srow = cuda_engine.engine_universe_totals_reference(
+        0, c4[0], params, *c4[1:], chunk_blocks=512, **c4kw)
+    e_err = max(e_err, same_on_card(
+        "engine", (sc, sf, srow), fold(cuda_engine, cuda_engine.engine_universe_rows(
+            0, c4[0], params, *c4[1:], **c4kw)), UNI_SYMBOLS, UNI_SAMPLE_PATHS,
+        lambda s: f"symbol {s}"))
+    del srow
+    log(f"[17] main path: BASELINE config #4, mc_paths_engine_universe_fused ({UNI_SYMBOLS} "
+        f"symbols x {UNI_PATHS} paths x {NUM_BARS} bars, sigma {UNI_SIGMA}, default params), "
+        "one warm-up then timed")
+    (st, skips, escal), secs, launches = run_entry(
+        "mc_paths_engine_universe_fused", lambda: cuda_engine.mc_paths_engine_universe_fused(
+            0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
+        reset, {"mc_engine_universe": 2, "mc_engine_universe_reduce_rows": 2})
+    check_universe_stats("engine universe", st, UNI_SYMBOLS, UNI_PATHS)
+    # one level a symbol: no next level to escalate to, so no escalation
+    if not (tuple(skips.shape) == (UNI_SYMBOLS, 16) and bool((skips.sum(1) > 0).all())
+            and tuple(escal.shape) == (UNI_SYMBOLS,)):
+        raise AssertionError(f"engine universe: skips {tuple(skips.shape)}, escalations "
+                             f"{tuple(escal.shape)}")
+    log(f"  config #4 wall {secs[-1]:.3f} s ({UNI_SYMBOLS * UNI_PATHS / secs[-1]:.6e} paths/s "
+        f"end to end); symbol 0: entered {int(st.n_entered[0])}, trades "
+        f"{int(st.sum_trades[0])}, mean equity {float(st.mean_r[0]):.6f}, escalations "
+        f"{int(escal[0])}")
+    e_main = dict(paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                  external_uniforms=None, device=dev)
+    e_main_ms = cuda_ms(lambda: cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:],
+                                                                 **e_main), 1)
+    e_main_bound = card.bound(
+        bytes_=row_bytes(cuda_engine, UNI_SYMBOLS, UNI_PATHS),
+        **engine_ops(UNI_SYMBOLS * UNI_PATHS, sc.sum(0).cpu(), main_scale))
+    log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {e_main_ms:.3f} ms "
+        f"({UNI_SYMBOLS * UNI_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
+        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
+    # the refresh on run_all.py:205-209's shapes, made from a seed with numpy
+    rng = np.random.default_rng(0)
+    xs = rng.normal(0, 1, (UNI_SYMBOLS, 64, 4)).astype(np.float32)
+    ys = (rng.uniform(size=(UNI_SYMBOLS, 64)) < 0.5).astype(np.int32)
+    ws = np.ones((UNI_SYMBOLS, 64), np.float32)
+    U.universe_policy_refresh(None, xs, ys, ws)
+    model, refresh_ms = timed(lambda: U.universe_policy_refresh(None, xs, ys, ws))
+    ref = U.universe_policy_refresh(None, xs.astype(np.float64), ys, ws.astype(np.float64),
+                                    device="cpu")
+    if model.coef.device.type != dev.type or model.coef.dtype != torch.float32:
+        raise AssertionError(f"the refresh ran on {model.coef.device} in {model.coef.dtype}")
+    d_coef = float((model.coef.cpu().double() - ref.coef).abs().max())
+    d_icpt = float((model.intercept.cpu().double() - ref.intercept).abs().max())
+    # float32 against float64 on [64, 4] designs: agreement to ~1e-6, held to 1e-4
+    if not (d_coef <= 1e-4 and d_icpt <= 1e-4 and bool(torch.isfinite(model.coef).all())):
+        raise AssertionError(f"the refresh differs from its float64 CPU fit: coef {d_coef}, "
+                             f"intercept {d_icpt}")
+    log(f"  refresh: universe_policy_refresh on [{UNI_SYMBOLS}, 64, 4] float32 on the card "
+        f"{refresh_ms:.3f} ms (Newton steps {model.n_iter.tolist()[:4]}...); vs the float64 "
+        f"CPU fit (steps {ref.n_iter.tolist()[:4]}...): max |d coef| {d_coef:.3e}, "
+        f"|d intercept| {d_icpt:.3e}")
+    out += [entry("mc_engine_universe", ENGINE_SOURCE, ENGINE_UNI_REPLACES,
+                  launches["mc_engine_universe"], e_err, e_ms, e_plain_ms, e_bound, symbols=3,
+                  paths=e_paths, noise=True, main_path_ms=e_main_ms,
+                  main_path_bound_ms=e_main_bound["bound_ms"], config4_s=secs[1:],
+                  refresh_ms=refresh_ms, refresh_max_abs_err=max(d_coef, d_icpt)),
+            entry("mc_engine_universe_reduce_rows", ENGINE_SOURCE, ENGINE_UNI_REPLACES,
+                  launches["mc_engine_universe_reduce_rows"], e_red_err, e_red_ms,
+                  e_red_plain_ms, e_red_bound, rows=int(rows[0].shape[1]), symbols=3)]
+
+    # ---- phase 18: sweep of universes (kernel #11)
+    stops = torch.tensor([[0.35, 0.25, 0.45], [0.20, 0.30, 0.25], [0.45, 0.35, 0.30]])
+    qmin = torch.tensor([0.60, 0.45, 0.60])
+    grid = params.replace(stop_padding=stops, q_min_prob=qmin)
+    g_noise = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.02]),
+                      entry_slip_std=torch.tensor([0.0, 0.0, 0.01]),
+                      stop_slip_std=torch.tensor([0.0, 0.0, 0.015]),
+                      target_slip_std=torch.tensor([0.0, 0.0, 0.015]))
+    nb2 = 2
+    n_inj = nb2 * 8 * lanes
+    log(f"[18] sweep of universes (mc_engine_sweep_kernel, S x G rows), injected uniforms: "
+        f"3 symbols x 3 rows x {n_inj} paths ([S, G] stop paddings, [G] q_min and noise "
+        "stds), kernel vs plain on CPU copies path by path, every differing path traced")
+    u = torch.from_numpy(np.random.default_rng(603).uniform(
+        1e-6, 1.0, (3, nb2, EngineLayout(NUM_BARS, True).u_rows, 8, lanes)).astype(np.float32))
+    kw = dict(paths_per_symbol=n_inj, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=g_noise)
+    want = cuda_engine.engine_universe_sweep_totals_reference(
+        0, lv3, grid, s0_3, sg_3, external_uniforms=u, per_path=True, **kw)
+    pc, pf, prow = cuda_engine.engine_universe_sweep_rows(
+        0, lv3, grid, s0_3, sg_3, device=dev, external_uniforms=u.to(dev), per_path=True, **kw)
+    ec, ef = cuda_engine.reduce_rows(pc.flatten(0, 1), pf.flatten(0, 1))
+    ec, ef = ec.view(3, 3, -1), ef.view(3, 3, -1)
+    torch.cuda.synchronize()
+    es_err = 0.0
+    for s in range(3):
+        for g in range(3):
+            err, _ = compare_lifecycle(
+                f"cell ({s}, {g})", (want[0][s, g], want[1][s, g], want[2][s, g]),
+                (ec[s, g], ef[s, g], prow[s, g]), n_inj, engine=True,
+                trace=lambda d: trace_engine_flips(
+                    f"cell ({s}, {g})", u[s], d, prow[s, g].cpu(), want[2][s, g].cpu(),
+                    grid_row(lv3, s),
+                    params.replace(stop_padding=stops[s, g], q_min_prob=qmin[g]), {},
+                    float(sg_3[s]), grid_row(g_noise, g), False, dev, s0=float(s0_3[s])))
+            es_err = max(es_err, err)
+    es_paths = UNI_SWEEP_PATHS
+    log(f"  Philox at {es_paths} paths a symbol: cell (s, g) vs the engine universe at row "
+        "g's knobs bit for bit, per path included; kernel vs plain on the card path by path")
+    kw = dict(paths_per_symbol=es_paths, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=g_noise,
+              external_uniforms=None)
+    rows = cuda_engine.engine_universe_sweep_rows(7, lv3, grid, s0_3, sg_3, device=dev,
+                                                  per_path=True, **kw)
+    for g in range(3):
+        uni = cuda_engine.engine_universe_rows(
+            7, lv3, params.replace(stop_padding=stops[:, g], q_min_prob=qmin[g]), s0_3, sg_3,
+            device=dev, per_path=True, **dict(kw, noise=grid_row(g_noise, g)))
+        if not all(torch.equal(a, b[:, g]) for a, b in zip(uni, rows)):
+            raise AssertionError(f"sweep-of-universes row {g} differs from the engine universe")
+    ec, ef = cuda_engine.reduce_rows(rows[0].flatten(0, 1), rows[1].flatten(0, 1))
+    (wc, wf, wrow), es_plain_ms = timed(
+        lambda: cuda_engine.engine_universe_sweep_totals_reference(
+            7, lv3, grid, s0_3, sg_3, device=dev, chunk_blocks=512, per_path=True, **kw))
+    for s in range(3):
+        for g in range(3):
+            err, differ = compare_lifecycle(
+                f"card cell ({s}, {g})", (wc[s, g], wf[s, g], wrow[s, g]),
+                (ec[3 * s + g], ef[3 * s + g], rows[2][s, g]), es_paths, engine=True)
+            es_err = max(es_err, err)
+            if bool(differ.any()):
+                raise AssertionError(f"cell ({s}, {g}): kernel and plain on the card differ")
+    es_red_err = check_fold("mc_engine_universe_sweep_reduce_rows",
+                            cuda_engine.reduce_rows_reference(rows[0].flatten(0, 1),
+                                                              rows[1].flatten(0, 1)), (ec, ef))
+    rows = tuple(x.flatten(0, 1) for x in rows[:2])
+    es_ms = cuda_ms(lambda: cuda_engine.engine_universe_sweep_rows(
+        7, lv3, grid, s0_3, sg_3, device=dev, **kw), 3)
+    es_bound = card.bound(bytes_=rows[0].numel() * 8 + rows[1].numel() * 4,
+                          **engine_sweep_ops(3 * es_paths, [wc[:, g].sum(0).cpu()
+                                                            for g in range(3)], 1.0))
+    es_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(
+        *rows, what="mc_engine_universe_sweep_reduce_rows"), 20)
+    es_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*rows), 20)
+    es_red_bound = card.bound(bytes_=fold_cols(rows, cuda_engine), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  every cell equals the engine universe bit for bit; the plain version on the card "
+        f"equals the kernel on every path; at 3 x 3 x {es_paths} paths with noise: kernel "
+        f"{es_ms:.3f} ms, bound {es_bound['bound_ms']:.3f} ms {es_bound['bound_parts']}, plain "
+        f"{es_plain_ms:.3f} ms; fold {es_red_ms:.4f} ms")
+    cfgs = [EngineParams.default(),
+            EngineParams.default(stop_padding=0.20, tp_padding=0.40),
+            EngineParams.default(q_min_prob=0.40, enable_veto=False),
+            EngineParams.default(overtouch_limit=2, cooldown_s=180.0)]
+    grid4 = stack_params(cfgs)
+    c8 = config4(UNI_SWEEP_SYMBOLS)
+    main_inputs("the sweep of universes", f"config #4's first {UNI_SWEEP_SYMBOLS} symbols x "
+                "4 rows, path by path")
+    c8kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                external_uniforms=None, device=dev, per_path=True)
+    sc, sf, srow = cuda_engine.engine_universe_sweep_totals_reference(
+        0, c8[0], grid4, *c8[1:], chunk_blocks=512, **c8kw)
+    krows = cuda_engine.engine_universe_sweep_rows(0, c8[0], grid4, *c8[1:], **c8kw)
+    es_err = max(es_err, same_on_card(
+        "engine", tuple(x.flatten(0, 1) for x in (sc, sf, srow)),
+        fold(cuda_engine, tuple(x.flatten(0, 1) for x in krows)), UNI_SWEEP_SYMBOLS * 4,
+        UNI_SAMPLE_PATHS, lambda i: f"cell ({i // 4}, {i % 4})"))
+    del srow, krows
+    log(f"[18] main path: mc_paths_engine_universe_sweep_fused, config #4's first "
+        f"{UNI_SWEEP_SYMBOLS} symbols x the 4 configurations of "
+        f"tests/test_pallas_engine.py:320-325 x {UNI_PATHS} paths")
+    (st, skips, escal), secs, launches = run_entry(
+        "mc_paths_engine_universe_sweep_fused",
+        lambda: cuda_engine.mc_paths_engine_universe_sweep_fused(
+            0, c8[0], grid4, *c8[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
+        reset, {"mc_engine_universe_sweep": 2, "mc_engine_universe_sweep_reduce_rows": 2})
+    if tuple(st.n.shape) != (UNI_SWEEP_SYMBOLS, 4) or not bool((st.n == UNI_PATHS).all()):
+        raise AssertionError(f"sweep of universes: counts {st.n.tolist()}")
+    if not (bool((st.n_entered > 0).all()) and bool(torch.isfinite(st.sum_r).all())
+            and len({tuple(x) for x in skips[0].tolist()}) == 4):
+        raise AssertionError("sweep of universes: a cell never entered, a non-finite sum, or "
+                             "two rows deciding alike")
+    es_main = dict(paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+                   external_uniforms=None, device=dev)
+    es_main_ms = cuda_ms(lambda: cuda_engine.engine_universe_sweep_rows(
+        0, c8[0], grid4, *c8[1:], **es_main), 1)
+    es_main_bound = card.bound(
+        bytes_=row_bytes(cuda_engine, UNI_SWEEP_SYMBOLS * 4, UNI_PATHS),
+        **engine_sweep_ops(UNI_SWEEP_SYMBOLS * UNI_PATHS, [sc[:, g].sum(0).cpu()
+                                                           for g in range(4)], main_scale))
+    log(f"  kernel alone at {UNI_SWEEP_SYMBOLS} x 4 x {UNI_PATHS}: {es_main_ms:.3f} ms "
+        f"({UNI_SWEEP_SYMBOLS * 4 * UNI_PATHS / es_main_ms * 1e3:.6e} paths x rows/s), bound "
+        f"{es_main_bound['bound_ms']:.3f} ms {es_main_bound['bound_parts']}")
+    out += [entry("mc_engine_universe_sweep", ENGINE_SOURCE, ENGINE_UNI_SWEEP_REPLACES,
+                  launches["mc_engine_universe_sweep"], es_err, es_ms, es_plain_ms, es_bound,
+                  symbols=3, grid_rows=3, paths=es_paths, noise=True, main_path_ms=es_main_ms,
+                  main_path_bound_ms=es_main_bound["bound_ms"], main_s=secs[1:]),
+            entry("mc_engine_universe_sweep_reduce_rows", ENGINE_SOURCE,
+                  ENGINE_UNI_SWEEP_REPLACES, launches["mc_engine_universe_sweep_reduce_rows"],
+                  es_red_err, es_red_ms, es_red_plain_ms, es_red_bound,
+                  rows=int(rows[0].shape[1]), cells=9)]
+    return out
 
 
 def main() -> int:
@@ -844,10 +1549,11 @@ def main() -> int:
                                              per_path=True, **kw)
         got = (*cuda_gated.reduce_rows(pc, pf), rows)
         torch.cuda.synchronize()
-        err, differ = compare_lifecycle(case, want, got, n_inj)
+        err, _ = compare_lifecycle(
+            case, want, got, n_inj,
+            trace=lambda d: trace_flips(case, u, d, rows.cpu(), want[2].cpu(), levels,
+                                        params, gate, nz, anti, dev))
         gated_err = max(gated_err, err)
-        trace_flips(case, u, differ, rows.cpu(), want[2].cpu(), levels, params,
-                    gate, nz, anti, dev)
 
     # ---- phase 7: gated, Philox stream, and the row fold
     log(f"[7] gated, Philox: kernel vs plain at {PHILOX_PATHS} paths (plain on "
@@ -967,7 +1673,10 @@ def main() -> int:
                                                per_path=True, **kw)
         got = (*cuda_engine.reduce_rows(pc, pf), rows)
         torch.cuda.synchronize()
-        err, differ = compare_lifecycle(case, want, got, n_einj, engine=True)
+        err, _ = compare_lifecycle(
+            case, want, got, n_einj, engine=True,
+            trace=lambda d: trace_engine_flips(case, u, d, rows.cpu(), want[2].cpu(),
+                                               e_levels, e_params, gates, sig, nz, anti, dev))
         engine_err = max(engine_err, err)
         skips = dict(zip((r.name for r in SKIP_REASONS), got[0][7:23].tolist()))
         if case == "accumulation" and not (skips["EDGE_FATIGUE"] + skips["TOUCH_BUDGET"]
@@ -980,8 +1689,6 @@ def main() -> int:
             raise AssertionError(f"{case} case: no entry passed the gates")
         if case == "blend" and not skips["COMBINED_LOW"] > 0:
             raise AssertionError(f"blend case: the blended gate never fired: {skips}")
-        trace_engine_flips(case, u, differ, rows.cpu(), want[2].cpu(), e_levels, e_params,
-                           gates, sig, nz, anti, dev)
 
     # ---- phase 10: engine, Philox stream, and the row fold
     log(f"[10] engine, Philox: kernel vs plain at {PHILOX_PATHS} paths (plain on "
@@ -1080,7 +1787,8 @@ def main() -> int:
         sw_err = max(sw_err, compare(f"row {g} ({sp}, {tp})", (want[0][g], want[1][g]),
                                      (got[0][g], got[1][g]), n_sinj))
     log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs and 9 rows: each row "
-        "vs mc_first_contact_kernel bit for bit, vs the plain version on the card")
+        "vs the single configuration's launch (first_contact_rows) bit for bit, vs the plain "
+        "version on the card")
     kw = dict(common, num_paths=PHILOX_PATHS, external_uniforms=None)
     sw_rows = cuda_mc.sweep_rows(0, cli_levels, params, stops9, tps9, device=dev, **kw)
     got = cuda_mc.reduce_rows(*sw_rows)
@@ -1093,10 +1801,10 @@ def main() -> int:
         one = cuda_mc.reduce_rows(*one_rows)
         if not (torch.equal(one_rows[0], sw_rows[0][g]) and torch.equal(one_rows[1], sw_rows[1][g])
                 and torch.equal(one[0], got[0][g]) and torch.equal(one[1], got[1][g])):
-            raise AssertionError(f"sweep row {g} differs from mc_first_contact_kernel")
+            raise AssertionError(f"sweep row {g} differs from the single configuration")
         sw_err = max(sw_err, compare(f"philox row {g}", (want[0][g], want[1][g]),
                                      (got[0][g], got[1][g]), PHILOX_PATHS))
-    log("  every row equals mc_first_contact_kernel bit for bit (partial rows and totals)")
+    log("  every row equals the single configuration bit for bit (partial rows and totals)")
     sw_red_err = check_fold("mc_sweep_reduce_rows", cuda_mc.reduce_rows_reference(*sw_rows), got)
     log(f"  mc_sweep_reduce_rows: counts exact, float max abs err {sw_red_err:.3e}")
 
@@ -1175,12 +1883,13 @@ def main() -> int:
     torch.cuda.synchronize()
     gs_err = 0.0
     for g in range(3):
-        err, differ = compare_lifecycle(f"row {g}", (want[0][g], want[1][g], want[2][g]),
-                                        (gc[g], gf[g], rows[g]), n_ginj)
+        err, _ = compare_lifecycle(
+            f"row {g}", (want[0][g], want[1][g], want[2][g]), (gc[g], gf[g], rows[g]), n_ginj,
+            trace=lambda d: trace_flips(
+                f"row {g}", u, d, rows[g].cpu(), want[2][g].cpu(), levels,
+                params.replace(stop_padding=g_stops[g], tp_padding=g_tps[g]),
+                grid_row(g_gate, g), grid_row(g_noise, g), False, dev))
         gs_err = max(gs_err, err)
-        trace_flips(f"row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(), levels,
-                    params.replace(stop_padding=g_stops[g], tp_padding=g_tps[g]),
-                    grid_row(g_gate, g), grid_row(g_noise, g), False, dev)
     log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs: each row vs the "
         "one-row launch (gated_rows) bit for bit, vs the plain version on the card path "
         "by path")
@@ -1301,11 +2010,13 @@ def main() -> int:
     torch.cuda.synchronize()
     es_err = 0.0
     for g in range(4):
-        err, differ = compare_lifecycle(f"row {g}", (want[0][g], want[1][g], want[2][g]),
-                                        (ec[g], ef[g], rows[g]), n_einj, engine=True)
+        err, _ = compare_lifecycle(
+            f"row {g}", (want[0][g], want[1][g], want[2][g]), (ec[g], ef[g], rows[g]), n_einj,
+            engine=True,
+            trace=lambda d: trace_engine_flips(f"row {g}", u, d, rows[g].cpu(),
+                                               want[2][g].cpu(), e_levels, e_cfgs[g], {}, SIGMA,
+                                               None, False, dev))
         es_err = max(es_err, err)
-        trace_engine_flips(f"row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(), e_levels,
-                           e_cfgs[g], {}, SIGMA, None, False, dev)
     # [G] noise stds: the main path's rows (`--jitter-stds 0 0.02`) and a slip row
     e_noise = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.02]),
                       entry_slip_std=torch.tensor([0.0, 0.0, 0.01]),
@@ -1325,11 +2036,13 @@ def main() -> int:
     ec, ef = cuda_engine.reduce_rows(pc, pf)
     torch.cuda.synchronize()
     for g in range(3):
-        err, differ = compare_lifecycle(f"noise row {g}", (want[0][g], want[1][g], want[2][g]),
-                                        (ec[g], ef[g], rows[g]), n_einj, engine=True)
+        err, _ = compare_lifecycle(
+            f"noise row {g}", (want[0][g], want[1][g], want[2][g]), (ec[g], ef[g], rows[g]),
+            n_einj, engine=True,
+            trace=lambda d: trace_engine_flips(f"noise row {g}", u, d, rows[g].cpu(),
+                                               want[2][g].cpu(), e_levels, params, {}, SIGMA,
+                                               grid_row(e_noise, g), False, dev))
         es_err = max(es_err, err)
-        trace_engine_flips(f"noise row {g}", u, differ, rows[g].cpu(), want[2][g].cpu(),
-                           e_levels, params, {}, SIGMA, grid_row(e_noise, g), False, dev)
     log(f"  Philox at {PHILOX_PATHS} paths, the main path's inputs: each row vs the "
         "one-row launch (engine_rows) bit for bit (the four configurations, then the "
         "three noise rows)")
@@ -1434,12 +2147,7 @@ def main() -> int:
         f"({es_big * 9 / es_main_ms * 1e3:.6e} paths x rows/s), bound "
         f"{es_main_bound['bound_ms']:.3f} ms {es_main_bound['bound_parts']}")
 
-    def entry(name, source, replaces, launches, err, ms, plain, bound, **extra):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain, "bound_ms": bound["bound_ms"],
-                "bound_by": bound["bound_by"], "library_ms": None,
-                "bound_parts": bound["bound_parts"], **extra}
+    universe = universe_phases(dev, card, reset_all)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -1485,7 +2193,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ]}))
+    ] + universe}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,6 +81,17 @@
 // the one-row launch under row g's arguments bit for bit, per-path skip
 // counts included; partial rows are laid out [row][CTA] and the fold takes
 // one CTA per row.  No per-path state is added.
+//
+// The same kernel replaces the TPU kernels pallas_engine.py
+// _engine_universe_kernel and _engine_universe_sweep_kernel.  A universe of S
+// symbols is S rows, row s packed on the host with symbol s's levels, spot,
+// volatility (its host-f64 drift, sig_dt and log_s0), all 17 knobs and noise
+// stds, the shared ML, policy, touch and guard records, its Philox key
+// stream + 256 * symbol and the offset of its injected uniforms ([S, blocks,
+// u_rows, 8, lanes]); the sweep of universes is S x G rows, row (s, g) with
+// row g of symbol s's knob grid on symbol s's key and uniforms (common random
+// numbers within a symbol).  Every row equals the single configuration at its
+// arguments bit for bit; the fold takes one CTA per row.
 
 #include "common.cuh"
 
@@ -114,6 +125,7 @@ enum { SK_IN_POSITION, SK_COOLDOWN, SK_NOLEVELS, SK_DIR_UNKNOWN, SK_TOO_FAR,
 // The host mirror of this struct is ops/cuda_engine.py:_EngineArgs.
 struct EngineArgs {
     long long num_paths;
+    long long ext_offset;               // a universe row's injected uniforms
     float level_price[MAX_LEVELS];      // invalid slots zeroed
     float level_round[MAX_LEVELS];      // rounded to cents (touch memory)
     int level_valid[MAX_LEVELS];
@@ -756,7 +768,7 @@ mc_engine_sweep_kernel(const EngineArgs* __restrict__ rows, const float* __restr
     if (threadIdx.x == 0) s_a = rows[blockIdx.y];
     __syncthreads();
     const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    engine_block<MAXL>(s_a, ext, part_counts + seg * ROW_COUNTS,
+    engine_block<MAXL>(s_a, ext ? ext + s_a.ext_offset : nullptr, part_counts + seg * ROW_COUNTS,
                        part_floats + seg * ROW_FLOATS,
                        per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
                                 : nullptr);

@@ -42,11 +42,28 @@
 // and the walk ends when every row has resolved.  At the end of a path each
 // row's R is folded into that row's per-thread sums, in the order the single
 // kernel folds them, so row g's partial row (row-major [row][CTA]) equals
-// mc_first_contact_kernel's for (stop_g, tp_g) bit for bit.  The per-row
+// the single configuration's for (stop_g, tp_g) bit for bit.  The per-row
 // sums live in a per-thread array (local memory, touched once per path); a
 // launch takes at most SWEEP_ROWS rows, and the wrapper launches again for
 // more (the draws do not depend on the row, so every launch sees the same
 // paths).
+//
+// mc_universe_kernel replaces the TPU kernel pallas_mc.py _universe_kernel:
+// the first-contact replay for S symbols in one launch, each with its own
+// levels, spot, volatility, paddings and proximity, and its host-f64 drift,
+// sig_dt and log_s0.  What bounds it is what bounds one configuration, S
+// times.  Design: a grid of (CTAs x S), blockIdx.y the symbol; a CTA copies
+// its symbol's McArgs (packed on the host, the symbol's Philox key
+// stream + 256 * symbol among them) into shared memory once and runs the
+// per-path loop (first_contact_block, bar_step) on that copy, so no thread
+// keeps a copy of the struct in its stack frame.  The single configuration
+// (_mc_kernel's counterpart) is the same kernel at one symbol: a kernel that
+// hands the called bar step a reference to its kernel parameter keeps a
+// stack copy of the struct in every thread (it cost the gated and engine
+// kernels 28% of their time on the H100).  Symbol s's
+// partial rows ([symbol][CTA]) equal its one-symbol launch's bit for bit;
+// injected uniforms [S, blocks, rows, lanes] are reached through the
+// symbol's ext_offset.
 
 #include "common.cuh"
 
@@ -62,6 +79,7 @@
 // The host mirror of this struct is ops/cuda_mc.py:_McArgs.
 struct McArgs {
     long long num_paths;
+    long long ext_offset;                // a universe symbol's injected uniforms
     float level_price[MAX_LEVELS];       // invalid slots zeroed
     float level_valid[MAX_LEVELS];       // 1 / 0
     float prox, stop_pad, tp_pad;
@@ -202,11 +220,13 @@ __device__ __noinline__ void bar_step(const McArgs& a, const Draw& draw,
         ? tie_coin(a, draw, lane, high, low, st.entry) : tgt_hit;
 }
 
+// The paths of this CTA (blockIdx.x of gridDim.x) under arguments ``a``,
+// reduced to one partial row (crow, frow).
 template <int MAXHALF>
-__global__ void __launch_bounds__(BLOCK)
-mc_first_contact_kernel(const McArgs a, const float* __restrict__ ext,
-                        long long* __restrict__ part_counts,
-                        float* __restrict__ part_floats) {
+__device__ __forceinline__ void first_contact_block(const McArgs& a,
+                                                    const float* __restrict__ ext,
+                                                    long long* __restrict__ crow,
+                                                    float* __restrict__ frow) {
     __shared__ unsigned s_counts[ROW_COUNTS];
     __shared__ float s_red[ROW_FLOATS][BLOCK / 32];
     for (int i = threadIdx.x; i < ROW_COUNTS; i += BLOCK) s_counts[i] = 0u;
@@ -286,17 +306,29 @@ mc_first_contact_kernel(const McArgs a, const float* __restrict__ ext,
         s_red[2][warp] = min_r; s_red[3][warp] = max_r;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < ROW_COUNTS; i += BLOCK)
-        part_counts[(long long)blockIdx.x * ROW_COUNTS + i] = (long long)s_counts[i];
+    for (int i = threadIdx.x; i < ROW_COUNTS; i += BLOCK) crow[i] = (long long)s_counts[i];
     if (threadIdx.x == 0) {
         float s0 = 0.f, s1 = 0.f, mn = BIG, mx = -BIG;
         for (int w = 0; w < BLOCK / 32; ++w) {
             s0 += s_red[0][w]; s1 += s_red[1][w];
             mn = fminf(mn, s_red[2][w]); mx = fmaxf(mx, s_red[3][w]);
         }
-        float* row = part_floats + (long long)blockIdx.x * ROW_FLOATS;
-        row[0] = s0; row[1] = s1; row[2] = mn; row[3] = mx;
+        frow[0] = s0; frow[1] = s1; frow[2] = mn; frow[3] = mx;
     }
+}
+
+// Symbol blockIdx.y of the universe ``rows`` (one symbol for a single
+// configuration): partial rows [symbol][CTA].
+template <int MAXHALF>
+__global__ void __launch_bounds__(BLOCK)
+mc_universe_kernel(const McArgs* __restrict__ rows, const float* __restrict__ ext,
+                   long long* __restrict__ part_counts, float* __restrict__ part_floats) {
+    __shared__ McArgs s_a;
+    if (threadIdx.x == 0) s_a = rows[blockIdx.y];
+    __syncthreads();
+    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    first_contact_block<MAXHALF>(s_a, ext ? ext + s_a.ext_offset : nullptr,
+                                 part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS);
 }
 
 // One bar of one path against every row of the grid (bar_step's arithmetic).
@@ -484,22 +516,6 @@ const char* qmmx_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Pass 1.  ext may be null (Philox mode).  Returns cudaGetLastError().
-int qmmx_mc_first_contact(const McArgs* a, const float* ext,
-                          long long* part_counts, float* part_floats,
-                          int grid, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int half = a->num_bars / 2;
-    if (half <= 20) {
-        mc_first_contact_kernel<20><<<grid, BLOCK, 0, s>>>(*a, ext, part_counts, part_floats);
-    } else if (half <= 64) {
-        mc_first_contact_kernel<64><<<grid, BLOCK, 0, s>>>(*a, ext, part_counts, part_floats);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
-}
-
 // Sweep pass 1 over the rows of ``grid`` (at most SWEEP_ROWS): partial rows
 // [row][CTA] at part_counts / part_floats.  Returns cudaGetLastError().
 int qmmx_mc_sweep(const McArgs* a, const SweepGrid* grid, const float* ext,
@@ -511,6 +527,25 @@ int qmmx_mc_sweep(const McArgs* a, const SweepGrid* grid, const float* ext,
         mc_sweep_kernel<20><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
     } else if (half <= 64) {
         mc_sweep_kernel<64><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// Pass 1: the n_rows symbol rows at ``rows`` (device memory; one for a single
+// configuration), one per blockIdx.y, partial rows [symbol][CTA].  ext may be
+// null (Philox mode).  Returns cudaGetLastError().
+int qmmx_mc_universe(const McArgs* rows, int n_rows, int num_bars, const float* ext,
+                     long long* part_counts, float* part_floats, int ctas, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_rows < 1 || n_rows > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid(ctas, n_rows);
+    const int half = num_bars / 2;
+    if (half <= 20) {
+        mc_universe_kernel<20><<<grid, BLOCK, 0, s>>>(rows, ext, part_counts, part_floats);
+    } else if (half <= 64) {
+        mc_universe_kernel<64><<<grid, BLOCK, 0, s>>>(rows, ext, part_counts, part_floats);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -58,6 +58,14 @@
 // the one-row launch under row g's arguments bit for bit, per path included;
 // partial rows are laid out [row][CTA] and the fold takes one CTA per row.
 // Sharing a block's bars across rows is left to a later change.
+//
+// The same kernel replaces the TPU kernel pallas_mc.py _gated_universe_kernel:
+// a universe of S symbols is S rows, row s packed on the host with symbol s's
+// levels, spot, volatility (its host-f64 drift, sig_dt and log_s0), paddings,
+// proximity and noise stds, the shared gate knobs, its Philox key
+// stream + 256 * symbol and the offset of its injected uniforms
+// ([S, blocks, u_rows, 8, lanes]).  Row s equals the single configuration at
+// symbol s's arguments bit for bit; the fold takes one CTA per symbol.
 
 #include "common.cuh"
 
@@ -78,6 +86,7 @@
 // The host mirror of this struct is ops/cuda_gated.py:_GatedArgs.
 struct GatedArgs {
     long long num_paths;
+    long long ext_offset;               // a universe row's injected uniforms
     float level_price[MAX_LEVELS];       // invalid slots zeroed
     float level_valid[MAX_LEVELS];       // 1 / 0
     int level_kind[MAX_LEVELS];          // KIND_SOLID / KIND_DASHED
@@ -357,7 +366,7 @@ mc_gated_sweep_kernel(const GatedArgs* __restrict__ rows, const float* __restric
     if (threadIdx.x == 0) s_a = rows[blockIdx.y];
     __syncthreads();
     const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    gated_block<MAXL>(s_a, ext, part_counts + seg * ROW_COUNTS,
+    gated_block<MAXL>(s_a, ext ? ext + s_a.ext_offset : nullptr, part_counts + seg * ROW_COUNTS,
                       part_floats + seg * ROW_FLOATS,
                       per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
                                : nullptr);

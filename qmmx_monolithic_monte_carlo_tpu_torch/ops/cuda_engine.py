@@ -24,6 +24,21 @@ same engine at any horizon.
   under row g's knobs, bit for bit.  A CUDA device launches
   ``mc_engine_sweep_kernel`` (CTAs x G) and one fold of all rows, or raises;
   the CPU runs ``engine_sweep_totals_reference``.
+* ``mc_paths_engine_universe_fused`` -- the per-symbol engine universe, the
+  counterpart of ``mc_paths_pallas_engine_universe`` (kernel #10,
+  ``_engine_universe_kernel``, ``pallas_engine.py:2098-2279``, ``:2598-2689``):
+  the sweep of universes below at one grid row, so S symbols in one launch of
+  ``mc_engine_sweep_kernel`` with one row per symbol (its levels, s0, sigma,
+  all 17 knobs and noise stds, its key ``prng.stream_key``; the ML, policy,
+  touch and guard records shared); row s equals ``mc_paths_engine_fused`` at
+  symbol s's inputs and ``symbol=s``, bit for bit.  ``harvest=True`` is not
+  ported yet.
+* ``mc_paths_engine_universe_sweep_fused`` -- the sweep of universes (kernel
+  #11, ``_engine_universe_sweep_kernel``, ``pallas_engine.py:2282-2588``): S x
+  G rows in one launch, row (s, g) under row g of symbol s's knob grid
+  (leaves scalar, [G] or [S, G]) on symbol s's key (common random numbers
+  within a symbol); it equals the engine universe at symbol s under row g's
+  knobs, bit for bit.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.EngineLayout``: injected as ``external_uniforms``
@@ -37,6 +52,7 @@ stops counting exactly past 2^24.)
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -46,7 +62,7 @@ from ..sim.enginepath import (SKIP_REASONS, EngineLifecycle, blend_weights,
                               cooldown_ms, engine_knobs, skip_columns)
 from ..sim.pathsim import HIST_BINS
 from ..types import KIND_SOLID, Levels
-from ..utils import build
+from ..utils import build, prng
 from ..utils import device as devices
 from ..utils.floats import div
 from .cuda_gated import (box_muller, gated_bar, lifecycle_totals, merge_totals,
@@ -54,7 +70,8 @@ from .cuda_gated import (box_muller, gated_bar, lifecycle_totals, merge_totals,
 from .draws import ENGINE_STREAM, ENGINE_SUB, EngineLayout, engine_uniforms
 from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
                           f32, fold_rows, grid_size, knob_rows, knobs, launch_pointer,
-                          level_slots)
+                          level_slots, sg_rows, symbol_grid, symbol_rows,
+                          symbol_uniforms, tensor_leaves)
 from .regular import GUARD_WINDOW_BARS
 
 ENGINE_LANES = 256       # logical lanes per block row (one block = 8 x lanes paths)
@@ -70,7 +87,9 @@ _F32 = torch.float32
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sweep": 0,
-            "mc_engine_sweep_reduce_rows": 0}
+            "mc_engine_sweep_reduce_rows": 0, "mc_engine_universe": 0,
+            "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
+            "mc_engine_universe_sweep_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -84,7 +103,7 @@ _F, _I = ctypes.c_float, ctypes.c_int32
 class _EngineArgs(ctypes.Structure):
     """Mirror of ``struct EngineArgs`` in ops/csrc/mc_engine.cu."""
 
-    _fields_ = [("num_paths", ctypes.c_int64),
+    _fields_ = [("num_paths", ctypes.c_int64), ("ext_offset", ctypes.c_int64),
                 ("level_price", _F * MAX_LEVELS), ("level_round", _F * MAX_LEVELS),
                 ("level_valid", _I * MAX_LEVELS), ("level_kind", _I * MAX_LEVELS)]
     _fields_ += [(k, _F) for k in (
@@ -270,11 +289,12 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
                             sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                             lanes: int = ENGINE_LANES, external_uniforms=None,
                             device=None, chunk_blocks: int = 16,
-                            per_path: bool = False):
+                            per_path: bool = False, symbol: int = 0):
     """The plain version's (int64 counts, float64 floats) totals, computed
     on ``device`` (default: that of ``external_uniforms``, else the CUDA
-    device) in chunks of ``chunk_blocks`` blocks; then, when ``per_path``,
-    the f32[P, PATH_COLS] per-path rows of ``path_rows``."""
+    device) in chunks of ``chunk_blocks`` blocks, Philox draws keyed as
+    universe symbol ``symbol``; then, when ``per_path``, the f32[P,
+    PATH_COLS] per-path rows of ``path_rows``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
@@ -292,7 +312,7 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
             u = external_uniforms[b0:b0 + nb]
         else:
             u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
-                                device=device)
+                                symbol=symbol, device=device)
         *part, part_rows = _chunk_engine(u, layout, levels, params, kw, noise, cs,
                                          vc, antithetic, per_path)
         tot = merge_totals(tot, part)
@@ -310,11 +330,12 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
                                   sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                                   lanes: int = ENGINE_LANES, external_uniforms=None,
                                   device=None, chunk_blocks: int = 16,
-                                  per_path: bool = False):
+                                  per_path: bool = False, symbol: int = 0):
     """The plain version of the sweep: int64 [G, 151] counts and float64
     [G, 6] floats, then f32[G, P, PATH_COLS] per-(row, path) rows when
-    ``per_path``.  Each chunk's uniforms are drawn once and every row runs
-    the whole engine on them (the TPU kernel's reseeding)."""
+    ``per_path``.  Each chunk's uniforms are drawn once (keyed as universe
+    symbol ``symbol``) and every row runs the whole engine on them (the TPU
+    kernel's reseeding)."""
     rows = knob_rows(grid_params, noise, n_grid)
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
@@ -333,7 +354,7 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
             u = external_uniforms[b0:b0 + nb]
         else:
             u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
-                                device=device)
+                                symbol=symbol, device=device)
         for g, (p_g, noise_g) in enumerate(rows):
             *part, part_rows = _chunk_engine(u, layout, levels, p_g, kw, noise_g, cs, vc,
                                              False, per_path)
@@ -380,10 +401,11 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
                num_paths, s0, mu, sigma, dt, lanes, noise, antithetic,
-               volume_model) -> _EngineArgs:
-    """The kernel's arguments for one configuration (a sweep packs one per
-    row), every float32 computed as the plain version
-    computes it (torch float32 on the CPU, or float64 rounded once)."""
+               volume_model, symbol: int = 0) -> _EngineArgs:
+    """The kernel's arguments for one configuration (a sweep or a universe
+    packs one per row), keyed as universe symbol ``symbol``, every float32
+    computed as the plain version computes it (torch float32 on the CPU, or
+    float64 rounded once)."""
     tp, gp, ml, pol = (kw["touch_params"], kw["guard_params"], kw["ml_model"],
                        kw["policy"])
     lp, lv = level_slots(levels)
@@ -416,7 +438,7 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
         vm_rc=vc.rc, vm_day=vc.day, vm_open=vc.open, vm_den=vc.den,
         vm_third=vc.third, vm_half_s2=vc.half_s2, vm_mean_abs=vc.mean_abs,
         vm_sd_abs=vc.sd_abs, vm_floor=vc.floor,
-        seed=int(seed), stream=ENGINE_STREAM,
+        seed=int(seed), stream=prng.stream_key(ENGINE_STREAM, symbol),
         cooldown_ms=cooldown_ms(params), overtouch_limit=int(params.overtouch_limit),
         enable_veto=int(bool(params.enable_veto)), use_blend=int(bool(params.use_blend)),
         ml_usable=int(ml.usable), ml_ran=int(not bool(params.disable_ml_gate)),
@@ -460,11 +482,11 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
-                per_path: bool = False):
+                per_path: bool = False, symbol: int = 0):
     """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
     [grid, 151] count rows and f32 [grid, 6] float rows, one row per CTA,
     plus the f32[P, PATH_COLS] per-path rows of ``path_rows`` when
-    ``per_path``."""
+    ``per_path``; Philox keyed as universe symbol ``symbol``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
@@ -474,7 +496,7 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "engine_rows")
     args = _pack_args(seed, levels, params, kw, layout, num_paths=num_paths, s0=s0,
                       mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-                      antithetic=antithetic, volume_model=volume_model)
+                      antithetic=antithetic, volume_model=volume_model, symbol=symbol)
     out = _launch((_EngineArgs * 1)(args), levels.max_levels, num_bars,
                   num_paths=num_paths, ext_ptr=ext_ptr, device=device, per_path=per_path,
                   what="mc_engine")
@@ -513,15 +535,16 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                    device=device, per_path=per_path, what="mc_engine_sweep")
 
 
-def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
+def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
     """Pass 2: partial rows [R, ...] -> (int64 [151] counts, float64 [6]
-    floats), or a sweep's [G, R, ...] -> ([G, 151], [G, 6]) in one launch, one
-    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
-    through the plain version."""
+    floats), or a sweep's (or universe's) [G, R, ...] -> ([G, 151], [G, 6])
+    in one launch, one CTA per grid row, counted under ``what`` when given.
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
     return fold_rows(_library().qmmx_mc_engine_reduce_rows, _raise_on, part_counts,
-                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_engine", LAUNCHES)
+                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_engine", LAUNCHES, what)
 
 
 def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
@@ -532,12 +555,13 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
                           num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
                           sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                           lanes: int = ENGINE_LANES, external_uniforms=None,
-                          device=None):
+                          device=None, symbol: int = 0):
     """Fused full-engine MC, the counterpart of ``mc_paths_pallas_engine``
     (gbm): returns (PathStats, int64[16] skip table ordered as
     ``sim.enginepath.SKIP_REASONS``, int64 escalations), the contract of
     ``sim.enginepath.mc_paths_engine``, with McNoise per-entry execution
-    noise and antithetic lane pairs.
+    noise and antithetic lane pairs; ``symbol`` keys the draws as universe
+    symbol ``symbol`` (0: the single run).
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
@@ -548,7 +572,7 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
               escalation=escalation, bar0_minute=bar0_minute,
               volume_model=volume_model, noise=noise, antithetic=antithetic,
               num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
-              dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+              dt=dt, lanes=lanes, external_uniforms=external_uniforms, symbol=symbol)
     _check(seed, levels, engine_knobs(policy, ml_model, touch_params, guard_params,
                                     policy_gate_disabled, escalation, bar0_minute),
            num_paths=num_paths, num_bars=num_bars, lanes=lanes, noise=noise,
@@ -595,3 +619,217 @@ def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=Non
             seed, levels, grid_params, device=device, **kw))
     rows = engine_sweep_rows(seed, levels, grid_params, device=device, **kw)
     return stats_from_engine_totals(*reduce_rows(*rows))
+
+
+# --------------------------------------------------------------------------
+# the universes (kernels #10 and #11): one row of mc_engine_sweep_kernel per
+# (symbol, grid row); the engine universe is the sweep of universes at one
+# grid row
+# --------------------------------------------------------------------------
+
+def _universe_layout(seed, sym_levels: Levels, kw: dict, noise, n_sym: int, *,
+                     paths_per_symbol: int, num_bars: int, lanes: int,
+                     external_uniforms) -> EngineLayout:
+    """The checks of ``mc_paths_pallas_engine_universe(_sweep)``
+    (pallas_engine.py:2248-2267, :2440-2457) and the single kernel's envelope,
+    on one symbol's levels; injected uniforms f32[S, blocks, u_rows, 8, lanes]."""
+    layout = _check(seed, sym_levels, kw, num_paths=paths_per_symbol, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=False, external_uniforms=None)
+    check_uniforms(external_uniforms, (n_sym, paths_per_symbol // (ENGINE_SUB * lanes),
+                                       layout.u_rows, ENGINE_SUB, lanes),
+                   antithetic=False, lanes=lanes)
+    return layout
+
+
+def _one_row(levels: Levels, s0, sigma, params, noise, harvest: bool):
+    """The engine universe's knobs as the sweep of universes takes them at
+    one grid row: ``params`` and ``noise`` with their [S] leaves as [S, 1],
+    after the universe's own checks (scalar or [S] leaves, no harvest)."""
+    if harvest:
+        raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
+                                  "with models/harvest.py)")
+    symbol_rows(levels, s0, sigma, params, noise)
+
+    def column(obj):
+        if obj is None:
+            return None
+        leaves = tensor_leaves(obj)
+        if any(v.dim() > 1 for v in leaves.values()):
+            raise ValueError("per-symbol leaves must be scalars or [S]")
+        return dataclasses.replace(obj, **{k: v[:, None] for k, v in leaves.items()
+                                           if v.dim() == 1})
+
+    return column(params), column(noise)
+
+
+def engine_universe_sweep_totals_reference(seed, levels: Levels, grid_params, s0, sigma, *,
+                                           n_grid=None, policy=None, ml_model=None,
+                                           touch_params=None, guard_params=None,
+                                           policy_gate_disabled=None,
+                                           escalation: bool = True, bar0_minute: int = 0,
+                                           volume_model=None, noise=None,
+                                           paths_per_symbol: int, num_bars: int = 40,
+                                           dt: float = 1.0 / (390.0 * 252.0),
+                                           lanes: int = ENGINE_LANES,
+                                           external_uniforms=None, device=None,
+                                           chunk_blocks: int = 16, per_path: bool = False):
+    """The plain version of the sweep of universes: int64 [S, G, 151] counts
+    and float64 [S, G, 6] floats, then f32[S, G, P, PATH_COLS] per-path rows
+    with ``per_path``; symbol s by ``engine_sweep_totals_reference`` over its
+    grid (the [S, G] leaves of ``grid_params`` and ``noise`` cut to row s)
+    at its levels, s0, sigma, mu 0 and its uniforms or key."""
+    gates = dict(policy=policy, ml_model=ml_model, touch_params=touch_params,
+                 guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
+                 escalation=escalation, bar0_minute=bar0_minute)
+    sym = symbol_rows(levels, s0, sigma)
+    n_grid = len(sg_rows(grid_params, noise, len(sym), n_grid)[0])
+    _universe_layout(seed, sym[0][0], engine_knobs(**gates), noise, len(sym),
+                     paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+                     external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    out = [engine_sweep_totals_reference(
+        seed, lv, symbol_grid(grid_params, s), n_grid=n_grid, noise=symbol_grid(noise, s),
+        volume_model=volume_model, num_paths=paths_per_symbol, num_bars=num_bars,
+        s0=s0_s, mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, symbol=s,
+        external_uniforms=symbol_uniforms(external_uniforms, s), device=device,
+        chunk_blocks=chunk_blocks, per_path=per_path, **gates)
+        for s, (lv, s0_s, sg_s) in enumerate(sym)]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
+                               n_grid=None, policy=None, ml_model=None, touch_params=None,
+                               guard_params=None, policy_gate_disabled=None,
+                               escalation: bool = True, bar0_minute: int = 0,
+                               volume_model=None, noise=None, paths_per_symbol: int,
+                               num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
+                               lanes: int = ENGINE_LANES, external_uniforms=None,
+                               device=None, per_path: bool = False,
+                               what: str = "mc_engine_universe_sweep"):
+    """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
+    ``mc_engine_sweep_kernel`` with S x G rows (row s * G + g for (s, g)),
+    counted in ``LAUNCHES[what]``: int64 [S, G, grid, 151] and f32 [S, G,
+    grid, 6] partial rows, plus f32[S, G, P, PATH_COLS] per-path rows when
+    ``per_path``."""
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                      policy_gate_disabled, escalation, bar0_minute)
+    sym = symbol_rows(levels, s0, sigma)
+    grid = sg_rows(grid_params, noise, len(sym), n_grid)
+    layout = _universe_layout(seed, sym[0][0], kw, noise, len(sym),
+                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
+                              lanes=lanes, external_uniforms=external_uniforms)
+    device = torch.device("cuda" if device is None else device)
+    ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device, what)
+    n_sym, n_grid = len(sym), len(grid[0])
+    args = (_EngineArgs * (n_sym * n_grid))()
+    for s, (lv, s0_s, sg_s) in enumerate(sym):
+        for g, (p, nz) in enumerate(grid[s]):
+            a = _pack_args(seed, lv, p, kw, layout, num_paths=paths_per_symbol, s0=s0_s,
+                           mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=nz,
+                           antithetic=False, volume_model=volume_model, symbol=s)
+            a.ext_offset = s * paths_per_symbol * layout.u_rows
+            args[s * n_grid + g] = a
+    out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
+                  ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
+    return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
+
+
+def _universe_sweep_totals(seed, levels: Levels, grid_params, s0, sigma, *, device,
+                           what: str, **kw):
+    """(int64 [S, G, 151], float64 [S, G, 6]) of the sweep of universes on
+    the resolved ``device``: the plain version on the CPU, else one launch
+    and one fold, counted under ``what`` and ``what + "_reduce_rows"``."""
+    device = devices.resolve(device, kw.get("external_uniforms"))
+    if device.type == "cpu":
+        return engine_universe_sweep_totals_reference(seed, levels, grid_params, s0, sigma,
+                                                      device=device, **kw)
+    pc, pf = engine_universe_sweep_rows(seed, levels, grid_params, s0, sigma, device=device,
+                                        what=what, **kw)
+    c, f = reduce_rows(pc.flatten(0, 1), pf.flatten(0, 1), what=what + "_reduce_rows")
+    return c.view(*pc.shape[:2], -1), f.view(*pf.shape[:2], -1)
+
+
+def engine_universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
+                                     noise=None, harvest: bool = False, **kw):
+    """The plain version of the engine universe: int64 [S, 151] counts and
+    float64 [S, 6] floats, then f32[S, P, PATH_COLS] per-(symbol, path) rows
+    with ``per_path``; the sweep of universes' plain version at one grid row
+    (symbol s by ``engine_totals_reference`` at its levels, s0, sigma, knobs
+    and noise stds, mu 0, its uniforms ``external_uniforms[s]`` or its key).
+    Keywords as in ``engine_universe_sweep_totals_reference``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
+    out = engine_universe_sweep_totals_reference(seed, levels, grid, s0, sigma, n_grid=1,
+                                                 noise=g_noise, **kw)
+    return tuple(x[:, 0] for x in out)
+
+
+def engine_universe_rows(seed, levels: Levels, params, s0, sigma, *, noise=None,
+                         harvest: bool = False, **kw):
+    """Launch the universe's pass 1 on a CUDA device: the sweep of
+    universes' launch at one grid row, counted in
+    ``LAUNCHES["mc_engine_universe"]``: int64 [S, grid, 151] and f32 [S,
+    grid, 6] partial rows, plus f32[S, P, PATH_COLS] per-(symbol, path) rows
+    with ``per_path``.  Keywords as in ``engine_universe_sweep_rows``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
+    out = engine_universe_sweep_rows(seed, levels, grid, s0, sigma, n_grid=1, noise=g_noise,
+                                     what="mc_engine_universe", **kw)
+    return tuple(x[:, 0] for x in out)
+
+
+def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
+                                   policy=None, ml_model=None, touch_params=None,
+                                   guard_params=None, policy_gate_disabled=None,
+                                   escalation: bool = True, bar0_minute: int = 0,
+                                   volume_model=None, noise=None, harvest: bool = False,
+                                   paths_per_symbol: int, num_bars: int = 40,
+                                   dt: float = 1.0 / (390.0 * 252.0),
+                                   lanes: int = ENGINE_LANES, external_uniforms=None,
+                                   device=None):
+    """Fused per-symbol full-engine universe, the counterpart of
+    ``mc_paths_pallas_engine_universe`` (gbm, no harvest): ([S] PathStats,
+    int64 [S, 16] skip tables, int64 [S] escalations), symbol s under its own
+    [S, L] levels row, s0[s], sigma[s], all engine knobs (``params`` leaves
+    scalar or [S]), noise stds (``noise`` leaves scalar or [S]) and key, the
+    ML, policy, touch and guard records shared; drift, sig_dt and log_s0 per
+    symbol in float64 on the host, mu 0.  It runs as the sweep of universes
+    at one grid row.  Row s equals ``mc_paths_engine_fused`` at those inputs
+    with ``symbol=s`` bit for bit; injected uniforms are f32[S, blocks,
+    u_rows, 8, lanes].  ``harvest=True`` raises (not ported yet).  ``device``
+    as in ``mc_paths_engine_fused``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
+    c, f = _universe_sweep_totals(
+        seed, levels, grid, s0, sigma, n_grid=1, policy=policy, ml_model=ml_model,
+        touch_params=touch_params, guard_params=guard_params,
+        policy_gate_disabled=policy_gate_disabled, escalation=escalation,
+        bar0_minute=bar0_minute, volume_model=volume_model, noise=g_noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
+        external_uniforms=external_uniforms, device=device, what="mc_engine_universe")
+    return stats_from_engine_totals(c[:, 0], f[:, 0])
+
+
+def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, sigma, *,
+                                         n_grid=None, policy=None, ml_model=None,
+                                         touch_params=None, guard_params=None,
+                                         policy_gate_disabled=None, escalation: bool = True,
+                                         bar0_minute: int = 0, volume_model=None,
+                                         noise=None, paths_per_symbol: int,
+                                         num_bars: int = 40,
+                                         dt: float = 1.0 / (390.0 * 252.0),
+                                         lanes: int = ENGINE_LANES, external_uniforms=None,
+                                         device=None):
+    """Fused sweep of universes, the counterpart of
+    ``mc_paths_pallas_engine_universe_sweep`` (gbm): ([S, G] PathStats,
+    int64 [S, G, 16] skip tables, int64 [S, G] escalations), cell (s, g)
+    under symbol s's levels, s0, sigma and key and row g of its knob grid
+    (``grid_params`` and ``noise`` leaves scalar, [G] or [S, G]), every row
+    of a symbol on the same draws (CRN within a symbol).  Cell (s, g) equals
+    ``mc_paths_engine_universe_fused`` at symbol s under row g's knobs, bit
+    for bit.  ``device`` as in ``mc_paths_engine_fused``."""
+    return stats_from_engine_totals(*_universe_sweep_totals(
+        seed, levels, grid_params, s0, sigma, n_grid=n_grid, policy=policy,
+        ml_model=ml_model, touch_params=touch_params, guard_params=guard_params,
+        policy_gate_disabled=policy_gate_disabled, escalation=escalation,
+        bar0_minute=bar0_minute, volume_model=volume_model, noise=noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
+        external_uniforms=external_uniforms, device=device,
+        what="mc_engine_universe_sweep"))

@@ -21,6 +21,14 @@ ported yet.
   bit for bit.  A CUDA device launches ``mc_gated_sweep_kernel`` (CTAs x G)
   and one fold of all rows, or raises; the CPU runs
   ``gated_sweep_totals_reference``.
+* ``mc_paths_gated_universe_fused`` -- the per-symbol gated universe, the
+  counterpart of ``mc_paths_pallas_gated_universe`` (kernel #5,
+  ``_gated_universe_kernel``, ``pallas_mc.py:1568-1822``, ``:2404-2414``):
+  S symbols in one launch of ``mc_gated_sweep_kernel`` with one row per
+  symbol (its levels, s0, sigma, knobs, noise stds and key
+  ``prng.stream_key``; the gate knobs shared); row s equals
+  ``mc_paths_gated_fused`` at symbol s's inputs and ``symbol=s``, bit for
+  bit.  The CPU runs ``gated_universe_totals_reference``.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.GatedLayout``: injected as
@@ -44,8 +52,8 @@ from ..utils import build, prng
 from ..utils import device as devices
 from .draws import GATED_STREAM, GATED_SUB, GatedLayout, gated_uniforms
 from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
-                          f32, fold_rows, grid_rows, grid_size, knobs, launch_pointer,
-                          level_slots)
+                          f32, fold_rows, grid_len, grid_rows, grid_size, knobs,
+                          launch_pointer, level_slots, symbol_rows, symbol_uniforms)
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -59,7 +67,8 @@ _SOURCE = "mc_gated"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
-            "mc_gated_sweep_reduce_rows": 0}
+            "mc_gated_sweep_reduce_rows": 0, "mc_gated_universe": 0,
+            "mc_gated_universe_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -71,7 +80,7 @@ class _GatedArgs(ctypes.Structure):
     """Mirror of ``struct GatedArgs`` in ops/csrc/mc_gated.cu."""
 
     _fields_ = [
-        ("num_paths", ctypes.c_int64),
+        ("num_paths", ctypes.c_int64), ("ext_offset", ctypes.c_int64),
         ("level_price", ctypes.c_float * MAX_LEVELS),
         ("level_valid", ctypes.c_float * MAX_LEVELS),
         ("level_kind", ctypes.c_int32 * MAX_LEVELS),
@@ -280,10 +289,11 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
                            lanes: int = GATED_LANES, noise=None,
                            antithetic: bool = False, external_uniforms=None,
                            device=None, chunk_blocks: int = 16,
-                           per_path: bool = False, work: bool = False):
+                           per_path: bool = False, work: bool = False, symbol: int = 0):
     """The plain version's (int64 counts, float64 floats) totals, computed
     on ``device`` (default: that of ``external_uniforms``, else the CUDA
-    device) in chunks of ``chunk_blocks`` blocks; then the f32[P, 6] per-path
+    device) in chunks of ``chunk_blocks`` blocks, Philox draws keyed as
+    universe symbol ``symbol``; then the f32[P, 6] per-path
     rows (equity, trades, wins, losses, open, dd) when ``per_path``; then,
     when ``work``, the bars on which a path held a position (where the kernel
     evaluates the bridge high/low), for bounding the kernel's time."""
@@ -301,7 +311,7 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
             u = external_uniforms[b0:b0 + nb]
         else:
             u = gated_uniforms(seed, layout, block0=b0, n_blocks=nb,
-                               lanes=lanes, device=device)
+                               lanes=lanes, symbol=symbol, device=device)
         counts, floats, part_held, part_rows = _chunk_gated(
             u, layout, levels, params, gate, noise, cs, antithetic, per_path)
         tot = merge_totals(tot, (counts, floats))
@@ -362,6 +372,50 @@ def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_
     return out
 
 
+def _check_universe(seed, levels: Levels, params, s0, sigma, gate, noise, *,
+                    paths_per_symbol: int, num_bars: int, lanes: int,
+                    external_uniforms) -> tuple[GatedLayout, GateConfig, list]:
+    """The checks of ``_mc_paths_pallas_gated_universe_jit``
+    (pallas_mc.py:1745-1760) and the single kernel's; returns the layout,
+    the shared gate and ``symbol_rows`` (with each symbol's params and noise)."""
+    rows = symbol_rows(levels, s0, sigma, params, noise)
+    gate = GateConfig.from_params(params) if gate is None else gate
+    if grid_len(gate) != 1:
+        raise ValueError("the gate knobs are shared by every symbol: scalar leaves")
+    layout = _check(seed, rows[0][0], num_paths=paths_per_symbol, num_bars=num_bars,
+                    lanes=lanes, noise=noise, antithetic=False, external_uniforms=None)
+    check_uniforms(external_uniforms, (len(rows), paths_per_symbol // (GATED_SUB * lanes),
+                                       layout.u_rows, GATED_SUB, lanes),
+                   antithetic=False, lanes=lanes)
+    return layout, gate, rows
+
+
+def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gate=None, *,
+                                    paths_per_symbol: int, num_bars: int = 40,
+                                    dt: float = 1.0 / (390.0 * 252.0),
+                                    lanes: int = GATED_LANES, noise=None,
+                                    external_uniforms=None, device=None,
+                                    chunk_blocks: int = 16, per_path: bool = False,
+                                    work: bool = False):
+    """The plain version of the gated universe: int64 [S, 134] counts and
+    float64 [S, 6] floats, then f32[S, P, 6] per-(symbol, path) rows with
+    ``per_path``, then int64 [S] held bars with ``work``; symbol s by
+    ``gated_totals_reference`` at its levels, s0, sigma, knobs and noise stds
+    (``params`` and ``noise`` leaves scalar or [S]), the shared ``gate``, mu
+    0, its uniforms ``external_uniforms[s]`` or its key."""
+    _, gate, rows = _check_universe(seed, levels, params, s0, sigma, gate, noise,
+                                    paths_per_symbol=paths_per_symbol, num_bars=num_bars,
+                                    lanes=lanes, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    out = [gated_totals_reference(
+        seed, lv, p, gate, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s, mu=0.0,
+        sigma=sg_s, dt=dt, lanes=lanes, noise=nz, symbol=s, device=device,
+        chunk_blocks=chunk_blocks, per_path=per_path, work=work,
+        external_uniforms=symbol_uniforms(external_uniforms, s))
+        for s, (lv, s0_s, sg_s, p, nz) in enumerate(rows)]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
 def reduce_rows_reference(part_counts: torch.Tensor, part_floats: torch.Tensor):
     """Plain version of the pass-2 kernel: partial rows [..., R, C] ->
     totals [..., C] (one segment, or one per grid row of a sweep)."""
@@ -406,8 +460,9 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _gated_args(seed, levels: Levels, params, gate, layout: GatedLayout, *,
                 num_paths: int, s0, mu, sigma, dt, lanes: int, noise,
-                antithetic: bool) -> _GatedArgs:
-    """The kernel's arguments for one configuration."""
+                antithetic: bool, symbol: int = 0) -> _GatedArgs:
+    """The kernel's arguments for one configuration, keyed as universe
+    symbol ``symbol``."""
     lp, lv = level_slots(levels)
     lk = levels.kind.detach().cpu().tolist()
     lk = [int(k == KIND_SOLID) for k in lk] + [0] * (MAX_LEVELS - len(lk))
@@ -418,7 +473,7 @@ def _gated_args(seed, levels: Levels, params, gate, layout: GatedLayout, *,
         level_valid=(ctypes.c_float * MAX_LEVELS)(*lv),
         level_kind=(ctypes.c_int32 * MAX_LEVELS)(*lk),
         qmin=f32(gate.q_min_prob), drift=drift, sig_dt=sig_dt, log_s0=log_s0,
-        seed=int(seed), stream=GATED_STREAM,
+        seed=int(seed), stream=prng.stream_key(GATED_STREAM, symbol),
         touch_limit=int(gate.touch_limit), cooldown_bars=int(gate.cooldown_bars),
         touch_gap=int(gate.touch_gap_bars), use_conf=int(bool(gate.use_confidence)),
         max_levels=levels.max_levels, num_bars=layout.num_bars, lanes=lanes,
@@ -453,10 +508,11 @@ def _launch(args, max_levels: int, *, num_paths: int, ext_ptr, device: torch.dev
 def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
                num_bars: int, s0: float, mu: float, sigma: float, dt: float,
                lanes: int, noise, antithetic: bool, external_uniforms,
-               device: torch.device, per_path: bool = False):
+               device: torch.device, per_path: bool = False, symbol: int = 0):
     """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
     [grid, 134] count rows and f32 [grid, 6] float rows, one row per CTA,
-    plus the f32[P, 6] per-path rows when ``per_path``."""
+    plus the f32[P, 6] per-path rows when ``per_path``; Philox keyed as
+    universe symbol ``symbol``."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
@@ -465,7 +521,7 @@ def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
     gate = GateConfig.from_params(params) if gate is None else gate
     args = _gated_args(seed, levels, params, gate, layout, num_paths=num_paths, s0=s0,
                        mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-                       antithetic=antithetic)
+                       antithetic=antithetic, symbol=symbol)
     out = _launch((_GatedArgs * 1)(args), levels.max_levels, num_paths=num_paths,
                   ext_ptr=ext_ptr, device=device, per_path=per_path, what="mc_gated")
     return tuple(x[0] for x in out)
@@ -494,15 +550,40 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
                    device=device, per_path=per_path, what="mc_gated_sweep")
 
 
-def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
+def gated_universe_rows(seed, levels: Levels, params, s0, sigma, gate=None, *,
+                        paths_per_symbol: int, num_bars: int, dt: float, lanes: int,
+                        noise, external_uniforms, device: torch.device,
+                        per_path: bool = False):
+    """Launch the universe's pass 1 on a CUDA device, one launch of
+    ``mc_gated_sweep_kernel`` with a row per symbol: int64 [S, grid, 134] and
+    f32 [S, grid, 6] partial rows, plus f32[S, P, 6] per-(symbol, path) rows
+    when ``per_path``."""
+    layout, gate, rows = _check_universe(
+        seed, levels, params, s0, sigma, gate, noise, paths_per_symbol=paths_per_symbol,
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms)
+    device = torch.device(device)
+    ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
+                             "gated_universe_rows")
+    args = (_GatedArgs * len(rows))()
+    for s, (lv, s0_s, sg_s, p, nz) in enumerate(rows):
+        args[s] = _gated_args(seed, lv, p, gate, layout, num_paths=paths_per_symbol,
+                              s0=s0_s, mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=nz,
+                              antithetic=False, symbol=s)
+        args[s].ext_offset = s * paths_per_symbol * layout.u_rows
+    return _launch(args, levels.max_levels, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
+                   device=device, per_path=per_path, what="mc_gated_universe")
+
+
+def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
     """Pass 2: partial rows [R, ...] -> (int64 [134] counts, float64 [6]
-    floats), or a sweep's [G, R, ...] -> ([G, 134], [G, 6]) in one launch, one
-    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
-    through the plain version."""
+    floats), or a sweep's (or universe's) [G, R, ...] -> ([G, 134], [G, 6])
+    in one launch, one CTA per grid row, counted under ``what`` when given.
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
     return fold_rows(_library().qmmx_mc_gated_reduce_rows, _raise_on, part_counts,
-                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_gated", LAUNCHES)
+                     part_floats, (ROW_COUNTS, ROW_FLOATS), "mc_gated", LAUNCHES, what)
 
 
 def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
@@ -511,11 +592,12 @@ def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
                          dt: float = 1.0 / (390.0 * 252.0),
                          lanes: int = GATED_LANES, noise=None,
                          antithetic: bool = False, external_uniforms=None,
-                         device=None) -> PathStats:
+                         device=None, symbol: int = 0) -> PathStats:
     """Fused gated-lifecycle MC, the counterpart of ``mc_paths_pallas_gated``
     (gbm): the lifecycle PathStats contract of ``sim.gatedpath.mc_paths_gated``
     with the McNoise per-entry execution noise and antithetic lane pairs;
-    ``gate`` defaults to ``GateConfig.from_params(params)``.
+    ``gate`` defaults to ``GateConfig.from_params(params)``; ``symbol`` keys
+    the draws as universe symbol ``symbol`` (0: the single run).
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
@@ -527,7 +609,7 @@ def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
     device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
               sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-              antithetic=antithetic, external_uniforms=external_uniforms)
+              antithetic=antithetic, external_uniforms=external_uniforms, symbol=symbol)
     if device.type == "cpu":
         return stats_from_gated_totals(*gated_totals_reference(
             seed, levels, params, gate, device=device, **kw))
@@ -560,3 +642,30 @@ def mc_paths_gated_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tp
     rows = gated_sweep_rows(seed, levels, params, grid_stops, grid_tps, grid_gate,
                             device=device, **kw)
     return stats_from_gated_totals(*reduce_rows(*rows))
+
+
+def mc_paths_gated_universe_fused(seed, levels: Levels, params, s0, sigma, gate=None, *,
+                                  paths_per_symbol: int, num_bars: int = 40,
+                                  dt: float = 1.0 / (390.0 * 252.0),
+                                  lanes: int = GATED_LANES, noise=None,
+                                  external_uniforms=None, device=None) -> PathStats:
+    """Fused per-symbol gated universe, the counterpart of
+    ``mc_paths_pallas_gated_universe`` (gbm): [S] lifecycle PathStats, symbol
+    s under its own [S, L] levels row, s0[s], sigma[s], knobs (``params``
+    leaves scalar or [S]), noise stds (``noise`` leaves scalar or [S]) and
+    key, the gate knobs shared (``gate`` defaults to
+    ``GateConfig.from_params(params)``); drift, sig_dt and log_s0 per symbol
+    in float64 on the host, mu 0.  Row s equals ``mc_paths_gated_fused`` at
+    those inputs with ``symbol=s`` bit for bit; injected uniforms are
+    f32[S, blocks, u_rows, 8, lanes].  ``device`` as in
+    ``mc_paths_gated_fused``."""
+    kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+              noise=noise, external_uniforms=external_uniforms)
+    _check_universe(seed, levels, params, s0, sigma, gate, **kw)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        return stats_from_gated_totals(*gated_universe_totals_reference(
+            seed, levels, params, s0, sigma, gate, dt=dt, device=device, **kw))
+    rows = gated_universe_rows(seed, levels, params, s0, sigma, gate, dt=dt, device=device,
+                               **kw)
+    return stats_from_gated_totals(*reduce_rows(*rows, what="mc_gated_universe_reduce_rows"))

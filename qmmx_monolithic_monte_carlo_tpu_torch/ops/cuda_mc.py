@@ -5,9 +5,10 @@ Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:57-821``
 only; the bootstrap, block-bootstrap and Heston branches are not ported yet.
 
 * ``mc_paths_fused`` — the entry.  For a CUDA device it launches
-  ``ops/csrc/mc_first_contact.cu`` (pass 1: one thread per path, one partial
-  row per CTA; pass 2: a fixed-order fold of the rows) or raises.  For the CPU
-  it runs the plain version.
+  ``ops/csrc/mc_first_contact.cu`` (pass 1: ``mc_universe_kernel`` at one
+  symbol, one thread per path, one partial row per CTA; pass 2: a
+  fixed-order fold of the rows) or raises.  For the CPU it runs the plain
+  version.
 * ``mc_paths_fused_reference`` — the plain PyTorch version: the TPU kernel's
   block computation, vectorised over (block, bar, lane) tensors.
 * ``mc_paths_sweep_fused`` — the stop/target grid sweep under common random
@@ -18,6 +19,14 @@ only; the bootstrap, block-bootstrap and Heston branches are not ported yet.
   launches ``mc_sweep_kernel`` (partial rows per (row, CTA)) and one fold of
   all rows, or raises; for the CPU it runs ``sweep_totals_reference``.  No
   noise and no antithetic lanes, as the TPU sweep kernel has none.
+* ``mc_paths_universe_fused`` — the per-symbol universe, the counterpart of
+  ``mc_paths_pallas_universe`` (kernel #2, ``_universe_kernel``,
+  ``pallas_mc.py:828-1024``): S symbols in one launch, each with its own
+  levels, s0, sigma, (prox, stop, tp) knobs and key (``prng.stream_key``);
+  row s equals ``mc_paths_fused`` at symbol s's inputs and ``symbol=s``, bit
+  for bit.  A CUDA device launches ``mc_universe_kernel`` (CTAs x S) and one
+  fold of all symbols, or raises; the CPU runs ``universe_totals_reference``.
+  No noise and no antithetic lanes, as the TPU universe kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
@@ -43,11 +52,13 @@ from ..types import Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from .draws import FUSED_STREAM, GbmLayout, fused_uniforms
-from .kernel_args import (MAX_LEVELS, consts, f32, fold_rows, grid_rows, grid_size, knobs,
-                          launch_pointer, level_slots)
+from .kernel_args import (MAX_LEVELS, check_uniforms, consts, device_rows, f32, fold_rows,
+                          grid_rows, grid_size, knobs, launch_pointer, level_slots,
+                          symbol_rows, symbol_uniforms)
 from .pathgen import cumsum_f32
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
+UNIVERSE_LANES = 2048    # the TPU universe kernel's block (pallas_mc.LANES)
 MAX_KERNEL_BARS = 128    # the kernel keeps W/2 sine normals in registers
 N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
@@ -58,7 +69,7 @@ _SOURCE = "mc_first_contact"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
-            "mc_sweep_reduce_rows": 0}
+            "mc_sweep_reduce_rows": 0, "mc_universe": 0, "mc_universe_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -70,7 +81,7 @@ class _McArgs(ctypes.Structure):
     """Mirror of ``struct McArgs`` in ops/csrc/mc_first_contact.cu."""
 
     _fields_ = [
-        ("num_paths", ctypes.c_int64),
+        ("num_paths", ctypes.c_int64), ("ext_offset", ctypes.c_int64),
         ("level_price", ctypes.c_float * MAX_LEVELS),
         ("level_valid", ctypes.c_float * MAX_LEVELS),
         ("prox", ctypes.c_float), ("stop_pad", ctypes.c_float),
@@ -289,12 +300,13 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
                            lanes: int = SINGLE_LANES, noise=None,
                            antithetic: bool = False, external_uniforms=None,
                            device=None, chunk_blocks: int = 16,
-                           work: bool = False):
+                           work: bool = False, symbol: int = 0):
     """The plain version's (int64 counts, float64 floats) totals, computed on
     ``device`` (default: that of ``external_uniforms``, else the CUDA device)
-    in chunks of ``chunk_blocks`` blocks.  ``work=True`` adds the kernel's
-    work on these paths, int64 [Box-Muller pairs, bars walked, bars walked
-    after contact], for bounding its time."""
+    in chunks of ``chunk_blocks`` blocks; Philox draws keyed as universe
+    symbol ``symbol``.  ``work=True`` adds the kernel's work on these paths,
+    int64 [Box-Muller pairs, bars walked, bars walked after contact], for
+    bounding its time."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
@@ -310,7 +322,7 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
             u = external_uniforms[b0:b0 + nb].to(device)
         else:
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb,
-                               lanes=lanes, device=device)
+                               lanes=lanes, symbol=symbol, device=device)
         ct = _contact(u, layout, lp, lv, levels.max_levels, kn["prox"], cs, antithetic)
         counts, floats, walked = _replay(ct, layout, kn)
         tot = _merge_totals(tot, (counts, floats, _work(ct, walked, num_bars)))
@@ -360,6 +372,40 @@ def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *
     return tot if work else tot[:2]
 
 
+def _check_universe(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: int,
+                    num_bars: int, lanes: int, external_uniforms) -> tuple[GbmLayout, list]:
+    """The checks of ``_mc_paths_pallas_universe_jit`` (pallas_mc.py:947-961)
+    and the single kernel's; returns the layout and ``symbol_rows``."""
+    rows = symbol_rows(levels, s0, sigma, params)
+    layout = _check(seed, rows[0][0], num_paths=paths_per_symbol, num_bars=num_bars,
+                    lanes=lanes, noise=None, antithetic=False, external_uniforms=None)
+    check_uniforms(external_uniforms, (len(rows), paths_per_symbol // lanes, layout.n_rows,
+                                       lanes), antithetic=False, lanes=lanes)
+    return layout, rows
+
+
+def universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
+                              paths_per_symbol: int, num_bars: int = 40,
+                              dt: float = 1.0 / (390.0 * 252.0), lanes: int = UNIVERSE_LANES,
+                              external_uniforms=None, device=None, chunk_blocks: int = 16,
+                              work: bool = False):
+    """The plain version of the universe: int64 [S, 133] counts and float64
+    [S, 4] floats (then int64 [S, 3] work with ``work``), symbol s by
+    ``fused_totals_reference`` at its levels, s0, sigma, knobs (``params``
+    leaves scalar or [S]), mu 0, its uniforms ``external_uniforms[s]`` or
+    its key; on ``device`` as ``fused_totals_reference``."""
+    _, rows = _check_universe(seed, levels, params, s0, sigma,
+                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
+                              lanes=lanes, external_uniforms=external_uniforms)
+    device = devices.resolve(device, external_uniforms)
+    out = [fused_totals_reference(
+        seed, lv, p, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s, mu=0.0,
+        sigma=sg_s, dt=dt, lanes=lanes, symbol=s, device=device, chunk_blocks=chunk_blocks,
+        work=work, external_uniforms=symbol_uniforms(external_uniforms, s))
+        for s, (lv, s0_s, sg_s, p) in enumerate(rows)]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
 def reduce_rows_reference(part_counts: torch.Tensor, part_floats: torch.Tensor):
     """Plain version of the pass-2 kernel: partial rows [..., R, C] → totals
     [..., C] (one segment, or one per grid row of a sweep)."""
@@ -387,12 +433,11 @@ def _library() -> ctypes.CDLL:
         lib.qmmx_sweep_grid_size.restype = ci
         lib.qmmx_cuda_error_string.argtypes = [ci]
         lib.qmmx_cuda_error_string.restype = ctypes.c_char_p
-        lib.qmmx_mc_first_contact.argtypes = [
-            ctypes.POINTER(_McArgs), vp, vp, vp, ci, vp]
-        lib.qmmx_mc_first_contact.restype = ci
         lib.qmmx_mc_sweep.argtypes = [
             ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), vp, vp, vp, ci, vp]
         lib.qmmx_mc_sweep.restype = ci
+        lib.qmmx_mc_universe.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_universe.restype = ci
         lib.qmmx_mc_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
         lib.qmmx_mc_reduce_rows.restype = ci
         if (lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs)
@@ -411,8 +456,9 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: int,
                  num_bars: int, s0, mu, sigma, dt, lanes: int, noise, antithetic,
-                 external_uniforms, device: torch.device, what: str):
-    """The launch checks of pass 1, and (McArgs, injected-uniform pointer)."""
+                 external_uniforms, device: torch.device, what: str, symbol: int = 0):
+    """The launch checks of pass 1, and (McArgs, injected-uniform pointer);
+    the Philox key is universe symbol ``symbol``'s."""
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, what)
     if num_bars > MAX_KERNEL_BARS:
         raise ValueError(f"the CUDA kernel takes num_bars <= {MAX_KERNEL_BARS}")
@@ -423,7 +469,7 @@ def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: 
         level_price=(ctypes.c_float * MAX_LEVELS)(*lp),
         level_valid=(ctypes.c_float * MAX_LEVELS)(*lv),
         drift=drift, sig_dt=sig_dt, log_s0=log_s0,
-        seed=int(seed), stream=FUSED_STREAM,
+        seed=int(seed), stream=prng.stream_key(FUSED_STREAM, symbol),
         max_levels=levels.max_levels, num_bars=num_bars, lanes=lanes,
         n_rows=layout.n_rows, use_noise=int(noise is not None),
         antithetic=int(bool(antithetic)),
@@ -432,30 +478,41 @@ def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: 
     return args, ext_ptr
 
 
+def _launch(args, num_bars: int, *, num_paths: int, ext_ptr, device: torch.device,
+            what: str):
+    """One launch of ``mc_universe_kernel`` over the argument structs ``args``
+    (one per symbol), counted in ``LAUNCHES[what]``: int64 [S, grid, 133] and
+    f32 [S, grid, 4] partial rows, one per (symbol, CTA)."""
+    args_dev = device_rows(args, device)
+    n, ctas = len(args), grid_size(num_paths)
+    part_counts = torch.empty((n, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
+    rc = _library().qmmx_mc_universe(args_dev.data_ptr(), n, num_bars, ext_ptr,
+                                     part_counts.data_ptr(), part_floats.data_ptr(), ctas,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
+    return part_counts, part_floats
+
+
 def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
                        num_bars: int, s0: float, mu: float, sigma: float,
                        dt: float, lanes: int, noise, antithetic: bool,
-                       external_uniforms, device: torch.device):
-    """Launch pass 1 on a CUDA device: int64 [grid, 133] count rows and f32
-    [grid, 4] float rows, one row per CTA."""
+                       external_uniforms, device: torch.device, symbol: int = 0):
+    """Launch pass 1 on a CUDA device (the universe kernel at one symbol):
+    int64 [grid, 133] count rows and f32 [grid, 4] float rows, one row per
+    CTA; Philox keyed as universe symbol ``symbol``."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
     args, ext_ptr = _launch_args(
         seed, levels, params, layout, num_paths=num_paths, num_bars=num_bars, s0=s0,
         mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise, antithetic=antithetic,
-        external_uniforms=external_uniforms, device=device, what="first_contact_rows")
-    grid = grid_size(num_paths)
-    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((grid, ROW_FLOATS), dtype=torch.float32, device=device)
-    lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.qmmx_mc_first_contact(ctypes.byref(args), ext_ptr,
-                                   part_counts.data_ptr(),
-                                   part_floats.data_ptr(), grid, stream)
-    _raise_on(rc, "mc_first_contact")
-    LAUNCHES["mc_first_contact"] += 1
-    return part_counts, part_floats
+        external_uniforms=external_uniforms, device=device, what="first_contact_rows",
+        symbol=symbol)
+    return tuple(x[0] for x in _launch((_McArgs * 1)(args), num_bars, num_paths=num_paths,
+                                       ext_ptr=ext_ptr, device=device,
+                                       what="mc_first_contact"))
 
 
 def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths: int,
@@ -490,15 +547,40 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
     return part_counts, part_floats
 
 
-def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor):
+def universe_rows(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: int,
+                  num_bars: int, dt: float, lanes: int, external_uniforms,
+                  device: torch.device):
+    """Launch the universe's pass 1 on a CUDA device, one launch for all S
+    symbols: int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one per
+    (symbol, CTA)."""
+    layout, rows = _check_universe(seed, levels, params, s0, sigma,
+                                   paths_per_symbol=paths_per_symbol, num_bars=num_bars,
+                                   lanes=lanes, external_uniforms=external_uniforms)
+    device = torch.device(device)
+    ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
+                             "universe_rows")
+    per_symbol = paths_per_symbol * layout.n_rows     # injected uniforms of one symbol
+    args = (_McArgs * len(rows))()
+    for s, (lv, s0_s, sg_s, p) in enumerate(rows):
+        args[s], _ = _launch_args(
+            seed, lv, p, layout, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s,
+            mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=None, antithetic=False,
+            external_uniforms=None, device=device, what="universe_rows", symbol=s)
+        args[s].ext_offset = s * per_symbol
+    return _launch(args, num_bars, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
+                   device=device, what="mc_universe")
+
+
+def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
     """Pass 2: partial rows [R, ...] → (int64 [133] counts, float64 [4]
-    floats), or a sweep's [G, R, ...] → ([G, 133], [G, 4]) in one launch, one
-    CTA per grid row.  CUDA tensors go through the kernel, CPU tensors
-    through the plain version."""
+    floats), or a sweep's (or universe's) [G, R, ...] → ([G, 133], [G, 4]) in
+    one launch, one CTA per grid row, counted under ``what`` when given.
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version."""
     if part_counts.device.type == "cpu" and part_floats.device.type == "cpu":
         return reduce_rows_reference(part_counts, part_floats)
     return fold_rows(_library().qmmx_mc_reduce_rows, _raise_on, part_counts, part_floats,
-                     (ROW_COUNTS, ROW_FLOATS), "mc", LAUNCHES)
+                     (ROW_COUNTS, ROW_FLOATS), "mc", LAUNCHES, what)
 
 
 def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
@@ -506,10 +588,11 @@ def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
                    sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                    lanes: int = SINGLE_LANES, noise=None,
                    antithetic: bool = False, external_uniforms=None,
-                   device=None) -> PathStats:
+                   device=None, symbol: int = 0) -> PathStats:
     """Fused first-contact MC, the counterpart of ``mc_paths_pallas`` (gbm):
     the same PathStats contract as ``sim.pathsim.mc_paths``, with the McNoise
-    execution-noise knobs and antithetic lane pairs.
+    execution-noise knobs and antithetic lane pairs; ``symbol`` keys the
+    draws as universe symbol ``symbol`` (0: the single run).
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
@@ -522,7 +605,7 @@ def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
     device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
               sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-              antithetic=antithetic, external_uniforms=external_uniforms)
+              antithetic=antithetic, external_uniforms=external_uniforms, symbol=symbol)
     if device.type == "cpu":
         return mc_paths_fused_reference(seed, levels, params, device=device, **kw)
     rows = first_contact_rows(seed, levels, params, device=device, **kw)
@@ -549,3 +632,26 @@ def mc_paths_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tps, *,
             seed, levels, params, grid_stops, grid_tps, device=device, **kw))
     rows = sweep_rows(seed, levels, params, grid_stops, grid_tps, device=device, **kw)
     return stats_from_totals(*reduce_rows(*rows))
+
+
+def mc_paths_universe_fused(seed, levels: Levels, params, s0, sigma, *,
+                            paths_per_symbol: int, num_bars: int = 40,
+                            dt: float = 1.0 / (390.0 * 252.0), lanes: int = UNIVERSE_LANES,
+                            external_uniforms=None, device=None) -> PathStats:
+    """Fused per-symbol first-contact universe, the counterpart of
+    ``mc_paths_pallas_universe`` (gbm): [S] PathStats, symbol s under its own
+    [S, L] levels row, s0[s], sigma[s], knobs (``params`` leaves scalar or
+    [S]: prox, stop and tp paddings) and key; drift, sig_dt and log_s0 per
+    symbol in float64 on the host, mu 0.  Row s equals ``mc_paths_fused`` at
+    those inputs with ``symbol=s`` bit for bit; injected uniforms are
+    f32[S, paths_per_symbol / lanes, 3W+1, lanes].  ``device`` as in
+    ``mc_paths_fused``."""
+    kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+              external_uniforms=external_uniforms)
+    _check_universe(seed, levels, params, s0, sigma, **kw)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        return stats_from_totals(*universe_totals_reference(
+            seed, levels, params, s0, sigma, dt=dt, device=device, **kw))
+    rows = universe_rows(seed, levels, params, s0, sigma, dt=dt, device=device, **kw)
+    return stats_from_totals(*reduce_rows(*rows, what="mc_universe_reduce_rows"))

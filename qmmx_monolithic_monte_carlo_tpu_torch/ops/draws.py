@@ -119,12 +119,14 @@ class GbmLayout:
 
 
 def fused_uniforms(seed: int, layout: GbmLayout, *, block0: int,
-                   n_blocks: int, lanes: int, device=None) -> torch.Tensor:
+                   n_blocks: int, lanes: int, symbol: int = 0,
+                   device=None) -> torch.Tensor:
     """f32[n_blocks, layout.n_rows, lanes]: the uniforms the kernel draws in
-    Philox mode for global blocks ``block0 ..``, bit for bit."""
+    Philox mode for global blocks ``block0 ..`` of universe symbol
+    ``symbol``, bit for bit."""
     return prng.uniform_rows(seed, FUSED_STREAM, block0=block0,
                              n_blocks=n_blocks, n_rows=layout.n_rows,
-                             lanes=lanes, device=device)
+                             lanes=lanes, symbol=symbol, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,12 +152,14 @@ class GatedLayout:
 
 
 def gated_uniforms(seed: int, layout: GatedLayout, *, block0: int,
-                   n_blocks: int, lanes: int, device=None) -> torch.Tensor:
+                   n_blocks: int, lanes: int, symbol: int = 0,
+                   device=None) -> torch.Tensor:
     """f32[n_blocks, layout.u_rows, 8, lanes]: the uniforms the gated kernel
-    draws in Philox mode for global blocks ``block0 ..``, bit for bit."""
+    draws in Philox mode for global blocks ``block0 ..`` of universe
+    symbol ``symbol``, bit for bit."""
     u = prng.uniform_rows(seed, GATED_STREAM, block0=block0, n_blocks=n_blocks,
                           n_rows=layout.u_rows, lanes=GATED_SUB * lanes,
-                          device=device)
+                          symbol=symbol, device=device)
     return u.view(n_blocks, layout.u_rows, GATED_SUB, lanes)
 
 
@@ -182,10 +186,12 @@ class EngineLayout:
 
 
 def engine_uniforms(seed: int, layout: EngineLayout, *, block0: int,
-                    n_blocks: int, lanes: int, device=None) -> torch.Tensor:
+                    n_blocks: int, lanes: int, symbol: int = 0,
+                    device=None) -> torch.Tensor:
     """f32[n_blocks, layout.u_rows, 8, lanes]: the uniforms the engine kernel
-    draws in Philox mode for global blocks ``block0 ..``, bit for bit."""
+    draws in Philox mode for global blocks ``block0 ..`` of universe
+    symbol ``symbol``, bit for bit."""
     u = prng.uniform_rows(seed, ENGINE_STREAM, block0=block0, n_blocks=n_blocks,
                           n_rows=layout.u_rows, lanes=ENGINE_SUB * lanes,
-                          device=device)
+                          symbol=symbol, device=device)
     return u.view(n_blocks, layout.u_rows, ENGINE_SUB, lanes)

@@ -18,7 +18,14 @@ kernels see the same float32 constants, noise knobs, level slots and grid:
 * ``grid_rows`` / ``knob_rows`` -- the rows of a fused sweep, as the JAX
   sweep kernels take them: (stop, tp) columns beside records of scalar or
   [G] leaves (first contact, gated), or EngineParams with [G] leaves (engine);
-* ``device_rows`` -- a sweep's argument structs, one per grid row, on the card;
+* ``symbol_rows`` / ``sg_rows`` -- the rows of a universe, with the checks of
+  the JAX universe entries: per symbol its levels, spot and volatility (as
+  float64, for ``consts``) and its row of records with scalar or [S] leaves;
+  or, for a sweep of universes, row (s, g) of records with scalar, [G] or
+  [S, G] leaves; ``symbol_grid`` / ``symbol_uniforms`` -- symbol s's grid
+  and injected uniforms, for the plain versions;
+* ``device_rows`` -- a sweep's (or universe's) argument structs, one per
+  grid row, on the card;
 * ``fold_rows`` -- pass 2 over [R, C] partial rows, or a sweep's [G, R, C]
   with one CTA per grid row.
 """
@@ -196,6 +203,82 @@ def knob_rows(grid_params, noise=None, n_grid=None) -> list:
     return [(grid_row(grid_params, g), grid_row(noise, g)) for g in range(int(n_grid))]
 
 
+def symbol_rows(levels: Levels, s0, sigma, *records) -> list:
+    """[(levels_s, s0_s, sigma_s, *records_s)] for the S symbols of a
+    universe: row s of the [S, L] ``levels``, s0 and sigma (scalars or [S])
+    as float64 Python floats, as ``_derived_consts`` takes them
+    (pallas_mc.py:1646-1660), and row s of each record (EngineParams,
+    McNoise, ... or None) whose leaves are scalars or [S]."""
+    if levels.price.dim() != 2:
+        raise ValueError("levels must be [S, L]-batched (parallel.universe.stack_levels)")
+    n_sym = int(levels.price.shape[0])
+    _check_rows(n_sym)
+    cols = []
+    for name, x in (("s0", s0), ("sigma", sigma)):
+        v = torch.as_tensor(x, dtype=torch.float64).reshape(-1)
+        if v.shape[0] not in (1, n_sym):
+            raise ValueError(f"{name} must be a scalar or of length {n_sym}")
+        cols.append(v.expand(n_sym).tolist())
+    if grid_len(*records) not in (1, n_sym):
+        raise ValueError(f"per-symbol leaves must be scalars or of length {n_sym}")
+    return [(grid_row(levels, s), cols[0][s], cols[1][s],
+             *(grid_row(r, s) for r in records)) for s in range(n_sym)]
+
+
+def symbol_uniforms(external_uniforms, s: int):
+    """Symbol s's injected uniforms of a universe's [S, ...] tensor, or None."""
+    return None if external_uniforms is None else external_uniforms[s]
+
+
+def _sg_leaf(v: torch.Tensor, s: int, g: int) -> torch.Tensor:
+    return v if v.dim() == 0 else v[g] if v.dim() == 1 else v[s, g]
+
+
+def sg_rows(grid_params, noise, n_sym: int, n_grid=None) -> list:
+    """[[(params_sg, noise_sg) for g < G] for s < S] of a sweep of universes,
+    with the checks of ``mc_paths_pallas_engine_universe_sweep``
+    (pallas_engine.py:2440-2457): every leaf of ``grid_params`` and ``noise``
+    is a scalar, a [G] vector (one grid shared by all symbols) or an [S, G]
+    matrix (per-symbol grids); G is ``n_grid``, else the one length of the
+    [G] and [S, G] leaves.  At most MAX_GRID_ROWS rows in all."""
+    leaves = [v for o in (grid_params, noise) if o is not None
+              for v in tensor_leaves(o).values()]
+    if any(v.dim() > 2 for v in leaves):
+        raise ValueError("grid leaves must be scalars, [G] or [S, G]")
+    if n_grid is None:
+        sizes = {int(v.shape[-1]) for v in tensor_leaves(grid_params).values()
+                 if v.dim() in (1, 2)}
+        if len(sizes) != 1:
+            raise ValueError("pass n_grid or give grid_params at least one [G] or [S, G] "
+                             f"leaf (found sizes {sorted(sizes)})")
+        (n_grid,) = sizes
+    n_grid = int(n_grid)
+    for v in leaves:
+        if v.dim() >= 1 and int(v.shape[-1]) != n_grid:
+            raise ValueError(f"grid leaves must be scalars or of length {n_grid}")
+        if v.dim() == 2 and int(v.shape[0]) != n_sym:
+            raise ValueError("[S, G] grid leaves must match the symbol count")
+    _check_rows(n_sym * n_grid)
+
+    def row(obj, s, g):
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{k: _sg_leaf(v, s, g)
+                                           for k, v in tensor_leaves(obj).items()})
+
+    return [[(row(grid_params, s, g), row(noise, s, g)) for g in range(n_grid)]
+            for s in range(n_sym)]
+
+
+def symbol_grid(obj, s: int):
+    """Symbol s's grid of a record with scalar, [G] or [S, G] leaves: its
+    [S, G] leaves cut to row s ([G]); the rest unchanged."""
+    if obj is None:
+        return None
+    return dataclasses.replace(obj, **{k: v[s] for k, v in tensor_leaves(obj).items()
+                                       if v.dim() == 2})
+
+
 def device_rows(rows, device: torch.device) -> torch.Tensor:
     """A ctypes array of argument structs (one per grid row) copied to the
     card, as bytes."""
@@ -203,18 +286,20 @@ def device_rows(rows, device: torch.device) -> torch.Tensor:
 
 
 def fold_rows(fn, raise_on, part_counts: torch.Tensor, part_floats: torch.Tensor,
-              widths: tuple[int, int], family: str, launches: dict):
+              widths: tuple[int, int], family: str, launches: dict, what=None):
     """Pass 2 through the C entry ``fn`` (``raise_on(rc, what)`` reports a
     failed launch), over partial rows of int64 counts and float32 floats of
     the kernel's ``widths``: [R, C] (one segment; -> int64 [C], float64
     [row_floats]; counted in ``launches[family + "_reduce_rows"]``) or a
     sweep's [G, R, C] (one CTA per grid row; -> [G, C], [G, row_floats];
-    counted in ``launches[family + "_sweep_reduce_rows"]``)."""
+    counted in ``launches[family + "_sweep_reduce_rows"]``).  ``what``
+    names another counter (a universe's fold)."""
     if (part_counts.device != part_floats.device
             or part_counts.device.type != "cuda"):
         raise ValueError("part_counts and part_floats must lie on one CUDA device")
     sweep = part_counts.dim() == 3
-    what = f"{family}_sweep_reduce_rows" if sweep else f"{family}_reduce_rows"
+    if what is None:
+        what = f"{family}_sweep_reduce_rows" if sweep else f"{family}_reduce_rows"
     if not sweep:
         part_counts, part_floats = part_counts[None], part_floats[None]
     row_counts, row_floats = widths

@@ -111,12 +111,12 @@ class VolumeModel(NamedTuple):
     open_minute: int = 0     # minute-of-session of bar 0
 
     def volumes(self, seed: int, block: int, z_ret, *, num_paths: int,
-                num_bars: int, device=None) -> torch.Tensor:
+                num_bars: int, symbol: int = 0, device=None) -> torch.Tensor:
         """f32[num_paths, num_bars] volumes from the STREAM_VOLUME draws of
-        global block ``block``; ``z_ret`` is the per-bar price shock, or None
-        for uncoupled volume."""
+        global block ``block`` (of universe symbol ``symbol``); ``z_ret`` is
+        the per-bar price shock, or None for uncoupled volume."""
         zv = prng.normal_rows(seed, prng.STREAM_VOLUME, block=block,
-                              n_rows=num_bars, lanes=num_paths,
+                              n_rows=num_bars, lanes=num_paths, symbol=symbol,
                               device=device).T
         sig = float(self.noise_sigma)
         noise = torch.exp(sig * zv - 0.5 * sig * sig)
@@ -135,9 +135,10 @@ class VolumeModel(NamedTuple):
 def gbm_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,
               mu: float = 0.0, sigma: float = 0.15,
               dt: float = 1.0 / (390.0 * 252.0), antithetic: bool = False,
-              volume_model: VolumeModel | None = None,
+              volume_model: VolumeModel | None = None, symbol: int = 0,
               device=None) -> PathBars:
-    """GBM 1-minute OHLC paths of global block ``block``.  With ``antithetic``
+    """GBM 1-minute OHLC paths of global block ``block`` of universe symbol
+    ``symbol`` (every stream keyed by it, ``prng.stream_key``).  With ``antithetic``
     the second half of the path axis reuses the first half's normals negated
     (num_paths must be even).  Volumes come from ``volume_model`` (default
     ``VolumeModel()``) on their own stream, so the prices do not depend on it."""
@@ -148,17 +149,17 @@ def gbm_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,
     n_draw = num_paths // 2 if antithetic else num_paths
 
     z = prng.normal_rows(seed, prng.STREAM_PATH, block=block, n_rows=num_bars,
-                         lanes=n_draw, device=device).T
+                         lanes=n_draw, symbol=symbol, device=device).T
     if antithetic:
         z = torch.cat([z, -z], dim=0)
 
     def uniforms(stream):
         return prng.uniform_rows(seed, stream, block0=block, n_blocks=1,
                                  n_rows=num_bars, lanes=num_paths,
-                                 device=device)[0].T
+                                 symbol=symbol, device=device)[0].T
 
     volume = volume_model.volumes(seed, block, z, num_paths=num_paths,
-                                  num_bars=num_bars, device=device)
+                                  num_bars=num_bars, symbol=symbol, device=device)
     return gbm_bars_from_draws(
         z, uniforms(prng.STREAM_BRIDGE_HI), uniforms(prng.STREAM_BRIDGE_LO),
         s0=s0, mu=mu, sigma=sigma, dt=dt, volume=volume)

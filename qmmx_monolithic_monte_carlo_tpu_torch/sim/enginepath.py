@@ -433,15 +433,16 @@ def engine_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 
 def _one_block_engine(seed: int, block: int, *, levels, params, block_paths,
                       num_bars, s0, mu, sigma, dt, sampler, antithetic,
-                      volume_model, noise, device, **engine_kw):
+                      volume_model, noise, device, symbol: int = 0, **engine_kw):
     paths = pathsim.sample_block(
         seed, block, block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
         sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
-        volume_model=volume_model, device=device)
+        volume_model=volume_model, symbol=symbol, device=device)
     tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=block, n_blocks=1,
-                            n_rows=num_bars, lanes=block_paths, device=device)[0].T
+                            n_rows=num_bars, lanes=block_paths, symbol=symbol,
+                            device=device)[0].T
     draws = (pathsim.noise_normals(seed, block, block_paths, device,
-                                   num_bars=num_bars)
+                                   num_bars=num_bars, symbol=symbol)
              if noise is not None else None)
     out = engine_path_replay(paths, levels, params, tie, noise=noise,
                              noise_normals=draws, **engine_kw)
@@ -459,12 +460,14 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
                     touch_params=None, guard_params=None,
                     policy_gate_disabled: bool | None = None,
                     escalation: bool = True, bar0_minute: int = 0, noise=None,
-                    volume_model=None, harvest: bool = False, device=None):
+                    volume_model=None, harvest: bool = False, symbol: int = 0,
+                    device=None):
     """Streamed generated-path MC under the full engine: ``num_paths`` paths
     in blocks of ``block_paths``.  Returns (PathStats over the lifecycle
     histogram range, int64[16] skip table ordered as SKIP_REASONS, int64
-    escalations).  Runs on ``device``: the CUDA device by default (raising
-    where there is none), the CPU when asked."""
+    escalations); ``symbol`` keys the draws as in ``pathsim.mc_paths``.  Runs
+    on ``device``: the CUDA device by default (raising where there is none),
+    the CPU when asked."""
     if harvest:
         raise NotImplementedError("harvest=True is not ported yet")
     if num_paths % block_paths != 0:
@@ -479,7 +482,7 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
             seed, b, levels=levels, params=params, block_paths=block_paths,
             num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt, sampler=sampler,
             antithetic=antithetic, volume_model=volume_model, noise=noise,
-            device=device, policy=policy, ml_model=ml_model,
+            device=device, symbol=symbol, policy=policy, ml_model=ml_model,
             touch_params=touch_params, guard_params=guard_params,
             policy_gate_disabled=policy_gate_disabled, escalation=escalation,
             bar0_minute=bar0_minute)

@@ -231,16 +231,17 @@ def gated_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 
 def _one_block_gated(seed: int, block: int, *, levels, params, gate,
                      block_paths, num_bars, s0, mu, sigma, dt, sampler,
-                     antithetic, noise, volume_model, device) -> PathStats:
+                     antithetic, noise, volume_model, device,
+                     symbol: int = 0) -> PathStats:
     paths = pathsim.sample_block(
         seed, block, block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
         sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
-        volume_model=volume_model, device=device)
+        volume_model=volume_model, symbol=symbol, device=device)
     tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=block,
                             n_blocks=1, n_rows=num_bars, lanes=block_paths,
-                            device=device)[0].T
+                            symbol=symbol, device=device)[0].T
     draws = (pathsim.noise_normals(seed, block, block_paths, device,
-                                   num_bars=num_bars)
+                                   num_bars=num_bars, symbol=symbol)
              if noise is not None else None)
     out = gated_path_replay(paths, levels, params, gate, tie, noise=noise,
                             noise_normals=draws)
@@ -255,12 +256,12 @@ def mc_paths_gated(seed: int, levels: Levels, params: EngineParams,
                    sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                    sampler: str = "gbm", block_paths: int = 1 << 16,
                    antithetic: bool = False, noise=None, volume_model=None,
-                   device=None) -> PathStats:
+                   symbol: int = 0, device=None) -> PathStats:
     """Streamed generated-path MC with the gated multi-trade lifecycle:
     ``num_paths`` paths in blocks of ``block_paths`` (memory holds one block),
-    merged into a PathStats over the lifecycle histogram range.  Runs on
-    ``device``: the CUDA device by default (raising where there is none),
-    the CPU when asked."""
+    merged into a PathStats over the lifecycle histogram range; ``symbol``
+    keys the draws as in ``pathsim.mc_paths``.  Runs on ``device``: the CUDA
+    device by default (raising where there is none), the CPU when asked."""
     if gate is None:
         gate = GateConfig.from_params(params)
     if num_paths % block_paths != 0:
@@ -273,5 +274,6 @@ def mc_paths_gated(seed: int, levels: Levels, params: EngineParams,
             seed, b, levels=levels, params=params, gate=gate,
             block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
             sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
-            noise=noise, volume_model=volume_model, device=device))
+            noise=noise, volume_model=volume_model, device=device,
+            symbol=symbol))
     return out

@@ -298,20 +298,21 @@ def path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 
 def sample_block(seed: int, block: int, *, block_paths, num_bars, s0, mu,
                  sigma, dt, sampler="gbm", antithetic=False, volume_model=None,
-                 device=None) -> PG.PathBars:
-    """One path block of global index ``block`` from the named sampler.
-    Only "gbm" is ported; the others raise."""
+                 symbol: int = 0, device=None) -> PG.PathBars:
+    """One path block of global index ``block`` (of universe symbol
+    ``symbol``) from the named sampler.  Only "gbm" is ported; the others
+    raise."""
     if sampler != "gbm":
         raise NotImplementedError(
             f"sampler {sampler!r} is not ported yet (gbm only)")
     return PG.gbm_paths(seed, block, num_paths=block_paths, num_bars=num_bars,
                         s0=s0, mu=mu, sigma=sigma, dt=dt,
                         antithetic=antithetic, volume_model=volume_model,
-                        device=device)
+                        symbol=symbol, device=device)
 
 
 def noise_normals(seed: int, block: int, n: int, device=None,
-                  num_bars: int | None = None) -> tuple:
+                  num_bars: int | None = None, symbol: int = 0) -> tuple:
     """The four execution-noise standard-normal draws (level jitter, entry
     slip, stop slip, target slip) of one block, each on its own stream:
     f32[n] each, or f32[n, num_bars] (one draw per path and bar, the shape
@@ -319,7 +320,7 @@ def noise_normals(seed: int, block: int, n: int, device=None,
     rows = 1 if num_bars is None else num_bars
     out = tuple(
         prng.normal_rows(seed, s, block=block, n_rows=rows, lanes=n,
-                         device=device)
+                         symbol=symbol, device=device)
         for s in (prng.STREAM_LEVEL_JITTER, prng.STREAM_ENTRY_SLIP,
                   prng.STREAM_STOP_SLIP, prng.STREAM_TARGET_SLIP))
     if num_bars is None:
@@ -332,12 +333,14 @@ def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
              sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
              sampler: str = "gbm", block_paths: int = 1 << 16,
              antithetic: bool = False, noise=None, volume_model=None,
-             device=None) -> PathStats:
+             symbol: int = 0, device=None) -> PathStats:
     """Streamed generated-path MC: ``num_paths`` paths in blocks of
     ``block_paths``; returns the merged PathStats.  ``noise``
     (sim.montecarlo.McNoise) adds the reference MC's execution-noise
-    gaussians per path.  Runs on ``device``: the CUDA device by default
-    (raising where there is none), the CPU when asked."""
+    gaussians per path.  ``symbol`` keys every draw as universe symbol
+    ``symbol`` does (``parallel.universe``; 0 is the single run).  Runs on
+    ``device``: the CUDA device by default (raising where there is none), the
+    CPU when asked."""
     if num_paths % block_paths != 0:
         raise ValueError("num_paths must be a multiple of block_paths")
     device = devices.resolve(device)
@@ -347,11 +350,12 @@ def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
         paths = sample_block(seed, b, block_paths=block_paths,
                              num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
                              dt=dt, sampler=sampler, antithetic=antithetic,
-                             volume_model=volume_model, device=device)
+                             volume_model=volume_model, symbol=symbol,
+                             device=device)
         tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=b,
                                 n_blocks=1, n_rows=1, lanes=block_paths,
-                                device=device)[0, 0]
-        draws = (noise_normals(seed, b, block_paths, device)
+                                symbol=symbol, device=device)[0, 0]
+        draws = (noise_normals(seed, b, block_paths, device, symbol=symbol)
                  if noise is not None else None)
         r, outcome, entered = path_replay(paths, levels, params, tie,
                                           noise=noise, noise_normals=draws)

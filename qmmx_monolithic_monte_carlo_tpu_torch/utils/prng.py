@@ -8,6 +8,13 @@ draw is therefore a pure function of (seed, stream, block, row, lane): it does
 not depend on how many blocks one call generates, in which order, or on which
 device or how many of them.
 
+A universe run (``parallel/universe.py``) gives every symbol draws of its own:
+key word 1 is ``stream + 256 * symbol`` (``stream_key``).  Streams are below
+256, so no two (stream, symbol) pairs share a key for symbols below 2^24, and
+symbol 0 keeps the single run's key, so a one-symbol universe is the single
+run bit for bit.  (The JAX package folds the symbol into the key,
+``parallel/universe.py:75``, and its TPU kernels reseed per (symbol, block).)
+
 This module is the plain PyTorch implementation: uint32 arithmetic in int64
 tensors with masks, multiplications split into 16-bit halves so no product
 leaves the int64 range.  ``ops/csrc/mc_first_contact.cu`` computes the same
@@ -79,16 +86,32 @@ def check_seed(seed: int) -> int:
     return seed
 
 
+SYMBOL_STRIDE = 256      # key word 1 = stream + SYMBOL_STRIDE * symbol
+MAX_SYMBOLS = 1 << 24
+
+
+def stream_key(stream: int, symbol: int = 0) -> int:
+    """Key word 1 of ``stream``'s draws for universe symbol ``symbol``."""
+    stream, symbol = int(stream), int(symbol)
+    if not 0 <= stream < SYMBOL_STRIDE:
+        raise ValueError(f"stream must be in [0, {SYMBOL_STRIDE}), got {stream}")
+    if not 0 <= symbol < MAX_SYMBOLS:
+        raise ValueError(f"symbol must be in [0, 2^24), got {symbol}")
+    return stream + SYMBOL_STRIDE * symbol
+
+
 def uniform_rows(seed: int, stream: int, *, block0: int, n_blocks: int,
-                 n_rows: int, lanes: int, device=None) -> torch.Tensor:
+                 n_rows: int, lanes: int, symbol: int = 0,
+                 device=None) -> torch.Tensor:
     """f32[n_blocks, n_rows, lanes] uniforms in (0, 1) for global blocks
     ``block0 .. block0 + n_blocks - 1``.
 
     Element (b, row, lane) is word ``row % 4`` of Philox4x32-10 with key
-    (seed, stream) and counter (lane, row // 4, block mod 2^32, block >> 32),
-    turned into a float as the TPU kernel does: the top 24 bits times 2^-24,
-    plus 1e-12."""
+    (seed, stream_key(stream, symbol)) and counter (lane, row // 4, block mod
+    2^32, block >> 32), turned into a float as the TPU kernel does: the top 24
+    bits times 2^-24, plus 1e-12."""
     seed = check_seed(seed)
+    key = stream_key(stream, symbol)
     groups = -(-n_rows // 4)
     blk = torch.arange(block0, block0 + n_blocks, dtype=torch.int64,
                        device=device).view(-1, 1, 1)
@@ -98,7 +121,7 @@ def uniform_rows(seed: int, stream: int, *, block0: int, n_blocks: int,
     words = philox4x32(
         (lane.expand(shape), grp.expand(shape), (blk & _M32).expand(shape),
          (blk >> 32).expand(shape)),
-        (seed, stream))
+        (seed, key))
     bits = torch.stack(words, dim=2).reshape(n_blocks, groups * 4, lanes)
     bits = bits[:, :n_rows]
     return to_uniform(bits)
@@ -110,12 +133,13 @@ def to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 
 def normal_rows(seed: int, stream: int, *, block: int, n_rows: int,
-                lanes: int, device=None) -> torch.Tensor:
+                lanes: int, symbol: int = 0, device=None) -> torch.Tensor:
     """f32[n_rows, lanes] standard normals of one global block: paired
     Box-Muller over 2·ceil(n_rows / 2) uniform rows, cosine branch first."""
     half = -(-n_rows // 2)
     u = uniform_rows(seed, stream, block0=block, n_blocks=1,
-                     n_rows=2 * half, lanes=lanes, device=device)[0]
+                     n_rows=2 * half, lanes=lanes, symbol=symbol,
+                     device=device)[0]
     radius = torch.sqrt(-2.0 * torch.log(u[:half]))
     angle = TWO_PI * u[half:]
     return torch.cat([radius * torch.cos(angle),
