@@ -114,7 +114,32 @@ Phases (any failure exits non-zero and prints no result line):
    version on the card equal to the kernel on every path, and so on the
    main path's inputs (config #4's first 8 symbols x the 4 configurations)
    at 2^16 paths a symbol; the entry ``mc_paths_engine_universe_sweep_fused``
-   at those 8 symbols x 4 rows x 2^20 paths with its launches.
+   at those 8 symbols x 4 rows x 2^20 paths with its launches;
+   the correlated books (kernels #7 and #12: one market factor, z_s =
+   beta_s z_mkt + sqrt(1 - beta_s^2) eps_s, and the book's equity curve),
+   three symbols with their own levels, s0, sigma, beta, weight, [S] knobs
+   and noise stds, and the main path's book (100 symbols, spots 100 .. 199
+   with the CLI's level scaffold, sigma 0.3, betas 0.2 .. 0.8, equal
+   weights, 2^20 paths a symbol, 40 bars):
+19. gated book (``mc_gated_corr_kernel``, mc_gated_corr.cu): injected uniforms
+   (16 blocks of 8 x 1024 paths a symbol, antithetic) path by path, symbols
+   and the book, every differing path traced as in phase 6 (a book path by
+   its symbols' lifecycles over the CPU's and the card's bars, combined as
+   the book combines them); Philox at
+   2^20 a symbol, every symbol at beta 0 equal to the gated universe kernel
+   (#5) bit for bit, per path included, and a one-symbol book of weight 1
+   equal to its symbol; on the main path's inputs at 2^16 paths a symbol the
+   plain version on the card equal to the kernel on every path, symbols and
+   book; the kernel alone at the main-path size (the curves in shared
+   memory), and the fold; the port CLI's ``book
+   --backend cuda`` at the main-path size, launch counts set to 0 just
+   before and read just after (one ``mc_gated_corr`` and one fold a run,
+   nothing else), rows in the JAX CLI's form; the CLI's defaults once;
+20. engine book (``mc_engine_corr_kernel``, mc_engine_corr.cu): the same, with
+   the ML and policy gates armed, noise and antithetic in one injected case
+   and the accumulation gates active in another, the identity against the
+   engine universe kernel (#10), the curves in device memory, and ``book
+   --engine --backend cuda``.
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -145,7 +170,10 @@ Sweeps (phases 12-14): each row under its family's rules above; a row of a
 sweep kernel and the single-configuration launch under that row's knobs:
 equal, bit for bit.  Universes (phases 15-18): each symbol (or cell) under
 its family's rules; a symbol of a universe kernel and the single kernel at
-the symbol's inputs and key: equal, bit for bit.
+the symbol's inputs and key: equal, bit for bit.  Books (phases 19-20):
+each symbol and the book under their family's rules (the book's row is a
+lifecycle row of the book's R per path); a book symbol at beta 0 and the
+universe kernel's symbol: equal, bit for bit.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -158,7 +186,9 @@ enter, how long they hold), so it is counted by the plain versions on the
 first 2^22 paths of the timed inputs (the universes' main paths: 2^16 paths
 of each symbol) and scaled to their size.  For the
 engine the count is a floor: the work every bar does, plus the gates that the
-plain version's skip table shows were reached (engine_ops).  A sweep's bound
+plain version's skip table shows were reached (engine_ops).  A book's bound
+is its symbols' lifecycles plus the market pair, counted once a path
+(book_market_ops), though the kernels draw it again for every symbol.  A sweep's bound
 counts each path's bars once and each row's decisions on them (sweep_ops,
 gated_sweep_ops, engine_sweep_ops), so the gated and engine sweeps'
 regeneration of the bars for every row shows against it.
@@ -193,6 +223,8 @@ CSRC = "qmmx_monolithic_monte_carlo_tpu_torch/ops/csrc/"
 FC_SOURCE = CSRC + "mc_first_contact.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
+GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
+ENGINE_CORR_SOURCE = CSRC + "mc_engine_corr.cu"
 FC_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:584"
 GATED_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067"
 ENGINE_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1415"
@@ -471,7 +503,9 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
 def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
     """Drive the plain ``EngineLifecycle`` over ``bars`` on ``device``,
     recording after every bar (side, trades, wins, losses, escalations,
-    first-fail reason) as int[P, W, 6]; returns (per-path rows, ints)."""
+    first-fail reason) as int[P, W, 6], the equity as f32[P, W] and (entry,
+    stop, target) as f32[P, W, 3]; returns (per-path rows, ints, equity,
+    prices)."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_engine import path_rows
@@ -479,7 +513,7 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
         EngineLifecycle, skip_columns)
 
     life = EngineLifecycle(bars.open[:, 0].to(device), levels, params, noise=noise, **kw)
-    ints, skips = [], 0
+    ints, skips, equity, prices = [], 0, [], []
     for t in range(bars.close.shape[1]):
         cols = (bars.high, bars.low, bars.close, bars.volume, tie)
         nz = tuple(n[:, t].to(device) for n in nzs) if nzs is not None else None
@@ -487,17 +521,21 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
         skips = skips + skip_columns(reason)
         ints.append(torch.stack([life.side, life.trades, life.wins, life.losses,
                                  life.escal, reason], 1).cpu())
-    return path_rows(life.outcome(), skips).cpu(), torch.stack(ints, 1)
+        equity.append(life.equity.cpu())
+        prices.append(torch.stack([life.entry, life.stop, life.target], 1).cpu())
+    return (path_rows(life.outcome(), skips).cpu(), torch.stack(ints, 1),
+            torch.stack(equity, 1), torch.stack(prices, 1))
 
 
 def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
-                       sigma, noise, antithetic, dev, s0: float = 100.0) -> dict:
+                       sigma, noise, antithetic, dev, s0: float = 100.0,
+                       market=None) -> dict:
     """Phase 6's trace for the engine: the plain engine over the bars the
     plain version makes on the CPU (run on the CPU) and over those it makes
     on the card (run on the card).  For every differing path the card run
     equals the kernel's row exactly, the CPU run the plain row, and the two
     runs part at some bar (a decision or a first-fail reason went the other
-    way)."""
+    way).  A book symbol's ``market`` = (market uniforms, beta)."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine
@@ -511,13 +549,15 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     kw = engine_knobs(**gates)
     runs = []
     for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
+        mkw = ({} if market is None
+               else dict(market_uniforms=market[0].to(where), beta=market[1]))
         bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
-            src, layout, s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
+            src, layout, s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic, **mkw)
         pick = type(bars)(*(x[idx.to(x.device)] for x in bars))
         runs.append(engine_trace(pick, tie[idx.to(tie.device)],
                                  None if nzs is None else nzs[:, idx.to(nzs.device)],
                                  levels, params, kw, noise, where))
-    (rows_cpu, i_cpu), (rows_dev, i_dev) = runs
+    (rows_cpu, i_cpu, _, px_cpu), (rows_dev, i_dev, _, px_dev) = runs
     trade_cols = [1, 2, 3, 4, 6]
     equal_trades = int((kernel_rows[idx][:, trade_cols] == cpu_rows[idx][:, trade_cols])
                        .all(dim=1).sum())
@@ -528,6 +568,11 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
         raise AssertionError(f"{name}: the traced engine differs from the plain version")
     parted = (i_cpu != i_dev).any(dim=2)
     if not bool(parted.any(dim=1).all()):
+        for k in torch.nonzero(~parted.any(dim=1)).flatten().tolist():
+            d = (px_cpu[k] - px_dev[k]).abs()
+            log(f"    untraced path {int(idx[k])}: kernel {kernel_rows[idx[k], :7].tolist()} "
+                f"plain {cpu_rows[idx[k], :7].tolist()}; max |d entry, stop, target| "
+                f"{d.amax(dim=0).tolist()} at bars {d.argmax(dim=0).tolist()}")
         raise AssertionError(f"{name}: a differing path shows no flipped decision")
     flip_bar = parted.int().argmax(dim=1)
     log(f"  {name}: {idx.numel()} differing paths ({equal_trades} with equal trade "
@@ -558,7 +603,8 @@ def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
 
 
 def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
-                noise, antithetic, dev, s0: float = 100.0, sigma: float = SIGMA) -> dict:
+                noise, antithetic, dev, s0: float = 100.0, sigma: float = SIGMA,
+                market=None) -> dict:
     """Show that the paths on which the kernel and the plain version on CPU
     copies differ are flipped decisions, not a kernel fault.
 
@@ -570,7 +616,8 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     and the two runs' integer state parts at some bar (a stop, target, tie,
     entry, direction, level or touch decision went the other way).  Prints
     the first flipped bar of the first path whose counts agree, with the bar's
-    close/high/low on both sides in ulps."""
+    close/high/low on both sides in ulps.  A book symbol's ``market`` =
+    (market uniforms, beta)."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated
@@ -583,7 +630,9 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     kw = dict(s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
     runs = []
     for src in (u, u.to(dev)):
-        bars, tie, nzs = cuda_gated.gated_bars_from_uniforms(src, layout, **kw)
+        mkw = ({} if market is None
+               else dict(market_uniforms=market[0].to(src.device), beta=market[1]))
+        bars, tie, nzs = cuda_gated.gated_bars_from_uniforms(src, layout, **kw, **mkw)
         pick = type(bars)(*(x[idx.to(x.device)].cpu() for x in bars))
         runs.append((pick, tie[idx.to(tie.device)].cpu(),
                      None if nzs is None else nzs[:, idx.to(nzs.device)].cpu()))
@@ -664,10 +713,12 @@ def launch_counts() -> dict:
     return {k: v for m in (cuda_mc, cuda_gated, cuda_engine) for k, v in m.LAUNCHES.items()}
 
 
-def run_cli(cli, argv, reset, expect: dict, n_paths: int = None) -> tuple[list, list, dict]:
+def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = None,
+            unit: str = None) -> tuple[list, list, dict]:
     """The CLI four times (one warm-up, three timed), the launch counts set to
     0 just before and read just after; the kernels named in ``expect`` must
     have been launched exactly that often and no other kernel at all.
+    ``work`` counts what a run simulates (default: paths x output rows).
     Returns (the last run's JSON lines, seconds, the counts of ``expect``)."""
     import torch
 
@@ -693,13 +744,14 @@ def run_cli(cli, argv, reset, expect: dict, n_paths: int = None) -> tuple[list, 
         floats = {k: v for k, v in out.items() if isinstance(v, float)}
         if not all(math.isfinite(v) for v in floats.values()):
             raise AssertionError(f"non-finite cli output: {out}")
-        if not 0.0 < out["hit_rate"] < 1.0:
+        if "hit_rate" in out and not 0.0 < out["hit_rate"] < 1.0:
             raise AssertionError(f"hit_rate out of (0, 1): {out}")
     rep_s = sum(secs[1:]) / 3
-    work = (n_paths or MAIN_PATHS) * len(lines)
+    work = work or (n_paths or MAIN_PATHS) * len(lines)
+    unit = unit or ("paths x rows" if len(lines) > 1 else "paths")
     log(f"  cli wall per run: warm-up {secs[0]:.3f} s, reps "
         f"{', '.join(f'{s:.3f}' for s in secs[1:])} s -> "
-        f"{work / rep_s:.6e} paths{' x rows' if len(lines) > 1 else ''}/s end to end")
+        f"{work / rep_s:.6e} {unit}/s end to end")
     return lines, secs, {k: counts[k] for k in expect}
 
 
@@ -829,6 +881,26 @@ def check_universe_stats(name: str, stats, n_sym: int, pps: int) -> None:
         raise AssertionError(f"{name}: fewer trades than entered paths")
 
 
+def same_on_card(name, want, got, n_cells, n_paths, cell, engine=True):
+    """Each cell's kernel output ``got`` (counts, floats, per-path rows)
+    equals the plain version's ``want`` on every path (a gated lifecycle
+    unless ``engine``); returns the largest float error."""
+    err = 0.0
+    for i in range(n_cells):
+        e, differ = compare_lifecycle(f"{name} {cell(i)}", *(
+            tuple(x[i] for x in t) for t in (want, got)), n_paths, engine=engine,
+            quiet=True)
+        if bool(differ.any()):
+            raise AssertionError(f"{name} {cell(i)}: kernel and plain on the card differ "
+                                 f"on {int(differ.sum())} paths")
+        err = max(err, e)
+    d = (got[0].cpu() - want[0].cpu()).abs().amax()
+    log(f"    every one of {n_cells} cells equals the plain version on every path "
+        f"(counts |d| {int(d)}, sum_eq |d| max "
+        f"{float((got[1][..., 0].cpu() - want[1][..., 0].cpu()).abs().max()):.3e})")
+    return err
+
+
 def universe_phases(dev, card, reset) -> list:
     """Phases 15-18: the four universe kernels against their plain versions
     and their single kernels, BASELINE config #4 and its refresh; returns
@@ -879,25 +951,6 @@ def universe_phases(dev, card, reset) -> list:
     def main_inputs(what, cells):
         log(f"  {what} on the main path's inputs ({cells}) at {UNI_SAMPLE_PATHS} paths a "
             "symbol, Philox: kernel vs plain on the card")
-
-    def same_on_card(name, want, got, n_cells, n_paths, cell, engine=True):
-        """Each cell's kernel output ``got`` (counts, floats, per-path rows)
-        equals the plain version's ``want`` on every path (a gated lifecycle
-        unless ``engine``); returns the largest float error."""
-        err = 0.0
-        for i in range(n_cells):
-            e, differ = compare_lifecycle(f"{name} {cell(i)}", *(
-                tuple(x[i] for x in t) for t in (want, got)), n_paths, engine=engine,
-                quiet=True)
-            if bool(differ.any()):
-                raise AssertionError(f"{name} {cell(i)}: kernel and plain on the card differ "
-                                     f"on {int(differ.sum())} paths")
-            err = max(err, e)
-        d = (got[0].cpu() - want[0].cpu()).abs().amax()
-        log(f"    every one of {n_cells} cells equals the plain version on every path "
-            f"(counts |d| {int(d)}, sum_eq |d| max "
-            f"{float((got[1][..., 0].cpu() - want[1][..., 0].cpu()).abs().max()):.3e})")
-        return err
 
     out = []
 
@@ -1367,6 +1420,458 @@ def universe_phases(dev, card, reset) -> list:
                   rows=int(rows[0].shape[1]), cells=9)]
     return out
 
+# ---- the correlated books (kernels #7, #12): the CLI's ``book`` at 100
+# symbols x 2^20 paths x 40 bars, BASELINE config #4's scale, spots 100 ..
+# 199, sigma 0.3, betas from 0.2 to 0.8, equal weights
+BOOK_SYMBOLS = 100
+BOOK_PATHS = 1 << 20
+BOOK_SAMPLE_PATHS = 1 << 16    # a symbol: the main path's inputs, kernel vs plain on the card
+BOOK_S0 = [100.0 + i for i in range(BOOK_SYMBOLS)]
+BOOK_BETAS = [0.2 + 0.6 * i / (BOOK_SYMBOLS - 1) for i in range(BOOK_SYMBOLS)]
+BOOK3_BETAS = (0.8, 0.6, 0.3)
+BOOK3_WEIGHTS = (0.5, 0.3, 0.2)
+GATED_CORR_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:2421"
+ENGINE_CORR_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2692"
+
+
+def book_market_ops(n_paths: float, n_sym: int) -> dict:
+    """The operations a book adds to its symbols' lifecycles, the market
+    counted once a path: a Box-Muller pair a double-bar step (logf, sqrtf,
+    sincosf; half a Philox call, two rows of four words), the mix and the
+    curve's fused multiply-add a symbol and bar, the fold a bar."""
+    pairs = n_paths * NUM_BARS / 2
+    f32 = 4 * pairs + n_paths * NUM_BARS * (n_sym * 4 + 3)
+    return dict(f32=f32, sfu=2 * pairs, imul=PHILOX_IMULS * pairs / 2)
+
+
+def book_argv(engine: bool) -> list:
+    """The main path's ``book`` arguments."""
+    return (["book"] + (["--engine"] if engine else [])
+            + ["--backend", "cuda", "--num-symbols", str(BOOK_SYMBOLS), "--num-paths",
+               str(BOOK_PATHS), "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA),
+               "--s0s", ",".join(repr(x) for x in BOOK_S0),
+               "--betas", ",".join(repr(x) for x in BOOK_BETAS)])
+
+
+def check_book_output(lines: list, n_sym: int, engine: bool) -> None:
+    """A ``book`` run's rows: one a symbol with the JAX CLI's keys in its
+    order, then the book's; finite, hit rates in (0, 1), the book's VaR below
+    its mean and its drawdowns ordered."""
+    keys = ["symbol", "beta", "weight", "hit_rate", "mean_r", "mean_trades", "max_dd"]
+    keys += ["escalations"] if engine else []
+    if len(lines) != n_sym + 1:
+        raise AssertionError(f"{len(lines)} book rows, not {n_sym + 1}")
+    for s, row in enumerate(lines[:-1]):
+        if list(row) != keys or row["symbol"] != s:
+            raise AssertionError(f"book row {s}: keys {list(row)}, not {keys}")
+        if not row["mean_trades"] >= 1.0:
+            raise AssertionError(f"book row {s}: fewer trades than entered paths: {row}")
+    port = lines[-1]
+    if list(port) != ["portfolio", "mean_r", "std_r", "var_05", "cvar_05", "max_dd",
+                      "mean_dd"] or port["portfolio"] is not True:
+        raise AssertionError(f"book row: {port}")
+    if not (port["cvar_05"] <= port["var_05"] <= port["mean_r"]
+            and port["max_dd"] >= port["mean_dd"] >= 0.0 and port["std_r"] > 0.0):
+        raise AssertionError(f"book risk out of order: {port}")
+
+
+def book_phases(dev, card, reset, cli) -> list:
+    """Phases 19-20: the two book kernels against their plain versions and
+    the universe kernels, and the CLI's ``book`` / ``book --engine`` at the
+    main-path size; returns their entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.engine.state import MlModel
+    from qmmx_monolithic_monte_carlo_tpu_torch.models.online_policy import PolicyParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout, GatedLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.guard import GuardParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.touch import TouchMemoryParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import SKIP_REASONS, engine_knobs
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+
+    params = EngineParams.default()
+    lv3 = U.stack_levels(UNI3_ROWS, max_levels=8)
+    s0_3, sg_3 = np.array(UNI3_S0, np.float32), np.array(UNI3_SIGMA, np.float32)
+    b3, w3 = np.array(BOOK3_BETAS, np.float32), np.array(BOOK3_WEIGHTS, np.float32)
+    p3 = params.replace(contact_prox=[0.05, 0.08, 0.03], stop_padding=[0.35, 0.20, 0.45],
+                        tp_padding=[0.25, 0.40, 0.15])
+    p3e = p3.replace(q_min_prob=[0.60, 0.40, 0.55])
+    noise3 = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.01]),
+                     entry_slip_std=torch.tensor([0.01, 0.0, 0.0]),
+                     stop_slip_std=torch.tensor([0.0, 0.015, 0.0]),
+                     target_slip_std=torch.tensor([0.015, 0.0, 0.0]))
+    # the main path's book: the CLI's level scaffold around each spot
+    lv100 = U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                             {"color": "orange", "type": "dashed", "index": 0,
+                              "price": x + 0.4}] for x in BOOK_S0], max_levels=4)
+    s0_100 = np.array(BOOK_S0, np.float32)
+    sg_100 = np.full(BOOK_SYMBOLS, SIGMA, np.float32)
+    b100 = np.array(BOOK_BETAS, np.float32)
+    w100 = np.full(BOOK_SYMBOLS, 1.0 / BOOK_SYMBOLS, np.float32)
+    book100 = (lv100, params, s0_100, sg_100, b100, w100)
+    main_scale = BOOK_PATHS / BOOK_SAMPLE_PATHS
+    out = []
+
+    def book_trace(name, differ, kernel_rows, cpu_rows, symbol_runs, weights):
+        """Phase 6's trace for the book's differing paths: every symbol's
+        plain lifecycle over the bars the plain version makes on the CPU and
+        over those it makes on the card (``symbol_runs(s, on_card, idx)`` ->
+        (equity f32[n, W], rows f32[n, 6], integer state int[n, W, k])),
+        combined as the book combines them (``sim/book.BookCurve``).  The
+        card's combine equals the kernel's book row exactly, the CPU's the
+        plain row, and on every differing path some symbol's integer state
+        parts between the two at some bar (a decision flipped; its final row
+        may agree with the plain one, as a close a bar later does)."""
+        from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_gated import lifecycle_rows
+        from qmmx_monolithic_monte_carlo_tpu_torch.sim.book import BookCurve
+        from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import LifecycleOutcome
+
+        idx = torch.nonzero(differ).flatten()
+        if idx.numel() == 0:
+            return
+        parted = torch.zeros(idx.numel(), dtype=torch.bool)
+        books = []
+        runs = [[symbol_runs(s, on_card, idx) for s in range(len(weights))]
+                for on_card in (False, True)]
+        for side in runs:
+            book = BookCurve(idx.numel(), NUM_BARS)
+            for (eq, rows, _), w in zip(side, weights):
+                book.add_curve(float(w), eq.T.contiguous())
+                book.add_symbol(LifecycleOutcome(
+                    equity=rows[:, 0], trades=rows[:, 1].int(), wins=rows[:, 2].int(),
+                    losses=rows[:, 3].int(), open_at_end=rows[:, 4] > 0, max_dd=rows[:, 5]))
+            books.append(lifecycle_rows(book.outcome()))
+        for (_, _, i_cpu), (_, _, i_dev) in zip(*runs):
+            parted |= (i_cpu != i_dev).flatten(1).any(dim=1)
+        if not torch.equal(books[1], kernel_rows[idx][:, :6]):
+            raise AssertionError(f"{name}: the kernel's book differs from the plain book "
+                                 "on the card's bars")
+        if not torch.equal(books[0], cpu_rows[idx][:, :6]):
+            raise AssertionError(f"{name}: the traced book differs from the plain version")
+        if not bool(parted.all()):
+            raise AssertionError(f"{name}: a differing book path shows no flipped decision "
+                                 "in any symbol")
+        log(f"  {name} book: {idx.numel()} differing paths, each traced to a flipped "
+            "decision of a symbol; kernel == plain book on the card's bars")
+
+    def injected(name, mod, want, got, n, trace_one, trace_book):
+        err = 0.0
+        for s in range(3):
+            e, _ = compare_lifecycle(
+                f"{name} symbol {s}", (want[0][s], want[1][s], want[2][s]),
+                (got[0][s], got[1][s], got[2][s]), n, engine=mod is cuda_engine,
+                trace=lambda dd: trace_one(s, dd))
+            err = max(err, e)
+        e, _ = compare_lifecycle(
+            f"{name} book", (want[0][3], want[1][3], want[2][3]),
+            (got[0][3], got[1][3], got[2][3]), n, engine=mod is cuda_engine,
+            trace=lambda dd: book_trace(name, dd, got[2][3].cpu(), want[2][3].cpu(),
+                                        trace_book, w3))
+        return max(err, e)
+
+    def beta0_and_one_symbol(name, rows_fn, uni_fn, one_fn, paths):
+        """At ``paths`` a symbol (one path a thread: a book CTA's rows then add
+        its paths in the universe's order, so its float sums are the
+        universe's too)."""
+        a = rows_fn(0.0, paths)
+        b = uni_fn(paths)
+        if not all(torch.equal(x[:3], y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name} at beta 0 differs from the universe kernel")
+        c, f, r = one_fn(paths)
+        cols = [0, 1, 2, 3, 4, 5]
+        if not (torch.equal(r[1][:, :6], r[0][:, :6]) and torch.equal(f[1], f[0])
+                and torch.equal(c[1][cols], c[0][cols])
+                and torch.equal(c[1][-128:], c[0][-128:])):
+            raise AssertionError(f"{name}: the one-symbol book of weight 1 differs from its "
+                                 "symbol")
+        log(f"  Philox at {paths} paths a symbol: every symbol of the book at beta 0 equals "
+            "the universe kernel's bit for bit (partial and per-path rows); a one-symbol "
+            "book of weight 1 equals its symbol's row bit for bit")
+
+    def book_row(i):
+        return "the book" if i == BOOK_SYMBOLS else f"symbol {i}"
+
+    def alone(name, rows_fn):
+        rows_fn()                                        # warm
+        ms = cuda_ms(rows_fn, 2)
+        log(f"  {name} alone at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: {ms:.3f} ms "
+            f"({BOOK_SYMBOLS * BOOK_PATHS / ms * 1e3:.6e} paths x symbols/s)")
+        return ms
+
+    # ---- phase 19: the gated book (kernel #7)
+    lanes = GATED_LANES
+    gate = GateConfig.from_params(params)
+    nb = GATED_INJECT_BLOCKS
+    n_inj = nb * 8 * lanes
+    log(f"[19] gated book (mc_gated_corr_kernel), injected uniforms: 3 symbols x {n_inj} "
+        "paths (own levels, s0, sigma, beta, weight, knobs, [S] noise stds), antithetic, "
+        "kernel vs plain on CPU copies path by path, every differing path traced")
+    rng = np.random.default_rng(700)
+    u = torch.from_numpy(rng.uniform(
+        1e-9, 1.0, (3, nb, GatedLayout(NUM_BARS, True).u_rows, 8, lanes)).astype(np.float32))
+    um = torch.from_numpy(rng.uniform(1e-9, 1.0, (nb, NUM_BARS, 8, lanes)).astype(np.float32))
+    kw = dict(paths_per_symbol=n_inj, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3,
+              antithetic=True, per_path=True)
+    want = cuda_gated.gated_corr_totals_reference(0, lv3, p3, s0_3, sg_3, b3, w3, gate,
+                                                  external_uniforms=u, market_uniforms=um,
+                                                  **kw)
+    pc, pf, prow = cuda_gated.gated_corr_rows(0, lv3, p3, s0_3, sg_3, b3, w3, gate, device=dev,
+                                              external_uniforms=u.to(dev),
+                                              market_uniforms=um.to(dev), **kw)
+    gc, gf = cuda_gated.reduce_rows(pc, pf)
+    torch.cuda.synchronize()
+    def gated_runs(s, on_card, idx):
+        src = dev if on_card else torch.device("cpu")
+        bars, tie, nzs = cuda_gated.gated_bars_from_uniforms(
+            u[s].to(src), GatedLayout(NUM_BARS, True), s0=float(s0_3[s]), mu=0.0,
+            sigma=float(sg_3[s]), dt=DT, antithetic=True, market_uniforms=um.to(src),
+            beta=float(b3[s]))
+        pick = type(bars)(*(x[idx.to(src)].cpu() for x in bars))
+        out, ints, floats = lifecycle_trace(pick, tie[idx.to(src)].cpu(),
+                                            nzs[:, idx.to(src)].cpu(), grid_row(lv3, s),
+                                            grid_row(p3, s), gate, grid_row(noise3, s))
+        return floats[:, :, 3], cuda_gated.lifecycle_rows(out), ints
+
+    g_err = injected("gated", cuda_gated, want, (gc, gf, prow), n_inj,
+                     lambda s, d: trace_flips(
+                         f"symbol {s}", u[s], d, prow[s].cpu(), want[2][s].cpu(),
+                         grid_row(lv3, s), grid_row(p3, s), gate, grid_row(noise3, s), True,
+                         dev, s0=float(s0_3[s]), sigma=float(sg_3[s]),
+                         market=(um, float(b3[s]))), gated_runs)
+    g_red_err = check_fold("mc_gated_corr_reduce_rows",
+                           cuda_gated.reduce_rows_reference(pc, pf), (gc, gf))
+    gkw = dict(num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3, external_uniforms=None,
+               device=dev, per_path=True)
+    beta0_and_one_symbol(
+        "the gated book",
+        lambda beta, n: cuda_gated.gated_corr_rows(7, lv3, p3, s0_3, sg_3, beta, w3, gate,
+                                                   paths_per_symbol=n, **gkw),
+        lambda n: cuda_gated.gated_universe_rows(7, lv3, p3, s0_3, sg_3, gate,
+                                                 paths_per_symbol=n, **gkw),
+        lambda n: (lambda r: (*cuda_gated.reduce_rows(r[0], r[1]), r[2]))(
+            cuda_gated.gated_corr_rows(7, U.stack_levels(UNI3_ROWS[:1], max_levels=8),
+                                       params, [100.0], [SIGMA], [0.7], [1.0], gate,
+                                       paths_per_symbol=n, **dict(gkw, noise=None))),
+        BOOK_PATHS)
+    log(f"  on the main path's inputs ({BOOK_SYMBOLS} symbols) at {BOOK_SAMPLE_PATHS} paths a "
+        "symbol, Philox: kernel vs plain on the card, path by path")
+    skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+               noise=None, external_uniforms=None, device=dev, per_path=True)
+    (sc, sf, srow, held), g_plain_ms = timed(lambda: cuda_gated.gated_corr_totals_reference(
+        0, *book100, chunk_blocks=64, work=True, **skw))
+    krows = cuda_gated.gated_corr_rows(0, *book100, **skw)
+    g_err = max(g_err, same_on_card("gated book", (sc, sf, srow),
+                                    (*cuda_gated.reduce_rows(krows[0], krows[1]), krows[2]),
+                                    BOOK_SYMBOLS + 1, BOOK_SAMPLE_PATHS, book_row, engine=False))
+    del srow, krows
+    g_sample_ms = cuda_ms(lambda: cuda_gated.gated_corr_rows(0, *book100, **dict(
+        skw, per_path=False)), 2)
+    main = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
+                external_uniforms=None, device=dev)
+    g_main_ms = alone("the gated book kernel",
+                      lambda: cuda_gated.gated_corr_rows(0, *book100, **main))
+    g_ops = gated_ops(BOOK_SYMBOLS * BOOK_PATHS, float(held.sum()) * main_scale,
+                      float(sc[:-1, 5].sum()) * main_scale)
+    for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
+        g_ops[k] += v
+    g_rows = cuda_gated.gated_corr_rows(0, *book100, **main)
+    g_row_bytes = g_rows[0].numel() * 8 + g_rows[1].numel() * 4
+    g_bound = card.bound(bytes_=g_row_bytes, **g_ops)
+    g_red_ms = cuda_ms(lambda: cuda_gated.reduce_rows(*g_rows, what="mc_gated_corr_reduce_rows"),
+                       20)
+    g_red_plain_ms = cuda_ms(lambda: cuda_gated.reduce_rows_reference(*g_rows), 20)
+    g_red_bound = card.bound(bytes_=g_row_bytes + (BOOK_SYMBOLS + 1) * (
+        cuda_gated.ROW_COUNTS * 8 + cuda_gated.ROW_FLOATS * 8), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  bound at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: {g_bound['bound_ms']:.3f} ms "
+        f"{g_bound['bound_parts']}; plain on the card at {BOOK_SYMBOLS} x "
+        f"{BOOK_SAMPLE_PATHS} paths {g_plain_ms:.3f} ms (kernel there {g_sample_ms:.3f} ms); "
+        f"fold of {BOOK_SYMBOLS + 1} x {grid_size(BOOK_PATHS)} rows {g_red_ms:.4f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = ["--db", os.path.join(tmp, "smoke.db")]
+        log(f"[19] main path: cli book --backend cuda, {BOOK_SYMBOLS} symbols x {BOOK_PATHS} "
+            f"paths x {NUM_BARS} bars (spots {BOOK_S0[0]:g}..{BOOK_S0[-1]:g}, sigma {SIGMA}, "
+            "betas 0.2..0.8, equal weights)")
+        lines, g_secs, g_launches = run_cli(
+            cli, db + book_argv(False), reset,
+            {"mc_gated_corr": 4, "mc_gated_corr_reduce_rows": 4},
+            work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
+        check_book_output(lines, BOOK_SYMBOLS, False)
+        log(f"  book row: {json.dumps(lines[-1])}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(db + ["book", "--backend", "cuda"])
+        dflt = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+        if rc != 0:
+            raise AssertionError(f"cli book (defaults) exited {rc}")
+        check_book_output(dflt, 8, False)
+        log(f"  cli book --backend cuda at its defaults (8 x {1 << 16}): {len(dflt)} rows in "
+            "the JAX CLI's form")
+    out += [entry("mc_gated_corr", GATED_CORR_SOURCE, GATED_CORR_REPLACES,
+                  g_launches["mc_gated_corr"], g_err, g_main_ms, g_plain_ms, g_bound,
+                  symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, plain_paths=BOOK_SAMPLE_PATHS,
+                  kernel_ms_at_plain_size=g_sample_ms, cli_s=g_secs[1:]),
+            entry("mc_gated_corr_reduce_rows", GATED_SOURCE, GATED_CORR_REPLACES,
+                  g_launches["mc_gated_corr_reduce_rows"], g_red_err, g_red_ms, g_red_plain_ms,
+                  g_red_bound, rows=int(g_rows[0].shape[1]), segments=BOOK_SYMBOLS + 1)]
+    del g_rows
+
+    # ---- phase 20: the engine book (kernel #12)
+    lanes = ENGINE_LANES
+    n_inj = ENGINE_INJECT_BLOCKS * 8 * lanes
+    w_pass = np.zeros((3, 7), np.float32)
+    w_pass[0, 0], w_pass[0, 6] = -0.6, 20.0     # phase 9's policy that lets longs
+    w_pass[1, 0], w_pass[1, 6] = -0.2, 20.0     # through from bar ~20, shorts from ~12
+    w_pass[2, 0] = -1.0
+    armed = dict(policy=PolicyParams.init().replace(w_entry=torch.from_numpy(w_pass)),
+                 ml_model=MlModel.from_weights(np.array([0.4, -0.8, -0.3, 0.2],
+                                                        np.float32), 0.55))
+    accumulating = dict(
+        guard_params=GuardParams.default().replace(min_bars=6, compression_bp=300.0),
+        touch_params=TouchMemoryParams.default().replace(
+            max_bounces=1, min_time_gap_ms=120_000, fatigue_vol_k=0.0))
+    e_err = 0.0
+    for case, gates, sig, nz, anti, blocks in (
+            ("ml and policy gates armed, noise, antithetic", armed, sg_3, noise3, True,
+             ENGINE_INJECT_BLOCKS),
+            ("accumulation", accumulating, np.full(3, 0.05, np.float32), None, False, 4)):
+        n = blocks * 8 * lanes
+        log(f"[20] engine book (mc_engine_corr_kernel), injected uniforms: 3 symbols x {n} "
+            f"paths ([S] knobs, beta, weight), {case}: kernel vs plain on CPU copies path by "
+            "path, every differing path traced")
+        rng = np.random.default_rng(800 + blocks)
+        u = torch.from_numpy(rng.uniform(1e-6, 1.0, (
+            3, blocks, EngineLayout(NUM_BARS, nz is not None).u_rows, 8, lanes)).astype(
+                np.float32))
+        um = torch.from_numpy(rng.uniform(1e-6, 1.0, (blocks, NUM_BARS, 8, lanes)).astype(
+            np.float32))
+        kw = dict(paths_per_symbol=n, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=nz,
+                  antithetic=anti, per_path=True, **gates)
+        want = cuda_engine.engine_corr_totals_reference(0, lv3, p3e, s0_3, sig, b3, w3,
+                                                        external_uniforms=u,
+                                                        market_uniforms=um, **kw)
+        pc, pf, prow = cuda_engine.engine_corr_rows(0, lv3, p3e, s0_3, sig, b3, w3, device=dev,
+                                                    external_uniforms=u.to(dev),
+                                                    market_uniforms=um.to(dev), **kw)
+        ec, ef = cuda_engine.reduce_rows(pc, pf)
+        torch.cuda.synchronize()
+        def engine_runs(s, on_card, idx, u=u, um=um, gates=gates, sig=sig, nz=nz, anti=anti):
+            src = dev if on_card else torch.device("cpu")
+            bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
+                u[s].to(src), EngineLayout(NUM_BARS, nz is not None), s0=float(s0_3[s]),
+                mu=0.0, sigma=float(sig[s]), dt=DT, antithetic=anti,
+                market_uniforms=um.to(src), beta=float(b3[s]))
+            pick = type(bars)(*(x[idx.to(src)] for x in bars))
+            rows, ints, eq, _ = engine_trace(pick, tie[idx.to(src)],
+                                          None if nzs is None else nzs[:, idx.to(src)],
+                                          grid_row(lv3, s), grid_row(p3e, s),
+                                          engine_knobs(**gates), grid_row(nz, s), src)
+            return eq, rows[:, :6], ints
+
+        e_err = max(e_err, injected(
+            "engine", cuda_engine, want, (ec, ef, prow), n,
+            lambda s, d: trace_engine_flips(
+                f"symbol {s}", u[s], d, prow[s].cpu(), want[2][s].cpu(), grid_row(lv3, s),
+                grid_row(p3e, s), gates, float(sig[s]), grid_row(nz, s), anti, dev,
+                s0=float(s0_3[s]), market=(um, float(b3[s]))), engine_runs))
+        skips = ec[:3, 7:23].sum(dim=0).tolist()
+        named = dict(zip((r.name for r in SKIP_REASONS), skips))
+        if case == "accumulation" and not (named["EDGE_FATIGUE"] + named["TOUCH_BUDGET"]
+                                           + named["TOUCH_COOLDOWN"]) > 0:
+            raise AssertionError(f"accumulation case: no accumulation gate fired: {named}")
+        if case.startswith("ml and policy") and not (
+                (named["ML_CONF_LOW"] > 0 or named["ONLINE_POLICY"] > 0) and int(ec[3, 5]) > 0):
+            raise AssertionError(f"{case}: a gate never fired or nothing entered: {named}")
+        if bool(ec[3, 6:23].any()):
+            raise AssertionError("the engine book's escalation and skip columns are not zero")
+    e_red_err = check_fold("mc_engine_corr_reduce_rows",
+                           cuda_engine.reduce_rows_reference(pc, pf), (ec, ef))
+    ekw = dict(num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3, external_uniforms=None,
+               device=dev, per_path=True)
+    beta0_and_one_symbol(
+        "the engine book",
+        lambda beta, n: cuda_engine.engine_corr_rows(7, lv3, p3e, s0_3, sg_3, beta, w3,
+                                                     paths_per_symbol=n, **ekw),
+        lambda n: cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3,
+                                                   paths_per_symbol=n, **ekw),
+        lambda n: (lambda r: (*cuda_engine.reduce_rows(r[0], r[1]), r[2]))(
+            cuda_engine.engine_corr_rows(7, U.stack_levels(UNI3_ROWS[:1], max_levels=8),
+                                         params, [100.0], [SIGMA], [0.7], [1.0],
+                                         paths_per_symbol=n, **dict(ekw, noise=None))),
+        BOOK_PATHS)
+    log(f"  on the main path's inputs ({BOOK_SYMBOLS} symbols) at {BOOK_SAMPLE_PATHS} paths a "
+        "symbol, Philox: kernel vs plain on the card, path by path")
+    skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
+               noise=None, external_uniforms=None, device=dev, per_path=True)
+    (sc, sf, srow), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
+        0, *book100, chunk_blocks=64, **skw))
+    krows = cuda_engine.engine_corr_rows(0, *book100, **skw)
+    e_err = max(e_err, same_on_card("engine book", (sc, sf, srow),
+                                    (*cuda_engine.reduce_rows(krows[0], krows[1]), krows[2]),
+                                    BOOK_SYMBOLS + 1, BOOK_SAMPLE_PATHS, book_row))
+    del srow, krows
+    e_sample_ms = cuda_ms(lambda: cuda_engine.engine_corr_rows(0, *book100, **dict(
+        skw, per_path=False)), 1)
+    main = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
+                external_uniforms=None, device=dev)
+    e_main_ms = alone("the engine book kernel",
+                      lambda: cuda_engine.engine_corr_rows(0, *book100, **main))
+    sc = sc.cpu()
+    e_ops = {"f32": 0.0, "sfu": 0.0, "imul": 0.0}
+    for s in range(BOOK_SYMBOLS):
+        for k, v in engine_ops(BOOK_PATHS, sc[s], main_scale).items():
+            e_ops[k] += v
+    for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
+        e_ops[k] += v
+    e_rows = cuda_engine.engine_corr_rows(0, *book100, **main)
+    e_row_bytes = e_rows[0].numel() * 8 + e_rows[1].numel() * 4
+    e_bound = card.bound(bytes_=e_row_bytes, **e_ops)
+    e_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(*e_rows,
+                                                       what="mc_engine_corr_reduce_rows"), 20)
+    e_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*e_rows), 20)
+    e_red_bound = card.bound(bytes_=e_row_bytes + (BOOK_SYMBOLS + 1) * (
+        cuda_engine.ROW_COUNTS * 8 + cuda_engine.ROW_FLOATS * 8), f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  bound at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: {e_bound['bound_ms']:.3f} ms "
+        f"{e_bound['bound_parts']}; plain on the card at {BOOK_SYMBOLS} x "
+        f"{BOOK_SAMPLE_PATHS} paths {e_plain_ms:.3f} ms (kernel there {e_sample_ms:.3f} ms); "
+        f"fold of {BOOK_SYMBOLS + 1} x {grid_size(BOOK_PATHS)} rows {e_red_ms:.4f} ms")
+    log(f"  work per path and symbol (first {BOOK_SAMPLE_PATHS} paths): trades "
+        f"{float(sc[:-1, 5].sum()) / BOOK_SAMPLE_PATHS / BOOK_SYMBOLS:.4f}, skips "
+        f"{[round(float(x) / BOOK_SAMPLE_PATHS / BOOK_SYMBOLS, 4) for x in sc[:-1, 7:23].sum(0)]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = ["--db", os.path.join(tmp, "smoke.db")]
+        log(f"[20] main path: cli book --engine --backend cuda, {BOOK_SYMBOLS} symbols x "
+            f"{BOOK_PATHS} paths x {NUM_BARS} bars")
+        lines, e_secs, e_launches = run_cli(
+            cli, db + book_argv(True), reset,
+            {"mc_engine_corr": 4, "mc_engine_corr_reduce_rows": 4},
+            work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
+        check_book_output(lines, BOOK_SYMBOLS, True)
+        log(f"  book row: {json.dumps(lines[-1])}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(db + ["book", "--engine", "--backend", "cuda"])
+        dflt = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+        if rc != 0:
+            raise AssertionError(f"cli book --engine (defaults) exited {rc}")
+        check_book_output(dflt, 8, True)
+        log(f"  cli book --engine --backend cuda at its defaults (8 x {1 << 16}): {len(dflt)} "
+            "rows in the JAX CLI's form")
+    out += [entry("mc_engine_corr", ENGINE_CORR_SOURCE, ENGINE_CORR_REPLACES,
+                  e_launches["mc_engine_corr"], e_err, e_main_ms, e_plain_ms, e_bound,
+                  symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, plain_paths=BOOK_SAMPLE_PATHS,
+                  kernel_ms_at_plain_size=e_sample_ms, cli_s=e_secs[1:]),
+            entry("mc_engine_corr_reduce_rows", ENGINE_SOURCE, ENGINE_CORR_REPLACES,
+                  e_launches["mc_engine_corr_reduce_rows"], e_red_err, e_red_ms,
+                  e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[1]),
+                  segments=BOOK_SYMBOLS + 1)]
+    return out
+
 
 def main() -> int:
     import torch
@@ -1412,7 +1917,8 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    build.build_all(["mc_first_contact", "mc_gated", "mc_engine"])
+    build.build_all(["mc_first_contact", "mc_gated", "mc_engine", "mc_gated_corr",
+                     "mc_engine_corr"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -2148,6 +2654,7 @@ def main() -> int:
         f"{es_main_bound['bound_ms']:.3f} ms {es_main_bound['bound_parts']}")
 
     universe = universe_phases(dev, card, reset_all)
+    books = book_phases(dev, card, reset_all, cli)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -2193,7 +2700,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe}))
+    ] + universe + books}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,18 @@ subcommands the port carries so far:
             ``--gated`` x touch limit x Q_MIN_PROB, with ``--engine`` x
             level-jitter std) under common random numbers: every row
             replays the same simulated paths; one JSON line per row
+  book    — a correlated book of symbols on one market factor (beta
+            loadings) over the gated lifecycle, with ``--engine`` the full
+            engine: one JSON line per symbol, then the book's (VaR/CVaR of
+            the book's R, drawdown of its curve over time)
 
 ``--device`` (default ``cuda``) says where it runs; without a GPU the CLI
 exits unless ``--device cpu`` is given.  ``--backend cuda`` runs the fused
 CUDA kernel (``ops/cuda_mc.py``, ``ops/cuda_gated.py`` with ``--gated``,
-``ops/cuda_engine.py`` with ``--engine``), ``--backend torch`` the streamed
-PyTorch pipeline (``sim/pathsim.py``, ``sim/gatedpath.py`` or
-``sim/enginepath.py``) on ``--device``, and ``auto`` the kernel on a CUDA
+``ops/cuda_engine.py`` with ``--engine``; for ``book`` their book
+kernels), ``--backend torch`` the streamed PyTorch pipeline
+(``sim/pathsim.py``, ``sim/gatedpath.py``, ``sim/enginepath.py`` or
+``parallel/portfolio.py``) on ``--device``, and ``auto`` the kernel on a CUDA
 device when the shape fits it (``_fits``) and the pipeline otherwise; it
 never changes the device.  The output JSON carries the JAX CLI's keys.
 Options of the JAX CLI whose code is not ported yet exit with a "not ported
@@ -26,6 +31,7 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --engine --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --gated --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --backend cuda
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+_HESTON = ("v0", "kappa", "theta", "xi", "rho")
 
 
 def _connect(args):
@@ -77,8 +86,8 @@ def _not_ported(args) -> None:
 
 
 def _fits(args, rows) -> str | None:
-    """None when the shape fits the path's CUDA kernel (``paths`` or
-    ``sweep``), else what it needs."""
+    """None when the shape fits the path's CUDA kernel (``paths``, ``sweep``
+    or ``book``), else what it needs."""
     from ..ops import cuda_engine, cuda_gated, cuda_mc
     from ..ops.kernel_args import MAX_GRID_ROWS
     from ..ops.regular import GUARD_WINDOW_BARS
@@ -311,6 +320,92 @@ def cmd_sweep(args):
     return 0
 
 
+def _veclist(txt, n: int, default: float):
+    """[n] float32 values from a comma-separated list (one value: all n), or
+    ``default`` for all (the JAX CLI's parsing)."""
+    import numpy as np
+
+    if txt is None:
+        return np.full(n, default, np.float32)
+    vals = np.asarray([float(x) for x in txt.split(",")], np.float32)
+    if vals.size == 1:
+        return np.full(n, float(vals[0]), np.float32)
+    if vals.size != n:
+        raise SystemExit(f"expected {n} comma-separated values, got {vals.size}")
+    return vals
+
+
+def cmd_book(args):
+    """A correlated book: one-factor co-movement (beta loadings on a shared
+    market factor) over the gated lifecycle, or the full engine with
+    ``--engine``; one JSON row per symbol, then the book's row (VaR/CVaR of
+    the book's R per path, drawdown of its curve over time)."""
+    from ..parallel import portfolio as P
+    from ..parallel.universe import stack_levels
+
+    for flag, on in (("--harvest", args.harvest), ("--exact-tail", args.exact_tail),
+                     ("--bars-csv", args.bars_csv is not None),
+                     ("--block-len", args.block_len is not None),
+                     (f"--sampler {args.sampler}", args.sampler != "gbm"),
+                     ("--heston-*", any(getattr(args, f"heston_{k}") is not None
+                                        for k in _HESTON))):
+        if on:
+            raise SystemExit(
+                f"{flag} is not ported yet: the port's books run the gbm sampler "
+                "(use qmmx_monolithic_monte_carlo_tpu)")
+    conn = _connect(args)
+    try:
+        _rows, _lv, params = _levels_and_params(conn, args)
+    finally:
+        conn.close()
+    n = args.num_symbols
+    s0 = _veclist(args.s0s, n, args.s0)
+    sigma = _veclist(args.sigmas, n, args.sigma)
+    beta = _veclist(args.betas, n, args.beta)
+    w = _veclist(args.weights, n, 1.0 / n)
+    # a level scaffold around each symbol's spot (the DB holds one symbol's
+    # levels), as the JAX CLI builds them
+    rows = [[{"color": "blue", "type": "solid", "index": 0, "price": float(s0[s])},
+             {"color": "orange", "type": "dashed", "index": 0, "price": float(s0[s]) + 0.4}]
+            for s in range(n)]
+    levels = stack_levels(rows, max_levels=4)
+    backend = _backend(args, rows[0])
+    common = dict(num_bars=args.num_bars, antithetic=args.antithetic, device=args.device)
+    skips = escal = None
+    if args.engine and backend == "cuda":
+        from ..ops.cuda_engine import mc_paths_engine_corr_fused
+
+        sym, port, skips, escal = mc_paths_engine_corr_fused(
+            args.seed, levels, params, s0, sigma, beta, w, paths_per_symbol=args.num_paths,
+            **common)
+    elif args.engine:
+        sym, port, skips, escal = P.portfolio_mc_engine(
+            args.seed, levels, params, s0, sigma, beta, w, num_paths=args.num_paths,
+            block_paths=min(args.num_paths, 1 << 12), **common)
+    elif backend == "cuda":
+        from ..ops.cuda_gated import mc_paths_gated_corr_fused
+
+        sym, port = mc_paths_gated_corr_fused(
+            args.seed, levels, params, s0, sigma, beta, w, paths_per_symbol=args.num_paths,
+            **common)
+    else:
+        sym, port = P.portfolio_mc(
+            args.seed, levels, params, s0, sigma, beta, w, num_paths=args.num_paths,
+            block_paths=min(args.num_paths, 1 << 13), **common)
+    for s in range(n):
+        row = {"symbol": s, "beta": round(float(beta[s]), 4), "weight": round(float(w[s]), 4),
+               "hit_rate": float(sym.hit_rate[s]), "mean_r": float(sym.mean_r[s]),
+               "mean_trades": float(sym.mean_trades[s]), "max_dd": float(sym.max_dd[s])}
+        if escal is not None:
+            row["escalations"] = int(escal[s])
+        print(json.dumps(row))
+    print(json.dumps({
+        "portfolio": True, "mean_r": float(port.mean_r), "std_r": float(port.std_r),
+        "var_05": float(port.quantile(0.05)), "cvar_05": float(port.cvar(0.05)),
+        "max_dd": float(port.max_dd), "mean_dd": float(port.mean_dd)}))
+    return 0
+
+
 def _device_flags(parser) -> None:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="where to run; without a GPU, pass --device cpu")
@@ -394,6 +489,40 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--target-slip-std", type=float, default=0.0)
     _device_flags(sw)
     sw.set_defaults(fn=cmd_sweep)
+
+    bk = sub.add_parser("book", help="correlated book of symbols with book-level "
+                        "VaR/CVaR/drawdown (one-factor beta co-movement over the gated "
+                        "lifecycle, or the full engine)")
+    bk.add_argument("--num-symbols", type=int, default=8)
+    bk.add_argument("--num-paths", type=int, default=1 << 16, help="paths per symbol")
+    bk.add_argument("--num-bars", type=int, default=40)
+    bk.add_argument("--s0", type=float, default=100.0)
+    bk.add_argument("--sigma", type=float, default=0.3)
+    bk.add_argument("--beta", type=float, default=0.6,
+                    help="shared market loading (or --betas per symbol)")
+    bk.add_argument("--s0s", type=str, default=None, help="comma-separated per-symbol spots")
+    bk.add_argument("--sigmas", type=str, default=None)
+    bk.add_argument("--betas", type=str, default=None)
+    bk.add_argument("--weights", type=str, default=None,
+                    help="comma-separated book weights (default equal)")
+    bk.add_argument("--seed", type=int, default=0)
+    bk.add_argument("--qmin", type=float, default=None)
+    bk.add_argument("--engine", action="store_true",
+                    help="run the FULL 12-gate engine ladder per symbol instead of the "
+                         "gated subset")
+    bk.add_argument("--antithetic", action="store_true",
+                    help="antithetic book pairs: market AND idio shocks sign-flipped per "
+                         "pair")
+    bk.add_argument("--exact-tail", action="store_true", help="not ported yet")
+    bk.add_argument("--harvest", action="store_true", help="not ported yet")
+    bk.add_argument("--sampler", choices=["gbm", "bootstrap", "block_bootstrap", "heston"],
+                    default="gbm", help="path sampler (only gbm is ported)")
+    bk.add_argument("--bars-csv", default=None, help="not ported yet")
+    bk.add_argument("--block-len", type=int, default=None, help="not ported yet")
+    for k in _HESTON:
+        bk.add_argument(f"--heston-{k}", type=float, default=None, help="not ported yet")
+    _device_flags(bk)
+    bk.set_defaults(fn=cmd_book, gated=True)
     return p
 
 

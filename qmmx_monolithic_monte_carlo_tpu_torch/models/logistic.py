@@ -139,5 +139,5 @@ def fit_sgd(x, y, *, lr: float = 0.05, l2: float = 1e-4, epochs: int = 100,
             pred = torch.sigmoid(xa[i] @ beta)
             beta = beta - lr * ((pred - y[i]) * xa[i] + l2 * beta)
     return LRModel(coef=beta[:d], intercept=beta[d],
-                   n_iter=torch.tensor(epochs, dtype=torch.int32),
-                   grad_norm=torch.tensor(0.0))
+                   n_iter=torch.tensor(epochs, dtype=torch.int32, device=x.device),
+                   grad_norm=torch.tensor(0.0, dtype=torch.float32, device=x.device))

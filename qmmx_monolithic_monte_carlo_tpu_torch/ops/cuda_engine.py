@@ -55,23 +55,29 @@ import ctypes
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..ops.pathgen import PathBars, VolumeModel
-from ..sim.enginepath import (SKIP_REASONS, EngineLifecycle, blend_weights,
-                              cooldown_ms, engine_knobs, skip_columns)
+from ..sim.book import BookCurve, mix_shocks
+from ..sim.enginepath import (SKIP_REASONS, EngineLifecycle, blend_weights, engine_knobs,
+                              skip_columns)
 from ..sim.pathsim import HIST_BINS
 from ..types import KIND_SOLID, Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from ..utils.floats import div
-from .cuda_gated import (box_muller, gated_bar, lifecycle_totals, merge_totals,
-                         reduce_rows_reference, stats_from_gated_totals)
-from .draws import ENGINE_STREAM, ENGINE_SUB, EngineLayout, engine_uniforms
-from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
-                          f32, fold_rows, grid_size, knob_rows, knobs, launch_pointer,
-                          level_slots, sg_rows, symbol_grid, symbol_rows,
-                          symbol_uniforms, tensor_leaves)
+from .cuda_gated import (box_muller, gated_bar, lifecycle_rows, lifecycle_totals,
+                         market_normals, merge_totals, reduce_rows_reference,
+                         stats_from_gated_totals)
+from .draws import (ENGINE_STREAM, ENGINE_SUB, MARKET_STREAM, EngineLayout, MarketLayout,
+                    engine_uniforms)
+from .draws import market_uniforms as draws_market
+from .kernel_args import (BLOCK, MAX_LEVELS, book_pairs, check_blocks, check_uniforms, consts,
+                          device_rows, f32, fold_rows, grid_row, grid_size, knob_columns,
+                          knob_rows, launch_pointer, repeat_rows, sg_columns, sg_rows,
+                          symbol_columns, symbol_grid, symbol_rows, symbol_uniforms,
+                          tensor_leaves)
 from .regular import GUARD_WINDOW_BARS
 
 ENGINE_LANES = 256       # logical lanes per block row (one block = 8 x lanes paths)
@@ -89,7 +95,8 @@ _F32 = torch.float32
 LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sweep": 0,
             "mc_engine_sweep_reduce_rows": 0, "mc_engine_universe": 0,
             "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
-            "mc_engine_universe_sweep_reduce_rows": 0}
+            "mc_engine_universe_sweep_reduce_rows": 0, "mc_engine_corr": 0,
+            "mc_engine_corr_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -181,11 +188,13 @@ class _VolumeConsts:
         return torch.clamp(v, min=self.floor)
 
 
-def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts):
+def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, market=None):
     """Per bar, in order: (t, log open, high, low, close, volume, tie coin,
     noise normals or None), each [nb, 8, lanes], as
     ``_engine_lifecycle_loop`` draws and builds them from uniforms u
-    f32[nb, u_rows, 8, lanes]."""
+    f32[nb, u_rows, 8, lanes].  A book symbol's ``market`` = (market
+    normals, beta) (``ops/cuda_gated.market_normals``) mixes the market into
+    the price normal before the volume model sees it."""
     drift, sig_dt, log_s0 = cs
     nb, _, sub, lanes = u.shape
     log_s = torch.full((nb, sub, lanes), log_s0, dtype=_F32, device=u.device)
@@ -197,6 +206,9 @@ def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts):
         if antithetic:
             h = lanes // 2
             z_pair = tuple(torch.cat([z[..., :h], -z[..., :h]], dim=-1) for z in z_pair)
+        if market is not None:
+            zm, beta = market[0][t2], market[1]
+            z_pair = tuple(mix_shocks(beta, zm[h], z_pair[h]) for h in range(2))
         zv_pair = box_muller(draw(2), draw(3))
         for half in range(2):
             t, z = 2 * t2 + half, z_pair[half]
@@ -213,16 +225,21 @@ def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts):
 def engine_bars_from_uniforms(u: torch.Tensor, layout: EngineLayout, *,
                               s0=100.0, mu: float = 0.0, sigma: float = 0.15,
                               dt: float = 1.0 / (390.0 * 252.0),
-                              antithetic: bool = False, volume_model=None):
+                              antithetic: bool = False, volume_model=None,
+                              market_uniforms=None, beta: float = 0.0):
     """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
     lanes]: (PathBars f32[P, W] with volumes, tie f32[P, W], noise normals
     f32[4, P, W] or None), path p = block * 8 * lanes + s * lanes + j.  For
-    replaying them through ``sim.enginepath.engine_path_replay``."""
+    replaying them through ``sim.enginepath.engine_path_replay``.  A book
+    symbol's bars mix the market normals of ``market_uniforms`` f32[nb, W, 8,
+    lanes] with loading ``beta`` into its own."""
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
     nb, _, sub, lanes = u.shape
     cols = {k: [] for k in ("open", "high", "low", "close", "volume", "tie", "nz")}
+    market = (None if market_uniforms is None
+              else (market_normals(market_uniforms, antithetic), f32(beta)))
     for _, log_open, high, low, c, v, tie, nz in _bars(
-            u, layout, antithetic, consts(s0, mu, sigma, dt), vc):
+            u, layout, antithetic, consts(s0, mu, sigma, dt), vc, market):
         for k, x in (("open", torch.exp(log_open)), ("high", high), ("low", low),
                      ("close", c), ("volume", v), ("tie", tie)):
             cols[k].append(x)
@@ -249,12 +266,14 @@ def path_rows(out, path_skips: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
-                  antithetic, per_path: bool):
+                  antithetic, per_path: bool, market=None, book=None, weight=None):
     """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
     8, lanes]: the TPU kernel's block computation with the engine of
-    ``sim.enginepath``, binned as ``_engine_accumulate`` bins."""
+    ``sim.enginepath``, binned as ``_engine_accumulate`` bins.  A book
+    symbol (``market`` as in ``_bars``) adds its post-bar equity, times
+    ``weight``, into the ``book`` (``sim/book.BookCurve``) after every bar."""
     life, path_skips = None, 0
-    for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc):
+    for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc, market):
         if life is None:
             life = EngineLifecycle(torch.exp(log_open).reshape(-1), levels, params,
                                    noise=noise, **kw)
@@ -262,7 +281,11 @@ def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
                            None if nz is None else tuple(x.reshape(-1) for x in nz))
         if per_path:
             path_skips = path_skips + skip_columns(reason)
+        if book is not None:
+            book.add_bar(t, weight, life.equity)
     out = life.outcome()
+    if book is not None:
+        book.add_symbol(out)
     counts, floats = lifecycle_totals(out, N_COUNTS + N_SKIPS)
     counts[6] = out.escalations.sum()
     counts[N_COUNTS:N_COUNTS + N_SKIPS] = out.skip_counts
@@ -393,64 +416,94 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _corr_library() -> ctypes.CDLL:
+    """The book kernel's library (``ops/csrc/mc_engine_corr.cu``, its own
+    build of ``mc_engine.cuh``), built at first use, with its C signature set;
+    the engine library's struct-layout check first."""
+    _library()
+    lib = build.load(_SOURCE + "_corr")
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_mc_engine_corr.argtypes = [vp, vp, ci, ci, ci, vp, vp, ctypes.c_uint, vp, vp,
+                                            vp, vp, ci, vp]
+        lib.qmmx_mc_engine_corr.restype = ci
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().qmmx_engine_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *,
-               num_paths, s0, mu, sigma, dt, lanes, noise, antithetic,
-               volume_model, symbol: int = 0) -> _EngineArgs:
-    """The kernel's arguments for one configuration (a sweep or a universe
-    packs one per row), keyed as universe symbol ``symbol``, every float32
-    computed as the plain version computes it (torch float32 on the CPU, or
-    float64 rounded once)."""
+def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, n: int,
+               num_paths: int, s0, sigma, mu: float, dt: float, lanes: int, noise,
+               antithetic: bool, volume_model, symbols, ext_offset=0) -> np.ndarray:
+    """The kernel's arguments for ``n`` rows (one configuration, a sweep's
+    grid rows, the cells of a sweep of universes, a book's symbols) as one
+    array of ``EngineArgs``, packed column by column: ``levels`` [L] (every
+    row's) or [n, L]; the leaves of ``params`` and ``noise``, s0 and sigma
+    (float64, for ``consts``) and ``ext_offset`` scalars or [n]; the ML, policy, touch, guard and volume
+    records shared; row r keyed as universe symbol ``symbols[r]``.  Every
+    float32 is computed as the plain version computes it (torch float32 on
+    the CPU, or float64 rounded once)."""
     tp, gp, ml, pol = (kw["touch_params"], kw["guard_params"], kw["ml_model"],
                        kw["policy"])
-    lp, lv = level_slots(levels)
+    a = np.zeros(n, dtype=np.dtype(_EngineArgs))
+
+    def col(x, dtype=np.float32):
+        return np.broadcast_to(np.asarray(torch.as_tensor(x).detach().cpu().numpy(), dtype), (n,))
+
     cpu = levels.to("cpu")
-    lr = (torch.round(cpu.price * 100.0) / 100.0)
-    lr = torch.where(cpu.valid, lr, 0.0).tolist()
-    lk = [int(k == KIND_SOLID) for k in cpu.kind.tolist()]
-    pad = MAX_LEVELS - len(lk)
-    w_rules, w_ml = blend_weights(params)
+    price = cpu.price.to(_F32)
+    n_lv = price.shape[-1]
+    a["level_price"][:, :n_lv] = torch.where(torch.isfinite(price), price, 0.0).numpy()
+    a["level_round"][:, :n_lv] = torch.where(
+        cpu.valid, torch.round(cpu.price * 100.0) / 100.0, 0.0).numpy()
+    a["level_valid"][:, :n_lv] = cpu.valid.numpy()
+    a["level_kind"][:, :n_lv] = (cpu.kind == KIND_SOLID).numpy()
+    a["has_levels"] = col(cpu.count > 0, bool)
+    a["num_paths"], a["ext_offset"] = num_paths, ext_offset
+    for field, value in knob_columns(params, noise).items():
+        a[field] = col(value)
     prox = params.contact_prox.to(_F32)
-    drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
+    w_rules, w_ml = blend_weights(params)
+    a["prox_conf"] = col(torch.clamp(prox, min=1e-4))
+    a["qmin"], a["veto_strong"] = col(params.q_min_prob), col(params.veto_vol_strong)
+    a["veto_near"] = col(torch.maximum(params.veto_prox.to(_F32), prox * 0.12))
+    a["confl_within"] = col(params.confluence_within)
+    a["w_rules"], a["w_ml"] = col(w_rules), col(w_ml)
+    a["ml_coef"], a["ml_intercept"] = ml.coef.detach().cpu().numpy(), f32(ml.intercept)
+    a["pol_w"] = pol.w_entry.detach().cpu().numpy()
+    a["tm_tol_bps"], a["tm_min_px_bps"] = f32(tp.tol_bps), f32(tp.min_price_gap_bps)
+    a["tm_decay"], a["tm_fat_vol_k"] = f32(tp.decay), f32(tp.fatigue_vol_k)
+    a["g_comp"] = f32(gp.compression_bp.to(_F32) / 10000.0)
+    a["g_vol_k"] = f32(gp.vol_k)
+    s0, sigma = (np.broadcast_to(np.asarray(x, np.float64), (n,)).tolist() for x in (s0, sigma))
+    derived = [consts(s0_r, mu, sg_r, dt) for s0_r, sg_r in zip(s0, sigma)]
+    a["drift"], a["sig_dt"], a["log_s0"] = (np.asarray(c, np.float32) for c in zip(*derived))
+    a["two_s2"] = [f32(2.0 * f32(sd * sd)) for _, sd, _ in derived]
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
-    return _EngineArgs(
-        num_paths=num_paths,
-        level_price=(_F * MAX_LEVELS)(*lp), level_round=(_F * MAX_LEVELS)(*(lr + [0.0] * pad)),
-        level_valid=(_I * MAX_LEVELS)(*[int(x > 0) for x in lv]),
-        level_kind=(_I * MAX_LEVELS)(*(lk + [0] * pad)),
-        prox_conf=f32(torch.clamp(prox, min=1e-4)), qmin=f32(params.q_min_prob),
-        veto_strong=f32(params.veto_vol_strong),
-        veto_near=f32(torch.maximum(params.veto_prox.to(_F32), prox * 0.12)),
-        confl_within=f32(params.confluence_within), w_rules=f32(w_rules),
-        w_ml=f32(w_ml), ml_coef=(_F * 4)(*ml.coef.tolist()),
-        ml_intercept=f32(ml.intercept),
-        pol_w=((_F * 7) * 3)(*[(_F * 7)(*row) for row in pol.w_entry.tolist()]),
-        tm_tol_bps=f32(tp.tol_bps), tm_min_px_bps=f32(tp.min_price_gap_bps),
-        tm_decay=f32(tp.decay), tm_fat_vol_k=f32(tp.fatigue_vol_k),
-        g_comp=f32(gp.compression_bp.to(_F32) / 10000.0), g_vol_k=f32(gp.vol_k),
-        drift=drift, sig_dt=sig_dt, two_s2=f32(2.0 * f32(sig_dt * sig_dt)),
-        log_s0=log_s0, vm_base=vc.base, vm_uamp=vc.uamp, vm_sigma=vc.sigma,
-        vm_rc=vc.rc, vm_day=vc.day, vm_open=vc.open, vm_den=vc.den,
-        vm_third=vc.third, vm_half_s2=vc.half_s2, vm_mean_abs=vc.mean_abs,
-        vm_sd_abs=vc.sd_abs, vm_floor=vc.floor,
-        seed=int(seed), stream=prng.stream_key(ENGINE_STREAM, symbol),
-        cooldown_ms=cooldown_ms(params), overtouch_limit=int(params.overtouch_limit),
-        enable_veto=int(bool(params.enable_veto)), use_blend=int(bool(params.use_blend)),
-        ml_usable=int(ml.usable), ml_ran=int(not bool(params.disable_ml_gate)),
-        policy_on=int(not kw["policy_gate_disabled"]), bar0_minute=kw["bar0_minute"],
-        has_levels=int(bool(levels.count > 0)),
-        tm_min_gap_ms=int(tp.min_time_gap_ms), tm_max_bounces=int(tp.max_bounces),
-        tm_fat_win_ms=int(tp.fatigue_window_ms), g_min_bars=int(gp.min_bars),
-        g_clear_bars=int(gp.reenter_clear_bars), max_levels=levels.max_levels,
-        num_bars=layout.num_bars, lanes=lanes, u_rows=layout.u_rows,
-        stride=layout.stride, use_noise=int(noise is not None),
-        antithetic=int(bool(antithetic)), escalation=int(kw["escalation"]),
-        **knobs(params, noise))
+    for k in ("base", "uamp", "sigma", "rc", "day", "open", "den", "third", "half_s2",
+              "mean_abs", "sd_abs", "floor"):
+        a["vm_" + k] = getattr(vc, k)
+    a["seed"] = int(seed)
+    a["stream"] = [prng.stream_key(ENGINE_STREAM, sym) for sym in symbols]
+    a["cooldown_ms"] = col((params.cooldown_s.to(_F32) * 1000.0).to(torch.int32), np.int32)
+    a["overtouch_limit"] = col(params.overtouch_limit, np.int32)
+    a["enable_veto"], a["use_blend"] = col(params.enable_veto, bool), col(params.use_blend, bool)
+    a["ml_usable"] = int(ml.usable)
+    a["ml_ran"] = ~col(params.disable_ml_gate, bool)
+    a["policy_on"], a["bar0_minute"] = int(not kw["policy_gate_disabled"]), kw["bar0_minute"]
+    a["tm_min_gap_ms"], a["tm_max_bounces"] = int(tp.min_time_gap_ms), int(tp.max_bounces)
+    a["tm_fat_win_ms"] = int(tp.fatigue_window_ms)
+    a["g_min_bars"], a["g_clear_bars"] = int(gp.min_bars), int(gp.reenter_clear_bars)
+    a["max_levels"], a["num_bars"], a["lanes"] = levels.max_levels, layout.num_bars, lanes
+    a["u_rows"], a["stride"] = layout.u_rows, layout.stride
+    a["use_noise"], a["antithetic"] = int(noise is not None), int(bool(antithetic))
+    a["escalation"] = int(kw["escalation"])
+    return a
 
 
 def _launch(args, max_levels: int, num_bars: int, *, num_paths: int, ext_ptr,
@@ -494,12 +547,11 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                     external_uniforms=external_uniforms)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "engine_rows")
-    args = _pack_args(seed, levels, params, kw, layout, num_paths=num_paths, s0=s0,
-                      mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-                      antithetic=antithetic, volume_model=volume_model, symbol=symbol)
-    out = _launch((_EngineArgs * 1)(args), levels.max_levels, num_bars,
-                  num_paths=num_paths, ext_ptr=ext_ptr, device=device, per_path=per_path,
-                  what="mc_engine")
+    args = _pack_args(seed, levels, params, kw, layout, n=1, num_paths=num_paths, s0=s0,
+                      sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
+                      antithetic=antithetic, volume_model=volume_model, symbols=[symbol])
+    out = _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+                  device=device, per_path=per_path, what="mc_engine")
     return tuple(x[0] for x in out)
 
 
@@ -515,7 +567,7 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
     grid: int64 [G, grid, 151] and f32 [G, grid, 6] partial rows, one per
     (grid row, CTA), plus f32[G, P, PATH_COLS] per-(row, path) rows when
     ``per_path``."""
-    rows = knob_rows(grid_params, noise, n_grid)
+    n_grid = len(knob_rows(grid_params, noise, n_grid))
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
@@ -525,12 +577,10 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
                              "engine_sweep_rows")
     # one argument struct per row, the per-row derived values (cooldown ms,
-    # blend weights, ...) computed per row
-    args = (_EngineArgs * len(rows))(*(
-        _pack_args(seed, levels, p_g, kw, layout, num_paths=num_paths, s0=s0, mu=mu,
-                   sigma=sigma, dt=dt, lanes=lanes, noise=noise_g, antithetic=False,
-                   volume_model=volume_model)
-        for p_g, noise_g in rows))
+    # blend weights, ...) computed on the [G] columns
+    args = _pack_args(seed, levels, grid_params, kw, layout, n=n_grid, num_paths=num_paths,
+                      s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
+                      antithetic=False, volume_model=volume_model, symbols=[0] * n_grid)
     return _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_engine_sweep")
 
@@ -721,14 +771,13 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device, what)
     n_sym, n_grid = len(sym), len(grid[0])
-    args = (_EngineArgs * (n_sym * n_grid))()
-    for s, (lv, s0_s, sg_s) in enumerate(sym):
-        for g, (p, nz) in enumerate(grid[s]):
-            a = _pack_args(seed, lv, p, kw, layout, num_paths=paths_per_symbol, s0=s0_s,
-                           mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=nz,
-                           antithetic=False, volume_model=volume_model, symbol=s)
-            a.ext_offset = s * paths_per_symbol * layout.u_rows
-            args[s * n_grid + g] = a
+    cell_sym = np.repeat(np.arange(n_sym), n_grid)          # cell (s, g) at s * G + g
+    args = _pack_args(seed, repeat_rows(levels, n_grid), sg_columns(grid_params, n_sym, n_grid),
+                      kw, layout, n=n_sym * n_grid, num_paths=paths_per_symbol,
+                      s0=[sym[s][1] for s in cell_sym], sigma=[sym[s][2] for s in cell_sym],
+                      mu=0.0, dt=dt, lanes=lanes, noise=sg_columns(noise, n_sym, n_grid),
+                      antithetic=False, volume_model=volume_model, symbols=cell_sym.tolist(),
+                      ext_offset=cell_sym * paths_per_symbol * layout.u_rows)
     out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
                   ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
     return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
@@ -833,3 +882,196 @@ def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, 
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
         external_uniforms=external_uniforms, device=device,
         what="mc_engine_universe_sweep"))
+
+
+# --------------------------------------------------------------------------
+# the correlated book (kernel #12)
+# --------------------------------------------------------------------------
+
+def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, kw: dict, noise, *,
+                paths_per_symbol: int, num_bars: int, lanes: int, antithetic: bool,
+                external_uniforms, market_uniforms, sampler: str, harvest: bool):
+    """The checks of ``mc_paths_pallas_engine_corr`` (pallas_engine.py:
+    3058-3087) and the kernel's envelope (<= 8 levels, an even horizon of at
+    most 61 bars); returns (layout, market layout, ``symbol_columns``)."""
+    if sampler != "gbm":
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
+                                  "kernel (the samplers slice); the port runs gbm")
+    if harvest:
+        raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
+                                  "with models/harvest.py)")
+    cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
+    layout = _check(seed, grid_row(levels, 0), kw, num_paths=paths_per_symbol,
+                    num_bars=num_bars, lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=None)
+    if (external_uniforms is None) != (market_uniforms is None):
+        raise ValueError("external_uniforms and market_uniforms go together")
+    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (ENGINE_SUB * lanes)
+    mlayout = MarketLayout(num_bars)
+    check_uniforms(external_uniforms, (n_sym, n_blocks, layout.u_rows, ENGINE_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
+    check_uniforms(market_uniforms, (n_blocks, mlayout.u_rows, ENGINE_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
+    return layout, mlayout, cols
+
+
+def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, weights, *,
+                                 policy=None, ml_model=None, touch_params=None,
+                                 guard_params=None, policy_gate_disabled=None,
+                                 escalation: bool = True, bar0_minute: int = 0,
+                                 volume_model=None, noise=None, harvest: bool = False,
+                                 antithetic: bool = False, paths_per_symbol: int,
+                                 num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
+                                 lanes: int = ENGINE_LANES, external_uniforms=None,
+                                 market_uniforms=None, sampler: str = "gbm", device=None,
+                                 chunk_blocks: int = 16, per_path: bool = False):
+    """The plain version of the engine book: int64 [S + 1, 151] counts and
+    float64 [S + 1, 6] floats (row s symbol s's, row S the book's, whose
+    escalation and skip columns are zero), then f32[S + 1, P, PATH_COLS]
+    per-path rows with ``per_path``.  Symbol s runs as the engine
+    universe's symbol s, its price normal mixed with the market's
+    (``sim/book.mix_shocks``) before the volume model sees it, and adds its
+    weighted post-bar equity into the book's curve (``sim/book.BookCurve``)."""
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                      policy_gate_disabled, escalation, bar0_minute)
+    layout, mlayout, _ = _check_corr(
+        seed, levels, params, s0, sigma, beta, weights, kw, noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+        antithetic=antithetic, external_uniforms=external_uniforms,
+        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+    rows = symbol_rows(levels, s0, sigma, params, noise, beta=beta, weights=weights)
+    device = devices.resolve(device, external_uniforms)
+    vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
+    n_blocks = paths_per_symbol // (ENGINE_SUB * lanes)
+    n_sym = len(rows)
+    tot, path_rows_ = [None] * (n_sym + 1), [[] for _ in range(n_sym + 1)]
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        um = (market_uniforms[b0:b0 + nb] if market_uniforms is not None else
+              draws_market(seed, mlayout, block0=b0, n_blocks=nb, lanes=lanes, device=device))
+        zm = market_normals(um, antithetic)
+        book = BookCurve(nb * ENGINE_SUB * lanes, num_bars, device=device)
+        for s, (lv, s0_s, sg_s, p, nz, beta_s, w_s) in enumerate(rows):
+            if external_uniforms is not None:
+                u = external_uniforms[s, b0:b0 + nb]
+            else:
+                u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                                    symbol=s, device=device)
+            *part, part_rows = _chunk_engine(u, layout, lv.to(device), p, kw, nz,
+                                             consts(s0_s, 0.0, sg_s, dt), vc, antithetic,
+                                             per_path, market=(zm, beta_s), book=book,
+                                             weight=w_s)
+            tot[s] = merge_totals(tot[s], part)
+            if per_path:
+                path_rows_[s].append(part_rows)
+        out = book.outcome()
+        tot[n_sym] = merge_totals(tot[n_sym], lifecycle_totals(out, N_COUNTS + N_SKIPS))
+        if per_path:   # the book's escalation and skip columns are zero
+            path_rows_[n_sym].append(torch.cat([lifecycle_rows(out), torch.zeros(
+                (out.equity.shape[0], PATH_COLS - 6), dtype=_F32, device=device)], dim=1))
+    res = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
+    if per_path:
+        res += (torch.stack([torch.cat(r) for r in path_rows_]),)
+    return res
+
+
+def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, policy=None,
+                     ml_model=None, touch_params=None, guard_params=None,
+                     policy_gate_disabled=None, escalation: bool = True,
+                     bar0_minute: int = 0, volume_model=None, noise=None,
+                     harvest: bool = False, antithetic: bool = False,
+                     paths_per_symbol: int, num_bars: int = 40,
+                     dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
+                     external_uniforms=None, market_uniforms=None, sampler: str = "gbm",
+                     device=None, per_path: bool = False):
+    """Launch the engine book's pass 1 on a CUDA device, one launch of
+    ``mc_engine_corr_kernel``: int64 [S + 1, grid, 151] and f32 [S + 1, grid,
+    6] partial rows (the symbols', then the book's), plus f32[S + 1, P,
+    PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
+    device-memory buffer (the engine's rings already take 25 KB of shared
+    memory a CTA)."""
+    kw = engine_knobs(policy, ml_model, touch_params, guard_params,
+                      policy_gate_disabled, escalation, bar0_minute)
+    layout, _, cols = _check_corr(
+        seed, levels, params, s0, sigma, beta, weights, kw, noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+        antithetic=antithetic, external_uniforms=external_uniforms,
+        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+    device = torch.device("cuda" if device is None else device)
+    ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
+                             "engine_corr_rows")
+    m_ptr = launch_pointer(paths_per_symbol, num_bars, market_uniforms, device,
+                           "engine_corr_rows")
+    n_sym, grid = len(cols["s0"]), grid_size(paths_per_symbol)
+    args_dev = device_rows(_pack_args(
+        seed, levels, params, kw, layout, n=n_sym, num_paths=paths_per_symbol, s0=cols["s0"],
+        sigma=cols["sigma"], mu=0.0, dt=dt, lanes=lanes, noise=noise, antithetic=antithetic,
+        volume_model=volume_model, symbols=range(n_sym),
+        ext_offset=np.arange(n_sym) * paths_per_symbol * layout.u_rows), device)
+    part_counts = torch.empty((n_sym + 1, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n_sym + 1, grid, ROW_FLOATS), dtype=_F32, device=device)
+    path_rows_ = (torch.empty((n_sym + 1, paths_per_symbol, PATH_COLS), dtype=_F32,
+                              device=device) if per_path else None)
+    curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
+    bw = book_pairs(cols, device)
+    rc = _corr_library().qmmx_mc_engine_corr(
+        args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr, m_ptr,
+        prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(),
+        part_counts.data_ptr(), part_floats.data_ptr(),
+        path_rows_.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mc_engine_corr")
+    LAUNCHES["mc_engine_corr"] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows_,) if per_path else out
+
+
+def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, weights, *,
+                               policy=None, ml_model=None, touch_params=None,
+                               guard_params=None, policy_gate_disabled=None,
+                               escalation: bool = True, bar0_minute: int = 0,
+                               volume_model=None, noise=None, harvest: bool = False,
+                               antithetic: bool = False, paths_per_symbol: int,
+                               num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
+                               lanes: int = ENGINE_LANES, external_uniforms=None,
+                               market_uniforms=None, sampler: str = "gbm", device=None):
+    """Fused correlated full-engine book, the counterpart of
+    ``mc_paths_pallas_engine_corr`` (gbm, no harvest): ([S] PathStats, the
+    book's PathStats, int64 [S, 16] skip tables, int64 [S] escalations) from
+    one launch, in ``portfolio_mc_engine``'s order.  Symbol s runs the full
+    engine under its own [S, L] levels row, s0[s], sigma[s], all engine
+    knobs (``params`` leaves scalar or [S]), noise stds (``noise`` leaves
+    scalar or [S]) and key, the ML, policy, touch and guard records shared;
+    its normal is ``beta[s] * z_mkt + sqrt(1 - beta[s]^2) * eps`` with the
+    market normal shared by every symbol, and the mixed shock also drives its
+    volume; the book sums the symbols' post-bar equity curves times
+    ``weights`` per path.  With beta = 0, symbol s equals
+    ``mc_paths_engine_universe_fused``'s symbol s (on the card: per path and
+    in its counts; in its float sums too up to 2^20 paths a symbol).
+    Injected uniforms are
+    f32[S, blocks, u_rows, 8, lanes] with the market's f32[blocks, W, 8,
+    lanes].  ``device`` as in ``mc_paths_engine_fused``."""
+    kw = dict(policy=policy, ml_model=ml_model, touch_params=touch_params,
+              guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
+              escalation=escalation, bar0_minute=bar0_minute, volume_model=volume_model,
+              noise=noise, harvest=harvest, antithetic=antithetic,
+              paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
+              external_uniforms=external_uniforms, market_uniforms=market_uniforms,
+              sampler=sampler)
+    _check_corr(seed, levels, params, s0, sigma, beta, weights,
+                engine_knobs(policy, ml_model, touch_params, guard_params,
+                             policy_gate_disabled, escalation, bar0_minute), noise,
+                paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+                antithetic=antithetic, external_uniforms=external_uniforms,
+                market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        c, f = engine_corr_totals_reference(seed, levels, params, s0, sigma, beta, weights,
+                                            device=device, **kw)
+    else:
+        c, f = reduce_rows(*engine_corr_rows(seed, levels, params, s0, sigma, beta, weights,
+                                             device=device, **kw),
+                           what="mc_engine_corr_reduce_rows")
+    sym, skips, escal = stats_from_engine_totals(c[:-1], f[:-1])
+    book, _, _ = stats_from_engine_totals(c[-1], f[-1])
+    return sym, book, skips, escal

@@ -43,17 +43,22 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ..sim.book import BookCurve, mix_shocks
 from ..sim.gatedpath import GateConfig, Lifecycle
 from ..sim.pathsim import HIST_BINS, LIFE_HIST_HI, LIFE_HIST_LO, PathStats
 from ..types import KIND_SOLID, Levels
 from ..utils import build, prng
 from ..utils import device as devices
-from .draws import GATED_STREAM, GATED_SUB, GatedLayout, gated_uniforms
-from .kernel_args import (MAX_LEVELS, check_blocks, check_uniforms, consts, device_rows,
-                          f32, fold_rows, grid_len, grid_rows, grid_size, knobs,
-                          launch_pointer, level_slots, symbol_rows, symbol_uniforms)
+from .draws import (GATED_STREAM, GATED_SUB, MARKET_STREAM, GatedLayout, MarketLayout,
+                    gated_uniforms)
+from .draws import market_uniforms as draws_market
+from .kernel_args import (BLOCK, MAX_LEVELS, book_pairs, check_blocks, check_uniforms, consts,
+                          device_rows, f32, fold_rows, grid_columns, grid_len, grid_row,
+                          grid_rows, grid_size, knob_columns, launch_pointer, symbol_columns,
+                          symbol_rows, symbol_uniforms)
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -64,11 +69,14 @@ PATH_COLS = 6            # per-path output: equity, trades, wins, losses, open, 
 LIFE_BIN_SCALE = f32(HIST_BINS / (LIFE_HIST_HI - LIFE_HIST_LO))
 _BIG = 3.4e38
 _SOURCE = "mc_gated"
+MAX_CURVE_SHARED_BYTES = 160 * 1024  # the book's curves in shared memory (W x BLOCK
+                                     # floats, 40 KB at W = 40), beside its 227 KB less the rest
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
             "mc_gated_sweep_reduce_rows": 0, "mc_gated_universe": 0,
-            "mc_gated_universe_reduce_rows": 0}
+            "mc_gated_universe_reduce_rows": 0, "mc_gated_corr": 0,
+            "mc_gated_corr_reduce_rows": 0}
 
 
 def reset_launches() -> None:
@@ -139,11 +147,14 @@ def gated_bar(log_s, z, u3, u4, drift: float, sig_dt: float):
 def gated_bars_from_uniforms(u: torch.Tensor, layout: GatedLayout, *, s0=100.0,
                              mu: float = 0.0, sigma: float = 0.15,
                              dt: float = 1.0 / (390.0 * 252.0),
-                             antithetic: bool = False):
+                             antithetic: bool = False, market_uniforms=None,
+                             beta: float = 0.0):
     """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
     lanes]: (PathBars f32[P, W], tie f32[P, W], noise normals f32[4, P, W] or
     None), path p = block * 8 * lanes + s * lanes + j.  For replaying them
-    through ``sim.gatedpath.gated_path_replay``."""
+    through ``sim.gatedpath.gated_path_replay``.  A book symbol's bars mix
+    the market normals of ``market_uniforms`` f32[nb, W, 8, lanes] with
+    loading ``beta`` into its own."""
     from .pathgen import PathBars
 
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
@@ -151,7 +162,9 @@ def gated_bars_from_uniforms(u: torch.Tensor, layout: GatedLayout, *, s0=100.0,
     log_s = torch.full((nb, sub, lanes), log_s0, dtype=torch.float32,
                        device=u.device)
     cols = {k: [] for k in ("open", "high", "low", "close", "tie", "nz")}
-    for _, _, z, (u3, u4, tie), nz in _steps(u, layout, antithetic):
+    market = (None if market_uniforms is None
+              else (market_normals(market_uniforms, antithetic), f32(beta)))
+    for _, _, z, (u3, u4, tie), nz in _steps(u, layout, antithetic, market):
         log_close, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
         cols["open"].append(torch.exp(log_s))
         for k, v in (("high", high), ("low", low), ("close", c), ("tie", tie)):
@@ -171,18 +184,40 @@ def gated_bars_from_uniforms(u: torch.Tensor, layout: GatedLayout, *, s0=100.0,
     return bars, flat(cols["tie"]), nzs
 
 
-def _steps(u, layout: GatedLayout, antithetic: bool):
+def market_normals(um: torch.Tensor, antithetic: bool) -> list:
+    """Per double-bar step, the (cos, sin) market normals [nb, 8, lanes] of a
+    book's market uniforms um f32[nb, W, 8, lanes] (``ops/draws.MarketLayout``:
+    rows 2·t2 and 2·t2 + 1); antithetic lane pairs mirror them as the
+    idiosyncratic normals."""
+    out = []
+    for t2 in range(um.shape[1] // 2):
+        z_pair = box_muller(um[:, 2 * t2], um[:, 2 * t2 + 1])
+        out.append(_mirror(z_pair, um.shape[-1]) if antithetic else z_pair)
+    return out
+
+
+def _mirror(z_pair, lanes: int):
+    """Antithetic lane pairs: the right half-lanes take the left half's
+    normals negated."""
+    h = lanes // 2
+    return tuple(torch.cat([z[..., :h], -z[..., :h]], dim=-1) for z in z_pair)
+
+
+def _steps(u, layout: GatedLayout, antithetic: bool, market=None):
     """Per bar, in order: (t2, half, z, (u3, u4, tie), noise normals or
-    None), each [nb, 8, lanes], as ``_gated_lifecycle_loop`` draws them."""
+    None), each [nb, 8, lanes], as ``_gated_lifecycle_loop`` draws them.  A
+    book symbol's ``market`` = (``market_normals``, beta) mixes the market's
+    normals into z (``sim/book.mix_shocks``)."""
     for t2 in range(layout.num_bars // 2):
         def draw(k):
             return u[:, layout.row(t2, k)]
 
         z_pair = box_muller(draw(0), draw(1))
         if antithetic:
-            h = u.shape[-1] // 2
-            z_pair = tuple(torch.cat([z[..., :h], -z[..., :h]], dim=-1)
-                           for z in z_pair)
+            z_pair = _mirror(z_pair, u.shape[-1])
+        if market is not None:
+            zm, beta = market[0][t2], market[1]
+            z_pair = tuple(mix_shocks(beta, zm[h], z_pair[h]) for h in range(2))
         for half in range(2):
             nz = None
             if layout.noise:
@@ -193,11 +228,20 @@ def _steps(u, layout: GatedLayout, antithetic: bool):
                    tuple(draw(2 + 3 * half + i) for i in range(3)), nz)
 
 
+def lifecycle_rows(out) -> torch.Tensor:
+    """f32[P, 6] per-path rows of a lifecycle outcome: equity, trades, wins,
+    losses, open, dd."""
+    return torch.stack([out.equity, out.trades.float(), out.wins.float(),
+                        out.losses.float(), out.open_at_end.float(), out.max_dd], dim=1)
+
+
 def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
-                 antithetic, per_path: bool):
+                 antithetic, per_path: bool, market=None, book=None, weight=None):
     """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
     8, lanes]: the TPU kernel's block computation with the lifecycle of
-    ``sim.gatedpath``, binned as ``_gated_accumulate`` bins."""
+    ``sim.gatedpath``, binned as ``_gated_accumulate`` bins.  A book symbol
+    (``market`` as in ``_steps``) adds its post-bar equity, times
+    ``weight``, into the ``book`` (``sim/book.BookCurve``) after every bar."""
     nb, _, sub, lanes = u.shape
     dev = u.device
     drift, sig_dt, log_s0 = consts
@@ -205,21 +249,19 @@ def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
     life = Lifecycle(torch.exp(log_s).reshape(-1), levels, params, gate,
                      noise=noise)
     held = torch.zeros((), dtype=torch.int64, device=dev)
-    for t2, half, z, (u3, u4, tie), nz in _steps(u, layout, antithetic):
+    for t2, half, z, (u3, u4, tie), nz in _steps(u, layout, antithetic, market):
         held = held + (life.side != 0).sum()   # bars that evaluate high/low
         log_s, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
         life.step(2 * t2 + half, high.reshape(-1), low.reshape(-1),
                   c.reshape(-1), tie.reshape(-1),
                   None if nz is None else tuple(x.reshape(-1) for x in nz))
+        if book is not None:
+            book.add_bar(2 * t2 + half, weight, life.equity)
     out = life.outcome()
-    eq, dd = out.equity, out.max_dd
+    if book is not None:
+        book.add_symbol(out)
     counts, floats = lifecycle_totals(out, N_COUNTS)
-    rows = None
-    if per_path:
-        rows = torch.stack([eq, out.trades.float(), out.wins.float(),
-                            out.losses.float(), out.open_at_end.float(), dd],
-                           dim=1)
-    return counts, floats, held, rows
+    return counts, floats, held, lifecycle_rows(out) if per_path else None
 
 
 def lifecycle_totals(out, n_counts: int):
@@ -374,20 +416,21 @@ def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_
 
 def _check_universe(seed, levels: Levels, params, s0, sigma, gate, noise, *,
                     paths_per_symbol: int, num_bars: int, lanes: int,
-                    external_uniforms) -> tuple[GatedLayout, GateConfig, list]:
+                    external_uniforms) -> tuple[GatedLayout, GateConfig]:
     """The checks of ``_mc_paths_pallas_gated_universe_jit``
-    (pallas_mc.py:1745-1760) and the single kernel's; returns the layout,
-    the shared gate and ``symbol_rows`` (with each symbol's params and noise)."""
-    rows = symbol_rows(levels, s0, sigma, params, noise)
+    (pallas_mc.py:1745-1760) and the single kernel's; returns the layout and
+    the shared gate."""
+    cols = symbol_columns(levels, s0, sigma, params, noise)
     gate = GateConfig.from_params(params) if gate is None else gate
     if grid_len(gate) != 1:
         raise ValueError("the gate knobs are shared by every symbol: scalar leaves")
-    layout = _check(seed, rows[0][0], num_paths=paths_per_symbol, num_bars=num_bars,
-                    lanes=lanes, noise=noise, antithetic=False, external_uniforms=None)
-    check_uniforms(external_uniforms, (len(rows), paths_per_symbol // (GATED_SUB * lanes),
+    layout = _check(seed, grid_row(levels, 0), num_paths=paths_per_symbol,
+                    num_bars=num_bars, lanes=lanes, noise=noise, antithetic=False,
+                    external_uniforms=None)
+    check_uniforms(external_uniforms, (len(cols["s0"]), paths_per_symbol // (GATED_SUB * lanes),
                                        layout.u_rows, GATED_SUB, lanes),
                    antithetic=False, lanes=lanes)
-    return layout, gate, rows
+    return layout, gate
 
 
 def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gate=None, *,
@@ -403,9 +446,10 @@ def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gat
     ``gated_totals_reference`` at its levels, s0, sigma, knobs and noise stds
     (``params`` and ``noise`` leaves scalar or [S]), the shared ``gate``, mu
     0, its uniforms ``external_uniforms[s]`` or its key."""
-    _, gate, rows = _check_universe(seed, levels, params, s0, sigma, gate, noise,
-                                    paths_per_symbol=paths_per_symbol, num_bars=num_bars,
-                                    lanes=lanes, external_uniforms=external_uniforms)
+    _, gate = _check_universe(seed, levels, params, s0, sigma, gate, noise,
+                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
+                              lanes=lanes, external_uniforms=external_uniforms)
+    rows = symbol_rows(levels, s0, sigma, params, noise)
     device = devices.resolve(device, external_uniforms)
     out = [gated_totals_reference(
         seed, lv, p, gate, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s, mu=0.0,
@@ -414,6 +458,93 @@ def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gat
         external_uniforms=symbol_uniforms(external_uniforms, s))
         for s, (lv, s0_s, sg_s, p, nz) in enumerate(rows)]
     return tuple(torch.stack(x) for x in zip(*out))
+
+
+# --------------------------------------------------------------------------
+# the correlated book (kernel #7)
+# --------------------------------------------------------------------------
+
+def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, gate, noise, *,
+                paths_per_symbol: int, num_bars: int, lanes: int, antithetic: bool,
+                external_uniforms, market_uniforms, sampler: str):
+    """The checks of ``_mc_paths_pallas_gated_corr_jit`` (pallas_mc.py:
+    2600-2625) and the kernel's envelope; returns (layout, market layout,
+    the shared gate, ``symbol_columns``)."""
+    if sampler != "gbm":
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
+                                  "kernel (the samplers slice); the port runs gbm")
+    cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
+    gate = GateConfig.from_params(params) if gate is None else gate
+    if grid_len(gate) != 1:
+        raise ValueError("the gate knobs are shared by every symbol: scalar leaves")
+    layout = _check(seed, grid_row(levels, 0), num_paths=paths_per_symbol,
+                    num_bars=num_bars, lanes=lanes, noise=noise, antithetic=antithetic,
+                    external_uniforms=None)
+    if (external_uniforms is None) != (market_uniforms is None):
+        raise ValueError("external_uniforms and market_uniforms go together")
+    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (GATED_SUB * lanes)
+    mlayout = MarketLayout(num_bars)
+    check_uniforms(external_uniforms, (n_sym, n_blocks, layout.u_rows, GATED_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
+    check_uniforms(market_uniforms, (n_blocks, mlayout.u_rows, GATED_SUB, lanes),
+                   antithetic=antithetic, lanes=lanes)
+    return layout, mlayout, gate, cols
+
+
+def gated_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, weights,
+                                gate=None, *, paths_per_symbol: int, num_bars: int = 40,
+                                dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES,
+                                noise=None, antithetic: bool = False, external_uniforms=None,
+                                market_uniforms=None, sampler: str = "gbm", device=None,
+                                chunk_blocks: int = 16, per_path: bool = False,
+                                work: bool = False):
+    """The plain version of the gated book: int64 [S + 1, 134] counts and
+    float64 [S + 1, 6] floats (row s symbol s's, row S the book's); then
+    f32[S + 1, P, 6] per-path rows with ``per_path``; then int64 [S] held bars
+    with ``work``.  Symbol s runs as ``gated_universe_totals_reference``'s
+    symbol s, its normal mixed with the market's (``sim/book.mix_shocks``,
+    market uniforms ``market_uniforms`` f32[blocks, W, 8, lanes] or Philox on
+    the market key), and adds its weighted post-bar equity into the book's
+    curve; the book folds as ``sim/book.BookCurve`` folds."""
+    layout, mlayout, gate, _ = _check_corr(
+        seed, levels, params, s0, sigma, beta, weights, gate, noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+        antithetic=antithetic, external_uniforms=external_uniforms,
+        market_uniforms=market_uniforms, sampler=sampler)
+    rows = symbol_rows(levels, s0, sigma, params, noise, beta=beta, weights=weights)
+    device = devices.resolve(device, external_uniforms)
+    n_blocks = paths_per_symbol // (GATED_SUB * lanes)
+    n_sym = len(rows)
+    tot, held, path_rows = [None] * (n_sym + 1), [0] * n_sym, [[] for _ in range(n_sym + 1)]
+    for b0 in range(0, n_blocks, chunk_blocks):
+        nb = min(chunk_blocks, n_blocks - b0)
+        um = (market_uniforms[b0:b0 + nb] if market_uniforms is not None else
+              draws_market(seed, mlayout, block0=b0, n_blocks=nb, lanes=lanes, device=device))
+        zm = market_normals(um, antithetic)
+        book = BookCurve(nb * GATED_SUB * lanes, num_bars, device=device)
+        for s, (lv, s0_s, sg_s, p, nz, beta_s, w_s) in enumerate(rows):
+            if external_uniforms is not None:
+                u = external_uniforms[s, b0:b0 + nb]
+            else:
+                u = gated_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
+                                   symbol=s, device=device)
+            counts, floats, part_held, part_rows = _chunk_gated(
+                u, layout, lv, p, gate, nz, consts(s0_s, 0.0, sg_s, dt), antithetic,
+                per_path, market=(zm, beta_s), book=book, weight=w_s)
+            tot[s] = merge_totals(tot[s], (counts, floats))
+            held[s] = held[s] + part_held
+            if per_path:
+                path_rows[s].append(part_rows)
+        out = book.outcome()
+        tot[n_sym] = merge_totals(tot[n_sym], lifecycle_totals(out, N_COUNTS))
+        if per_path:
+            path_rows[n_sym].append(lifecycle_rows(out))
+    res = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
+    if per_path:
+        res += (torch.stack([torch.cat(r) for r in path_rows]),)
+    if work:
+        res += (torch.stack([torch.as_tensor(h) for h in held]),)
+    return res
 
 
 def reduce_rows_reference(part_counts: torch.Tensor, part_floats: torch.Tensor):
@@ -452,35 +583,63 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _corr_library() -> ctypes.CDLL:
+    """The book kernel's library (``ops/csrc/mc_gated_corr.cu``, its own
+    build of ``mc_gated.cuh``), built at first use, with its C signature set;
+    the gated library's struct-layout check first."""
+    _library()
+    lib = build.load(_SOURCE + "_corr")
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_mc_gated_corr.argtypes = [vp, vp, ci, ci, ci, vp, vp, ctypes.c_uint, vp, vp,
+                                           vp, vp, ci, vp]
+        lib.qmmx_mc_gated_corr.restype = ci
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().qmmx_gated_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _gated_args(seed, levels: Levels, params, gate, layout: GatedLayout, *,
-                num_paths: int, s0, mu, sigma, dt, lanes: int, noise,
-                antithetic: bool, symbol: int = 0) -> _GatedArgs:
-    """The kernel's arguments for one configuration, keyed as universe
-    symbol ``symbol``."""
-    lp, lv = level_slots(levels)
-    lk = levels.kind.detach().cpu().tolist()
-    lk = [int(k == KIND_SOLID) for k in lk] + [0] * (MAX_LEVELS - len(lk))
-    drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
-    return _GatedArgs(
-        num_paths=num_paths,
-        level_price=(ctypes.c_float * MAX_LEVELS)(*lp),
-        level_valid=(ctypes.c_float * MAX_LEVELS)(*lv),
-        level_kind=(ctypes.c_int32 * MAX_LEVELS)(*lk),
-        qmin=f32(gate.q_min_prob), drift=drift, sig_dt=sig_dt, log_s0=log_s0,
-        seed=int(seed), stream=prng.stream_key(GATED_STREAM, symbol),
-        touch_limit=int(gate.touch_limit), cooldown_bars=int(gate.cooldown_bars),
-        touch_gap=int(gate.touch_gap_bars), use_conf=int(bool(gate.use_confidence)),
-        max_levels=levels.max_levels, num_bars=layout.num_bars, lanes=lanes,
-        u_rows=layout.u_rows, use_noise=int(noise is not None),
-        antithetic=int(bool(antithetic)),
-        **knobs(params, noise),
-    )
+def _gated_args(seed, levels: Levels, params, gate, noise, layout: GatedLayout, *, n: int,
+                num_paths: int, s0, sigma, mu: float, dt: float, lanes: int,
+                antithetic: bool, symbols, ext_offset=0) -> np.ndarray:
+    """The kernel's arguments for ``n`` rows (one configuration, a sweep's
+    grid rows, a universe's or a book's symbols) as one array of
+    ``GatedArgs``, packed column by column: ``levels`` [L] (every row's) or
+    [n, L]; the leaves of ``params``, ``gate`` and ``noise`` (None: zero
+    stds), s0 and sigma (float64, for ``consts``) and ``ext_offset`` scalars
+    or [n]; row r keyed as universe symbol ``symbols[r]``."""
+    a = np.zeros(n, dtype=np.dtype(_GatedArgs))
+
+    def col(x, dtype=np.float32):
+        return np.broadcast_to(np.asarray(torch.as_tensor(x).detach().cpu().numpy(), dtype), (n,))
+
+    price = levels.price.detach().cpu().to(torch.float32)
+    n_lv = price.shape[-1]
+    a["level_price"][:, :n_lv] = torch.where(torch.isfinite(price), price, 0.0).numpy()
+    a["level_valid"][:, :n_lv] = levels.valid.detach().cpu().to(torch.float32).numpy()
+    a["level_kind"][:, :n_lv] = (levels.kind.detach().cpu() == KIND_SOLID).numpy()
+    a["num_paths"], a["ext_offset"] = num_paths, ext_offset
+    for field, value in knob_columns(params, noise).items():
+        a[field] = col(value)
+    s0, sigma = (np.broadcast_to(np.asarray(x, np.float64), (n,)).tolist() for x in (s0, sigma))
+    derived = [consts(s0_r, mu, sg_r, dt) for s0_r, sg_r in zip(s0, sigma)]
+    a["drift"], a["sig_dt"], a["log_s0"] = (np.asarray(c, np.float32) for c in zip(*derived))
+    a["qmin"] = col(gate.q_min_prob)
+    a["seed"] = int(seed)
+    a["stream"] = [prng.stream_key(GATED_STREAM, sym) for sym in symbols]
+    a["touch_limit"] = col(gate.touch_limit, np.int32)
+    a["cooldown_bars"] = col(gate.cooldown_bars, np.int32)
+    a["touch_gap"] = col(gate.touch_gap_bars, np.int32)
+    a["use_conf"] = col(gate.use_confidence, bool)
+    a["max_levels"], a["num_bars"], a["lanes"], a["u_rows"] = (
+        levels.max_levels, layout.num_bars, lanes, layout.u_rows)
+    a["use_noise"], a["antithetic"] = int(noise is not None), int(bool(antithetic))
+    return a
 
 
 def _launch(args, max_levels: int, *, num_paths: int, ext_ptr, device: torch.device,
@@ -519,11 +678,11 @@ def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
     device = torch.device(device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "gated_rows")
     gate = GateConfig.from_params(params) if gate is None else gate
-    args = _gated_args(seed, levels, params, gate, layout, num_paths=num_paths, s0=s0,
-                       mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-                       antithetic=antithetic, symbol=symbol)
-    out = _launch((_GatedArgs * 1)(args), levels.max_levels, num_paths=num_paths,
-                  ext_ptr=ext_ptr, device=device, per_path=per_path, what="mc_gated")
+    args = _gated_args(seed, levels, params, gate, noise, layout, n=1, num_paths=num_paths,
+                       s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, antithetic=antithetic,
+                       symbols=[symbol])
+    out = _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
+                  device=device, per_path=per_path, what="mc_gated")
     return tuple(x[0] for x in out)
 
 
@@ -535,17 +694,16 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
     grid: int64 [G, grid, 134] and f32 [G, grid, 6] partial rows, one per
     (grid row, CTA), plus f32[G, P, 6] per-(row, path) rows when
     ``per_path``."""
-    rows = grid_rows(params, grid_stops, grid_tps,
-                     GateConfig.from_params(params) if grid_gate is None else grid_gate, noise)
+    gate = GateConfig.from_params(params) if grid_gate is None else grid_gate
+    n_grid, grid_params = grid_columns(params, grid_stops, grid_tps, gate, noise)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
                     noise=noise, antithetic=False, external_uniforms=external_uniforms)
     device = torch.device(device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
                              "gated_sweep_rows")
-    args = (_GatedArgs * len(rows))(*(
-        _gated_args(seed, levels, p_g, gate_g, layout, num_paths=num_paths, s0=s0, mu=mu,
-                    sigma=sigma, dt=dt, lanes=lanes, noise=noise_g, antithetic=False)
-        for p_g, gate_g, noise_g in rows))
+    args = _gated_args(seed, levels, grid_params, gate, noise, layout, n=n_grid,
+                       num_paths=num_paths, s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes,
+                       antithetic=False, symbols=[0] * n_grid)
     return _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_sweep")
 
@@ -558,20 +716,75 @@ def gated_universe_rows(seed, levels: Levels, params, s0, sigma, gate=None, *,
     ``mc_gated_sweep_kernel`` with a row per symbol: int64 [S, grid, 134] and
     f32 [S, grid, 6] partial rows, plus f32[S, P, 6] per-(symbol, path) rows
     when ``per_path``."""
-    layout, gate, rows = _check_universe(
+    layout, gate = _check_universe(
         seed, levels, params, s0, sigma, gate, noise, paths_per_symbol=paths_per_symbol,
         num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms)
     device = torch.device(device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
                              "gated_universe_rows")
-    args = (_GatedArgs * len(rows))()
-    for s, (lv, s0_s, sg_s, p, nz) in enumerate(rows):
-        args[s] = _gated_args(seed, lv, p, gate, layout, num_paths=paths_per_symbol,
-                              s0=s0_s, mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=nz,
-                              antithetic=False, symbol=s)
-        args[s].ext_offset = s * paths_per_symbol * layout.u_rows
+    args = _symbols_args(seed, levels, params, gate, noise, layout,
+                         symbol_columns(levels, s0, sigma, params, noise),
+                         paths_per_symbol=paths_per_symbol, dt=dt, lanes=lanes,
+                         antithetic=False)
     return _launch(args, levels.max_levels, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_universe")
+
+
+def _symbols_args(seed, levels: Levels, params, gate, noise, layout: GatedLayout,
+                  cols: dict, *, paths_per_symbol: int, dt: float, lanes: int,
+                  antithetic: bool) -> np.ndarray:
+    """A universe's or a book's ``GatedArgs``, a row a symbol (``cols`` from
+    ``symbol_columns``): symbol s on its key and its injected uniforms, mu 0."""
+    n_sym = len(cols["s0"])
+    return _gated_args(seed, levels, params, gate, noise, layout, n=n_sym,
+                       num_paths=paths_per_symbol, s0=cols["s0"], sigma=cols["sigma"], mu=0.0,
+                       dt=dt, lanes=lanes, antithetic=antithetic, symbols=range(n_sym),
+                       ext_offset=np.arange(n_sym) * paths_per_symbol * layout.u_rows)
+
+
+def gated_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, gate=None, *,
+                    paths_per_symbol: int, num_bars: int = 40,
+                    dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES, noise=None,
+                    antithetic: bool = False, external_uniforms=None, market_uniforms=None,
+                    device=None, sampler: str = "gbm", per_path: bool = False):
+    """Launch the book's pass 1 on a CUDA device, one launch of
+    ``mc_gated_corr_kernel``: int64 [S + 1, grid, 134] and f32 [S + 1, grid,
+    6] partial rows (the symbols', then the book's), plus f32[S + 1, P, 6]
+    per-path rows when ``per_path``.  The book curves lie in shared memory,
+    or in a device-memory buffer when num_bars x 1 KB passes
+    ``MAX_CURVE_SHARED_BYTES``."""
+    layout, _, gate, cols = _check_corr(
+        seed, levels, params, s0, sigma, beta, weights, gate, noise,
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+        antithetic=antithetic, external_uniforms=external_uniforms,
+        market_uniforms=market_uniforms, sampler=sampler)
+    device = torch.device("cuda" if device is None else device)
+    ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
+                             "gated_corr_rows")
+    m_ptr = launch_pointer(paths_per_symbol, num_bars, market_uniforms, device,
+                           "gated_corr_rows")
+    args_dev = device_rows(_symbols_args(seed, levels, params, gate, noise, layout, cols,
+                                         paths_per_symbol=paths_per_symbol, dt=dt,
+                                         lanes=lanes, antithetic=antithetic), device)
+    n_sym, grid = len(cols["s0"]), grid_size(paths_per_symbol)
+    part_counts = torch.empty((n_sym + 1, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n_sym + 1, grid, ROW_FLOATS), dtype=torch.float32,
+                              device=device)
+    path_rows = (torch.empty((n_sym + 1, paths_per_symbol, PATH_COLS), dtype=torch.float32,
+                             device=device) if per_path else None)
+    curve_mem = (torch.empty((num_bars, grid * BLOCK), dtype=torch.float32, device=device)
+                 if num_bars * BLOCK * 4 > MAX_CURVE_SHARED_BYTES else None)
+    bw = book_pairs(cols, device)
+    rc = _corr_library().qmmx_mc_gated_corr(
+        args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr, m_ptr,
+        prng.stream_key(MARKET_STREAM, 0), None if curve_mem is None else curve_mem.data_ptr(),
+        part_counts.data_ptr(), part_floats.data_ptr(),
+        path_rows.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mc_gated_corr")
+    LAUNCHES["mc_gated_corr"] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
@@ -669,3 +882,40 @@ def mc_paths_gated_universe_fused(seed, levels: Levels, params, s0, sigma, gate=
     rows = gated_universe_rows(seed, levels, params, s0, sigma, gate, dt=dt, device=device,
                                **kw)
     return stats_from_gated_totals(*reduce_rows(*rows, what="mc_gated_universe_reduce_rows"))
+
+
+def mc_paths_gated_corr_fused(seed, levels: Levels, params, s0, sigma, beta, weights,
+                              gate=None, *, paths_per_symbol: int, num_bars: int = 40,
+                              dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES,
+                              noise=None, antithetic: bool = False, external_uniforms=None,
+                              market_uniforms=None, sampler: str = "gbm",
+                              device=None) -> tuple[PathStats, PathStats]:
+    """Fused correlated gated book, the counterpart of
+    ``mc_paths_pallas_gated_corr`` (gbm): ([S] lifecycle PathStats, the
+    book's PathStats) from one launch.  Symbol s runs under its own [S, L]
+    levels row, s0[s], sigma[s], knobs (``params`` leaves scalar or [S]),
+    noise stds (``noise`` leaves scalar or [S]) and key, the gate knobs
+    shared; its normal is ``beta[s] * z_mkt + sqrt(1 - beta[s]^2) * eps``
+    with the market normal shared by every symbol; the book sums the
+    symbols' post-bar equity curves times ``weights`` per path, its final R
+    into the histogram and its drawdown tracked over time.  With beta = 0,
+    symbol s equals ``mc_paths_gated_universe_fused``'s symbol s (on the
+    card: per path and in its counts; in its float sums too up to 2^20 paths
+    a symbol, one path a thread, past which a CTA adds its paths chunk by
+    chunk).  Injected
+    uniforms are f32[S, blocks, u_rows, 8, lanes] with the market's
+    f32[blocks, W, 8, lanes].  ``device`` as in ``mc_paths_gated_fused``."""
+    kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
+              noise=noise, antithetic=antithetic, external_uniforms=external_uniforms,
+              market_uniforms=market_uniforms, sampler=sampler)
+    _check_corr(seed, levels, params, s0, sigma, beta, weights, gate, noise,
+                **{k: v for k, v in kw.items() if k not in ("dt", "noise")})
+    device = devices.resolve(device, external_uniforms)
+    if device.type == "cpu":
+        c, f = gated_corr_totals_reference(seed, levels, params, s0, sigma, beta, weights,
+                                           gate, device=device, **kw)
+    else:
+        c, f = reduce_rows(*gated_corr_rows(seed, levels, params, s0, sigma, beta, weights,
+                                            gate, device=device, **kw),
+                           what="mc_gated_corr_reduce_rows")
+    return stats_from_gated_totals(c[:-1], f[:-1]), stats_from_gated_totals(c[-1], f[-1])

@@ -55,6 +55,21 @@ stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  Ten is not a
 multiple of four, so a Philox call (four rows) feeds parts of two steps: the
 kernel keeps the last call's four words and draws a new call only when a row
 leaves them.
+
+Market factor of a correlated book (``MarketLayout``), the JAX corr kernels'
+shared ``market_uniforms`` (``ops/pallas_mc.py:2484-2489``, ``:2593``;
+``ops/pallas_engine.py:2780-2784``, ``:3021``): blocks of 8 rows of
+``lanes`` paths as above, and double-bar step t2 takes market rows
+``2 * t2 + k``:
+
+    k = 0, 1        market Box-Muller (u1, u2): cos drives bar 2·t2, sin bar 2·t2+1
+
+so ``u_rows = W``.  The rows are drawn on the stream ``MARKET_STREAM`` at
+symbol 0 (``prng.stream_key(STREAM_MARKET, 0)``) for every symbol of the
+book, counted on (column, row // 4, global block) like every other draw, so
+path p sees the same market normals in every symbol.  Injected, they are
+f32[n_blocks, W, 8, lanes], the JAX shape.  (The JAX kernels' Heston
+sampler reads 4 market rows a step; it is not ported yet.)
 """
 
 from __future__ import annotations
@@ -69,6 +84,7 @@ from ..utils import prng
 FUSED_STREAM = prng.STREAM_PATH
 GATED_STREAM = prng.STREAM_GATED
 ENGINE_STREAM = prng.STREAM_ENGINE
+MARKET_STREAM = prng.STREAM_MARKET
 GATED_SUB = 8        # rows of paths in one gated block
 ENGINE_SUB = 8       # rows of paths in one engine block
 
@@ -195,3 +211,32 @@ def engine_uniforms(seed: int, layout: EngineLayout, *, block0: int,
                           n_rows=layout.u_rows, lanes=ENGINE_SUB * lanes,
                           symbol=symbol, device=device)
     return u.view(n_blocks, layout.u_rows, ENGINE_SUB, lanes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarketLayout:
+    num_bars: int
+
+    def __post_init__(self):
+        if self.num_bars <= 0 or self.num_bars % 2:
+            raise ValueError("num_bars must be even and positive "
+                             "(paired Box-Muller draws)")
+
+    stride = 2
+
+    @property
+    def u_rows(self) -> int:
+        return self.stride * (self.num_bars // 2)
+
+    def row(self, t2: int, k: int) -> int:
+        return t2 * self.stride + k
+
+
+def market_uniforms(seed: int, layout: MarketLayout, *, block0: int, n_blocks: int,
+                    lanes: int, device=None) -> torch.Tensor:
+    """f32[n_blocks, layout.u_rows, 8, lanes]: the market rows the book
+    kernels draw in Philox mode for global blocks ``block0 ..`` (every
+    symbol's), bit for bit."""
+    u = prng.uniform_rows(seed, MARKET_STREAM, block0=block0, n_blocks=n_blocks,
+                          n_rows=layout.u_rows, lanes=GATED_SUB * lanes, device=device)
+    return u.view(n_blocks, layout.u_rows, GATED_SUB, lanes)

@@ -6,7 +6,8 @@ kernels see the same float32 constants, noise knobs, level slots and grid:
 
 * ``f32`` -- the float32 rounding of a host number;
 * ``consts`` -- (drift, sig_dt, log_s0), float64 on the host, rounded to float32;
-* ``knobs`` -- padding, proximity and execution-noise stds as float32;
+* ``knobs`` / ``knob_columns`` -- padding, proximity and execution-noise
+  stds as float32, or as the records' leaves (a row or a column a knob);
 * ``level_slots`` -- level prices and validity padded to ``MAX_LEVELS``;
 * ``grid_size`` -- the pass-1 grid, a function of num_paths alone;
 * ``check_blocks`` / ``check_uniforms`` -- the launch checks the gated and
@@ -15,17 +16,23 @@ kernels see the same float32 constants, noise knobs, level slots and grid:
   injected uniforms;
 * ``grid_row`` / ``grid_len`` -- row g of a record with [G] (or scalar)
   leaves, and G;
-* ``grid_rows`` / ``knob_rows`` -- the rows of a fused sweep, as the JAX
-  sweep kernels take them: (stop, tp) columns beside records of scalar or
-  [G] leaves (first contact, gated), or EngineParams with [G] leaves (engine);
+* ``grid_rows`` / ``grid_columns`` / ``knob_rows`` -- the rows (or [G]
+  columns) of a fused sweep, as the JAX sweep kernels take them: (stop, tp)
+  columns beside records of scalar or [G] leaves (first contact, gated), or
+  EngineParams with [G] leaves (engine);
 * ``symbol_rows`` / ``sg_rows`` -- the rows of a universe, with the checks of
   the JAX universe entries: per symbol its levels, spot and volatility (as
-  float64, for ``consts``) and its row of records with scalar or [S] leaves;
+  float64, for ``consts``), its row of records with scalar or [S] leaves
+  and, for a book, its market loading and weight;
   or, for a sweep of universes, row (s, g) of records with scalar, [G] or
   [S, G] leaves; ``symbol_grid`` / ``symbol_uniforms`` -- symbol s's grid
   and injected uniforms, for the plain versions;
-* ``device_rows`` -- a sweep's (or universe's) argument structs, one per
-  grid row, on the card;
+* ``symbol_columns`` / ``sg_columns`` / ``repeat_rows`` -- the same checks,
+  the per-symbol numbers as columns, a sweep of universes' leaves as S x G
+  columns, a universe's levels a row a cell (the wrappers pack every row's
+  arguments at once);
+* ``device_rows`` / ``book_pairs`` -- a sweep's (or universe's) argument
+  structs, one per grid row, on the card; a book's (beta, weight) pairs;
 * ``fold_rows`` -- pass 2 over [R, C] partial rows, or a sweep's [G, R, C]
   with one CTA per grid row.
 """
@@ -62,18 +69,24 @@ def consts(s0, mu, sigma, dt) -> tuple[float, float, float]:
     return f32(drift), f32(sig_dt), f32(math.log(float(s0)))
 
 
-def knobs(params, noise) -> dict:
-    """The TPU kernel's (1, 8) knob row as float32 values; zero noise stds
-    when ``noise`` is None."""
+def knob_columns(params, noise) -> dict:
+    """The TPU kernel's (1, 8) knob row as the records' leaves (scalars, or
+    columns of a sweep's or a universe's rows); zero noise stds when
+    ``noise`` is None."""
     def std(name):
-        return f32(getattr(noise, name)) if noise is not None else 0.0
+        return getattr(noise, name) if noise is not None else 0.0
 
     return {
-        "prox": f32(params.contact_prox), "stop_pad": f32(params.stop_padding),
-        "tp_pad": f32(params.tp_padding),
+        "prox": params.contact_prox, "stop_pad": params.stop_padding,
+        "tp_pad": params.tp_padding,
         "lvl_jit": std("level_jitter_std"), "entry_slip": std("entry_slip_std"),
         "stop_slip": std("stop_slip_std"), "tgt_slip": std("target_slip_std"),
     }
+
+
+def knobs(params, noise) -> dict:
+    """``knob_columns`` of one row as float32 values."""
+    return {k: f32(v) for k, v in knob_columns(params, noise).items()}
 
 
 def level_slots(levels: Levels) -> tuple[list[float], list[float]]:
@@ -169,11 +182,10 @@ def _check_rows(g: int) -> None:
         raise ValueError(f"the grid takes 1 to {MAX_GRID_ROWS} rows, got {g}")
 
 
-def grid_rows(params, grid_stops, grid_tps, *records) -> list:
-    """[(params_g, *records_g)] for g < G: params_g (EngineParams) carries
-    (grid_stops[g], grid_tps[g]), each record (GateConfig, McNoise, ... or
-    None) its row g.  The checks of the JAX sweep kernels: the two columns of
-    one length, the records' leaves scalars or [G]."""
+def grid_columns(params, grid_stops, grid_tps, *records) -> tuple:
+    """(G, params carrying the [G] columns grid_stops and grid_tps), with the
+    checks of the JAX sweep kernels: the two columns of one length, the
+    records' (GateConfig, McNoise, ... or None) leaves scalars or [G]."""
     stops = torch.as_tensor(grid_stops, dtype=_F32).reshape(-1)
     tps = torch.as_tensor(grid_tps, dtype=_F32).reshape(-1)
     g = stops.shape[0]
@@ -182,7 +194,15 @@ def grid_rows(params, grid_stops, grid_tps, *records) -> list:
     _check_rows(g)
     if grid_len(*records) not in (1, g):
         raise ValueError(f"grid leaves must be scalars or of length {g}")
-    return [(params.replace(stop_padding=stops[i], tp_padding=tps[i]),
+    return g, params.replace(stop_padding=stops, tp_padding=tps)
+
+
+def grid_rows(params, grid_stops, grid_tps, *records) -> list:
+    """[(params_g, *records_g)] for g < G: params_g (EngineParams) carries
+    (grid_stops[g], grid_tps[g]), each record its row g; the checks of
+    ``grid_columns``."""
+    g, cols = grid_columns(params, grid_stops, grid_tps, *records)
+    return [(params.replace(stop_padding=cols.stop_padding[i], tp_padding=cols.tp_padding[i]),
              *(grid_row(r, i) for r in records)) for i in range(g)]
 
 
@@ -203,26 +223,46 @@ def knob_rows(grid_params, noise=None, n_grid=None) -> list:
     return [(grid_row(grid_params, g), grid_row(noise, g)) for g in range(int(n_grid))]
 
 
-def symbol_rows(levels: Levels, s0, sigma, *records) -> list:
-    """[(levels_s, s0_s, sigma_s, *records_s)] for the S symbols of a
-    universe: row s of the [S, L] ``levels``, s0 and sigma (scalars or [S])
-    as float64 Python floats, as ``_derived_consts`` takes them
-    (pallas_mc.py:1646-1660), and row s of each record (EngineParams,
-    McNoise, ... or None) whose leaves are scalars or [S]."""
+def _symbol_column(name: str, x, n_sym: int) -> list[float]:
+    v = torch.as_tensor(x, dtype=torch.float64).reshape(-1)
+    if v.shape[0] not in (1, n_sym):
+        raise ValueError(f"{name} must be a scalar or of length {n_sym}")
+    return v.expand(n_sym).tolist()
+
+
+def symbol_columns(levels: Levels, s0, sigma, *records, beta=None, weights=None) -> dict:
+    """The checks of ``symbol_rows`` without cutting the records into rows:
+    {"s0", "sigma": [S] float64 values; "beta", "weights": [S] float32
+    values, for a book}."""
     if levels.price.dim() != 2:
         raise ValueError("levels must be [S, L]-batched (parallel.universe.stack_levels)")
     n_sym = int(levels.price.shape[0])
     _check_rows(n_sym)
-    cols = []
-    for name, x in (("s0", s0), ("sigma", sigma)):
-        v = torch.as_tensor(x, dtype=torch.float64).reshape(-1)
-        if v.shape[0] not in (1, n_sym):
-            raise ValueError(f"{name} must be a scalar or of length {n_sym}")
-        cols.append(v.expand(n_sym).tolist())
+    cols = {name: _symbol_column(name, x, n_sym) for name, x in (("s0", s0), ("sigma", sigma))}
+    if (beta is None) != (weights is None):
+        raise ValueError("a book takes beta and weights together")
+    if beta is not None:
+        cols.update({name: [f32(v) for v in _symbol_column(name, x, n_sym)]
+                     for name, x in (("beta", beta), ("weights", weights))})
     if grid_len(*records) not in (1, n_sym):
         raise ValueError(f"per-symbol leaves must be scalars or of length {n_sym}")
-    return [(grid_row(levels, s), cols[0][s], cols[1][s],
-             *(grid_row(r, s) for r in records)) for s in range(n_sym)]
+    return cols
+
+
+def symbol_rows(levels: Levels, s0, sigma, *records, beta=None, weights=None) -> list:
+    """[(levels_s, s0_s, sigma_s, *records_s)] for the S symbols of a
+    universe: row s of the [S, L] ``levels``, s0 and sigma (scalars or [S])
+    as float64 Python floats, as ``_derived_consts`` takes them
+    (pallas_mc.py:1646-1660), and row s of each record (EngineParams,
+    McNoise, ... or None) whose leaves are scalars or [S].  A book's rows
+    (``beta`` and ``weights`` given, scalars or [S]) end with the symbol's
+    market loading and book weight as float32 values, as the JAX book takes
+    them: (..., beta_s, weight_s)."""
+    cols = symbol_columns(levels, s0, sigma, *records, beta=beta, weights=weights)
+    book = [cols[k] for k in ("beta", "weights") if k in cols]
+    return [(grid_row(levels, s), cols["s0"][s], cols["sigma"][s],
+             *(grid_row(r, s) for r in records), *(c[s] for c in book))
+            for s in range(len(cols["s0"]))]
 
 
 def symbol_uniforms(external_uniforms, s: int):
@@ -279,9 +319,32 @@ def symbol_grid(obj, s: int):
                                        if v.dim() == 2})
 
 
+def sg_columns(obj, n_sym: int, n_grid: int):
+    """A record of scalar, [G] or [S, G] leaves (``sg_rows``) with each
+    non-scalar leaf as the column of its S x G cells, cell (s, g) at
+    s * G + g; None stays None."""
+    if obj is None:
+        return None
+    return dataclasses.replace(obj, **{k: v.expand(n_sym, n_grid).reshape(-1)
+                                       for k, v in tensor_leaves(obj).items() if v.dim() >= 1})
+
+
+def repeat_rows(obj, times: int):
+    """A record of [S, ...] leaves with each row repeated ``times`` times in
+    place (row s at s * times + g)."""
+    return dataclasses.replace(obj, **{k: v.repeat_interleave(times, dim=0)
+                                       for k, v in tensor_leaves(obj).items()})
+
+
+def book_pairs(cols: dict, device: torch.device) -> torch.Tensor:
+    """A book's f32[S, 2] (beta, weight) pairs of ``symbol_columns`` on the
+    card, the book kernels' ``bw``."""
+    return torch.tensor(list(zip(cols["beta"], cols["weights"])), dtype=_F32, device=device)
+
+
 def device_rows(rows, device: torch.device) -> torch.Tensor:
-    """A ctypes array of argument structs (one per grid row) copied to the
-    card, as bytes."""
+    """An array of argument structs (numpy or ctypes, one per grid row)
+    copied to the card, as bytes."""
     return torch.frombuffer(bytearray(bytes(rows)), dtype=torch.uint8).to(device)
 
 

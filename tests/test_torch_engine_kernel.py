@@ -148,10 +148,10 @@ def test_pack_args_fills_the_kernel_arguments():
     armed = _armed_gates()
     kw = enginepath.engine_knobs(bar0_minute=7, **armed)
     args = CE._pack_args(3, levels, params, kw,
-                         EngineLayout(40, True), num_paths=8 * LANES, s0=100.0,
+                         EngineLayout(40, True), n=1, num_paths=8 * LANES, s0=100.0,
                          mu=0.0, sigma=SIGMA, dt=1e-5, lanes=LANES,
                          noise=McNoise.make(**STDS), antithetic=False,
-                         volume_model=None)
+                         volume_model=None, symbols=[0]).view(np.recarray)[0]
     assert args.w_rules == args.w_ml == pytest.approx(0.5)
     assert args.prox == pytest.approx(0.05) and args.veto_near == pytest.approx(0.06)
     assert list(args.level_valid) == [1, 1, 1, 0, 0, 0, 0, 0]
