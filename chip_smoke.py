@@ -139,7 +139,28 @@ Phases (any failure exits non-zero and prints no result line):
    the ML and policy gates armed, noise and antithetic in one injected case
    and the accumulation gates active in another, the identity against the
    engine universe kernel (#10), the curves in device memory, and ``book
-   --engine --backend cuda``.
+   --engine --backend cuda``;
+   the recorded-bar and Heston samplers of kernels #1, #4 and #8 (bootstrap,
+   block bootstrap with ``--block-len 10``, Heston at the JAX defaults), the
+   recorded bars a 98,280-bar CSV history (252 sessions of 390 1-minute bars:
+   cents-rounded closes, opening gaps, highs and lows beyond open and close,
+   nonzero volumes) written from a seed:
+21. first contact (``mc_first_contact_sampler_kernel``, mc_first_contact_samplers.cu): for
+   each sampler, injected uniforms at 2^16 paths (and with execution noise
+   for bootstrap and Heston), kernel vs plain on CPU copies on totals;
+   Philox at 2^22, kernel vs plain on the card, both timed; the kernel
+   alone at 2^28 x 40 with its bound; the port CLI's ``paths --backend cuda
+   --sampler ...`` at 2^28 paths x 40 bars on the CSV history (bootstrap
+   once more on the CLI's default 390-bar fixture), launch counts set to 0
+   just before and read just after (the sampler kernel and the fold once a
+   run, nothing else), the output checked, paths/s timed;
+22. gated (``mc_gated_sampler_kernel``, mc_gated_samplers.cu): the same, path
+   by path, every differing injected path traced as in phase 6, and ``paths
+   --gated``;
+23. engine (``mc_engine_sampler_kernel``, mc_engine_samplers.cu): the same,
+   path by path with its two budgets, every differing injected path traced
+   as in phase 9, and ``paths --engine`` (the recorded volumes reach the
+   volume gates).
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -173,7 +194,8 @@ its family's rules; a symbol of a universe kernel and the single kernel at
 the symbol's inputs and key: equal, bit for bit.  Books (phases 19-20):
 each symbol and the book under their family's rules (the book's row is a
 lifecycle row of the book's R per path); a book symbol at beta 0 and the
-universe kernel's symbol: equal, bit for bit.
+universe kernel's symbol: equal, bit for bit.  Samplers (phases 21-23):
+each family's rules above.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -181,7 +203,12 @@ operations over 67 TFLOP/s (the H100 SXM's dense float32 peak), and the
 issue rates of the special-function unit (logf, expf, sqrtf and division
 each take one MUFU operation, 16 per SM per clock) and of 32-bit integer
 multiplies (Philox4x32-10: 40 per call, 64 per SM per clock), at the card's
-``clocks.max.sm`` and SM count.  The work depends on the data (where paths
+``clocks.max.sm`` and SM count.  A recorded bar's gathered value (log
+return, offsets, volume) counts one 32-byte sector: against device memory's
+rate once the tables outgrow the 50 MB L2, and only listed
+(``gather_bytes``) while they fit there, since the card's table above gives
+no L2 rate.  Heston counts its second Box-Muller pair and a sqrtf a bar.
+The work depends on the data (where paths
 enter, how long they hold), so it is counted by the plain versions on the
 first 2^22 paths of the timed inputs (the universes' main paths: 2^16 paths
 of each symbol) and scaled to their size.  For the
@@ -529,30 +556,34 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
 
 def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
                        sigma, noise, antithetic, dev, s0: float = 100.0,
-                       market=None) -> dict:
+                       market=None, sampler=None) -> dict:
     """Phase 6's trace for the engine: the plain engine over the bars the
     plain version makes on the CPU (run on the CPU) and over those it makes
     on the card (run on the card).  For every differing path the card run
     equals the kernel's row exactly, the CPU run the plain row, and the two
     runs part at some bar (a decision or a first-fail reason went the other
-    way).  A book symbol's ``market`` = (market uniforms, beta)."""
+    way).  A book symbol's ``market`` = (market uniforms, beta); a
+    non-gbm ``sampler`` (``ops/samplers.Sampler``) builds the bars."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import Sampler
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import engine_knobs
 
     idx = torch.nonzero(differ).flatten()
     if idx.numel() == 0:
         return {"paths": 0}
-    layout = EngineLayout(NUM_BARS, noise is not None)
+    sampler = Sampler() if sampler is None else sampler
+    layout = EngineLayout(NUM_BARS, noise is not None, sampler.kind)
     kw = engine_knobs(**gates)
     runs = []
     for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
         mkw = ({} if market is None
                else dict(market_uniforms=market[0].to(where), beta=market[1]))
         bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
-            src, layout, s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic, **mkw)
+            src, layout, s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic,
+            sampler=sampler, **mkw)
         pick = type(bars)(*(x[idx.to(x.device)] for x in bars))
         runs.append(engine_trace(pick, tie[idx.to(tie.device)],
                                  None if nzs is None else nzs[:, idx.to(nzs.device)],
@@ -604,7 +635,7 @@ def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
 
 def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
                 noise, antithetic, dev, s0: float = 100.0, sigma: float = SIGMA,
-                market=None) -> dict:
+                market=None, sampler=None) -> dict:
     """Show that the paths on which the kernel and the plain version on CPU
     copies differ are flipped decisions, not a kernel fault.
 
@@ -617,17 +648,20 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     entry, direction, level or touch decision went the other way).  Prints
     the first flipped bar of the first path whose counts agree, with the bar's
     close/high/low on both sides in ulps.  A book symbol's ``market`` =
-    (market uniforms, beta)."""
+    (market uniforms, beta); a non-gbm ``sampler`` (``ops/samplers.Sampler``)
+    builds the bars."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import GatedLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import Sampler
 
     idx = torch.nonzero(differ).flatten()
     if idx.numel() == 0:
         return {"paths": 0}
-    layout = GatedLayout(NUM_BARS, noise is not None)
-    kw = dict(s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic)
+    sampler = Sampler() if sampler is None else sampler
+    layout = GatedLayout(NUM_BARS, noise is not None, sampler.kind)
+    kw = dict(s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic, sampler=sampler)
     runs = []
     for src in (u, u.to(dev)):
         mkw = ({} if market is None
@@ -1873,6 +1907,310 @@ def book_phases(dev, card, reset, cli) -> list:
     return out
 
 
+
+# ---- the recorded-bar and Heston samplers of kernels #1, #4 and #8
+SAMPLERS = ("bootstrap", "block_bootstrap", "heston")
+SAMPLER_HIST_BARS = 390 * 252      # a year of regular sessions of 1-minute bars
+SAMPLER_BLOCK_LEN = 10
+SAMPLER_INJECT_PATHS = 1 << 16
+FC_SAMPLER_SOURCE = CSRC + "mc_first_contact_samplers.cu"
+GATED_SAMPLER_SOURCE = CSRC + "mc_gated_samplers.cu"
+ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
+L2_BYTES = 50e6
+
+
+def write_history(path: str, n_bars: int, seed: int = 11) -> None:
+    """A recorded-bar CSV (t,o,h,l,c,v) of ``n_bars`` 1-minute bars in
+    390-bar sessions, from ``seed``: a random walk of the log close with a
+    U-shaped intraday volatility and a gap at each session's open, closes
+    and opens rounded to cents, highs and lows a few cents beyond them,
+    volumes U-shaped and positive."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    minute = np.arange(n_bars) % 390
+    ushape = 1.0 + 0.6 * ((2.0 * minute / 389.0 - 1.0) ** 2 - 1.0 / 3.0)
+    gap = np.where(minute == 0, rng.normal(0.0, 3e-3, n_bars), 0.0)
+    log_c = np.log(100.0) + np.cumsum(gap + rng.normal(0.0, 6e-4, n_bars) * ushape)
+    c = np.round(np.exp(log_c), 2)
+    prev = np.concatenate([[c[0]], c[:-1]])
+    o = np.where(minute == 0, np.round(prev * np.exp(gap), 2), prev)
+    h = np.round(np.maximum(o, c) + np.abs(rng.normal(0.0, 0.03, n_bars)), 2)
+    lo = np.round(np.minimum(o, c) - np.abs(rng.normal(0.0, 0.03, n_bars)), 2)
+    v = np.maximum(np.round(rng.lognormal(np.log(2e4), 0.5, n_bars) * ushape), 1.0)
+    t = 1_700_000_000_000 + 60_000 * np.arange(n_bars)
+    with open(path, "w") as f:
+        f.write("t,o,h,l,c,v\n")
+        f.write("".join(f"{t[i]},{o[i]:.2f},{h[i]:.2f},{lo[i]:.2f},{c[i]:.2f},{v[i]:.0f}\n"
+                        for i in range(n_bars)))
+
+
+def gather_bound(card, bytes_: float, ops: dict, gathers: float, table_bytes: float) -> dict:
+    """``card.bound`` with a recorded bar's gathered values as 32-byte
+    sectors: against device memory's rate when the tables outgrow the L2,
+    listed only while they fit there."""
+    g = 32.0 * gathers
+    b = card.bound(bytes_=bytes_ + table_bytes + (g if table_bytes > L2_BYTES else 0.0), **ops)
+    b["bound_parts"]["gather_bytes"] = g
+    return b
+
+
+def fc_sampler_ops(sampler: str, work, entered: int, scale: float):
+    """(operations, gathered values) of the first-contact sampler kernel (no
+    noise) from the plain version's work counts [Box-Muller pairs, bars
+    walked, bars after contact], scaled by ``scale``."""
+    pairs, walked, post = (float(x) * scale for x in work)
+    entered *= scale
+    if sampler == "heston":
+        ops = fc_ops(work, entered / scale, scale)
+        ops["sfu"] += 2 * pairs + walked          # the shock pair's logf, sqrtf; sig_bar
+        ops["f32"] += 4 * pairs + 8 * walked
+        ops["imul"] += PHILOX_IMULS * 2 * pairs   # the shock pair's two rows
+        return ops, 0.0
+    draws = walked / (SAMPLER_BLOCK_LEN if sampler == "block_bootstrap" else 1)
+    expf = walked + entered + 2 * post              # closes, the entry's open, high/low
+    sfu = expf + entered                            # and reward / risk
+    gathers = walked + (walked - post) + 2 * post   # log return; open before, high/low after
+    return dict(f32=sfu + 10 * walked, sfu=sfu, imul=PHILOX_IMULS * draws), gathers
+
+
+def gated_sampler_ops(sampler: str, n_paths: float, held: float, trades: float):
+    """(operations, gathered values) of the gated sampler kernel (no noise)
+    for ``n_paths`` paths of NUM_BARS bars, ``held`` bars on which a
+    position was open and ``trades`` entries."""
+    bars = n_paths * NUM_BARS
+    if sampler == "heston":
+        ops = gated_ops(n_paths, held, trades)
+        pairs = bars / 2
+        ops["sfu"] += 2 * pairs + bars
+        ops["f32"] += 4 * pairs + 8 * bars
+        ops["imul"] = PHILOX_IMULS * bars * 10 / 8      # 10 rows a double bar
+        return ops, 0.0
+    expf = bars + n_paths + 2 * held                     # closes, bar 0's open, high/low
+    sfu = expf + 2 * trades
+    return (dict(f32=sfu + 30 * bars, sfu=sfu, imul=PHILOX_IMULS * bars / 2),
+            bars + n_paths + 2 * held)
+
+
+def engine_sampler_ops(sampler: str, n_paths: float, counts, scale: float):
+    """(operations, gathered values) of the engine sampler kernel (no
+    noise): ``engine_ops``' floor with the bar made as the sampler makes it
+    (recorded: an expf each for close, high and low, no bridge, no volume
+    model, four gathered values; Heston: a second Box-Muller pair a double
+    bar and a sqrtf a bar, 12 rows a double bar)."""
+    ops = engine_ops(n_paths, counts, scale)
+    bars = n_paths * NUM_BARS
+    if sampler == "heston":
+        ops["sfu"] += bars + bars                         # the shock pair, sig_bar
+        ops["f32"] += 10 * bars
+        ops["imul"] = PHILOX_IMULS * n_paths * math.ceil(12 * NUM_BARS / 2 / 4)
+        return ops, 0.0
+    # no bridge (3 logf + 3 sqrtf a bar less 1 of each for the volume pair),
+    # one expf fewer, no minute-of-day or coupling division
+    ops["sfu"] -= 6 * bars + bars + 2 * bars
+    ops["f32"] -= 6 * bars + bars + 2 * bars + 2 * bars
+    ops["imul"] = PHILOX_IMULS * n_paths * NUM_BARS / 2
+    return ops, 4 * bars
+
+
+def sampler_argv(family: str, sampler: str, csv) -> list:
+    """The main path's ``paths`` arguments under ``sampler`` (``csv`` the
+    history, None for the CLI's default fixture)."""
+    argv = ["paths"] + ({"gated": ["--gated"], "engine": ["--engine"]}.get(family, []))
+    argv += ["--backend", "cuda", "--num-paths", str(MAIN_PATHS), "--num-bars",
+             str(NUM_BARS), "--sigma", str(SIGMA), "--sampler", sampler]
+    if sampler != "heston" and csv is not None:
+        argv += ["--bars-csv", csv]
+    if sampler == "block_bootstrap":
+        argv += ["--block-len", str(SAMPLER_BLOCK_LEN)]
+    return argv
+
+
+def sampler_phases(dev, card, reset, cli) -> list:
+    """Phases 21-23: the three sampler kernels against their plain versions
+    and through the CLI's ``paths [--gated | --engine] --sampler ...``;
+    returns their entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import native
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import (EngineLayout, GatedLayout,
+                                                                 GbmLayout)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import make_sampler
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    params = EngineParams.default()
+    cli_levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    noise = McNoise.make(entry_slip_std=0.01, level_jitter_std=0.02,
+                         stop_slip_std=0.015, target_slip_std=0.015)
+    gate = GateConfig.from_params(params)
+    entries = []
+    tmp = tempfile.TemporaryDirectory()
+    csv = os.path.join(tmp.name, "bars.csv")
+    t0 = time.perf_counter()
+    write_history(csv, SAMPLER_HIST_BARS)
+    cols = native.parse_bars_csv(csv)
+    tables = torch.stack(bootstrap_tables(*(cols[k] for k in "ohlcv")))
+    table_bytes = tables.numel() * 4
+    log(f"[21-23] history: {SAMPLER_HIST_BARS} bars written and parsed in "
+        f"{time.perf_counter() - t0:.3f} s; tables {table_bytes} bytes; opening gaps "
+        f"{int((tables[3] != 0).sum())}, volume {float(cols['v'].min()):.0f}.."
+        f"{float(cols['v'].max()):.0f}")
+
+    def skw(s):
+        return (dict(sampler=s) if s == "heston" else
+                dict(sampler=s, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+
+    def cli_runs(family, s, expect):
+        out = {}
+        with tempfile.TemporaryDirectory() as db:
+            for hist in ((csv, None) if (family, s) == ("first contact", "bootstrap")
+                         else (csv,)):
+                argv = ["--db", os.path.join(db, "smoke.db")] + sampler_argv(family, s, hist)
+                what = "the 390-bar fixture" if hist is None else f"{SAMPLER_HIST_BARS} bars"
+                log(f"  main path: cli {' '.join(argv[2:2 + argv[2:].index('--backend')])} "
+                    f"--backend cuda --sampler {s} at {MAIN_PATHS} paths ({what})")
+                (res,), secs, launches = run_cli(cli, argv, reset, expect)
+                check_paths_output(res)
+                out.setdefault("secs", secs[1:])
+                out.setdefault("launches", launches)
+                out["out"] = res
+        return out
+
+    families = (
+        ("first contact", "21", cuda_mc, FC_SAMPLER_SOURCE, FC_REPLACES, "mc_first_contact_sampler",
+         "mc_reduce_rows"),
+        ("gated", "22", cuda_gated, GATED_SAMPLER_SOURCE, GATED_REPLACES, "mc_gated_sampler",
+         "mc_gated_reduce_rows"),
+        ("engine", "23", cuda_engine, ENGINE_SAMPLER_SOURCE, ENGINE_REPLACES,
+         "mc_engine_sampler", "mc_engine_reduce_rows"))
+    for family, ph, mod, source, replaces, kname, fold in families:
+        lanes = {"first contact": LANES, "gated": GATED_LANES, "engine": ENGINE_LANES}[family]
+        block = lanes if family == "first contact" else 8 * lanes
+        n_blocks = SAMPLER_INJECT_PATHS // block
+        common = dict(num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=lanes)
+        log(f"[{ph}] {family} samplers ({kname}_kernel, {source.split('/')[-1]}): injected "
+            f"uniforms at {SAMPLER_INJECT_PATHS} paths, kernel vs plain on CPU copies"
+            + ("" if family == "first contact" else
+               ", path by path, every differing path traced"))
+
+        def rows_fn(seed, s, n, nz=None, ext=None, per_path=False, levels=cli_levels):
+            kw = dict(common, num_paths=n, noise=nz, antithetic=False, external_uniforms=ext,
+                      device=dev, **skw(s))
+            if family == "first contact":
+                return cuda_mc.first_contact_rows(seed, levels, params, **kw)
+            if family == "gated":
+                return cuda_gated.gated_rows(seed, levels, params, gate, per_path=per_path, **kw)
+            return cuda_engine.engine_rows(seed, levels, params, per_path=per_path, **kw)
+
+        def plain_fn(seed, s, n, nz=None, ext=None, device=dev, levels=cli_levels, **extra):
+            kw = dict(common, num_paths=n, noise=nz, antithetic=False, external_uniforms=ext,
+                      device=device, **skw(s), **extra)
+            if family == "first contact":
+                return cuda_mc.fused_totals_reference(seed, levels, params, **kw)
+            if family == "gated":
+                return cuda_gated.gated_totals_reference(seed, levels, params, gate, **kw)
+            return cuda_engine.engine_totals_reference(seed, levels, params, **kw)
+
+        def layout_rows(s, nz):
+            if family == "first contact":
+                return (GbmLayout(NUM_BARS, nz, s).n_rows, lanes)
+            lay = (GatedLayout if family == "gated" else EngineLayout)(NUM_BARS, nz, s)
+            return (lay.u_rows, 8, lanes)
+
+        err = {s: 0.0 for s in SAMPLERS}
+        for s, nz in [(s, None) for s in SAMPLERS] + [("bootstrap", noise), ("heston", noise)]:
+            case = s + ("+noise" if nz is not None else "")
+            rng = np.random.default_rng(2100 + 10 * int(ph) + len(case))
+            u = torch.from_numpy(rng.uniform(
+                1e-9 if family == "first contact" else 1e-6, 1.0,
+                (n_blocks, *layout_rows(s, nz is not None))).astype(np.float32))
+            n = SAMPLER_INJECT_PATHS
+            if family == "first contact":
+                want = plain_fn(0, s, n, nz, u, device=torch.device("cpu"))
+                got = mod.reduce_rows(*rows_fn(0, s, n, nz, u.to(dev)))
+                torch.cuda.synchronize()
+                err[s] = max(err[s], compare(case, want, got, n))
+                continue
+            want = plain_fn(0, s, n, nz, u, device=torch.device("cpu"), per_path=True)
+            pc, pf, prow = rows_fn(0, s, n, nz, u.to(dev), per_path=True)
+            got = (*mod.reduce_rows(pc, pf), prow)
+            torch.cuda.synchronize()
+            samp = make_sampler(s, tables=skw(s).get("tables"), block_len=SAMPLER_BLOCK_LEN)
+            if family == "gated":
+                trace = (lambda d, u=u, prow=prow, want=want, nz=nz, case=case, samp=samp:
+                         trace_flips(case, u, d, prow.cpu(), want[2].cpu(), cli_levels, params,
+                                     gate, nz, False, dev, sampler=samp))
+            else:
+                trace = (lambda d, u=u, prow=prow, want=want, nz=nz, case=case, samp=samp:
+                         trace_engine_flips(case, u, d, prow.cpu(), want[2].cpu(), cli_levels,
+                                            params, {}, SIGMA, nz, False, dev, sampler=samp))
+            e, _ = compare_lifecycle(case, want, got, n, engine=family == "engine", trace=trace)
+            err[s] = max(err[s], e)
+
+        log(f"[{ph}] {family} samplers, Philox: kernel vs plain on the card at "
+            f"{PHILOX_PATHS} paths (the main path's inputs), kernel alone at {MAIN_PATHS}")
+        for s in SAMPLERS:
+            extra = (dict(work=True) if family in ("first contact", "gated") else {})
+            if family == "gated":
+                extra.update(per_path=True, chunk_blocks=64)
+            if family == "engine":
+                extra.update(per_path=True, chunk_blocks=512)
+            want, plain_ms = timed(lambda: plain_fn(0, s, PHILOX_PATHS, **extra))
+            if family == "first contact":
+                got = mod.reduce_rows(*rows_fn(0, s, PHILOX_PATHS))
+                torch.cuda.synchronize()
+                err[s] = max(err[s], compare(f"{s} philox", want[:2], got, PHILOX_PATHS))
+            else:
+                pc, pf, prow = rows_fn(0, s, PHILOX_PATHS, per_path=True)
+                got = (*mod.reduce_rows(pc, pf), prow)
+                torch.cuda.synchronize()
+                err[s] = max(err[s], compare_lifecycle(f"{s} philox", want, got, PHILOX_PATHS,
+                                                       engine=family == "engine")[0])
+                del prow, got
+            rows = rows_fn(0, s, PHILOX_PATHS)
+            ms = cuda_ms(lambda: rows_fn(0, s, PHILOX_PATHS), 3)
+            rows_fn(0, s, MAIN_PATHS)
+            main_ms = cuda_ms(lambda: rows_fn(0, s, MAIN_PATHS), 1)
+            row_bytes = rows[0].numel() * 8 + rows[1].numel() * 4
+            tb = 0.0 if s == "heston" else table_bytes
+
+            def bound(n):
+                sc = n / PHILOX_PATHS
+                if family == "first contact":
+                    ops, g = fc_sampler_ops(s, want[2].cpu(), int(want[0][1]), sc)
+                elif family == "gated":
+                    ops, g = gated_sampler_ops(s, n, float(want[3]) * sc,
+                                               float(want[0][5]) * sc)
+                else:
+                    ops, g = engine_sampler_ops(s, n, want[0].cpu(), sc)
+                return gather_bound(card, row_bytes, ops, g, tb)
+
+            b, b_main = bound(PHILOX_PATHS), bound(MAIN_PATHS)
+            log(f"  {s}: kernel {ms:.3f} ms at {PHILOX_PATHS} ({PHILOX_PATHS / ms * 1e3:.6e} "
+                f"paths/s), plain on the card {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+                f"{b['bound_parts']}; alone at {MAIN_PATHS}: {main_ms:.3f} ms "
+                f"({MAIN_PATHS / main_ms * 1e3:.6e} paths/s), bound {b_main['bound_ms']:.3f} ms")
+            run = cli_runs(family, s, {kname: 4, fold: 4})
+            out = run["out"]
+            if family != "first contact" and not out["trades"] >= out["entered"] > 0:
+                raise AssertionError(f"trades < entered: {out}")
+            if family == "engine" and s != "heston" and not sum(
+                    out["skips"].get(k, 0) for k in ("CONTRA_VOL_LONG", "CONTRA_VOL_SHORT")) > 0:
+                raise AssertionError(f"the recorded volumes moved no volume veto: {out}")
+            entries.append(entry(f"{kname}/{s}", source, replaces, run["launches"][kname],
+                                 err[s], ms, plain_ms, b, paths=PHILOX_PATHS,
+                                 main_path_ms=main_ms, main_path_bound_ms=b_main["bound_ms"],
+                                 cli_s=run["secs"], sampler=s))
+    tmp.cleanup()
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1918,7 +2256,8 @@ def main() -> int:
     # ---- phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
     build.build_all(["mc_first_contact", "mc_gated", "mc_engine", "mc_gated_corr",
-                     "mc_engine_corr"])
+                     "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
+                     "mc_engine_samplers"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -2655,6 +2994,7 @@ def main() -> int:
 
     universe = universe_phases(dev, card, reset_all)
     books = book_phases(dev, card, reset_all, cli)
+    samplers = sampler_phases(dev, card, reset_all, cli)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -2700,7 +3040,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books}))
+    ] + universe + books + samplers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,12 @@
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/host/cli.py`` for the
 subcommands the port carries so far:
 
-  paths   — generated-path Monte Carlo at scale (gbm sampler): first-contact
-            replay, with ``--gated`` the engine-gated multi-trade lifecycle,
-            with ``--engine`` the full 12-gate engine
+  paths   — generated-path Monte Carlo at scale: first-contact replay, with
+            ``--gated`` the engine-gated multi-trade lifecycle, with
+            ``--engine`` the full 12-gate engine; ``--sampler`` gbm, or
+            bootstrap / block_bootstrap (resampled recorded bars of
+            ``--bars-csv``, default a synthetic 390-bar fixture, in runs of
+            ``--block-len``) or heston (``--heston-*``)
   sweep   — the same three over a grid of settings (stop x tp, with
             ``--gated`` x touch limit x Q_MIN_PROB, with ``--engine`` x
             level-jitter std) under common random numbers: every row
@@ -30,6 +33,8 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --engine --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda \
+        --sampler block_bootstrap --bars-csv bars.csv --block-len 10
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --gated --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --backend cuda
 """
@@ -74,15 +79,76 @@ def _levels_and_params(conn, args):
 
 
 def _not_ported(args) -> None:
+    sweep = args.cmd == "sweep"
     for flag, on in (("--exact-tail", getattr(args, "exact_tail", False)),
                      ("--ckpt-dir", getattr(args, "ckpt_dir", None) is not None),
-                     ("--bars-csv", getattr(args, "bars_csv", None) is not None),
-                     ("--block-len", getattr(args, "block_len", None) is not None),
-                     (f"--sampler {args.sampler}", args.sampler != "gbm")):
+                     ("sweep --bars-csv", sweep and args.bars_csv is not None),
+                     ("sweep --block-len", sweep and args.block_len is not None),
+                     (f"sweep --sampler {args.sampler}", sweep and args.sampler != "gbm")):
         if on:
             raise SystemExit(
-                f"{flag} is not ported yet: the port runs the gbm first-contact, "
-                "gated and engine paths (use qmmx_monolithic_monte_carlo_tpu)")
+                f"{flag} is not ported yet: the port runs the first-contact, gated and "
+                "engine paths under every sampler and their sweeps under gbm (use "
+                "qmmx_monolithic_monte_carlo_tpu)")
+
+
+def _load_bars(args) -> dict:
+    """The recorded bars of ``--bars-csv`` as {t, o, h, l, c, v} arrays, or
+    the JAX CLI's synthetic fixture (``host/cli.py:41-70``): ``num_bars``
+    cents-rounded closes from a seeded random walk, highs and lows around
+    them, opens at the previous close, zero volumes."""
+    import numpy as np
+
+    if getattr(args, "bars_csv", None):
+        from ..io import native
+
+        return native.parse_bars_csv(args.bars_csv)
+    rng = np.random.default_rng(getattr(args, "seed", 0))
+    n = getattr(args, "num_bars", 240)
+    s0 = getattr(args, "s0", 100.0)
+    c = np.round(s0 + np.cumsum(rng.normal(0, 0.04, n)), 2)
+    h = np.round(c + np.abs(rng.normal(0, 0.05, n)), 2)
+    lo = np.round(c - np.abs(rng.normal(0, 0.05, n)), 2)
+    o = np.concatenate([[c[0]], c[:-1]])
+    return {"t": np.arange(n, dtype=np.int64) * 60_000, "o": o, "h": h, "l": lo, "c": c,
+            "v": np.zeros(n)}
+
+
+def _hist_paths_bars(args):
+    """The recorded o/h/l/c/v history (a PathBars of 1-D float32 tensors) of
+    the bootstrap samplers: ``--bars-csv`` if given, else the synthetic
+    fixture at 390 bars or ``--num-bars``, whichever is more (the horizon is
+    not the history's length), as the JAX CLI's ``_hist_paths_bars``."""
+    import types
+
+    import torch
+
+    from ..ops.pathgen import PathBars
+
+    a = types.SimpleNamespace(**vars(args))
+    if not getattr(args, "bars_csv", None):
+        a.num_bars = max(390, getattr(args, "num_bars", 0))
+    cols = _load_bars(a)
+    return PathBars(*(torch.as_tensor(cols[k], dtype=torch.float32) for k in "ohlcv"))
+
+
+def _heston_dict(args) -> dict:
+    return {k: float(getattr(args, f"heston_{k}")) for k in _HESTON
+            if hasattr(args, f"heston_{k}")}
+
+
+def _sampler_kw(args) -> dict:
+    """The sampler and what it reads, as the entries take them."""
+    sampler = getattr(args, "sampler", "gbm")
+    if sampler != "gbm" and args.antithetic:
+        raise SystemExit("--antithetic pairs gbm normals only (the kernels refuse "
+                         f"it under --sampler {sampler})")
+    kw = {"sampler": sampler}
+    if sampler in ("bootstrap", "block_bootstrap"):
+        kw.update(hist_bars=_hist_paths_bars(args), block_len=args.block_len)
+    elif sampler == "heston":
+        kw["heston"] = _heston_dict(args)
+    return kw
 
 
 def _fits(args, rows) -> str | None:
@@ -96,7 +162,9 @@ def _fits(args, rows) -> str | None:
         return f"at most {MAX_GRID_ROWS} grid rows"
     if len(rows) > cuda_mc.MAX_LEVELS:
         return f"at most {cuda_mc.MAX_LEVELS} levels"
-    if args.num_bars <= 0 or args.num_bars % 2:
+    odd_ok = not (args.gated or args.engine) and getattr(args, "sampler", "gbm") in (
+        "bootstrap", "block_bootstrap")     # one index uniform a bar, no pairs
+    if args.num_bars <= 0 or (args.num_bars % 2 and not odd_ok):
         return "an even --num-bars"
     if args.engine:
         block = cuda_engine.ENGINE_SUB * cuda_engine.ENGINE_LANES
@@ -152,7 +220,7 @@ def cmd_paths(args):
         noise = McNoise.make(*stds)
     common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
                   sigma=args.sigma, noise=noise, antithetic=args.antithetic,
-                  device=args.device)
+                  device=args.device, **_sampler_kw(args))
     if backend == "cuda":
         from ..ops.cuda_mc import MAX_LEVELS
 
@@ -436,7 +504,19 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--qmin", type=float, default=None)
     pa.add_argument("--sampler",
                     choices=["gbm", "bootstrap", "block_bootstrap", "heston"],
-                    default="gbm", help="path sampler (only gbm is ported)")
+                    default="gbm",
+                    help="path sampler: gbm generates; bootstrap/block_bootstrap "
+                         "resample RECORDED bars (--bars-csv, real volumes; "
+                         "block_ keeps contiguous runs); heston generates "
+                         "stochastic-volatility bars")
+    pa.add_argument("--block-len", type=int, default=10,
+                    help="block_bootstrap: contiguous run length")
+    for k, dv in (("v0", 0.04), ("kappa", 3.0), ("theta", 0.04), ("xi", 0.6), ("rho", -0.7)):
+        pa.add_argument(f"--heston-{k}", type=float, default=dv,
+                        help=f"heston sampler: {k} (default {dv})")
+    pa.add_argument("--bars-csv", default=None,
+                    help="recorded t,o,h,l,c[,v] history for the bootstrap samplers "
+                         "(default: a synthetic 390-bar fixture)")
     _device_flags(pa)
     pa.add_argument("--gated", action="store_true",
                     help="run the engine-gated multi-trade lifecycle per path "

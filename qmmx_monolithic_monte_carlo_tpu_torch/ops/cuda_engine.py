@@ -2,17 +2,19 @@
 
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1506-1806``
 (kernel #8, ``_engine_kernel`` with ``_engine_lifecycle_loop`` and
-``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), gbm
-sampler with execution noise and antithetic lanes, up to 8 levels and an even
-horizon of at most 61 bars.  The bootstrap, block-bootstrap and Heston
-branches, 9-64 levels, odd horizons, longer horizons (the windowed guard)
-and the closed-trade harvest are not ported yet; ``sim/enginepath`` runs the
-same engine at any horizon.
+``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), with
+execution noise, antithetic lanes (gbm) and all four samplers, up to 8 levels
+and an even horizon of at most 61 bars.  9-64 levels, odd horizons, longer
+horizons (the windowed guard), the samplers of the sweeps, universes and
+books, and the closed-trade harvest are not ported yet; ``sim/enginepath``
+runs the same engine at any horizon.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
   thread per path, one partial row per CTA; pass 2: a fixed-order fold of
-  the rows) or raises.  For the CPU it runs the plain version.
+  the rows), or for the bootstrap, block-bootstrap and Heston samplers
+  ``ops/csrc/mc_engine_samplers.cu`` (pass 1: ``mc_engine_sampler_kernel``;
+  the same fold), or raises.  For the CPU it runs the plain version.
 * ``engine_totals_reference`` -- the plain PyTorch version: the TPU kernel's
   double-bar streaming loop over (block, 8, lanes) tensors, driving
   ``sim.enginepath.EngineLifecycle.step``; optionally per path.
@@ -73,12 +75,13 @@ from .cuda_gated import (box_muller, gated_bar, lifecycle_rows, lifecycle_totals
 from .draws import (ENGINE_STREAM, ENGINE_SUB, MARKET_STREAM, EngineLayout, MarketLayout,
                     engine_uniforms)
 from .draws import market_uniforms as draws_market
-from .kernel_args import (BLOCK, MAX_LEVELS, book_pairs, check_blocks, check_uniforms, consts,
-                          device_rows, f32, fold_rows, grid_row, grid_size, knob_columns,
-                          knob_rows, launch_pointer, repeat_rows, sg_columns, sg_rows,
-                          symbol_columns, symbol_grid, symbol_rows, symbol_uniforms,
-                          tensor_leaves)
+from .kernel_args import (BLOCK, MAX_LEVELS, SamplerArgs, book_pairs, check_blocks,
+                          check_uniforms, consts, device_rows, f32, fold_rows, grid_row,
+                          grid_size, knob_columns, knob_rows, launch_pointer, repeat_rows,
+                          sampler_args, sg_columns, sg_rows, symbol_columns, symbol_grid,
+                          symbol_rows, symbol_uniforms, tensor_leaves)
 from .regular import GUARD_WINDOW_BARS
+from .samplers import Sampler, StreamBars, make_sampler, sampler_steps
 
 ENGINE_LANES = 256       # logical lanes per block row (one block = 8 x lanes paths)
 TAP_SLOTS = 3            # the kernel's edge-tap stack depth == fatigue_hits
@@ -92,7 +95,8 @@ _SOURCE = "mc_engine"
 _F32 = torch.float32
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
-LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sweep": 0,
+LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
+            "mc_engine_sweep": 0,
             "mc_engine_sweep_reduce_rows": 0, "mc_engine_universe": 0,
             "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
             "mc_engine_universe_sweep_reduce_rows": 0, "mc_engine_corr": 0,
@@ -133,12 +137,14 @@ class _EngineArgs(ctypes.Structure):
 
 
 def _check(seed, levels, kw: dict, *, num_paths, num_bars, lanes, noise,
-           antithetic, external_uniforms) -> EngineLayout:
+           antithetic, external_uniforms, sampler: Sampler = Sampler()) -> EngineLayout:
     """The checks of ``mc_paths_pallas_engine`` (pallas_engine.py:1678-1698)
     and this kernel's envelope."""
     check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=ENGINE_SUB,
                  what="engine")
-    layout = EngineLayout(num_bars, noise is not None)
+    if antithetic and sampler.kind != "gbm":
+        raise ValueError("kernel antithetic pairs gbm normals only")
+    layout = EngineLayout(num_bars, noise is not None, sampler.kind)
     if num_bars > GUARD_WINDOW_BARS:
         raise ValueError(f"the engine kernel takes num_bars <= {GUARD_WINDOW_BARS} "
                          "(the running guard box); longer horizons are not "
@@ -188,14 +194,24 @@ class _VolumeConsts:
         return torch.clamp(v, min=self.floor)
 
 
-def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, market=None):
+def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, market=None,
+          sampler: Sampler = Sampler()):
     """Per bar, in order: (t, log open, high, low, close, volume, tie coin,
     noise normals or None), each [nb, 8, lanes], as
     ``_engine_lifecycle_loop`` draws and builds them from uniforms u
     f32[nb, u_rows, 8, lanes].  A book symbol's ``market`` = (market
     normals, beta) (``ops/cuda_gated.market_normals``) mixes the market into
-    the price normal before the volume model sees it."""
+    the price normal before the volume model sees it.  A bootstrap
+    ``sampler``'s bars bring their recorded volumes; Heston's go through the
+    volume model as gbm's do."""
     drift, sig_dt, log_s0 = cs
+    if sampler.kind != "gbm":
+        stream = StreamBars(sampler, log_s0, u[:, 0].shape, u.device)
+        for t, x, zq, zv, bridge_u, tie, nz in sampler_steps(u, layout):
+            log_open, _, high, low, c, vol = stream.bar(t, x, zq, bridge_u)
+            yield (t, log_open, high, low, c, vc.volume(t, x, zv) if vol is None else vol,
+                   tie, nz)
+        return
     nb, _, sub, lanes = u.shape
     log_s = torch.full((nb, sub, lanes), log_s0, dtype=_F32, device=u.device)
     for t2 in range(layout.num_bars // 2):
@@ -226,7 +242,8 @@ def engine_bars_from_uniforms(u: torch.Tensor, layout: EngineLayout, *,
                               s0=100.0, mu: float = 0.0, sigma: float = 0.15,
                               dt: float = 1.0 / (390.0 * 252.0),
                               antithetic: bool = False, volume_model=None,
-                              market_uniforms=None, beta: float = 0.0):
+                              market_uniforms=None, beta: float = 0.0,
+                              sampler: Sampler = Sampler()):
     """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
     lanes]: (PathBars f32[P, W] with volumes, tie f32[P, W], noise normals
     f32[4, P, W] or None), path p = block * 8 * lanes + s * lanes + j.  For
@@ -239,7 +256,7 @@ def engine_bars_from_uniforms(u: torch.Tensor, layout: EngineLayout, *,
     market = (None if market_uniforms is None
               else (market_normals(market_uniforms, antithetic), f32(beta)))
     for _, log_open, high, low, c, v, tie, nz in _bars(
-            u, layout, antithetic, consts(s0, mu, sigma, dt), vc, market):
+            u, layout, antithetic, consts(s0, mu, sigma, dt), vc, market, sampler):
         for k, x in (("open", torch.exp(log_open)), ("high", high), ("low", low),
                      ("close", c), ("volume", v), ("tie", tie)):
             cols[k].append(x)
@@ -266,14 +283,15 @@ def path_rows(out, path_skips: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
-                  antithetic, per_path: bool, market=None, book=None, weight=None):
+                  antithetic, per_path: bool, market=None, book=None, weight=None,
+                  sampler: Sampler = Sampler()):
     """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
     8, lanes]: the TPU kernel's block computation with the engine of
     ``sim.enginepath``, binned as ``_engine_accumulate`` bins.  A book
     symbol (``market`` as in ``_bars``) adds its post-bar equity, times
     ``weight``, into the ``book`` (``sim/book.BookCurve``) after every bar."""
     life, path_skips = None, 0
-    for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc, market):
+    for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc, market, sampler):
         if life is None:
             life = EngineLifecycle(torch.exp(log_open).reshape(-1), levels, params,
                                    noise=noise, **kw)
@@ -312,17 +330,22 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
                             sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                             lanes: int = ENGINE_LANES, external_uniforms=None,
                             device=None, chunk_blocks: int = 16,
-                            per_path: bool = False, symbol: int = 0):
+                            per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
+                            hist_bars=None, tables=None, block_len: int = 10,
+                            heston=None):
     """The plain version's (int64 counts, float64 floats) totals, computed
     on ``device`` (default: that of ``external_uniforms``, else the CUDA
     device) in chunks of ``chunk_blocks`` blocks, Philox draws keyed as
-    universe symbol ``symbol``; then, when ``per_path``, the f32[P,
+    universe symbol ``symbol``, ``sampler`` and its inputs as in
+    ``mc_paths_engine_fused``; then, when ``per_path``, the f32[P,
     PATH_COLS] per-path rows of ``path_rows``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     levels = levels.to(device)
     cs = consts(s0, mu, sigma, dt)
@@ -337,7 +360,7 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
             u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
                                 symbol=symbol, device=device)
         *part, part_rows = _chunk_engine(u, layout, levels, params, kw, noise, cs,
-                                         vc, antithetic, per_path)
+                                         vc, antithetic, per_path, sampler=samp)
         tot = merge_totals(tot, part)
         if per_path:
             rows.append(part_rows)
@@ -429,6 +452,28 @@ def _corr_library() -> ctypes.CDLL:
         lib.qmmx_mc_engine_corr.restype = ci
         _BOUND.add(id(lib))
     return lib
+
+
+def _sampler_library() -> ctypes.CDLL:
+    """The sampler kernels' library (``ops/csrc/mc_engine_samplers.cu``, its
+    own build of ``mc_engine.cuh``), built at first use, with its C signature
+    set; the engine library's struct-layout check first."""
+    _library()
+    lib = build.load(_SOURCE + "_samplers")
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_engine_sampler_args_size.argtypes = []
+        lib.qmmx_engine_sampler_args_size.restype = ci
+        lib.qmmx_mc_engine_sampler.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_sampler.restype = ci
+        if lib.qmmx_engine_sampler_args_size() != ctypes.sizeof(SamplerArgs):
+            raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                               "kernel_args.SamplerArgs")
+        _BOUND.add(id(lib))
+    return lib
+
+
+SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -535,24 +580,56 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
-                per_path: bool = False, symbol: int = 0):
-    """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
-    [grid, 151] count rows and f32 [grid, 6] float rows, one row per CTA,
-    plus the f32[P, PATH_COLS] per-path rows of ``path_rows`` when
-    ``per_path``; Philox keyed as universe symbol ``symbol``."""
+                per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
+                hist_bars=None, tables=None, block_len: int = 10, heston=None):
+    """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
+    the other samplers ``mc_engine_sampler_kernel``): int64 [grid, 151] count
+    rows and f32 [grid, 6] float rows, one row per CTA, plus the f32[P,
+    PATH_COLS] per-path rows of ``path_rows`` when ``per_path``; Philox keyed
+    as universe symbol ``symbol``; ``sampler`` and its inputs as in
+    ``mc_paths_engine_fused``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "engine_rows")
     args = _pack_args(seed, levels, params, kw, layout, n=1, num_paths=num_paths, s0=s0,
                       sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=antithetic, volume_model=volume_model, symbols=[symbol])
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
+                               ext_ptr=ext_ptr, device=device, per_path=per_path)
     out = _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
                   device=device, per_path=per_path, what="mc_engine")
     return tuple(x[0] for x in out)
+
+
+def _sampler_launch(args, sampler: Sampler, max_levels: int, num_bars: int, *,
+                    num_paths: int, ext_ptr, device: torch.device, per_path: bool):
+    """One launch of ``mc_engine_sampler_kernel`` for the argument struct
+    ``args`` under ``sampler``, counted in ``LAUNCHES["mc_engine_sampler"]``:
+    int64 [grid, 151] and f32 [grid, 6] partial rows, plus f32[P, PATH_COLS]
+    per-path rows when ``per_path``."""
+    args_dev = device_rows(args, device)
+    samp_dev, _tables = sampler_args(sampler, device)
+    grid = grid_size(num_paths)
+    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((grid, ROW_FLOATS), dtype=_F32, device=device)
+    path_rows = (torch.empty((num_paths, PATH_COLS), dtype=_F32, device=device)
+                 if per_path else None)
+    rc = _sampler_library().qmmx_mc_engine_sampler(
+        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], max_levels,
+        num_bars, ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
+        path_rows.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mc_engine_sampler")
+    LAUNCHES["mc_engine_sampler"] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
 
 
 def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=None,
@@ -605,13 +682,18 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
                           num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
                           sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                           lanes: int = ENGINE_LANES, external_uniforms=None,
-                          device=None, symbol: int = 0):
-    """Fused full-engine MC, the counterpart of ``mc_paths_pallas_engine``
-    (gbm): returns (PathStats, int64[16] skip table ordered as
+                          device=None, symbol: int = 0, sampler: str = "gbm",
+                          hist_bars=None, tables=None, block_len: int = 10, heston=None):
+    """Fused full-engine MC, the counterpart of ``mc_paths_pallas_engine``:
+    returns (PathStats, int64[16] skip table ordered as
     ``sim.enginepath.SKIP_REASONS``, int64 escalations), the contract of
     ``sim.enginepath.mc_paths_engine``, with McNoise per-entry execution
-    noise and antithetic lane pairs; ``symbol`` keys the draws as universe
-    symbol ``symbol`` (0: the single run).
+    noise and antithetic lane pairs (gbm); ``symbol`` keys the draws as
+    universe symbol ``symbol`` (0: the single run).  ``sampler``,
+    ``hist_bars``, ``tables``, ``block_len`` and ``heston`` as in
+    ``ops/cuda_mc.mc_paths_fused``: a recorded bar brings its recorded
+    volume to the volume gates; injected uniforms then follow
+    ``ops/draws.EngineLayout``'s layout for the sampler.
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
@@ -623,10 +705,13 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
               volume_model=volume_model, noise=noise, antithetic=antithetic,
               num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
               dt=dt, lanes=lanes, external_uniforms=external_uniforms, symbol=symbol)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
+    kw.update(sampler=sampler, tables=samp.tables, block_len=block_len, heston=heston)
     _check(seed, levels, engine_knobs(policy, ml_model, touch_params, guard_params,
                                     policy_gate_disabled, escalation, bar0_minute),
            num_paths=num_paths, num_bars=num_bars, lanes=lanes, noise=noise,
-           antithetic=antithetic, external_uniforms=external_uniforms)
+           antithetic=antithetic, external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         return stats_from_engine_totals(*engine_totals_reference(

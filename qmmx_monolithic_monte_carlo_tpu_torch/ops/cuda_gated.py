@@ -3,13 +3,14 @@
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067-1565``
 and ``:1825-1971`` (kernel #4, ``_gated_kernel`` with ``_gated_lifecycle_loop``
 and ``_gated_accumulate``, entry ``mc_paths_pallas_gated`` ``:2381-2390``),
-gbm sampler only; the bootstrap, block-bootstrap and Heston branches are not
-ported yet.
+with all four samplers; the sweeps, universes and books run gbm only.
 
 * ``mc_paths_gated_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_gated.cu`` (pass 1: the sweep kernel at one grid row, one
   thread per path, one partial row per CTA; pass 2: a fixed-order fold of
-  the rows) or raises.  For the CPU it runs the plain version.
+  the rows), or for the bootstrap, block-bootstrap and Heston samplers
+  ``ops/csrc/mc_gated_samplers.cu`` (pass 1: ``mc_gated_sampler_kernel``;
+  the same fold), or raises.  For the CPU it runs the plain version.
 * ``gated_totals_reference`` -- the plain PyTorch version: the TPU kernel's
   double-bar streaming loop over (block, 8, lanes) tensors, driving the
   ``sim.gatedpath.Lifecycle`` state machine; optionally per path.
@@ -57,8 +58,10 @@ from .draws import (GATED_STREAM, GATED_SUB, MARKET_STREAM, GatedLayout, MarketL
 from .draws import market_uniforms as draws_market
 from .kernel_args import (BLOCK, MAX_LEVELS, book_pairs, check_blocks, check_uniforms, consts,
                           device_rows, f32, fold_rows, grid_columns, grid_len, grid_row,
-                          grid_rows, grid_size, knob_columns, launch_pointer, symbol_columns,
-                          symbol_rows, symbol_uniforms)
+                          grid_rows, grid_size, knob_columns, launch_pointer, SamplerArgs,
+                          sampler_args,
+                          symbol_columns, symbol_rows, symbol_uniforms)
+from .samplers import Sampler, StreamBars, box_muller, make_sampler, sampler_steps
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -69,6 +72,8 @@ PATH_COLS = 6            # per-path output: equity, trades, wins, losses, open, 
 LIFE_BIN_SCALE = f32(HIST_BINS / (LIFE_HIST_HI - LIFE_HIST_LO))
 _BIG = 3.4e38
 _SOURCE = "mc_gated"
+_SAMPLER_SOURCE = "mc_gated_samplers"
+SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
 MAX_CURVE_SHARED_BYTES = 160 * 1024  # the book's curves in shared memory (W x BLOCK
                                      # floats, 40 KB at W = 40), beside its 227 KB less the rest
 
@@ -76,7 +81,7 @@ MAX_CURVE_SHARED_BYTES = 160 * 1024  # the book's curves in shared memory (W x B
 LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
             "mc_gated_sweep_reduce_rows": 0, "mc_gated_universe": 0,
             "mc_gated_universe_reduce_rows": 0, "mc_gated_corr": 0,
-            "mc_gated_corr_reduce_rows": 0}
+            "mc_gated_corr_reduce_rows": 0, "mc_gated_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -108,11 +113,13 @@ class _GatedArgs(ctypes.Structure):
 
 
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
-           external_uniforms) -> GatedLayout:
+           external_uniforms, sampler: Sampler = Sampler()) -> GatedLayout:
     """The checks of ``_mc_paths_pallas_gated_jit`` (pallas_mc.py:1882-1899)."""
     check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=GATED_SUB,
                  what="gated")
-    layout = GatedLayout(num_bars, noise is not None)
+    if antithetic and sampler.kind != "gbm":
+        raise ValueError("kernel antithetic pairs gbm normals only")
+    layout = GatedLayout(num_bars, noise is not None, sampler.kind)
     check_uniforms(external_uniforms,
                    (num_paths // (GATED_SUB * lanes), layout.u_rows, GATED_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
@@ -122,13 +129,6 @@ def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
 # --------------------------------------------------------------------------
 # the plain PyTorch version
 # --------------------------------------------------------------------------
-
-def box_muller(u1, u2):
-    """(r cos a, r sin a) of radius draw ``u1`` and angle draw ``u2``."""
-    radius = torch.sqrt(-2.0 * torch.log(u1))
-    angle = prng.TWO_PI * u2
-    return radius * torch.cos(angle), radius * torch.sin(angle)
-
 
 def gated_bar(log_s, z, u3, u4, drift: float, sig_dt: float):
     """One streamed GBM bar (pallas_mc.py:1376-1384): (log_close, close,
@@ -148,30 +148,28 @@ def gated_bars_from_uniforms(u: torch.Tensor, layout: GatedLayout, *, s0=100.0,
                              mu: float = 0.0, sigma: float = 0.15,
                              dt: float = 1.0 / (390.0 * 252.0),
                              antithetic: bool = False, market_uniforms=None,
-                             beta: float = 0.0):
+                             beta: float = 0.0, sampler: Sampler = Sampler()):
     """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
     lanes]: (PathBars f32[P, W], tie f32[P, W], noise normals f32[4, P, W] or
     None), path p = block * 8 * lanes + s * lanes + j.  For replaying them
     through ``sim.gatedpath.gated_path_replay``.  A book symbol's bars mix
     the market normals of ``market_uniforms`` f32[nb, W, 8, lanes] with
-    loading ``beta`` into its own."""
+    loading ``beta`` into its own.  A bootstrap ``sampler``'s opens are the
+    recorded ones (bar 0's is the replay's first previous close)."""
     from .pathgen import PathBars
 
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
     nb, _, sub, lanes = u.shape
-    log_s = torch.full((nb, sub, lanes), log_s0, dtype=torch.float32,
-                       device=u.device)
     cols = {k: [] for k in ("open", "high", "low", "close", "tie", "nz")}
     market = (None if market_uniforms is None
               else (market_normals(market_uniforms, antithetic), f32(beta)))
-    for _, _, z, (u3, u4, tie), nz in _steps(u, layout, antithetic, market):
-        log_close, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
-        cols["open"].append(torch.exp(log_s))
+    for _, (opens, high, low, c), tie, nz in _gated_bars(
+            u, layout, antithetic, market, (drift, sig_dt, log_s0), sampler):
+        cols["open"].append(opens)
         for k, v in (("high", high), ("low", low), ("close", c), ("tie", tie)):
             cols[k].append(v)
         if nz is not None:
             cols["nz"].append(torch.stack(nz))
-        log_s = log_close
 
     def flat(rows):
         return torch.stack(rows, dim=-1).reshape(nb * sub * lanes, -1)
@@ -228,6 +226,26 @@ def _steps(u, layout: GatedLayout, antithetic: bool, market=None):
                    tuple(draw(2 + 3 * half + i) for i in range(3)), nz)
 
 
+def _gated_bars(u, layout: GatedLayout, antithetic: bool, market, cs,
+                sampler: Sampler = Sampler()):
+    """Per bar, in order: (t, (open, high, low, close), tie coin, noise
+    normals or None), each [nb, 8, lanes], as ``_gated_lifecycle_loop`` draws
+    and builds them from uniforms u f32[nb, u_rows, 8, lanes]; bar 0's open
+    is the lifecycle's first previous close (a recorded bar's: its gap)."""
+    drift, sig_dt, log_s0 = cs
+    if sampler.kind != "gbm":
+        stream = StreamBars(sampler, log_s0, u[:, 0].shape, u.device)
+        for t, x, zq, _zv, bridge_u, tie, nz in sampler_steps(u, layout):
+            _, opens, high, low, c, _vol = stream.bar(t, x, zq, bridge_u)
+            yield t, (opens, high, low, c), tie, nz
+        return
+    log_s = torch.full(u[:, 0].shape, log_s0, dtype=torch.float32, device=u.device)
+    for t2, half, z, (u3, u4, tie), nz in _steps(u, layout, antithetic, market):
+        opens = torch.exp(log_s)
+        log_s, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
+        yield 2 * t2 + half, (opens, high, low, c), tie, nz
+
+
 def lifecycle_rows(out) -> torch.Tensor:
     """f32[P, 6] per-path rows of a lifecycle outcome: equity, trades, wins,
     losses, open, dd."""
@@ -236,27 +254,24 @@ def lifecycle_rows(out) -> torch.Tensor:
 
 
 def _chunk_gated(u, layout: GatedLayout, levels, params, gate, noise, consts,
-                 antithetic, per_path: bool, market=None, book=None, weight=None):
+                 antithetic, per_path: bool, market=None, book=None, weight=None,
+                 sampler: Sampler = Sampler()):
     """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
     8, lanes]: the TPU kernel's block computation with the lifecycle of
     ``sim.gatedpath``, binned as ``_gated_accumulate`` bins.  A book symbol
     (``market`` as in ``_steps``) adds its post-bar equity, times
     ``weight``, into the ``book`` (``sim/book.BookCurve``) after every bar."""
-    nb, _, sub, lanes = u.shape
-    dev = u.device
-    drift, sig_dt, log_s0 = consts
-    log_s = torch.full((nb, sub, lanes), log_s0, dtype=torch.float32, device=dev)
-    life = Lifecycle(torch.exp(log_s).reshape(-1), levels, params, gate,
-                     noise=noise)
-    held = torch.zeros((), dtype=torch.int64, device=dev)
-    for t2, half, z, (u3, u4, tie), nz in _steps(u, layout, antithetic, market):
+    life = None
+    held = torch.zeros((), dtype=torch.int64, device=u.device)
+    for t, (opens, high, low, c), tie, nz in _gated_bars(
+            u, layout, antithetic, market, consts, sampler):
+        if life is None:
+            life = Lifecycle(opens.reshape(-1), levels, params, gate, noise=noise)
         held = held + (life.side != 0).sum()   # bars that evaluate high/low
-        log_s, c, high, low = gated_bar(log_s, z, u3, u4, drift, sig_dt)
-        life.step(2 * t2 + half, high.reshape(-1), low.reshape(-1),
-                  c.reshape(-1), tie.reshape(-1),
+        life.step(t, high.reshape(-1), low.reshape(-1), c.reshape(-1), tie.reshape(-1),
                   None if nz is None else tuple(x.reshape(-1) for x in nz))
         if book is not None:
-            book.add_bar(2 * t2 + half, weight, life.equity)
+            book.add_bar(t, weight, life.equity)
     out = life.outcome()
     if book is not None:
         book.add_symbol(out)
@@ -331,17 +346,22 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
                            lanes: int = GATED_LANES, noise=None,
                            antithetic: bool = False, external_uniforms=None,
                            device=None, chunk_blocks: int = 16,
-                           per_path: bool = False, work: bool = False, symbol: int = 0):
+                           per_path: bool = False, work: bool = False, symbol: int = 0,
+                           sampler: str = "gbm", hist_bars=None, tables=None,
+                           block_len: int = 10, heston=None):
     """The plain version's (int64 counts, float64 floats) totals, computed
     on ``device`` (default: that of ``external_uniforms``, else the CUDA
     device) in chunks of ``chunk_blocks`` blocks, Philox draws keyed as
-    universe symbol ``symbol``; then the f32[P, 6] per-path
+    universe symbol ``symbol``, ``sampler`` and its inputs as in
+    ``mc_paths_gated_fused``; then the f32[P, 6] per-path
     rows (equity, trades, wins, losses, open, dd) when ``per_path``; then,
     when ``work``, the bars on which a path held a position (where the kernel
     evaluates the bridge high/low), for bounding the kernel's time."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     gate = GateConfig.from_params(params) if gate is None else gate
     cs = consts(s0, mu, sigma, dt)
@@ -355,7 +375,7 @@ def gated_totals_reference(seed, levels: Levels, params, gate=None, *,
             u = gated_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, symbol=symbol, device=device)
         counts, floats, part_held, part_rows = _chunk_gated(
-            u, layout, levels, params, gate, noise, cs, antithetic, per_path)
+            u, layout, levels, params, gate, noise, cs, antithetic, per_path, sampler=samp)
         tot = merge_totals(tot, (counts, floats))
         held = held + part_held
         if per_path:
@@ -583,6 +603,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _sampler_library() -> ctypes.CDLL:
+    """The sampler kernels' library (``ops/csrc/mc_gated_samplers.cu``, its
+    own build of ``mc_gated.cuh``), built at first use, with its C signature
+    set; the gated library's struct-layout check first."""
+    _library()
+    lib = build.load(_SAMPLER_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_gated_sampler_args_size.argtypes = []
+        lib.qmmx_gated_sampler_args_size.restype = ci
+        lib.qmmx_mc_gated_sampler.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_gated_sampler.restype = ci
+        if lib.qmmx_gated_sampler_args_size() != ctypes.sizeof(SamplerArgs):
+            raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                               "kernel_args.SamplerArgs")
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _corr_library() -> ctypes.CDLL:
     """The book kernel's library (``ops/csrc/mc_gated_corr.cu``, its own
     build of ``mc_gated.cuh``), built at first use, with its C signature set;
@@ -667,23 +706,55 @@ def _launch(args, max_levels: int, *, num_paths: int, ext_ptr, device: torch.dev
 def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
                num_bars: int, s0: float, mu: float, sigma: float, dt: float,
                lanes: int, noise, antithetic: bool, external_uniforms,
-               device: torch.device, per_path: bool = False, symbol: int = 0):
-    """Launch pass 1 on a CUDA device (the kernel at one grid row): int64
-    [grid, 134] count rows and f32 [grid, 6] float rows, one row per CTA,
-    plus the f32[P, 6] per-path rows when ``per_path``; Philox keyed as
-    universe symbol ``symbol``."""
+               device: torch.device, per_path: bool = False, symbol: int = 0,
+               sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
+               heston=None):
+    """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
+    the other samplers ``mc_gated_sampler_kernel``): int64 [grid, 134] count
+    rows and f32 [grid, 6] float rows, one row per CTA, plus the f32[P, 6]
+    per-path rows when ``per_path``; Philox keyed as universe symbol
+    ``symbol``; ``sampler`` and its inputs as in ``mc_paths_gated_fused``."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = torch.device(device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, "gated_rows")
     gate = GateConfig.from_params(params) if gate is None else gate
     args = _gated_args(seed, levels, params, gate, noise, layout, n=1, num_paths=num_paths,
                        s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, antithetic=antithetic,
                        symbols=[symbol])
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, levels.max_levels, num_paths=num_paths,
+                               ext_ptr=ext_ptr, device=device, per_path=per_path)
     out = _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
                   device=device, per_path=per_path, what="mc_gated")
     return tuple(x[0] for x in out)
+
+
+def _sampler_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int, ext_ptr,
+                    device: torch.device, per_path: bool):
+    """One launch of ``mc_gated_sampler_kernel`` for the argument struct
+    ``args`` under ``sampler``, counted in ``LAUNCHES["mc_gated_sampler"]``:
+    int64 [grid, 134] and f32 [grid, 6] partial rows, plus f32[P, 6] per-path
+    rows when ``per_path``."""
+    args_dev = device_rows(args, device)
+    samp_dev, _tables = sampler_args(sampler, device)
+    grid = grid_size(num_paths)
+    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((grid, ROW_FLOATS), dtype=torch.float32, device=device)
+    path_rows = (torch.empty((num_paths, PATH_COLS), dtype=torch.float32, device=device)
+                 if per_path else None)
+    rc = _sampler_library().qmmx_mc_gated_sampler(
+        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], max_levels,
+        ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
+        path_rows.data_ptr() if per_path else None, grid,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mc_gated_sampler")
+    LAUNCHES["mc_gated_sampler"] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
 
 
 def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_gate=None,
@@ -805,24 +876,32 @@ def mc_paths_gated_fused(seed, levels: Levels, params, gate=None, *,
                          dt: float = 1.0 / (390.0 * 252.0),
                          lanes: int = GATED_LANES, noise=None,
                          antithetic: bool = False, external_uniforms=None,
-                         device=None, symbol: int = 0) -> PathStats:
-    """Fused gated-lifecycle MC, the counterpart of ``mc_paths_pallas_gated``
-    (gbm): the lifecycle PathStats contract of ``sim.gatedpath.mc_paths_gated``
-    with the McNoise per-entry execution noise and antithetic lane pairs;
-    ``gate`` defaults to ``GateConfig.from_params(params)``; ``symbol`` keys
-    the draws as universe symbol ``symbol`` (0: the single run).
+                         device=None, symbol: int = 0, sampler: str = "gbm",
+                         hist_bars=None, tables=None, block_len: int = 10,
+                         heston=None) -> PathStats:
+    """Fused gated-lifecycle MC, the counterpart of ``mc_paths_pallas_gated``:
+    the lifecycle PathStats contract of ``sim.gatedpath.mc_paths_gated``
+    with the McNoise per-entry execution noise and antithetic lane pairs
+    (gbm); ``gate`` defaults to ``GateConfig.from_params(params)``;
+    ``symbol`` keys the draws as universe symbol ``symbol`` (0: the single
+    run).  ``sampler``, ``hist_bars``, ``tables``, ``block_len`` and
+    ``heston`` as in ``ops/cuda_mc.mc_paths_fused``; injected uniforms then
+    follow ``ops/draws.GatedLayout``'s layout for the sampler.
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
     the kernel or raises; the CPU runs the plain version.  Draws agree with
     ``sim.gatedpath.mc_paths_gated`` statistically, not bitwise."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
            noise=noise, antithetic=antithetic,
-           external_uniforms=external_uniforms)
+           external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
               sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-              antithetic=antithetic, external_uniforms=external_uniforms, symbol=symbol)
+              antithetic=antithetic, external_uniforms=external_uniforms, symbol=symbol,
+              sampler=sampler, tables=samp.tables, block_len=block_len, heston=heston)
     if device.type == "cpu":
         return stats_from_gated_totals(*gated_totals_reference(
             seed, levels, params, gate, device=device, **kw))

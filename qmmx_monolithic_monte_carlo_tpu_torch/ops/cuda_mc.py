@@ -1,14 +1,16 @@
 """Fused first-contact Monte Carlo: generate → replay → reduce, as one CUDA kernel.
 
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:57-821``
-(kernel #1, ``_mc_kernel``, and its entry ``mc_paths_pallas``), gbm sampler
-only; the bootstrap, block-bootstrap and Heston branches are not ported yet.
+(kernel #1, ``_mc_kernel``, and its entry ``mc_paths_pallas``), with all four
+samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
 
 * ``mc_paths_fused`` — the entry.  For a CUDA device it launches
   ``ops/csrc/mc_first_contact.cu`` (pass 1: ``mc_universe_kernel`` at one
   symbol, one thread per path, one partial row per CTA; pass 2: a
-  fixed-order fold of the rows) or raises.  For the CPU it runs the plain
-  version.
+  fixed-order fold of the rows) or, for the other samplers,
+  ``ops/csrc/mc_first_contact_samplers.cu`` (pass 1:
+  ``mc_first_contact_sampler_kernel``; the same fold), or raises.
+  For the CPU it runs the plain version.
 * ``mc_paths_fused_reference`` — the plain PyTorch version: the TPU kernel's
   block computation, vectorised over (block, bar, lane) tensors.
 * ``mc_paths_sweep_fused`` — the stop/target grid sweep under common random
@@ -51,11 +53,14 @@ from ..sim.pathsim import HIST_BINS, HIST_HI, HIST_LO, PathStats
 from ..types import Levels
 from ..utils import build, prng
 from ..utils import device as devices
+from ..utils.floats import fma
 from .draws import FUSED_STREAM, GbmLayout, fused_uniforms
 from .kernel_args import (MAX_LEVELS, check_uniforms, consts, device_rows, f32, fold_rows,
                           grid_rows, grid_size, knobs, launch_pointer, level_slots,
-                          symbol_rows, symbol_uniforms)
+                          SamplerArgs, sampler_args, symbol_rows, symbol_uniforms)
 from .pathgen import cumsum_f32
+from .samplers import (Sampler, block_offset, block_start, gather, heston_shock, heston_step,
+                       iid_index, make_sampler)
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
 UNIVERSE_LANES = 2048    # the TPU universe kernel's block (pallas_mc.LANES)
@@ -66,10 +71,12 @@ ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
 _BIG = 3.4e38            # empty min/max sentinel, as the TPU kernel's
 SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu)
 _SOURCE = "mc_first_contact"
+_SAMPLER_SOURCE = "mc_first_contact_samplers"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
-            "mc_sweep_reduce_rows": 0, "mc_universe": 0, "mc_universe_reduce_rows": 0}
+            "mc_sweep_reduce_rows": 0, "mc_universe": 0, "mc_universe_reduce_rows": 0,
+            "mc_first_contact_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -106,12 +113,14 @@ class _SweepGrid(ctypes.Structure):
 
 
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
-           external_uniforms) -> GbmLayout:
+           external_uniforms, sampler: Sampler = Sampler()) -> GbmLayout:
     """The checks of ``_mc_paths_pallas_jit`` (pallas_mc.py:724-738)."""
     prng.check_seed(seed)
     if lanes <= 0 or num_paths <= 0 or num_paths % lanes != 0:
         raise ValueError(f"num_paths must be a positive multiple of {lanes}")
-    layout = GbmLayout(num_bars, noise is not None)
+    if antithetic and sampler.kind != "gbm":
+        raise ValueError("kernel antithetic pairs gbm normals only")
+    layout = GbmLayout(num_bars, noise is not None, sampler.kind)
     if levels.max_levels > MAX_LEVELS:
         raise ValueError(f"the first-contact kernel supports up to "
                          f"{MAX_LEVELS} level slots")
@@ -143,32 +152,85 @@ def _check_sweep(seed, levels, params, grid_stops, grid_tps, *, num_paths, num_b
 # the plain PyTorch version
 # --------------------------------------------------------------------------
 
-def _contact(u, layout: GbmLayout, lp, lv, n_levels, prox, consts, antithetic) -> dict:
-    """One chunk of blocks, u f32[nb, n_rows, lanes], up to the first
-    contact: the TPU kernel's ``_gbm_block`` and ``_first_contact``, with a
-    serial float32 cumsum.  Every row of a sweep replays this once."""
-    nb, _, lanes = u.shape
-    w = layout.num_bars
-    dev = u.device
+def _normals(r1, r2):
+    """The paired Box-Muller normals of radius rows ``r1`` and angle rows
+    ``r2`` [nb, W/2, lanes]: cosines for bars 0 .. W/2-1, sines after."""
+    rad = torch.sqrt(-2.0 * torch.log(r1))
+    ang = prng.TWO_PI * r2
+    return torch.cat([rad * torch.cos(ang), rad * torch.sin(ang)], dim=1)
+
+
+def _block_bars(u, layout: GbmLayout, consts, antithetic, sampler: Sampler):
+    """One chunk's bars, (close, opens, high, low) f32[nb, W, lanes]: the
+    TPU kernel's ``_gbm_block``, ``_heston_block`` or ``_bootstrap_block``
+    with a serial float32 cumsum."""
+    lanes = u.shape[-1]
     drift, sig_dt, log_s0 = consts
-    rad = torch.sqrt(-2.0 * torch.log(u[:, layout.u1]))
-    ang = prng.TWO_PI * u[:, layout.u2]
-    z = torch.cat([rad * torch.cos(ang), rad * torch.sin(ang)], dim=1)
-    if antithetic:
-        zh = z[..., :lanes // 2]
-        z = torch.cat([zh, -zh], dim=-1)
-    incr = drift + sig_dt * z                              # [nb, W, lanes]
+    if sampler.resamples:
+        idx = _resample_index(u[:, layout.idx], sampler)
+        logc = gather(sampler.tables, 0, idx)
+        log_close = log_s0 + cumsum_f32(logc, dim=1)
+        log_prev = log_close - logc
+        return (torch.exp(log_close), torch.exp(log_prev + gather(sampler.tables, 3, idx)),
+                torch.exp(log_prev + gather(sampler.tables, 1, idx)),
+                torch.exp(log_prev + gather(sampler.tables, 2, idx)))
+    z = _normals(u[:, layout.u1], u[:, layout.u2])
+    if sampler.kind == "heston":
+        incr, sig2dt = _heston_incr(z, _normals(u[:, layout.q1], u[:, layout.q2]),
+                                    sampler.heston)
+        two_s2 = 2.0 * sig2dt
+    else:
+        if antithetic:
+            zh = z[..., :lanes // 2]
+            z = torch.cat([zh, -zh], dim=-1)
+        incr = drift + sig_dt * z                          # [nb, W, lanes]
+        sig2dt = f32(np.float32(sig_dt) * np.float32(sig_dt))
+        two_s2 = f32(np.float32(2.0) * np.float32(sig2dt))
     log_close = log_s0 + cumsum_f32(incr, dim=1)
     log_open = log_close - incr
-    close = torch.exp(log_close)
-    opens = torch.exp(log_open)
-    sig2dt = f32(np.float32(sig_dt) * np.float32(sig_dt))
-    two_s2 = f32(np.float32(2.0) * np.float32(sig2dt))
     diff = log_close - log_open
     d2 = diff * diff
     mid = log_open + log_close
     high = torch.exp(0.5 * (mid + torch.sqrt(d2 - two_s2 * torch.log(u[:, layout.u3]))))
     low = torch.exp(0.5 * (mid - torch.sqrt(d2 - two_s2 * torch.log(u[:, layout.u4]))))
+    return torch.exp(log_close), torch.exp(log_open), high, low
+
+
+def _resample_index(u, sampler: Sampler):
+    """f32[nb, W, lanes] recorded-bar indices of the index rows ``u``:
+    ``_bootstrap_block``'s (block bootstrap: bar j takes its block's start,
+    drawn from the block's first row, plus its offset)."""
+    h = sampler.hist_len
+    if not sampler.block_len:
+        return iid_index(u, h)
+    starts = block_start(u, h, sampler.block_len)
+    bl = sampler.block_len
+    return torch.stack([starts[:, (j // bl) * bl] + block_offset(j, bl)
+                        for j in range(u.shape[1])], dim=1)
+
+
+def _heston_incr(z, zq, hc):
+    """``_heston_block``'s serial variance chain over bars: (log increments,
+    bridge variances v+ dt) f32[nb, W, lanes]."""
+    shock = heston_shock(z, zq, hc)
+    v = torch.full_like(z[:, 0], hc.v0)
+    incr, sig2 = [], []
+    for t in range(z.shape[1]):
+        drift, sig_bar, sig2dt, v = heston_step(v, z[:, t], shock[:, t], hc)
+        incr.append(fma(sig_bar, z[:, t], drift * hc.dt))
+        sig2.append(sig2dt)
+    return torch.stack(incr, dim=1), torch.stack(sig2, dim=1)
+
+
+def _contact(u, layout: GbmLayout, lp, lv, n_levels, prox, consts, antithetic,
+             sampler: Sampler = Sampler()) -> dict:
+    """One chunk of blocks, u f32[nb, n_rows, lanes], up to the first
+    contact: the TPU kernel's bar block and ``_first_contact``.  Every row
+    of a sweep replays this once."""
+    nb, _, lanes = u.shape
+    w = layout.num_bars
+    dev = u.device
+    close, opens, high, low = _block_bars(u, layout, consts, antithetic, sampler)
 
     # first contact: nearest valid level by running min, first bar within prox
     best_d = torch.full_like(close, _BIG)
@@ -300,17 +362,22 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
                            lanes: int = SINGLE_LANES, noise=None,
                            antithetic: bool = False, external_uniforms=None,
                            device=None, chunk_blocks: int = 16,
-                           work: bool = False, symbol: int = 0):
+                           work: bool = False, symbol: int = 0, sampler: str = "gbm",
+                           hist_bars=None, tables=None, block_len: int = 10,
+                           heston=None):
     """The plain version's (int64 counts, float64 floats) totals, computed on
     ``device`` (default: that of ``external_uniforms``, else the CUDA device)
     in chunks of ``chunk_blocks`` blocks; Philox draws keyed as universe
-    symbol ``symbol``.  ``work=True`` adds the kernel's work on these paths,
-    int64 [Box-Muller pairs, bars walked, bars walked after contact], for
-    bounding its time."""
+    symbol ``symbol``; ``sampler`` and its inputs as in ``mc_paths_fused``.
+    ``work=True`` adds the kernel's work on these paths, int64 [Box-Muller
+    pairs, bars walked, bars walked after contact], for bounding its time."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
+    samp = samp.on(device)
     lp, lv = level_slots(levels)
     kn = knobs(params, noise)
     cs = consts(s0, mu, sigma, dt)
@@ -323,7 +390,7 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
         else:
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, symbol=symbol, device=device)
-        ct = _contact(u, layout, lp, lv, levels.max_levels, kn["prox"], cs, antithetic)
+        ct = _contact(u, layout, lp, lv, levels.max_levels, kn["prox"], cs, antithetic, samp)
         counts, floats, walked = _replay(ct, layout, kn)
         tot = _merge_totals(tot, (counts, floats, _work(ct, walked, num_bars)))
     return tot if work else tot[:2]
@@ -448,6 +515,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _sampler_library() -> ctypes.CDLL:
+    """The sampler kernels' library (``ops/csrc/mc_first_contact_samplers.cu``,
+    its own build of ``mc_first_contact.cuh``), built at first use, with its
+    C signature set; the first-contact library's struct-layout check first."""
+    _library()
+    lib = build.load(_SAMPLER_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_sampler_args_size.argtypes = []
+        lib.qmmx_sampler_args_size.restype = ci
+        lib.qmmx_mc_sampler.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_sampler.restype = ci
+        if lib.qmmx_sampler_args_size() != ctypes.sizeof(SamplerArgs):
+            raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                               "kernel_args.SamplerArgs")
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().qmmx_cuda_error_string(rc).decode(errors="replace")
@@ -498,10 +584,23 @@ def _launch(args, num_bars: int, *, num_paths: int, ext_ptr, device: torch.devic
 def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
                        num_bars: int, s0: float, mu: float, sigma: float,
                        dt: float, lanes: int, noise, antithetic: bool,
-                       external_uniforms, device: torch.device, symbol: int = 0):
-    """Launch pass 1 on a CUDA device (the universe kernel at one symbol):
-    int64 [grid, 133] count rows and f32 [grid, 4] float rows, one row per
-    CTA; Philox keyed as universe symbol ``symbol``."""
+                       external_uniforms, device: torch.device, symbol: int = 0,
+                       sampler: str = "gbm", hist_bars=None, tables=None,
+                       block_len: int = 10, heston=None):
+    """Launch pass 1 on a CUDA device (the universe kernel at one symbol, or
+    for the other samplers ``mc_first_contact_sampler_kernel``): int64 [grid, 133] count
+    rows and f32 [grid, 4] float rows, one row per CTA; Philox keyed as
+    universe symbol ``symbol``; ``sampler`` and its inputs as in
+    ``mc_paths_fused``."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
+    if samp.kind != "gbm":
+        if antithetic:
+            raise ValueError("kernel antithetic pairs gbm normals only")
+        return _sampler_rows(seed, levels, params, num_paths=num_paths, num_bars=num_bars,
+                             s0=s0, mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise,
+                             sampler=samp, external_uniforms=external_uniforms,
+                             device=device, symbol=symbol)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=antithetic,
                     external_uniforms=external_uniforms)
@@ -513,6 +612,37 @@ def first_contact_rows(seed, levels: Levels, params, *, num_paths: int,
     return tuple(x[0] for x in _launch((_McArgs * 1)(args), num_bars, num_paths=num_paths,
                                        ext_ptr=ext_ptr, device=device,
                                        what="mc_first_contact"))
+
+
+SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
+
+
+def _sampler_rows(seed, levels: Levels, params, *, num_paths: int, num_bars: int, s0: float,
+                  mu: float, sigma: float, dt: float, lanes: int, noise, sampler: Sampler,
+                  external_uniforms, device: torch.device, symbol: int = 0):
+    """Launch pass 1 of a bootstrap, block-bootstrap or Heston run on a CUDA
+    device (``mc_first_contact_sampler_kernel``): int64 [grid, 133] count rows and f32
+    [grid, 4] float rows, one row per CTA."""
+    layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
+                    noise=noise, antithetic=False, external_uniforms=external_uniforms,
+                    sampler=sampler)
+    args, ext_ptr = _launch_args(
+        seed, levels, params, layout, num_paths=num_paths, num_bars=num_bars, s0=s0,
+        mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise, antithetic=False,
+        external_uniforms=external_uniforms, device=device, what="sampler_rows",
+        symbol=symbol)
+    args_dev = device_rows((_McArgs * 1)(args), device)
+    samp_dev, _tables = sampler_args(sampler, device)
+    ctas = grid_size(num_paths)
+    part_counts = torch.empty((ctas, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((ctas, ROW_FLOATS), dtype=torch.float32, device=device)
+    rc = _sampler_library().qmmx_mc_sampler(
+        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], num_bars,
+        ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(), ctas,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "mc_first_contact_sampler")
+    LAUNCHES["mc_first_contact_sampler"] += 1
+    return part_counts, part_floats
 
 
 def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths: int,
@@ -588,24 +718,36 @@ def mc_paths_fused(seed, levels: Levels, params, *, num_paths: int,
                    sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                    lanes: int = SINGLE_LANES, noise=None,
                    antithetic: bool = False, external_uniforms=None,
-                   device=None, symbol: int = 0) -> PathStats:
-    """Fused first-contact MC, the counterpart of ``mc_paths_pallas`` (gbm):
-    the same PathStats contract as ``sim.pathsim.mc_paths``, with the McNoise
-    execution-noise knobs and antithetic lane pairs; ``symbol`` keys the
-    draws as universe symbol ``symbol`` (0: the single run).
+                   device=None, symbol: int = 0, sampler: str = "gbm", hist_bars=None,
+                   tables=None, block_len: int = 10, heston=None) -> PathStats:
+    """Fused first-contact MC, the counterpart of ``mc_paths_pallas``: the
+    same PathStats contract as ``sim.pathsim.mc_paths``, with the McNoise
+    execution-noise knobs and antithetic lane pairs (gbm); ``symbol`` keys
+    the draws as universe symbol ``symbol`` (0: the single run).
+    ``sampler`` "bootstrap" and "block_bootstrap" resample the recorded bars
+    of ``hist_bars`` (a PathBars of 1-D o/h/l/c arrays) or of their
+    ``ops/pathgen.bootstrap_tables`` given as ``tables`` (float32 [5, H]),
+    the latter in runs of ``block_len`` bars; "heston" generates Heston bars
+    (``heston``: a dict of v0/kappa/theta/xi/rho, the rest the JAX defaults);
+    injected uniforms then follow ``ops/draws.GbmLayout``'s layout for the
+    sampler.
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
     the kernel or raises; the CPU runs the plain version.  Draws agree with
     ``sim.pathsim.mc_paths`` statistically, not bitwise (different stream
     layouts)."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
            noise=noise, antithetic=antithetic,
-           external_uniforms=external_uniforms)
+           external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
               sigma=sigma, dt=dt, lanes=lanes, noise=noise,
-              antithetic=antithetic, external_uniforms=external_uniforms, symbol=symbol)
+              external_uniforms=external_uniforms, symbol=symbol)
+    kw.update(antithetic=antithetic, sampler=sampler, tables=samp.tables,
+              block_len=block_len, heston=heston)
     if device.type == "cpu":
         return mc_paths_fused_reference(seed, levels, params, device=device, **kw)
     rows = first_contact_rows(seed, levels, params, device=device, **kw)

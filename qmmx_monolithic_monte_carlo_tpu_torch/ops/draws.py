@@ -18,6 +18,19 @@ GBM, one block of ``lanes`` paths × ``W`` bars, rows of ``lanes`` uniforms:
 
 Normal pair k (cos, sin) drives bars k and k + W/2.
 
+The other samplers of ``_mc_kernel`` (``pallas_mc.py:606-622``):
+
+    bootstrap, block_bootstrap:
+    rows [0, W)          one index uniform a bar (a block-bootstrap bar
+                         that starts no block ignores its own)
+    row  W               tie coin
+    rows W+1 .. W+4      (with execution noise) the two noise pairs
+    heston: the gbm rows, then
+    rows [q, q + W/2)    variance-shock radius draws, q = 3W+1 (+4 with noise)
+    rows [q+W/2, q+W)    variance-shock angle draws
+
+Bootstrap alone takes an odd W.
+
 Gated lifecycle (``GatedLayout``), the JAX package's ``_gated_stride`` layout
 (``ops/pallas_mc.py:1052-1064``, ``:1119-1124``, ``:1273-1305``): one block
 is 8 rows of ``lanes`` paths (path ``block * 8 * lanes + s * lanes + j``),
@@ -32,7 +45,18 @@ and double-bar step t2 (bars 2·t2 and 2·t2+1) takes uniforms
                     (stop slip, target slip)
     k = 12 .. 15    the same of bar 2·t2+1
 
-stride = 8, or 16 with noise, so ``u_rows = stride * W / 2``.  Injected
+stride = 8, or 16 with noise, so ``u_rows = stride * W / 2``.  The other
+samplers (``_gated_stride``, ``pallas_mc.py:1052-1064``, ``:1237-1283``):
+
+    bootstrap, block_bootstrap (stride 4, 12 with noise):
+    k = 0, 1        index uniforms of bars 2·t2 and 2·t2+1
+    k = 2, 3        their tie coins
+    k = 4 .. 11     (with noise) the noise draws of the two bars, as above
+    heston (stride 10, 18 with noise):
+    k = 0, 1        price Box-Muller pair
+    k = 2, 3        variance-shock Box-Muller pair
+    k = 4 .. 9      (u3, u4, tie) of each bar
+    k = 10 .. 17    (with noise) the noise draws of the two bars  Injected
 uniforms keep the JAX shape f32[n_blocks, u_rows, 8, lanes]; in Philox mode
 row r of a block is one row of 8·lanes paths on the stream ``GATED_STREAM``,
 so four consecutive rows of a path are the four words of one Philox call.
@@ -51,7 +75,13 @@ gbm (``ops/pallas_engine.py:108-144``, ``:374-435``): blocks of 8 rows of
                     target slip)
     k = 14 .. 17    the same of bar 2·t2+1
 
-stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  Ten is not a
+stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  The
+other samplers (``_draw_stride``, ``pallas_engine.py:108-144``,
+``:1299-1334``): bootstrap and block bootstrap as the gated kernel's
+(stride 4, 12 with noise; a recorded bar brings its own volume); heston
+(stride 12, 20 with noise): price pair (k = 0, 1), volume pair (2, 3),
+variance-shock pair (4, 5), (u3, u4, tie) of each bar (6 .. 11), the noise
+draws from k = 12.  Ten is not a
 multiple of four, so a Philox call (four rows) feeds parts of two steps: the
 kernel keeps the last call's four words and draws a new call only when a row
 leaves them.
@@ -70,6 +100,9 @@ book, counted on (column, row // 4, global block) like every other draw, so
 path p sees the same market normals in every symbol.  Injected, they are
 f32[n_blocks, W, 8, lanes], the JAX shape.  (The JAX kernels' Heston
 sampler reads 4 market rows a step; it is not ported yet.)
+
+Block bootstrap keeps the iid layout of every family (its non-start bars
+ignore their index uniform), so the bootstrap samplers' streams align.
 """
 
 from __future__ import annotations
@@ -89,15 +122,45 @@ GATED_SUB = 8        # rows of paths in one gated block
 ENGINE_SUB = 8       # rows of paths in one engine block
 
 
+SAMPLERS = ("gbm", "bootstrap", "block_bootstrap", "heston")
+
+
+def _check_bars(num_bars: int, sampler: str, odd_ok: bool = False) -> None:
+    if sampler not in SAMPLERS:
+        raise ValueError(f"samplers: {' | '.join(repr(s) for s in SAMPLERS)}")
+    if num_bars <= 0 or (num_bars % 2 and not odd_ok):
+        raise ValueError("num_bars must be even and positive "
+                         "(paired Box-Muller draws)")
+
+
+def _resamples(sampler: str) -> bool:
+    return sampler in ("bootstrap", "block_bootstrap")
+
+
 @dataclasses.dataclass(frozen=True)
 class GbmLayout:
     num_bars: int
     noise: bool = False
+    sampler: str = "gbm"
 
     def __post_init__(self):
-        if self.num_bars <= 0 or self.num_bars % 2:
-            raise ValueError("num_bars must be even and positive "
-                             "(paired Box-Muller draws)")
+        _check_bars(self.num_bars, self.sampler, odd_ok=_resamples(self.sampler))
+
+    @property
+    def idx(self) -> slice:
+        """The bootstrap samplers' index uniforms, one row a bar."""
+        return slice(0, self.num_bars)
+
+    @property
+    def q1(self) -> slice:
+        """Heston's variance-shock radius draws."""
+        q = 3 * self.num_bars + 1 + (4 if self.noise else 0)
+        return slice(q, q + self.half)
+
+    @property
+    def q2(self) -> slice:
+        q = 3 * self.num_bars + 1 + (4 if self.noise else 0)
+        return slice(q + self.half, q + self.num_bars)
 
     @property
     def half(self) -> int:
@@ -121,7 +184,7 @@ class GbmLayout:
 
     @property
     def tie(self) -> int:
-        return 3 * self.num_bars
+        return self.num_bars if _resamples(self.sampler) else 3 * self.num_bars
 
     @property
     def noise_rows(self) -> tuple[int, int, int, int]:
@@ -131,7 +194,8 @@ class GbmLayout:
 
     @property
     def n_rows(self) -> int:
-        return 3 * self.num_bars + 1 + (4 if self.noise else 0)
+        heston = self.num_bars if self.sampler == "heston" else 0
+        return self.tie + 1 + (4 if self.noise else 0) + heston
 
 
 def fused_uniforms(seed: int, layout: GbmLayout, *, block0: int,
@@ -149,15 +213,28 @@ def fused_uniforms(seed: int, layout: GbmLayout, *, block0: int,
 class GatedLayout:
     num_bars: int
     noise: bool = False
+    sampler: str = "gbm"
 
     def __post_init__(self):
-        if self.num_bars <= 0 or self.num_bars % 2:
-            raise ValueError("num_bars must be even and positive "
-                             "(paired Box-Muller draws)")
+        _check_bars(self.num_bars, self.sampler)
 
     @property
     def stride(self) -> int:
-        return 16 if self.noise else 8
+        base = {"gbm": 8, "heston": 10}.get(self.sampler, 4)
+        return base + (8 if self.noise else 0)
+
+    @property
+    def k_bridge(self) -> int:
+        """k of bar 2·t2's (u3, u4, tie) (gbm, heston)."""
+        return 4 if self.sampler == "heston" else 2
+
+    k_shock = 2           # Heston's variance-shock pair
+    k_volume = None       # no volume pair: the gated loop reads no volume
+
+    @property
+    def k_noise(self) -> int:
+        """k of bar 2·t2's first noise draw."""
+        return {"gbm": 8, "heston": 10}.get(self.sampler, 4)
 
     @property
     def u_rows(self) -> int:
@@ -183,15 +260,27 @@ def gated_uniforms(seed: int, layout: GatedLayout, *, block0: int,
 class EngineLayout:
     num_bars: int
     noise: bool = False
+    sampler: str = "gbm"
 
     def __post_init__(self):
-        if self.num_bars <= 0 or self.num_bars % 2:
-            raise ValueError("num_bars must be even and positive "
-                             "(paired Box-Muller draws)")
+        _check_bars(self.num_bars, self.sampler)
 
     @property
     def stride(self) -> int:
-        return 18 if self.noise else 10
+        return self.k_noise + (8 if self.noise else 0)
+
+    @property
+    def k_bridge(self) -> int:
+        """k of bar 2·t2's (u_high, u_low, tie) (gbm, heston)."""
+        return 6 if self.sampler == "heston" else 4
+
+    k_shock = 4           # Heston's variance-shock pair, after the volume pair
+    k_volume = 2
+
+    @property
+    def k_noise(self) -> int:
+        """k of bar 2·t2's first noise draw."""
+        return {"gbm": 10, "heston": 12}.get(self.sampler, 4)
 
     @property
     def u_rows(self) -> int:

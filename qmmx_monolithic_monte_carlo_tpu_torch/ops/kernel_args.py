@@ -34,11 +34,14 @@ kernels see the same float32 constants, noise knobs, level slots and grid:
 * ``device_rows`` / ``book_pairs`` -- a sweep's (or universe's) argument
   structs, one per grid row, on the card; a book's (beta, weight) pairs;
 * ``fold_rows`` -- pass 2 over [R, C] partial rows, or a sweep's [G, R, C]
-  with one CTA per grid row.
+  with one CTA per grid row;
+* ``sampler_args`` -- a sampler kernel's ``SamplerArgs`` (the recorded-bar
+  tables' pointer, H and block length, the Heston constants) on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -340,6 +343,32 @@ def book_pairs(cols: dict, device: torch.device) -> torch.Tensor:
     """A book's f32[S, 2] (beta, weight) pairs of ``symbol_columns`` on the
     card, the book kernels' ``bw``."""
     return torch.tensor(list(zip(cols["beta"], cols["weights"])), dtype=_F32, device=device)
+
+
+class SamplerArgs(ctypes.Structure):
+    """Mirror of ``struct SamplerArgs`` in ops/csrc/sampler.cuh."""
+
+    _fields_ = [("tables", ctypes.c_void_p), ("hist_len", ctypes.c_int32),
+                ("block_len", ctypes.c_int32)]
+    _fields_ += [(k, ctypes.c_float) for k in (
+        "hf", "bl", "v0", "theta", "xi", "rho", "rho_perp", "mu", "dt", "kappa_dt")]
+
+
+def sampler_args(sampler, device: torch.device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(the ``SamplerArgs`` of ``sampler`` (an ``ops/samplers.Sampler``) as
+    bytes on the card, its tables on the card or None); the caller keeps the
+    tables alive until the launch has run.  H and the block length go as
+    float32 too, as the kernels' index arithmetic takes them."""
+    a = SamplerArgs()
+    tables = None
+    if sampler.resamples:
+        tables = sampler.tables.to(device=device, dtype=_F32).contiguous()
+        a.tables, a.hist_len, a.block_len = tables.data_ptr(), sampler.hist_len, sampler.block_len
+        a.hf, a.bl = f32(sampler.hist_len), f32(sampler.block_len)
+    if sampler.heston is not None:
+        for k in ("v0", "theta", "xi", "rho", "rho_perp", "mu", "dt", "kappa_dt"):
+            setattr(a, k, getattr(sampler.heston, k))
+    return device_rows(a, device), tables
 
 
 def device_rows(rows, device: torch.device) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Price-path samplers: GBM closes with Brownian-bridge bar extremes.
+"""Price-path samplers: GBM closes with Brownian-bridge bar extremes,
+recorded-bar resampling (iid and in blocks) and Heston stochastic volatility.
 
-Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pathgen.py:47-158``
-(``PathBars``, ``VolumeModel``, ``gbm_paths``).  The bootstrap, block-bootstrap
-and Heston samplers are not ported yet.
+Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pathgen.py:47-340``
+(``PathBars``, ``VolumeModel``, ``gbm_paths``, ``bootstrap_tables``,
+``bootstrap_paths``, ``block_bootstrap_paths``, ``heston_paths``): the XLA
+pipeline's forms.  The fused kernels' forms of the same samplers are in
+``ops/samplers.py``.
 
 * ``gbm_bars_from_draws`` — the deterministic core: GBM closes from standard
   normals ``z``, per-bar highs/lows from the exact law of the max/min of a
@@ -11,6 +14,17 @@ and Heston samplers are not ported yet.
   it the draws JAX itself made, so it is held against JAX ``gbm_paths``.
 * ``gbm_paths`` — the same with Philox draws (``utils/prng.py``), one stream
   per consumer as in the JAX package.
+* ``bootstrap_tables`` — a recorded history's per-bar relative geometry (log
+  return and log high/low/open offsets against the previous close) and its
+  volume, float32 as JAX computes them.
+* ``bootstrap_bars_from_draws`` / ``bootstrap_paths`` /
+  ``block_bootstrap_paths`` — recorded bars resampled at given indices (iid,
+  or ``block_indices``' contiguous runs) chained onto ``s0``; the Philox forms
+  draw the indices on ``prng.STREAM_BOOTSTRAP``.
+* ``heston_bars_from_draws`` / ``heston_paths`` — full-truncation Euler
+  Heston closes (the ``lax.scan`` chain) with bridge extremes at each bar's
+  own variance; the Philox form draws the price and variance normals as the
+  two Box-Muller branches of ``STREAM_PATH``'s rows.
 
 All arithmetic is float32 in the JAX package's order; the log-price cumsum is
 a serial float32 running sum (``cumsum_f32``), the order the CUDA kernel uses.
@@ -24,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import prng
+from ..utils.floats import fma, sqrt
 
 F32 = torch.float32
 
@@ -163,3 +178,177 @@ def gbm_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,
     return gbm_bars_from_draws(
         z, uniforms(prng.STREAM_BRIDGE_HI), uniforms(prng.STREAM_BRIDGE_LO),
         s0=s0, mu=mu, sigma=sigma, dt=dt, volume=volume)
+
+
+def bootstrap_tables(hist_open, hist_high, hist_low, hist_close, hist_volume=None):
+    """(logc, logh, logl, logo, vol), f32[H] each: a recorded history's log
+    return and log high/low/open offsets against the previous close (bar 0
+    against itself), and its real volume (zeros when none is given), in
+    float32 as ``ops/pathgen.bootstrap_tables`` computes them.  (PyTorch's
+    float32 ``log`` is not XLA's: a value may differ by an ulp.)"""
+    close = torch.as_tensor(hist_close, dtype=F32)
+    prev = torch.cat([close[:1], close[:-1]])
+    logs = [torch.log(torch.as_tensor(x, dtype=F32) / prev)
+            for x in (close, hist_high, hist_low, hist_open)]
+    vol = (torch.zeros_like(close) if hist_volume is None
+           else torch.as_tensor(hist_volume, dtype=F32))
+    return (*logs, vol)
+
+
+def history_tables(hist_bars):
+    """``bootstrap_tables`` of a recorded history, a PathBars of 1-D
+    o/h/l/c arrays (its volume, where it has one)."""
+    if hist_bars is None:
+        raise ValueError("the bootstrap samplers need hist_bars (or its tables)")
+    return bootstrap_tables(hist_bars.open, hist_bars.high, hist_bars.low,
+                            hist_bars.close, getattr(hist_bars, "volume", None))
+
+
+def _tables(tables=None, hist_bars=None):
+    if tables is None:
+        return history_tables(hist_bars)
+    return tuple(torch.as_tensor(t, dtype=F32) for t in tables)
+
+
+def bootstrap_bars_from_draws(idx, tables, *, s0) -> PathBars:
+    """Recorded bars at indices ``idx`` int[paths, bars] of the history whose
+    ``bootstrap_tables`` are ``tables``, chained onto ``s0``: bar t's
+    previous log close is log(s0) plus the cumulative recorded returns of
+    bars 0 .. t-1 (a serial float32 sum); its open, high, low and close are
+    that plus the bar's recorded offsets; its volume the recorded one."""
+    idx = torch.as_tensor(idx).to(torch.int64)
+    logc, logh, logl, logo, vol = (torch.as_tensor(t, dtype=F32, device=idx.device)
+                                   for t in tables)
+    r = logc[idx]
+    log_s0 = torch.log(torch.as_tensor(s0, dtype=F32, device=idx.device))
+    log_prev = log_s0 + torch.cat(
+        [torch.zeros_like(r[..., :1]), cumsum_f32(r[..., :-1], dim=-1)], dim=-1)
+    return PathBars(open=torch.exp(log_prev + logo[idx]),
+                    high=torch.exp(log_prev + logh[idx]),
+                    low=torch.exp(log_prev + logl[idx]),
+                    close=torch.exp(log_prev + r), volume=vol[idx])
+
+
+def block_indices(starts, num_bars: int, block_len: int):
+    """int[paths, num_bars] indices of contiguous ``block_len``-bar runs from
+    the run starts int[paths, ceil(num_bars / block_len)]."""
+    starts = torch.as_tensor(starts, dtype=torch.int64)
+    offs = torch.arange(block_len, dtype=torch.int64, device=starts.device)
+    idx = (starts[:, :, None] + offs[None, None, :]).reshape(starts.shape[0], -1)
+    return idx[:, :num_bars]
+
+
+def _index_uniforms(seed, block, n_rows, num_paths, symbol, device):
+    return prng.uniform_rows(seed, prng.STREAM_BOOTSTRAP, block0=block, n_blocks=1,
+                             n_rows=n_rows, lanes=num_paths, symbol=symbol,
+                             device=device)[0].T
+
+
+def bootstrap_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,
+                    hist_bars=None, tables=None, symbol: int = 0,
+                    device=None) -> PathBars:
+    """Recorded bars resampled with replacement, one index a bar: index
+    min(floor(u H), H - 1) of a uniform u on ``prng.STREAM_BOOTSTRAP`` (JAX
+    draws ``randint``); real volumes ride along."""
+    tables = _tables(tables, hist_bars)
+    h = int(tables[0].shape[0])
+    u = _index_uniforms(seed, block, num_bars, num_paths, symbol, device)
+    idx = torch.clamp((u * h).to(torch.int64), max=h - 1)
+    return bootstrap_bars_from_draws(idx, tables, s0=s0)
+
+
+def block_bootstrap_paths(seed: int, block: int, *, num_paths: int, num_bars: int,
+                          s0, block_len: int = 10, hist_bars=None, tables=None,
+                          symbol: int = 0, device=None) -> PathBars:
+    """Block bootstrap: contiguous ``block_len``-bar runs of the history, a
+    run starting at min(floor(u (H - block_len)), H - block_len - 1) of a
+    uniform u on ``prng.STREAM_BOOTSTRAP``; needs H > block_len."""
+    tables = _tables(tables, hist_bars)
+    h = int(tables[0].shape[0])
+    if h <= block_len:
+        raise ValueError("history shorter than block_len")
+    u = _index_uniforms(seed, block, -(-num_bars // block_len), num_paths, symbol, device)
+    starts = torch.clamp((u * (h - block_len)).to(torch.int64), max=h - block_len - 1)
+    return bootstrap_bars_from_draws(block_indices(starts, num_bars, block_len),
+                                     tables, s0=s0)
+
+
+HESTON_DEFAULTS = dict(v0=0.04, kappa=3.0, theta=0.04, xi=0.6, rho=-0.7)
+
+
+def heston_bars_from_draws(z1, zv, u_hi, u_lo, *, s0, v0: float = 0.04,
+                           kappa: float = 3.0, theta: float = 0.04, xi: float = 0.6,
+                           rho: float = -0.7, mu: float = 0.0,
+                           dt: float = 1.0 / (390.0 * 252.0), volume=None) -> PathBars:
+    """Heston bars from given draws f32[paths, bars]: price normals ``z1``,
+    variance normals ``zv`` (mixed with ``z1`` by ``rho``), bridge uniforms.
+    Full-truncation Euler in float32 in ``heston_paths``' order, the log
+    close chained bar by bar with the multiply-adds XLA fuses in the scan's
+    body fused; the bridge extremes use each bar's sig_dt^2.
+    ``volume`` defaults to zeros."""
+    z1 = torch.as_tensor(z1, dtype=F32)
+    dev = z1.device
+
+    def c(x):
+        return torch.tensor(x, dtype=F32, device=dev)
+
+    rho_f = c(rho)
+    z2 = rho_f * z1 + torch.sqrt(1.0 - rho_f * rho_f) * torch.as_tensor(zv, dtype=F32)
+    dtf = c(dt)
+    log_s0 = torch.log(c(s0))
+    logp = log_s0.expand(z1.shape[0]).clone()
+    v = c(v0).expand(z1.shape[0]).clone()
+    kappa_dt = c(kappa) * dtf     # XLA folds kappa * (theta - v+) * dt so
+    closes, sigs = [], []
+    for t in range(z1.shape[1]):
+        # the scan's body as XLA compiles it: sig_dt z and the shock term fused
+        v_pos = torch.clamp(v, min=0.0)
+        sig_dt = sqrt(v_pos * dtf)
+        logp = fma(sig_dt, z1[:, t], fma(c(mu) - 0.5 * v_pos, dtf, logp))
+        v = fma(c(xi) * sig_dt, z2[:, t], fma(c(theta) - v_pos, kappa_dt, v))
+        closes.append(logp)
+        sigs.append(sig_dt)
+    log_close = torch.stack(closes, dim=1)
+    sig_dt = torch.stack(sigs, dim=1)
+    log_open = torch.cat([log_s0.expand(z1.shape[0], 1), log_close[:, :-1]], dim=1)
+    log_hi, log_lo = bridge_extremes(torch.as_tensor(u_hi, dtype=F32),
+                                     torch.as_tensor(u_lo, dtype=F32),
+                                     log_open, log_close, sig_dt * sig_dt)
+    return PathBars(open=torch.exp(log_open), high=torch.exp(log_hi),
+                    low=torch.exp(log_lo), close=torch.exp(log_close),
+                    volume=torch.zeros_like(z1) if volume is None else volume)
+
+
+def heston_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,
+                 v0: float = 0.04, kappa: float = 3.0, theta: float = 0.04,
+                 xi: float = 0.6, rho: float = -0.7, mu: float = 0.0,
+                 dt: float = 1.0 / (390.0 * 252.0), antithetic: bool = False,
+                 volume_model: VolumeModel | None = None, symbol: int = 0,
+                 device=None) -> PathBars:
+    """Heston stochastic-volatility paths of global block ``block``: the
+    price and variance normals are the cosine and sine branches of 2 x
+    num_bars rows of ``STREAM_PATH`` (JAX draws them on two subkeys of it);
+    with ``antithetic`` the second half of the path axis negates the first
+    half's.  Volumes come from ``volume_model`` coupled to the price shock."""
+    if volume_model is None:
+        volume_model = VolumeModel()
+    if antithetic and num_paths % 2 != 0:
+        raise ValueError("antithetic requires an even num_paths")
+    n_draw = num_paths // 2 if antithetic else num_paths
+    z = prng.normal_rows(seed, prng.STREAM_PATH, block=block, n_rows=2 * num_bars,
+                         lanes=n_draw, symbol=symbol, device=device)
+    z1, zv = z[:num_bars].T, z[num_bars:].T
+    if antithetic:
+        z1, zv = torch.cat([z1, -z1]), torch.cat([zv, -zv])
+
+    def uniforms(stream):
+        return prng.uniform_rows(seed, stream, block0=block, n_blocks=1,
+                                 n_rows=num_bars, lanes=num_paths,
+                                 symbol=symbol, device=device)[0].T
+
+    volume = volume_model.volumes(seed, block, z1, num_paths=num_paths,
+                                  num_bars=num_bars, symbol=symbol, device=device)
+    return heston_bars_from_draws(
+        z1, zv, uniforms(prng.STREAM_BRIDGE_HI), uniforms(prng.STREAM_BRIDGE_LO),
+        s0=s0, v0=v0, kappa=kappa, theta=theta, xi=xi, rho=rho, mu=mu, dt=dt,
+        volume=volume)

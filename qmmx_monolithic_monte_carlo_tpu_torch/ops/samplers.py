@@ -1,0 +1,274 @@
+"""The recorded-bar and Heston samplers as the fused kernels compute them.
+
+Counterpart of the sampler branches of the JAX kernels: ``_bootstrap_block``
+and ``_heston_block`` of the first-contact kernel
+(``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:178-294``), and the
+streamed samplers of the gated and engine loops (``pallas_mc.py:1187-1375``,
+``pallas_engine.py:207-519``).  The XLA pipeline's forms of the same samplers
+are ``ops/pathgen.py``'s; the two differ in the order of their float32
+operations (the kernels take each bar's previous log close as log_close -
+log return, and Heston's bridge variance as v+ dt, not sig_dt^2), so each is
+held against its own JAX counterpart.
+
+* ``Sampler`` / ``make_sampler`` -- a sampler and what it reads: the history's
+  ``bootstrap_tables`` (float32 [5, H]: logc, logh, logl, logo, volume) and
+  the block length, or the Heston constants (``HestonConsts``).
+* ``iid_index`` / ``block_start`` / ``block_offset`` / ``gather`` -- a
+  recorded bar's index from its uniform, in float32 as the kernels compute
+  it: min(floor(u H), H - 1), a block's start min(floor(u (H - L)), H - L -
+  1) and bar t's offset t - L floor(t / L) in it.
+* ``heston_shock`` / ``heston_step`` -- the full-truncation Euler step, with
+  the multiply-adds XLA's CPU compiler fuses under ``jit`` fused
+  (``utils/floats.fma``; ``fmaf`` in ``ops/csrc/sampler.cuh``).
+* ``sampler_steps`` / ``StreamBars`` -- the gated and engine loops' draws
+  and streamed bar, bar by bar.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..utils import prng
+from ..utils.floats import fma, sqrt
+from .draws import SAMPLERS
+from .kernel_args import f32
+from .pathgen import HESTON_DEFAULTS, history_tables
+
+HIST_CHANNELS = 5          # logc, logh, logl, logo, volume
+MAX_HIST = 1 << 24         # a float32 index is exact below this many bars
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class HestonConsts:
+    """The Heston constants as float32 values: ``rho_perp`` = sqrt(1 -
+    rho^2) from the host's float64 (``pallas_mc.py:1194``), and ``kappa_dt``
+    the float32 product kappa * dt that XLA folds ``kappa * (theta - v+) *
+    dt`` into."""
+
+    v0: float
+    kappa: float
+    theta: float
+    xi: float
+    rho: float
+    rho_perp: float
+    mu: float
+    dt: float
+    kappa_dt: float
+
+    @classmethod
+    def make(cls, heston=None, mu: float = 0.0, dt: float = 1.0 / (390.0 * 252.0)):
+        h = dict(HESTON_DEFAULTS)
+        h.update(heston or {})
+        rho = float(h["rho"])
+        return cls(v0=f32(h["v0"]), kappa=f32(h["kappa"]), theta=f32(h["theta"]),
+                   xi=f32(h["xi"]), rho=f32(rho),
+                   rho_perp=f32(math.sqrt(max(0.0, 1.0 - rho * rho))), mu=f32(mu),
+                   dt=f32(dt), kappa_dt=f32(f32(h["kappa"]) * f32(dt)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sampler:
+    """A fused kernel's sampler: ``kind`` one of SAMPLERS; the recorded
+    history's tables (float32 [5, H]) and ``block_len`` for the bootstrap
+    samplers; the Heston constants for "heston"."""
+
+    kind: str = "gbm"
+    tables: torch.Tensor | None = None
+    block_len: int = 0
+    heston: HestonConsts | None = None
+
+    @property
+    def resamples(self) -> bool:
+        return self.kind in ("bootstrap", "block_bootstrap")
+
+    @property
+    def hist_len(self) -> int:
+        return 0 if self.tables is None else int(self.tables.shape[1])
+
+    def on(self, device) -> "Sampler":
+        if self.tables is None:
+            return self
+        return dataclasses.replace(self, tables=self.tables.to(device))
+
+
+def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
+                 block_len: int = 10, heston=None, mu: float = 0.0,
+                 dt: float = 1.0 / (390.0 * 252.0)) -> Sampler:
+    """The ``Sampler`` of a fused entry's arguments, with the JAX entries'
+    checks (``pallas_mc.py:724-738``, ``:1206-1208``): the bootstrap samplers
+    need ``hist_bars`` (a PathBars of 1-D o/h/l/c[/v] arrays) or its
+    ``tables`` (float32 [5, H], as ``ops/pathgen.bootstrap_tables`` gives
+    them), the block bootstrap a history longer than ``block_len``; ``heston``
+    is a dict of v0/kappa/theta/xi/rho (the rest at their defaults)."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"samplers: {' | '.join(repr(s) for s in SAMPLERS)}")
+    if sampler == "heston":
+        return Sampler("heston", heston=HestonConsts.make(heston, mu, dt))
+    if sampler == "gbm":
+        return Sampler()
+    if tables is None:
+        if hist_bars is None:
+            raise ValueError(f"sampler={sampler!r} requires hist_bars")
+        tables = history_tables(hist_bars)
+    tab = torch.stack([torch.as_tensor(np.asarray(t, np.float32)) if not torch.is_tensor(t)
+                       else t.to(_F32).cpu() for t in tables])
+    if tab.dim() != 2 or tab.shape[0] != HIST_CHANNELS or not 0 < tab.shape[1] < MAX_HIST:
+        raise ValueError(f"bootstrap tables must be float32 [{HIST_CHANNELS}, H] with "
+                         f"0 < H < 2^24 (float32 indices), got {tuple(tab.shape)}")
+    bl = int(block_len) if sampler == "block_bootstrap" else 0
+    if bl and (bl < 1 or tab.shape[1] <= bl):
+        raise ValueError(f"block_bootstrap needs history longer than block_len "
+                         f"({tab.shape[1]} <= {bl})")
+    return Sampler(sampler, tables=tab.contiguous(), block_len=bl)
+
+
+def _c(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=_F32, device=like.device)
+
+
+def iid_index(u: torch.Tensor, h: int) -> torch.Tensor:
+    """min(floor(u H), H - 1), float32."""
+    hf = _c(float(h), u)
+    return torch.minimum(torch.floor(u * hf), hf - 1.0)
+
+
+def block_start(u: torch.Tensor, h: int, bl: int) -> torch.Tensor:
+    """min(floor(u (H - L)), H - L - 1), float32."""
+    span = _c(float(h), u) - _c(float(bl), u)
+    return torch.minimum(torch.floor(u * span), span - 1.0)
+
+
+def block_offset(t: int, bl: int) -> float:
+    """t - L floor(t / L) in float32 (exact for the kernels' bar counts)."""
+    tf, blf = np.float32(t), np.float32(bl)
+    return float(tf - blf * np.floor(tf / blf))
+
+
+def gather(tables: torch.Tensor, ch: int, idx_f: torch.Tensor) -> torch.Tensor:
+    """Channel ``ch`` of the recorded bars at float32 indices ``idx_f``."""
+    return tables[ch][idx_f.to(torch.int64)]
+
+
+def heston_shock(z, zq, hc: HestonConsts) -> torch.Tensor:
+    """The variance shock rho z + rho_perp zq with one product fused, the
+    one XLA fuses under jit: rho z for rho >= 0, rho_perp zq for a negative
+    rho (tests/test_torch_samplers.py)."""
+    if hc.rho >= 0.0:
+        return fma(_c(hc.rho, z), z, _c(hc.rho_perp, z) * zq)
+    return fma(_c(hc.rho_perp, z), zq, _c(hc.rho, z) * z)
+
+
+def heston_step(v, z, shock, hc: HestonConsts):
+    """One full-truncation Euler step from variance ``v``: (the drift mu -
+    v+/2, sig_bar = sqrt(v+ dt), the bridge variance v+ dt, the next
+    variance, its theta term and shock fused as XLA fuses them); the square
+    root rounded once, as XLA's and CUDA's are."""
+    dt = _c(hc.dt, v)
+    v_pos = torch.clamp(v, min=0.0)
+    sig2dt = v_pos * dt
+    sig_bar = sqrt(sig2dt)
+    drift = _c(hc.mu, v) - 0.5 * v_pos
+    v_next = fma(_c(hc.xi, v) * sig_bar, shock,
+                 fma(_c(hc.theta, v) - v_pos, _c(hc.kappa_dt, v), v))
+    return drift, sig_bar, sig2dt, v_next
+
+
+class StreamBars:
+    """The streamed bar of the gated and engine loops' samplers, over
+    [nb, 8, lanes] tensors: the path's log close, and its carried block
+    start (block bootstrap) or variance (Heston).  ``bar`` returns (log
+    open, open, high, low, close, recorded volume or None): a recorded
+    bar's open is its recorded gap over the previous close, which the gated
+    loop takes as bar 0's previous close (``pallas_mc.py:1353-1357``)."""
+
+    def __init__(self, sampler: Sampler, log_s0: float, shape, device):
+        self.s = sampler.on(device)
+        self.log_s = torch.full(shape, log_s0, dtype=_F32, device=device)
+        init = sampler.heston.v0 if sampler.kind == "heston" else 0.0
+        self.carry = torch.full(shape, init, dtype=_F32, device=device)
+
+    def index(self, t: int, u: torch.Tensor) -> torch.Tensor:
+        s = self.s
+        if s.kind == "block_bootstrap":
+            off = block_offset(t, s.block_len)
+            if off == 0.0:
+                self.carry = block_start(u, s.hist_len, s.block_len)
+            return self.carry + off
+        return iid_index(u, s.hist_len)
+
+    def bar(self, t: int, x, zq=None, bridge_u=None):
+        """Bar ``t`` from its index uniform ``x`` (bootstrap) or its price
+        normal ``x``, variance normal ``zq`` and bridge uniforms ``bridge_u``
+        = (u3, u4) (Heston)."""
+        log_open = self.log_s
+        if self.s.resamples:
+            idx = self.index(t, x)
+            tab = self.s.tables
+            log_close = log_open + gather(tab, 0, idx)
+            self.log_s = log_close
+            return (log_open, torch.exp(log_open + gather(tab, 3, idx)),
+                    torch.exp(log_open + gather(tab, 1, idx)),
+                    torch.exp(log_open + gather(tab, 2, idx)),
+                    torch.exp(log_close), gather(tab, 4, idx))
+        hc = self.s.heston
+        drift, sig_bar, sig2dt, self.carry = heston_step(
+            self.carry, x, heston_shock(x, zq, hc), hc)
+        log_close = fma(sig_bar, x, fma(drift, _c(hc.dt, x), log_open))
+        self.log_s = log_close
+        high, low = bridge(log_open, log_close, sig2dt, *bridge_u)
+        return log_open, torch.exp(log_open), high, low, torch.exp(log_close), None
+
+
+def box_muller(u1, u2):
+    """(r cos a, r sin a) of radius draw ``u1`` and angle draw ``u2``."""
+    radius = torch.sqrt(-2.0 * torch.log(u1))
+    angle = prng.TWO_PI * u2
+    return radius * torch.cos(angle), radius * torch.sin(angle)
+
+
+def sampler_steps(u, layout):
+    """Per bar of a gated or engine layout (``ops/draws.GatedLayout`` /
+    ``EngineLayout``) of a bootstrap or Heston sampler, in order: (t, x, zq,
+    zv, (u3, u4) or None, tie, noise normals or None), each [nb, 8, lanes]
+    of uniforms u f32[nb, u_rows, 8, lanes], as the JAX loops draw them:
+    x is the bar's index uniform (bootstrap) or price normal (Heston), zq
+    its variance normal and zv its volume normal (the engine's Heston)."""
+    heston = layout.sampler == "heston"
+    for t2 in range(layout.num_bars // 2):
+        def draw(k):
+            return u[:, layout.row(t2, k)]
+
+        none = (None, None)
+        if heston:
+            xs = box_muller(draw(0), draw(1))
+            zqs = box_muller(draw(layout.k_shock), draw(layout.k_shock + 1))
+            kv = layout.k_volume
+            zvs = none if kv is None else box_muller(draw(kv), draw(kv + 1))
+            kb = layout.k_bridge
+            bridges = ((draw(kb), draw(kb + 1)), (draw(kb + 3), draw(kb + 4)))
+            ties = (draw(kb + 2), draw(kb + 5))
+        else:
+            xs, zqs, zvs, bridges, ties = (draw(0), draw(1)), none, none, none, (draw(2), draw(3))
+        for half in range(2):
+            nz = None
+            if layout.noise:
+                k = layout.k_noise + 4 * half
+                nz = box_muller(draw(k), draw(k + 1)) + box_muller(draw(k + 2), draw(k + 3))
+            yield 2 * t2 + half, xs[half], zqs[half], zvs[half], bridges[half], ties[half], nz
+
+
+def bridge(log_open, log_close, sig2dt, u3, u4):
+    """Brownian-bridge (high, low) between the bar's log open and close at
+    variance ``sig2dt`` (a tensor), in the kernels' order."""
+    two_s2 = 2.0 * sig2dt
+    diff = log_close - log_open
+    d2 = diff * diff
+    mid = log_open + log_close
+    high = torch.exp(0.5 * (mid + torch.sqrt(d2 - two_s2 * torch.log(u3))))
+    low = torch.exp(0.5 * (mid - torch.sqrt(d2 - two_s2 * torch.log(u4))))
+    return high, low

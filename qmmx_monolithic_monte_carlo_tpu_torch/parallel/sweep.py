@@ -108,6 +108,12 @@ def _check_blocks(num_paths: int, block_paths: int) -> int:
     return num_paths // block_paths
 
 
+def _gbm_only(sampler: str) -> None:
+    if sampler != "gbm":
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the sweeps "
+                                  "(gbm only)")
+
+
 def sweep_paths(seed: int, levels: Levels, grid: EngineParams, *, num_paths: int,
                 num_bars: int = 40, s0=100.0, mu: float = 0.0, sigma: float = 0.15,
                 dt: float = 1.0 / (390.0 * 252.0), block_paths: int = 1 << 14,
@@ -116,6 +122,7 @@ def sweep_paths(seed: int, levels: Levels, grid: EngineParams, *, num_paths: int
     bars and tie coins are those of ``sim.pathsim.mc_paths`` (gbm only; the
     other samplers raise), drawn once; runs on ``device``, the CUDA device
     by default, the CPU when asked."""
+    _gbm_only(sampler)
     n_blocks = _check_blocks(num_paths, block_paths)
     device = devices.resolve(device)
     levels = levels.to(device)
@@ -139,7 +146,9 @@ def sweep_paths_gated(seed: int, levels: Levels, grid: EngineParams, gate=None, 
     per-bar tie coins (those of ``sim.gatedpath.mc_paths_gated``) are drawn
     once and every row replays the whole lifecycle on them.  ``gate``
     (default ``GateConfig.default()``, as in JAX) may carry [G] leaves to put
-    gate knobs on the grid axis (``grid_params_gated``)."""
+    gate knobs on the grid axis (``grid_params_gated``); gbm only, as
+    ``sweep_paths``."""
+    _gbm_only(sampler)
     if gate is None:
         gate = gatedpath.GateConfig.default()
     n_blocks = _check_blocks(num_paths, block_paths)

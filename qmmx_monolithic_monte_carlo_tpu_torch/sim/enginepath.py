@@ -433,11 +433,12 @@ def engine_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 
 def _one_block_engine(seed: int, block: int, *, levels, params, block_paths,
                       num_bars, s0, mu, sigma, dt, sampler, antithetic,
-                      volume_model, noise, device, symbol: int = 0, **engine_kw):
+                      volume_model, noise, device, symbol: int = 0, sampler_kw=None,
+                      **engine_kw):
     paths = pathsim.sample_block(
         seed, block, block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
         sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
-        volume_model=volume_model, symbol=symbol, device=device)
+        volume_model=volume_model, symbol=symbol, device=device, **(sampler_kw or {}))
     tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=block, n_blocks=1,
                             n_rows=num_bars, lanes=block_paths, symbol=symbol,
                             device=device)[0].T
@@ -460,12 +461,14 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
                     touch_params=None, guard_params=None,
                     policy_gate_disabled: bool | None = None,
                     escalation: bool = True, bar0_minute: int = 0, noise=None,
-                    volume_model=None, harvest: bool = False, symbol: int = 0,
-                    device=None):
+                    volume_model=None, harvest: bool = False, hist_bars=None,
+                    block_len: int = 10, heston=None, symbol: int = 0, device=None):
     """Streamed generated-path MC under the full engine: ``num_paths`` paths
     in blocks of ``block_paths``.  Returns (PathStats over the lifecycle
     histogram range, int64[16] skip table ordered as SKIP_REASONS, int64
-    escalations); ``symbol`` keys the draws as in ``pathsim.mc_paths``.  Runs
+    escalations); ``symbol`` keys the draws and ``sampler``, ``hist_bars``,
+    ``block_len`` and ``heston`` pick the bars as in ``pathsim.mc_paths``
+    (the bootstrap samplers' recorded volumes reach the volume gates).  Runs
     on ``device``: the CUDA device by default (raising where there is none),
     the CPU when asked."""
     if harvest:
@@ -477,12 +480,15 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
     stats = PathStats.zero(LIFE_HIST_LO, LIFE_HIST_HI, device=device)
     skips = torch.zeros((len(SKIP_REASONS),), dtype=torch.int64, device=device)
     escal = torch.zeros((), dtype=torch.int64, device=device)
+    sampler_kw = dict(block_len=block_len, heston=heston,
+                      tables=pathsim.sampler_tables(sampler, hist_bars))
     for b in range(num_paths // block_paths):
         st, sk, es = _one_block_engine(
             seed, b, levels=levels, params=params, block_paths=block_paths,
             num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt, sampler=sampler,
             antithetic=antithetic, volume_model=volume_model, noise=noise,
-            device=device, symbol=symbol, policy=policy, ml_model=ml_model,
+            device=device, symbol=symbol, sampler_kw=sampler_kw, policy=policy,
+            ml_model=ml_model,
             touch_params=touch_params, guard_params=guard_params,
             policy_gate_disabled=policy_gate_disabled, escalation=escalation,
             bar0_minute=bar0_minute)

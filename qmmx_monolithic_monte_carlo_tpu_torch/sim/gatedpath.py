@@ -232,11 +232,11 @@ def gated_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 def _one_block_gated(seed: int, block: int, *, levels, params, gate,
                      block_paths, num_bars, s0, mu, sigma, dt, sampler,
                      antithetic, noise, volume_model, device,
-                     symbol: int = 0) -> PathStats:
+                     symbol: int = 0, **sampler_kw) -> PathStats:
     paths = pathsim.sample_block(
         seed, block, block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
         sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
-        volume_model=volume_model, symbol=symbol, device=device)
+        volume_model=volume_model, symbol=symbol, device=device, **sampler_kw)
     tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=block,
                             n_blocks=1, n_rows=num_bars, lanes=block_paths,
                             symbol=symbol, device=device)[0].T
@@ -256,11 +256,13 @@ def mc_paths_gated(seed: int, levels: Levels, params: EngineParams,
                    sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                    sampler: str = "gbm", block_paths: int = 1 << 16,
                    antithetic: bool = False, noise=None, volume_model=None,
+                   hist_bars=None, block_len: int = 10, heston=None,
                    symbol: int = 0, device=None) -> PathStats:
     """Streamed generated-path MC with the gated multi-trade lifecycle:
     ``num_paths`` paths in blocks of ``block_paths`` (memory holds one block),
     merged into a PathStats over the lifecycle histogram range; ``symbol``
-    keys the draws as in ``pathsim.mc_paths``.  Runs on ``device``: the CUDA
+    keys the draws and ``sampler``, ``hist_bars``, ``block_len`` and
+    ``heston`` pick the bars as in ``pathsim.mc_paths``.  Runs on ``device``: the CUDA
     device by default (raising where there is none), the CPU when asked."""
     if gate is None:
         gate = GateConfig.from_params(params)
@@ -268,6 +270,7 @@ def mc_paths_gated(seed: int, levels: Levels, params: EngineParams,
         raise ValueError("num_paths must be a multiple of block_paths")
     device = devices.resolve(device)
     levels = levels.to(device)
+    tables = pathsim.sampler_tables(sampler, hist_bars)
     out = PathStats.zero(LIFE_HIST_LO, LIFE_HIST_HI, device=device)
     for b in range(num_paths // block_paths):
         out = out.merge(_one_block_gated(
@@ -275,5 +278,5 @@ def mc_paths_gated(seed: int, levels: Levels, params: EngineParams,
             block_paths=block_paths, num_bars=num_bars, s0=s0, mu=mu,
             sigma=sigma, dt=dt, sampler=sampler, antithetic=antithetic,
             noise=noise, volume_model=volume_model, device=device,
-            symbol=symbol))
+            symbol=symbol, block_len=block_len, heston=heston, tables=tables))
     return out

@@ -298,17 +298,36 @@ def path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
 
 def sample_block(seed: int, block: int, *, block_paths, num_bars, s0, mu,
                  sigma, dt, sampler="gbm", antithetic=False, volume_model=None,
+                 hist_bars=None, block_len: int = 10, heston=None, tables=None,
                  symbol: int = 0, device=None) -> PG.PathBars:
     """One path block of global index ``block`` (of universe symbol
-    ``symbol``) from the named sampler.  Only "gbm" is ported; the others
-    raise."""
-    if sampler != "gbm":
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet (gbm only)")
-    return PG.gbm_paths(seed, block, num_paths=block_paths, num_bars=num_bars,
-                        s0=s0, mu=mu, sigma=sigma, dt=dt,
-                        antithetic=antithetic, volume_model=volume_model,
-                        symbol=symbol, device=device)
+    ``symbol``) from the named sampler: "gbm", "bootstrap" and
+    "block_bootstrap" (recorded bars of ``hist_bars``, a PathBars of 1-D
+    arrays, or of its ``PG.bootstrap_tables`` given as ``tables``; their
+    real volumes ride along) or "heston" (``heston``: a dict of
+    v0/kappa/theta/xi/rho).  Shared by the first-contact, gated and engine
+    pipelines, as ``sim/pathsim.sample_block`` is in the JAX package."""
+    kw = dict(num_paths=block_paths, num_bars=num_bars, s0=s0, symbol=symbol,
+              device=device)
+    if sampler == "gbm":
+        return PG.gbm_paths(seed, block, mu=mu, sigma=sigma, dt=dt,
+                            antithetic=antithetic, volume_model=volume_model, **kw)
+    if sampler == "bootstrap":
+        return PG.bootstrap_paths(seed, block, hist_bars=hist_bars, tables=tables, **kw)
+    if sampler == "block_bootstrap":
+        return PG.block_bootstrap_paths(seed, block, block_len=block_len,
+                                        hist_bars=hist_bars, tables=tables, **kw)
+    if sampler == "heston":
+        return PG.heston_paths(seed, block, mu=mu, dt=dt, antithetic=antithetic,
+                               volume_model=volume_model, **(heston or {}), **kw)
+    raise ValueError(f"unknown sampler {sampler!r}")
+
+
+def sampler_tables(sampler: str, hist_bars=None):
+    """The bootstrap samplers' tables, computed once for a streamed run."""
+    if sampler in ("bootstrap", "block_bootstrap"):
+        return PG.history_tables(hist_bars)
+    return None
 
 
 def noise_normals(seed: int, block: int, n: int, device=None,
@@ -333,9 +352,11 @@ def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
              sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
              sampler: str = "gbm", block_paths: int = 1 << 16,
              antithetic: bool = False, noise=None, volume_model=None,
+             hist_bars=None, block_len: int = 10, heston=None,
              symbol: int = 0, device=None) -> PathStats:
     """Streamed generated-path MC: ``num_paths`` paths in blocks of
-    ``block_paths``; returns the merged PathStats.  ``noise``
+    ``block_paths``; returns the merged PathStats.  ``sampler``,
+    ``hist_bars``, ``block_len`` and ``heston`` as in ``sample_block``.  ``noise``
     (sim.montecarlo.McNoise) adds the reference MC's execution-noise
     gaussians per path.  ``symbol`` keys every draw as universe symbol
     ``symbol`` does (``parallel.universe``; 0 is the single run).  Runs on
@@ -345,12 +366,14 @@ def mc_paths(seed: int, levels: Levels, params: EngineParams, *,
         raise ValueError("num_paths must be a multiple of block_paths")
     device = devices.resolve(device)
     levels = levels.to(device)
+    tables = sampler_tables(sampler, hist_bars)
     out = PathStats.zero(device=device)
     for b in range(num_paths // block_paths):
         paths = sample_block(seed, b, block_paths=block_paths,
                              num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
                              dt=dt, sampler=sampler, antithetic=antithetic,
-                             volume_model=volume_model, symbol=symbol,
+                             volume_model=volume_model, block_len=block_len,
+                             heston=heston, tables=tables, symbol=symbol,
                              device=device)
         tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=b,
                                 n_blocks=1, n_rows=1, lanes=block_paths,

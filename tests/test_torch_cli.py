@@ -68,9 +68,10 @@ def test_paths_cuda_backend_without_gpu_raises(tmp_path):
         cli.main(["--db", str(tmp_path / "t.db"), *ARGS, "--backend", "cuda"])
 
 
-@pytest.mark.parametrize("flags", [["--sampler", "heston"], ["--engine", "--exact-tail"],
+@pytest.mark.parametrize("flags", [["--sampler", "heston", "--exact-tail"],
+                                   ["--engine", "--exact-tail"],
                                    ["--exact-tail"], ["--ckpt-dir", "ck"],
-                                   ["--sampler", "bootstrap"]])
+                                   ["--sampler", "bootstrap", "--ckpt-dir", "ck"]])
 def test_unported_options_exit_clearly(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["--db", str(tmp_path / "t.db"), *ARGS, *flags])

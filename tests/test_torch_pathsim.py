@@ -138,9 +138,12 @@ def test_mc_paths_with_noise_and_unported_samplers():
                     device="cpu")
     assert float(s.n) == 4096 and float(s.n_entered) > 0
     assert np.isfinite(float(s.cvar(0.05)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    bars = PS.sample_block(0, 0, block_paths=8, num_bars=4, s0=100.0, mu=0.0,
+                           sigma=0.3, dt=1e-5, sampler="heston")
+    assert bars.close.shape == (8, 4) and bool(torch.isfinite(bars.close).all())
+    with pytest.raises(ValueError, match="unknown sampler"):
         PS.sample_block(0, 0, block_paths=8, num_bars=4, s0=100.0, mu=0.0,
-                        sigma=0.3, dt=1e-5, sampler="heston")
+                        sigma=0.3, dt=1e-5, sampler="garch")
     with pytest.raises(ValueError):
         PS.mc_paths(0, tl, EngineParams.default(), num_paths=1000,
                     block_paths=512, device="cpu")
