@@ -160,7 +160,38 @@ Phases (any failure exits non-zero and prints no result line):
 23. engine (``mc_engine_sampler_kernel``, mc_engine_samplers.cu): the same,
    path by path with its two budgets, every differing injected path traced
    as in phase 9, and ``paths --engine`` (the recorded volumes reach the
-   volume gates).
+   volume gates);
+   the samplers of the sweeps and universes, a row axis on the three sampler
+   kernels (kernels #2, #3, #5, #6, #9, #10, #11):
+24. first contact (``mc_first_contact_sampler_kernel`` with a row a symbol or
+   a grid row): under bootstrap, block bootstrap and Heston, injected
+   uniforms on a 3-symbol universe with its own histories and on the CLI's
+   3 x 3 grid, kernel vs plain on CPU copies; Philox at 2^22 a row, every
+   universe symbol and sweep row equal to its one-row launch bit for bit, the
+   row folds against their plain folds, the plain version on the card;
+   BASELINE config #4 (100 symbols x 2^20 x 40, each symbol its own year of
+   1-minute bars) through ``mc_paths_universe_fused``, its 100 symbols
+   against the plain version on the card at 2^16 paths a symbol, each symbol
+   of the full-width launch equal to its one-row launch bit for bit, the
+   bootstrap universe against 100 one-symbol launches; ``sweep --backend cuda --sampler
+   bootstrap | block_bootstrap --bars-csv`` at 2^28 (3 x 3), Heston through
+   ``mc_paths_sweep_fused``; launch counts set to 0 just before each main
+   path and read just after (one sampler launch and one fold a run);
+25. gated: the same with and without noise ([S] and [G] stds), path by path,
+   every differing injected path traced as in phase 6; ``sweep --gated`` at
+   2^26 x 18 rows (``--touch-limits 2 4``);
+26. engine: the same with the engine's two budgets, every differing path
+   traced as in phase 9, config #4's first 10 symbols against the plain
+   version on the card (launch-bound a symbol at a time) and all 100 of
+   the full-width launch against their one-row launches; ``sweep --engine``
+   at 2^24 x 18 rows (``--jitter-stds 0 0.02``); and the sweep of universes
+   (config #4's first 8 symbols x 4 configurations at 2^20 a cell), each
+   cell equal to its one-row launch at 2^14 (per path) and at 2^20.
+
+``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
+times the nine single-configuration sampler launches of the port in TREE
+(default: this one) at 2^28 x 40, for a parent unpacked with ``git archive``
+against this tree in one call.
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -195,7 +226,17 @@ the symbol's inputs and key: equal, bit for bit.  Books (phases 19-20):
 each symbol and the book under their family's rules (the book's row is a
 lifecycle row of the book's R per path); a book symbol at beta 0 and the
 universe kernel's symbol: equal, bit for bit.  Samplers (phases 21-23):
-each family's rules above.
+each family's rules above.  Sampler rows (phases 24-26): each symbol or
+grid row under its family's rules; a row of a launch and the one-row launch
+of its arguments: equal, bit for bit, per path included.  Their injected
+comparisons on CPU copies count drift in price ulps (a float32 ulp of the
+row's highest level or spot, over its stop padding, in R): a lifecycle path
+that agrees drifts at most 16 a trade (and one more), and a histogram is
+held after binning each true edge tie as the kernel bins it: a path whose
+two values sit in adjacent bins, each within 8 a trade of the edge between
+them (recorded bars on a cent grid put R = 1 on an edge for hundreds of
+block-bootstrap paths).  First contact besides must equal the plain version
+on the card on the same uniforms exactly, histogram included.
 
 Bounds (``bound_ms``): the larger of the bytes each kernel must move over
 3.35 TB/s and its operations over the card's peak rate for their type: float32
@@ -278,9 +319,21 @@ F32_FLOPS = 67e12
 SFU_PER_SM_CLK = 16
 IMUL_PER_SM_CLK = 64
 PHILOX_IMULS = 40
+# the injected sampler comparisons (phases 24-26), in price ulps (``r_ulp``):
+# a true edge tie lies within TIE_ULPS of a bin edge on both sides (a trade);
+# a lifecycle path that agrees drifts at most DRIFT_ULPS a trade (and one more)
+TIE_ULPS = 8
+DRIFT_ULPS = 16
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's heading ("[N] ...") carries the seconds since
+    the start."""
+    if msg.startswith("[") and msg[1:2].isdigit():
+        msg = f"{msg} (+{time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -417,14 +470,81 @@ def engine_sweep_ops(n_paths: float, counts_rows, scale: float) -> dict:
     return ops
 
 
-def compare(name: str, want, got, n_paths: int, quiet: bool = False) -> float:
+def hist_bins(values, lifecycle: bool):
+    """Each float32 value's histogram bin as the kernels and the plain
+    versions bin it: a first-contact path's R, or a lifecycle path's equity."""
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_gated import LIFE_BIN_SCALE
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.pathsim import (HIST_BINS, HIST_HI, HIST_LO,
+                                                                   LIFE_HIST_LO)
+
+    v = values.float()
+    b = ((v - LIFE_HIST_LO) * LIFE_BIN_SCALE if lifecycle
+         else (v - HIST_LO) * (HIST_BINS / (HIST_HI - HIST_LO)))
+    return torch.clamp(b.to(torch.int32), 0, HIST_BINS - 1).to(torch.int64)
+
+
+def edge_ties(want_hist, cpu_vals, kernel_vals, counted, agree, near, lifecycle: bool):
+    """The plain histogram ``want_hist`` (of the ``counted`` paths'
+    ``cpu_vals``) with every true edge tie binned as the kernel bins its
+    ``kernel_vals``: a path that agrees with the kernel (``agree``) whose
+    two values sit in adjacent bins, each within ``near`` (a float or one a
+    path) of the edge between them, a value on an edge moved across it by
+    the ulps of the other side's transcendentals.  Returns (that histogram,
+    the tie count).  Recorded bars on a cent grid make ties common: a
+    block-bootstrap path often enters exactly at a level, and with equal
+    paddings its R is then 1 within a price ulp, on a bin edge.  The
+    per-path values must give the plain histogram back."""
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_gated import LIFE_BIN_SCALE
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.pathsim import (HIST_BINS, HIST_HI, HIST_LO,
+                                                                   LIFE_HIST_LO)
+
+    n = want_hist.shape[0]
+    bc, bk = hist_bins(cpu_vals, lifecycle), hist_bins(kernel_vals, lifecycle)
+    if not torch.equal(torch.bincount(bc[counted], minlength=n), want_hist):
+        raise AssertionError("the per-path values do not give the plain histogram")
+    hi = torch.maximum(bc, bk).double()
+    edge = (LIFE_HIST_LO + hi / float(LIFE_BIN_SCALE) if lifecycle
+            else HIST_LO + hi * ((HIST_HI - HIST_LO) / HIST_BINS))
+    on_edge = (((cpu_vals.double() - edge).abs() <= near)
+               & ((kernel_vals.double() - edge).abs() <= near))
+    tie = agree & counted & ((bc - bk).abs() == 1) & on_edge
+    return (want_hist - torch.bincount(bc[tie], minlength=n)
+            + torch.bincount(bk[tie], minlength=n)), int(tie.sum())
+
+
+def r_ulp(price: float, stop: float) -> float:
+    """One float32 price ulp at ``price`` in R units (over the stop
+    distance ``stop``): the scale of the drift between the kernel's bars
+    and the plain version's on the CPU, a few ulps of a price apart."""
+    import numpy as np
+
+    return float(np.spacing(np.float32(price))) / stop
+
+
+def compare(name: str, want, got, n_paths: int, quiet: bool = False, ties=None,
+            tie_ulp: float = 0.0) -> float:
     """Hold first-contact kernel totals ``got`` against plain totals ``want``
     (both (int64 counts, float64 floats)); returns |delta mean R|.  ``quiet``
-    logs only a failure."""
+    logs only a failure.  ``ties`` = (the plain version's per-path R, the
+    kernel's), f32[P] with NaN where a path did not enter: the histogram is
+    then held after binning each true edge tie (both R within TIE_ULPS price
+    ulps, ``tie_ulp`` = ``r_ulp`` of the row, of one bin edge) as the kernel
+    bins it (``edge_ties``)."""
+    import torch
+
     wc, wf = (t.cpu() for t in want)
     gc, gf = (t.cpu() for t in got)
     flips = 2 + n_paths // 1024
     bad = []
+    want_hist, n_ties = wc[5:], None
+    if ties is not None:
+        rc, rk = (t.cpu() for t in ties)
+        want_hist, n_ties = edge_ties(wc[5:], rc, rk, torch.isfinite(rc), torch.isfinite(rk),
+                                      TIE_ULPS * tie_ulp, lifecycle=False)
     if int(gc[0]) != int(wc[0]) or int(wc[0]) != n_paths:
         bad.append(f"n {int(gc[0])} vs {int(wc[0])}")
     for i, fld in enumerate(("entered", "tp", "stop", "open"), start=1):
@@ -433,7 +553,7 @@ def compare(name: str, want, got, n_paths: int, quiet: bool = False) -> float:
     max_abs_r = max(abs(float(wf[2])), abs(float(wf[3])))
     if abs(float(gf[0]) - float(wf[0])) > flips * max_abs_r:
         bad.append(f"sum_r {float(gf[0])} vs {float(wf[0])}")
-    l1 = int((gc[5:] - wc[5:]).abs().sum())
+    l1 = int((gc[5:] - want_hist).abs().sum())
     if l1 > 2 * flips:
         bad.append(f"hist L1 {l1} > {2 * flips}")
     for j, fld in ((2, "min_r"), (3, "max_r")):
@@ -444,15 +564,16 @@ def compare(name: str, want, got, n_paths: int, quiet: bool = False) -> float:
     if not quiet or bad:
         log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} tp {int(gc[2])}/{int(wc[2])} "
             f"stop {int(gc[3])}/{int(wc[3])} open {int(gc[4])}/{int(wc[4])} "
-            f"sum_r {float(gf[0]):.6f}/{float(wf[0]):.6f} hist L1 {l1} "
-            f"|d mean_r| {d_mean:.3e}")
+            f"sum_r {float(gf[0]):.6f}/{float(wf[0]):.6f} hist L1 {l1}"
+            + ("" if n_ties is None else f" (after {n_ties} edge ties)")
+            + f" |d mean_r| {d_mean:.3e}")
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with plain: {bad}")
     return d_mean
 
 
 def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
-                      trace=None, quiet: bool = False):
+                      trace=None, quiet: bool = False, tie_ulp: float | None = None):
     """Hold gated (or, with ``engine``, engine) kernel output ``got`` against
     the plain version's ``want`` (both (int64 counts, float64 floats, f32[P,
     6] per-path rows; the engine's counts carry escalations and 16 skip
@@ -461,7 +582,12 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
     |d equity| or |d dd| on the paths that agree, and the bool[P] mask of the
     paths that differ.  ``trace(differ)``, when given, runs on the differing
     paths before any budget is applied (it raises unless each is a flipped
-    decision); ``quiet`` logs only a failure."""
+    decision); ``quiet`` logs only a failure.  With ``tie_ulp`` (``r_ulp`` of
+    the row: a price ulp in R) every path that agrees must drift at most
+    DRIFT_ULPS of it a trade (and one more), and the histogram is held after
+    binning each true edge tie (a path that agrees and entered on both
+    sides, both equities within TIE_ULPS of it a trade of one bin edge) as
+    the kernel bins it (``edge_ties``)."""
     import torch
 
     wc, wf, wr = (t.cpu() for t in want[:3])
@@ -473,9 +599,6 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
         bad.append(f"n {int(gc[0])} vs {int(wc[0])}")
     if abs(int(gc[1]) - int(wc[1])) > flips:
         bad.append(f"entered {int(gc[1])} vs {int(wc[1])} (budget {flips})")
-    l1 = int((gc[hist:] - wc[hist:]).abs().sum())
-    if l1 > 2 * flips:
-        bad.append(f"hist L1 {l1} > {2 * flips}")
     max_eq = float(wr[:, 0].abs().max())
     for j, fld in ((0, "sum_eq"), (2, "sum_dd")):
         if abs(float(gf[j]) - float(wf[j])) > flips * max(max_eq, 1.0):
@@ -494,6 +617,22 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
         reason_only = (gr[:, 7:23] != wr[:, 7:23]).any(dim=1) & ~trades_differ
     differ = trades_differ | reason_only
     n_differ = int(differ.sum())
+    want_hist, n_ties, drift = wc[hist:], None, None
+    if tie_ulp is not None:
+        trades = wr[:, 1].double()
+        want_hist, n_ties = edge_ties(wc[hist:], wr[:, 0], gr[:, 0], wr[:, 1] > 0,
+                                      ~differ & (gr[:, 1] > 0),
+                                      TIE_ULPS * tie_ulp * torch.clamp(trades, min=1.0),
+                                      lifecycle=True)
+        # the drift of the paths that agree, in price ulps a trade (and one more)
+        per = err.double() / (tie_ulp * (trades + 1.0))
+        drift = float(per[~differ].max()) if bool((~differ).any()) else 0.0
+        if drift > DRIFT_ULPS:
+            bad.append(f"a path that agrees drifts {drift:.3f} price ulps a trade "
+                       f"(limit {DRIFT_ULPS})")
+    l1 = int((gc[hist:] - want_hist).abs().sum())
+    if l1 > 2 * flips:
+        bad.append(f"hist L1 {l1} > {2 * flips}")
     if trace is not None:
         trace(differ)
     if int(trades_differ.sum()) > flips:
@@ -520,8 +659,10 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
         log(f"  {name}: entered {int(gc[1])}/{int(wc[1])} trades {int(gc[5])}/{int(wc[5])} "
             f"wins {int(gc[2])}/{int(wc[2])} losses {int(gc[3])}/{int(wc[3])} "
             f"open {int(gc[4])}/{int(wc[4])} sum_eq {float(gf[0]):.6f}/{float(wf[0]):.6f} "
-            f"hist L1 {l1};{extra} paths differing {n_differ}, max |d eq|,|d dd| "
-            f"elsewhere {max_err:.3e}")
+            f"hist L1 {l1}" + ("" if n_ties is None else f" (after {n_ties} edge ties)")
+            + f";{extra} paths differing {n_differ}, max |d eq|,|d dd| elsewhere "
+            f"{max_err:.3e}" + ("" if drift is None else
+                                f" ({drift:.3f} price ulps a trade and one more)"))
     if bad:
         raise AssertionError(f"{name}: kernel disagrees with plain: {bad}")
     return max_err, differ
@@ -1919,12 +2060,12 @@ ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
 L2_BYTES = 50e6
 
 
-def write_history(path: str, n_bars: int, seed: int = 11) -> None:
-    """A recorded-bar CSV (t,o,h,l,c,v) of ``n_bars`` 1-minute bars in
-    390-bar sessions, from ``seed``: a random walk of the log close with a
-    U-shaped intraday volatility and a gap at each session's open, closes
-    and opens rounded to cents, highs and lows a few cents beyond them,
-    volumes U-shaped and positive."""
+def history_arrays(n_bars: int, seed: int = 11):
+    """t, o, h, l, c, v numpy arrays of ``n_bars`` 1-minute bars in 390-bar
+    sessions, from ``seed``: a random walk of the log close with a U-shaped
+    intraday volatility and a gap at each session's open, closes and opens
+    rounded to cents, highs and lows a few cents beyond them, volumes
+    U-shaped and positive."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1939,18 +2080,42 @@ def write_history(path: str, n_bars: int, seed: int = 11) -> None:
     lo = np.round(np.minimum(o, c) - np.abs(rng.normal(0.0, 0.03, n_bars)), 2)
     v = np.maximum(np.round(rng.lognormal(np.log(2e4), 0.5, n_bars) * ushape), 1.0)
     t = 1_700_000_000_000 + 60_000 * np.arange(n_bars)
+    return t, o, h, lo, c, v
+
+
+def write_history(path: str, n_bars: int, seed: int = 11) -> None:
+    """``history_arrays`` as a recorded-bar CSV (t,o,h,l,c,v)."""
+    t, o, h, lo, c, v = history_arrays(n_bars, seed)
     with open(path, "w") as f:
         f.write("t,o,h,l,c,v\n")
         f.write("".join(f"{t[i]},{o[i]:.2f},{h[i]:.2f},{lo[i]:.2f},{c[i]:.2f},{v[i]:.0f}\n"
                         for i in range(n_bars)))
 
 
-def gather_bound(card, bytes_: float, ops: dict, gathers: float, table_bytes: float) -> dict:
-    """``card.bound`` with a recorded bar's gathered values as 32-byte
-    sectors: against device memory's rate when the tables outgrow the L2,
-    listed only while they fit there."""
+def universe_history(n_sym: int, n_bars: int, seed0: int):
+    """A universe's recorded histories, symbol i's ``n_bars`` bars from seed
+    ``seed0 + i`` (``history_arrays``, as the CSV would hold them after the
+    parse): a PathBars of float32 [S, H] o/h/l/c/v tensors."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import PathBars
+
+    cols = [history_arrays(n_bars, seed0 + i)[1:] for i in range(n_sym)]
+    return PathBars(*(torch.from_numpy(np.stack([np.asarray(c[k], np.float32) for c in cols]))
+                      for k in range(5)))
+
+
+def gather_bound(card, bytes_: float, ops: dict, gathers: float, table_bytes: float,
+                 live_bytes: float | None = None) -> dict:
+    """``card.bound`` with the tables read once and a recorded bar's gathered
+    values as 32-byte sectors: against device memory's rate when the tables
+    a launch reads at once (``live_bytes``: one row's, where each row reads
+    its own and a CTA works on one row; default all of them) outgrow the
+    L2, listed only while they fit there."""
     g = 32.0 * gathers
-    b = card.bound(bytes_=bytes_ + table_bytes + (g if table_bytes > L2_BYTES else 0.0), **ops)
+    live = table_bytes if live_bytes is None else live_bytes
+    b = card.bound(bytes_=bytes_ + table_bytes + (g if live > L2_BYTES else 0.0), **ops)
     b["bound_parts"]["gather_bytes"] = g
     return b
 
@@ -2209,6 +2374,785 @@ def sampler_phases(dev, card, reset, cli) -> list:
                                  cli_s=run["secs"], sampler=s))
     tmp.cleanup()
     return entries
+
+
+# ---- the samplers of the sweeps and universes: a row axis on the three
+# sampler kernels (kernels #2, #3, #5, #6, #9, #10, #11)
+ROWS_INJECT_HIST_BARS = 390 * 20    # the 3-symbol universe's own histories
+ROWS_INJECT_BLOCKS = {"first contact": 4, "gated": 1, "engine": 1}
+# kernel vs plain on the card: paths a universe symbol, paths a sweep row
+ROWS_PLAIN_PATHS = {"first contact": 1 << 20, "gated": 1 << 20, "engine": 1 << 18}
+ROWS_SWEEP_PLAIN_PATHS = {"first contact": 1 << 18, "gated": 1 << 18, "engine": 1 << 16}
+# config #4's main inputs, kernel vs plain on the card (and the bounds' work):
+# paths a symbol, on all its symbols; the engine's plain version is launch-bound
+# a symbol at a time, so the engine takes its first ROWS_ENGINE_SAMPLE_SYMBOLS
+# (every symbol of the full-width launch is held to its one-row launch)
+ROWS_SAMPLE_PATHS = {"first contact": 1 << 16, "gated": 1 << 16, "engine": 1 << 15}
+ROWS_ENGINE_SAMPLE_SYMBOLS = 10
+ROWS_UNI_SWEEP_SAMPLE_PATHS = 1 << 14
+ROWS_UNI_SWEEP_SAMPLE_SYMBOLS = 2   # of the sweep of universes' 8, kernel vs plain on the card
+# the CLI's grids: 3 x 3 (stop, tp), x touch limits 2, 4 (gated), x level-jitter
+# stds 0, 0.02 (engine), and its path counts (phases 12-14)
+GRID9 = [(sp, tp) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)]
+ROWS_CLI_PATHS = {"first contact": MAIN_PATHS, "gated": 1 << 26, "engine": 1 << 24}
+ROWS_SOURCES = {"first contact": FC_SAMPLER_SOURCE, "gated": GATED_SAMPLER_SOURCE,
+                "engine": ENGINE_SAMPLER_SOURCE}
+
+
+def rows_ops(family: str, sampler: str, work, sample_pps: int, scale: float):
+    """(operations, gathered values) of a launch whose rows are a universe's
+    symbols (or a sweep of universes' cells, [S, G]), from the plain
+    version's per-row output ``work`` on a sample of ``sample_pps`` paths a
+    row, scaled by ``scale`` (the launch's paths over the sample's): each
+    symbol's bars made once, the further rows of a symbol its decisions
+    again."""
+    c = work[0].cpu()
+    if family == "first contact":
+        w = work[2].cpu().reshape(-1, 3).sum(0)
+        return fc_sampler_ops(sampler, w, int(c[..., 1].sum()), scale)
+    if family == "gated":
+        return gated_sampler_ops(sampler, c.shape[0] * sample_pps * scale,
+                                 float(work[3].sum()) * scale, float(c[..., 5].sum()) * scale)
+    cells = c.reshape(c.shape[0], -1, c.shape[-1])          # [S, G, C]
+    n_paths = cells.shape[0] * sample_pps * scale             # a grid row's, every symbol's
+    ops, g = engine_sampler_ops(sampler, n_paths, cells[:, 0].sum(0), scale)
+    for j in range(1, cells.shape[1]):
+        div = engine_gate_divs(cells[:, j].sum(0), scale)
+        ops["sfu"] += div
+        ops["f32"] += div + 100 * n_paths * NUM_BARS
+    return ops, g
+
+
+def sampler_sweep_ops(family: str, sampler: str, work, n_paths: float, n_rows: int,
+                      scale: float):
+    """(operations, gathered values) of a sampler sweep of ``n_rows`` rows
+    of ``n_paths`` paths, from the plain sweep's output ``work`` on a sample
+    (its rows the CLI's 3 x 3 grid), scaled by ``scale``: each path's bars
+    once (the sampler kernels make them again for every row), every row's
+    decisions, as ``sweep_ops``, ``gated_sweep_ops`` and ``engine_sweep_ops``
+    count them."""
+    c = work[0].cpu()
+    extra_rows = n_rows - 1
+    if family == "first contact":
+        w = work[2].cpu()
+        ops, g = fc_sampler_ops(sampler, w[:3], int(c[0, 1]), scale)
+        row_bars = float(w[3]) * scale * n_rows / c.shape[0]
+        extra_div = extra_rows * int(c[0, 1]) * scale
+        ops["f32"] += 8 * row_bars + extra_div
+        ops["sfu"] += extra_div
+        return ops, g
+    if family == "gated":
+        held = work[3].cpu().double()
+        ops, g = gated_sampler_ops(sampler, n_paths, float(held.max()) * scale,
+                                   float(c[:, 5].double().mean()) * n_rows * scale)
+        ops["f32"] += extra_rows * 30 * n_paths * NUM_BARS
+        return ops, g
+    ops, g = engine_sampler_ops(sampler, n_paths, c[0], scale)
+    div = float(sum(engine_gate_divs(c[j], scale) for j in range(1, c.shape[0])))
+    div *= extra_rows / max(c.shape[0] - 1, 1)
+    ops["sfu"] += div
+    ops["f32"] += div + 100 * extra_rows * n_paths * NUM_BARS
+    return ops, g
+
+
+def rows_sweep_argv(family: str, sampler: str, csv: str) -> list:
+    """The CLI's ``sweep`` under a bootstrap sampler at the gbm sweeps' sizes."""
+    argv = ["sweep", "--backend", "cuda", "--num-paths", str(ROWS_CLI_PATHS[family]),
+            "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA), "--sampler", sampler,
+            "--bars-csv", csv]
+    if family == "gated":
+        argv += ["--gated", "--touch-limits", "2", "4"]
+    if family == "engine":
+        argv += ["--engine", "--jitter-stds", "0", "0.02"]
+    if sampler == "block_bootstrap":
+        argv += ["--block-len", str(SAMPLER_BLOCK_LEN)]
+    return argv
+
+
+def sampler_rows_phases(dev, card, reset, cli) -> list:
+    """Phases 24-26: the three sampler kernels with a row a symbol (#2, #5,
+    #10), a grid row (#3, #6, #9) or a cell (#11), under bootstrap, block
+    bootstrap and Heston: injected uniforms against the plain version (a
+    3-symbol universe with its own histories, the CLI's 3 x 3 grid; gated
+    and engine with and without noise, path by path, every differing path
+    traced); Philox at 2^22, every row equal to its one-row launch bit for
+    bit, the row fold against its plain fold, the plain version on the card
+    path by path; config #4 with a year of 1-minute bars a symbol, the
+    sweeps at the CLI's sizes (``sweep --sampler bootstrap | block_bootstrap``
+    through the CLI, Heston through the Python entries) and the engine's
+    sweep of universes at 8 x 4 x 2^20; the bootstrap universe against 100
+    one-symbol launches.  Returns their entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import native
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import (EngineLayout, GatedLayout,
+                                                                 GbmLayout)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import (bootstrap_tables,
+                                                                   universe_tables)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import make_sampler
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    cpu = torch.device("cpu")
+    params = EngineParams.default()
+    gate = GateConfig.from_params(params)
+    lv3 = U.stack_levels(UNI3_ROWS, max_levels=8)
+    s0_3, sg_3 = [float(x) for x in UNI3_S0], [float(x) for x in UNI3_SIGMA]
+    p3 = params.replace(contact_prox=[0.05, 0.08, 0.03], stop_padding=[0.35, 0.20, 0.45],
+                        tp_padding=[0.25, 0.40, 0.15])
+    noise3 = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.01]),
+                     entry_slip_std=torch.tensor([0.01, 0.0, 0.0]),
+                     stop_slip_std=torch.tensor([0.0, 0.015, 0.0]),
+                     target_slip_std=torch.tensor([0.015, 0.0, 0.0]))
+    jit9 = torch.linspace(0.0, 0.04, 9)
+    noise9 = McNoise(level_jitter_std=jit9, entry_slip_std=torch.full((9,), 0.01),
+                     stop_slip_std=torch.full((9,), 0.015),
+                     target_slip_std=torch.full((9,), 0.015))
+    stops9, tps9 = [g[0] for g in GRID9], [g[1] for g in GRID9]
+    grid9 = params.replace(stop_padding=stops9, tp_padding=tps9)
+    # a price ulp in R of each injected row: its highest level or spot over its stop
+    uni_ulp = [r_ulp(max(s0_3[i], *(r["price"] for r in UNI3_ROWS[i])), sp)
+               for i, sp in enumerate(p3.stop_padding.tolist())]
+    sweep_ulp = [r_ulp(max(100.0, *(r["price"] for r in CLI_ROWS)), sp) for sp in stops9]
+    cli_levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    t0 = time.perf_counter()
+    tables3 = universe_tables(universe_history(3, ROWS_INJECT_HIST_BARS, 31))
+    c4 = config4()
+    c4_hist = universe_history(UNI_SYMBOLS, SAMPLER_HIST_BARS, 1000)
+    c4_tables = universe_tables(c4_hist).to(dev)
+    c4_table_bytes = c4_tables.numel() * 4
+    tmp = tempfile.TemporaryDirectory()
+    csv = os.path.join(tmp.name, "bars.csv")
+    write_history(csv, SAMPLER_HIST_BARS)
+    cols = native.parse_bars_csv(csv)
+    tables1 = torch.stack(bootstrap_tables(*(cols[k] for k in "ohlcv")))
+    log(f"[24-26] histories: 3 symbols x {ROWS_INJECT_HIST_BARS} bars; config #4's "
+        f"{UNI_SYMBOLS} symbols x {SAMPLER_HIST_BARS} bars, tables {c4_table_bytes} bytes on "
+        f"the card; the CLI's {SAMPLER_HIST_BARS}-bar CSV; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def skw(s, tables=None):
+        return (dict(sampler=s) if s == "heston" else
+                dict(sampler=s, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+
+    def row_skw(s, tables, i):
+        return skw(s, None if tables is None else tables[i])
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    class Family:
+        """One family's launchers, plain versions and one-row launches."""
+
+        def __init__(self, name):
+            self.name = name
+            self.fc, self.engine = name == "first contact", name == "engine"
+            self.mod = {"first contact": cuda_mc, "gated": cuda_gated,
+                        "engine": cuda_engine}[name]
+            self.lanes = {"first contact": cuda_mc.UNIVERSE_LANES, "gated": GATED_LANES,
+                          "engine": ENGINE_LANES}[name]
+            self.sweep_lanes = LANES if self.fc else self.lanes
+            self.block = self.lanes if self.fc else 8 * self.lanes
+            self.sweep_block = self.sweep_lanes if self.fc else 8 * self.lanes
+            self.p3 = p3.replace(q_min_prob=[0.60, 0.40, 0.55]) if self.engine else p3
+            self.prefix = {"first contact": "mc", "gated": "mc_gated",
+                           "engine": "mc_engine"}[name]
+
+        def layout_rows(self, s, noisy):
+            if self.fc:
+                return (GbmLayout(NUM_BARS, noisy, s).n_rows, self.lanes)
+            lay = (GatedLayout if self.name == "gated" else EngineLayout)(NUM_BARS, noisy, s)
+            return (lay.u_rows, 8, self.lanes)
+
+        # -- universes: (seed, levels, params, s0, sigma) of S symbols
+        def uni(self, seed, lv, p, s0, sg, pps, s, tables, nz=None, ext=None, plain=False,
+                device=None, per_path=False, work=False, chunk_blocks=64):
+            kw = dict(paths_per_symbol=pps, num_bars=NUM_BARS, dt=DT, lanes=self.lanes,
+                      external_uniforms=ext, device=dev if device is None else device,
+                      **skw(s, tables))
+            if plain:
+                kw.update(chunk_blocks=chunk_blocks)
+                if self.fc:
+                    return cuda_mc.universe_totals_reference(seed, lv, p, s0, sg, work=work,
+                                                             per_path=per_path, **kw)
+                if self.engine:
+                    return cuda_engine.engine_universe_totals_reference(
+                        seed, lv, p, s0, sg, noise=nz, per_path=per_path, **kw)
+                return cuda_gated.gated_universe_totals_reference(
+                    seed, lv, p, s0, sg, gate, noise=nz, per_path=per_path, work=work, **kw)
+            if self.fc:
+                return cuda_mc.universe_rows(seed, lv, p, s0, sg, **kw)
+            if self.engine:
+                return cuda_engine.engine_universe_rows(seed, lv, p, s0, sg, noise=nz,
+                                                        per_path=per_path, **kw)
+            return cuda_gated.gated_universe_rows(seed, lv, p, s0, sg, gate, noise=nz,
+                                                  per_path=per_path, **kw)
+
+        def uni_entry(self, lv, p, s0, sg, pps, s, tables):
+            kw = dict(paths_per_symbol=pps, num_bars=NUM_BARS, dt=DT, **skw(s, tables))
+            if self.fc:
+                return cuda_mc.mc_paths_universe_fused(0, lv, p, s0, sg, **kw)
+            if self.engine:
+                return cuda_engine.mc_paths_engine_universe_fused(0, lv, p, s0, sg, **kw)[0]
+            return cuda_gated.mc_paths_gated_universe_fused(0, lv, p, s0, sg, gate, **kw)
+
+        # -- the one-row launch of symbol ``symbol`` or of one grid row
+        def single(self, seed, lv, p, n, s, tables, s0=100.0, sg=SIGMA, nz=None, symbol=0,
+                   per_path=False, lanes=None, gate_g=None):
+            kw = dict(num_paths=n, num_bars=NUM_BARS, s0=s0, mu=0.0, sigma=sg, dt=DT,
+                      lanes=lanes or self.lanes, noise=nz, antithetic=False,
+                      external_uniforms=None, device=dev, symbol=symbol, **skw(s, tables))
+            if self.fc:
+                return cuda_mc.first_contact_rows(seed, lv, p, **kw)
+            if self.engine:
+                return cuda_engine.engine_rows(seed, lv, p, per_path=per_path, **kw)
+            return cuda_gated.gated_rows(seed, lv, p, gate if gate_g is None else gate_g,
+                                         per_path=per_path, **kw)
+
+        # -- sweeps over the rows of ``grid`` (params with [G] stop and tp)
+        def sweep(self, seed, lv, grid, n, s, tables, nz=None, ext=None, plain=False,
+                  device=None, per_path=False, work=False, chunk_blocks=64, gate_g=None):
+            kw = dict(num_paths=n, num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT,
+                      lanes=self.sweep_lanes, external_uniforms=ext,
+                      device=dev if device is None else device, **skw(s, tables))
+            if plain:
+                kw.update(chunk_blocks=chunk_blocks)
+            stops, tps = grid.stop_padding.tolist(), grid.tp_padding.tolist()
+            if self.fc:
+                if plain:
+                    return cuda_mc.sweep_totals_reference(seed, lv, params, stops, tps,
+                                                          work=work, per_path=per_path, **kw)
+                return cuda_mc.sweep_rows(seed, lv, params, stops, tps, **kw)
+            if self.engine:
+                fn = (cuda_engine.engine_sweep_totals_reference if plain
+                      else cuda_engine.engine_sweep_rows)
+                return fn(seed, lv, grid, noise=nz, per_path=per_path, **kw)
+            gate_g = gate if gate_g is None else gate_g
+            if plain:
+                return cuda_gated.gated_sweep_totals_reference(
+                    seed, lv, params, stops, tps, gate_g, noise=nz, per_path=per_path,
+                    work=work, **kw)
+            return cuda_gated.gated_sweep_rows(seed, lv, params, stops, tps, gate_g, noise=nz,
+                                               per_path=per_path, **kw)
+
+        def sweep_entry(self, lv, grid, n, s, nz=None, gate_g=None):
+            kw = dict(num_paths=n, num_bars=NUM_BARS, sigma=SIGMA, **skw(s, tables1))
+            stops, tps = grid.stop_padding.tolist(), grid.tp_padding.tolist()
+            if self.fc:
+                return cuda_mc.mc_paths_sweep_fused(0, lv, params, stops, tps, **kw)
+            if self.engine:
+                return cuda_engine.mc_paths_engine_sweep_fused(0, lv, grid, noise=nz, **kw)[0]
+            return cuda_gated.mc_paths_gated_sweep_fused(
+                0, lv, params, stops, tps, gate if gate_g is None else gate_g, noise=nz, **kw)
+
+        def fold(self, rows):
+            return self.mod.reduce_rows(rows[0], rows[1])
+
+        def check(self, name, want, got, n, tie_ulp, trace=None, ties=None):
+            """Kernel ``got`` against plain ``want`` under the family's rules,
+            a histogram's true edge ties binned as the kernel bins them
+            (``tie_ulp``: ``r_ulp`` of the row; first contact: ``ties`` = the
+            plain per-path R, the kernel's)."""
+            if self.fc:
+                return compare(name, want[:2], got[:2], n, ties=ties, tie_ulp=tie_ulp)
+            return compare_lifecycle(name, want, got, n, engine=self.engine, trace=trace,
+                                     tie_ulp=tie_ulp)[0]
+
+        def on_card(self, name, card, got):
+            """First contact has no per-path output: the plain version on the
+            card on the same uniforms must equal the kernel exactly (counts
+            and histogram), and gives the kernel's per-path R."""
+            if self.fc and not torch.equal(card[0].cpu(), got[0].cpu()):
+                raise AssertionError(f"{name}: the kernel differs from the plain version on "
+                                     "the card on the same uniforms")
+            return card[2] if self.fc else None
+
+        def trace(self, name, u, prow, wrow, lv, p, nz, s0, sg, samp):
+            if self.fc:
+                return None
+            if self.engine:
+                return lambda d: trace_engine_flips(name, u, d, prow.cpu(), wrow.cpu(), lv, p,
+                                                    {}, sg, nz, False, dev, s0=s0,
+                                                    sampler=samp)
+            return lambda d: trace_flips(name, u, d, prow.cpu(), wrow.cpu(), lv, p, gate, nz,
+                                         False, dev, s0=s0, sigma=sg, sampler=samp)
+
+    def sampler_of(s, tables, i=None):
+        t = None if tables is None or s == "heston" else (tables if i is None else tables[i])
+        return make_sampler(s, tables=t, block_len=SAMPLER_BLOCK_LEN)
+
+    out = []
+    for fam_name, ph in (("first contact", "24"), ("gated", "25"), ("engine", "26")):
+        fam = Family(fam_name)
+        mod = fam.mod
+        pre = fam.prefix
+        uni_kname, sweep_kname = (("mc_universe_sampler", "mc_sweep_sampler") if fam.fc else
+                                  (f"{pre}_universe_sampler", f"{pre}_sweep_sampler"))
+        uni_fold, sweep_fold = f"{pre}_universe_reduce_rows", f"{pre}_sweep_reduce_rows"
+        replaces = {"first contact": (UNI_REPLACES, SWEEP_REPLACES),
+                    "gated": (GATED_UNI_REPLACES, GATED_SWEEP_REPLACES),
+                    "engine": (ENGINE_UNI_REPLACES, ENGINE_SWEEP_REPLACES)}[fam_name]
+        source = ROWS_SOURCES[fam_name]
+        nb = ROWS_INJECT_BLOCKS[fam_name]
+        plain_n, sweep_n = ROWS_PLAIN_PATHS[fam_name], ROWS_SWEEP_PLAIN_PATHS[fam_name]
+        n_uni, n_sw = nb * fam.block, nb * fam.sweep_block
+        log(f"[{ph}] {fam_name} sampler rows ({source.split('/')[-1]}): injected uniforms, "
+            f"3 symbols x {n_uni} paths with their own histories and [S] knobs"
+            + ("" if fam.fc else " (and [S] noise stds)") + f"; the CLI's 3 x 3 grid x {n_sw} "
+            "paths" + ("" if fam.fc else " (and [G] noise stds)") + "; kernel vs plain on CPU "
+            "copies" + ("" if fam.fc else ", path by path, every differing path traced"))
+        err = {s: 0.0 for s in SAMPLERS}
+        cases = [(s, False) for s in SAMPLERS] + ([] if fam.fc else
+                                                   [(s, True) for s in SAMPLERS])
+        for s, noisy in cases:
+            case = s + ("+noise" if noisy else "")
+            rng = np.random.default_rng(2400 + 10 * int(ph) + len(case))
+            low = 1e-9 if fam.fc else 1e-6
+            u = torch.from_numpy(rng.uniform(low, 1.0, (3, nb, *fam.layout_rows(s, noisy)))
+                                 .astype(np.float32))
+            nz = noise3 if noisy else None
+            want = fam.uni(0, lv3, fam.p3, s0_3, sg_3, n_uni, s, tables3, nz=nz, ext=u,
+                           plain=True, device=cpu, per_path=True, chunk_blocks=16)
+            rows = fam.uni(0, lv3, fam.p3, s0_3, sg_3, n_uni, s, tables3, nz=nz, ext=u.to(dev),
+                           per_path=True)
+            got = (*fam.fold(rows), *rows[2:])
+            r_card = fam.on_card(case, fam.uni(0, lv3, fam.p3, s0_3, sg_3, n_uni, s, tables3,
+                                               ext=u.to(dev), plain=True, per_path=True)
+                                 if fam.fc else None, got)
+            torch.cuda.synchronize()
+            for i in range(3):
+                name = f"{case} symbol {i}"
+                tr = None if fam.fc else fam.trace(
+                    name, u[i], rows[2][i], want[2][i], grid_row(lv3, i), grid_row(fam.p3, i),
+                    None if nz is None else grid_row(nz, i), s0_3[i], sg_3[i],
+                    sampler_of(s, tables3, i))
+                err[s] = max(err[s], fam.check(
+                    name, tuple(x[i] for x in want), tuple(x[i] for x in got), n_uni,
+                    uni_ulp[i], tr, ties=None if r_card is None else (want[2][i], r_card[i])))
+            u = torch.from_numpy(rng.uniform(
+                low, 1.0, (nb, *fam.layout_rows(s, noisy)[:-1], fam.sweep_lanes))
+                .astype(np.float32))
+            nz = noise9 if noisy else None
+            want = fam.sweep(0, cli_levels, grid9, n_sw, s, tables1, nz=nz, ext=u, plain=True,
+                             device=cpu, per_path=True, chunk_blocks=16)
+            rows = fam.sweep(0, cli_levels, grid9, n_sw, s, tables1, nz=nz, ext=u.to(dev),
+                             per_path=True)
+            got = (*fam.fold(rows), *rows[2:])
+            r_card = fam.on_card(case, fam.sweep(0, cli_levels, grid9, n_sw, s, tables1,
+                                                 ext=u.to(dev), plain=True, per_path=True)
+                                 if fam.fc else None, got)
+            torch.cuda.synchronize()
+            for g in range(len(GRID9)):
+                name = f"{case} row {g}"
+                tr = None if fam.fc else fam.trace(
+                    name, u, rows[2][g], want[2][g], cli_levels, grid_row(grid9, g),
+                    None if nz is None else grid_row(nz, g), 100.0, SIGMA,
+                    sampler_of(s, tables1))
+                err[s] = max(err[s], fam.check(
+                    name, tuple(x[g] for x in want), tuple(x[g] for x in got), n_sw,
+                    sweep_ulp[g], tr, ties=None if r_card is None else (want[2][g], r_card[g])))
+
+        log(f"[{ph}] {fam_name} sampler rows, Philox at {PHILOX_PATHS} paths a row: every "
+            "universe symbol and sweep row equal to its one-row launch bit for bit"
+            + ("" if fam.fc else " (per path included)") + "; the row folds against their "
+            f"plain folds; the plain version on the card at {plain_n} paths a "
+            f"symbol and {sweep_n} a grid row")
+        stats = {}
+        for s in SAMPLERS:
+            nz3, nz9 = (None, None) if fam.fc else (noise3, noise9)
+            rows = fam.uni(7, lv3, fam.p3, s0_3, sg_3, PHILOX_PATHS, s, tables3, nz=nz3,
+                           per_path=not fam.fc)
+            for i in range(3):
+                one = fam.single(7, grid_row(lv3, i), grid_row(fam.p3, i), PHILOX_PATHS, s,
+                                 None if tables3 is None else tables3[i], s0=s0_3[i],
+                                 sg=sg_3[i], nz=None if nz3 is None else grid_row(nz3, i),
+                                 symbol=i, per_path=not fam.fc)
+                if not equal(one, tuple(x[i] for x in rows)):
+                    raise AssertionError(f"{fam_name} {s} universe symbol {i} differs from "
+                                         "its one-row launch")
+            uni_red_err = check_fold(f"{pre} {s} universe fold",
+                                     mod.reduce_rows_reference(*rows[:2]), fam.fold(rows))
+            del rows
+            sw = fam.sweep(7, cli_levels, grid9, PHILOX_PATHS, s, tables1, nz=nz9,
+                           per_path=not fam.fc)
+            for g in range(len(GRID9)):
+                one = fam.single(7, cli_levels, grid_row(grid9, g), PHILOX_PATHS, s, tables1,
+                                 nz=None if nz9 is None else grid_row(nz9, g),
+                                 per_path=not fam.fc, lanes=fam.sweep_lanes)
+                if not equal(one, tuple(x[g] for x in sw)):
+                    raise AssertionError(f"{fam_name} {s} sweep row {g} differs from its "
+                                         "one-row launch")
+            sw_red_err = check_fold(f"{pre} {s} sweep fold",
+                                    mod.reduce_rows_reference(*sw[:2]), fam.fold(sw))
+            del sw
+            # the plain version on the card (and its work, for the bounds)
+            want, uni_plain_ms = timed(lambda: fam.uni(
+                7, lv3, fam.p3, s0_3, sg_3, plain_n, s, tables3, nz=nz3, plain=True,
+                per_path=not fam.fc, work=not fam.engine))
+            rows = fam.uni(7, lv3, fam.p3, s0_3, sg_3, plain_n, s, tables3, nz=nz3,
+                           per_path=not fam.fc)
+            got = (*fam.fold(rows), *rows[2:])
+            if fam.fc:
+                for i in range(3):
+                    err[s] = max(err[s], compare(f"{s} philox symbol {i}", (want[0][i],
+                                                 want[1][i]), (got[0][i], got[1][i]),
+                                                 plain_n, quiet=True))
+            else:
+                err[s] = max(err[s], same_on_card(f"{s} universe", want[:3], got, 3,
+                                                  plain_n, lambda i: f"symbol {i}",
+                                                  engine=fam.engine))
+            uni_work = want
+            uni_ms = cuda_ms(lambda: fam.uni(7, lv3, fam.p3, s0_3, sg_3, plain_n, s,
+                                             tables3, nz=nz3), 3)
+            sw_want, sw_plain_ms = timed(lambda: fam.sweep(
+                7, cli_levels, grid9, sweep_n, s, tables1, nz=nz9, plain=True,
+                per_path=not fam.fc, work=not fam.engine))
+            sw = fam.sweep(7, cli_levels, grid9, sweep_n, s, tables1, nz=nz9,
+                           per_path=not fam.fc)
+            got = (*fam.fold(sw), *sw[2:])
+            if fam.fc:
+                for g in range(len(GRID9)):
+                    err[s] = max(err[s], compare(f"{s} philox row {g}", (sw_want[0][g],
+                                                 sw_want[1][g]), (got[0][g], got[1][g]),
+                                                 sweep_n, quiet=True))
+            else:
+                err[s] = max(err[s], same_on_card(f"{s} sweep", sw_want[:3], got, len(GRID9),
+                                                  sweep_n, lambda g: f"row {g}",
+                                                  engine=fam.engine))
+            sw_ms = cuda_ms(lambda: fam.sweep(7, cli_levels, grid9, sweep_n, s,
+                                              tables1, nz=nz9), 3)
+            stats[s] = dict(uni_red_err=uni_red_err, sw_red_err=sw_red_err,
+                            uni_plain_ms=uni_plain_ms, uni_ms=uni_ms, uni_work=uni_work,
+                            sw_plain_ms=sw_plain_ms, sw_ms=sw_ms, sw_work=sw_want)
+            log(f"  {s}: every row equals its one-row launch; folds within "
+                f"{max(uni_red_err, sw_red_err):.3e}; universe 3 x {plain_n}: kernel "
+                f"{uni_ms:.3f} ms, plain on the card {uni_plain_ms:.3f} ms; sweep 9 x "
+                f"{sweep_n}: kernel {sw_ms:.3f} ms, plain {sw_plain_ms:.3f} ms")
+
+        def part_bytes(n_rows, pps):
+            return n_rows * grid_size(pps) * (mod.ROW_COUNTS * 8 + mod.ROW_FLOATS * 4)
+
+        def rows_bound(n_rows, pps, s, work, sample_pps, table_bytes, live_bytes):
+            """The bound of a universe's (or a sweep of universes') launch of
+            ``n_rows`` rows of ``pps`` paths, from the plain version's
+            ``work`` on ``sample_pps`` paths a row of a sample of the rows
+            (rows that share a symbol share its bars: ``rows_ops``)."""
+            sample_rows = math.prod(work[0].shape[:-1])
+            ops, g = rows_ops(fam_name, s, work, sample_pps,
+                              n_rows * pps / (sample_rows * sample_pps))
+            return gather_bound(card, part_bytes(n_rows, pps), ops, g,
+                                0.0 if s == "heston" else table_bytes,
+                                live_bytes=0.0 if s == "heston" else live_bytes)
+
+        def sweep_bound(n_rows, n_paths, s, work, scale, table_bytes):
+            """A sweep's bound: each path's bars once, each row's decisions."""
+            ops, g = sampler_sweep_ops(fam_name, s, work, n_paths, n_rows, scale)
+            return gather_bound(card, part_bytes(n_rows, n_paths), ops, g,
+                                0.0 if s == "heston" else table_bytes)
+
+        lanes = fam.lanes
+        pps_sample = ROWS_SAMPLE_PATHS[fam_name]
+        for s in SAMPLERS:
+            st_ = stats[s]
+            tb1 = float(tables1.numel() * 4)
+            tb3 = float(tables3.numel() * 4)
+            uni_b = rows_bound(3, plain_n, s, st_["uni_work"], plain_n, tb3, tb3 / 3)
+            sw_b = sweep_bound(len(GRID9), sweep_n, s, st_["sw_work"], 1.0, tb1)
+
+            log(f"[{ph}] main path: mc_paths_{'' if fam.fc else pre[3:] + '_'}universe_fused "
+                f"--sampler {s}, config #4 ({UNI_SYMBOLS} symbols x {UNI_PATHS} paths x "
+                f"{NUM_BARS} bars" + ("" if s == "heston" else
+                                     f", each symbol its own {SAMPLER_HIST_BARS} bars") + ")")
+            c4t = None if s == "heston" else c4_tables
+            n_sample = ROWS_ENGINE_SAMPLE_SYMBOLS if fam.engine else UNI_SYMBOLS
+            c4s = config4(n_sample)
+            c4st = None if c4t is None else c4t[:n_sample]
+            log(f"  the main path's inputs, config #4's "
+                + (f"first {n_sample}" if fam.engine else f"{n_sample}")
+                + f" symbols at {pps_sample} paths a symbol: kernel vs plain on the card")
+            sample = fam.uni(0, c4s[0], params, *c4s[1:], pps_sample, s, c4st, plain=True,
+                             per_path=not fam.fc, work=not fam.engine)
+            krows = fam.uni(0, c4s[0], params, *c4s[1:], pps_sample, s, c4st,
+                            per_path=not fam.fc)
+            kgot = (*fam.fold(krows), *krows[2:])
+            if fam.fc:
+                e = max(compare(f"config #4 {s} symbol {i}", (sample[0][i], sample[1][i]),
+                                (kgot[0][i], kgot[1][i]), pps_sample, quiet=True)
+                        for i in range(n_sample))
+                log(f"    every symbol within budget, |d mean_r| max {e:.3e}")
+            else:
+                e = same_on_card(f"config #4 {s}", sample[:3], kgot, n_sample, pps_sample,
+                                 lambda i: f"symbol {i}", engine=fam.engine)
+            err[s] = max(err[s], e)
+            del krows, kgot
+            st, secs, launches = run_entry(
+                f"{fam_name} universe {s}", lambda: fam.uni_entry(
+                    c4[0], params, *c4[1:], UNI_PATHS, s, c4t), reset,
+                {uni_kname: 2, uni_fold: 2})
+            check_universe_stats(f"{fam_name} universe {s}", st, UNI_SYMBOLS, UNI_PATHS)
+            # every row of the full-width launch against its one-row launch
+            wide = fam.uni(0, c4[0], params, *c4[1:], UNI_PATHS, s, c4t)
+            for i in range(UNI_SYMBOLS):
+                one = fam.single(0, grid_row(c4[0], i), params, UNI_PATHS, s,
+                                 None if c4t is None else c4t[i], s0=float(c4[1][i]),
+                                 sg=float(c4[2][i]), symbol=i)
+                if not equal(one, tuple(x[i] for x in wide)):
+                    raise AssertionError(f"{fam_name} universe {s}: symbol {i} of the "
+                                         "full-width launch differs from its one-row launch")
+            del wide, one
+            log(f"  each of the {UNI_SYMBOLS} symbols of the {UNI_SYMBOLS} x {UNI_PATHS} "
+                "launch equals its one-row launch bit for bit (partial rows)")
+            main_ms = cuda_ms(lambda: fam.uni(0, c4[0], params, *c4[1:], UNI_PATHS, s, c4t), 2)
+            main_b = rows_bound(UNI_SYMBOLS, UNI_PATHS, s, sample, pps_sample, c4_table_bytes,
+                                c4_table_bytes / UNI_SYMBOLS)
+            log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS}: {main_ms:.3f} ms "
+                f"({UNI_SYMBOLS * UNI_PATHS / main_ms * 1e3:.6e} paths/s), bound "
+                f"{main_b['bound_ms']:.3f} ms {main_b['bound_parts']}")
+            del sample
+            extra = {}
+            if s == "bootstrap":
+                # L2: one launch over 100 symbols' 196.6 MB of tables against 100
+                # one-symbol launches, each on its own table, and on one table
+                own = cuda_ms(lambda: [fam.single(0, grid_row(c4[0], i), params, UNI_PATHS, s,
+                                                  c4_tables[i], s0=float(c4[1][i]),
+                                                  sg=float(c4[2][i]), symbol=i)
+                                       for i in range(UNI_SYMBOLS)], 1)
+                same = cuda_ms(lambda: [fam.single(0, grid_row(c4[0], 0), params, UNI_PATHS, s,
+                                                   c4_tables[0], s0=float(c4[1][0]),
+                                                   sg=float(c4[2][0]))
+                                        for _ in range(UNI_SYMBOLS)], 1)
+                extra = dict(singles_own_tables_ms=own, singles_one_table_ms=same)
+                log(f"  L2: the universe {main_ms:.3f} ms; {UNI_SYMBOLS} one-symbol launches "
+                    f"at {UNI_PATHS} paths, each on its own table {own:.3f} ms, all on one "
+                    f"table {same:.3f} ms")
+            out.append(entry(f"{uni_kname}/{s}", source, replaces[0], launches[uni_kname],
+                             err[s], st_["uni_ms"], st_["uni_plain_ms"], uni_b, sampler=s,
+                             symbols=3, paths=plain_n, main_path_ms=main_ms,
+                             main_path_bound_ms=main_b["bound_ms"], main_s=secs[1:],
+                             fold_err=st_["uni_red_err"], **extra))
+
+            n_cli = ROWS_CLI_PATHS[fam_name]
+            cli_grid, cli_noise, cli_gate, combos = grid9, None, None, list(GRID9)
+            keys = ["stop_padding", "tp_padding", "hit_rate", "mean_r"]
+            if fam.engine:
+                jit18 = torch.tensor([j for _ in GRID9 for j in (0.0, 0.02)])
+                cli_grid = params.replace(stop_padding=[g[0] for g in GRID9 for _ in (0, 1)],
+                                          tp_padding=[g[1] for g in GRID9 for _ in (0, 1)])
+                cli_noise = McNoise(level_jitter_std=jit18, entry_slip_std=torch.zeros(18),
+                                    stop_slip_std=torch.zeros(18),
+                                    target_slip_std=torch.zeros(18))
+                combos = [(sp, tp, j) for sp, tp in GRID9 for j in (0.0, 0.02)]
+                keys += ["mean_trades", "mean_dd", "escalations", "level_jitter_std"]
+            elif not fam.fc:
+                cli_grid = params.replace(stop_padding=[g[0] for g in GRID9 for _ in (2, 4)],
+                                          tp_padding=[g[1] for g in GRID9 for _ in (2, 4)])
+                cli_gate = gate.replace(touch_limit=[tl for _ in GRID9 for tl in (2, 4)])
+                combos = [(sp, tp, tl) for sp, tp in GRID9 for tl in (2, 4)]
+                keys += ["touch_limit", "mean_trades", "mean_dd"]
+            n_rows = len(combos)
+            if s == "heston":
+                log(f"[{ph}] main path: mc_paths_{pre[3:] + '_' if not fam.fc else ''}sweep_fused"
+                    f" --sampler heston at {n_cli} paths x {n_rows} rows (the CLI's sweep has "
+                    "no Heston)")
+                st, secs, launches = run_entry(
+                    f"{fam_name} sweep heston", lambda: fam.sweep_entry(
+                        cli_levels, cli_grid, n_cli, s, nz=cli_noise, gate_g=cli_gate), reset,
+                    {sweep_kname: 2, sweep_fold: 2})
+                if tuple(st.n.shape) != (n_rows,) or not bool((st.n == n_cli).all()):
+                    raise AssertionError(f"{fam_name} Heston sweep: path counts {st.n}")
+                cli_s = secs[1:]
+            else:
+                log(f"[{ph}] main path: cli {' '.join(rows_sweep_argv(fam_name, s, 'CSV'))}")
+                with tempfile.TemporaryDirectory() as db:
+                    lines, secs, launches = run_cli(
+                        cli, ["--db", os.path.join(db, "smoke.db")]
+                        + rows_sweep_argv(fam_name, s, csv), reset,
+                        {sweep_kname: 4, sweep_fold: 4}, n_paths=n_cli)
+                check_sweep_output(lines, combos, keys)
+                cli_s = secs[1:]
+            # every row of the full-width launch against its one-row launch
+            wide = fam.sweep(0, cli_levels, cli_grid, n_cli, s, tables1, nz=cli_noise,
+                             gate_g=cli_gate)
+            for g in range(n_rows):
+                one = fam.single(0, cli_levels, grid_row(cli_grid, g), n_cli, s, tables1,
+                                 nz=grid_row(cli_noise, g), lanes=fam.sweep_lanes,
+                                 gate_g=grid_row(cli_gate, g))
+                if not equal(one, tuple(x[g] for x in wide)):
+                    raise AssertionError(f"{fam_name} sweep {s}: row {g} of the full-width "
+                                         "launch differs from its one-row launch")
+            del wide, one
+            log(f"  each of the {n_rows} rows of the {n_cli} x {n_rows} launch equals its "
+                "one-row launch bit for bit (partial rows)")
+            sw_main_ms = cuda_ms(lambda: fam.sweep(0, cli_levels, cli_grid, n_cli, s, tables1,
+                                                   nz=cli_noise, gate_g=cli_gate), 1)
+            sw_main_b = sweep_bound(n_rows, n_cli, s, st_["sw_work"],
+                                    n_cli / sweep_n, tb1)
+            log(f"  kernel alone at {n_cli} paths x {n_rows} rows: {sw_main_ms:.3f} ms "
+                f"({n_cli * n_rows / sw_main_ms * 1e3:.6e} paths x rows/s), bound "
+                f"{sw_main_b['bound_ms']:.3f} ms {sw_main_b['bound_parts']} (each path's bars "
+                "counted once; every row makes them again)")
+            out.append(entry(f"{sweep_kname}/{s}", source, replaces[1], launches[sweep_kname],
+                             err[s], st_["sw_ms"], st_["sw_plain_ms"], sw_b, sampler=s,
+                             grid_rows=len(GRID9), paths=sweep_n,
+                             main_path_ms=sw_main_ms, main_path_bound_ms=sw_main_b["bound_ms"],
+                             main_rows=n_rows, cli_s=cli_s, fold_err=st_["sw_red_err"]))
+
+        if fam.engine:
+            # the sweep of universes (#11): config #4's first 8 symbols x the 4
+            # configurations of tests/test_pallas_engine.py:320-325
+            n8 = UNI_SWEEP_SYMBOLS
+            lv8, s0_8, sg_8 = config4(n8)
+            g4 = params.replace(stop_padding=[0.35, 0.25, 0.45, 0.35],
+                                tp_padding=[0.25, 0.35, 0.25, 0.15],
+                                q_min_prob=[0.6, 0.55, 0.6, 0.5])
+            for s in SAMPLERS:
+                t8 = None if s == "heston" else c4_tables[:n8]
+                kw = dict(paths_per_symbol=ROWS_UNI_SWEEP_SAMPLE_PATHS, num_bars=NUM_BARS,
+                          dt=DT, lanes=lanes, device=dev, **skw(s, t8))
+                log(f"[{ph}] sweep of universes (#11) --sampler {s}: {n8} symbols x 4 rows; "
+                    f"Philox, each cell equal to its one-row launch; kernel vs plain on the "
+                    f"card, the first {ROWS_UNI_SWEEP_SAMPLE_SYMBOLS} symbols at "
+                    f"{ROWS_UNI_SWEEP_SAMPLE_PATHS} paths a cell")
+                cells = cuda_engine.engine_universe_sweep_rows(0, lv8, g4, s0_8, sg_8,
+                                                               per_path=True, **kw)
+                for i in range(n8):
+                    for g in range(4):
+                        one = fam.single(0, grid_row(lv8, i), grid_row(g4, g),
+                                         ROWS_UNI_SWEEP_SAMPLE_PATHS, s,
+                                         None if t8 is None else t8[i], s0=float(s0_8[i]),
+                                         sg=float(sg_8[i]), symbol=i, per_path=True)
+                        if not equal(one, (cells[0][i, g], cells[1][i, g], cells[2][i, g])):
+                            raise AssertionError(f"sweep of universes {s} cell ({i}, {g}) "
+                                                 "differs from its one-row launch")
+                del cells
+                n2 = ROWS_UNI_SWEEP_SAMPLE_SYMBOLS
+                lv2, s0_2, sg_2 = config4(n2)
+                kw2 = dict(kw, **skw(s, None if t8 is None else t8[:n2]))
+                want, us_plain_ms = timed(
+                    lambda: cuda_engine.engine_universe_sweep_totals_reference(
+                        0, lv2, g4, s0_2, sg_2, per_path=True, chunk_blocks=64, **kw2))
+                cells = cuda_engine.engine_universe_sweep_rows(0, lv2, g4, s0_2, sg_2,
+                                                               per_path=True, **kw2)
+                c, f = cuda_engine.reduce_rows(cells[0].flatten(0, 1), cells[1].flatten(0, 1))
+                got = (c.view(n2, 4, -1), f.view(n2, 4, -1), cells[2])
+                e = same_on_card(f"sweep of universes {s}", tuple(x.flatten(0, 1) for x in want),
+                                 tuple(x.flatten(0, 1) for x in got), n2 * 4,
+                                 ROWS_UNI_SWEEP_SAMPLE_PATHS, lambda k: f"cell {divmod(k, 4)}")
+                del cells
+                us_ms = cuda_ms(lambda: cuda_engine.engine_universe_sweep_rows(
+                    0, lv2, g4, s0_2, sg_2, **kw2), 3)
+                tb8 = 0.0 if t8 is None else float(t8.numel() * 4)
+                us_b = rows_bound(n2 * 4, ROWS_UNI_SWEEP_SAMPLE_PATHS, s, want,
+                                  ROWS_UNI_SWEEP_SAMPLE_PATHS, tb8 * n2 / n8, tb8 / n8)
+                main_kw = dict(kw, paths_per_symbol=UNI_PATHS)
+                main_kw.pop("device")
+                st, secs, launches = run_entry(
+                    f"sweep of universes {s}",
+                    lambda: cuda_engine.mc_paths_engine_universe_sweep_fused(
+                        0, lv8, g4, s0_8, sg_8, **main_kw)[0], reset,
+                    {"mc_engine_universe_sweep_sampler": 2,
+                     "mc_engine_universe_sweep_reduce_rows": 2})
+                if tuple(st.n.shape) != (n8, 4) or not bool((st.n == UNI_PATHS).all()):
+                    raise AssertionError(f"sweep of universes {s}: path counts {st.n}")
+                wide = cuda_engine.engine_universe_sweep_rows(
+                    0, lv8, g4, s0_8, sg_8, **dict(kw, paths_per_symbol=UNI_PATHS))
+                for i in range(n8):
+                    for g in range(4):
+                        one = fam.single(0, grid_row(lv8, i), grid_row(g4, g), UNI_PATHS, s,
+                                         None if t8 is None else t8[i], s0=float(s0_8[i]),
+                                         sg=float(sg_8[i]), symbol=i)
+                        if not equal(one, (wide[0][i, g], wide[1][i, g])):
+                            raise AssertionError(f"sweep of universes {s}: cell ({i}, {g}) of "
+                                                 "the full-width launch differs from its "
+                                                 "one-row launch")
+                del wide, one
+                log(f"  each of the {n8} x 4 cells of the {n8} x 4 x {UNI_PATHS} launch equals "
+                    "its one-row launch bit for bit (partial rows)")
+                us_main_ms = cuda_ms(lambda: cuda_engine.engine_universe_sweep_rows(
+                    0, lv8, g4, s0_8, sg_8, **dict(kw, paths_per_symbol=UNI_PATHS)), 2)
+                us_main_b = rows_bound(n8 * 4, UNI_PATHS, s, want,
+                                       ROWS_UNI_SWEEP_SAMPLE_PATHS, tb8, tb8 / n8)
+                log(f"  kernel alone at {n8} x 4 x {UNI_PATHS}: {us_main_ms:.3f} ms, bound "
+                    f"{us_main_b['bound_ms']:.3f} ms; {n2} x 4 x {ROWS_UNI_SWEEP_SAMPLE_PATHS}: "
+                    f"kernel {us_ms:.3f} ms, plain on the card {us_plain_ms:.3f} ms")
+                out.append(entry(f"mc_engine_universe_sweep_sampler/{s}", source,
+                                 ENGINE_UNI_SWEEP_REPLACES,
+                                 launches["mc_engine_universe_sweep_sampler"], max(err[s], e),
+                                 us_ms, us_plain_ms, us_b, sampler=s, symbols=n2, grid_rows=4,
+                                 paths=ROWS_UNI_SWEEP_SAMPLE_PATHS, main_path_ms=us_main_ms,
+                                 main_path_bound_ms=us_main_b["bound_ms"], main_s=secs[1:]))
+    tmp.cleanup()
+    return out
+
+
+def single_sampler_times(tree: str) -> int:
+    """The nine single-configuration sampler launches (first contact, gated,
+    engine x bootstrap, block bootstrap, Heston: ``first_contact_rows``,
+    ``gated_rows``, ``engine_rows``) of the port in ``tree`` at 2^28 x 40 on
+    the CLI's levels and ``history_arrays``' year of 1-minute bars (tables
+    on the host, as the CLI hands them over), each by CUDA events over 3
+    runs after a warm-up; prints the sampler libraries' ptxas lines, each
+    time, and one JSON line with all of them, the card's name and power
+    limit."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"tree {os.path.abspath(tree)}; {smi}", flush=True)
+    libs = ("mc_first_contact_samplers", "mc_gated_samplers", "mc_engine_samplers")
+    build.build_all(libs)
+    ptxas = {name: [line.strip() for line in build.BUILD_LOG[name]["log"].splitlines()
+                    if any(k in line for k in ("Compiling entry", "registers", "spill"))]
+             for name in libs}
+    for name, lines in ptxas.items():
+        for line in lines:
+            print(f"  {name}: {line}")
+    dev = torch.device("cuda", 0)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    params = EngineParams.default()
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    gate = GateConfig.from_params(params)
+    common = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA,
+                  dt=DT, noise=None, antithetic=False, external_uniforms=None, device=dev)
+
+    def launch(family, sampler):
+        kw = dict(common, sampler=sampler)
+        if sampler != "heston":
+            kw.update(tables=tables, block_len=SAMPLER_BLOCK_LEN)
+        if family == "first contact":
+            return cuda_mc.first_contact_rows(0, levels, params, lanes=cuda_mc.SINGLE_LANES,
+                                              **kw)
+        if family == "gated":
+            return cuda_gated.gated_rows(0, levels, params, gate, lanes=GATED_LANES, **kw)
+        return cuda_engine.engine_rows(0, levels, params, lanes=ENGINE_LANES, **kw)
+
+    times = {}
+    for family in ("first contact", "gated", "engine"):
+        for sampler in SAMPLERS:
+            launch(family, sampler)
+            torch.cuda.synchronize()
+            times[f"{family}/{sampler}"] = ms = cuda_ms(lambda: launch(family, sampler), 3)
+            print(f"  {family} {sampler}: {ms:.3f} ms at {MAIN_PATHS} x {NUM_BARS}", flush=True)
+    print(json.dumps({"tree": os.path.abspath(tree), "card": smi, "ms": times,
+                      "ptxas": ptxas}))
+    return 0
 
 
 def main() -> int:
@@ -2995,6 +3939,7 @@ def main() -> int:
     universe = universe_phases(dev, card, reset_all)
     books = book_phases(dev, card, reset_all, cli)
     samplers = sampler_phases(dev, card, reset_all, cli)
+    sampler_rows = sampler_rows_phases(dev, card, reset_all, cli)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -3040,7 +3985,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books + samplers}))
+    ] + universe + books + samplers + sampler_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3050,7 +3995,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--single-sampler-times"]:
+            code = single_sampler_times(sys.argv[2] if len(sys.argv) > 2
+                                        else os.path.dirname(os.path.abspath(__file__)))
+        else:
+            code = main()
     except Exception as exc:  # any failed phase: report it, print no result
         import traceback
 

@@ -12,7 +12,9 @@ subcommands the port carries so far:
   sweep   — the same three over a grid of settings (stop x tp, with
             ``--gated`` x touch limit x Q_MIN_PROB, with ``--engine`` x
             level-jitter std) under common random numbers: every row
-            replays the same simulated paths; one JSON line per row
+            replays the same simulated paths (``--sampler`` gbm, or
+            bootstrap / block_bootstrap over ``--bars-csv``); one JSON line
+            per row
   book    — a correlated book of symbols on one market factor (beta
             loadings) over the gated lifecycle, with ``--engine`` the full
             engine: one JSON line per symbol, then the book's (VaR/CVaR of
@@ -36,6 +38,8 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli paths --gated --backend cuda \
         --sampler block_bootstrap --bars-csv bars.csv --block-len 10
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --gated --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --engine --backend cuda \
+        --sampler bootstrap --bars-csv bars.csv
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --backend cuda
 """
 
@@ -79,16 +83,12 @@ def _levels_and_params(conn, args):
 
 
 def _not_ported(args) -> None:
-    sweep = args.cmd == "sweep"
     for flag, on in (("--exact-tail", getattr(args, "exact_tail", False)),
-                     ("--ckpt-dir", getattr(args, "ckpt_dir", None) is not None),
-                     ("sweep --bars-csv", sweep and args.bars_csv is not None),
-                     ("sweep --block-len", sweep and args.block_len is not None),
-                     (f"sweep --sampler {args.sampler}", sweep and args.sampler != "gbm")):
+                     ("--ckpt-dir", getattr(args, "ckpt_dir", None) is not None)):
         if on:
             raise SystemExit(
                 f"{flag} is not ported yet: the port runs the first-contact, gated and "
-                "engine paths under every sampler and their sweeps under gbm (use "
+                "engine paths and their sweeps under every sampler (use "
                 "qmmx_monolithic_monte_carlo_tpu)")
 
 
@@ -140,7 +140,7 @@ def _heston_dict(args) -> dict:
 def _sampler_kw(args) -> dict:
     """The sampler and what it reads, as the entries take them."""
     sampler = getattr(args, "sampler", "gbm")
-    if sampler != "gbm" and args.antithetic:
+    if sampler != "gbm" and getattr(args, "antithetic", False):
         raise SystemExit("--antithetic pairs gbm normals only (the kernels refuse "
                          f"it under --sampler {sampler})")
     kw = {"sampler": sampler}
@@ -306,7 +306,7 @@ def _sweep_engine(args, backend, levels, params, combos):
                         stop_slip_std=torch.full_like(jit, args.stop_slip_std),
                         target_slip_std=torch.full_like(jit, args.target_slip_std))
     common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-                  sigma=args.sigma, device=args.device)
+                  sigma=args.sigma, device=args.device, **_sampler_kw(args))
     if backend == "cuda":
         from ..ops.cuda_engine import mc_paths_engine_sweep_fused
 
@@ -339,7 +339,7 @@ def cmd_sweep(args):
         levels = Levels.from_rows(rows, max_levels=MAX_LEVELS)
     combos = _grid(args)
     common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-                  sigma=args.sigma, device=args.device)
+                  sigma=args.sigma, device=args.device, **_sampler_kw(args))
     block = dict(block_paths=min(args.num_paths, 1 << 14))
     escal = None
     if args.engine:
@@ -420,7 +420,8 @@ def cmd_book(args):
         if on:
             raise SystemExit(
                 f"{flag} is not ported yet: the port's books run the gbm sampler "
-                "(use qmmx_monolithic_monte_carlo_tpu)")
+                "(the books' samplers are the next slice; use "
+                "qmmx_monolithic_monte_carlo_tpu)")
     conn = _connect(args)
     try:
         _rows, _lv, params = _levels_and_params(conn, args)
@@ -557,9 +558,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sweep the FULL 12-gate engine lifecycle (CRN; one "
                          "kernel launch for the grid with --backend cuda)")
     sw.add_argument("--sampler", choices=["gbm", "bootstrap", "block_bootstrap"],
-                    default="gbm", help="path sampler (only gbm is ported)")
-    sw.add_argument("--bars-csv", default=None, help="not ported yet")
-    sw.add_argument("--block-len", type=int, default=None, help="not ported yet")
+                    default="gbm",
+                    help="bootstrap family sweeps the knob grid over RECORDED bars "
+                         "(--bars-csv) with CRN: identical resample indices and paths "
+                         "per row")
+    sw.add_argument("--bars-csv", default=None,
+                    help="recorded t,o,h,l,c[,v] history for --sampler bootstrap "
+                         "(default: a synthetic 390-bar fixture)")
+    sw.add_argument("--block-len", type=int, default=10,
+                    help="block_bootstrap: contiguous run length")
     sw.add_argument("--jitter-stds", type=float, nargs="+", default=None,
                     help="engine only: put level-jitter stds on the grid axis "
                          "(cartesian with stops/tps); every row replays the "

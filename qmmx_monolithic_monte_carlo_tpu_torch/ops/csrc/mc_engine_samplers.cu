@@ -8,12 +8,15 @@
 // (_engine_lifecycle_loop, samplers "bootstrap", "block_bootstrap" and
 // "heston", pallas_engine.py:207-519 and the per-step split :1299-1334),
 // with and without execution noise, up to 8 levels and an even W <= 61 (the
-// port's envelope).  One CUDA thread carries one path through its bars, with
-// the engine of mc_engine_step.cuh on each bar, and one extra float
-// of sampler state: the block's start (block bootstrap) or the variance
-// (Heston).  Under the bootstrap samplers a bar's volume is its recorded
-// volume (channel 4 of the tables), so the guard and veto gates see real
-// volume; Heston's bars take the gbm volume model on the bar's price normal.
+// port's envelope); and the same branches of _engine_sweep_kernel
+// (pallas_engine.py:1813), _engine_universe_kernel (:2098) and
+// _engine_universe_sweep_kernel (:2282) as rows.  One CUDA thread carries
+// one path through its bars, with the engine of mc_engine_step.cuh on each
+// bar, and one extra float of sampler state: the block's start (block
+// bootstrap) or the variance (Heston).  Under the bootstrap samplers a bar's
+// volume is its recorded volume (channel 4 of the tables), so the guard and
+// veto gates see real volume; Heston's bars take the gbm volume model on the
+// bar's price normal.
 //
 // What bounds it on the H100: what bounds the gbm engine kernel (the special
 // functions and the per-bar gates; 46x its bound at 2^28, PERF.md), less the
@@ -23,6 +26,15 @@
 // bar and a sqrtf a bar for Heston.  The design keeps the gbm kernel's: one
 // thread a path, the arguments in shared memory, the rings in shared memory,
 // the bar step a called function.
+//
+// Rows: blockIdx.y picks the row, as in mc_engine_sweep_kernel: one row for a
+// single configuration (#8), a grid row of knobs and noise stds on the same
+// draws and history for the sweep (#9), a symbol on its own key, injected
+// uniforms and history (its recorded volumes into the volume gates) for the
+// universe (#10), a (symbol, grid row) cell for the sweep of universes (#11).
+// A CTA works on one row and the x index runs fastest, so resident CTAs share
+// one or two rows' tables in L2 at a time.  Row r equals the one-row launch
+// of its arguments bit for bit.
 //
 // Numerics as mc_engine.cu, with fmaf where the JAX kernel's XLA fuses the
 // Heston step (sampler.cuh).  Reduction: each chunk of BLOCK paths adds to the
@@ -102,9 +114,10 @@ __device__ __noinline__ void heston_bar_step(const EngineArgs& a, const SamplerA
 #include "mc_engine_step.cuh"
 }
 
-// Every path of the run, a thread a path in chunks of BLOCK (every thread of
-// a CTA runs the same chunks, so cta_add_path_row's barriers line up): row
-// [CTA] of part_counts / part_floats, per-path rows at per_path[p] when not
+// Every path of row blockIdx.y of ``args`` / ``sargs`` (a single
+// configuration is one row), a thread a path in chunks of BLOCK (every thread
+// of a CTA runs the same chunks, so cta_add_path_row's barriers line up):
+// partial rows [row][CTA], per-path rows [row][path] when per_path is not
 // null.
 template <int MAXL, int KIND>
 __global__ void __launch_bounds__(BLOCK)
@@ -116,13 +129,16 @@ mc_engine_sampler_kernel(const EngineArgs* __restrict__ args,
     __shared__ float s_close[CLOSE_RING * BLOCK];
     __shared__ EngineArgs s_a;
     __shared__ SamplerArgs s_s;
-    if (threadIdx.x == 0) { s_a = *args; s_s = *sargs; }
+    if (threadIdx.x == 0) { s_a = args[blockIdx.y]; s_s = sargs[blockIdx.y]; }
     __syncthreads();
     const EngineArgs& a = s_a;
     const SamplerArgs& s = s_s;
     const Rings rg{s_vol + threadIdx.x, s_close + threadIdx.x};
     const int row_len = ENGINE_SUB * a.lanes;
     const int k_noise = KIND == SAMPLER_RESAMPLE ? 4 : 12;
+    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    if (ext) ext += a.ext_offset;
+    if (per_path) per_path += (long long)blockIdx.y * a.num_paths * PATH_COLS;
     int chunk = 0;
     for (long long base = (long long)blockIdx.x * BLOCK; base < a.num_paths;
          base += (long long)gridDim.x * BLOCK, ++chunk) {
@@ -172,9 +188,8 @@ mc_engine_sampler_kernel(const EngineArgs* __restrict__ args,
 #pragma unroll
         for (int j = 0; j < N_SKIPS; ++j) cnt[N_COUNTS + j] = st.skips[j];
         cta_add_path_row<N_COUNTS + N_SKIPS>(cnt, entered, st.equity, st.dd,
-                                             part_counts + (long long)blockIdx.x * ROW_COUNTS,
-                                             part_floats + (long long)blockIdx.x * ROW_FLOATS,
-                                             chunk == 0);
+                                             part_counts + seg * ROW_COUNTS,
+                                             part_floats + seg * ROW_FLOATS, chunk == 0);
         if (per_path && live) {
             float* o = per_path + p * PATH_COLS;
             o[0] = st.equity; o[1] = (float)st.trades; o[2] = (float)st.wins;
@@ -190,21 +205,24 @@ extern "C" {
 
 int qmmx_engine_sampler_args_size(void) { return (int)sizeof(SamplerArgs); }
 
-// Pass 1 of one configuration under sampler ``kind`` (SAMPLER_RESAMPLE or
-// SAMPLER_HESTON): ``args`` and ``sargs`` in device memory, ext and per_path
-// null when not used; partial rows [CTA].  Returns cudaGetLastError().
-int qmmx_mc_engine_sampler(const EngineArgs* args, const SamplerArgs* sargs, int kind,
-                           int max_levels, int num_bars, const float* ext,
+// Pass 1 of the n_rows rows at ``args`` and ``sargs`` (device memory) under
+// sampler ``kind`` (SAMPLER_RESAMPLE or SAMPLER_HESTON), one grid row per
+// blockIdx.y; ext and per_path null when not used; partial rows [row][CTA].
+// Returns cudaGetLastError().
+int qmmx_mc_engine_sampler(const EngineArgs* args, const SamplerArgs* sargs, int n_rows,
+                           int kind, int max_levels, int num_bars, const float* ext,
                            long long* part_counts, float* part_floats, float* per_path,
                            int grid, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (max_levels > MAX_LEVELS || num_bars > 61 || (num_bars & 1))
+    if (max_levels > MAX_LEVELS || num_bars > 61 || (num_bars & 1) || n_rows < 1
+        || n_rows > 65535)
         return (int)cudaErrorInvalidValue;
+    const dim3 g(grid, n_rows);
     if (kind == SAMPLER_RESAMPLE) {
-        mc_engine_sampler_kernel<MAX_LEVELS, SAMPLER_RESAMPLE><<<grid, BLOCK, 0, s>>>(
+        mc_engine_sampler_kernel<MAX_LEVELS, SAMPLER_RESAMPLE><<<g, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats, per_path);
     } else if (kind == SAMPLER_HESTON) {
-        mc_engine_sampler_kernel<MAX_LEVELS, SAMPLER_HESTON><<<grid, BLOCK, 0, s>>>(
+        mc_engine_sampler_kernel<MAX_LEVELS, SAMPLER_HESTON><<<g, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats, per_path);
     } else {
         return (int)cudaErrorInvalidValue;

@@ -5,7 +5,9 @@
 // Replaces the sampler branches of the TPU kernel
 // qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py _mc_kernel:
 // _bootstrap_block (sampler "bootstrap" and "block_bootstrap") and
-// _heston_block ("heston"), with and without execution noise.  The Pallas
+// _heston_block ("heston"), with and without execution noise; and the same
+// branches of _universe_kernel (pallas_mc.py:828) and _sweep_kernel
+// (pallas_mc.py:1978), which have no noise, as rows.  The Pallas
 // kernel builds a (W, 8192) tile of bars and takes the log-price cumsum as a
 // W x W triangular matmul; a CUDA thread walks ONE path's bars in a register
 // loop with a running float32 sum, as mc_first_contact.cu does for gbm.
@@ -32,9 +34,18 @@
 // The previous close of a recorded bar is log_close - log return, the TPU
 // kernel's form (the XLA pipeline chains log s0 + cumsum instead).
 //
+// Rows: blockIdx.y picks the row, as in mc_universe_kernel, so one launch
+// serves the single configuration (#1, one row), the (stop, tp) sweep (#3,
+// rows on the same draws and history; each row walks its bars again, where
+// mc_sweep_kernel walks them once for every row) and the universe (#2, a row
+// a symbol on its own key, injected uniforms and history).  A CTA works on one
+// row, and the x index runs fastest, so resident CTAs share one or two rows'
+// tables in L2 at a time.
+//
 // Determinism: a fixed grid, a fixed path-to-thread map, warp-shuffle trees and
-// the family's row fold (mc_reduce_rows_kernel of mc_first_contact.cu), so a
-// run is reproducible bit for bit.  This source is a library of its own, so
+// the family's row fold (mc_reduce_rows_kernel of mc_first_contact.cu, one
+// segment a row), so a run is reproducible bit for bit, and row r equals the
+// one-row launch of its arguments.  This source is a library of its own, so
 // the gbm kernels of mc_first_contact.cu keep their code and registers.
 
 #include "mc_first_contact.cuh"
@@ -211,8 +222,11 @@ __device__ __forceinline__ void sampler_block(const McArgs& a, const SamplerArgs
     }
 }
 
-// One configuration: its McArgs and SamplerArgs copied into shared memory once
-// a CTA (see mc_universe_kernel), partial rows [CTA].
+// Row blockIdx.y of ``args`` / ``sargs`` (a single configuration is one row;
+// a sweep's grid rows share the draws and the history, a universe's symbols
+// each bring their key, injected uniforms and history): the row's McArgs and
+// SamplerArgs copied into shared memory once a CTA (see mc_universe_kernel),
+// partial rows [row][CTA].
 template <int KIND>
 __global__ void __launch_bounds__(BLOCK)
 mc_first_contact_sampler_kernel(const McArgs* __restrict__ args,
@@ -222,28 +236,32 @@ mc_first_contact_sampler_kernel(const McArgs* __restrict__ args,
                                 float* __restrict__ part_floats) {
     __shared__ McArgs s_a;
     __shared__ SamplerArgs s_s;
-    if (threadIdx.x == 0) { s_a = *args; s_s = *sargs; }
+    if (threadIdx.x == 0) { s_a = args[blockIdx.y]; s_s = sargs[blockIdx.y]; }
     __syncthreads();
-    sampler_block<KIND>(s_a, s_s, ext, part_counts + blockIdx.x * ROW_COUNTS,
-                        part_floats + blockIdx.x * ROW_FLOATS);
+    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    sampler_block<KIND>(s_a, s_s, ext ? ext + s_a.ext_offset : nullptr,
+                        part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS);
 }
 
 extern "C" {
 
 int qmmx_sampler_args_size(void) { return (int)sizeof(SamplerArgs); }
 
-// Pass 1 of one configuration under sampler ``kind`` (SAMPLER_RESAMPLE or
-// SAMPLER_HESTON): ``args`` and ``sargs`` in device memory, ext null in
-// Philox mode; partial rows [CTA].  Returns cudaGetLastError().
-int qmmx_mc_sampler(const McArgs* args, const SamplerArgs* sargs, int kind, int num_bars,
-                    const float* ext, long long* part_counts, float* part_floats, int ctas,
-                    void* stream) {
+// Pass 1 of the n_rows rows at ``args`` and ``sargs`` (device memory) under
+// sampler ``kind`` (SAMPLER_RESAMPLE or SAMPLER_HESTON), one grid row per
+// blockIdx.y; ext null in Philox mode; partial rows [row][CTA].  Returns
+// cudaGetLastError().
+int qmmx_mc_sampler(const McArgs* args, const SamplerArgs* sargs, int n_rows, int kind,
+                    int num_bars, const float* ext, long long* part_counts,
+                    float* part_floats, int ctas, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+    if (n_rows < 1 || n_rows > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid(ctas, n_rows);
     if (kind == SAMPLER_RESAMPLE) {
-        mc_first_contact_sampler_kernel<SAMPLER_RESAMPLE><<<ctas, BLOCK, 0, s>>>(
+        mc_first_contact_sampler_kernel<SAMPLER_RESAMPLE><<<grid, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats);
     } else if (kind == SAMPLER_HESTON && !(num_bars & 1)) {
-        mc_first_contact_sampler_kernel<SAMPLER_HESTON><<<ctas, BLOCK, 0, s>>>(
+        mc_first_contact_sampler_kernel<SAMPLER_HESTON><<<grid, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats);
     } else {
         return (int)cudaErrorInvalidValue;

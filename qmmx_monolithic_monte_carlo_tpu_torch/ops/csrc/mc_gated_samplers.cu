@@ -5,7 +5,9 @@
 // Replaces the sampler branches of the TPU kernel
 // qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py _gated_kernel
 // (_gated_lifecycle_loop, samplers "bootstrap", "block_bootstrap" and
-// "heston", pallas_mc.py:1187-1375), with and without execution noise.  The
+// "heston", pallas_mc.py:1187-1375), with and without execution noise, and
+// the same branches of _gated_universe_kernel (pallas_mc.py:1568) and
+// _gated_sweep_kernel (pallas_mc.py:2163) as rows.  The
 // Pallas kernel advances (8, 1024) tiles a double bar at a time and gathers
 // the recorded bars by a one-hot blend over the table's lane tiles; here one
 // CUDA thread carries one path through its bars, with the lifecycle of
@@ -28,9 +30,17 @@
 // exp(log s0 + logo) (pallas_mc.py:1353-1357).  Numerics as mc_gated.cu, with
 // fmaf where the JAX kernel's XLA fuses the Heston step (sampler.cuh).
 //
+// Rows: blockIdx.y picks the row, as in mc_gated_sweep_kernel: one row for a
+// single configuration (#4), a grid row of (stop, tp, gate knobs, noise stds)
+// on the same draws and history for the sweep (#6), a symbol on its own key,
+// injected uniforms and history for the universe (#5).  A CTA works on one
+// row and the x index runs fastest, so resident CTAs share one or two rows'
+// tables in L2 at a time.
+//
 // Reduction: each chunk of BLOCK paths adds to the CTA's partial row in chunk
 // order (book.cuh's cta_add_path_row), then the family's fold
-// (fold_lifecycle_rows of mc_gated.cu); per-path rows when asked.  This
+// (fold_lifecycle_rows of mc_gated.cu, one segment a row); per-path rows when
+// asked.  Row r equals the one-row launch of its arguments bit for bit.  This
 // source is a library of its own, so the gbm kernels keep their code.
 
 #include "mc_gated.cuh"
@@ -78,9 +88,10 @@ __device__ __noinline__ void heston_bar_step(const GatedArgs& a, const SamplerAr
 #undef GATED_EXTREMES
 }
 
-// Every path of the run, a thread a path in chunks of BLOCK (every thread of
-// a CTA runs the same chunks, so cta_add_path_row's barriers line up): row
-// [CTA] of part_counts / part_floats, per-path rows at per_path[p] when not
+// Every path of row blockIdx.y of ``args`` / ``sargs`` (a single
+// configuration is one row), a thread a path in chunks of BLOCK (every thread
+// of a CTA runs the same chunks, so cta_add_path_row's barriers line up):
+// partial rows [row][CTA], per-path rows [row][path] when per_path is not
 // null.
 template <int MAXL, int KIND>
 __global__ void __launch_bounds__(BLOCK)
@@ -89,7 +100,7 @@ mc_gated_sampler_kernel(const GatedArgs* __restrict__ args, const SamplerArgs* _
                         float* __restrict__ part_floats, float* __restrict__ per_path) {
     __shared__ GatedArgs s_a;
     __shared__ SamplerArgs s_s;
-    if (threadIdx.x == 0) { s_a = *args; s_s = *sargs; }
+    if (threadIdx.x == 0) { s_a = args[blockIdx.y]; s_s = sargs[blockIdx.y]; }
     __syncthreads();
     const GatedArgs& a = s_a;
     const SamplerArgs& s = s_s;
@@ -97,6 +108,9 @@ mc_gated_sampler_kernel(const GatedArgs* __restrict__ args, const SamplerArgs* _
     const int stride = a.u_rows / (a.num_bars >> 1);      // rows a double bar
     const int k_noise = KIND == SAMPLER_RESAMPLE ? 4 : 10;
     const float4 no_noise = make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    if (ext) ext += a.ext_offset;
+    if (per_path) per_path += (long long)blockIdx.y * a.num_paths * PATH_COLS;
     int chunk = 0;
     for (long long base = (long long)blockIdx.x * BLOCK; base < a.num_paths;
          base += (long long)gridDim.x * BLOCK, ++chunk) {
@@ -151,8 +165,8 @@ mc_gated_sampler_kernel(const GatedArgs* __restrict__ args, const SamplerArgs* _
         const int open = st.side != 0;
         const int cnt[N_COUNTS] = {live ? 1 : 0, entered, st.wins, st.losses, open, st.trades};
         cta_add_path_row<N_COUNTS>(cnt, entered, st.equity, st.dd,
-                                   part_counts + (long long)blockIdx.x * ROW_COUNTS,
-                                   part_floats + (long long)blockIdx.x * ROW_FLOATS, chunk == 0);
+                                   part_counts + seg * ROW_COUNTS,
+                                   part_floats + seg * ROW_FLOATS, chunk == 0);
         if (per_path && live) {
             float* o = per_path + p * PATH_COLS;
             o[0] = st.equity; o[1] = (float)st.trades; o[2] = (float)st.wins;
@@ -165,19 +179,22 @@ extern "C" {
 
 int qmmx_gated_sampler_args_size(void) { return (int)sizeof(SamplerArgs); }
 
-// Pass 1 of one configuration under sampler ``kind`` (SAMPLER_RESAMPLE or
-// SAMPLER_HESTON): ``args`` and ``sargs`` in device memory, ext and per_path
-// null when not used; partial rows [CTA].  Returns cudaGetLastError().
-int qmmx_mc_gated_sampler(const GatedArgs* args, const SamplerArgs* sargs, int kind,
-                          int max_levels, const float* ext, long long* part_counts,
+// Pass 1 of the n_rows rows at ``args`` and ``sargs`` (device memory) under
+// sampler ``kind`` (SAMPLER_RESAMPLE or SAMPLER_HESTON), one grid row per
+// blockIdx.y; ext and per_path null when not used; partial rows [row][CTA].
+// Returns cudaGetLastError().
+int qmmx_mc_gated_sampler(const GatedArgs* args, const SamplerArgs* sargs, int n_rows,
+                          int kind, int max_levels, const float* ext, long long* part_counts,
                           float* part_floats, float* per_path, int grid, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (max_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (max_levels > MAX_LEVELS || n_rows < 1 || n_rows > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 g(grid, n_rows);
     if (kind == SAMPLER_RESAMPLE) {
-        mc_gated_sampler_kernel<MAX_LEVELS, SAMPLER_RESAMPLE><<<grid, BLOCK, 0, s>>>(
+        mc_gated_sampler_kernel<MAX_LEVELS, SAMPLER_RESAMPLE><<<g, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats, per_path);
     } else if (kind == SAMPLER_HESTON) {
-        mc_gated_sampler_kernel<MAX_LEVELS, SAMPLER_HESTON><<<grid, BLOCK, 0, s>>>(
+        mc_gated_sampler_kernel<MAX_LEVELS, SAMPLER_HESTON><<<g, BLOCK, 0, s>>>(
             args, sargs, ext, part_counts, part_floats, per_path);
     } else {
         return (int)cudaErrorInvalidValue;

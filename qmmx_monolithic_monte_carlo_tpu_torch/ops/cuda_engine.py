@@ -4,10 +4,11 @@ Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1506-1806`
 (kernel #8, ``_engine_kernel`` with ``_engine_lifecycle_loop`` and
 ``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), with
 execution noise, antithetic lanes (gbm) and all four samplers, up to 8 levels
-and an even horizon of at most 61 bars.  9-64 levels, odd horizons, longer
-horizons (the windowed guard), the samplers of the sweeps, universes and
-books, and the closed-trade harvest are not ported yet; ``sim/enginepath``
-runs the same engine at any horizon.
+and an even horizon of at most 61 bars, in the single configuration, the
+sweep, the universe and the sweep of universes.  9-64 levels, odd horizons,
+longer horizons (the windowed guard), the samplers of the books, and the
+closed-trade harvest are not ported yet; ``sim/enginepath`` runs the same
+engine at any horizon.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -40,7 +41,10 @@ runs the same engine at any horizon.
   G rows in one launch, row (s, g) under row g of symbol s's knob grid
   (leaves scalar, [G] or [S, G]) on symbol s's key (common random numbers
   within a symbol); it equals the engine universe at symbol s under row g's
-  knobs, bit for bit.
+  knobs, bit for bit.  Under the bootstrap, block-bootstrap and Heston
+  samplers the sweep, the universe and the sweep of universes launch
+  ``mc_engine_sampler_kernel`` (``ops/csrc/mc_engine_samplers.cu``) with the
+  same rows, a universe's symbols each on their own recorded history.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.EngineLayout``: injected as ``external_uniforms``
@@ -100,7 +104,8 @@ LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
             "mc_engine_sweep_reduce_rows": 0, "mc_engine_universe": 0,
             "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
             "mc_engine_universe_sweep_reduce_rows": 0, "mc_engine_corr": 0,
-            "mc_engine_corr_reduce_rows": 0}
+            "mc_engine_corr_reduce_rows": 0, "mc_engine_sweep_sampler": 0,
+            "mc_engine_universe_sampler": 0, "mc_engine_universe_sweep_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -376,18 +381,23 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
                                   sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                                   lanes: int = ENGINE_LANES, external_uniforms=None,
                                   device=None, chunk_blocks: int = 16,
-                                  per_path: bool = False, symbol: int = 0):
+                                  per_path: bool = False, symbol: int = 0,
+                                  sampler: str = "gbm", hist_bars=None, tables=None,
+                                  block_len: int = 10, heston=None):
     """The plain version of the sweep: int64 [G, 151] counts and float64
     [G, 6] floats, then f32[G, P, PATH_COLS] per-(row, path) rows when
     ``per_path``.  Each chunk's uniforms are drawn once (keyed as universe
     symbol ``symbol``) and every row runs the whole engine on them (the TPU
-    kernel's reseeding)."""
+    kernel's reseeding); ``sampler`` and its inputs as in
+    ``mc_paths_engine_fused`` (every row on the same history)."""
     rows = knob_rows(grid_params, noise, n_grid)
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=False,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     levels = levels.to(device)
     cs = consts(s0, mu, sigma, dt)
@@ -403,7 +413,7 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
                                 symbol=symbol, device=device)
         for g, (p_g, noise_g) in enumerate(rows):
             *part, part_rows = _chunk_engine(u, layout, levels, p_g, kw, noise_g, cs, vc,
-                                             False, per_path)
+                                             False, per_path, sampler=samp)
             tot[g] = merge_totals(tot[g], part)
             if per_path:
                 path_rows[g].append(part_rows)
@@ -464,7 +474,8 @@ def _sampler_library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_engine_sampler_args_size.argtypes = []
         lib.qmmx_engine_sampler_args_size.restype = ci
-        lib.qmmx_mc_engine_sampler.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_sampler.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci,
+                                               vp]
         lib.qmmx_mc_engine_sampler.restype = ci
         if lib.qmmx_engine_sampler_args_size() != ctypes.sizeof(SamplerArgs):
             raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
@@ -601,33 +612,38 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                       sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=antithetic, volume_model=volume_model, symbols=[symbol])
     if samp.kind != "gbm":
-        return _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
-                               ext_ptr=ext_ptr, device=device, per_path=per_path)
-    out = _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                  device=device, per_path=per_path, what="mc_engine")
+        out = _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
+                              ext_ptr=ext_ptr, device=device, per_path=per_path,
+                              what="mc_engine_sampler")
+    else:
+        out = _launch(args, levels.max_levels, num_bars, num_paths=num_paths,
+                      ext_ptr=ext_ptr, device=device, per_path=per_path, what="mc_engine")
     return tuple(x[0] for x in out)
 
 
 def _sampler_launch(args, sampler: Sampler, max_levels: int, num_bars: int, *,
-                    num_paths: int, ext_ptr, device: torch.device, per_path: bool):
-    """One launch of ``mc_engine_sampler_kernel`` for the argument struct
-    ``args`` under ``sampler``, counted in ``LAUNCHES["mc_engine_sampler"]``:
-    int64 [grid, 151] and f32 [grid, 6] partial rows, plus f32[P, PATH_COLS]
-    per-path rows when ``per_path``."""
+                    num_paths: int, ext_ptr, device: torch.device, per_path: bool, what: str,
+                    table_rows=None):
+    """One launch of ``mc_engine_sampler_kernel`` over the argument structs
+    ``args`` (one per row) under ``sampler``, row r reading table
+    ``table_rows[r]`` (default: the one history), counted in
+    ``LAUNCHES[what]``: int64 [R, grid, 151] and f32 [R, grid, 6] partial
+    rows, plus f32[R, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    n, grid = len(args), grid_size(num_paths)
     args_dev = device_rows(args, device)
-    samp_dev, _tables = sampler_args(sampler, device)
-    grid = grid_size(num_paths)
-    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((grid, ROW_FLOATS), dtype=_F32, device=device)
-    path_rows = (torch.empty((num_paths, PATH_COLS), dtype=_F32, device=device)
+    samp_dev, _tables = sampler_args(sampler, device, [0] * n if table_rows is None
+                                     else table_rows)
+    part_counts = torch.empty((n, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=_F32, device=device)
+    path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=_F32, device=device)
                  if per_path else None)
     rc = _sampler_library().qmmx_mc_engine_sampler(
-        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], max_levels,
+        args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind], max_levels,
         num_bars, ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
         path_rows.data_ptr() if per_path else None, grid,
         torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "mc_engine_sampler")
-    LAUNCHES["mc_engine_sampler"] += 1
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
     out = (part_counts, part_floats)
     return out + (path_rows,) if per_path else out
 
@@ -639,17 +655,22 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                       num_paths: int, num_bars: int = 40, s0: float = 100.0,
                       mu: float = 0.0, sigma: float = 0.15,
                       dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
-                      external_uniforms=None, device=None, per_path: bool = False):
+                      external_uniforms=None, device=None, per_path: bool = False,
+                      sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
+                      heston=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
-    grid: int64 [G, grid, 151] and f32 [G, grid, 6] partial rows, one per
-    (grid row, CTA), plus f32[G, P, PATH_COLS] per-(row, path) rows when
-    ``per_path``."""
+    grid (``mc_engine_sweep_kernel``, or under the other samplers
+    ``mc_engine_sampler_kernel``, every row on the same history): int64 [G,
+    grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
+    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
     n_grid = len(knob_rows(grid_params, noise, n_grid))
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, kw, num_paths=num_paths, num_bars=num_bars,
                     lanes=lanes, noise=noise, antithetic=False,
-                    external_uniforms=external_uniforms)
+                    external_uniforms=external_uniforms, sampler=samp)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
                              "engine_sweep_rows")
@@ -658,6 +679,10 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
     args = _pack_args(seed, levels, grid_params, kw, layout, n=n_grid, num_paths=num_paths,
                       s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=False, volume_model=volume_model, symbols=[0] * n_grid)
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
+                               ext_ptr=ext_ptr, device=device, per_path=per_path,
+                               what="mc_engine_sweep_sampler")
     return _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_engine_sweep")
 
@@ -729,25 +754,31 @@ def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=Non
                                 mu: float = 0.0, sigma: float = 0.15,
                                 dt: float = 1.0 / (390.0 * 252.0),
                                 lanes: int = ENGINE_LANES, external_uniforms=None,
-                                device=None):
+                                device=None, sampler: str = "gbm", hist_bars=None,
+                                tables=None, block_len: int = 10, heston=None):
     """Fused engine-knob grid sweep, the counterpart of
-    ``mc_paths_pallas_engine_sweep`` (gbm): ``grid_params`` (EngineParams
+    ``mc_paths_pallas_engine_sweep``: ``grid_params`` (EngineParams
     whose leaves are [G] vectors or shared scalars) and ``noise`` (McNoise,
     scalar or [G] stds) give G rows, every row on the same uniforms (CRN).
     Returns ([G] PathStats, int64 [G, 16] skip tables, int64 [G]
     escalations); row g equals ``mc_paths_engine_fused`` under row g's knobs
-    at the same seed, bit for bit.  ``device`` as in
-    ``mc_paths_engine_fused``."""
+    at the same seed, bit for bit.  ``sampler`` and its inputs as in
+    ``mc_paths_engine_fused`` (every row on the same history, its recorded
+    volumes into the volume gates; Heston at the caller's ``mu``).
+    ``device`` as in ``mc_paths_engine_fused``."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     kw = dict(n_grid=n_grid, policy=policy, ml_model=ml_model, touch_params=touch_params,
               guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
               escalation=escalation, bar0_minute=bar0_minute, volume_model=volume_model,
               noise=noise, num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
-              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms,
+              sampler=sampler, tables=samp.tables, block_len=block_len, heston=heston)
     knob_rows(grid_params, noise, n_grid)
     _check(seed, levels, engine_knobs(policy, ml_model, touch_params, guard_params,
                                     policy_gate_disabled, escalation, bar0_minute),
            num_paths=num_paths, num_bars=num_bars, lanes=lanes, noise=noise,
-           antithetic=False, external_uniforms=external_uniforms)
+           antithetic=False, external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         return stats_from_engine_totals(*engine_sweep_totals_reference(
@@ -763,17 +794,24 @@ def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=Non
 # --------------------------------------------------------------------------
 
 def _universe_layout(seed, sym_levels: Levels, kw: dict, noise, n_sym: int, *,
-                     paths_per_symbol: int, num_bars: int, lanes: int,
-                     external_uniforms) -> EngineLayout:
+                     paths_per_symbol: int, num_bars: int, lanes: int, external_uniforms,
+                     sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
+                     heston=None, dt: float = 1.0 / (390.0 * 252.0)):
     """The checks of ``mc_paths_pallas_engine_universe(_sweep)``
     (pallas_engine.py:2248-2267, :2440-2457) and the single kernel's envelope,
-    on one symbol's levels; injected uniforms f32[S, blocks, u_rows, 8, lanes]."""
+    on one symbol's levels; injected uniforms f32[S, blocks, u_rows, 8, lanes].
+    Returns the layout and the universe's ``Sampler``: each symbol's own
+    recorded history (``hist_bars`` [S, H] o/h/l/c/v, or [S, 5, H]
+    ``tables``), or Heston's constants at mu 0 (pallas_engine.py:2277)."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=0.0, dt=dt, symbols=n_sym)
     layout = _check(seed, sym_levels, kw, num_paths=paths_per_symbol, num_bars=num_bars,
-                    lanes=lanes, noise=noise, antithetic=False, external_uniforms=None)
+                    lanes=lanes, noise=noise, antithetic=False, external_uniforms=None,
+                    sampler=samp)
     check_uniforms(external_uniforms, (n_sym, paths_per_symbol // (ENGINE_SUB * lanes),
                                        layout.u_rows, ENGINE_SUB, lanes),
                    antithetic=False, lanes=lanes)
-    return layout
+    return layout, samp
 
 
 def _one_row(levels: Levels, s0, sigma, params, noise, harvest: bool):
@@ -807,27 +845,33 @@ def engine_universe_sweep_totals_reference(seed, levels: Levels, grid_params, s0
                                            dt: float = 1.0 / (390.0 * 252.0),
                                            lanes: int = ENGINE_LANES,
                                            external_uniforms=None, device=None,
-                                           chunk_blocks: int = 16, per_path: bool = False):
+                                           chunk_blocks: int = 16, per_path: bool = False,
+                                           sampler: str = "gbm", hist_bars=None, tables=None,
+                                           block_len: int = 10, heston=None):
     """The plain version of the sweep of universes: int64 [S, G, 151] counts
     and float64 [S, G, 6] floats, then f32[S, G, P, PATH_COLS] per-path rows
     with ``per_path``; symbol s by ``engine_sweep_totals_reference`` over its
     grid (the [S, G] leaves of ``grid_params`` and ``noise`` cut to row s)
-    at its levels, s0, sigma, mu 0 and its uniforms or key."""
+    at its levels, s0, sigma, mu 0 and its uniforms or key, and its own
+    history under the bootstrap samplers (``_universe_layout``)."""
     gates = dict(policy=policy, ml_model=ml_model, touch_params=touch_params,
                  guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
                  escalation=escalation, bar0_minute=bar0_minute)
     sym = symbol_rows(levels, s0, sigma)
     n_grid = len(sg_rows(grid_params, noise, len(sym), n_grid)[0])
-    _universe_layout(seed, sym[0][0], engine_knobs(**gates), noise, len(sym),
-                     paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
-                     external_uniforms=external_uniforms)
+    _, samp = _universe_layout(
+        seed, sym[0][0], engine_knobs(**gates), noise, len(sym),
+        paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+        external_uniforms=external_uniforms, sampler=sampler, hist_bars=hist_bars,
+        tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = devices.resolve(device, external_uniforms)
     out = [engine_sweep_totals_reference(
         seed, lv, symbol_grid(grid_params, s), n_grid=n_grid, noise=symbol_grid(noise, s),
         volume_model=volume_model, num_paths=paths_per_symbol, num_bars=num_bars,
         s0=s0_s, mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, symbol=s,
         external_uniforms=symbol_uniforms(external_uniforms, s), device=device,
-        chunk_blocks=chunk_blocks, per_path=per_path, **gates)
+        chunk_blocks=chunk_blocks, per_path=per_path, sampler=sampler,
+        tables=samp.row(s).tables, block_len=block_len, heston=heston, **gates)
         for s, (lv, s0_s, sg_s) in enumerate(sym)]
     return tuple(torch.stack(x) for x in zip(*out))
 
@@ -840,19 +884,24 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                                num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
                                lanes: int = ENGINE_LANES, external_uniforms=None,
                                device=None, per_path: bool = False,
-                               what: str = "mc_engine_universe_sweep"):
+                               what: str = "mc_engine_universe_sweep", sampler: str = "gbm",
+                               hist_bars=None, tables=None, block_len: int = 10,
+                               heston=None):
     """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
-    ``mc_engine_sweep_kernel`` with S x G rows (row s * G + g for (s, g)),
-    counted in ``LAUNCHES[what]``: int64 [S, G, grid, 151] and f32 [S, G,
-    grid, 6] partial rows, plus f32[S, G, P, PATH_COLS] per-path rows when
-    ``per_path``."""
+    ``mc_engine_sweep_kernel`` (or under the other samplers
+    ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what + "_sampler"]``,
+    cell (s, g) reading symbol s's history) with S x G rows (row s * G + g
+    for (s, g)), under gbm counted in ``LAUNCHES[what]``: int64 [S, G, grid,
+    151] and f32 [S, G, grid, 6] partial rows, plus f32[S, G, P, PATH_COLS]
+    per-path rows when ``per_path``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     sym = symbol_rows(levels, s0, sigma)
     grid = sg_rows(grid_params, noise, len(sym), n_grid)
-    layout = _universe_layout(seed, sym[0][0], kw, noise, len(sym),
-                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
-                              lanes=lanes, external_uniforms=external_uniforms)
+    layout, samp = _universe_layout(
+        seed, sym[0][0], kw, noise, len(sym), paths_per_symbol=paths_per_symbol,
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device, what)
     n_sym, n_grid = len(sym), len(grid[0])
@@ -863,8 +912,14 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                       mu=0.0, dt=dt, lanes=lanes, noise=sg_columns(noise, n_sym, n_grid),
                       antithetic=False, volume_model=volume_model, symbols=cell_sym.tolist(),
                       ext_offset=cell_sym * paths_per_symbol * layout.u_rows)
-    out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
-                  ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
+    if samp.kind != "gbm":
+        out = _sampler_launch(args, samp, levels.max_levels, num_bars,
+                              num_paths=paths_per_symbol, ext_ptr=ext_ptr, device=device,
+                              per_path=per_path, what=what + "_sampler",
+                              table_rows=cell_sym if samp.resamples else None)
+    else:
+        out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
+                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
     return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
 
 
@@ -918,18 +973,22 @@ def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
                                    paths_per_symbol: int, num_bars: int = 40,
                                    dt: float = 1.0 / (390.0 * 252.0),
                                    lanes: int = ENGINE_LANES, external_uniforms=None,
-                                   device=None):
+                                   device=None, sampler: str = "gbm", hist_bars=None,
+                                   tables=None, block_len: int = 10, heston=None):
     """Fused per-symbol full-engine universe, the counterpart of
-    ``mc_paths_pallas_engine_universe`` (gbm, no harvest): ([S] PathStats,
+    ``mc_paths_pallas_engine_universe`` (no harvest): ([S] PathStats,
     int64 [S, 16] skip tables, int64 [S] escalations), symbol s under its own
     [S, L] levels row, s0[s], sigma[s], all engine knobs (``params`` leaves
     scalar or [S]), noise stds (``noise`` leaves scalar or [S]) and key, the
     ML, policy, touch and guard records shared; drift, sig_dt and log_s0 per
-    symbol in float64 on the host, mu 0.  It runs as the sweep of universes
-    at one grid row.  Row s equals ``mc_paths_engine_fused`` at those inputs
-    with ``symbol=s`` bit for bit; injected uniforms are f32[S, blocks,
-    u_rows, 8, lanes].  ``harvest=True`` raises (not ported yet).  ``device``
-    as in ``mc_paths_engine_fused``."""
+    symbol in float64 on the host, mu 0.  ``sampler``, ``hist_bars`` ([S, H]
+    o/h/l/c/v), ``tables`` ([S, 5, H]), ``block_len`` and ``heston`` as in
+    ``ops/cuda_mc.mc_paths_universe_fused``: each symbol resamples its own
+    history, its recorded volumes into the volume gates.  It runs as the
+    sweep of universes at one grid row.  Row s equals
+    ``mc_paths_engine_fused`` at those inputs with ``symbol=s`` bit for bit;
+    injected uniforms are f32[S, blocks, u_rows, 8, lanes].  ``harvest=True``
+    raises (not ported yet).  ``device`` as in ``mc_paths_engine_fused``."""
     grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
     c, f = _universe_sweep_totals(
         seed, levels, grid, s0, sigma, n_grid=1, policy=policy, ml_model=ml_model,
@@ -937,7 +996,9 @@ def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
         policy_gate_disabled=policy_gate_disabled, escalation=escalation,
         bar0_minute=bar0_minute, volume_model=volume_model, noise=g_noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
-        external_uniforms=external_uniforms, device=device, what="mc_engine_universe")
+        external_uniforms=external_uniforms, device=device, what="mc_engine_universe",
+        sampler=sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+        heston=heston)
     return stats_from_engine_totals(c[:, 0], f[:, 0])
 
 
@@ -950,13 +1011,16 @@ def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, 
                                          num_bars: int = 40,
                                          dt: float = 1.0 / (390.0 * 252.0),
                                          lanes: int = ENGINE_LANES, external_uniforms=None,
-                                         device=None):
+                                         device=None, sampler: str = "gbm", hist_bars=None,
+                                         tables=None, block_len: int = 10, heston=None):
     """Fused sweep of universes, the counterpart of
-    ``mc_paths_pallas_engine_universe_sweep`` (gbm): ([S, G] PathStats,
+    ``mc_paths_pallas_engine_universe_sweep``: ([S, G] PathStats,
     int64 [S, G, 16] skip tables, int64 [S, G] escalations), cell (s, g)
     under symbol s's levels, s0, sigma and key and row g of its knob grid
     (``grid_params`` and ``noise`` leaves scalar, [G] or [S, G]), every row
-    of a symbol on the same draws (CRN within a symbol).  Cell (s, g) equals
+    of a symbol on the same draws (CRN within a symbol) and, under the
+    bootstrap samplers, on the symbol's own history (``sampler`` and its
+    inputs as in ``mc_paths_engine_universe_fused``).  Cell (s, g) equals
     ``mc_paths_engine_universe_fused`` at symbol s under row g's knobs, bit
     for bit.  ``device`` as in ``mc_paths_engine_fused``."""
     return stats_from_engine_totals(*_universe_sweep_totals(
@@ -966,7 +1030,8 @@ def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, 
         bar0_minute=bar0_minute, volume_model=volume_model, noise=noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
         external_uniforms=external_uniforms, device=device,
-        what="mc_engine_universe_sweep"))
+        what="mc_engine_universe_sweep", sampler=sampler, hist_bars=hist_bars, tables=tables,
+        block_len=block_len, heston=heston))
 
 
 # --------------------------------------------------------------------------
@@ -981,7 +1046,8 @@ def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, kw: dict
     most 61 bars); returns (layout, market layout, ``symbol_columns``)."""
     if sampler != "gbm":
         raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
-                                  "kernel (the samplers slice); the port runs gbm")
+                                  "kernel (the books' samplers are the next slice); the "
+                                  "port's books run gbm")
     if harvest:
         raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
                                   "with models/harvest.py)")

@@ -3,7 +3,8 @@
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067-1565``
 and ``:1825-1971`` (kernel #4, ``_gated_kernel`` with ``_gated_lifecycle_loop``
 and ``_gated_accumulate``, entry ``mc_paths_pallas_gated`` ``:2381-2390``),
-with all four samplers; the sweeps, universes and books run gbm only.
+with all four samplers in the single configuration, the sweep and the
+universe; the books run gbm only.
 
 * ``mc_paths_gated_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_gated.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -81,7 +82,8 @@ MAX_CURVE_SHARED_BYTES = 160 * 1024  # the book's curves in shared memory (W x B
 LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
             "mc_gated_sweep_reduce_rows": 0, "mc_gated_universe": 0,
             "mc_gated_universe_reduce_rows": 0, "mc_gated_corr": 0,
-            "mc_gated_corr_reduce_rows": 0, "mc_gated_sampler": 0}
+            "mc_gated_corr_reduce_rows": 0, "mc_gated_sampler": 0,
+            "mc_gated_sweep_sampler": 0, "mc_gated_universe_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -395,17 +397,22 @@ def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_
                                  lanes: int = GATED_LANES, noise=None,
                                  external_uniforms=None, device=None,
                                  chunk_blocks: int = 16, per_path: bool = False,
-                                 work: bool = False):
+                                 work: bool = False, sampler: str = "gbm", hist_bars=None,
+                                 tables=None, block_len: int = 10, heston=None):
     """The plain version of the sweep: int64 [G, 134] counts and float64
     [G, 6] floats; then f32[G, P, 6] per-(row, path) rows when ``per_path``;
     then int64 [G] held bars when ``work``.  Each chunk's uniforms are drawn
     once and every row runs the whole lifecycle on them (the TPU kernel's
     reseeding); ``grid_gate`` (default ``GateConfig.from_params(params)``)
-    and ``noise`` may carry [G] leaves."""
+    and ``noise`` may carry [G] leaves; ``sampler`` and its inputs as in
+    ``mc_paths_gated_fused`` (every row on the same history)."""
     rows = grid_rows(params, grid_stops, grid_tps,
                      GateConfig.from_params(params) if grid_gate is None else grid_gate, noise)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-                    noise=noise, antithetic=False, external_uniforms=external_uniforms)
+                    noise=noise, antithetic=False, external_uniforms=external_uniforms,
+                    sampler=samp)
     device = devices.resolve(device, external_uniforms)
     cs = consts(s0, mu, sigma, dt)
     n_blocks = num_paths // (GATED_SUB * lanes)
@@ -421,7 +428,7 @@ def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_
                                device=device)
         for g, (p_g, gate_g, noise_g) in enumerate(rows):
             counts, floats, part_held, part_rows = _chunk_gated(
-                u, layout, levels, p_g, gate_g, noise_g, cs, False, per_path)
+                u, layout, levels, p_g, gate_g, noise_g, cs, False, per_path, sampler=samp)
             tot[g] = merge_totals(tot[g], (counts, floats))
             held[g] = held[g] + part_held
             if per_path:
@@ -436,21 +443,26 @@ def gated_sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_
 
 def _check_universe(seed, levels: Levels, params, s0, sigma, gate, noise, *,
                     paths_per_symbol: int, num_bars: int, lanes: int,
-                    external_uniforms) -> tuple[GatedLayout, GateConfig]:
+                    external_uniforms, sampler: str = "gbm", hist_bars=None, tables=None,
+                    block_len: int = 10, heston=None,
+                    dt: float = 1.0 / (390.0 * 252.0)) -> tuple[GatedLayout, GateConfig, Sampler]:
     """The checks of ``_mc_paths_pallas_gated_universe_jit``
-    (pallas_mc.py:1745-1760) and the single kernel's; returns the layout and
-    the shared gate."""
+    (pallas_mc.py:1745-1760) and the single kernel's; returns the layout,
+    the shared gate and the universe's ``Sampler`` (each symbol's own
+    recorded history, or Heston's constants at mu 0, pallas_mc.py:2411)."""
     cols = symbol_columns(levels, s0, sigma, params, noise)
     gate = GateConfig.from_params(params) if gate is None else gate
     if grid_len(gate) != 1:
         raise ValueError("the gate knobs are shared by every symbol: scalar leaves")
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=0.0, dt=dt, symbols=len(cols["s0"]))
     layout = _check(seed, grid_row(levels, 0), num_paths=paths_per_symbol,
                     num_bars=num_bars, lanes=lanes, noise=noise, antithetic=False,
-                    external_uniforms=None)
+                    external_uniforms=None, sampler=samp)
     check_uniforms(external_uniforms, (len(cols["s0"]), paths_per_symbol // (GATED_SUB * lanes),
                                        layout.u_rows, GATED_SUB, lanes),
                    antithetic=False, lanes=lanes)
-    return layout, gate
+    return layout, gate, samp
 
 
 def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gate=None, *,
@@ -459,23 +471,27 @@ def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gat
                                     lanes: int = GATED_LANES, noise=None,
                                     external_uniforms=None, device=None,
                                     chunk_blocks: int = 16, per_path: bool = False,
-                                    work: bool = False):
+                                    work: bool = False, sampler: str = "gbm", hist_bars=None,
+                                    tables=None, block_len: int = 10, heston=None):
     """The plain version of the gated universe: int64 [S, 134] counts and
     float64 [S, 6] floats, then f32[S, P, 6] per-(symbol, path) rows with
     ``per_path``, then int64 [S] held bars with ``work``; symbol s by
     ``gated_totals_reference`` at its levels, s0, sigma, knobs and noise stds
     (``params`` and ``noise`` leaves scalar or [S]), the shared ``gate``, mu
-    0, its uniforms ``external_uniforms[s]`` or its key."""
-    _, gate = _check_universe(seed, levels, params, s0, sigma, gate, noise,
-                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
-                              lanes=lanes, external_uniforms=external_uniforms)
+    0, its uniforms ``external_uniforms[s]`` or its key, and its own history
+    under the bootstrap samplers (``mc_paths_gated_universe_fused``)."""
+    _, gate, samp = _check_universe(
+        seed, levels, params, s0, sigma, gate, noise, paths_per_symbol=paths_per_symbol,
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     rows = symbol_rows(levels, s0, sigma, params, noise)
     device = devices.resolve(device, external_uniforms)
     out = [gated_totals_reference(
         seed, lv, p, gate, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s, mu=0.0,
         sigma=sg_s, dt=dt, lanes=lanes, noise=nz, symbol=s, device=device,
         chunk_blocks=chunk_blocks, per_path=per_path, work=work,
-        external_uniforms=symbol_uniforms(external_uniforms, s))
+        external_uniforms=symbol_uniforms(external_uniforms, s), sampler=sampler,
+        tables=samp.row(s).tables, block_len=block_len, heston=heston)
         for s, (lv, s0_s, sg_s, p, nz) in enumerate(rows)]
     return tuple(torch.stack(x) for x in zip(*out))
 
@@ -492,7 +508,8 @@ def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, gate, no
     the shared gate, ``symbol_columns``)."""
     if sampler != "gbm":
         raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
-                                  "kernel (the samplers slice); the port runs gbm")
+                                  "kernel (the books' samplers are the next slice); the "
+                                  "port's books run gbm")
     cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     gate = GateConfig.from_params(params) if gate is None else gate
     if grid_len(gate) != 1:
@@ -613,7 +630,7 @@ def _sampler_library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_gated_sampler_args_size.argtypes = []
         lib.qmmx_gated_sampler_args_size.restype = ci
-        lib.qmmx_mc_gated_sampler.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_gated_sampler.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp]
         lib.qmmx_mc_gated_sampler.restype = ci
         if lib.qmmx_gated_sampler_args_size() != ctypes.sizeof(SamplerArgs):
             raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
@@ -726,33 +743,37 @@ def gated_rows(seed, levels: Levels, params, gate=None, *, num_paths: int,
                        s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, antithetic=antithetic,
                        symbols=[symbol])
     if samp.kind != "gbm":
-        return _sampler_launch(args, samp, levels.max_levels, num_paths=num_paths,
-                               ext_ptr=ext_ptr, device=device, per_path=per_path)
-    out = _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
-                  device=device, per_path=per_path, what="mc_gated")
+        out = _sampler_launch(args, samp, levels.max_levels, num_paths=num_paths,
+                              ext_ptr=ext_ptr, device=device, per_path=per_path,
+                              what="mc_gated_sampler")
+    else:
+        out = _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
+                      device=device, per_path=per_path, what="mc_gated")
     return tuple(x[0] for x in out)
 
 
 def _sampler_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int, ext_ptr,
-                    device: torch.device, per_path: bool):
-    """One launch of ``mc_gated_sampler_kernel`` for the argument struct
-    ``args`` under ``sampler``, counted in ``LAUNCHES["mc_gated_sampler"]``:
-    int64 [grid, 134] and f32 [grid, 6] partial rows, plus f32[P, 6] per-path
-    rows when ``per_path``."""
+                    device: torch.device, per_path: bool, what: str, table_rows=None):
+    """One launch of ``mc_gated_sampler_kernel`` over the argument structs
+    ``args`` (one per row) under ``sampler``, row r reading table
+    ``table_rows[r]`` (default: the one history), counted in
+    ``LAUNCHES[what]``: int64 [R, grid, 134] and f32 [R, grid, 6] partial
+    rows, plus f32[R, P, 6] per-(row, path) rows when ``per_path``."""
+    n, grid = len(args), grid_size(num_paths)
     args_dev = device_rows(args, device)
-    samp_dev, _tables = sampler_args(sampler, device)
-    grid = grid_size(num_paths)
-    part_counts = torch.empty((grid, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((grid, ROW_FLOATS), dtype=torch.float32, device=device)
-    path_rows = (torch.empty((num_paths, PATH_COLS), dtype=torch.float32, device=device)
+    samp_dev, _tables = sampler_args(sampler, device, [0] * n if table_rows is None
+                                     else table_rows)
+    part_counts = torch.empty((n, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=torch.float32, device=device)
+    path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=torch.float32, device=device)
                  if per_path else None)
     rc = _sampler_library().qmmx_mc_gated_sampler(
-        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], max_levels,
+        args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind], max_levels,
         ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
         path_rows.data_ptr() if per_path else None, grid,
         torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "mc_gated_sampler")
-    LAUNCHES["mc_gated_sampler"] += 1
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
     out = (part_counts, part_floats)
     return out + (path_rows,) if per_path else out
 
@@ -760,21 +781,30 @@ def _sampler_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int, 
 def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_gate=None,
                      *, num_paths: int, num_bars: int, s0: float, mu: float,
                      sigma: float, dt: float, lanes: int, noise, external_uniforms,
-                     device: torch.device, per_path: bool = False):
+                     device: torch.device, per_path: bool = False, sampler: str = "gbm",
+                     hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
-    grid: int64 [G, grid, 134] and f32 [G, grid, 6] partial rows, one per
-    (grid row, CTA), plus f32[G, P, 6] per-(row, path) rows when
-    ``per_path``."""
+    grid (``mc_gated_sweep_kernel``, or under the other samplers
+    ``mc_gated_sampler_kernel``, every row on the same history): int64 [G,
+    grid, 134] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
+    plus f32[G, P, 6] per-(row, path) rows when ``per_path``."""
     gate = GateConfig.from_params(params) if grid_gate is None else grid_gate
     n_grid, grid_params = grid_columns(params, grid_stops, grid_tps, gate, noise)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-                    noise=noise, antithetic=False, external_uniforms=external_uniforms)
+                    noise=noise, antithetic=False, external_uniforms=external_uniforms,
+                    sampler=samp)
     device = torch.device(device)
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device,
                              "gated_sweep_rows")
     args = _gated_args(seed, levels, grid_params, gate, noise, layout, n=n_grid,
                        num_paths=num_paths, s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes,
                        antithetic=False, symbols=[0] * n_grid)
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, levels.max_levels, num_paths=num_paths,
+                               ext_ptr=ext_ptr, device=device, per_path=per_path,
+                               what="mc_gated_sweep_sampler")
     return _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_sweep")
 
@@ -782,21 +812,29 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
 def gated_universe_rows(seed, levels: Levels, params, s0, sigma, gate=None, *,
                         paths_per_symbol: int, num_bars: int, dt: float, lanes: int,
                         noise, external_uniforms, device: torch.device,
-                        per_path: bool = False):
+                        per_path: bool = False, sampler: str = "gbm", hist_bars=None,
+                        tables=None, block_len: int = 10, heston=None):
     """Launch the universe's pass 1 on a CUDA device, one launch of
-    ``mc_gated_sweep_kernel`` with a row per symbol: int64 [S, grid, 134] and
-    f32 [S, grid, 6] partial rows, plus f32[S, P, 6] per-(symbol, path) rows
-    when ``per_path``."""
-    layout, gate = _check_universe(
+    ``mc_gated_sweep_kernel`` (or under the other samplers
+    ``mc_gated_sampler_kernel``, row s reading symbol s's history) with a
+    row per symbol: int64 [S, grid, 134] and f32 [S, grid, 6] partial rows,
+    plus f32[S, P, 6] per-(symbol, path) rows when ``per_path``."""
+    layout, gate, samp = _check_universe(
         seed, levels, params, s0, sigma, gate, noise, paths_per_symbol=paths_per_symbol,
-        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms)
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = torch.device(device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
                              "gated_universe_rows")
-    args = _symbols_args(seed, levels, params, gate, noise, layout,
-                         symbol_columns(levels, s0, sigma, params, noise),
+    cols = symbol_columns(levels, s0, sigma, params, noise)
+    args = _symbols_args(seed, levels, params, gate, noise, layout, cols,
                          paths_per_symbol=paths_per_symbol, dt=dt, lanes=lanes,
                          antithetic=False)
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, levels.max_levels, num_paths=paths_per_symbol,
+                               ext_ptr=ext_ptr, device=device, per_path=per_path,
+                               what="mc_gated_universe_sampler",
+                               table_rows=range(len(cols["s0"])) if samp.resamples else None)
     return _launch(args, levels.max_levels, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_universe")
 
@@ -914,19 +952,25 @@ def mc_paths_gated_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tp
                                num_bars: int = 40, s0: float = 100.0, mu: float = 0.0,
                                sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                                lanes: int = GATED_LANES, external_uniforms=None,
-                               device=None) -> PathStats:
+                               device=None, sampler: str = "gbm", hist_bars=None,
+                               tables=None, block_len: int = 10, heston=None) -> PathStats:
     """Fused gate-knob grid sweep, the counterpart of
-    ``mc_paths_pallas_gated_sweep`` (gbm): [G] lifecycle PathStats, row g
+    ``mc_paths_pallas_gated_sweep``: [G] lifecycle PathStats, row g
     under (grid_stops[g], grid_tps[g]), row g of ``grid_gate`` (a GateConfig
     with scalar or [G] leaves; default ``GateConfig.from_params(params)``)
     and of ``noise`` (McNoise, scalar or [G] stds), every row on the same
     uniforms (CRN).  Row g equals ``mc_paths_gated_fused`` under those knobs
-    at the same seed, bit for bit.  ``device`` as in ``mc_paths_gated_fused``."""
+    at the same seed, bit for bit.  ``sampler`` and its inputs as in
+    ``mc_paths_gated_fused`` (every row on the same history; Heston at the
+    caller's ``mu``).  ``device`` as in ``mc_paths_gated_fused``."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     kw = dict(noise=noise, num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu,
-              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms)
+              sigma=sigma, dt=dt, lanes=lanes, external_uniforms=external_uniforms,
+              sampler=sampler, tables=samp.tables, block_len=block_len, heston=heston)
     grid_rows(params, grid_stops, grid_tps, grid_gate, noise)
     _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-           noise=noise, antithetic=False, external_uniforms=external_uniforms)
+           noise=noise, antithetic=False, external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         return stats_from_gated_totals(*gated_sweep_totals_reference(
@@ -940,26 +984,31 @@ def mc_paths_gated_universe_fused(seed, levels: Levels, params, s0, sigma, gate=
                                   paths_per_symbol: int, num_bars: int = 40,
                                   dt: float = 1.0 / (390.0 * 252.0),
                                   lanes: int = GATED_LANES, noise=None,
-                                  external_uniforms=None, device=None) -> PathStats:
+                                  external_uniforms=None, device=None, sampler: str = "gbm",
+                                  hist_bars=None, tables=None, block_len: int = 10,
+                                  heston=None) -> PathStats:
     """Fused per-symbol gated universe, the counterpart of
-    ``mc_paths_pallas_gated_universe`` (gbm): [S] lifecycle PathStats, symbol
+    ``mc_paths_pallas_gated_universe``: [S] lifecycle PathStats, symbol
     s under its own [S, L] levels row, s0[s], sigma[s], knobs (``params``
     leaves scalar or [S]), noise stds (``noise`` leaves scalar or [S]) and
     key, the gate knobs shared (``gate`` defaults to
     ``GateConfig.from_params(params)``); drift, sig_dt and log_s0 per symbol
-    in float64 on the host, mu 0.  Row s equals ``mc_paths_gated_fused`` at
-    those inputs with ``symbol=s`` bit for bit; injected uniforms are
-    f32[S, blocks, u_rows, 8, lanes].  ``device`` as in
-    ``mc_paths_gated_fused``."""
+    in float64 on the host, mu 0.  ``sampler``, ``hist_bars`` ([S, H]),
+    ``tables`` ([S, 5, H]), ``block_len`` and ``heston`` as in
+    ``ops/cuda_mc.mc_paths_universe_fused``: each symbol resamples its own
+    history.  Row s equals ``mc_paths_gated_fused`` at those inputs with
+    ``symbol=s`` bit for bit; injected uniforms are f32[S, blocks, u_rows, 8,
+    lanes].  ``device`` as in ``mc_paths_gated_fused``."""
     kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
-              noise=noise, external_uniforms=external_uniforms)
-    _check_universe(seed, levels, params, s0, sigma, gate, **kw)
+              noise=noise, external_uniforms=external_uniforms, sampler=sampler,
+              hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
+    _, _, samp = _check_universe(seed, levels, params, s0, sigma, gate, **kw)
+    kw.update(hist_bars=None, tables=samp.tables)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         return stats_from_gated_totals(*gated_universe_totals_reference(
-            seed, levels, params, s0, sigma, gate, dt=dt, device=device, **kw))
-    rows = gated_universe_rows(seed, levels, params, s0, sigma, gate, dt=dt, device=device,
-                               **kw)
+            seed, levels, params, s0, sigma, gate, device=device, **kw))
+    rows = gated_universe_rows(seed, levels, params, s0, sigma, gate, device=device, **kw)
     return stats_from_gated_totals(*reduce_rows(*rows, what="mc_gated_universe_reduce_rows"))
 
 

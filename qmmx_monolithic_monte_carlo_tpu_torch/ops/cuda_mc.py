@@ -18,17 +18,21 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   ``_sweep_kernel``, ``pallas_mc.py:1978-2156``): each path's bars and first
   contact once, replayed for every (stop, tp) row; row g equals
   ``mc_paths_fused`` with (stop_g, tp_g) bit for bit.  For a CUDA device it
-  launches ``mc_sweep_kernel`` (partial rows per (row, CTA)) and one fold of
-  all rows, or raises; for the CPU it runs ``sweep_totals_reference``.  No
-  noise and no antithetic lanes, as the TPU sweep kernel has none.
+  launches ``mc_sweep_kernel`` (partial rows per (row, CTA); under the other
+  samplers ``mc_first_contact_sampler_kernel`` with a row per grid row) and
+  one fold of all rows, or raises; for the CPU it runs
+  ``sweep_totals_reference``.  No noise and no antithetic lanes, as the TPU
+  sweep kernel has none.
 * ``mc_paths_universe_fused`` — the per-symbol universe, the counterpart of
   ``mc_paths_pallas_universe`` (kernel #2, ``_universe_kernel``,
   ``pallas_mc.py:828-1024``): S symbols in one launch, each with its own
   levels, s0, sigma, (prox, stop, tp) knobs and key (``prng.stream_key``);
   row s equals ``mc_paths_fused`` at symbol s's inputs and ``symbol=s``, bit
-  for bit.  A CUDA device launches ``mc_universe_kernel`` (CTAs x S) and one
-  fold of all symbols, or raises; the CPU runs ``universe_totals_reference``.
-  No noise and no antithetic lanes, as the TPU universe kernel has none.
+  for bit.  A CUDA device launches ``mc_universe_kernel`` (CTAs x S; under
+  the other samplers ``mc_first_contact_sampler_kernel`` with a row a symbol,
+  each on its own recorded history) and one fold of all symbols, or raises;
+  the CPU runs ``universe_totals_reference``.  No noise and no antithetic
+  lanes, as the TPU universe kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
@@ -76,7 +80,7 @@ _SAMPLER_SOURCE = "mc_first_contact_samplers"
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
             "mc_sweep_reduce_rows": 0, "mc_universe": 0, "mc_universe_reduce_rows": 0,
-            "mc_first_contact_sampler": 0}
+            "mc_first_contact_sampler": 0, "mc_sweep_sampler": 0, "mc_universe_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -139,12 +143,14 @@ def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
 
 
 def _check_sweep(seed, levels, params, grid_stops, grid_tps, *, num_paths, num_bars,
-                 lanes, external_uniforms) -> tuple[GbmLayout, list[dict]]:
+                 lanes, external_uniforms,
+                 sampler: Sampler = Sampler()) -> tuple[GbmLayout, list[dict]]:
     """The checks of ``_mc_paths_pallas_sweep_jit`` (pallas_mc.py:2083-2098):
     the single kernel's, and the grid's; returns the layout and each row's
     knobs."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-                    noise=None, antithetic=False, external_uniforms=external_uniforms)
+                    noise=None, antithetic=False, external_uniforms=external_uniforms,
+                    sampler=sampler)
     return layout, [knobs(p_g, None) for (p_g,) in grid_rows(params, grid_stops, grid_tps)]
 
 
@@ -254,7 +260,9 @@ def _contact(u, layout: GbmLayout, lp, lv, n_levels, prox, consts, antithetic,
 
 def _replay(ct: dict, layout: GbmLayout, knobs) -> tuple:
     """Totals of one chunk's contacts ``ct`` under one configuration
-    ``knobs``: the TPU kernel's ``_replay_config`` -> ``_accumulate``."""
+    ``knobs``: the TPU kernel's ``_replay_config`` -> ``_accumulate``; then
+    the bars walked and each path's R (NaN where it did not enter), f32[P]
+    in path order."""
     u, iota, ebar, entered = ct["u"], ct["iota"], ct["ebar"], ct["entered"]
     high, low, entry, lvl, is_long = ct["high"], ct["low"], ct["entry"], ct["lvl"], ct["is_long"]
     nb, _, lanes = u.shape
@@ -313,7 +321,7 @@ def _replay(ct: dict, layout: GbmLayout, knobs) -> tuple:
         rr.min().double() if has else torch.tensor(_BIG, dtype=torch.float64, device=dev),
         rr.max().double() if has else torch.tensor(-_BIG, dtype=torch.float64, device=dev),
     ])
-    return counts, floats, walked
+    return counts, floats, walked, torch.where(entered, r, float("nan")).reshape(-1)
 
 
 def _work(ct: dict, walked, w: int):
@@ -364,13 +372,15 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
                            device=None, chunk_blocks: int = 16,
                            work: bool = False, symbol: int = 0, sampler: str = "gbm",
                            hist_bars=None, tables=None, block_len: int = 10,
-                           heston=None):
+                           heston=None, per_path: bool = False):
     """The plain version's (int64 counts, float64 floats) totals, computed on
     ``device`` (default: that of ``external_uniforms``, else the CUDA device)
     in chunks of ``chunk_blocks`` blocks; Philox draws keyed as universe
     symbol ``symbol``; ``sampler`` and its inputs as in ``mc_paths_fused``.
-    ``work=True`` adds the kernel's work on these paths, int64 [Box-Muller
-    pairs, bars walked, bars walked after contact], for bounding its time."""
+    ``per_path=True`` adds each path's R, f32[P] (NaN where it did not
+    enter); ``work=True`` then the kernel's work on these paths, int64
+    [Box-Muller pairs, bars walked, bars walked after contact], for bounding
+    its time."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
@@ -382,7 +392,7 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
     kn = knobs(params, noise)
     cs = consts(s0, mu, sigma, dt)
     n_blocks = num_paths // lanes
-    tot = None
+    tot, rs = None, []
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         if external_uniforms is not None:
@@ -391,9 +401,10 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb,
                                lanes=lanes, symbol=symbol, device=device)
         ct = _contact(u, layout, lp, lv, levels.max_levels, kn["prox"], cs, antithetic, samp)
-        counts, floats, walked = _replay(ct, layout, kn)
+        counts, floats, walked, r = _replay(ct, layout, kn)
         tot = _merge_totals(tot, (counts, floats, _work(ct, walked, num_bars)))
-    return tot if work else tot[:2]
+        rs.append(r)
+    return tot[:2] + ((torch.cat(rs),) if per_path else ()) + (tot[2:] if work else ())
 
 
 def mc_paths_fused_reference(seed, levels: Levels, params, **kw) -> PathStats:
@@ -407,21 +418,28 @@ def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *
                            mu: float = 0.0, sigma: float = 0.15,
                            dt: float = 1.0 / (390.0 * 252.0),
                            lanes: int = SINGLE_LANES, external_uniforms=None,
-                           device=None, chunk_blocks: int = 16, work: bool = False):
+                           device=None, chunk_blocks: int = 16, work: bool = False,
+                           sampler: str = "gbm", hist_bars=None, tables=None,
+                           block_len: int = 10, heston=None, per_path: bool = False):
     """The plain version of the sweep: int64 [G, 133] counts and float64
     [G, 4] floats, each chunk's bars and contacts computed once and replayed
-    for every (stop, tp) row; on ``device`` as ``fused_totals_reference``.
-    ``work=True`` adds the sweep kernel's work, int64 [Box-Muller pairs, bars
-    walked (to the last row's hit), bars walked after contact, bars x rows
-    checked after contact]."""
+    for every (stop, tp) row; on ``device`` as ``fused_totals_reference``,
+    ``sampler`` and its inputs as in ``mc_paths_fused`` (every row on the
+    same history).  ``per_path=True`` adds each row's per-path R, f32[G, P]
+    (NaN where a path did not enter); ``work=True`` then the sweep kernel's
+    work, int64 [Box-Muller pairs, bars walked (to the last row's hit), bars
+    walked after contact, bars x rows checked after contact]."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
                                 num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-                                external_uniforms=external_uniforms)
+                                external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
+    samp = samp.on(device)
     lp, lv = level_slots(levels)
     cs = consts(s0, mu, sigma, dt)
     n_blocks = num_paths // lanes
-    tot = None
+    tot, rs = None, []
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         if external_uniforms is not None:
@@ -429,46 +447,61 @@ def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *
         else:
             u = fused_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
                                device=device)
-        ct = _contact(u, layout, lp, lv, levels.max_levels, rows[0]["prox"], cs, False)
+        ct = _contact(u, layout, lp, lv, levels.max_levels, rows[0]["prox"], cs, False, samp)
         per_row = [_replay(ct, layout, row) for row in rows]
         walked = torch.stack([x[2] for x in per_row]).amax(dim=0)
         row_bars = sum(_work(ct, x[2], num_bars)[2] for x in per_row)
         tot = _merge_totals(tot, (torch.stack([x[0] for x in per_row]),
                                   torch.stack([x[1] for x in per_row]),
                                   torch.cat([_work(ct, walked, num_bars), row_bars.view(1)])))
-    return tot if work else tot[:2]
+        rs.append(torch.stack([x[3] for x in per_row]))
+    return tot[:2] + ((torch.cat(rs, dim=1),) if per_path else ()) + (tot[2:] if work else ())
 
 
 def _check_universe(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: int,
-                    num_bars: int, lanes: int, external_uniforms) -> tuple[GbmLayout, list]:
+                    num_bars: int, lanes: int, external_uniforms, sampler: str = "gbm",
+                    hist_bars=None, tables=None, block_len: int = 10, heston=None,
+                    dt: float = 1.0 / (390.0 * 252.0)) -> tuple[GbmLayout, list, Sampler]:
     """The checks of ``_mc_paths_pallas_universe_jit`` (pallas_mc.py:947-961)
-    and the single kernel's; returns the layout and ``symbol_rows``."""
+    and the single kernel's; returns the layout, ``symbol_rows`` and the
+    universe's ``Sampler``: each symbol's own recorded history (``hist_bars``
+    [S, H] arrays, or [S, 5, H] ``tables``), or Heston's constants shared by
+    every symbol at mu 0 (pallas_mc.py:1021)."""
     rows = symbol_rows(levels, s0, sigma, params)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=0.0, dt=dt, symbols=len(rows))
     layout = _check(seed, rows[0][0], num_paths=paths_per_symbol, num_bars=num_bars,
-                    lanes=lanes, noise=None, antithetic=False, external_uniforms=None)
+                    lanes=lanes, noise=None, antithetic=False, external_uniforms=None,
+                    sampler=samp)
     check_uniforms(external_uniforms, (len(rows), paths_per_symbol // lanes, layout.n_rows,
                                        lanes), antithetic=False, lanes=lanes)
-    return layout, rows
+    return layout, rows, samp
 
 
 def universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
                               paths_per_symbol: int, num_bars: int = 40,
                               dt: float = 1.0 / (390.0 * 252.0), lanes: int = UNIVERSE_LANES,
                               external_uniforms=None, device=None, chunk_blocks: int = 16,
-                              work: bool = False):
+                              work: bool = False, sampler: str = "gbm", hist_bars=None,
+                              tables=None, block_len: int = 10, heston=None,
+                              per_path: bool = False):
     """The plain version of the universe: int64 [S, 133] counts and float64
-    [S, 4] floats (then int64 [S, 3] work with ``work``), symbol s by
+    [S, 4] floats (then f32[S, P] per-path R with ``per_path``, then int64
+    [S, 3] work with ``work``), symbol s by
     ``fused_totals_reference`` at its levels, s0, sigma, knobs (``params``
     leaves scalar or [S]), mu 0, its uniforms ``external_uniforms[s]`` or
-    its key; on ``device`` as ``fused_totals_reference``."""
-    _, rows = _check_universe(seed, levels, params, s0, sigma,
-                              paths_per_symbol=paths_per_symbol, num_bars=num_bars,
-                              lanes=lanes, external_uniforms=external_uniforms)
+    its key, and its own history (``_check_universe``); on ``device`` as
+    ``fused_totals_reference``."""
+    _, rows, samp = _check_universe(
+        seed, levels, params, s0, sigma, paths_per_symbol=paths_per_symbol,
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = devices.resolve(device, external_uniforms)
     out = [fused_totals_reference(
         seed, lv, p, num_paths=paths_per_symbol, num_bars=num_bars, s0=s0_s, mu=0.0,
         sigma=sg_s, dt=dt, lanes=lanes, symbol=s, device=device, chunk_blocks=chunk_blocks,
-        work=work, external_uniforms=symbol_uniforms(external_uniforms, s))
+        work=work, external_uniforms=symbol_uniforms(external_uniforms, s), sampler=sampler,
+        tables=samp.row(s).tables, block_len=block_len, heston=heston, per_path=per_path)
         for s, (lv, s0_s, sg_s, p) in enumerate(rows)]
     return tuple(torch.stack(x) for x in zip(*out))
 
@@ -525,7 +558,7 @@ def _sampler_library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_sampler_args_size.argtypes = []
         lib.qmmx_sampler_args_size.restype = ci
-        lib.qmmx_mc_sampler.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_sampler.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.qmmx_mc_sampler.restype = ci
         if lib.qmmx_sampler_args_size() != ctypes.sizeof(SamplerArgs):
             raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
@@ -621,8 +654,8 @@ def _sampler_rows(seed, levels: Levels, params, *, num_paths: int, num_bars: int
                   mu: float, sigma: float, dt: float, lanes: int, noise, sampler: Sampler,
                   external_uniforms, device: torch.device, symbol: int = 0):
     """Launch pass 1 of a bootstrap, block-bootstrap or Heston run on a CUDA
-    device (``mc_first_contact_sampler_kernel``): int64 [grid, 133] count rows and f32
-    [grid, 4] float rows, one row per CTA."""
+    device (``mc_first_contact_sampler_kernel`` at one row): int64 [grid,
+    133] count rows and f32 [grid, 4] float rows, one row per CTA."""
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars, lanes=lanes,
                     noise=noise, antithetic=False, external_uniforms=external_uniforms,
                     sampler=sampler)
@@ -631,35 +664,60 @@ def _sampler_rows(seed, levels: Levels, params, *, num_paths: int, num_bars: int
         mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=noise, antithetic=False,
         external_uniforms=external_uniforms, device=device, what="sampler_rows",
         symbol=symbol)
-    args_dev = device_rows((_McArgs * 1)(args), device)
-    samp_dev, _tables = sampler_args(sampler, device)
-    ctas = grid_size(num_paths)
-    part_counts = torch.empty((ctas, ROW_COUNTS), dtype=torch.int64, device=device)
-    part_floats = torch.empty((ctas, ROW_FLOATS), dtype=torch.float32, device=device)
+    return tuple(x[0] for x in _sampler_launch(
+        (_McArgs * 1)(args), sampler, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+        device=device, what="mc_first_contact_sampler"))
+
+
+def _sampler_launch(args, sampler: Sampler, num_bars: int, *, num_paths: int, ext_ptr,
+                    device: torch.device, what: str, table_rows=None):
+    """One launch of ``mc_first_contact_sampler_kernel`` over the argument
+    structs ``args`` (one per row) under ``sampler``, row r reading table
+    ``table_rows[r]`` (default: the one history), counted in
+    ``LAUNCHES[what]``: int64 [R, grid, 133] and f32 [R, grid, 4] partial
+    rows, one per (row, CTA)."""
+    n, ctas = len(args), grid_size(num_paths)
+    args_dev = device_rows(args, device)
+    samp_dev, _tables = sampler_args(sampler, device, [0] * n if table_rows is None
+                                     else table_rows)
+    part_counts = torch.empty((n, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
     rc = _sampler_library().qmmx_mc_sampler(
-        args_dev.data_ptr(), samp_dev.data_ptr(), SAMPLER_KINDS[sampler.kind], num_bars,
+        args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind], num_bars,
         ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(), ctas,
         torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "mc_first_contact_sampler")
-    LAUNCHES["mc_first_contact_sampler"] += 1
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
     return part_counts, part_floats
 
 
 def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths: int,
                num_bars: int, s0: float, mu: float, sigma: float, dt: float,
-               lanes: int, external_uniforms, device: torch.device):
+               lanes: int, external_uniforms, device: torch.device, sampler: str = "gbm",
+               hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device: int64 [G, grid, 133] count
-    rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA); one
-    launch per SWEEP_ROWS grid rows."""
+    rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA); under
+    gbm one launch of ``mc_sweep_kernel`` per SWEEP_ROWS grid rows, under the
+    other samplers one launch of ``mc_first_contact_sampler_kernel`` with a
+    row per grid row (each row walks the same draws and history again)."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
                                 num_paths=num_paths, num_bars=num_bars, lanes=lanes,
-                                external_uniforms=external_uniforms)
+                                external_uniforms=external_uniforms, sampler=samp)
     stops, tps = [r["stop_pad"] for r in rows], [r["tp_pad"] for r in rows]
     args, ext_ptr = _launch_args(
         seed, levels, params, layout, num_paths=num_paths, num_bars=num_bars, s0=s0,
         mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=None, antithetic=False,
         external_uniforms=external_uniforms, device=device, what="sweep_rows")
     g, ctas = len(stops), grid_size(num_paths)
+    if samp.kind != "gbm":
+        grid = (_McArgs * g)()
+        for r, (sp, tp) in enumerate(zip(stops, tps)):
+            grid[r] = args
+            grid[r].stop_pad, grid[r].tp_pad = sp, tp
+        return _sampler_launch(grid, samp, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+                               device=device, what="mc_sweep_sampler")
     part_counts = torch.empty((g, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((g, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
     lib = _library()
@@ -679,13 +737,17 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
 
 def universe_rows(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: int,
                   num_bars: int, dt: float, lanes: int, external_uniforms,
-                  device: torch.device):
+                  device: torch.device, sampler: str = "gbm", hist_bars=None, tables=None,
+                  block_len: int = 10, heston=None):
     """Launch the universe's pass 1 on a CUDA device, one launch for all S
-    symbols: int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one per
-    (symbol, CTA)."""
-    layout, rows = _check_universe(seed, levels, params, s0, sigma,
-                                   paths_per_symbol=paths_per_symbol, num_bars=num_bars,
-                                   lanes=lanes, external_uniforms=external_uniforms)
+    symbols (``mc_universe_kernel``, or under the other samplers
+    ``mc_first_contact_sampler_kernel`` with row s reading symbol s's
+    history): int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one
+    per (symbol, CTA)."""
+    layout, rows, samp = _check_universe(
+        seed, levels, params, s0, sigma, paths_per_symbol=paths_per_symbol,
+        num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = torch.device(device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
                              "universe_rows")
@@ -697,6 +759,10 @@ def universe_rows(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: 
             mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, noise=None, antithetic=False,
             external_uniforms=None, device=device, what="universe_rows", symbol=s)
         args[s].ext_offset = s * per_symbol
+    if samp.kind != "gbm":
+        return _sampler_launch(args, samp, num_bars, num_paths=paths_per_symbol,
+                               ext_ptr=ext_ptr, device=device, what="mc_universe_sampler",
+                               table_rows=range(len(rows)) if samp.resamples else None)
     return _launch(args, num_bars, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
                    device=device, what="mc_universe")
 
@@ -758,17 +824,26 @@ def mc_paths_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tps, *,
                          num_paths: int, num_bars: int = 40, s0: float = 100.0,
                          mu: float = 0.0, sigma: float = 0.15,
                          dt: float = 1.0 / (390.0 * 252.0), lanes: int = SINGLE_LANES,
-                         device=None, external_uniforms=None) -> PathStats:
+                         device=None, external_uniforms=None, sampler: str = "gbm",
+                         hist_bars=None, tables=None, block_len: int = 10,
+                         heston=None) -> PathStats:
     """Fused first-contact grid sweep, the counterpart of
-    ``mc_paths_pallas_sweep`` (gbm): [G] PathStats, row g for (grid_stops[g],
+    ``mc_paths_pallas_sweep``: [G] PathStats, row g for (grid_stops[g],
     grid_tps[g]) with the other knobs of ``params``, every row over the same
     paths (CRN); row g equals ``mc_paths_fused`` with those paddings at the
-    same seed, bit for bit.  ``device`` as in ``mc_paths_fused``."""
+    same seed, bit for bit.  ``sampler`` and its inputs as in
+    ``mc_paths_fused`` (every row resamples the same history, or walks the
+    same Heston bars; Heston at the caller's ``mu``).  ``device`` as in
+    ``mc_paths_fused``."""
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=mu, dt=dt)
     _check_sweep(seed, levels, params, grid_stops, grid_tps, num_paths=num_paths,
-                 num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms)
+                 num_bars=num_bars, lanes=lanes, external_uniforms=external_uniforms,
+                 sampler=samp)
     device = devices.resolve(device, external_uniforms)
     kw = dict(num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt,
-              lanes=lanes, external_uniforms=external_uniforms)
+              lanes=lanes, external_uniforms=external_uniforms, sampler=sampler,
+              tables=samp.tables, block_len=block_len, heston=heston)
     if device.type == "cpu":
         return stats_from_totals(*sweep_totals_reference(
             seed, levels, params, grid_stops, grid_tps, device=device, **kw))
@@ -779,21 +854,31 @@ def mc_paths_sweep_fused(seed, levels: Levels, params, grid_stops, grid_tps, *,
 def mc_paths_universe_fused(seed, levels: Levels, params, s0, sigma, *,
                             paths_per_symbol: int, num_bars: int = 40,
                             dt: float = 1.0 / (390.0 * 252.0), lanes: int = UNIVERSE_LANES,
-                            external_uniforms=None, device=None) -> PathStats:
+                            external_uniforms=None, device=None, sampler: str = "gbm",
+                            hist_bars=None, tables=None, block_len: int = 10,
+                            heston=None) -> PathStats:
     """Fused per-symbol first-contact universe, the counterpart of
-    ``mc_paths_pallas_universe`` (gbm): [S] PathStats, symbol s under its own
+    ``mc_paths_pallas_universe``: [S] PathStats, symbol s under its own
     [S, L] levels row, s0[s], sigma[s], knobs (``params`` leaves scalar or
     [S]: prox, stop and tp paddings) and key; drift, sig_dt and log_s0 per
-    symbol in float64 on the host, mu 0.  Row s equals ``mc_paths_fused`` at
-    those inputs with ``symbol=s`` bit for bit; injected uniforms are
-    f32[S, paths_per_symbol / lanes, 3W+1, lanes].  ``device`` as in
+    symbol in float64 on the host, mu 0.  ``sampler`` "bootstrap" and
+    "block_bootstrap" resample each symbol's own recorded bars (``hist_bars``
+    a PathBars of [S, H] o/h/l/c arrays, or their [S, 5, H]
+    ``ops/pathgen.universe_tables`` as ``tables``), rebased on its s0;
+    "heston" shares ``heston`` across symbols (mu 0).  Row s equals
+    ``mc_paths_fused`` at those inputs (its own history) with ``symbol=s``
+    bit for bit; injected uniforms are f32[S, paths_per_symbol / lanes,
+    n_rows, lanes] (``ops/draws.GbmLayout``).  ``device`` as in
     ``mc_paths_fused``."""
     kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
-              external_uniforms=external_uniforms)
-    _check_universe(seed, levels, params, s0, sigma, **kw)
+              external_uniforms=external_uniforms, sampler=sampler, hist_bars=hist_bars,
+              tables=tables, block_len=block_len, heston=heston, dt=dt)
+    _, _, samp = _check_universe(seed, levels, params, s0, sigma, **kw)
+    kw.update(hist_bars=None, tables=samp.tables)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         return stats_from_totals(*universe_totals_reference(
-            seed, levels, params, s0, sigma, dt=dt, device=device, **kw))
-    rows = universe_rows(seed, levels, params, s0, sigma, dt=dt, device=device, **kw)
-    return stats_from_totals(*reduce_rows(*rows, what="mc_universe_reduce_rows"))
+            seed, levels, params, s0, sigma, device=device, **kw))
+    rows = universe_rows(seed, levels, params, s0, sigma, device=device, **kw)
+    what = "mc_universe_reduce_rows"
+    return stats_from_totals(*reduce_rows(*rows, what=what))

@@ -35,8 +35,9 @@ kernels see the same float32 constants, noise knobs, level slots and grid:
   structs, one per grid row, on the card; a book's (beta, weight) pairs;
 * ``fold_rows`` -- pass 2 over [R, C] partial rows, or a sweep's [G, R, C]
   with one CTA per grid row;
-* ``sampler_args`` -- a sampler kernel's ``SamplerArgs`` (the recorded-bar
-  tables' pointer, H and block length, the Heston constants) on the card.
+* ``sampler_args`` -- a sampler kernel's ``SamplerArgs``, one per launch row
+  (the row's recorded-bar table's pointer, H and block length, the Heston
+  constants) on the card.
 """
 
 from __future__ import annotations
@@ -354,20 +355,31 @@ class SamplerArgs(ctypes.Structure):
         "hf", "bl", "v0", "theta", "xi", "rho", "rho_perp", "mu", "dt", "kappa_dt")]
 
 
-def sampler_args(sampler, device: torch.device) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(the ``SamplerArgs`` of ``sampler`` (an ``ops/samplers.Sampler``) as
-    bytes on the card, its tables on the card or None); the caller keeps the
-    tables alive until the launch has run.  H and the block length go as
-    float32 too, as the kernels' index arithmetic takes them."""
-    a = SamplerArgs()
+def sampler_args(sampler, device: torch.device,
+                 table_rows=(0,)) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(the ``SamplerArgs`` of ``sampler`` (an ``ops/samplers.Sampler``), one
+    per launch row, as bytes on the card; its tables on the card or None);
+    the caller keeps the tables alive until the launch has run.  Row r reads
+    table ``table_rows[r]`` of a universe's [S, 5, H] tables (a sweep's rows
+    all read its one [5, H] table, table 0); H and the block length go as
+    float32 too, as the kernels' index arithmetic takes them; the Heston
+    constants are every row's."""
+    n = len(table_rows)
+    a = np.zeros(n, dtype=np.dtype(SamplerArgs))
     tables = None
     if sampler.resamples:
         tables = sampler.tables.to(device=device, dtype=_F32).contiguous()
-        a.tables, a.hist_len, a.block_len = tables.data_ptr(), sampler.hist_len, sampler.block_len
-        a.hf, a.bl = f32(sampler.hist_len), f32(sampler.block_len)
+        per_table = tables.shape[-2] * tables.shape[-1] * tables.element_size()
+        n_tables = 1 if tables.dim() == 2 else tables.shape[0]
+        rows = np.asarray(table_rows, np.int64)
+        if rows.min() < 0 or rows.max() >= n_tables:
+            raise ValueError(f"table rows must lie in [0, {n_tables})")
+        a["tables"] = tables.data_ptr() + rows * per_table
+        a["hist_len"], a["block_len"] = sampler.hist_len, sampler.block_len
+        a["hf"], a["bl"] = f32(sampler.hist_len), f32(sampler.block_len)
     if sampler.heston is not None:
         for k in ("v0", "theta", "xi", "rho", "rho_perp", "mu", "dt", "kappa_dt"):
-            setattr(a, k, getattr(sampler.heston, k))
+            a[k] = getattr(sampler.heston, k)
     return device_rows(a, device), tables
 
 

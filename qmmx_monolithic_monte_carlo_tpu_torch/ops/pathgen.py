@@ -16,7 +16,8 @@ pipeline's forms.  The fused kernels' forms of the same samplers are in
   per consumer as in the JAX package.
 * ``bootstrap_tables`` — a recorded history's per-bar relative geometry (log
   return and log high/low/open offsets against the previous close) and its
-  volume, float32 as JAX computes them.
+  volume, float32 as JAX computes them; ``universe_tables`` the same for a
+  universe's [S, H] histories, [S, 5, H].
 * ``bootstrap_bars_from_draws`` / ``bootstrap_paths`` /
   ``block_bootstrap_paths`` — recorded bars resampled at given indices (iid,
   or ``block_indices``' contiguous runs) chained onto ``s0``; the Philox forms
@@ -202,6 +203,29 @@ def history_tables(hist_bars):
         raise ValueError("the bootstrap samplers need hist_bars (or its tables)")
     return bootstrap_tables(hist_bars.open, hist_bars.high, hist_bars.low,
                             hist_bars.close, getattr(hist_bars, "volume", None))
+
+
+def universe_tables(hist_bars) -> torch.Tensor:
+    """f32[S, 5, H]: each symbol's ``bootstrap_tables`` of a universe's
+    recorded histories, a PathBars of [S, H] o/h/l/c[/v] arrays (one history
+    a symbol over a common lookback, zero volumes where none), as
+    ``_hist_slab_batched`` computes them (pallas_mc.py:348-366); a history
+    that is not [S, H] raises as JAX's does."""
+    if hist_bars is None:
+        raise ValueError("the bootstrap samplers need hist_bars (or its tables)")
+    o = torch.as_tensor(hist_bars.open, dtype=F32)
+    if o.dim() != 2:
+        raise ValueError("universe bootstrap needs [S, H]-batched hist_bars "
+                         "(one recorded history row per symbol)")
+    vol = getattr(hist_bars, "volume", None)
+    cols = [torch.as_tensor(x, dtype=F32) for x in (hist_bars.high, hist_bars.low,
+                                                      hist_bars.close)]
+    vol = torch.zeros_like(o) if vol is None else torch.as_tensor(vol, dtype=F32)
+    if any(c.shape != o.shape for c in (*cols, vol)):
+        raise ValueError("hist_bars' o/h/l/c/v must share one [S, H] shape")
+    return torch.stack([torch.stack(bootstrap_tables(o[s], cols[0][s], cols[1][s], cols[2][s],
+                                                     vol[s]))
+                        for s in range(o.shape[0])])
 
 
 def _tables(tables=None, hist_bars=None):

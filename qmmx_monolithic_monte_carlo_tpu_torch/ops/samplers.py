@@ -11,8 +11,9 @@ log return, and Heston's bridge variance as v+ dt, not sig_dt^2), so each is
 held against its own JAX counterpart.
 
 * ``Sampler`` / ``make_sampler`` -- a sampler and what it reads: the history's
-  ``bootstrap_tables`` (float32 [5, H]: logc, logh, logl, logo, volume) and
-  the block length, or the Heston constants (``HestonConsts``).
+  ``bootstrap_tables`` (float32 [5, H]: logc, logh, logl, logo, volume; a
+  universe's [S, 5, H], a history a symbol) and the block length, or the
+  Heston constants (``HestonConsts``).
 * ``iid_index`` / ``block_start`` / ``block_offset`` / ``gather`` -- a
   recorded bar's index from its uniform, in float32 as the kernels compute
   it: min(floor(u H), H - 1), a block's start min(floor(u (H - L)), H - L -
@@ -36,7 +37,7 @@ from ..utils import prng
 from ..utils.floats import fma, sqrt
 from .draws import SAMPLERS
 from .kernel_args import f32
-from .pathgen import HESTON_DEFAULTS, history_tables
+from .pathgen import HESTON_DEFAULTS, history_tables, universe_tables
 
 HIST_CHANNELS = 5          # logc, logh, logl, logo, volume
 MAX_HIST = 1 << 24         # a float32 index is exact below this many bars
@@ -74,8 +75,9 @@ class HestonConsts:
 @dataclasses.dataclass(frozen=True)
 class Sampler:
     """A fused kernel's sampler: ``kind`` one of SAMPLERS; the recorded
-    history's tables (float32 [5, H]) and ``block_len`` for the bootstrap
-    samplers; the Heston constants for "heston"."""
+    history's tables (float32 [5, H], or a universe's [S, 5, H], a history a
+    symbol) and ``block_len`` for the bootstrap samplers; the Heston
+    constants for "heston"."""
 
     kind: str = "gbm"
     tables: torch.Tensor | None = None
@@ -88,23 +90,36 @@ class Sampler:
 
     @property
     def hist_len(self) -> int:
-        return 0 if self.tables is None else int(self.tables.shape[1])
+        return 0 if self.tables is None else int(self.tables.shape[-1])
 
     def on(self, device) -> "Sampler":
         if self.tables is None:
             return self
         return dataclasses.replace(self, tables=self.tables.to(device))
 
+    def row(self, s: int) -> "Sampler":
+        """Symbol s's sampler of a universe's (its [5, H] tables); a sampler
+        with one history (or none) is every symbol's."""
+        if self.tables is None or self.tables.dim() == 2:
+            return self
+        return dataclasses.replace(self, tables=self.tables[s])
+
 
 def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
                  block_len: int = 10, heston=None, mu: float = 0.0,
-                 dt: float = 1.0 / (390.0 * 252.0)) -> Sampler:
+                 dt: float = 1.0 / (390.0 * 252.0), symbols: int | None = None) -> Sampler:
     """The ``Sampler`` of a fused entry's arguments, with the JAX entries'
     checks (``pallas_mc.py:724-738``, ``:1206-1208``): the bootstrap samplers
     need ``hist_bars`` (a PathBars of 1-D o/h/l/c[/v] arrays) or its
     ``tables`` (float32 [5, H], as ``ops/pathgen.bootstrap_tables`` gives
     them), the block bootstrap a history longer than ``block_len``; ``heston``
-    is a dict of v0/kappa/theta/xi/rho (the rest at their defaults)."""
+    is a dict of v0/kappa/theta/xi/rho (the rest at their defaults).
+
+    A universe of ``symbols`` symbols (``symbols`` given) resamples each
+    symbol's own history: ``hist_bars`` of [S, H] arrays (a history that is
+    not [S, H] raises, as ``_hist_slab_batched`` does) or [S, 5, H]
+    ``tables`` (``ops/pathgen.universe_tables``); H < 2^24 and H > block_len
+    hold for every symbol's table."""
     if sampler not in SAMPLERS:
         raise ValueError(f"samplers: {' | '.join(repr(s) for s in SAMPLERS)}")
     if sampler == "heston":
@@ -113,17 +128,26 @@ def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
         return Sampler()
     if tables is None:
         if hist_bars is None:
-            raise ValueError(f"sampler={sampler!r} requires hist_bars")
-        tables = history_tables(hist_bars)
-    tab = torch.stack([torch.as_tensor(np.asarray(t, np.float32)) if not torch.is_tensor(t)
-                       else t.to(_F32).cpu() for t in tables])
-    if tab.dim() != 2 or tab.shape[0] != HIST_CHANNELS or not 0 < tab.shape[1] < MAX_HIST:
-        raise ValueError(f"bootstrap tables must be float32 [{HIST_CHANNELS}, H] with "
+            raise ValueError(f"sampler={sampler!r} requires hist_bars"
+                             + ("" if symbols is None else " ([S, H] recorded histories, "
+                                "one row per symbol)"))
+        tables = history_tables(hist_bars) if symbols is None else universe_tables(hist_bars)
+    if torch.is_tensor(tables):
+        tab = tables.to(_F32)            # stays where it lies (a universe's on the card)
+    else:
+        tab = torch.stack([torch.as_tensor(np.asarray(t, np.float32)) if not torch.is_tensor(t)
+                           else t.to(_F32).cpu() for t in tables])
+    want = 2 if symbols is None else 3
+    what = f"[{HIST_CHANNELS}, H]" if symbols is None else f"[{symbols}, {HIST_CHANNELS}, H]"
+    if (tab.dim() != want or tab.shape[-2] != HIST_CHANNELS
+            or (symbols is not None and tab.shape[0] != symbols)
+            or not 0 < tab.shape[-1] < MAX_HIST):
+        raise ValueError(f"bootstrap tables must be float32 {what} with "
                          f"0 < H < 2^24 (float32 indices), got {tuple(tab.shape)}")
     bl = int(block_len) if sampler == "block_bootstrap" else 0
-    if bl and (bl < 1 or tab.shape[1] <= bl):
+    if bl and (bl < 1 or tab.shape[-1] <= bl):
         raise ValueError(f"block_bootstrap needs history longer than block_len "
-                         f"({tab.shape[1]} <= {bl})")
+                         f"({tab.shape[-1]} <= {bl})")
     return Sampler(sampler, tables=tab.contiguous(), block_len=bl)
 
 

@@ -63,7 +63,8 @@ def bars_from_shocks(z, u_hi, u_lo, *, s0, mu: float = 0.0, sigma: float = 0.15,
 def _check(sampler: str, antithetic: bool, block_paths: int, num_paths: int) -> None:
     if sampler != "gbm":
         raise NotImplementedError(f"sampler {sampler!r} is not ported yet for books "
-                                  "(the samplers slice); the port runs gbm")
+                                  "(the books' samplers are the next slice); the port's "
+                                  "books run gbm")
     if antithetic and block_paths % 2 != 0:
         raise ValueError("antithetic requires an even block_paths")
     if num_paths % block_paths != 0:

@@ -7,11 +7,11 @@ simulated paths, so grid points differ only by their parameters:
 
 * ``grid_params`` / ``grid_params_gated`` -- the cartesian grid ('ij' order)
   as records whose leaves carry a leading [G] axis;
-* ``sweep_paths`` / ``sweep_paths_gated`` -- the streamed pipelines: each
-  block's bars and tie coins are drawn once (the draws of
-  ``sim.pathsim.mc_paths`` / ``sim.gatedpath.mc_paths_gated``) and every
-  grid row replays them, so row g equals the single-configuration pipeline
-  at the same seed, bit for bit;
+* ``sweep_paths`` / ``sweep_paths_gated`` -- the streamed pipelines under
+  every sampler (gbm, bootstrap, block bootstrap, Heston): each block's bars
+  and tie coins are drawn once (the draws of ``sim.pathsim.mc_paths`` /
+  ``sim.gatedpath.mc_paths_gated``) and every grid row replays them, so row
+  g equals the single-configuration pipeline at the same seed, bit for bit;
 * ``replay_grid`` / ``replay_grid_gated`` -- one block's G-row replay, the
   ``jax.vmap(per_cfg)`` of the JAX sweeps' scan body.
 
@@ -108,28 +108,26 @@ def _check_blocks(num_paths: int, block_paths: int) -> int:
     return num_paths // block_paths
 
 
-def _gbm_only(sampler: str) -> None:
-    if sampler != "gbm":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the sweeps "
-                                  "(gbm only)")
-
-
 def sweep_paths(seed: int, levels: Levels, grid: EngineParams, *, num_paths: int,
                 num_bars: int = 40, s0=100.0, mu: float = 0.0, sigma: float = 0.15,
                 dt: float = 1.0 / (390.0 * 252.0), block_paths: int = 1 << 14,
-                sampler: str = "gbm", device=None) -> PathStats:
+                sampler: str = "gbm", hist_bars=None, block_len: int = 10, heston=None,
+                device=None) -> PathStats:
     """All grid rows over common random paths: [G] PathStats.  Each block's
-    bars and tie coins are those of ``sim.pathsim.mc_paths`` (gbm only; the
-    other samplers raise), drawn once; runs on ``device``, the CUDA device
-    by default, the CPU when asked."""
-    _gbm_only(sampler)
+    bars and tie coins are those of ``sim.pathsim.mc_paths`` under any
+    sampler (``sampler``, ``hist_bars``, ``block_len`` and ``heston`` as in
+    ``sim.pathsim.sample_block``; the recorded history's tables computed
+    once), drawn once; runs on ``device``, the CUDA device by default, the
+    CPU when asked."""
     n_blocks = _check_blocks(num_paths, block_paths)
     device = devices.resolve(device)
     levels = levels.to(device)
+    tables = pathsim.sampler_tables(sampler, hist_bars)
     out = _zero(grid_len(grid), False, device)
     for b in range(n_blocks):
         paths = pathsim.sample_block(seed, b, block_paths=block_paths, num_bars=num_bars,
                                      s0=s0, mu=mu, sigma=sigma, dt=dt, sampler=sampler,
+                                     tables=tables, block_len=block_len, heston=heston,
                                      device=device)
         tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=b, n_blocks=1,
                                 n_rows=1, lanes=block_paths, device=device)[0, 0]
@@ -140,25 +138,26 @@ def sweep_paths(seed: int, levels: Levels, grid: EngineParams, *, num_paths: int
 def sweep_paths_gated(seed: int, levels: Levels, grid: EngineParams, gate=None, *,
                       num_paths: int, num_bars: int = 40, s0=100.0, mu: float = 0.0,
                       sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
-                      block_paths: int = 1 << 14, sampler: str = "gbm",
-                      device=None) -> PathStats:
+                      block_paths: int = 1 << 14, sampler: str = "gbm", hist_bars=None,
+                      block_len: int = 10, heston=None, device=None) -> PathStats:
     """Grid sweep of the gated multi-trade lifecycle: each block's paths and
     per-bar tie coins (those of ``sim.gatedpath.mc_paths_gated``) are drawn
     once and every row replays the whole lifecycle on them.  ``gate``
     (default ``GateConfig.default()``, as in JAX) may carry [G] leaves to put
-    gate knobs on the grid axis (``grid_params_gated``); gbm only, as
+    gate knobs on the grid axis (``grid_params_gated``); any sampler, as
     ``sweep_paths``."""
-    _gbm_only(sampler)
     if gate is None:
         gate = gatedpath.GateConfig.default()
     n_blocks = _check_blocks(num_paths, block_paths)
     device = devices.resolve(device)
     levels = levels.to(device)
     gate_g = _broadcast_gate(gate, grid_len(grid, gate))
+    tables = pathsim.sampler_tables(sampler, hist_bars)
     out = _zero(gate_g.q_min_prob.shape[0], True, device)
     for b in range(n_blocks):
         paths = pathsim.sample_block(seed, b, block_paths=block_paths, num_bars=num_bars,
                                      s0=s0, mu=mu, sigma=sigma, dt=dt, sampler=sampler,
+                                     tables=tables, block_len=block_len, heston=heston,
                                      device=device)
         tie = prng.uniform_rows(seed, prng.STREAM_TIE_COIN, block0=b, n_blocks=1,
                                 n_rows=num_bars, lanes=block_paths, device=device)[0].T

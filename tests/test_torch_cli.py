@@ -248,9 +248,31 @@ def test_sweep_cuda_backend_without_gpu_raises(tmp_path):
                                    ["--sampler", "block_bootstrap"],
                                    ["--bars-csv", "bars.csv"], ["--block-len", "5"],
                                    ["--engine", "--block-len", "5"]])
-def test_sweep_unported_options_exit_clearly(tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--db", str(tmp_path / "t.db"), *SWEEP, *flags, *CPU])
+def test_sweep_unported_options_exit_clearly(tmp_path, capsys, flags):
+    """These options were refused ("not ported yet") until the sweeps took
+    the recorded-bar samplers; now each runs on the CPU: one row per grid
+    point in grid order, and a sampler's rows differ from the gbm sweep's
+    while ``--bars-csv`` or ``--block-len`` alone (gbm reads neither) leave
+    them as they are.  ``--bars-csv`` reads a history written here."""
+    rng = np.random.default_rng(2)
+    c = np.round(100.0 + np.cumsum(rng.normal(0, 0.05, 300)), 2)
+    with open(tmp_path / "bars.csv", "w") as f:
+        f.write("t,o,h,l,c,v\n" + "".join(f"{60_000 * i},{c[i]:.2f},{c[i] + 0.03:.2f},"
+                                          f"{c[i] - 0.03:.2f},{c[i]:.2f},1000\n"
+                                          for i in range(300)))
+    flags = [str(tmp_path / f) if f == "bars.csv" else f for f in flags]
+    base = [*SWEEP, *CPU, "--num-paths", "2048", "--num-bars", "8", "--stops", "0.3"]
+    rows = _rows(cli.main, ["--db", str(tmp_path / "t.db"), *base, *flags], capsys)
+    gbm = _rows(cli.main, ["--db", str(tmp_path / "g.db"), *base,
+                           *[f for f in flags if f == "--engine"]], capsys)
+    assert len(rows) == len(gbm) == 3
+    assert [(r["stop_padding"], r["tp_padding"]) for r in rows] == \
+        [(g["stop_padding"], g["tp_padding"]) for g in gbm]
+    assert all(0.0 <= r["hit_rate"] <= 1.0 and np.isfinite(r["mean_r"]) for r in rows)
+    if "--sampler" in flags:
+        assert rows != gbm
+    else:
+        assert rows == gbm
 
 
 @pytest.mark.parametrize("flags", [["--touch-limits", "2"], ["--qmins", "0.5"],

@@ -180,8 +180,12 @@ def test_sweep_paths_gated_rows_equal_mc_paths_gated():
         one = G.mc_paths_gated(4, levels, grid_row(grid, g), grid_row(gate_g, g), **kw)
         _assert_stats_match(got.row(g), one, exact_floats=True)
     assert float(got.sum_trades[0]) == 0.0 < float(got.sum_trades[1])   # touch limit 1
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SW.sweep_paths_gated(4, levels, grid, gate_g, sampler="heston", **kw)
+    # every sampler now: a Heston sweep's rows equal the Heston pipeline too
+    got = SW.sweep_paths_gated(4, levels, grid, gate_g, sampler="heston", **kw)
+    for g in range(4):
+        one = G.mc_paths_gated(4, levels, grid_row(grid, g), grid_row(gate_g, g),
+                               sampler="heston", **kw)
+        _assert_stats_match(got.row(g), one, exact_floats=True)
 
 
 def test_pathstats_stack_merges_elementwise():
