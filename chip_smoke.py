@@ -186,7 +186,27 @@ Phases (any failure exits non-zero and prints no result line):
    the full-width launch against their one-row launches; ``sweep --engine``
    at 2^24 x 18 rows (``--jitter-stds 0 0.02``); and the sweep of universes
    (config #4's first 8 symbols x 4 configurations at 2^20 a cell), each
-   cell equal to its one-row launch at 2^14 (per path) and at 2^20.
+   cell equal to its one-row launch at 2^14 (per path) and at 2^20;
+   the samplers of the books (kernels #7 and #12 under bootstrap, block
+   bootstrap and Heston: the market stream carries the joint recorded day's
+   index, or Heston's second market pair), three symbols with their own
+   histories (and levels, s0, sigma, beta, weight, knobs), and the main
+   path's book on one shared year of 1-minute bars:
+27. gated book (``mc_gated_corr_sampler_kernel``, mc_gated_corr_samplers.cu):
+   for each sampler, injected uniforms with and without [S] noise stds, path
+   by path, symbols and the book, every differing path traced (as in phase
+   19); Philox at 2^16 a symbol against the plain version on the card path
+   by path; swapping two symbols' histories swaps their rows bit for bit,
+   and one shared [1, 5, H] table equals its copies; the main path's 100
+   symbols at 2^16 against the plain version on the card path by path; the
+   kernel alone at 100 x 2^20; the port CLI's ``book --backend cuda
+   --sampler ...`` at 100 x 2^20 x 40 on the CSV history, launch counts set
+   to 0 just before and read just after (one sampler launch and one fold a
+   run, nothing else);
+28. engine book (``mc_engine_corr_sampler_kernel``, mc_engine_corr_samplers.cu):
+   the same with the engine's two budgets, the plain version on the card on
+   the main path's first 10 symbols (launch-bound a symbol at a time), and
+   ``book --engine``.
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
@@ -228,7 +248,17 @@ lifecycle row of the book's R per path); a book symbol at beta 0 and the
 universe kernel's symbol: equal, bit for bit.  Samplers (phases 21-23):
 each family's rules above.  Sampler rows (phases 24-26): each symbol or
 grid row under its family's rules; a row of a launch and the one-row launch
-of its arguments: equal, bit for bit, per path included.  Their injected
+of its arguments: equal, bit for bit, per path included.  Book samplers
+(phases 27-28): each symbol and the book under their family's rules, and
+the sampler rows' ulp rules below; the book's R is sum_s w_s R_s with sum_s
+w_s = 1, so the book row counts its ulps in the largest of its symbols' (a
+book path that agrees drifts at most 16 of them a book trade).  Their
+traces also take a differing path whose two runs never part, when the kernel
+equals the plain lifecycle on the card's bars and its counts agree: drift
+alone, the bars' ulps carried past 1e-3 a trade by R = reward / risk where
+a noisy stop lands near the entry (``drift_only``; such a path still counts
+against F).  The sampler
+rows' injected
 comparisons on CPU copies count drift in price ulps (a float32 ulp of the
 row's highest level or spot, over its stop padding, in R): a lifecycle path
 that agrees drifts at most 16 a trade (and one more), and a histogram is
@@ -256,7 +286,8 @@ of each symbol) and scaled to their size.  For the
 engine the count is a floor: the work every bar does, plus the gates that the
 plain version's skip table shows were reached (engine_ops).  A book's bound
 is its symbols' lifecycles plus the market pair, counted once a path
-(book_market_ops), though the kernels draw it again for every symbol.  A sweep's bound
+(book_market_ops; under the samplers book_sampler_market_ops), though the
+kernels draw it again for every symbol.  A sweep's bound
 counts each path's bars once and each row's decisions on them (sweep_ops,
 gated_sweep_ops, engine_sweep_ops), so the gated and engine sweeps'
 regeneration of the bars for every row shows against it.
@@ -697,14 +728,16 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
 
 def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
                        sigma, noise, antithetic, dev, s0: float = 100.0,
-                       market=None, sampler=None) -> dict:
+                       market=None, sampler=None, drift_ok: bool = False) -> dict:
     """Phase 6's trace for the engine: the plain engine over the bars the
     plain version makes on the CPU (run on the CPU) and over those it makes
     on the card (run on the card).  For every differing path the card run
     equals the kernel's row exactly, the CPU run the plain row, and the two
     runs part at some bar (a decision or a first-fail reason went the other
     way).  A book symbol's ``market`` = (market uniforms, beta); a
-    non-gbm ``sampler`` (``ops/samplers.Sampler``) builds the bars."""
+    non-gbm ``sampler`` (``ops/samplers.Sampler``) builds the bars.  With
+    ``drift_ok`` a differing path whose runs never part may instead be
+    drift alone (``drift_only``)."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine
@@ -716,7 +749,7 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     if idx.numel() == 0:
         return {"paths": 0}
     sampler = Sampler() if sampler is None else sampler
-    layout = EngineLayout(NUM_BARS, noise is not None, sampler.kind)
+    layout = EngineLayout(NUM_BARS, noise is not None, sampler.kind, market is not None)
     kw = engine_knobs(**gates)
     runs = []
     for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
@@ -739,18 +772,50 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     if not torch.equal(rows_cpu, cpu_rows[idx]):
         raise AssertionError(f"{name}: the traced engine differs from the plain version")
     parted = (i_cpu != i_dev).any(dim=2)
-    if not bool(parted.any(dim=1).all()):
+    n_drift = drift_only(name, parted.any(dim=1), kernel_rows[idx], cpu_rows[idx],
+                         px_dev[:, -1], trade_cols) if drift_ok else 0
+    if not n_drift and not bool(parted.any(dim=1).all()):
         for k in torch.nonzero(~parted.any(dim=1)).flatten().tolist():
             d = (px_cpu[k] - px_dev[k]).abs()
             log(f"    untraced path {int(idx[k])}: kernel {kernel_rows[idx[k], :7].tolist()} "
                 f"plain {cpu_rows[idx[k], :7].tolist()}; max |d entry, stop, target| "
                 f"{d.amax(dim=0).tolist()} at bars {d.argmax(dim=0).tolist()}")
         raise AssertionError(f"{name}: a differing path shows no flipped decision")
+    flipped = parted.any(dim=1)
     flip_bar = parted.int().argmax(dim=1)
-    log(f"  {name}: {idx.numel()} differing paths ({equal_trades} with equal trade "
+    log(f"  {name}: {idx.numel() - n_drift} differing paths ({equal_trades} with equal trade "
         f"counts), each traced to a flipped decision or first-fail reason at bars "
-        f"{flip_bar.tolist()}; kernel == plain engine on the card's bars")
+        f"{flip_bar[flipped].tolist()}; kernel == plain engine on the card's bars")
     return {"paths": idx.numel(), "equal_trade_counts": equal_trades}
+
+
+def drift_only(name, parted, kernel_rows, cpu_rows, prices, count_cols) -> int:
+    """The differing paths of a trace whose runs over the CPU's and the
+    card's bars never part (no decision flipped; the kernel equal to the
+    plain lifecycle on the card's bars is checked before): each must keep
+    its counts (``count_cols`` of the rows), its equity moved only by the
+    bars' ulps, amplified where a noisy stop lands near the entry (R =
+    reward / risk with a small risk).  Logs them with their last (entry,
+    stop, target) on the card's bars (``prices``; None for a book path);
+    returns how many there are."""
+    import torch
+
+    drift = ~parted
+    if not bool(drift.any()):
+        return 0
+    if not torch.equal(kernel_rows[drift][:, count_cols], cpu_rows[drift][:, count_cols]):
+        raise AssertionError(f"{name}: a differing path shows no flipped decision and its "
+                             "counts differ")
+    for k in torch.nonzero(drift).flatten().tolist():
+        at = ""
+        if prices is not None:
+            entry, stop, target = (float(x) for x in prices[k])
+            at = (f", last entry {entry:.9g} stop {stop:.9g} target {target:.9g}: risk "
+                  f"{abs(entry - stop):.6g}")
+        log(f"    {name}: drift only, no decision parts: equity {float(cpu_rows[k, 0]):.7g} "
+            f"(plain on CPU) vs {float(kernel_rows[k, 0]):.7g} (kernel, == the plain "
+            f"lifecycle on the card's bars){at}")
+    return int(drift.sum())
 
 
 def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
@@ -776,7 +841,7 @@ def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
 
 def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
                 noise, antithetic, dev, s0: float = 100.0, sigma: float = SIGMA,
-                market=None, sampler=None) -> dict:
+                market=None, sampler=None, drift_ok: bool = False) -> dict:
     """Show that the paths on which the kernel and the plain version on CPU
     copies differ are flipped decisions, not a kernel fault.
 
@@ -790,7 +855,8 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     the first flipped bar of the first path whose counts agree, with the bar's
     close/high/low on both sides in ulps.  A book symbol's ``market`` =
     (market uniforms, beta); a non-gbm ``sampler`` (``ops/samplers.Sampler``)
-    builds the bars."""
+    builds the bars.  With ``drift_ok`` a differing path whose runs never
+    part may instead be drift alone (``drift_only``)."""
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated
@@ -801,7 +867,7 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     if idx.numel() == 0:
         return {"paths": 0}
     sampler = Sampler() if sampler is None else sampler
-    layout = GatedLayout(NUM_BARS, noise is not None, sampler.kind)
+    layout = GatedLayout(NUM_BARS, noise is not None, sampler.kind, market is not None)
     kw = dict(s0=s0, mu=0.0, sigma=sigma, dt=DT, antithetic=antithetic, sampler=sampler)
     runs = []
     for src in (u, u.to(dev)):
@@ -825,8 +891,11 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
     if not torch.equal(rows(out_cpu), cpu_rows[idx]):
         raise AssertionError(f"{name}: the traced lifecycle differs from the plain version")
     parted = (i_cpu != i_dev).any(dim=2)                        # [n, W]
-    if not bool(parted.any(dim=1).all()):
+    n_drift = drift_only(name, parted.any(dim=1), kernel_rows[idx], cpu_rows[idx],
+                         f_dev[:, -1, :3], [1, 2, 3, 4]) if drift_ok else 0
+    if not n_drift and not bool(parted.any(dim=1).all()):
         raise AssertionError(f"{name}: a differing path shows no flipped decision")
+    flipped = parted.any(dim=1)
     flip_bar = parted.int().argmax(dim=1)
 
     def ulps(a, b):
@@ -834,10 +903,10 @@ def trace_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gate,
 
     bar_ulps = torch.stack([ulps(getattr(b_cpu, k), getattr(b_dev, k)).amax(dim=1)
                             for k in ("close", "high", "low")], 1)
-    same_counts = (kernel_rows[idx, 1:5] == cpu_rows[idx, 1:5]).all(dim=1)
-    log(f"  {name}: {idx.numel()} differing paths ({int(same_counts.sum())} with "
+    same_counts = (kernel_rows[idx, 1:5] == cpu_rows[idx, 1:5]).all(dim=1) & flipped
+    log(f"  {name}: {int(flipped.sum())} differing paths ({int(same_counts.sum())} with "
         f"equal counts), each traced to a flipped decision at bars "
-        f"{flip_bar.tolist()}; bars differ by at most "
+        f"{flip_bar[flipped].tolist()}; bars differ by at most "
         f"{int(bar_ulps.max())} ulps; kernel == plain lifecycle on the card's bars")
     if bool(same_counts.any()):
         k = int(torch.nonzero(same_counts).flatten()[0])
@@ -3091,6 +3160,348 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
     return out
 
 
+# ---- the samplers of the books (kernels #7 and #12): joint recorded days from
+# the market stream, Heston's second market pair
+GATED_CORR_SAMPLER_SOURCE = CSRC + "mc_gated_corr_samplers.cu"
+ENGINE_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_corr_samplers.cu"
+BOOK_SAMPLER_INJECT_BLOCKS = {"gated": 2, "engine": 2}
+BOOK_SAMPLER_PHILOX_PATHS = 1 << 16
+BOOK_ENGINE_SAMPLE_SYMBOLS = 10     # the engine's plain version is launch-bound a symbol
+
+
+def book_sampler_market_ops(sampler: str, n_paths: float, n_sym: int) -> dict:
+    """The operations a sampler book adds to its symbols' sampler
+    lifecycles, the market counted once a path: bootstrap, the market's
+    index uniforms (a Philox call a path's four rows); Heston, two
+    Box-Muller pairs a double-bar step (one Philox call) and the mixes of
+    both pairs a symbol and bar; the curve's fused multiply-add a symbol and
+    bar, the fold a bar."""
+    bars = n_paths * NUM_BARS
+    if sampler == "heston":
+        pairs = bars / 2
+        return dict(f32=8 * pairs + bars * (n_sym * 6 + 3), sfu=4 * pairs,
+                    imul=PHILOX_IMULS * pairs)
+    return dict(f32=bars * (n_sym + 3), sfu=0.0, imul=PHILOX_IMULS * bars / 4)
+
+
+def book_sampler_argv(engine: bool, sampler: str, csv: str) -> list:
+    """The main path's ``book`` arguments under ``sampler`` on the history
+    ``csv`` (the bootstrap samplers)."""
+    argv = book_argv(engine) + ["--sampler", sampler]
+    if sampler != "heston":
+        argv += ["--bars-csv", csv]
+    if sampler == "block_bootstrap":
+        argv += ["--block-len", str(SAMPLER_BLOCK_LEN)]
+    return argv
+
+
+def book_sampler_phases(dev, card, reset, cli) -> list:
+    """Phases 27-28: the book sampler kernels (#7', #12') under bootstrap,
+    block bootstrap and Heston: injected uniforms on a 3-symbol book whose
+    symbols have their own histories, with and without noise, against the
+    plain version on CPU copies path by path (every symbol and the book,
+    every differing path traced); Philox on the 3-symbol book at 2^16
+    against the plain version on the card path by path; swapping two
+    symbols' histories swaps their rows, and one shared [1, 5, H] table
+    equals its copies; the CLI's ``book [--engine] --backend cuda --sampler
+    S`` at 100 symbols x 2^20 x 40 on a year of 1-minute bars; the main
+    path's kernel against the plain version on the card (the gated book on
+    its 100 symbols at 2^16, the engine's first 10).  Returns their entries
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import native
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import (EngineLayout, GatedLayout,
+                                                                 MarketLayout)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import (bootstrap_tables,
+                                                                   universe_tables)
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import make_sampler
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.book import BookCurve
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import engine_knobs
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig, LifecycleOutcome
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+
+    cpu = torch.device("cpu")
+    params = EngineParams.default()
+    gate = GateConfig.from_params(params)
+    lv3 = U.stack_levels(UNI3_ROWS, max_levels=8)
+    s0_3, sg_3 = [float(x) for x in UNI3_S0], [float(x) for x in UNI3_SIGMA]
+    b3, w3 = list(BOOK3_BETAS), list(BOOK3_WEIGHTS)
+    p3 = params.replace(contact_prox=[0.05, 0.08, 0.03], stop_padding=[0.35, 0.20, 0.45],
+                        tp_padding=[0.25, 0.40, 0.15])
+    noise3 = McNoise(level_jitter_std=torch.tensor([0.0, 0.02, 0.01]),
+                     entry_slip_std=torch.tensor([0.01, 0.0, 0.0]),
+                     stop_slip_std=torch.tensor([0.0, 0.015, 0.0]),
+                     target_slip_std=torch.tensor([0.015, 0.0, 0.0]))
+    sym_ulp = [r_ulp(max(s0_3[i], *(r["price"] for r in UNI3_ROWS[i])), sp)
+               for i, sp in enumerate(p3.stop_padding.tolist())]
+    # the book's R is sum_s w_s R_s with sum_s w_s = 1: its drift is at most
+    # the symbols' largest price ulp in R a trade of the book (and one more)
+    ulps4 = sym_ulp + [max(sym_ulp)]
+    lv100 = U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                             {"color": "orange", "type": "dashed", "index": 0,
+                              "price": x + 0.4}] for x in BOOK_S0], max_levels=4)
+    book100 = (lv100, params, BOOK_S0, [SIGMA] * BOOK_SYMBOLS, BOOK_BETAS,
+               [1.0 / BOOK_SYMBOLS] * BOOK_SYMBOLS)
+    t0 = time.perf_counter()
+    tables3 = universe_tables(universe_history(3, ROWS_INJECT_HIST_BARS, 41))
+    tmp = tempfile.TemporaryDirectory()
+    csv = os.path.join(tmp.name, "bars.csv")
+    write_history(csv, SAMPLER_HIST_BARS)
+    cols = native.parse_bars_csv(csv)
+    tables1 = torch.stack(bootstrap_tables(*(cols[k] for k in "ohlcv")))[None].to(dev)
+    table_bytes = tables1.numel() * 4
+    log(f"[27-28] histories: 3 symbols x {ROWS_INJECT_HIST_BARS} bars; the CLI's "
+        f"{SAMPLER_HIST_BARS}-bar CSV, one [1, 5, H] table every symbol shares "
+        f"({table_bytes} bytes); {time.perf_counter() - t0:.3f} s")
+
+    def skw(s, tables):
+        return (dict(sampler=s) if s == "heston" else
+                dict(sampler=s, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+
+    entries = []
+    for family, ph in (("gated", "27"), ("engine", "28")):
+        eng = family == "engine"
+        mod = cuda_engine if eng else cuda_gated
+        lanes = ENGINE_LANES if eng else GATED_LANES
+        p3f = p3.replace(q_min_prob=[0.60, 0.40, 0.55]) if eng else p3
+        kname = f"mc_{family}_corr_sampler"
+        source = ENGINE_CORR_SAMPLER_SOURCE if eng else GATED_CORR_SAMPLER_SOURCE
+        replaces = ENGINE_CORR_REPLACES if eng else GATED_CORR_REPLACES
+        Lay = EngineLayout if eng else GatedLayout
+
+        def rows_fn(seed, book, n, s, tables, nz=None, ext=None, m_ext=None, per_path=False):
+            kw = dict(paths_per_symbol=n, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=nz,
+                      external_uniforms=ext, market_uniforms=m_ext, device=dev,
+                      per_path=per_path, **skw(s, tables))
+            if eng:
+                return cuda_engine.engine_corr_rows(seed, *book, **kw)
+            return cuda_gated.gated_corr_rows(seed, *book[:6], gate, **kw)
+
+        def plain_fn(seed, book, n, s, tables, nz=None, ext=None, m_ext=None, device=dev,
+                     **extra):
+            kw = dict(paths_per_symbol=n, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=nz,
+                      external_uniforms=ext, market_uniforms=m_ext, device=device,
+                      **skw(s, tables), **extra)
+            if eng:
+                return cuda_engine.engine_corr_totals_reference(seed, *book, **kw)
+            return cuda_gated.gated_corr_totals_reference(seed, *book[:6], gate, **kw)
+
+        book3 = (lv3, p3f, s0_3, sg_3, b3, w3)
+        err = {s: 0.0 for s in SAMPLERS}
+        nb = BOOK_SAMPLER_INJECT_BLOCKS[family]
+        n_inj = nb * 8 * lanes
+        log(f"[{ph}] {family} book samplers ({kname}_kernel, {source.split('/')[-1]}): "
+            f"injected uniforms, 3 symbols x {n_inj} paths (own histories, levels, s0, "
+            "sigma, beta, weight, knobs; [S] noise stds), kernel vs plain on CPU copies path "
+            "by path, every differing path traced")
+        for s in SAMPLERS:
+            samp = make_sampler(s, tables=tables3, block_len=SAMPLER_BLOCK_LEN, symbols=3)
+            for nz in (None, noise3):
+                case = f"{s}{'+noise' if nz is not None else ''}"
+                rng = np.random.default_rng(2700 + 10 * int(ph) + len(case))
+                u = torch.from_numpy(rng.uniform(1e-6, 1.0, (
+                    3, nb, Lay(NUM_BARS, nz is not None, s, True).u_rows, 8, lanes)).astype(
+                        np.float32))
+                um = torch.from_numpy(rng.uniform(1e-6, 1.0, (
+                    nb, MarketLayout(NUM_BARS, s).u_rows, 8, lanes)).astype(np.float32))
+                want = plain_fn(0, book3, n_inj, s, tables3, nz, u, um, device=cpu,
+                                per_path=True)
+                pc, pf, prow = rows_fn(0, book3, n_inj, s, tables3, nz, u.to(dev), um.to(dev),
+                                       per_path=True)
+                got = (*mod.reduce_rows(pc, pf), prow)
+                torch.cuda.synchronize()
+
+                def symbol_runs(i, on_card, idx, u=u, um=um, nz=nz, samp=samp):
+                    """Symbol i's plain lifecycle over the bars the plain version
+                    makes on the CPU or on the card (``book_phases``' trace)."""
+                    src = dev if on_card else cpu
+                    kw = dict(s0=s0_3[i], mu=0.0, sigma=sg_3[i], dt=DT,
+                              market_uniforms=um.to(src), beta=b3[i], sampler=samp.row(i))
+                    if eng:
+                        bars, tie, nzs = cuda_engine.engine_bars_from_uniforms(
+                            u[i].to(src), EngineLayout(NUM_BARS, nz is not None, s, True),
+                            **kw)
+                        pick = type(bars)(*(x[idx.to(src)] for x in bars))
+                        rows, ints, eq, _ = engine_trace(
+                            pick, tie[idx.to(src)], None if nzs is None else nzs[:, idx.to(src)],
+                            grid_row(lv3, i), grid_row(p3f, i), engine_knobs(),
+                            grid_row(nz, i), src)
+                        return eq, rows[:, :6], ints
+                    bars, tie, nzs = cuda_gated.gated_bars_from_uniforms(
+                        u[i].to(src), GatedLayout(NUM_BARS, nz is not None, s, True), **kw)
+                    pick = type(bars)(*(x[idx.to(src)].cpu() for x in bars))
+                    out, ints, floats = lifecycle_trace(
+                        pick, tie[idx.to(src)].cpu(),
+                        None if nzs is None else nzs[:, idx.to(src)].cpu(), grid_row(lv3, i),
+                        grid_row(p3f, i), gate, grid_row(nz, i))
+                    return floats[:, :, 3], cuda_gated.lifecycle_rows(out), ints
+
+                def trace_one(i, d, u=u, um=um, nz=nz, samp=samp, prow=prow, want=want):
+                    kw = dict(s0=s0_3[i], market=(um, b3[i]), sampler=samp.row(i),
+                              drift_ok=True)
+                    if eng:
+                        return trace_engine_flips(
+                            f"{case} symbol {i}", u[i], d, prow[i].cpu(), want[2][i].cpu(),
+                            grid_row(lv3, i), grid_row(p3f, i), {}, sg_3[i], grid_row(nz, i),
+                            False, dev, **kw)
+                    return trace_flips(f"{case} symbol {i}", u[i], d, prow[i].cpu(),
+                                       want[2][i].cpu(), grid_row(lv3, i), grid_row(p3f, i),
+                                       gate, grid_row(nz, i), False, dev, sigma=sg_3[i], **kw)
+
+                def trace_book(d, prow=prow, want=want, symbol_runs=symbol_runs):
+                    idx = torch.nonzero(d).flatten()
+                    if idx.numel() == 0:
+                        return
+                    books, parted = [], torch.zeros(idx.numel(), dtype=torch.bool)
+                    runs = [[symbol_runs(i, on_card, idx) for i in range(3)]
+                            for on_card in (False, True)]
+                    for side in runs:
+                        bk = BookCurve(idx.numel(), NUM_BARS)
+                        for (eq, rows, _), w in zip(side, w3):
+                            bk.add_curve(w, eq.cpu().T.contiguous())
+                            rows = rows.cpu()
+                            bk.add_symbol(LifecycleOutcome(
+                                equity=rows[:, 0], trades=rows[:, 1].int(),
+                                wins=rows[:, 2].int(), losses=rows[:, 3].int(),
+                                open_at_end=rows[:, 4] > 0, max_dd=rows[:, 5]))
+                        books.append(cuda_gated.lifecycle_rows(bk.outcome()))
+                    for (_, _, i_cpu), (_, _, i_dev) in zip(*runs):
+                        parted |= (i_cpu.cpu() != i_dev.cpu()).flatten(1).any(dim=1)
+                    if not torch.equal(books[1], prow[3].cpu()[idx][:, :6]):
+                        raise AssertionError(f"{case}: the kernel's book differs from the "
+                                             "plain book on the card's bars")
+                    if not torch.equal(books[0], want[2][3].cpu()[idx][:, :6]):
+                        raise AssertionError(f"{case}: the traced book differs from the "
+                                             "plain version")
+                    n_drift = drift_only(f"{case} book", parted, prow[3].cpu()[idx],
+                                         want[2][3].cpu()[idx], None, [1, 2, 3, 4])
+                    log(f"  {case} book: {idx.numel() - n_drift} differing paths, each traced "
+                        "to a flipped decision of a symbol; kernel == plain book on the card's "
+                        "bars")
+
+                for i in range(4):
+                    name = f"{case} " + ("book" if i == 3 else f"symbol {i}")
+                    e, _ = compare_lifecycle(
+                        name, tuple(x[i] for x in want), tuple(x[i] for x in got), n_inj,
+                        engine=eng, tie_ulp=ulps4[i],
+                        trace=(lambda d, i=i, trace_one=trace_one: trace_one(i, d)) if i < 3
+                        else trace_book)
+                    err[s] = max(err[s], e)
+                if eng and bool(want[0][3, 6:23].any()):
+                    raise AssertionError("the engine book's escalation and skip columns "
+                                         "are not zero")
+
+        n_ph = BOOK_SAMPLER_PHILOX_PATHS
+        log(f"[{ph}] {family} book samplers, Philox: 3 symbols x {n_ph} paths, kernel vs "
+            "plain on the card path by path; two symbols' histories swapped; one shared "
+            "history against its copies")
+        for s in SAMPLERS:
+            want = plain_fn(3, book3, n_ph, s, tables3, per_path=True, chunk_blocks=64)
+            pc, pf, prow = rows_fn(3, book3, n_ph, s, tables3, per_path=True)
+            err[s] = max(err[s], same_on_card(f"{s} philox", want,
+                                              (*mod.reduce_rows(pc, pf), prow), 4, n_ph,
+                                              lambda i: "book" if i == 3 else f"symbol {i}",
+                                              engine=eng))
+            if s == "heston":
+                continue
+            # symbols 0 and 1 alike but for their histories (and their keys,
+            # swapped with them): swapping the histories swaps their rows
+            twin = (U.stack_levels([UNI3_ROWS[0]] * 3, max_levels=8), params,
+                    [s0_3[0]] * 3, [sg_3[0]] * 3, b3, w3)
+            u1 = torch.from_numpy(np.random.default_rng(2790 + int(ph)).uniform(
+                1e-6, 1.0, (1, 1, Lay(NUM_BARS, False, s, True).u_rows, 8, lanes)).astype(
+                    np.float32)).expand(3, -1, -1, -1, -1).contiguous().to(dev)
+            um1 = torch.from_numpy(np.random.default_rng(2791 + int(ph)).uniform(
+                1e-6, 1.0, (1, MarketLayout(NUM_BARS, s).u_rows, 8, lanes)).astype(
+                    np.float32)).to(dev)
+            a = rows_fn(0, twin, 8 * lanes, s, tables3, ext=u1, m_ext=um1, per_path=True)[2]
+            b = rows_fn(0, twin, 8 * lanes, s, tables3[[1, 0, 2]], ext=u1, m_ext=um1,
+                        per_path=True)[2]
+            if not (torch.equal(a[0], b[1]) and torch.equal(a[1], b[0])
+                    and torch.equal(a[2], b[2]) and not torch.equal(a[0], a[1])):
+                raise AssertionError(f"{s}: swapping two symbols' histories does not swap "
+                                     "their rows")
+            one = rows_fn(3, book3, n_ph, s, tables3[:1], per_path=True)
+            copies = rows_fn(3, book3, n_ph, s, tables3[:1].expand(3, -1, -1).contiguous(),
+                             per_path=True)
+            if not all(torch.equal(x, y) for x, y in zip(one, copies)):
+                raise AssertionError(f"{s}: one shared table differs from its copies")
+            log(f"  {s}: history swap swaps rows 0 and 1 bit for bit; [1, 5, H] == "
+                "[3, 5, H] copies bit for bit")
+
+        n_cmp = BOOK_ENGINE_SAMPLE_SYMBOLS if eng else BOOK_SYMBOLS
+        cmp_book = tuple(x[:n_cmp] if isinstance(x, list) else x for x in book100)
+        if eng:
+            cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
+                                          "price": x},
+                                         {"color": "orange", "type": "dashed", "index": 0,
+                                          "price": x + 0.4}] for x in BOOK_S0[:n_cmp]],
+                                       max_levels=4),) + cmp_book[1:]
+        log(f"[{ph}] main path: {BOOK_SYMBOLS} symbols x {BOOK_PATHS} paths x {NUM_BARS} bars "
+            f"on the {SAMPLER_HIST_BARS}-bar history; kernel vs plain on the card at "
+            f"{BOOK_SAMPLE_PATHS} paths a symbol on {n_cmp} of its symbols")
+        for s in SAMPLERS:
+            tb = None if s == "heston" else tables1
+            extra = dict(per_path=True, chunk_blocks=64 if not eng else 256)
+            if not eng:
+                extra["work"] = True
+            res, plain_ms = timed(lambda: plain_fn(0, cmp_book, BOOK_SAMPLE_PATHS, s, tb,
+                                                   **extra))
+            krows = rows_fn(0, cmp_book, BOOK_SAMPLE_PATHS, s, tb, per_path=True)
+            err[s] = max(err[s], same_on_card(
+                f"{family} book {s}", res[:3], (*mod.reduce_rows(krows[0], krows[1]), krows[2]),
+                n_cmp + 1, BOOK_SAMPLE_PATHS,
+                lambda i: "the book" if i == n_cmp else f"symbol {i}", engine=eng))
+            del krows
+            sample_ms = cuda_ms(lambda: rows_fn(0, cmp_book, BOOK_SAMPLE_PATHS, s, tb), 1)
+            rows_fn(0, book100, BOOK_PATHS, s, tb)                     # warm
+            main_ms = cuda_ms(lambda: rows_fn(0, book100, BOOK_PATHS, s, tb), 2)
+            sc = res[0].cpu()
+            scale = BOOK_PATHS / BOOK_SAMPLE_PATHS * BOOK_SYMBOLS / n_cmp
+            # the sample's work (its first n_cmp symbols, for the engine) scaled to
+            # the main path's symbol-paths
+            if eng:
+                ops, gathers = engine_sampler_ops(s, BOOK_SYMBOLS * BOOK_PATHS,
+                                                  sc[:n_cmp].sum(0), scale)
+            else:
+                ops, gathers = gated_sampler_ops(
+                    s, BOOK_SYMBOLS * BOOK_PATHS, float(res[3].sum()) * scale,
+                    float(sc[:-1, 5].sum()) * scale)
+            for k, v in book_sampler_market_ops(s, BOOK_PATHS, BOOK_SYMBOLS).items():
+                ops[k] = ops[k] + v
+            row_bytes = (BOOK_SYMBOLS + 1) * grid_size(BOOK_PATHS) * (
+                mod.ROW_COUNTS * 8 + mod.ROW_FLOATS * 4)
+            bound = gather_bound(card, row_bytes, ops, gathers,
+                                 0.0 if s == "heston" else table_bytes)
+            log(f"  {s}: kernel alone at {BOOK_SYMBOLS} x {BOOK_PATHS} paths {main_ms:.3f} ms "
+                f"({BOOK_SYMBOLS * BOOK_PATHS / main_ms * 1e3:.6e} paths x symbols/s), bound "
+                f"{bound['bound_ms']:.3f} ms {bound['bound_parts']}; at {n_cmp} x "
+                f"{BOOK_SAMPLE_PATHS}: kernel {sample_ms:.3f} ms, plain on the card "
+                f"{plain_ms:.3f} ms")
+            with tempfile.TemporaryDirectory() as db:
+                argv = ["--db", os.path.join(db, "smoke.db")] + book_sampler_argv(eng, s, csv)
+                log(f"  main path: cli book{' --engine' if eng else ''} --backend cuda "
+                    f"--sampler {s}" + ("" if s == "heston" else " --bars-csv (a year)"))
+                lines, secs, launches = run_cli(
+                    cli, argv, reset, {kname: 4, f"mc_{family}_corr_reduce_rows": 4},
+                    work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
+            check_book_output(lines, BOOK_SYMBOLS, eng)
+            log(f"  book row: {json.dumps(lines[-1])}")
+            entries.append(entry(f"{kname}/{s}", source, replaces, launches[kname], err[s],
+                                 main_ms, plain_ms, bound, sampler=s, symbols=BOOK_SYMBOLS,
+                                 paths=BOOK_PATHS, plain_symbols=n_cmp,
+                                 plain_paths=BOOK_SAMPLE_PATHS,
+                                 kernel_ms_at_plain_size=sample_ms, cli_s=secs[1:]))
+    tmp.cleanup()
+    return entries
+
+
 def single_sampler_times(tree: str) -> int:
     """The nine single-configuration sampler launches (first contact, gated,
     engine x bootstrap, block bootstrap, Heston: ``first_contact_rows``,
@@ -3201,7 +3612,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(["mc_first_contact", "mc_gated", "mc_engine", "mc_gated_corr",
                      "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
-                     "mc_engine_samplers"])
+                     "mc_engine_samplers", "mc_gated_corr_samplers",
+                     "mc_engine_corr_samplers"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -3940,6 +4352,7 @@ def main() -> int:
     books = book_phases(dev, card, reset_all, cli)
     samplers = sampler_phases(dev, card, reset_all, cli)
     sampler_rows = sampler_rows_phases(dev, card, reset_all, cli)
+    book_samplers = book_sampler_phases(dev, card, reset_all, cli)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -3985,7 +4398,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books + samplers + sampler_rows}))
+    ] + universe + books + samplers + sampler_rows + book_samplers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

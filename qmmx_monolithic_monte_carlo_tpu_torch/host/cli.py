@@ -18,7 +18,11 @@ subcommands the port carries so far:
   book    — a correlated book of symbols on one market factor (beta
             loadings) over the gated lifecycle, with ``--engine`` the full
             engine: one JSON line per symbol, then the book's (VaR/CVaR of
-            the book's R, drawdown of its curve over time)
+            the book's R, drawdown of its curve over time); ``--sampler``
+            gbm, or bootstrap / block_bootstrap (joint recorded days of one
+            ``--bars-csv`` history every symbol shares, rebased on its own
+            spot) or heston (the market factor in the price and variance
+            shocks)
 
 ``--device`` (default ``cuda``) says where it runs; without a GPU the CLI
 exits unless ``--device cpu`` is given.  ``--backend cuda`` runs the fused
@@ -41,6 +45,8 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli sweep --engine --backend cuda \
         --sampler bootstrap --bars-csv bars.csv
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --backend cuda \
+        --sampler block_bootstrap --bars-csv bars.csv
 """
 
 from __future__ import annotations
@@ -148,6 +154,23 @@ def _sampler_kw(args) -> dict:
         kw.update(hist_bars=_hist_paths_bars(args), block_len=args.block_len)
     elif sampler == "heston":
         kw["heston"] = _heston_dict(args)
+    return kw
+
+
+def _book_sampler_kw(args, n_sym: int, cuda: bool) -> dict:
+    """A book's sampler and what it reads: one recorded history every symbol
+    shares, as the JAX CLI broadcasts it to [S, H] rows; the kernels take its
+    tables once ([1, 5, H]), the pipeline the [S, H] view."""
+    import torch
+
+    from ..ops.pathgen import PathBars, history_tables
+
+    kw = _sampler_kw(args)
+    hist = kw.pop("hist_bars", None)
+    if hist is not None and cuda:
+        kw["tables"] = torch.stack(history_tables(hist))[None]
+    elif hist is not None:
+        kw["hist_bars"] = PathBars(*(x.expand(n_sym, -1) for x in hist))
     return kw
 
 
@@ -411,17 +434,10 @@ def cmd_book(args):
     from ..parallel import portfolio as P
     from ..parallel.universe import stack_levels
 
-    for flag, on in (("--harvest", args.harvest), ("--exact-tail", args.exact_tail),
-                     ("--bars-csv", args.bars_csv is not None),
-                     ("--block-len", args.block_len is not None),
-                     (f"--sampler {args.sampler}", args.sampler != "gbm"),
-                     ("--heston-*", any(getattr(args, f"heston_{k}") is not None
-                                        for k in _HESTON))):
+    for flag, on in (("--harvest", args.harvest), ("--exact-tail", args.exact_tail)):
         if on:
-            raise SystemExit(
-                f"{flag} is not ported yet: the port's books run the gbm sampler "
-                "(the books' samplers are the next slice; use "
-                "qmmx_monolithic_monte_carlo_tpu)")
+            raise SystemExit(f"{flag} is not ported yet (the flywheel slice; use "
+                             "qmmx_monolithic_monte_carlo_tpu)")
     conn = _connect(args)
     try:
         _rows, _lv, params = _levels_and_params(conn, args)
@@ -439,7 +455,8 @@ def cmd_book(args):
             for s in range(n)]
     levels = stack_levels(rows, max_levels=4)
     backend = _backend(args, rows[0])
-    common = dict(num_bars=args.num_bars, antithetic=args.antithetic, device=args.device)
+    common = dict(num_bars=args.num_bars, antithetic=args.antithetic, device=args.device,
+                  **_book_sampler_kw(args, n, backend == "cuda"))
     skips = escal = None
     if args.engine and backend == "cuda":
         from ..ops.cuda_engine import mc_paths_engine_corr_fused
@@ -603,11 +620,20 @@ def build_parser() -> argparse.ArgumentParser:
     bk.add_argument("--exact-tail", action="store_true", help="not ported yet")
     bk.add_argument("--harvest", action="store_true", help="not ported yet")
     bk.add_argument("--sampler", choices=["gbm", "bootstrap", "block_bootstrap", "heston"],
-                    default="gbm", help="path sampler (only gbm is ported)")
-    bk.add_argument("--bars-csv", default=None, help="not ported yet")
-    bk.add_argument("--block-len", type=int, default=None, help="not ported yet")
-    for k in _HESTON:
-        bk.add_argument(f"--heston-{k}", type=float, default=None, help="not ported yet")
+                    default="gbm",
+                    help="bootstrap family replays JOINT recorded days (shared resample "
+                         "indices: the book co-moves exactly as the joint history did; "
+                         "--bars-csv, real volumes); heston correlates price AND vol shocks "
+                         "through beta (gated and --engine ladders, both backends)")
+    bk.add_argument("--bars-csv", default=None,
+                    help="recorded t,o,h,l,c[,v] history for the bootstrap samplers "
+                         "(shared geometry, rebased per symbol; default: a synthetic "
+                         "390-bar fixture)")
+    bk.add_argument("--block-len", type=int, default=10,
+                    help="block_bootstrap: contiguous run length")
+    for k, dv in (("v0", 0.04), ("kappa", 3.0), ("theta", 0.04), ("xi", 0.6), ("rho", -0.7)):
+        bk.add_argument(f"--heston-{k}", type=float, default=dv,
+                        help=f"heston sampler: {k} (default {dv})")
     _device_flags(bk)
     bk.set_defaults(fn=cmd_book, gated=True)
     return p

@@ -5,8 +5,8 @@ Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1506-1806`
 ``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), with
 execution noise, antithetic lanes (gbm) and all four samplers, up to 8 levels
 and an even horizon of at most 61 bars, in the single configuration, the
-sweep, the universe and the sweep of universes.  9-64 levels, odd horizons,
-longer horizons (the windowed guard), the samplers of the books, and the
+sweep, the universe, the sweep of universes and the correlated book.  9-64
+levels, odd horizons, longer horizons (the windowed guard) and the
 closed-trade harvest are not ported yet; ``sim/enginepath`` runs the same
 engine at any horizon.
 
@@ -73,8 +73,8 @@ from ..types import KIND_SOLID, Levels
 from ..utils import build, prng
 from ..utils import device as devices
 from ..utils.floats import div
-from .cuda_gated import (box_muller, gated_bar, lifecycle_rows, lifecycle_totals,
-                         market_normals, merge_totals, reduce_rows_reference,
+from .cuda_gated import (book_market, box_muller, gated_bar, lifecycle_rows,
+                         lifecycle_totals, merge_totals, reduce_rows_reference,
                          stats_from_gated_totals)
 from .draws import (ENGINE_STREAM, ENGINE_SUB, MARKET_STREAM, EngineLayout, MarketLayout,
                     engine_uniforms)
@@ -105,7 +105,8 @@ LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
             "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
             "mc_engine_universe_sweep_reduce_rows": 0, "mc_engine_corr": 0,
             "mc_engine_corr_reduce_rows": 0, "mc_engine_sweep_sampler": 0,
-            "mc_engine_universe_sampler": 0, "mc_engine_universe_sweep_sampler": 0}
+            "mc_engine_universe_sampler": 0, "mc_engine_universe_sweep_sampler": 0,
+            "mc_engine_corr_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -142,14 +143,15 @@ class _EngineArgs(ctypes.Structure):
 
 
 def _check(seed, levels, kw: dict, *, num_paths, num_bars, lanes, noise,
-           antithetic, external_uniforms, sampler: Sampler = Sampler()) -> EngineLayout:
+           antithetic, external_uniforms, sampler: Sampler = Sampler(),
+           book: bool = False) -> EngineLayout:
     """The checks of ``mc_paths_pallas_engine`` (pallas_engine.py:1678-1698)
-    and this kernel's envelope."""
+    and this kernel's envelope; ``book``: a book symbol's layout."""
     check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=ENGINE_SUB,
                  what="engine")
     if antithetic and sampler.kind != "gbm":
         raise ValueError("kernel antithetic pairs gbm normals only")
-    layout = EngineLayout(num_bars, noise is not None, sampler.kind)
+    layout = EngineLayout(num_bars, noise is not None, sampler.kind, book)
     if num_bars > GUARD_WINDOW_BARS:
         raise ValueError(f"the engine kernel takes num_bars <= {GUARD_WINDOW_BARS} "
                          "(the running guard box); longer horizons are not "
@@ -205,14 +207,14 @@ def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, mark
     noise normals or None), each [nb, 8, lanes], as
     ``_engine_lifecycle_loop`` draws and builds them from uniforms u
     f32[nb, u_rows, 8, lanes].  A book symbol's ``market`` = (market
-    normals, beta) (``ops/cuda_gated.market_normals``) mixes the market into
-    the price normal before the volume model sees it.  A bootstrap
-    ``sampler``'s bars bring their recorded volumes; Heston's go through the
-    volume model as gbm's do."""
+    draws, beta) (``ops/cuda_gated.book_market``) mixes the market into
+    the price normal before the volume model sees it (or, bootstrap, gives
+    its index uniforms).  A bootstrap ``sampler``'s bars bring their recorded
+    volumes; Heston's go through the volume model as gbm's do."""
     drift, sig_dt, log_s0 = cs
     if sampler.kind != "gbm":
         stream = StreamBars(sampler, log_s0, u[:, 0].shape, u.device)
-        for t, x, zq, zv, bridge_u, tie, nz in sampler_steps(u, layout):
+        for t, x, zq, zv, bridge_u, tie, nz in sampler_steps(u, layout, market):
             log_open, _, high, low, c, vol = stream.bar(t, x, zq, bridge_u)
             yield (t, log_open, high, low, c, vc.volume(t, x, zv) if vol is None else vol,
                    tie, nz)
@@ -253,13 +255,14 @@ def engine_bars_from_uniforms(u: torch.Tensor, layout: EngineLayout, *,
     lanes]: (PathBars f32[P, W] with volumes, tie f32[P, W], noise normals
     f32[4, P, W] or None), path p = block * 8 * lanes + s * lanes + j.  For
     replaying them through ``sim.enginepath.engine_path_replay``.  A book
-    symbol's bars mix the market normals of ``market_uniforms`` f32[nb, W, 8,
-    lanes] with loading ``beta`` into its own."""
+    symbol's bars (``layout.book``) take the market's draws of
+    ``market_uniforms`` f32[nb, u_rows, 8, lanes] (``ops/draws.MarketLayout``)
+    with loading ``beta``, as ``ops/cuda_gated.gated_bars_from_uniforms``'."""
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
     nb, _, sub, lanes = u.shape
     cols = {k: [] for k in ("open", "high", "low", "close", "volume", "tie", "nz")}
     market = (None if market_uniforms is None
-              else (market_normals(market_uniforms, antithetic), f32(beta)))
+              else (book_market(market_uniforms, antithetic, sampler), f32(beta)))
     for _, log_open, high, low, c, v, tie, nz in _bars(
             u, layout, antithetic, consts(s0, mu, sigma, dt), vc, market, sampler):
         for k, x in (("open", torch.exp(log_open)), ("high", high), ("low", low),
@@ -460,6 +463,26 @@ def _corr_library() -> ctypes.CDLL:
         lib.qmmx_mc_engine_corr.argtypes = [vp, vp, ci, ci, ci, vp, vp, ctypes.c_uint, vp, vp,
                                             vp, vp, ci, vp]
         lib.qmmx_mc_engine_corr.restype = ci
+        _BOUND.add(id(lib))
+    return lib
+
+
+def _corr_sampler_library() -> ctypes.CDLL:
+    """The book sampler kernel's library (``ops/csrc/mc_engine_corr_samplers.cu``,
+    its own build of ``mc_engine.cuh``), built at first use, with its C
+    signature set; the engine library's struct-layout check first."""
+    _library()
+    lib = build.load(_SOURCE + "_corr_samplers")
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_engine_corr_sampler_args_size.argtypes = []
+        lib.qmmx_engine_corr_sampler_args_size.restype = ci
+        lib.qmmx_mc_engine_corr_sampler.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp,
+                                                    ctypes.c_uint, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_corr_sampler.restype = ci
+        if lib.qmmx_engine_corr_sampler_args_size() != ctypes.sizeof(SamplerArgs):
+            raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                               "kernel_args.SamplerArgs")
         _BOUND.add(id(lib))
     return lib
 
@@ -916,7 +939,7 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
         out = _sampler_launch(args, samp, levels.max_levels, num_bars,
                               num_paths=paths_per_symbol, ext_ptr=ext_ptr, device=device,
                               per_path=per_path, what=what + "_sampler",
-                              table_rows=cell_sym if samp.resamples else None)
+                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym])
     else:
         out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
                       ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
@@ -1040,30 +1063,32 @@ def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, 
 
 def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, kw: dict, noise, *,
                 paths_per_symbol: int, num_bars: int, lanes: int, antithetic: bool,
-                external_uniforms, market_uniforms, sampler: str, harvest: bool):
+                external_uniforms, market_uniforms, sampler: str, harvest: bool,
+                hist_bars=None, tables=None, block_len: int = 10, heston=None,
+                dt: float = 1.0 / (390.0 * 252.0)):
     """The checks of ``mc_paths_pallas_engine_corr`` (pallas_engine.py:
     3058-3087) and the kernel's envelope (<= 8 levels, an even horizon of at
-    most 61 bars); returns (layout, market layout, ``symbol_columns``)."""
-    if sampler != "gbm":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
-                                  "kernel (the books' samplers are the next slice); the "
-                                  "port's books run gbm")
+    most 61 bars); returns (layout, market layout, ``symbol_columns``, the
+    book's ``Sampler`` as ``ops/cuda_gated._check_corr``'s, Heston at mu 0,
+    pallas_engine.py:3100)."""
     if harvest:
         raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
                                   "with models/harvest.py)")
     cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
+    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (ENGINE_SUB * lanes)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=0.0, dt=dt, symbols=n_sym, shared=True)
     layout = _check(seed, grid_row(levels, 0), kw, num_paths=paths_per_symbol,
                     num_bars=num_bars, lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=None)
+                    external_uniforms=None, sampler=samp, book=True)
     if (external_uniforms is None) != (market_uniforms is None):
         raise ValueError("external_uniforms and market_uniforms go together")
-    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (ENGINE_SUB * lanes)
-    mlayout = MarketLayout(num_bars)
+    mlayout = MarketLayout(num_bars, samp.kind)
     check_uniforms(external_uniforms, (n_sym, n_blocks, layout.u_rows, ENGINE_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
     check_uniforms(market_uniforms, (n_blocks, mlayout.u_rows, ENGINE_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
-    return layout, mlayout, cols
+    return layout, mlayout, cols, samp
 
 
 def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, weights, *,
@@ -1074,7 +1099,8 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
                                  antithetic: bool = False, paths_per_symbol: int,
                                  num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
                                  lanes: int = ENGINE_LANES, external_uniforms=None,
-                                 market_uniforms=None, sampler: str = "gbm", device=None,
+                                 market_uniforms=None, sampler: str = "gbm", hist_bars=None,
+                                 tables=None, block_len: int = 10, heston=None, device=None,
                                  chunk_blocks: int = 16, per_path: bool = False):
     """The plain version of the engine book: int64 [S + 1, 151] counts and
     float64 [S + 1, 6] floats (row s symbol s's, row S the book's, whose
@@ -1082,14 +1108,18 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
     per-path rows with ``per_path``.  Symbol s runs as the engine
     universe's symbol s, its price normal mixed with the market's
     (``sim/book.mix_shocks``) before the volume model sees it, and adds its
-    weighted post-bar equity into the book's curve (``sim/book.BookCurve``)."""
+    weighted post-bar equity into the book's curve (``sim/book.BookCurve``);
+    under the other samplers as ``ops/cuda_gated.gated_corr_totals_reference``
+    (a recorded bar brings its recorded volume).  ``sampler`` and its inputs
+    as in ``mc_paths_engine_corr_fused``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
-    layout, mlayout, _ = _check_corr(
+    layout, mlayout, _, samp = _check_corr(
         seed, levels, params, s0, sigma, beta, weights, kw, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     rows = symbol_rows(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     device = devices.resolve(device, external_uniforms)
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
@@ -1100,7 +1130,7 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
         nb = min(chunk_blocks, n_blocks - b0)
         um = (market_uniforms[b0:b0 + nb] if market_uniforms is not None else
               draws_market(seed, mlayout, block0=b0, n_blocks=nb, lanes=lanes, device=device))
-        zm = market_normals(um, antithetic)
+        mk = book_market(um, antithetic, samp)
         book = BookCurve(nb * ENGINE_SUB * lanes, num_bars, device=device)
         for s, (lv, s0_s, sg_s, p, nz, beta_s, w_s) in enumerate(rows):
             if external_uniforms is not None:
@@ -1110,8 +1140,8 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
                                     symbol=s, device=device)
             *part, part_rows = _chunk_engine(u, layout, lv.to(device), p, kw, nz,
                                              consts(s0_s, 0.0, sg_s, dt), vc, antithetic,
-                                             per_path, market=(zm, beta_s), book=book,
-                                             weight=w_s)
+                                             per_path, market=(mk, beta_s), book=book,
+                                             weight=w_s, sampler=samp.row(s))
             tot[s] = merge_totals(tot[s], part)
             if per_path:
                 path_rows_[s].append(part_rows)
@@ -1134,20 +1164,24 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                      paths_per_symbol: int, num_bars: int = 40,
                      dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
                      external_uniforms=None, market_uniforms=None, sampler: str = "gbm",
+                     hist_bars=None, tables=None, block_len: int = 10, heston=None,
                      device=None, per_path: bool = False):
     """Launch the engine book's pass 1 on a CUDA device, one launch of
-    ``mc_engine_corr_kernel``: int64 [S + 1, grid, 151] and f32 [S + 1, grid,
-    6] partial rows (the symbols', then the book's), plus f32[S + 1, P,
-    PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
+    ``mc_engine_corr_kernel`` (or under the other samplers
+    ``mc_engine_corr_sampler_kernel``, symbol s reading its own history or
+    the one every symbol shares): int64 [S + 1, grid, 151] and f32 [S + 1,
+    grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
+    P, PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
     device-memory buffer (the engine's rings already take 25 KB of shared
     memory a CTA)."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
-    layout, _, cols = _check_corr(
+    layout, _, cols, samp = _check_corr(
         seed, levels, params, s0, sigma, beta, weights, kw, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+        hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
                              "engine_corr_rows")
@@ -1165,14 +1199,22 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                               device=device) if per_path else None)
     curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
     bw = book_pairs(cols, device)
-    rc = _corr_library().qmmx_mc_engine_corr(
-        args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr, m_ptr,
-        prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(),
-        part_counts.data_ptr(), part_floats.data_ptr(),
-        path_rows_.data_ptr() if per_path else None, grid,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "mc_engine_corr")
-    LAUNCHES["mc_engine_corr"] += 1
+    tail = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
+            part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    if samp.kind != "gbm":
+        what = "mc_engine_corr_sampler"
+        samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
+        rc = _corr_sampler_library().qmmx_mc_engine_corr_sampler(
+            args_dev.data_ptr(), samp_dev.data_ptr(), bw.data_ptr(), n_sym,
+            SAMPLER_KINDS[samp.kind], levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+    else:
+        what = "mc_engine_corr"
+        rc = _corr_library().qmmx_mc_engine_corr(
+            args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr,
+            m_ptr, *tail)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
     out = (part_counts, part_floats)
     return out + (path_rows_,) if per_path else out
 
@@ -1185,9 +1227,10 @@ def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, we
                                antithetic: bool = False, paths_per_symbol: int,
                                num_bars: int = 40, dt: float = 1.0 / (390.0 * 252.0),
                                lanes: int = ENGINE_LANES, external_uniforms=None,
-                               market_uniforms=None, sampler: str = "gbm", device=None):
+                               market_uniforms=None, sampler: str = "gbm", hist_bars=None,
+                               tables=None, block_len: int = 10, heston=None, device=None):
     """Fused correlated full-engine book, the counterpart of
-    ``mc_paths_pallas_engine_corr`` (gbm, no harvest): ([S] PathStats, the
+    ``mc_paths_pallas_engine_corr`` (no harvest): ([S] PathStats, the
     book's PathStats, int64 [S, 16] skip tables, int64 [S] escalations) from
     one launch, in ``portfolio_mc_engine``'s order.  Symbol s runs the full
     engine under its own [S, L] levels row, s0[s], sigma[s], all engine
@@ -1199,22 +1242,30 @@ def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, we
     ``weights`` per path.  With beta = 0, symbol s equals
     ``mc_paths_engine_universe_fused``'s symbol s (on the card: per path and
     in its counts; in its float sums too up to 2^20 paths a symbol).
-    Injected uniforms are
-    f32[S, blocks, u_rows, 8, lanes] with the market's f32[blocks, W, 8,
-    lanes].  ``device`` as in ``mc_paths_engine_fused``."""
+    ``sampler``, ``hist_bars``, ``tables``, ``block_len`` and ``heston`` as
+    in ``ops/cuda_gated.mc_paths_gated_corr_fused`` (joint recorded days,
+    each symbol's recorded volumes into its volume gates; Heston's variance
+    shock mixed with the market's, its volume from the volume model on the
+    mixed price shock).  Injected uniforms are f32[S, blocks, u_rows, 8,
+    lanes] (``ops/draws.EngineLayout`` in its book form) with the market's
+    f32[blocks, u_rows, 8, lanes].  ``device`` as in
+    ``mc_paths_engine_fused``."""
     kw = dict(policy=policy, ml_model=ml_model, touch_params=touch_params,
               guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
               escalation=escalation, bar0_minute=bar0_minute, volume_model=volume_model,
               noise=noise, harvest=harvest, antithetic=antithetic,
               paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
               external_uniforms=external_uniforms, market_uniforms=market_uniforms,
-              sampler=sampler)
-    _check_corr(seed, levels, params, s0, sigma, beta, weights,
-                engine_knobs(policy, ml_model, touch_params, guard_params,
-                             policy_gate_disabled, escalation, bar0_minute), noise,
-                paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
-                antithetic=antithetic, external_uniforms=external_uniforms,
-                market_uniforms=market_uniforms, sampler=sampler, harvest=harvest)
+              sampler=sampler, block_len=block_len, heston=heston)
+    *_, samp = _check_corr(seed, levels, params, s0, sigma, beta, weights,
+                           engine_knobs(policy, ml_model, touch_params, guard_params,
+                                        policy_gate_disabled, escalation, bar0_minute), noise,
+                           paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
+                           antithetic=antithetic, external_uniforms=external_uniforms,
+                           market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+                           hist_bars=hist_bars, tables=tables, block_len=block_len,
+                           heston=heston, dt=dt)
+    kw["tables"] = samp.tables
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         c, f = engine_corr_totals_reference(seed, levels, params, s0, sigma, beta, weights,

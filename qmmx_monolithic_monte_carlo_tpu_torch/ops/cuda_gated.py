@@ -3,8 +3,8 @@
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067-1565``
 and ``:1825-1971`` (kernel #4, ``_gated_kernel`` with ``_gated_lifecycle_loop``
 and ``_gated_accumulate``, entry ``mc_paths_pallas_gated`` ``:2381-2390``),
-with all four samplers in the single configuration, the sweep and the
-universe; the books run gbm only.
+with all four samplers in the single configuration, the sweep, the
+universe and the correlated book.
 
 * ``mc_paths_gated_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_gated.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -62,7 +62,8 @@ from .kernel_args import (BLOCK, MAX_LEVELS, book_pairs, check_blocks, check_uni
                           grid_rows, grid_size, knob_columns, launch_pointer, SamplerArgs,
                           sampler_args,
                           symbol_columns, symbol_rows, symbol_uniforms)
-from .samplers import Sampler, StreamBars, box_muller, make_sampler, sampler_steps
+from .samplers import (Sampler, StreamBars, box_muller, make_sampler, market_draws,
+                       sampler_steps)
 
 GATED_LANES = 1024       # logical lanes per block row (one block = 8 x lanes paths)
 N_COUNTS = 6             # n, entered, wins, losses, open, trades
@@ -83,7 +84,8 @@ LAUNCHES = {"mc_gated": 0, "mc_gated_reduce_rows": 0, "mc_gated_sweep": 0,
             "mc_gated_sweep_reduce_rows": 0, "mc_gated_universe": 0,
             "mc_gated_universe_reduce_rows": 0, "mc_gated_corr": 0,
             "mc_gated_corr_reduce_rows": 0, "mc_gated_sampler": 0,
-            "mc_gated_sweep_sampler": 0, "mc_gated_universe_sampler": 0}
+            "mc_gated_sweep_sampler": 0, "mc_gated_universe_sampler": 0,
+            "mc_gated_corr_sampler": 0}
 
 
 def reset_launches() -> None:
@@ -115,13 +117,14 @@ class _GatedArgs(ctypes.Structure):
 
 
 def _check(seed, levels, *, num_paths, num_bars, lanes, noise, antithetic,
-           external_uniforms, sampler: Sampler = Sampler()) -> GatedLayout:
-    """The checks of ``_mc_paths_pallas_gated_jit`` (pallas_mc.py:1882-1899)."""
+           external_uniforms, sampler: Sampler = Sampler(), book: bool = False) -> GatedLayout:
+    """The checks of ``_mc_paths_pallas_gated_jit`` (pallas_mc.py:1882-1899);
+    ``book``: a book symbol's layout."""
     check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=GATED_SUB,
                  what="gated")
     if antithetic and sampler.kind != "gbm":
         raise ValueError("kernel antithetic pairs gbm normals only")
-    layout = GatedLayout(num_bars, noise is not None, sampler.kind)
+    layout = GatedLayout(num_bars, noise is not None, sampler.kind, book)
     check_uniforms(external_uniforms,
                    (num_paths // (GATED_SUB * lanes), layout.u_rows, GATED_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
@@ -154,17 +157,19 @@ def gated_bars_from_uniforms(u: torch.Tensor, layout: GatedLayout, *, s0=100.0,
     """The bars the plain version generates from uniforms f32[nb, u_rows, 8,
     lanes]: (PathBars f32[P, W], tie f32[P, W], noise normals f32[4, P, W] or
     None), path p = block * 8 * lanes + s * lanes + j.  For replaying them
-    through ``sim.gatedpath.gated_path_replay``.  A book symbol's bars mix
-    the market normals of ``market_uniforms`` f32[nb, W, 8, lanes] with
-    loading ``beta`` into its own.  A bootstrap ``sampler``'s opens are the
-    recorded ones (bar 0's is the replay's first previous close)."""
+    through ``sim.gatedpath.gated_path_replay``.  A book symbol's bars
+    (``layout.book``) take the market's draws of ``market_uniforms`` f32[nb,
+    u_rows, 8, lanes] (``ops/draws.MarketLayout``): normals mixed with
+    loading ``beta`` into its own, or a bootstrap's index uniforms.  A
+    bootstrap ``sampler``'s opens are the recorded ones (bar 0's is the
+    replay's first previous close)."""
     from .pathgen import PathBars
 
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
     nb, _, sub, lanes = u.shape
     cols = {k: [] for k in ("open", "high", "low", "close", "tie", "nz")}
     market = (None if market_uniforms is None
-              else (market_normals(market_uniforms, antithetic), f32(beta)))
+              else (book_market(market_uniforms, antithetic, sampler), f32(beta)))
     for _, (opens, high, low, c), tie, nz in _gated_bars(
             u, layout, antithetic, market, (drift, sig_dt, log_s0), sampler):
         cols["open"].append(opens)
@@ -194,6 +199,15 @@ def market_normals(um: torch.Tensor, antithetic: bool) -> list:
         z_pair = box_muller(um[:, 2 * t2], um[:, 2 * t2 + 1])
         out.append(_mirror(z_pair, um.shape[-1]) if antithetic else z_pair)
     return out
+
+
+def book_market(um: torch.Tensor, antithetic: bool, sampler: Sampler) -> list:
+    """A book's market draws a double-bar step of its uniforms um
+    (``market_normals``, or ``ops/samplers.market_draws`` under the other
+    samplers), which a symbol's ``market`` pairs with its loading."""
+    if sampler.kind == "gbm":
+        return market_normals(um, antithetic)
+    return market_draws(um, sampler.kind)
 
 
 def _mirror(z_pair, lanes: int):
@@ -233,11 +247,12 @@ def _gated_bars(u, layout: GatedLayout, antithetic: bool, market, cs,
     """Per bar, in order: (t, (open, high, low, close), tie coin, noise
     normals or None), each [nb, 8, lanes], as ``_gated_lifecycle_loop`` draws
     and builds them from uniforms u f32[nb, u_rows, 8, lanes]; bar 0's open
-    is the lifecycle's first previous close (a recorded bar's: its gap)."""
+    is the lifecycle's first previous close (a recorded bar's: its gap); a
+    book symbol's ``market`` as in ``_steps`` or ``sampler_steps``."""
     drift, sig_dt, log_s0 = cs
     if sampler.kind != "gbm":
         stream = StreamBars(sampler, log_s0, u[:, 0].shape, u.device)
-        for t, x, zq, _zv, bridge_u, tie, nz in sampler_steps(u, layout):
+        for t, x, zq, _zv, bridge_u, tie, nz in sampler_steps(u, layout, market):
             _, opens, high, low, c, _vol = stream.bar(t, x, zq, bridge_u)
             yield t, (opens, high, low, c), tie, nz
         return
@@ -502,37 +517,41 @@ def gated_universe_totals_reference(seed, levels: Levels, params, s0, sigma, gat
 
 def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, gate, noise, *,
                 paths_per_symbol: int, num_bars: int, lanes: int, antithetic: bool,
-                external_uniforms, market_uniforms, sampler: str):
-    """The checks of ``_mc_paths_pallas_gated_corr_jit`` (pallas_mc.py:
-    2600-2625) and the kernel's envelope; returns (layout, market layout,
-    the shared gate, ``symbol_columns``)."""
-    if sampler != "gbm":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet for the book "
-                                  "kernel (the books' samplers are the next slice); the "
-                                  "port's books run gbm")
+                external_uniforms, market_uniforms, sampler: str, hist_bars=None,
+                tables=None, block_len: int = 10, heston=None,
+                dt: float = 1.0 / (390.0 * 252.0)):
+    """The checks of ``mc_paths_pallas_gated_corr`` (pallas_mc.py:2600-2625,
+    2717-2734) and the kernel's envelope; returns (layout, market layout, the
+    shared gate, ``symbol_columns``, the book's ``Sampler``: each symbol's
+    recorded history, [S, H] ``hist_bars`` or [S, 5, H] ``tables`` (or one
+    history every symbol shares, [1, 5, H] tables), or Heston's constants
+    at mu 0, pallas_mc.py:2733)."""
     cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     gate = GateConfig.from_params(params) if gate is None else gate
     if grid_len(gate) != 1:
         raise ValueError("the gate knobs are shared by every symbol: scalar leaves")
+    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (GATED_SUB * lanes)
+    samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
+                        heston=heston, mu=0.0, dt=dt, symbols=n_sym, shared=True)
     layout = _check(seed, grid_row(levels, 0), num_paths=paths_per_symbol,
                     num_bars=num_bars, lanes=lanes, noise=noise, antithetic=antithetic,
-                    external_uniforms=None)
+                    external_uniforms=None, sampler=samp, book=True)
     if (external_uniforms is None) != (market_uniforms is None):
         raise ValueError("external_uniforms and market_uniforms go together")
-    n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (GATED_SUB * lanes)
-    mlayout = MarketLayout(num_bars)
+    mlayout = MarketLayout(num_bars, samp.kind)
     check_uniforms(external_uniforms, (n_sym, n_blocks, layout.u_rows, GATED_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
     check_uniforms(market_uniforms, (n_blocks, mlayout.u_rows, GATED_SUB, lanes),
                    antithetic=antithetic, lanes=lanes)
-    return layout, mlayout, gate, cols
+    return layout, mlayout, gate, cols, samp
 
 
 def gated_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, weights,
                                 gate=None, *, paths_per_symbol: int, num_bars: int = 40,
                                 dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES,
                                 noise=None, antithetic: bool = False, external_uniforms=None,
-                                market_uniforms=None, sampler: str = "gbm", device=None,
+                                market_uniforms=None, sampler: str = "gbm", hist_bars=None,
+                                tables=None, block_len: int = 10, heston=None, device=None,
                                 chunk_blocks: int = 16, per_path: bool = False,
                                 work: bool = False):
     """The plain version of the gated book: int64 [S + 1, 134] counts and
@@ -540,14 +559,20 @@ def gated_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, w
     f32[S + 1, P, 6] per-path rows with ``per_path``; then int64 [S] held bars
     with ``work``.  Symbol s runs as ``gated_universe_totals_reference``'s
     symbol s, its normal mixed with the market's (``sim/book.mix_shocks``,
-    market uniforms ``market_uniforms`` f32[blocks, W, 8, lanes] or Philox on
-    the market key), and adds its weighted post-bar equity into the book's
-    curve; the book folds as ``sim/book.BookCurve`` folds."""
-    layout, mlayout, gate, _ = _check_corr(
+    market uniforms ``market_uniforms`` f32[blocks, u_rows, 8, lanes] or
+    Philox on the market key), and adds its weighted post-bar equity into the
+    book's curve; the book folds as ``sim/book.BookCurve`` folds.  Under the
+    bootstrap samplers every symbol replays the recorded bar the market's
+    uniform picks from its own history (joint recorded days); under Heston
+    the market's second pair mixes into its variance shock
+    (``ops/samplers.sampler_steps``); ``sampler`` and its inputs as in
+    ``mc_paths_gated_corr_fused``."""
+    layout, mlayout, gate, _, samp = _check_corr(
         seed, levels, params, s0, sigma, beta, weights, gate, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler)
+        market_uniforms=market_uniforms, sampler=sampler, hist_bars=hist_bars, tables=tables,
+        block_len=block_len, heston=heston, dt=dt)
     rows = symbol_rows(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     device = devices.resolve(device, external_uniforms)
     n_blocks = paths_per_symbol // (GATED_SUB * lanes)
@@ -557,7 +582,7 @@ def gated_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, w
         nb = min(chunk_blocks, n_blocks - b0)
         um = (market_uniforms[b0:b0 + nb] if market_uniforms is not None else
               draws_market(seed, mlayout, block0=b0, n_blocks=nb, lanes=lanes, device=device))
-        zm = market_normals(um, antithetic)
+        mk = book_market(um, antithetic, samp)
         book = BookCurve(nb * GATED_SUB * lanes, num_bars, device=device)
         for s, (lv, s0_s, sg_s, p, nz, beta_s, w_s) in enumerate(rows):
             if external_uniforms is not None:
@@ -567,7 +592,7 @@ def gated_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, w
                                    symbol=s, device=device)
             counts, floats, part_held, part_rows = _chunk_gated(
                 u, layout, lv, p, gate, nz, consts(s0_s, 0.0, sg_s, dt), antithetic,
-                per_path, market=(zm, beta_s), book=book, weight=w_s)
+                per_path, market=(mk, beta_s), book=book, weight=w_s, sampler=samp.row(s))
             tot[s] = merge_totals(tot[s], (counts, floats))
             held[s] = held[s] + part_held
             if per_path:
@@ -650,6 +675,26 @@ def _corr_library() -> ctypes.CDLL:
         lib.qmmx_mc_gated_corr.argtypes = [vp, vp, ci, ci, ci, vp, vp, ctypes.c_uint, vp, vp,
                                            vp, vp, ci, vp]
         lib.qmmx_mc_gated_corr.restype = ci
+        _BOUND.add(id(lib))
+    return lib
+
+
+def _corr_sampler_library() -> ctypes.CDLL:
+    """The book sampler kernel's library (``ops/csrc/mc_gated_corr_samplers.cu``,
+    its own build of ``mc_gated.cuh``), built at first use, with its C
+    signature set; the gated library's struct-layout check first."""
+    _library()
+    lib = build.load(_SOURCE + "_corr_samplers")
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_gated_corr_sampler_args_size.argtypes = []
+        lib.qmmx_gated_corr_sampler_args_size.restype = ci
+        lib.qmmx_mc_gated_corr_sampler.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp,
+                                                   ctypes.c_uint, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_gated_corr_sampler.restype = ci
+        if lib.qmmx_gated_corr_sampler_args_size() != ctypes.sizeof(SamplerArgs):
+            raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                               "kernel_args.SamplerArgs")
         _BOUND.add(id(lib))
     return lib
 
@@ -834,7 +879,7 @@ def gated_universe_rows(seed, levels: Levels, params, s0, sigma, gate=None, *,
         return _sampler_launch(args, samp, levels.max_levels, num_paths=paths_per_symbol,
                                ext_ptr=ext_ptr, device=device, per_path=per_path,
                                what="mc_gated_universe_sampler",
-                               table_rows=range(len(cols["s0"])) if samp.resamples else None)
+                               table_rows=samp.table_rows(len(cols["s0"])))
     return _launch(args, levels.max_levels, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_universe")
 
@@ -855,18 +900,22 @@ def gated_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, gate
                     paths_per_symbol: int, num_bars: int = 40,
                     dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES, noise=None,
                     antithetic: bool = False, external_uniforms=None, market_uniforms=None,
-                    device=None, sampler: str = "gbm", per_path: bool = False):
+                    device=None, sampler: str = "gbm", hist_bars=None, tables=None,
+                    block_len: int = 10, heston=None, per_path: bool = False):
     """Launch the book's pass 1 on a CUDA device, one launch of
-    ``mc_gated_corr_kernel``: int64 [S + 1, grid, 134] and f32 [S + 1, grid,
+    ``mc_gated_corr_kernel`` (or under the other samplers
+    ``mc_gated_corr_sampler_kernel``, symbol s reading its own history or the
+    one every symbol shares): int64 [S + 1, grid, 134] and f32 [S + 1, grid,
     6] partial rows (the symbols', then the book's), plus f32[S + 1, P, 6]
     per-path rows when ``per_path``.  The book curves lie in shared memory,
     or in a device-memory buffer when num_bars x 1 KB passes
     ``MAX_CURVE_SHARED_BYTES``."""
-    layout, _, gate, cols = _check_corr(
+    layout, _, gate, cols, samp = _check_corr(
         seed, levels, params, s0, sigma, beta, weights, gate, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler)
+        market_uniforms=market_uniforms, sampler=sampler, hist_bars=hist_bars, tables=tables,
+        block_len=block_len, heston=heston, dt=dt)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
                              "gated_corr_rows")
@@ -884,14 +933,23 @@ def gated_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, gate
     curve_mem = (torch.empty((num_bars, grid * BLOCK), dtype=torch.float32, device=device)
                  if num_bars * BLOCK * 4 > MAX_CURVE_SHARED_BYTES else None)
     bw = book_pairs(cols, device)
-    rc = _corr_library().qmmx_mc_gated_corr(
-        args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr, m_ptr,
-        prng.stream_key(MARKET_STREAM, 0), None if curve_mem is None else curve_mem.data_ptr(),
-        part_counts.data_ptr(), part_floats.data_ptr(),
-        path_rows.data_ptr() if per_path else None, grid,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "mc_gated_corr")
-    LAUNCHES["mc_gated_corr"] += 1
+    tail = (prng.stream_key(MARKET_STREAM, 0),
+            None if curve_mem is None else curve_mem.data_ptr(), part_counts.data_ptr(),
+            part_floats.data_ptr(), path_rows.data_ptr() if per_path else None, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    if samp.kind != "gbm":
+        what = "mc_gated_corr_sampler"
+        samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
+        rc = _corr_sampler_library().qmmx_mc_gated_corr_sampler(
+            args_dev.data_ptr(), samp_dev.data_ptr(), bw.data_ptr(), n_sym,
+            SAMPLER_KINDS[samp.kind], levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+    else:
+        what = "mc_gated_corr"
+        rc = _corr_library().qmmx_mc_gated_corr(
+            args_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels, num_bars, ext_ptr,
+            m_ptr, *tail)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
     out = (part_counts, part_floats)
     return out + (path_rows,) if per_path else out
 
@@ -1016,10 +1074,11 @@ def mc_paths_gated_corr_fused(seed, levels: Levels, params, s0, sigma, beta, wei
                               gate=None, *, paths_per_symbol: int, num_bars: int = 40,
                               dt: float = 1.0 / (390.0 * 252.0), lanes: int = GATED_LANES,
                               noise=None, antithetic: bool = False, external_uniforms=None,
-                              market_uniforms=None, sampler: str = "gbm",
+                              market_uniforms=None, sampler: str = "gbm", hist_bars=None,
+                              tables=None, block_len: int = 10, heston=None,
                               device=None) -> tuple[PathStats, PathStats]:
     """Fused correlated gated book, the counterpart of
-    ``mc_paths_pallas_gated_corr`` (gbm): ([S] lifecycle PathStats, the
+    ``mc_paths_pallas_gated_corr``: ([S] lifecycle PathStats, the
     book's PathStats) from one launch.  Symbol s runs under its own [S, L]
     levels row, s0[s], sigma[s], knobs (``params`` leaves scalar or [S]),
     noise stds (``noise`` leaves scalar or [S]) and key, the gate knobs
@@ -1030,14 +1089,29 @@ def mc_paths_gated_corr_fused(seed, levels: Levels, params, s0, sigma, beta, wei
     symbol s equals ``mc_paths_gated_universe_fused``'s symbol s (on the
     card: per path and in its counts; in its float sums too up to 2^20 paths
     a symbol, one path a thread, past which a CTA adds its paths chunk by
-    chunk).  Injected
-    uniforms are f32[S, blocks, u_rows, 8, lanes] with the market's
-    f32[blocks, W, 8, lanes].  ``device`` as in ``mc_paths_gated_fused``."""
+    chunk).
+
+    Samplers (``pallas_mc.py:2717-2734``): ``bootstrap`` and
+    ``block_bootstrap`` replay joint recorded days -- the market's uniform
+    picks one recorded bar (or block start) a step for every symbol, each
+    gathering it from its own history (``hist_bars`` [S, H] o/h/l/c/v, or
+    ``tables`` [S, 5, H], or [1, 5, H] for one history every symbol shares)
+    and rebasing it on its own s0; beta is unused and the ties stay the
+    symbol's.  ``heston`` (a dict of v0/kappa/theta/xi/rho, at mu 0) mixes
+    the market's second pair into each symbol's variance shock with the same
+    loading.  Antithetic pairs gbm only.
+
+    Injected uniforms are f32[S, blocks, u_rows, 8, lanes]
+    (``ops/draws.GatedLayout`` in its book form) with the market's
+    f32[blocks, u_rows, 8, lanes] (``ops/draws.MarketLayout``).  ``device``
+    as in ``mc_paths_gated_fused``."""
     kw = dict(paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
               noise=noise, antithetic=antithetic, external_uniforms=external_uniforms,
-              market_uniforms=market_uniforms, sampler=sampler)
-    _check_corr(seed, levels, params, s0, sigma, beta, weights, gate, noise,
-                **{k: v for k, v in kw.items() if k not in ("dt", "noise")})
+              market_uniforms=market_uniforms, sampler=sampler, block_len=block_len,
+              heston=heston)
+    *_, samp = _check_corr(seed, levels, params, s0, sigma, beta, weights, gate,
+                           hist_bars=hist_bars, tables=tables, **kw)
+    kw["tables"] = samp.tables
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
         c, f = gated_corr_totals_reference(seed, levels, params, s0, sigma, beta, weights,

@@ -762,7 +762,7 @@ def universe_rows(seed, levels: Levels, params, s0, sigma, *, paths_per_symbol: 
     if samp.kind != "gbm":
         return _sampler_launch(args, samp, num_bars, num_paths=paths_per_symbol,
                                ext_ptr=ext_ptr, device=device, what="mc_universe_sampler",
-                               table_rows=range(len(rows)) if samp.resamples else None)
+                               table_rows=samp.table_rows(len(rows)))
     return _launch(args, num_bars, num_paths=paths_per_symbol, ext_ptr=ext_ptr,
                    device=device, what="mc_universe")
 

@@ -56,7 +56,12 @@ samplers (``_gated_stride``, ``pallas_mc.py:1052-1064``, ``:1237-1283``):
     k = 0, 1        price Box-Muller pair
     k = 2, 3        variance-shock Box-Muller pair
     k = 4 .. 9      (u3, u4, tie) of each bar
-    k = 10 .. 17    (with noise) the noise draws of the two bars  Injected
+    k = 10 .. 17    (with noise) the noise draws of the two bars
+
+A book symbol's layout (``book=True``, ``pallas_mc.py:1237-1252``) keeps
+these strides; under the bootstrap samplers its index uniforms are market
+rows (``MarketLayout``), shared by every symbol, and its tie coins move to
+k = 0, 1 (k = 2, 3 are drawn and unused).  Injected
 uniforms keep the JAX shape f32[n_blocks, u_rows, 8, lanes]; in Philox mode
 row r of a block is one row of 8·lanes paths on the stream ``GATED_STREAM``,
 so four consecutive rows of a path are the four words of one Philox call.
@@ -81,7 +86,8 @@ other samplers (``_draw_stride``, ``pallas_engine.py:108-144``,
 (stride 4, 12 with noise; a recorded bar brings its own volume); heston
 (stride 12, 20 with noise): price pair (k = 0, 1), volume pair (2, 3),
 variance-shock pair (4, 5), (u3, u4, tie) of each bar (6 .. 11), the noise
-draws from k = 12.  Ten is not a
+draws from k = 12; a book symbol's bootstrap ties on k = 0, 1, as the gated
+book's (``pallas_engine.py:332-349``).  Ten is not a
 multiple of four, so a Philox call (four rows) feeds parts of two steps: the
 kernel keeps the last call's four words and draws a new call only when a row
 leaves them.
@@ -90,16 +96,23 @@ Market factor of a correlated book (``MarketLayout``), the JAX corr kernels'
 shared ``market_uniforms`` (``ops/pallas_mc.py:2484-2489``, ``:2593``;
 ``ops/pallas_engine.py:2780-2784``, ``:3021``): blocks of 8 rows of
 ``lanes`` paths as above, and double-bar step t2 takes market rows
-``2 * t2 + k``:
+``stride * t2 + k``:
 
+    gbm (stride 2):
     k = 0, 1        market Box-Muller (u1, u2): cos drives bar 2·t2, sin bar 2·t2+1
+    bootstrap, block_bootstrap (stride 2):
+    k = 0, 1        index uniforms of bars 2·t2 and 2·t2+1 (joint recorded days:
+                    every symbol replays the same recorded bar; a block bootstrap
+                    draws its block's start at the block's first bar)
+    heston (stride 4):
+    k = 0, 1        market Box-Muller pair of the price shock
+    k = 2, 3        market Box-Muller pair of the variance shock
 
-so ``u_rows = W``.  The rows are drawn on the stream ``MARKET_STREAM`` at
+so ``u_rows = stride * W / 2``.  The rows are drawn on the stream ``MARKET_STREAM`` at
 symbol 0 (``prng.stream_key(STREAM_MARKET, 0)``) for every symbol of the
 book, counted on (column, row // 4, global block) like every other draw, so
-path p sees the same market normals in every symbol.  Injected, they are
-f32[n_blocks, W, 8, lanes], the JAX shape.  (The JAX kernels' Heston
-sampler reads 4 market rows a step; it is not ported yet.)
+path p sees the same market draws in every symbol.  Injected, they are
+f32[n_blocks, u_rows, 8, lanes], the JAX shape.
 
 Block bootstrap keeps the iid layout of every family (its non-start bars
 ignore their index uniform), so the bootstrap samplers' streams align.
@@ -214,9 +227,16 @@ class GatedLayout:
     num_bars: int
     noise: bool = False
     sampler: str = "gbm"
+    book: bool = False
 
     def __post_init__(self):
         _check_bars(self.num_bars, self.sampler)
+
+    @property
+    def k_tie(self) -> int:
+        """k of bar 2·t2's tie coin under the bootstrap samplers (a book's
+        on k = 0: its index uniforms are market rows)."""
+        return 0 if self.book else 2
 
     @property
     def stride(self) -> int:
@@ -261,9 +281,12 @@ class EngineLayout:
     num_bars: int
     noise: bool = False
     sampler: str = "gbm"
+    book: bool = False
 
     def __post_init__(self):
         _check_bars(self.num_bars, self.sampler)
+
+    k_tie = GatedLayout.k_tie
 
     @property
     def stride(self) -> int:
@@ -305,13 +328,14 @@ def engine_uniforms(seed: int, layout: EngineLayout, *, block0: int,
 @dataclasses.dataclass(frozen=True)
 class MarketLayout:
     num_bars: int
+    sampler: str = "gbm"
 
     def __post_init__(self):
-        if self.num_bars <= 0 or self.num_bars % 2:
-            raise ValueError("num_bars must be even and positive "
-                             "(paired Box-Muller draws)")
+        _check_bars(self.num_bars, self.sampler)
 
-    stride = 2
+    @property
+    def stride(self) -> int:
+        return 4 if self.sampler == "heston" else 2
 
     @property
     def u_rows(self) -> int:

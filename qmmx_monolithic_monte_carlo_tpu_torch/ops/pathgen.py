@@ -26,6 +26,10 @@ pipeline's forms.  The fused kernels' forms of the same samplers are in
   Heston closes (the ``lax.scan`` chain) with bridge extremes at each bar's
   own variance; the Philox form draws the price and variance normals as the
   two Box-Muller branches of ``STREAM_PATH``'s rows.
+* ``joint_resample_idx`` / ``heston_log_closes`` / ``heston_bars_from_shocks``
+  — a correlated book's forms (``parallel/portfolio.py:101-167``): the
+  recorded-bar indices every symbol shares, drawn on the market stream, and
+  a symbol's Heston bars from its mixed price and variance shocks.
 
 All arithmetic is float32 in the JAX package's order; the log-price cumsum is
 a serial float32 running sum (``cumsum_f32``), the order the CUDA kernel uses.
@@ -297,7 +301,37 @@ def block_bootstrap_paths(seed: int, block: int, *, num_paths: int, num_bars: in
                                      tables, s0=s0)
 
 
+def joint_resample_idx(seed: int, block: int, *, num_paths: int, num_bars: int, n_hist: int,
+                       block_len: int = 0, device=None) -> torch.Tensor:
+    """int64 [paths, bars] recorded-bar indices a correlated book's symbols
+    share (joint recorded days, ``parallel/portfolio.py:101-112``): one
+    uniform a bar, or a block's start a ``block_len``-bar run, on the
+    market stream (``prng.STREAM_MARKET`` at symbol 0; JAX draws
+    ``randint`` on its market key), as ``bootstrap_paths`` /
+    ``block_bootstrap_paths`` turn uniforms into indices."""
+    if block_len:
+        if n_hist <= block_len:
+            raise ValueError("history shorter than block_len")
+        u = prng.uniform_rows(seed, prng.STREAM_MARKET, block0=block, n_blocks=1,
+                              n_rows=-(-num_bars // block_len), lanes=num_paths,
+                              device=device)[0].T
+        starts = torch.clamp((u * (n_hist - block_len)).to(torch.int64),
+                             max=n_hist - block_len - 1)
+        return block_indices(starts, num_bars, block_len)
+    u = prng.uniform_rows(seed, prng.STREAM_MARKET, block0=block, n_blocks=1, n_rows=num_bars,
+                          lanes=num_paths, device=device)[0].T
+    return torch.clamp((u * n_hist).to(torch.int64), max=n_hist - 1)
+
+
 HESTON_DEFAULTS = dict(v0=0.04, kappa=3.0, theta=0.04, xi=0.6, rho=-0.7)
+
+
+def heston_vector(heston=None) -> torch.Tensor:
+    """f32[5] (v0, kappa, theta, xi, rho), the defaults updated by the dict
+    ``heston`` (``parallel/portfolio.py:170-174``)."""
+    h = dict(HESTON_DEFAULTS)
+    h.update(heston or {})
+    return torch.tensor([h[k] for k in ("v0", "kappa", "theta", "xi", "rho")], dtype=F32)
 
 
 def heston_bars_from_draws(z1, zv, u_hi, u_lo, *, s0, v0: float = 0.04,
@@ -341,6 +375,55 @@ def heston_bars_from_draws(z1, zv, u_hi, u_lo, *, s0, v0: float = 0.04,
     return PathBars(open=torch.exp(log_open), high=torch.exp(log_hi),
                     low=torch.exp(log_lo), close=torch.exp(log_close),
                     volume=torch.zeros_like(z1) if volume is None else volume)
+
+
+def heston_log_closes(z, zq, *, s0, heston=None, mu: float = 0.0,
+                      dt: float = 1.0 / (390.0 * 252.0)):
+    """(log closes, sig_bar) f32[paths, bars] of a book symbol's Heston chain
+    from its mixed price shocks ``z`` and variance shocks ``zq``
+    (``parallel/portfolio.py:131-158``): full-truncation Euler with the
+    constants as float32 values (``heston_vector``), fused as XLA fuses the
+    JAX book under ``jit`` (``1 - rho^2``, ``rho z`` into the shock, the
+    close's and the variance's multiply-adds) and with ``kappa * (theta - v+)
+    * dt`` taken as ``(theta - v+) * f32(kappa * dt)``, the loop-invariant
+    product XLA hoists out of the scan although the constants are traced
+    values there."""
+    z = torch.as_tensor(z, dtype=F32)
+    dev = z.device
+    v0, kappa, theta, xi, rho = heston_vector(heston).to(dev)
+    rho_perp = torch.sqrt(torch.clamp(fma(-rho, rho, 1.0), min=0.0))
+    z2 = fma(rho, z, rho_perp * torch.as_tensor(zq, dtype=F32, device=dev))
+    dtf = torch.tensor(dt, dtype=F32, device=dev)
+    logp = torch.log(torch.as_tensor(s0, dtype=F32, device=dev)).expand(z.shape[0]).clone()
+    v = v0.expand(z.shape[0]).clone()
+    mu_f = torch.tensor(mu, dtype=F32, device=dev)
+    kappa_dt = kappa * dtf
+    closes, sigs = [], []
+    for t in range(z.shape[1]):
+        v_pos = torch.clamp(v, min=0.0)
+        sig_bar = sqrt(v_pos * dtf)
+        logp = fma(sig_bar, z[:, t], fma(mu_f - 0.5 * v_pos, dtf, logp))
+        v = fma(xi * sig_bar, z2[:, t], fma(theta - v_pos, kappa_dt, v))
+        closes.append(logp)
+        sigs.append(sig_bar)
+    return torch.stack(closes, dim=1), torch.stack(sigs, dim=1)
+
+
+def heston_bars_from_shocks(z, zq, u_hi, u_lo, *, s0, heston=None, mu: float = 0.0,
+                            dt: float = 1.0 / (390.0 * 252.0), volume=None) -> PathBars:
+    """A book symbol's Heston bars f32[paths, bars] from its mixed shocks
+    (``heston_log_closes``) and bridge uniforms (``parallel/portfolio.py:
+    131-167``); the bridge extremes use sig_bar^2; ``volume`` defaults to
+    zeros."""
+    log_close, sig_bar = heston_log_closes(z, zq, s0=s0, heston=heston, mu=mu, dt=dt)
+    log_s0 = torch.log(torch.as_tensor(s0, dtype=F32, device=log_close.device))
+    log_open = torch.cat([log_s0.expand(log_close.shape[0], 1), log_close[:, :-1]], dim=1)
+    log_hi, log_lo = bridge_extremes(torch.as_tensor(u_hi, dtype=F32),
+                                     torch.as_tensor(u_lo, dtype=F32),
+                                     log_open, log_close, sig_bar * sig_bar)
+    return PathBars(open=torch.exp(log_open), high=torch.exp(log_hi),
+                    low=torch.exp(log_lo), close=torch.exp(log_close),
+                    volume=torch.zeros_like(log_close) if volume is None else volume)
 
 
 def heston_paths(seed: int, block: int, *, num_paths: int, num_bars: int, s0,

@@ -22,7 +22,10 @@ held against its own JAX counterpart.
   the multiply-adds XLA's CPU compiler fuses under ``jit`` fused
   (``utils/floats.fma``; ``fmaf`` in ``ops/csrc/sampler.cuh``).
 * ``sampler_steps`` / ``StreamBars`` -- the gated and engine loops' draws
-  and streamed bar, bar by bar.
+  and streamed bar, bar by bar; a book symbol's with the market's draws
+  (``pallas_mc.py:1237-1295``): its recorded bar's index from the market's
+  uniform (joint recorded days), or its Heston price and variance normals
+  mixed with the market's (``sim/book.mix_shocks``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from ..sim.book import mix_shocks
 from ..utils import prng
 from ..utils.floats import fma, sqrt
 from .draws import SAMPLERS
@@ -99,15 +103,23 @@ class Sampler:
 
     def row(self, s: int) -> "Sampler":
         """Symbol s's sampler of a universe's (its [5, H] tables); a sampler
-        with one history (or none) is every symbol's."""
+        with one history (or none, or [1, 5, H] tables) is every symbol's."""
         if self.tables is None or self.tables.dim() == 2:
             return self
-        return dataclasses.replace(self, tables=self.tables[s])
+        return dataclasses.replace(self, tables=self.tables[s if len(self.tables) > 1 else 0])
+
+    def table_rows(self, n: int) -> list:
+        """The table each of ``n`` symbols reads (``kernel_args.sampler_args``):
+        its own of [S, 5, H] tables, else the one history's."""
+        if not self.resamples or self.tables.dim() == 2 or len(self.tables) == 1:
+            return [0] * n
+        return list(range(n))
 
 
 def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
                  block_len: int = 10, heston=None, mu: float = 0.0,
-                 dt: float = 1.0 / (390.0 * 252.0), symbols: int | None = None) -> Sampler:
+                 dt: float = 1.0 / (390.0 * 252.0), symbols: int | None = None,
+                 shared: bool = False) -> Sampler:
     """The ``Sampler`` of a fused entry's arguments, with the JAX entries'
     checks (``pallas_mc.py:724-738``, ``:1206-1208``): the bootstrap samplers
     need ``hist_bars`` (a PathBars of 1-D o/h/l/c[/v] arrays) or its
@@ -118,8 +130,9 @@ def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
     A universe of ``symbols`` symbols (``symbols`` given) resamples each
     symbol's own history: ``hist_bars`` of [S, H] arrays (a history that is
     not [S, H] raises, as ``_hist_slab_batched`` does) or [S, 5, H]
-    ``tables`` (``ops/pathgen.universe_tables``); H < 2^24 and H > block_len
-    hold for every symbol's table."""
+    ``tables`` (``ops/pathgen.universe_tables``); a book's symbols
+    (``shared``) may also share one history, [1, 5, H] tables.  H < 2^24
+    and H > block_len hold for every symbol's table."""
     if sampler not in SAMPLERS:
         raise ValueError(f"samplers: {' | '.join(repr(s) for s in SAMPLERS)}")
     if sampler == "heston":
@@ -138,9 +151,11 @@ def make_sampler(sampler: str = "gbm", *, hist_bars=None, tables=None,
         tab = torch.stack([torch.as_tensor(np.asarray(t, np.float32)) if not torch.is_tensor(t)
                            else t.to(_F32).cpu() for t in tables])
     want = 2 if symbols is None else 3
-    what = f"[{HIST_CHANNELS}, H]" if symbols is None else f"[{symbols}, {HIST_CHANNELS}, H]"
+    what = (f"[{HIST_CHANNELS}, H]" if symbols is None
+            else f"[{symbols}{' or 1' if shared else ''}, {HIST_CHANNELS}, H]")
     if (tab.dim() != want or tab.shape[-2] != HIST_CHANNELS
-            or (symbols is not None and tab.shape[0] != symbols)
+            or (symbols is not None and tab.shape[0] not in ((1, symbols) if shared
+                                                             else (symbols,)))
             or not 0 < tab.shape[-1] < MAX_HIST):
         raise ValueError(f"bootstrap tables must be float32 {what} with "
                          f"0 < H < 2^24 (float32 indices), got {tuple(tab.shape)}")
@@ -255,13 +270,28 @@ def box_muller(u1, u2):
     return radius * torch.cos(angle), radius * torch.sin(angle)
 
 
-def sampler_steps(u, layout):
+def market_draws(um: torch.Tensor, sampler: str) -> list:
+    """Per double-bar step, a book's market draws from its market uniforms
+    um f32[nb, u_rows, 8, lanes] (``ops/draws.MarketLayout``): the index
+    uniforms of its two bars (bootstrap), or the (cos, sin) normals of the
+    price pair and of the variance pair (Heston)."""
+    if sampler == "heston":
+        return [(box_muller(um[:, 4 * t2], um[:, 4 * t2 + 1]),
+                 box_muller(um[:, 4 * t2 + 2], um[:, 4 * t2 + 3]))
+                for t2 in range(um.shape[1] // 4)]
+    return [(um[:, 2 * t2], um[:, 2 * t2 + 1]) for t2 in range(um.shape[1] // 2)]
+
+
+def sampler_steps(u, layout, market=None):
     """Per bar of a gated or engine layout (``ops/draws.GatedLayout`` /
     ``EngineLayout``) of a bootstrap or Heston sampler, in order: (t, x, zq,
     zv, (u3, u4) or None, tie, noise normals or None), each [nb, 8, lanes]
     of uniforms u f32[nb, u_rows, 8, lanes], as the JAX loops draw them:
     x is the bar's index uniform (bootstrap) or price normal (Heston), zq
-    its variance normal and zv its volume normal (the engine's Heston)."""
+    its variance normal and zv its volume normal (the engine's Heston).  A
+    book symbol's (``layout.book``) ``market`` = (``market_draws``, beta)
+    gives its index uniforms, or mixes the market's normals into its price
+    and variance normals."""
     heston = layout.sampler == "heston"
     for t2 in range(layout.num_bars // 2):
         def draw(k):
@@ -271,13 +301,19 @@ def sampler_steps(u, layout):
         if heston:
             xs = box_muller(draw(0), draw(1))
             zqs = box_muller(draw(layout.k_shock), draw(layout.k_shock + 1))
+            if market is not None:
+                (zm, zqm), beta = market[0][t2], market[1]
+                xs = tuple(mix_shocks(beta, zm[h], xs[h]) for h in range(2))
+                zqs = tuple(mix_shocks(beta, zqm[h], zqs[h]) for h in range(2))
             kv = layout.k_volume
             zvs = none if kv is None else box_muller(draw(kv), draw(kv + 1))
             kb = layout.k_bridge
             bridges = ((draw(kb), draw(kb + 1)), (draw(kb + 3), draw(kb + 4)))
             ties = (draw(kb + 2), draw(kb + 5))
         else:
-            xs, zqs, zvs, bridges, ties = (draw(0), draw(1)), none, none, none, (draw(2), draw(3))
+            xs = (draw(0), draw(1)) if market is None else market[0][t2]
+            zqs, zvs, bridges = none, none, none
+            ties = (draw(layout.k_tie), draw(layout.k_tie + 1))
         for half in range(2):
             nz = None
             if layout.noise:
