@@ -94,15 +94,15 @@ Phases (any failure exits non-zero and prints no result line):
    in phase 6; Philox at 2^22 a symbol, each symbol equal to the single
    kernel bit for bit (per path included), the plain version on the card
    equal to the kernel on every path, at three symbols and on config #4's
-   100 symbols at 2^16 paths a symbol; ``mc_paths_gated_universe_fused`` on
+   first 10 symbols at 2^16 paths a symbol; ``mc_paths_gated_universe_fused`` on
    config #4's universe with its launches;
 17. engine universe (``mc_engine_sweep_kernel``, a row per symbol, the sweep
    of universes at one grid row): injected uniforms path by path with [S]
    knobs (proximity, paddings, q_min) and noise stds, every differing path
    traced as in phase 9; Philox, each symbol equal to the single kernel bit
    for bit at 2^22 and to the plain version on the card on every path at
-   2^20, and config #4's 100 symbols equal to the plain version on the card
-   on every path at 2^16 a symbol; BASELINE config #4 through
+   2^20, and config #4's first 10 symbols equal to the plain version on the
+   card on every path at 2^16 a symbol; BASELINE config #4 through
    ``mc_paths_engine_universe_fused``, one
    warm-up then timed, with its launches; then the per-symbol refresh
    (``universe_policy_refresh``) on run_all.py's [100, 64, 4] float32 shapes
@@ -128,9 +128,9 @@ Phases (any failure exits non-zero and prints no result line):
    the book combines them); Philox at
    2^20 a symbol, every symbol at beta 0 equal to the gated universe kernel
    (#5) bit for bit, per path included, and a one-symbol book of weight 1
-   equal to its symbol; on the main path's inputs at 2^16 paths a symbol the
-   plain version on the card equal to the kernel on every path, symbols and
-   book; the kernel alone at the main-path size (the curves in shared
+   equal to its symbol; on the main path's inputs (the book of its first 10
+   symbols) at 2^16 paths a symbol the plain version on the card equal to the
+   kernel on every path, symbols and book; the kernel alone at the main-path size (the curves in shared
    memory), and the fold; the port CLI's ``book
    --backend cuda`` at the main-path size, launch counts set to 0 just
    before and read just after (one ``mc_gated_corr`` and one fold a run,
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero and prints no result line):
    cents-rounded closes, opening gaps, highs and lows beyond open and close,
    nonzero volumes) written from a seed:
 21. first contact (``mc_first_contact_sampler_kernel``, mc_first_contact_samplers.cu): for
-   each sampler, injected uniforms at 2^16 paths (and with execution noise
+   each sampler, injected uniforms at 2^16 paths (the engine's at 2^15; and with execution noise
    for bootstrap and Heston), kernel vs plain on CPU copies on totals;
    Philox at 2^22, kernel vs plain on the card, both timed; the kernel
    alone at 2^28 x 40 with its bound; the port CLI's ``paths --backend cuda
@@ -178,7 +178,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``mc_paths_sweep_fused``; launch counts set to 0 just before each main
    path and read just after (one sampler launch and one fold a run);
 25. gated: the same with and without noise ([S] and [G] stds), path by path,
-   every differing injected path traced as in phase 6; ``sweep --gated`` at
+   every differing injected path traced as in phase 6, config #4's first 10
+   symbols against the plain version on the card; ``sweep --gated`` at
    2^26 x 18 rows (``--touch-limits 2 4``);
 26. engine: the same with the engine's two budgets, every differing path
    traced as in phase 9, config #4's first 10 symbols against the plain
@@ -197,8 +198,9 @@ Phases (any failure exits non-zero and prints no result line):
    by path, symbols and the book, every differing path traced (as in phase
    19); Philox at 2^16 a symbol against the plain version on the card path
    by path; swapping two symbols' histories swaps their rows bit for bit,
-   and one shared [1, 5, H] table equals its copies; the main path's 100
-   symbols at 2^16 against the plain version on the card path by path; the
+   and one shared [1, 5, H] table equals its copies; the book of the main
+   path's first 10 symbols at 2^16 against the plain version on the card
+   path by path; the
    kernel alone at 100 x 2^20; the port CLI's ``book --backend cuda
    --sampler ...`` at 100 x 2^20 x 40 on the CSV history, launch counts set
    to 0 just before and read just after (one sampler launch and one fold a
@@ -206,7 +208,31 @@ Phases (any failure exits non-zero and prints no result line):
 28. engine book (``mc_engine_corr_sampler_kernel``, mc_engine_corr_samplers.cu):
    the same with the engine's two budgets, the plain version on the card on
    the main path's first 10 symbols (launch-bound a symbol at a time), and
-   ``book --engine``.
+   ``book --engine``;
+   the engine's envelope (the envelope kernels ``mc_engine_wide*.cu``, where
+   the parents take at most 8 levels and an even W <= 61), at the reference's
+   30-level session shape (``env_ladder``) over a trading day of 390 bars:
+29. gbm (``mc_engine_wide_kernel``, mc_engine_wide.cu): injected uniforms,
+   kernel vs plain on CPU copies path by path, every differing path traced
+   and an agreeing path held to 16 price ulps a trade, at 30 levels x 40
+   bars, 64 x 16, 8 x 62, 8 x 63 with noise and antithetic, 3 x 25 and 30 x
+   390 (2^14 paths); Philox at 30 x 390 x 2^16, kernel equal to the plain
+   version on the card on every path; the envelope kernel forced to run at 3
+   levels x 40 bars equal to the parent kernel bit for bit at 2^20; the
+   sweep's 18 rows (3 x 3 x jitter 0, 0.02) and 8 universe symbols (each its
+   own 30-level ladder) at 30 x 390 each equal to its one-row launch bit for
+   bit; the port CLI's ``paths --engine --backend cuda`` on a 30-level DB at
+   390 bars x 2^24 paths and ``sweep --engine`` at 2^20 x 18 rows, launch
+   counts set to 0 just before and read just after (the envelope kernel and
+   the fold once a run, nothing else), the kernel alone timed;
+30. the samplers and books (``mc_engine_wide_sampler_kernel``,
+   ``mc_engine_wide_corr_kernel``): bootstrap, block bootstrap and Heston at
+   30 x 390 on a recorded year and at W 25 with noise, injected (CPU copies,
+   traced) and Philox (the card, every path); ``paths --engine --sampler``
+   at 2^24 x 390; the books under gbm and the three samplers at 10 symbols x
+   30 levels x 390 bars x 2^20 a symbol through ``mc_paths_engine_corr_fused``
+   (warm-up then timed, its launches), every symbol and the book equal to
+   the plain version on the card on every path at 2^14 a symbol.
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
@@ -237,7 +263,9 @@ whose first-fail reasons alone differ.  Every differing path of an injected
 comparison is traced (as in phase 6) before either budget is applied.  Each
 skip counter's total within W times the number of differing paths (a path
 moves at most one reason a bar, so 0 where no path differs) and
-escalations within F.
+escalations within F.  Past NUM_BARS = 40 bars (phases 29-30) a path meets
+its decisions on more bars, and the budgets grow with the horizon: F = 2 +
+paths/1024 x ceil(W / 40).
 Sweeps (phases 12-14): each row under its family's rules above; a row of a
 sweep kernel and the single-configuration launch under that row's knobs:
 equal, bit for bit.  Universes (phases 15-18): each symbol (or cell) under
@@ -433,34 +461,37 @@ def gated_ops(n_paths: float, held: float, trades: float) -> dict:
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
 
 
-def engine_gate_divs(counts, scale: float) -> float:
+def engine_gate_divs(counts, scale: float, num_bars: int = NUM_BARS) -> float:
     """The divisions of the gates a configuration reached (the confidence
     division past the contact latch, the slope's 3 past the veto, one a
     close), from the plain version's int64 totals ``counts`` on a sample,
     scaled by ``scale``."""
     c = [float(x) for x in counts]
     skips = c[7:23]
-    reached7 = (c[0] * NUM_BARS - sum(skips[:5])) * scale
+    reached7 = (c[0] * num_bars - sum(skips[:5])) * scale
     reached10 = reached7 - sum(skips[5:11]) * scale
     return reached7 + 3 * reached10 + (c[2] + c[3]) * scale
 
 
-def engine_ops(n_paths: float, counts, scale: float) -> dict:
+def engine_ops(n_paths: float, counts, scale: float, num_bars: int = NUM_BARS,
+               n_levels: int = 0) -> dict:
     """A floor on the engine kernel's operations (no noise) for ``n_paths``
-    paths of NUM_BARS bars, from the plain version's int64 totals ``counts``
+    paths of ``num_bars`` bars, from the plain version's int64 totals ``counts``
     (n, entered, wins, losses, open, trades, escalations, 16 skips, ...) on a
     sample, scaled by ``scale``.  Every bar: the close, bridge high/low and
     volume (3 logf, 3 sqrtf, 4 expf, half of two sincosf pairs), 4 divisions
     (minute of day, volume coupling, two minute-close MAs) and the guard's
     MAs once defined; a bar that reaches the contact latch adds the
     confidence division, one that reaches the veto the slope's 3; a close,
-    the R division.  ~100 float32 operations of logic a bar besides."""
-    bars = n_paths * NUM_BARS
-    guard_divs = n_paths * sum((t + 1 >= 5) + (t + 1 >= 20) for t in range(NUM_BARS))
+    the R division.  ~100 float32 operations of logic a bar besides, and
+    with ``n_levels`` (the envelope kernels, which count them) the nearest
+    level's search over every level a bar (3 operations a level)."""
+    bars = n_paths * num_bars
+    guard_divs = n_paths * sum((t + 1 >= 5) + (t + 1 >= 20) for t in range(num_bars))
     logf, sqrtf, expf = 3 * bars, 3 * bars, 4 * bars
-    div = 4 * bars + guard_divs + engine_gate_divs(counts, scale)
-    philox = n_paths * math.ceil(10 * NUM_BARS / 2 / 4)   # 10 rows a step, 4 a call
-    f32 = logf + sqrtf + expf + 2 * bars + div + 100 * bars
+    div = 4 * bars + guard_divs + engine_gate_divs(counts, scale, num_bars)
+    philox = n_paths * math.ceil(10 * num_bars / 2 / 4)   # 10 rows a step, 4 a call
+    f32 = logf + sqrtf + expf + 2 * bars + div + 100 * bars + 3 * n_levels * bars
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
 
 
@@ -604,7 +635,8 @@ def compare(name: str, want, got, n_paths: int, quiet: bool = False, ties=None,
 
 
 def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
-                      trace=None, quiet: bool = False, tie_ulp: float | None = None):
+                      trace=None, quiet: bool = False, tie_ulp: float | None = None,
+                      num_bars: int = NUM_BARS):
     """Hold gated (or, with ``engine``, engine) kernel output ``got`` against
     the plain version's ``want`` (both (int64 counts, float64 floats, f32[P,
     6] per-path rows; the engine's counts carry escalations and 16 skip
@@ -623,7 +655,8 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
 
     wc, wf, wr = (t.cpu() for t in want[:3])
     gc, gf, gr = (t.cpu() for t in got[:3])
-    flips = 2 + n_paths // 1024
+    # a path meets its decisions bar by bar: F per NUM_BARS bars of horizon
+    flips = 2 + n_paths // 1024 * max(1, -(-num_bars // NUM_BARS))
     hist = 23 if engine else 6
     bad = []
     if int(gc[0]) != int(wc[0]) or int(wc[0]) != n_paths:
@@ -676,9 +709,9 @@ def compare_lifecycle(name: str, want, got, n_paths: int, engine: bool = False,
         if abs(int(gc[6]) - int(wc[6])) > flips:
             bad.append(f"escalations {int(gc[6])} vs {int(wc[6])} (budget {flips})")
         d_skips = (gc[7:23] - wc[7:23]).abs()
-        if int(d_skips.max()) > NUM_BARS * n_differ:
+        if int(d_skips.max()) > num_bars * n_differ:
             bad.append(f"skip counters differ by {d_skips.tolist()} "
-                       f"(budget {NUM_BARS * n_differ})")
+                       f"(budget {num_bars * n_differ})")
         if not torch.equal(gc[7:23], gr[:, 7:23].to(torch.int64).sum(dim=0)):
             bad.append("the kernel's skip totals differ from its per-path skip counts")
         extra = (f" escalations {int(gc[6])}/{int(wc[6])}; skip counters "
@@ -708,10 +741,12 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.cuda_engine import path_rows
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.regular import GUARD_WINDOW_BARS
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import (
         EngineLifecycle, skip_columns)
 
-    life = EngineLifecycle(bars.open[:, 0].to(device), levels, params, noise=noise, **kw)
+    life = EngineLifecycle(bars.open[:, 0].to(device), levels, params, noise=noise,
+                           windowed=bars.close.shape[1] > GUARD_WINDOW_BARS, **kw)
     ints, skips, equity, prices = [], 0, [], []
     for t in range(bars.close.shape[1]):
         cols = (bars.high, bars.low, bars.close, bars.volume, tie)
@@ -728,7 +763,8 @@ def engine_trace(bars, tie, nzs, levels, params, kw, noise, device):
 
 def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, gates,
                        sigma, noise, antithetic, dev, s0: float = 100.0,
-                       market=None, sampler=None, drift_ok: bool = False) -> dict:
+                       market=None, sampler=None, drift_ok: bool = False,
+                       num_bars: int = NUM_BARS) -> dict:
     """Phase 6's trace for the engine: the plain engine over the bars the
     plain version makes on the CPU (run on the CPU) and over those it makes
     on the card (run on the card).  For every differing path the card run
@@ -749,7 +785,7 @@ def trace_engine_flips(name, u, differ, kernel_rows, cpu_rows, levels, params, g
     if idx.numel() == 0:
         return {"paths": 0}
     sampler = Sampler() if sampler is None else sampler
-    layout = EngineLayout(NUM_BARS, noise is not None, sampler.kind, market is not None)
+    layout = EngineLayout(num_bars, noise is not None, sampler.kind, market is not None)
     kw = engine_knobs(**gates)
     runs = []
     for src, where in ((u, torch.device("cpu")), (u.to(dev), dev)):
@@ -957,18 +993,22 @@ def launch_counts() -> dict:
     return {k: v for m in (cuda_mc, cuda_gated, cuda_engine) for k, v in m.LAUNCHES.items()}
 
 
+CLI_RUNS = 2      # a CLI main path: one warm-up, one timed run (paths --engine in 29: two)
+
+
 def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = None,
-            unit: str = None) -> tuple[list, list, dict]:
-    """The CLI four times (one warm-up, three timed), the launch counts set to
-    0 just before and read just after; the kernels named in ``expect`` must
-    have been launched exactly that often and no other kernel at all.
-    ``work`` counts what a run simulates (default: paths x output rows).
-    Returns (the last run's JSON lines, seconds, the counts of ``expect``)."""
+            unit: str = None, runs: int = CLI_RUNS) -> tuple[list, list, dict]:
+    """The CLI ``runs`` times (one warm-up, then timed), the launch counts
+    set to 0 just before and read just after; the kernels named in
+    ``expect`` (their counts a run) must have been launched exactly that
+    often a run and no other kernel at all.  ``work`` counts what a run
+    simulates (default: paths x output rows).  Returns (the last run's JSON
+    lines, seconds, the counts of ``expect``)."""
     import torch
 
     reset()
     secs = []
-    for _ in range(4):
+    for _ in range(runs):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -982,6 +1022,7 @@ def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = Non
     log(f"  cli output: {json.dumps(lines[-1])}" + (f" (last of {len(lines)} rows)"
                                                     if len(lines) > 1 else ""))
     log(f"  launches in the main-path runs: { {k: v for k, v in counts.items() if v} }")
+    expect = {k: v * runs for k, v in expect.items()}
     if {k: v for k, v in counts.items() if v} != expect:
         raise AssertionError(f"the main path launched {counts}, not exactly {expect}")
     for out in lines:
@@ -990,7 +1031,7 @@ def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = Non
             raise AssertionError(f"non-finite cli output: {out}")
         if "hit_rate" in out and not 0.0 < out["hit_rate"] < 1.0:
             raise AssertionError(f"hit_rate out of (0, 1): {out}")
-    rep_s = sum(secs[1:]) / 3
+    rep_s = sum(secs[1:]) / (runs - 1)
     work = work or (n_paths or MAIN_PATHS) * len(lines)
     unit = unit or ("paths x rows" if len(lines) > 1 else "paths")
     log(f"  cli wall per run: warm-up {secs[0]:.3f} s, reps "
@@ -1034,6 +1075,10 @@ UNI_SYMBOLS = 100          # BASELINE config #4 (benchmarks/run_all.py:147-220)
 UNI_PATHS = 1 << 20        # paths a symbol
 UNI_SIGMA = 0.25
 UNI_SAMPLE_PATHS = 1 << 16    # a symbol: config #4's inputs, kernel vs plain on the card
+# the lifecycles' plain versions on the card are launch-bound a symbol at a
+# time: phases 16-17, 19-20 and 25-28 hold the main path's inputs on its first
+# 10 symbols
+CARD_PLAIN_SYMBOLS = 10
 UNI_ENGINE_PATHS = 1 << 20     # a symbol, for the engine universe's plain on the card
 UNI_SWEEP_PATHS = 1 << 18      # a symbol, for the sweep of universes' plain on the card
 UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:828"
@@ -1361,14 +1406,16 @@ def universe_phases(dev, card, reset) -> list:
         f"equals the kernel on every path; at 3 x {PHILOX_PATHS} paths with noise: kernel "
         f"{g_ms:.3f} ms, bound {g_bound['bound_ms']:.3f} ms {g_bound['bound_parts']}, plain "
         f"{g_plain_ms:.3f} ms; fold {g_red_ms:.4f} ms")
-    main_inputs("the gated universe", f"config #4's {UNI_SYMBOLS} symbols, path by path")
+    n_cmp = CARD_PLAIN_SYMBOLS
+    main_inputs("the gated universe", f"config #4's first {n_cmp} symbols, path by path")
     c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                 noise=None, external_uniforms=None, device=dev, per_path=True)
+    c4s = config4(n_cmp)
     sc, sf, srow, held = cuda_gated.gated_universe_totals_reference(
-        0, c4[0], params, *c4[1:], chunk_blocks=64, work=True, **c4kw)
+        0, c4s[0], params, *c4s[1:], chunk_blocks=64, work=True, **c4kw)
     g_err = max(g_err, same_on_card(
         "gated", (sc, sf, srow), fold(cuda_gated, cuda_gated.gated_universe_rows(
-            0, c4[0], params, *c4[1:], **c4kw)), UNI_SYMBOLS, UNI_SAMPLE_PATHS,
+            0, c4s[0], params, *c4s[1:], **c4kw)), n_cmp, UNI_SAMPLE_PATHS,
         lambda s: f"symbol {s}", engine=False))
     del srow
     log(f"[16] main path: mc_paths_gated_universe_fused, config #4's universe "
@@ -1384,8 +1431,9 @@ def universe_phases(dev, card, reset) -> list:
                                                                **g_main), 2)
     g_main_bound = card.bound(
         bytes_=row_bytes(cuda_gated, UNI_SYMBOLS, UNI_PATHS),
-        **gated_ops(UNI_SYMBOLS * UNI_PATHS, float(held.sum()) * main_scale,
-                    float(sc[:, 5].sum()) * main_scale))
+        **gated_ops(UNI_SYMBOLS * UNI_PATHS,
+                    float(held.sum()) * main_scale * UNI_SYMBOLS / n_cmp,
+                    float(sc[:, 5].sum()) * main_scale * UNI_SYMBOLS / n_cmp))
     log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {g_main_ms:.3f} ms "
         f"({UNI_SYMBOLS * UNI_PATHS / g_main_ms * 1e3:.6e} paths/s), bound "
         f"{g_main_bound['bound_ms']:.3f} ms {g_main_bound['bound_parts']}")
@@ -1467,14 +1515,16 @@ def universe_phases(dev, card, reset) -> list:
         f"equals the kernel on every path; at 3 x {e_paths} paths with noise: kernel "
         f"{e_ms:.3f} ms, bound {e_bound['bound_ms']:.3f} ms {e_bound['bound_parts']}, plain "
         f"{e_plain_ms:.3f} ms; fold {e_red_ms:.4f} ms")
-    main_inputs("the engine universe", f"config #4's {UNI_SYMBOLS} symbols, path by path")
+    n_cmp = CARD_PLAIN_SYMBOLS
+    main_inputs("the engine universe", f"config #4's first {n_cmp} symbols, path by path")
     c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                 external_uniforms=None, device=dev, per_path=True)
+    c4s = config4(n_cmp)
     sc, sf, srow = cuda_engine.engine_universe_totals_reference(
-        0, c4[0], params, *c4[1:], chunk_blocks=512, **c4kw)
+        0, c4s[0], params, *c4s[1:], chunk_blocks=512, **c4kw)
     e_err = max(e_err, same_on_card(
         "engine", (sc, sf, srow), fold(cuda_engine, cuda_engine.engine_universe_rows(
-            0, c4[0], params, *c4[1:], **c4kw)), UNI_SYMBOLS, UNI_SAMPLE_PATHS,
+            0, c4s[0], params, *c4s[1:], **c4kw)), n_cmp, UNI_SAMPLE_PATHS,
         lambda s: f"symbol {s}"))
     del srow
     log(f"[17] main path: BASELINE config #4, mc_paths_engine_universe_fused ({UNI_SYMBOLS} "
@@ -1500,7 +1550,8 @@ def universe_phases(dev, card, reset) -> list:
                                                                  **e_main), 1)
     e_main_bound = card.bound(
         bytes_=row_bytes(cuda_engine, UNI_SYMBOLS, UNI_PATHS),
-        **engine_ops(UNI_SYMBOLS * UNI_PATHS, sc.sum(0).cpu(), main_scale))
+        **engine_ops(UNI_SYMBOLS * UNI_PATHS, sc.sum(0).cpu(),
+                     main_scale * UNI_SYMBOLS / n_cmp))
     log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {e_main_ms:.3f} ms "
         f"({UNI_SYMBOLS * UNI_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
         f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
@@ -1678,13 +1729,13 @@ GATED_CORR_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:2421"
 ENGINE_CORR_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2692"
 
 
-def book_market_ops(n_paths: float, n_sym: int) -> dict:
+def book_market_ops(n_paths: float, n_sym: int, num_bars: int = NUM_BARS) -> dict:
     """The operations a book adds to its symbols' lifecycles, the market
     counted once a path: a Box-Muller pair a double-bar step (logf, sqrtf,
     sincosf; half a Philox call, two rows of four words), the mix and the
     curve's fused multiply-add a symbol and bar, the fold a bar."""
-    pairs = n_paths * NUM_BARS / 2
-    f32 = 4 * pairs + n_paths * NUM_BARS * (n_sym * 4 + 3)
+    pairs = n_paths * num_bars / 2
+    f32 = 4 * pairs + n_paths * num_bars * (n_sym * 4 + 3)
     return dict(f32=f32, sfu=2 * pairs, imul=PHILOX_IMULS * pairs / 2)
 
 
@@ -1903,25 +1954,32 @@ def book_phases(dev, card, reset, cli) -> list:
                                        params, [100.0], [SIGMA], [0.7], [1.0], gate,
                                        paths_per_symbol=n, **dict(gkw, noise=None))),
         BOOK_PATHS)
-    log(f"  on the main path's inputs ({BOOK_SYMBOLS} symbols) at {BOOK_SAMPLE_PATHS} paths a "
-        "symbol, Philox: kernel vs plain on the card, path by path")
+    n_cmp = CARD_PLAIN_SYMBOLS
+    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                                 {"color": "orange", "type": "dashed", "index": 0,
+                                  "price": x + 0.4}] for x in BOOK_S0[:n_cmp]], max_levels=4),
+                params) + tuple(x[:n_cmp] for x in book100[2:])
+    log(f"  on the main path's inputs (its first {n_cmp} symbols, a book of their own) at "
+        f"{BOOK_SAMPLE_PATHS} paths a symbol, Philox: kernel vs plain on the card, path by path")
     skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                noise=None, external_uniforms=None, device=dev, per_path=True)
     (sc, sf, srow, held), g_plain_ms = timed(lambda: cuda_gated.gated_corr_totals_reference(
-        0, *book100, chunk_blocks=64, work=True, **skw))
-    krows = cuda_gated.gated_corr_rows(0, *book100, **skw)
-    g_err = max(g_err, same_on_card("gated book", (sc, sf, srow),
-                                    (*cuda_gated.reduce_rows(krows[0], krows[1]), krows[2]),
-                                    BOOK_SYMBOLS + 1, BOOK_SAMPLE_PATHS, book_row, engine=False))
+        0, *cmp_book, chunk_blocks=64, work=True, **skw))
+    krows = cuda_gated.gated_corr_rows(0, *cmp_book, **skw)
+    g_err = max(g_err, same_on_card(
+        "gated book", (sc, sf, srow), (*cuda_gated.reduce_rows(krows[0], krows[1]), krows[2]),
+        n_cmp + 1, BOOK_SAMPLE_PATHS, lambda i: "the book" if i == n_cmp else f"symbol {i}",
+        engine=False))
     del srow, krows
-    g_sample_ms = cuda_ms(lambda: cuda_gated.gated_corr_rows(0, *book100, **dict(
+    g_sample_ms = cuda_ms(lambda: cuda_gated.gated_corr_rows(0, *cmp_book, **dict(
         skw, per_path=False)), 2)
     main = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
                 external_uniforms=None, device=dev)
     g_main_ms = alone("the gated book kernel",
                       lambda: cuda_gated.gated_corr_rows(0, *book100, **main))
-    g_ops = gated_ops(BOOK_SYMBOLS * BOOK_PATHS, float(held.sum()) * main_scale,
-                      float(sc[:-1, 5].sum()) * main_scale)
+    cmp_scale = main_scale * BOOK_SYMBOLS / n_cmp    # the first symbols' work, for all 100
+    g_ops = gated_ops(BOOK_SYMBOLS * BOOK_PATHS, float(held.sum()) * cmp_scale,
+                      float(sc[:-1, 5].sum()) * cmp_scale)
     for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
         g_ops[k] += v
     g_rows = cuda_gated.gated_corr_rows(0, *book100, **main)
@@ -1933,7 +1991,7 @@ def book_phases(dev, card, reset, cli) -> list:
     g_red_bound = card.bound(bytes_=g_row_bytes + (BOOK_SYMBOLS + 1) * (
         cuda_gated.ROW_COUNTS * 8 + cuda_gated.ROW_FLOATS * 8), f32=0.0, sfu=0.0, imul=0.0)
     log(f"  bound at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: {g_bound['bound_ms']:.3f} ms "
-        f"{g_bound['bound_parts']}; plain on the card at {BOOK_SYMBOLS} x "
+        f"{g_bound['bound_parts']}; plain on the card at {n_cmp} x "
         f"{BOOK_SAMPLE_PATHS} paths {g_plain_ms:.3f} ms (kernel there {g_sample_ms:.3f} ms); "
         f"fold of {BOOK_SYMBOLS + 1} x {grid_size(BOOK_PATHS)} rows {g_red_ms:.4f} ms")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1943,7 +2001,7 @@ def book_phases(dev, card, reset, cli) -> list:
             "betas 0.2..0.8, equal weights)")
         lines, g_secs, g_launches = run_cli(
             cli, db + book_argv(False), reset,
-            {"mc_gated_corr": 4, "mc_gated_corr_reduce_rows": 4},
+            {"mc_gated_corr": 1, "mc_gated_corr_reduce_rows": 1},
             work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
         check_book_output(lines, BOOK_SYMBOLS, False)
         log(f"  book row: {json.dumps(lines[-1])}")
@@ -2048,18 +2106,23 @@ def book_phases(dev, card, reset, cli) -> list:
                                          params, [100.0], [SIGMA], [0.7], [1.0],
                                          paths_per_symbol=n, **dict(ekw, noise=None))),
         BOOK_PATHS)
-    log(f"  on the main path's inputs ({BOOK_SYMBOLS} symbols) at {BOOK_SAMPLE_PATHS} paths a "
-        "symbol, Philox: kernel vs plain on the card, path by path")
+    n_cmp = CARD_PLAIN_SYMBOLS
+    log(f"  on the main path's inputs (its first {n_cmp} symbols, a book of their own) at "
+        f"{BOOK_SAMPLE_PATHS} paths a symbol, Philox: kernel vs plain on the card, path by path")
     skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                noise=None, external_uniforms=None, device=dev, per_path=True)
+    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                                 {"color": "orange", "type": "dashed", "index": 0,
+                                  "price": x + 0.4}] for x in BOOK_S0[:n_cmp]], max_levels=4),
+                params) + tuple(x[:n_cmp] for x in book100[2:])
     (sc, sf, srow), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
-        0, *book100, chunk_blocks=64, **skw))
-    krows = cuda_engine.engine_corr_rows(0, *book100, **skw)
-    e_err = max(e_err, same_on_card("engine book", (sc, sf, srow),
-                                    (*cuda_engine.reduce_rows(krows[0], krows[1]), krows[2]),
-                                    BOOK_SYMBOLS + 1, BOOK_SAMPLE_PATHS, book_row))
+        0, *cmp_book, chunk_blocks=64, **skw))
+    krows = cuda_engine.engine_corr_rows(0, *cmp_book, **skw)
+    e_err = max(e_err, same_on_card(
+        "engine book", (sc, sf, srow), (*cuda_engine.reduce_rows(krows[0], krows[1]), krows[2]),
+        n_cmp + 1, BOOK_SAMPLE_PATHS, lambda i: "the book" if i == n_cmp else f"symbol {i}"))
     del srow, krows
-    e_sample_ms = cuda_ms(lambda: cuda_engine.engine_corr_rows(0, *book100, **dict(
+    e_sample_ms = cuda_ms(lambda: cuda_engine.engine_corr_rows(0, *cmp_book, **dict(
         skw, per_path=False)), 1)
     main = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
                 external_uniforms=None, device=dev)
@@ -2067,8 +2130,8 @@ def book_phases(dev, card, reset, cli) -> list:
                       lambda: cuda_engine.engine_corr_rows(0, *book100, **main))
     sc = sc.cpu()
     e_ops = {"f32": 0.0, "sfu": 0.0, "imul": 0.0}
-    for s in range(BOOK_SYMBOLS):
-        for k, v in engine_ops(BOOK_PATHS, sc[s], main_scale).items():
+    for s in range(n_cmp):       # the first symbols' work, for all 100
+        for k, v in engine_ops(BOOK_PATHS, sc[s], main_scale * BOOK_SYMBOLS / n_cmp).items():
             e_ops[k] += v
     for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
         e_ops[k] += v
@@ -2081,19 +2144,19 @@ def book_phases(dev, card, reset, cli) -> list:
     e_red_bound = card.bound(bytes_=e_row_bytes + (BOOK_SYMBOLS + 1) * (
         cuda_engine.ROW_COUNTS * 8 + cuda_engine.ROW_FLOATS * 8), f32=0.0, sfu=0.0, imul=0.0)
     log(f"  bound at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: {e_bound['bound_ms']:.3f} ms "
-        f"{e_bound['bound_parts']}; plain on the card at {BOOK_SYMBOLS} x "
+        f"{e_bound['bound_parts']}; plain on the card at {n_cmp} x "
         f"{BOOK_SAMPLE_PATHS} paths {e_plain_ms:.3f} ms (kernel there {e_sample_ms:.3f} ms); "
         f"fold of {BOOK_SYMBOLS + 1} x {grid_size(BOOK_PATHS)} rows {e_red_ms:.4f} ms")
-    log(f"  work per path and symbol (first {BOOK_SAMPLE_PATHS} paths): trades "
-        f"{float(sc[:-1, 5].sum()) / BOOK_SAMPLE_PATHS / BOOK_SYMBOLS:.4f}, skips "
-        f"{[round(float(x) / BOOK_SAMPLE_PATHS / BOOK_SYMBOLS, 4) for x in sc[:-1, 7:23].sum(0)]}")
+    log(f"  work per path and symbol (first {BOOK_SAMPLE_PATHS} paths of {n_cmp} symbols): "
+        f"trades {float(sc[:-1, 5].sum()) / BOOK_SAMPLE_PATHS / n_cmp:.4f}, skips "
+        f"{[round(float(x) / BOOK_SAMPLE_PATHS / n_cmp, 4) for x in sc[:-1, 7:23].sum(0)]}")
     with tempfile.TemporaryDirectory() as tmp:
         db = ["--db", os.path.join(tmp, "smoke.db")]
         log(f"[20] main path: cli book --engine --backend cuda, {BOOK_SYMBOLS} symbols x "
             f"{BOOK_PATHS} paths x {NUM_BARS} bars")
         lines, e_secs, e_launches = run_cli(
             cli, db + book_argv(True), reset,
-            {"mc_engine_corr": 4, "mc_engine_corr_reduce_rows": 4},
+            {"mc_engine_corr": 1, "mc_engine_corr_reduce_rows": 1},
             work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
         check_book_output(lines, BOOK_SYMBOLS, True)
         log(f"  book row: {json.dumps(lines[-1])}")
@@ -2109,7 +2172,8 @@ def book_phases(dev, card, reset, cli) -> list:
     out += [entry("mc_engine_corr", ENGINE_CORR_SOURCE, ENGINE_CORR_REPLACES,
                   e_launches["mc_engine_corr"], e_err, e_main_ms, e_plain_ms, e_bound,
                   symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, plain_paths=BOOK_SAMPLE_PATHS,
-                  kernel_ms_at_plain_size=e_sample_ms, cli_s=e_secs[1:]),
+                  plain_symbols=n_cmp, kernel_ms_at_plain_size=e_sample_ms,
+                  cli_s=e_secs[1:]),
             entry("mc_engine_corr_reduce_rows", ENGINE_SOURCE, ENGINE_CORR_REPLACES,
                   e_launches["mc_engine_corr_reduce_rows"], e_red_err, e_red_ms,
                   e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[1]),
@@ -2122,7 +2186,7 @@ def book_phases(dev, card, reset, cli) -> list:
 SAMPLERS = ("bootstrap", "block_bootstrap", "heston")
 SAMPLER_HIST_BARS = 390 * 252      # a year of regular sessions of 1-minute bars
 SAMPLER_BLOCK_LEN = 10
-SAMPLER_INJECT_PATHS = 1 << 16
+SAMPLER_INJECT_PATHS = {"first contact": 1 << 16, "gated": 1 << 16, "engine": 1 << 15}
 FC_SAMPLER_SOURCE = CSRC + "mc_first_contact_samplers.cu"
 GATED_SAMPLER_SOURCE = CSRC + "mc_gated_samplers.cu"
 ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
@@ -2226,24 +2290,25 @@ def gated_sampler_ops(sampler: str, n_paths: float, held: float, trades: float):
             bars + n_paths + 2 * held)
 
 
-def engine_sampler_ops(sampler: str, n_paths: float, counts, scale: float):
+def engine_sampler_ops(sampler: str, n_paths: float, counts, scale: float,
+                       num_bars: int = NUM_BARS, n_levels: int = 0):
     """(operations, gathered values) of the engine sampler kernel (no
     noise): ``engine_ops``' floor with the bar made as the sampler makes it
     (recorded: an expf each for close, high and low, no bridge, no volume
     model, four gathered values; Heston: a second Box-Muller pair a double
     bar and a sqrtf a bar, 12 rows a double bar)."""
-    ops = engine_ops(n_paths, counts, scale)
-    bars = n_paths * NUM_BARS
+    ops = engine_ops(n_paths, counts, scale, num_bars, n_levels)
+    bars = n_paths * num_bars
     if sampler == "heston":
         ops["sfu"] += bars + bars                         # the shock pair, sig_bar
         ops["f32"] += 10 * bars
-        ops["imul"] = PHILOX_IMULS * n_paths * math.ceil(12 * NUM_BARS / 2 / 4)
+        ops["imul"] = PHILOX_IMULS * n_paths * math.ceil(12 * num_bars / 2 / 4)
         return ops, 0.0
     # no bridge (3 logf + 3 sqrtf a bar less 1 of each for the volume pair),
     # one expf fewer, no minute-of-day or coupling division
     ops["sfu"] -= 6 * bars + bars + 2 * bars
     ops["f32"] -= 6 * bars + bars + 2 * bars + 2 * bars
-    ops["imul"] = PHILOX_IMULS * n_paths * NUM_BARS / 2
+    ops["imul"] = PHILOX_IMULS * n_paths * num_bars / 2
     return ops, 4 * bars
 
 
@@ -2326,10 +2391,10 @@ def sampler_phases(dev, card, reset, cli) -> list:
     for family, ph, mod, source, replaces, kname, fold in families:
         lanes = {"first contact": LANES, "gated": GATED_LANES, "engine": ENGINE_LANES}[family]
         block = lanes if family == "first contact" else 8 * lanes
-        n_blocks = SAMPLER_INJECT_PATHS // block
+        n_blocks = SAMPLER_INJECT_PATHS[family] // block
         common = dict(num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=lanes)
         log(f"[{ph}] {family} samplers ({kname}_kernel, {source.split('/')[-1]}): injected "
-            f"uniforms at {SAMPLER_INJECT_PATHS} paths, kernel vs plain on CPU copies"
+            f"uniforms at {SAMPLER_INJECT_PATHS[family]} paths, kernel vs plain on CPU copies"
             + ("" if family == "first contact" else
                ", path by path, every differing path traced"))
 
@@ -2364,7 +2429,7 @@ def sampler_phases(dev, card, reset, cli) -> list:
             u = torch.from_numpy(rng.uniform(
                 1e-9 if family == "first contact" else 1e-6, 1.0,
                 (n_blocks, *layout_rows(s, nz is not None))).astype(np.float32))
-            n = SAMPLER_INJECT_PATHS
+            n = SAMPLER_INJECT_PATHS[family]
             if family == "first contact":
                 want = plain_fn(0, s, n, nz, u, device=torch.device("cpu"))
                 got = mod.reduce_rows(*rows_fn(0, s, n, nz, u.to(dev)))
@@ -2430,7 +2495,7 @@ def sampler_phases(dev, card, reset, cli) -> list:
                 f"paths/s), plain on the card {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
                 f"{b['bound_parts']}; alone at {MAIN_PATHS}: {main_ms:.3f} ms "
                 f"({MAIN_PATHS / main_ms * 1e3:.6e} paths/s), bound {b_main['bound_ms']:.3f} ms")
-            run = cli_runs(family, s, {kname: 4, fold: 4})
+            run = cli_runs(family, s, {kname: 1, fold: 1})
             out = run["out"]
             if family != "first contact" and not out["trades"] >= out["entered"] > 0:
                 raise AssertionError(f"trades < entered: {out}")
@@ -2453,11 +2518,10 @@ ROWS_INJECT_BLOCKS = {"first contact": 4, "gated": 1, "engine": 1}
 ROWS_PLAIN_PATHS = {"first contact": 1 << 20, "gated": 1 << 20, "engine": 1 << 18}
 ROWS_SWEEP_PLAIN_PATHS = {"first contact": 1 << 18, "gated": 1 << 18, "engine": 1 << 16}
 # config #4's main inputs, kernel vs plain on the card (and the bounds' work):
-# paths a symbol, on all its symbols; the engine's plain version is launch-bound
-# a symbol at a time, so the engine takes its first ROWS_ENGINE_SAMPLE_SYMBOLS
-# (every symbol of the full-width launch is held to its one-row launch)
+# paths a symbol, on all its symbols for first contact and on the first
+# CARD_PLAIN_SYMBOLS for the lifecycles (every symbol of the full-width launch
+# is held to its one-row launch)
 ROWS_SAMPLE_PATHS = {"first contact": 1 << 16, "gated": 1 << 16, "engine": 1 << 15}
-ROWS_ENGINE_SAMPLE_SYMBOLS = 10
 ROWS_UNI_SWEEP_SAMPLE_PATHS = 1 << 14
 ROWS_UNI_SWEEP_SAMPLE_SYMBOLS = 2   # of the sweep of universes' 8, kernel vs plain on the card
 # the CLI's grids: 3 x 3 (stop, tp), x touch limits 2, 4 (gated), x level-jitter
@@ -2939,11 +3003,11 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                 f"{NUM_BARS} bars" + ("" if s == "heston" else
                                      f", each symbol its own {SAMPLER_HIST_BARS} bars") + ")")
             c4t = None if s == "heston" else c4_tables
-            n_sample = ROWS_ENGINE_SAMPLE_SYMBOLS if fam.engine else UNI_SYMBOLS
+            n_sample = UNI_SYMBOLS if fam.fc else CARD_PLAIN_SYMBOLS
             c4s = config4(n_sample)
             c4st = None if c4t is None else c4t[:n_sample]
             log(f"  the main path's inputs, config #4's "
-                + (f"first {n_sample}" if fam.engine else f"{n_sample}")
+                + (f"{n_sample}" if fam.fc else f"first {n_sample}")
                 + f" symbols at {pps_sample} paths a symbol: kernel vs plain on the card")
             sample = fam.uni(0, c4s[0], params, *c4s[1:], pps_sample, s, c4st, plain=True,
                              per_path=not fam.fc, work=not fam.engine)
@@ -3042,7 +3106,7 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     lines, secs, launches = run_cli(
                         cli, ["--db", os.path.join(db, "smoke.db")]
                         + rows_sweep_argv(fam_name, s, csv), reset,
-                        {sweep_kname: 4, sweep_fold: 4}, n_paths=n_cli)
+                        {sweep_kname: 1, sweep_fold: 1}, n_paths=n_cli)
                 check_sweep_output(lines, combos, keys)
                 cli_s = secs[1:]
             # every row of the full-width launch against its one-row launch
@@ -3166,17 +3230,17 @@ GATED_CORR_SAMPLER_SOURCE = CSRC + "mc_gated_corr_samplers.cu"
 ENGINE_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_corr_samplers.cu"
 BOOK_SAMPLER_INJECT_BLOCKS = {"gated": 2, "engine": 2}
 BOOK_SAMPLER_PHILOX_PATHS = 1 << 16
-BOOK_ENGINE_SAMPLE_SYMBOLS = 10     # the engine's plain version is launch-bound a symbol
 
 
-def book_sampler_market_ops(sampler: str, n_paths: float, n_sym: int) -> dict:
+def book_sampler_market_ops(sampler: str, n_paths: float, n_sym: int,
+                            num_bars: int = NUM_BARS) -> dict:
     """The operations a sampler book adds to its symbols' sampler
     lifecycles, the market counted once a path: bootstrap, the market's
     index uniforms (a Philox call a path's four rows); Heston, two
     Box-Muller pairs a double-bar step (one Philox call) and the mixes of
     both pairs a symbol and bar; the curve's fused multiply-add a symbol and
     bar, the fold a bar."""
-    bars = n_paths * NUM_BARS
+    bars = n_paths * num_bars
     if sampler == "heston":
         pairs = bars / 2
         return dict(f32=8 * pairs + bars * (n_sym * 6 + 3), sfu=4 * pairs,
@@ -3205,8 +3269,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
     symbols' histories swaps their rows, and one shared [1, 5, H] table
     equals its copies; the CLI's ``book [--engine] --backend cuda --sampler
     S`` at 100 symbols x 2^20 x 40 on a year of 1-minute bars; the main
-    path's kernel against the plain version on the card (the gated book on
-    its 100 symbols at 2^16, the engine's first 10).  Returns their entries
+    path's kernel against the plain version on the card (the book of its
+    first 10 symbols at 2^16).  Returns their entries
     of the ``kernels`` line."""
     import numpy as np
     import torch
@@ -3435,14 +3499,13 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
             log(f"  {s}: history swap swaps rows 0 and 1 bit for bit; [1, 5, H] == "
                 "[3, 5, H] copies bit for bit")
 
-        n_cmp = BOOK_ENGINE_SAMPLE_SYMBOLS if eng else BOOK_SYMBOLS
-        cmp_book = tuple(x[:n_cmp] if isinstance(x, list) else x for x in book100)
-        if eng:
-            cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
-                                          "price": x},
-                                         {"color": "orange", "type": "dashed", "index": 0,
-                                          "price": x + 0.4}] for x in BOOK_S0[:n_cmp]],
-                                       max_levels=4),) + cmp_book[1:]
+        n_cmp = CARD_PLAIN_SYMBOLS
+        cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
+                                      "price": x},
+                                     {"color": "orange", "type": "dashed", "index": 0,
+                                      "price": x + 0.4}] for x in BOOK_S0[:n_cmp]],
+                                   max_levels=4),) + tuple(
+            x[:n_cmp] if isinstance(x, list) else x for x in book100[1:])
         log(f"[{ph}] main path: {BOOK_SYMBOLS} symbols x {BOOK_PATHS} paths x {NUM_BARS} bars "
             f"on the {SAMPLER_HIST_BARS}-bar history; kernel vs plain on the card at "
             f"{BOOK_SAMPLE_PATHS} paths a symbol on {n_cmp} of its symbols")
@@ -3489,7 +3552,7 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
                 log(f"  main path: cli book{' --engine' if eng else ''} --backend cuda "
                     f"--sampler {s}" + ("" if s == "heston" else " --bars-csv (a year)"))
                 lines, secs, launches = run_cli(
-                    cli, argv, reset, {kname: 4, f"mc_{family}_corr_reduce_rows": 4},
+                    cli, argv, reset, {kname: 1, f"mc_{family}_corr_reduce_rows": 1},
                     work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
             check_book_output(lines, BOOK_SYMBOLS, eng)
             log(f"  book row: {json.dumps(lines[-1])}")
@@ -3498,6 +3561,371 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
                                  paths=BOOK_PATHS, plain_symbols=n_cmp,
                                  plain_paths=BOOK_SAMPLE_PATHS,
                                  kernel_ms_at_plain_size=sample_ms, cli_s=secs[1:]))
+    tmp.cleanup()
+    return entries
+
+
+# ---- the engine's envelope (phases 29-30): the reference's recovered
+# 30-level session (qmmx_monolithic.py:2712-2755) over a trading day of
+# 1-minute bars
+ENV_LEVELS = 30
+ENV_BARS = 390
+ENV_PATHS = 1 << 24             # paths --engine at the envelope (the CLI and the kernel alone)
+ENV_PHILOX_PATHS = 1 << 16      # Philox, kernel vs plain on the card
+ENV_DAY_INJECT_BLOCKS = 8       # 30 levels x 390 bars injected: 8 x 8 x 256 = 2^14 paths
+ENV_INJECT_BLOCKS = 2           # the other injected shapes: 4096 paths
+ENV_PARENT_PATHS = 1 << 20      # the envelope kernel against its parent, bit for bit
+ENV_ROW_PATHS = 1 << 16         # sweep rows and universe symbols against one-row launches
+ENV_SWEEP_PATHS = 1 << 20       # sweep --engine at the envelope: 18 rows
+ENV_UNI_SYMBOLS = 8
+ENV_SAMPLER_INJECT_BLOCKS = {ENV_BARS: 1, 25: 2}
+ENV_BOOK_SYMBOLS = 10
+ENV_BOOK_PATHS = 1 << 20
+ENV_BOOK_PLAIN_PATHS = 1 << 14  # a symbol: the book's plain version on the card ...
+ENV_BOOK_PLAIN_SYMBOLS = 2      # ... on the first 2 symbols (launch-bound, ~20 ms a bar-step)
+ENV_SWEEP_PLAIN_ROWS = 1        # the sweep's plain version timed on its first row x 2048 paths
+WIDE_SOURCE = CSRC + "mc_engine_wide.cu"
+WIDE_SAMPLER_SOURCE = CSRC + "mc_engine_wide_samplers.cu"
+WIDE_CORR_SOURCE = CSRC + "mc_engine_wide_corr.cu"
+WIDE_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_wide_corr_samplers.cu"
+WIDE_REPLACES = ENGINE_REPLACES + " (#8-#11)"
+
+
+def env_ladder(n: int, s0: float = 100.0, step: float = 0.12) -> list:
+    """tests/test_engine_envelope.py's n-level ladder around ``s0`` (four
+    colours x solid/dashed, 0.12 apart), as DB rows, cents-rounded."""
+    return [{"color": ("blue", "orange", "black", "teal")[i % 4],
+             "type": "solid" if (i // 4) % 2 == 0 else "dashed", "index": i // 8,
+             "price": round(s0 + (i - n // 2) * step, 2)} for i in range(n)]
+
+
+def envelope_phases(dev, card, reset, cli) -> list:
+    """Phases 29-30: the envelope kernels (``mc_engine_wide*.cu``) at 30
+    levels x 390 bars and the envelope's other shapes.  [29] gbm: injected
+    uniforms against the plain version on CPU copies path by path (30 x 40,
+    64 x 16, 8 x 62, 8 x 63 with noise and antithetic, 3 x 25, 30 x 390 at
+    2^14), every differing path traced; Philox at 30 x 390 x 2^16 against the
+    plain version on the card; the envelope kernel at 3 levels x 40 bars equal
+    to the parent bit for bit at 2^20; the sweep's 18 rows and 8 universe
+    symbols each equal to its one-row launch at 30 x 390; ``paths --engine``
+    at 2^24 and ``sweep --engine`` at 2^20 x 18 rows on a 30-level DB at 390
+    bars.  [30] the samplers at 30 x 390 (a recorded year) and at W 25,
+    injected and Philox, ``paths --engine --sampler`` at 2^24; the books (gbm
+    and the samplers) at 10 symbols x 30 levels x 390 x 2^20 through the
+    Python entry, every symbol and the book against the plain version on the
+    card path by path at 2^14 a symbol.  Returns their ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import db as qdb
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import native
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.samplers import make_sampler
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    CE = cuda_engine
+    params = EngineParams.default()
+    noise = McNoise.make(entry_slip_std=0.01, level_jitter_std=0.02,
+                         stop_slip_std=0.015, target_slip_std=0.015)
+    lv30 = Levels.from_rows(env_ladder(ENV_LEVELS), max_levels=ENV_LEVELS)
+    lanes = ENGINE_LANES
+    row_bytes_1 = grid_size(ENV_PATHS) * (CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4)
+    tmp = tempfile.TemporaryDirectory()
+    db_path = os.path.join(tmp.name, "env.db")
+    conn = qdb.db_connect(db_path)
+    qdb.db_init(conn)
+    qdb.replace_levels(conn, env_ladder(ENV_LEVELS))
+    conn.close()
+    csv = os.path.join(tmp.name, "bars.csv")
+    write_history(csv, SAMPLER_HIST_BARS)
+    cols = native.parse_bars_csv(csv)
+    tables = torch.stack(bootstrap_tables(*(cols[k] for k in "ohlcv")))
+    table_bytes = tables.numel() * 4
+
+    def skw(s):
+        return ({} if s == "gbm" else dict(sampler=s) if s == "heston" else
+                dict(sampler=s, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+
+    def injected(case, n_lv, w, nz, anti, nb, s="gbm", seed=0):
+        """Injected uniforms: the envelope kernel on the card against the
+        plain version on CPU copies, path by path, every differing path
+        traced (a non-gbm ``s`` under its sampler)."""
+        lv = Levels.from_rows(env_ladder(n_lv), max_levels=n_lv)
+        rng = np.random.default_rng(2900 + seed)
+        u = torch.from_numpy(rng.uniform(1e-6, 1.0, (
+            nb, EngineLayout(w, nz is not None, s).u_rows, 8, lanes)).astype(np.float32))
+        n = nb * 8 * lanes
+        kw = dict(num_paths=n, num_bars=w, sigma=SIGMA, dt=DT, lanes=lanes, noise=nz,
+                  antithetic=anti, per_path=True, **skw(s))
+        want = CE.engine_totals_reference(0, lv, params, external_uniforms=u, **kw)
+        name = "mc_engine_wide" + ("" if s == "gbm" else "_sampler")
+        before = CE.LAUNCHES[name]
+        pc, pf, rows = CE.engine_rows(0, lv, params, device=dev, external_uniforms=u.to(dev),
+                                      **kw)
+        got = (*CE.reduce_rows(pc, pf), rows)
+        torch.cuda.synchronize()
+        if CE.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{case}: the launch did not go to {name}")
+        samp = None if s == "gbm" else make_sampler(s, tables=tables,
+                                                    block_len=SAMPLER_BLOCK_LEN)
+        err, _ = compare_lifecycle(
+            case, want, got, n, engine=True, num_bars=w,
+            tie_ulp=r_ulp(max(env_ladder(n_lv), key=lambda r: r["price"])["price"],
+                          float(params.stop_padding)),
+            trace=lambda d: trace_engine_flips(case, u, d, rows.cpu(), want[2].cpu(), lv,
+                                               params, {}, SIGMA, nz, anti, dev,
+                                               sampler=samp, num_bars=w))
+        return err
+
+    def philox(case, lv, w, n, s="gbm", nz=None):
+        """Philox: kernel against the plain version on the card, equal on
+        every path (one device's transcendentals); returns (error, plain ms,
+        the plain version's int64 counts)."""
+        kw = dict(num_paths=n, num_bars=w, sigma=SIGMA, dt=DT, lanes=lanes, noise=nz,
+                  per_path=True, **skw(s))
+        want, plain_ms = timed(lambda: CE.engine_totals_reference(
+            7, lv, params, device=dev, chunk_blocks=n // (8 * lanes), **kw))
+        pc, pf, rows = CE.engine_rows(7, lv, params, device=dev, **kw)
+        got = (*CE.reduce_rows(pc, pf), rows)
+        err, differ = compare_lifecycle(case, want, got, n, engine=True, num_bars=w)
+        if bool(differ.any()):
+            raise AssertionError(f"{case}: kernel and plain on the card differ on "
+                                 f"{int(differ.sum())} paths")
+        return err, plain_ms, want[0].cpu()
+
+    entries = []
+    # ---------------------------------------------------------------- [29]
+    log(f"[29] gbm engine envelope (mc_engine_wide_kernel, mc_engine_wide.cu): injected "
+        "uniforms, kernel vs plain on CPU copies path by path, every differing path traced")
+    err = 0.0
+    for case, n_lv, w, nz, anti, nb in (
+            ("30 levels, W 40", 30, 40, None, False, ENV_INJECT_BLOCKS),
+            ("64 levels, W 16", 64, 16, None, False, ENV_INJECT_BLOCKS),
+            ("8 levels, W 62", 8, 62, None, False, ENV_INJECT_BLOCKS),
+            ("8 levels, W 63, noise, antithetic", 8, 63, noise, True, ENV_INJECT_BLOCKS),
+            ("3 levels, W 25", 3, 25, None, False, ENV_INJECT_BLOCKS),
+            (f"30 levels, W {ENV_BARS}", 30, ENV_BARS, None, False, ENV_DAY_INJECT_BLOCKS)):
+        err = max(err, injected(case, n_lv, w, nz, anti, nb, seed=n_lv + w))
+    log(f"[29] Philox at {ENV_LEVELS} levels x {ENV_BARS} bars x {ENV_PHILOX_PATHS} paths, "
+        "kernel vs plain on the card; the envelope kernel vs its parent at 3 levels x "
+        f"{NUM_BARS} bars x {ENV_PARENT_PATHS} paths")
+    e, plain_ms, counts = philox("philox", lv30, ENV_BARS, ENV_PHILOX_PATHS)
+    err = max(err, e)
+    cli_levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    pkw = dict(num_paths=ENV_PARENT_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+               noise=noise, per_path=True, device=dev)
+    parent = CE.engine_rows(3, cli_levels, params, **pkw)
+    wide = CE.engine_rows(3, cli_levels, params, envelope=True, **pkw)
+    if not all(torch.equal(a, b) for a, b in zip(parent, wide)):
+        raise AssertionError("the envelope kernel differs from its parent where both fit")
+    del parent, wide
+    log("  the envelope kernel == mc_engine_sweep_kernel bit for bit: partial rows and "
+        "every path's row")
+
+    grid18 = [(sp, tp, j) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)
+              for j in (0.0, 0.02)]
+    g_params = params.replace(stop_padding=[c[0] for c in grid18],
+                              tp_padding=[c[1] for c in grid18])
+    jit = torch.tensor([c[2] for c in grid18])
+    g_noise = McNoise(level_jitter_std=jit, entry_slip_std=torch.zeros_like(jit),
+                      stop_slip_std=torch.zeros_like(jit), target_slip_std=torch.zeros_like(jit))
+    rkw = dict(num_paths=ENV_ROW_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+               per_path=True, device=dev)
+    pc, pf, rows = CE.engine_sweep_rows(5, lv30, g_params, noise=g_noise, **rkw)
+    for g in range(len(grid18)):
+        one = CE.engine_rows(5, lv30, grid_row(g_params, g), noise=grid_row(g_noise, g), **rkw)
+        if not (torch.equal(pc[g], one[0]) and torch.equal(pf[g], one[1])
+                and torch.equal(rows[g], one[2])):
+            raise AssertionError(f"sweep row {g} differs from its one-row launch")
+    s0_u = [100.0 + i for i in range(ENV_UNI_SYMBOLS)]
+    lv_u = U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_u], max_levels=ENV_LEVELS)
+    ukw = dict(paths_per_symbol=ENV_ROW_PATHS, num_bars=ENV_BARS, dt=DT, lanes=lanes,
+               per_path=True, device=dev)
+    pc, pf, rows = CE.engine_universe_rows(6, lv_u, params, s0_u, UNI_SIGMA, **ukw)
+    for s in range(ENV_UNI_SYMBOLS):
+        one = CE.engine_rows(6, grid_row(lv_u, s), params, num_paths=ENV_ROW_PATHS,
+                             num_bars=ENV_BARS, s0=s0_u[s], sigma=UNI_SIGMA, dt=DT,
+                             lanes=lanes, per_path=True, device=dev, symbol=s)
+        if not (torch.equal(pc[s], one[0]) and torch.equal(pf[s], one[1])
+                and torch.equal(rows[s], one[2])):
+            raise AssertionError(f"universe symbol {s} differs from its one-row launch")
+    del pc, pf, rows, one
+    log(f"  the sweep's {len(grid18)} rows (3 x 3 x jitter 0, 0.02) and {ENV_UNI_SYMBOLS} "
+        f"universe symbols (each its own {ENV_LEVELS}-level ladder) at {ENV_BARS} bars x "
+        f"{ENV_ROW_PATHS} paths each equal their one-row launch bit for bit, per path included")
+
+    log(f"[29] main path: cli paths --engine --backend cuda on a {ENV_LEVELS}-level DB at "
+        f"--num-bars {ENV_BARS}, --num-paths {ENV_PATHS}")
+    argv = ["--db", db_path, "paths", "--engine", "--backend", "cuda", "--num-paths",
+            str(ENV_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA)]
+    (out,), secs, launches = run_cli(cli, argv, reset,
+                                     {"mc_engine_wide": 1, "mc_engine_reduce_rows": 1},
+                                     n_paths=ENV_PATHS, runs=3)
+    if out["paths"] != float(ENV_PATHS) or not out["trades"] >= out["entered"] > 0:
+        raise AssertionError(f"unexpected path counts: {out}")
+    kw1 = dict(num_paths=ENV_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+               device=dev)
+    main_ms = cuda_ms(lambda: CE.engine_rows(0, lv30, params, **kw1), 2)
+    bound = card.bound(bytes_=row_bytes_1, **engine_ops(
+        ENV_PATHS, counts, ENV_PATHS / ENV_PHILOX_PATHS, ENV_BARS, ENV_LEVELS))
+    log(f"  kernel alone at {ENV_PATHS} paths x {ENV_BARS} bars x {ENV_LEVELS} levels: "
+        f"{main_ms:.3f} ms ({ENV_PATHS / main_ms * 1e3:.6e} paths/s), bound "
+        f"{bound['bound_ms']:.3f} ms {bound['bound_parts']}; plain on the card at "
+        f"{ENV_PHILOX_PATHS}: {plain_ms:.3f} ms")
+    entries.append(entry("mc_engine_wide", WIDE_SOURCE, WIDE_REPLACES,
+                         launches["mc_engine_wide"], err, main_ms, plain_ms, bound,
+                         paths=ENV_PATHS, num_bars=ENV_BARS, levels=ENV_LEVELS,
+                         plain_paths=ENV_PHILOX_PATHS, cli_s=secs[1:]))
+
+    log(f"[29] main path: cli sweep --engine --backend cuda on the {ENV_LEVELS}-level DB, "
+        f"--num-bars {ENV_BARS}, --num-paths {ENV_SWEEP_PATHS}, --jitter-stds 0 0.02 (18 rows)")
+    argv = ["--db", db_path, "sweep", "--engine", "--backend", "cuda", "--num-paths",
+            str(ENV_SWEEP_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA),
+            "--jitter-stds", "0", "0.02"]
+    lines, secs, launches = run_cli(
+        cli, argv, reset, {"mc_engine_wide_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
+        n_paths=ENV_SWEEP_PATHS)
+    if len(lines) != len(grid18):
+        raise AssertionError(f"{len(lines)} sweep rows, not {len(grid18)}")
+    skw_ = dict(num_paths=ENV_SWEEP_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+                device=dev)
+    sweep_ms = cuda_ms(lambda: CE.engine_sweep_rows(0, lv30, g_params, noise=g_noise, **skw_), 1)
+    # the plain sweep is launch-bound a row at a time (~20 ms a bar-step): timed on its
+    # first rows, whose work counts (a row's gates) stand for every row's in the bound
+    n_pl, r_pl = 8 * lanes, ENV_SWEEP_PLAIN_ROWS
+    pl_grid = params.replace(stop_padding=g_params.stop_padding[:r_pl],
+                             tp_padding=g_params.tp_padding[:r_pl])
+    pl_noise = McNoise(level_jitter_std=jit[:r_pl], entry_slip_std=torch.zeros(r_pl),
+                       stop_slip_std=torch.zeros(r_pl), target_slip_std=torch.zeros(r_pl))
+    s_plain, s_plain_ms = timed(lambda: CE.engine_sweep_totals_reference(
+        0, lv30, pl_grid, noise=pl_noise, num_paths=n_pl, num_bars=ENV_BARS, sigma=SIGMA,
+        dt=DT, lanes=lanes, device=dev))
+    s_bound = card.bound(bytes_=len(grid18) * grid_size(ENV_SWEEP_PATHS) * (
+        CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4), **engine_ops(
+            ENV_SWEEP_PATHS * len(grid18), s_plain[0].sum(0).cpu(),
+            ENV_SWEEP_PATHS * len(grid18) / (n_pl * r_pl), ENV_BARS, ENV_LEVELS))
+    log(f"  kernel alone at {ENV_SWEEP_PATHS} paths x 18 rows: {sweep_ms:.3f} ms "
+        f"({ENV_SWEEP_PATHS * 18 / sweep_ms * 1e3:.6e} paths x rows/s), bound "
+        f"{s_bound['bound_ms']:.3f} ms (every row's bars counted); plain on the card at "
+        f"{n_pl} x {r_pl} rows: {s_plain_ms:.3f} ms")
+    entries.append(entry("mc_engine_wide_sweep", WIDE_SOURCE, ENGINE_SWEEP_REPLACES,
+                         launches["mc_engine_wide_sweep"], err, sweep_ms, s_plain_ms, s_bound,
+                         paths=ENV_SWEEP_PATHS, grid_rows=len(grid18), num_bars=ENV_BARS,
+                         levels=ENV_LEVELS, plain_paths=n_pl, plain_rows=r_pl,
+                         cli_s=secs[1:]))
+
+    # ---------------------------------------------------------------- [30]
+    log(f"[30] engine samplers at the envelope (mc_engine_wide_sampler_kernel, "
+        f"mc_engine_wide_samplers.cu): {ENV_LEVELS} levels at W {ENV_BARS} on the "
+        f"{SAMPLER_HIST_BARS}-bar history and at W 25 with noise; injected uniforms vs "
+        "plain on CPU copies path by path (every differing path traced), Philox vs plain "
+        f"on the card at {ENV_PHILOX_PATHS}; cli paths --engine --sampler at {ENV_PATHS}")
+    for s in SAMPLERS:
+        err = 0.0
+        for w, nz in ((ENV_BARS, None), (25, noise)):
+            case = f"{s}, W {w}" + (", noise" if nz is not None else "")
+            err = max(err, injected(case, ENV_LEVELS, w, nz, False,
+                                    ENV_SAMPLER_INJECT_BLOCKS[w], s=s, seed=len(case)))
+            e, p_ms, p_counts = philox(f"{case}, philox", lv30, w, ENV_PHILOX_PATHS, s=s, nz=nz)
+            err = max(err, e)
+            if w == ENV_BARS:
+                plain_ms, counts = p_ms, p_counts
+        argv = (["--db", db_path, "paths", "--engine", "--backend", "cuda", "--num-paths",
+                 str(ENV_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA),
+                 "--sampler", s] + ([] if s == "heston" else ["--bars-csv", csv])
+                + (["--block-len", str(SAMPLER_BLOCK_LEN)] if s == "block_bootstrap" else []))
+        log(f"  main path: cli paths --engine --backend cuda --sampler {s} at {ENV_PATHS} x "
+            f"{ENV_BARS} on the {ENV_LEVELS}-level DB")
+        (out,), secs, launches = run_cli(
+            cli, argv, reset, {"mc_engine_wide_sampler": 1, "mc_engine_reduce_rows": 1},
+            n_paths=ENV_PATHS)
+        if out["paths"] != float(ENV_PATHS) or not out["trades"] >= out["entered"] > 0:
+            raise AssertionError(f"unexpected path counts: {out}")
+        main_ms = cuda_ms(lambda: CE.engine_rows(0, lv30, params, **kw1, **skw(s)), 1)
+        ops, gathers = engine_sampler_ops(s, ENV_PATHS, counts, ENV_PATHS / ENV_PHILOX_PATHS,
+                                          ENV_BARS, ENV_LEVELS)
+        bound = gather_bound(card, row_bytes_1, ops, gathers,
+                             0.0 if s == "heston" else table_bytes)
+        log(f"  {s}: kernel alone at {ENV_PATHS} paths x {ENV_BARS} bars: {main_ms:.3f} ms "
+            f"({ENV_PATHS / main_ms * 1e3:.6e} paths/s), bound {bound['bound_ms']:.3f} ms "
+            f"{bound['bound_parts']}; plain on the card at {ENV_PHILOX_PATHS}: "
+            f"{plain_ms:.3f} ms")
+        entries.append(entry(f"mc_engine_wide_sampler/{s}", WIDE_SAMPLER_SOURCE,
+                             WIDE_REPLACES, launches["mc_engine_wide_sampler"], err, main_ms,
+                             plain_ms, bound, sampler=s, paths=ENV_PATHS, num_bars=ENV_BARS,
+                             levels=ENV_LEVELS, plain_paths=ENV_PHILOX_PATHS, cli_s=secs[1:]))
+
+    s0_b = [100.0 + 10.0 * i for i in range(ENV_BOOK_SYMBOLS)]
+    lv_b = U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_b], max_levels=ENV_LEVELS)
+    betas = [0.2 + 0.6 * i / (ENV_BOOK_SYMBOLS - 1) for i in range(ENV_BOOK_SYMBOLS)]
+    book = (lv_b, params, s0_b, [SIGMA] * ENV_BOOK_SYMBOLS, betas,
+            [1.0 / ENV_BOOK_SYMBOLS] * ENV_BOOK_SYMBOLS)
+    n_cmp = ENV_BOOK_PLAIN_SYMBOLS                   # a book of the first symbols
+    cmp_book = (U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_b[:n_cmp]],
+                               max_levels=ENV_LEVELS), params) + tuple(x[:n_cmp] for x in book[2:])
+    log(f"[30] engine books at the envelope (mc_engine_wide_corr_kernel, "
+        f"mc_engine_wide_corr(_samplers).cu): {ENV_BOOK_SYMBOLS} symbols x {ENV_LEVELS} levels "
+        f"x {ENV_BARS} bars x {ENV_BOOK_PATHS} paths a symbol through "
+        "mc_paths_engine_corr_fused; the book of its first "
+        f"{ENV_BOOK_PLAIN_SYMBOLS} symbols, every symbol and the book, vs plain on the card "
+        f"path by path at {ENV_BOOK_PLAIN_PATHS} a symbol")
+    tables1 = tables[None].to(dev)
+    for s in ("gbm",) + SAMPLERS:
+        bkw = dict(num_bars=ENV_BARS, dt=DT, lanes=lanes, device=dev,
+                   **({} if s == "gbm" else dict(sampler=s) if s == "heston" else
+                      dict(sampler=s, tables=tables1, block_len=SAMPLER_BLOCK_LEN)))
+        res, plain_ms = timed(lambda: CE.engine_corr_totals_reference(
+            0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS, per_path=True,
+            chunk_blocks=ENV_BOOK_PLAIN_PATHS // (8 * lanes), **bkw))
+        krows = CE.engine_corr_rows(0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS,
+                                    per_path=True, **bkw)
+        err = same_on_card(f"book {s}", res, (*CE.reduce_rows(krows[0], krows[1]), krows[2]),
+                           n_cmp + 1, ENV_BOOK_PLAIN_PATHS,
+                           lambda i: "the book" if i == n_cmp else f"symbol {i}")
+        del krows
+        kname = "mc_engine_wide_corr" + ("" if s == "gbm" else "_sampler")
+        log(f"  main path: mc_paths_engine_corr_fused --sampler {s}, {ENV_BOOK_SYMBOLS} x "
+            f"{ENV_BOOK_PATHS} x {ENV_BARS} bars, warm-up then timed")
+        (sym, port, skips, escal), secs, launches = run_entry(
+            f"book {s}", lambda: CE.mc_paths_engine_corr_fused(
+                0, *book, paths_per_symbol=ENV_BOOK_PATHS, **bkw),
+            reset, {kname: 2, "mc_engine_corr_reduce_rows": 2})
+        check_universe_stats(f"book {s}", sym, ENV_BOOK_SYMBOLS, ENV_BOOK_PATHS)
+        if not (math.isfinite(float(port.mean_r)) and float(port.n) == ENV_BOOK_PATHS):
+            raise AssertionError(f"book {s}: the book's row is not whole: {port}")
+        main_ms = cuda_ms(lambda: CE.engine_corr_rows(0, *book, paths_per_symbol=ENV_BOOK_PATHS,
+                                                      **bkw), 1)
+        scale = ENV_BOOK_PATHS / ENV_BOOK_PLAIN_PATHS * ENV_BOOK_SYMBOLS / n_cmp
+        sc = res[0][:n_cmp].sum(0).cpu()
+        n_sp = ENV_BOOK_SYMBOLS * ENV_BOOK_PATHS
+        if s == "gbm":
+            ops, gathers = engine_ops(n_sp, sc, scale, ENV_BARS, ENV_LEVELS), 0.0
+            mk = book_market_ops(ENV_BOOK_PATHS, ENV_BOOK_SYMBOLS, ENV_BARS)
+        else:
+            ops, gathers = engine_sampler_ops(s, n_sp, sc, scale, ENV_BARS, ENV_LEVELS)
+            mk = book_sampler_market_ops(s, ENV_BOOK_PATHS, ENV_BOOK_SYMBOLS, ENV_BARS)
+        for k, v in mk.items():
+            ops[k] = ops[k] + v
+        row_bytes = (ENV_BOOK_SYMBOLS + 1) * grid_size(ENV_BOOK_PATHS) * (
+            CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4)
+        bound = gather_bound(card, row_bytes, ops, gathers,
+                             0.0 if s in ("gbm", "heston") else table_bytes)
+        log(f"  {s}: kernel alone {main_ms:.3f} ms ({n_sp / main_ms * 1e3:.6e} paths x "
+            f"symbols/s, entry wall {secs[-1]:.3f} s), bound {bound['bound_ms']:.3f} ms "
+            f"{bound['bound_parts']}; plain on the card at {n_cmp} x "
+            f"{ENV_BOOK_PLAIN_PATHS}: {plain_ms:.3f} ms; book mean R {float(port.mean_r):.6f}")
+        entries.append(entry(f"{kname}" + ("" if s == "gbm" else f"/{s}"),
+                             WIDE_CORR_SOURCE if s == "gbm" else WIDE_CORR_SAMPLER_SOURCE,
+                             ENGINE_CORR_REPLACES, launches[kname], err, main_ms, plain_ms,
+                             bound, sampler=s, symbols=ENV_BOOK_SYMBOLS, paths=ENV_BOOK_PATHS,
+                             num_bars=ENV_BARS, levels=ENV_LEVELS, plain_symbols=n_cmp,
+                             plain_paths=ENV_BOOK_PLAIN_PATHS, entry_s=secs[1:]))
     tmp.cleanup()
     return entries
 
@@ -3613,7 +4041,8 @@ def main() -> int:
     build.build_all(["mc_first_contact", "mc_gated", "mc_engine", "mc_gated_corr",
                      "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
                      "mc_engine_samplers", "mc_gated_corr_samplers",
-                     "mc_engine_corr_samplers"])
+                     "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
+                     "mc_engine_wide_corr", "mc_engine_wide_corr_samplers"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -3713,7 +4142,7 @@ def main() -> int:
                 "cuda", "--num-paths", str(MAIN_PATHS), "--num-bars",
                 str(NUM_BARS), "--sigma", str(SIGMA)]
         (fc_out,), fc_secs, fc_launches = run_cli(
-            cli, argv, reset_all, {"mc_first_contact": 4, "mc_reduce_rows": 4})
+            cli, argv, reset_all, {"mc_first_contact": 1, "mc_reduce_rows": 1})
     check_paths_output(fc_out)
     fc_main_ms = cuda_ms(lambda: run_fc(MAIN_PATHS), 2)
     fc_main_bound = card.bound(
@@ -3817,7 +4246,7 @@ def main() -> int:
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
         (g_out,), g_secs, g_launches = run_cli(
-            cli, argv, reset_all, {"mc_gated": 4, "mc_gated_reduce_rows": 4})
+            cli, argv, reset_all, {"mc_gated": 1, "mc_gated_reduce_rows": 1})
     check_paths_output(g_out)
     if not g_out["trades"] >= g_out["entered"] > 0:
         raise AssertionError(f"trades < entered: {g_out}")
@@ -3951,7 +4380,7 @@ def main() -> int:
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
         (e_out,), e_secs, e_launches = run_cli(
-            cli, argv, reset_all, {"mc_engine": 4, "mc_engine_reduce_rows": 4})
+            cli, argv, reset_all, {"mc_engine": 1, "mc_engine_reduce_rows": 1})
     check_paths_output(e_out)
     if not e_out["trades"] >= e_out["entered"] > 0 or not e_out["escalations"] > 0:
         raise AssertionError(f"trades < entered, or no escalation: {e_out}")
@@ -4053,7 +4482,7 @@ def main() -> int:
                 "--num-paths", str(MAIN_PATHS), "--num-bars", str(NUM_BARS),
                 "--sigma", str(SIGMA)]
         sw_out, sw_secs, sw_launches = run_cli(
-            cli, argv, reset_all, {"mc_sweep": 4, "mc_sweep_reduce_rows": 4})
+            cli, argv, reset_all, {"mc_sweep": 1, "mc_sweep_reduce_rows": 1})
     check_sweep_output(sw_out, grid9, ["stop_padding", "tp_padding", "hit_rate", "mean_r"])
     sw_main_ms = cuda_ms(lambda: run_sw(MAIN_PATHS, grid9), 2)
     log(f"  kernel alone on the CLI's grid ({MAIN_PATHS} paths x 9 rows): {sw_main_ms:.3f} ms")
@@ -4176,7 +4605,7 @@ def main() -> int:
                 "cuda", "--num-paths", str(gs_cli_paths), "--num-bars", str(NUM_BARS),
                 "--sigma", str(SIGMA), "--touch-limits", "2", "4"]
         gs_out, gs_secs, gs_launches = run_cli(
-            cli, argv, reset_all, {"mc_gated_sweep": 4, "mc_gated_sweep_reduce_rows": 4},
+            cli, argv, reset_all, {"mc_gated_sweep": 1, "mc_gated_sweep_reduce_rows": 1},
             n_paths=gs_cli_paths)
     check_sweep_output(gs_out, [(sp, tp, tl) for sp, tp in grid9 for tl in (2, 4)],
                        ["stop_padding", "tp_padding", "hit_rate", "mean_r", "touch_limit",
@@ -4321,7 +4750,7 @@ def main() -> int:
                 "cuda", "--num-paths", str(es_cli_paths), "--num-bars", str(NUM_BARS),
                 "--sigma", str(SIGMA), "--jitter-stds", "0", "0.02"]
         es_out, es_secs, es_launches = run_cli(
-            cli, argv, reset_all, {"mc_engine_sweep": 4, "mc_engine_sweep_reduce_rows": 4},
+            cli, argv, reset_all, {"mc_engine_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
             n_paths=es_cli_paths)
     check_sweep_output(es_out, [(sp, tp, j) for sp, tp in grid9 for j in (0.0, 0.02)],
                        ["stop_padding", "tp_padding", "hit_rate", "mean_r", "mean_trades",
@@ -4353,6 +4782,7 @@ def main() -> int:
     samplers = sampler_phases(dev, card, reset_all, cli)
     sampler_rows = sampler_rows_phases(dev, card, reset_all, cli)
     book_samplers = book_sampler_phases(dev, card, reset_all, cli)
+    envelope = envelope_phases(dev, card, reset_all, cli)
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,
@@ -4398,7 +4828,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books + samplers + sampler_rows + book_samplers}))
+    ] + universe + books + samplers + sampler_rows + book_samplers + envelope}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

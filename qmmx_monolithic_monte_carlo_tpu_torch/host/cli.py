@@ -81,7 +81,7 @@ def _levels_and_params(conn, args):
             {"color": "orange", "type": "dashed", "index": 0, "price": s0 + 0.4},
             {"color": "teal", "type": "solid", "index": 0, "price": s0 - 0.3},
         ]
-    levels = Levels.from_rows(rows, max_levels=64)
+    levels = Levels.from_rows(rows, max_levels=max(64, len(rows)))
     params = EngineParams.from_settings(lambda k, d=None: _db.settings_get(conn, k, d))
     if args.qmin is not None:
         params = params.replace(q_min_prob=args.qmin)
@@ -176,25 +176,32 @@ def _book_sampler_kw(args, n_sym: int, cuda: bool) -> dict:
 
 def _fits(args, rows) -> str | None:
     """None when the shape fits the path's CUDA kernel (``paths``, ``sweep``
-    or ``book``), else what it needs."""
+    or ``book``), else what it needs.  The engine's kernels take up to 64
+    levels and any --num-bars >= 2 (an even one in a book), as the JAX CLI's
+    (``host/cli.py:323-346``); the others up to 8 levels."""
     from ..ops import cuda_engine, cuda_gated, cuda_mc
-    from ..ops.kernel_args import MAX_GRID_ROWS
-    from ..ops.regular import GUARD_WINDOW_BARS
+    from ..ops.kernel_args import MAX_ENGINE_LEVELS, MAX_GRID_ROWS
 
     if getattr(args, "cmd", None) == "sweep" and len(_grid(args)) > MAX_GRID_ROWS:
         return f"at most {MAX_GRID_ROWS} grid rows"
+    if args.engine:
+        block = cuda_engine.ENGINE_SUB * cuda_engine.ENGINE_LANES
+        if len(rows) > MAX_ENGINE_LEVELS:
+            return f"at most {MAX_ENGINE_LEVELS} levels"
+        if getattr(args, "cmd", None) == "book" and args.num_bars % 2:
+            return "an even --num-bars (a book walks double bars)"
+        if not 2 <= args.num_bars <= cuda_engine.MAX_BARS:
+            return f"--num-bars from 2 to {cuda_engine.MAX_BARS}"
+        if args.num_paths % block:
+            return f"--num-paths a multiple of {block}"
+        return None
     if len(rows) > cuda_mc.MAX_LEVELS:
         return f"at most {cuda_mc.MAX_LEVELS} levels"
-    odd_ok = not (args.gated or args.engine) and getattr(args, "sampler", "gbm") in (
+    odd_ok = not args.gated and getattr(args, "sampler", "gbm") in (
         "bootstrap", "block_bootstrap")     # one index uniform a bar, no pairs
     if args.num_bars <= 0 or (args.num_bars % 2 and not odd_ok):
         return "an even --num-bars"
-    if args.engine:
-        block = cuda_engine.ENGINE_SUB * cuda_engine.ENGINE_LANES
-        if args.num_paths % block or args.num_bars > GUARD_WINDOW_BARS:
-            return (f"--num-paths a multiple of {block} and --num-bars <= "
-                    f"{GUARD_WINDOW_BARS}")
-    elif args.gated:
+    if args.gated:
         block = cuda_gated.GATED_SUB * cuda_gated.GATED_LANES
         if args.num_paths % block:
             return f"--num-paths a multiple of {block}"
@@ -202,6 +209,16 @@ def _fits(args, rows) -> str | None:
         return (f"--num-bars <= {cuda_mc.MAX_KERNEL_BARS} and --num-paths a multiple "
                 f"of {cuda_mc.SINGLE_LANES}")
     return None
+
+
+def _kernel_levels(args, rows):
+    """The DB's levels at the kernel's width: the first-contact and gated
+    kernels' 8 slots, the engine's one slot a level (``max_levels=len(rows)``,
+    as the JAX CLI builds them)."""
+    from ..ops.cuda_mc import MAX_LEVELS
+    from ..types import Levels
+
+    return Levels.from_rows(rows, max_levels=max(len(rows), 1) if args.engine else MAX_LEVELS)
 
 
 def _backend(args, rows) -> str:
@@ -212,7 +229,7 @@ def _backend(args, rows) -> str:
         raise SystemExit("no CUDA device (torch.cuda.is_available() is false); "
                          "pass --device cpu to run on the CPU")
     need = _fits(args, rows)
-    if args.backend == "auto":
+    if args.backend == "auto":   # the pipeline where the kernels do not reach
         return "cuda" if args.device == "cuda" and need is None else "torch"
     if args.backend == "cuda":
         if args.device != "cuda":
@@ -245,9 +262,7 @@ def cmd_paths(args):
                   sigma=args.sigma, noise=noise, antithetic=args.antithetic,
                   device=args.device, **_sampler_kw(args))
     if backend == "cuda":
-        from ..ops.cuda_mc import MAX_LEVELS
-
-        levels = Levels.from_rows(rows, max_levels=MAX_LEVELS)
+        levels = _kernel_levels(args, rows)
     else:
         common["block_paths"] = min(args.num_paths, 1 << (15 if args.engine else 17))
     skips = escal = None
@@ -357,9 +372,7 @@ def cmd_sweep(args):
         conn.close()
     backend = _backend(args, rows)
     if backend == "cuda":
-        from ..ops.cuda_mc import MAX_LEVELS
-
-        levels = Levels.from_rows(rows, max_levels=MAX_LEVELS)
+        levels = _kernel_levels(args, rows)
     combos = _grid(args)
     common = dict(num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
                   sigma=args.sigma, device=args.device, **_sampler_kw(args))
@@ -498,9 +511,9 @@ def _device_flags(parser) -> None:
     parser.add_argument("--backend", choices=["auto", "torch", "cuda"],
                         default="auto",
                         help="cuda = the fused CUDA kernel (<=8 levels, even bars; "
-                             "--engine: <=61 bars); torch = "
-                             "the streamed PyTorch pipeline on --device; auto = "
-                             "the kernel on a CUDA device when the shape fits, "
+                             "--engine: <=64 levels, any bars >= 2, even in a book); "
+                             "torch = the streamed PyTorch pipeline on --device; "
+                             "auto = the kernel on a CUDA device when the shape fits, "
                              "else the pipeline")
 
 

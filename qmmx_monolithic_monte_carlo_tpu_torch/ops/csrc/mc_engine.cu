@@ -5,8 +5,9 @@
 //
 // Replaces the TPU kernel qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py
 // _engine_kernel with its body _engine_lifecycle_loop and _engine_accumulate
-// (gbm sampler, with and without execution noise, antithetic; up to 8 levels,
-// an even horizon of at most 61 bars).  The Pallas kernel advances ~145
+// (gbm sampler, with and without execution noise, antithetic) where up to 8
+// levels and an even horizon of at most 61 bars; the rest of the envelope
+// (9-64 levels, odd W, W > 61) is mc_engine_wide.cu's.  The Pallas kernel advances ~145
 // (8, 256) tiles of state per bar and gathers per-level state with one-hots;
 // here one CUDA thread carries one path's state machine through its bars,
 // bar by bar in the order of sim/enginepath.EngineLifecycle.step (whose
@@ -32,7 +33,8 @@
 // memory, one slice per thread (slot j of thread i at [j][i], no bank
 // conflicts); bar u writes slot u mod R and a reader addresses the bar it
 // wants, so nothing shifts.  The guard box is the running min/max (valid
-// while the horizon fits the 61-bar window, which the wrapper checks).
+// while the horizon fits the 61-bar window: past it the wrapper launches
+// mc_engine_wide.cu's windowed guard).
 //
 // What bounds it on the H100: the throughput of special functions and float32
 // operations, not bytes.  Per bar: logf 3, sqrtf 3, expf 4, half a sincosf

@@ -147,6 +147,25 @@ struct Rings {
         v = v * (1.0f + a.vm_rc * ((fabsf(z) - a.vm_mean_abs) / a.vm_sd_abs));          \
     v = fmaxf(v, a.vm_floor);
 
+// How the parent kernels' bar steps (this header's and
+// mc_engine_sampler_step.cuh's) read the level slots of EngineArgs, the bit
+// masks of EngineState and the running guard box (mc_engine_step.cuh); each
+// expands to the statement the step had before the envelope kernels came
+// (mc_engine_wide.cuh defines its own), so the parents compile as before.
+#define LEVEL_SLOTS MAXL
+#define LV_PRICE(i) a.level_price[i]
+#define LV_ROUND(i) a.level_round[i]
+#define LV_VALID(i) a.level_valid[i]
+#define LV_KIND(i) a.level_kind[i]
+#define LATCH_BIT(i) (st.c_latch >> i) & 1u
+#define LATCH_SET(i, on) st.c_latch = on ? (st.c_latch | (1u << i)) : (st.c_latch & ~(1u << i))
+#define TM_HAS_BIT(j) (st.tm_has >> j) & 1u
+#define TM_HAS_MARK(j) st.tm_has |= 1u << j
+#define TM_HAS_CLEAR st.tm_has = 0u
+#define GUARD_PUSH                        \
+    st.run_low = fminf(st.run_low, l);    \
+    st.run_high = fmaxf(st.run_high, h);
+
 // One bar of one path (sim/enginepath.EngineLifecycle.step on the bar
 // generated as pallas_engine.py _one_bar generates it).  z / zv are the
 // bar's price and volume normals; u3, u4 the bridge uniforms; noise_row the

@@ -1,7 +1,9 @@
 // Correlated-book Monte Carlo on Hopper over the full 12-gate engine.
 //
 // mc_engine_corr_kernel replaces the TPU kernel
-// qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py _engine_corr_kernel: a
+// qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py _engine_corr_kernel
+// where up to 8 levels and W <= 61 (mc_engine_wide_corr.cu takes 9-64 levels
+// and W > 61; a book's W is even): a
 // correlated book of S symbols on one market factor,
 // z_s = beta_s z_mkt + sqrt(1 - beta_s^2) eps_s, with the book's equity curve
 // per path.  The TPU grid is (blocks, symbols) with the symbol axis inner, so

@@ -4,7 +4,9 @@
 // mc_engine_corr_sampler_kernel replaces the sampler branches of the TPU
 // kernel qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py
 // _engine_corr_kernel (samplers "bootstrap", "block_bootstrap" and "heston",
-// pallas_engine.py:332-405 inside _engine_lifecycle_loop).  The structure is
+// pallas_engine.py:332-405 inside _engine_lifecycle_loop) where up to 8
+// levels and W <= 61 (mc_engine_wide_corr_samplers.cu takes the rest of the
+// envelope).  The structure is
 // mc_engine_corr_kernel's (mc_engine_corr.cu): one thread a path walks every
 // symbol in order, the CTA copying symbol s's EngineArgs, SamplerArgs and
 // (beta, weight) into shared memory between two barriers; the thread runs the

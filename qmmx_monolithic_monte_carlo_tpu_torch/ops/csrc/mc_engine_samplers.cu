@@ -7,8 +7,9 @@
 // qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py _engine_kernel
 // (_engine_lifecycle_loop, samplers "bootstrap", "block_bootstrap" and
 // "heston", pallas_engine.py:207-519 and the per-step split :1299-1334),
-// with and without execution noise, up to 8 levels and an even W <= 61 (the
-// port's envelope); and the same branches of _engine_sweep_kernel
+// with and without execution noise, where up to 8 levels and an even W <= 61
+// (mc_engine_wide_samplers.cu takes the rest of the envelope); and the same
+// branches of _engine_sweep_kernel
 // (pallas_engine.py:1813), _engine_universe_kernel (:2098) and
 // _engine_universe_sweep_kernel (:2282) as rows.  One CUDA thread carries
 // one path through its bars, with the engine of mc_engine_step.cuh on each

@@ -7,16 +7,29 @@
 // rg, t, the bar's close c, high h, low l and volume v, its tie coin tie and
 // noise_row, the first of its four noise rows.  No include guard: it is
 // included once in each bar step.
+//
+// The level slots, the latch and touch flags and the guard's window are read
+// through the macros LEVEL_SLOTS, LV_PRICE / LV_ROUND / LV_VALID / LV_KIND,
+// LATCH_BIT / LATCH_SET, TM_HAS_BIT / TM_HAS_MARK / TM_HAS_CLEAR and
+// GUARD_PUSH, which each family defines before its bar steps: mc_engine.cuh
+// for the parent kernels (the slots of EngineArgs and bit masks; after
+// preprocessing the statements of the parent's own text, so its code stays),
+// mc_engine_wide.cuh for the envelope kernels (a level table in shared memory,
+// flag arrays, the windowed guard).
+//
+// now_ms is an int: exact for every bar below 2^31 / 60000 (the wrappers
+// refuse longer horizons); the JAX kernel's float32 t * 60000 is exact below
+// 8947 bars (a multiple of 32 below 2^29), so the two agree at W = 390 or 1200.
     const int now_ms = t * 60000;
 
     // nearest valid level at the close (strict <: the first minimum wins)
     float best_d = INF_F, best_p = 0.f;
     int best_k = 0, best_i = 0;
 #pragma unroll
-    for (int i = 0; i < MAXL; ++i) {
-        if (i < a.max_levels && a.level_valid[i]) {
-            const float d = fabsf(c - a.level_price[i]);
-            if (d < best_d) { best_d = d; best_p = a.level_price[i]; best_k = a.level_kind[i]; best_i = i; }
+    for (int i = 0; i < LEVEL_SLOTS; ++i) {
+        if (i < a.max_levels && LV_VALID(i)) {
+            const float d = fabsf(c - LV_PRICE(i));
+            if (d < best_d) { best_d = d; best_p = LV_PRICE(i); best_k = LV_KIND(i); best_i = i; }
         }
     }
 
@@ -80,9 +93,9 @@
             float up_px = INF_F, dn_px = -INF_F;
             bool any_up = false, any_dn = false;
 #pragma unroll
-            for (int i = 0; i < MAXL; ++i) {
-                if (i < a.max_levels && a.level_valid[i]) {
-                    const float lp = a.level_price[i];
+            for (int i = 0; i < LEVEL_SLOTS; ++i) {
+                if (i < a.max_levels && LV_VALID(i)) {
+                    const float lp = LV_PRICE(i);
                     if (lp > anchor + 1e-9f) { up_px = fminf(up_px, lp); any_up = true; }
                     if (lp < anchor - 1e-9f) { dn_px = fmaxf(dn_px, lp); any_dn = true; }
                 }
@@ -128,16 +141,16 @@
         // 7) contact latch (moves exactly when gates 2-6 passed) + overtouch
         int tc = 0;
 #pragma unroll
-        for (int i = 0; i < MAXL; ++i) {
+        for (int i = 0; i < LEVEL_SLOTS; ++i) {
             if (i < a.max_levels) {
-                const bool valid = a.level_valid[i] != 0;
-                const float di = valid ? fabsf(a.level_price[i] - c) : INF_F;
+                const bool valid = LV_VALID(i) != 0;
+                const float di = valid ? fabsf(LV_PRICE(i) - c) : INF_F;
                 const bool inside = di <= a.prox;
                 const bool is_near = i == best_i;
-                const bool latched = (st.c_latch >> i) & 1u;
+                const bool latched = LATCH_BIT(i);
                 if (is_near && inside && !latched) ++st.c_counts[i];
                 const bool latch_new = (is_near ? inside : (latched && inside)) && valid;
-                st.c_latch = latch_new ? (st.c_latch | (1u << i)) : (st.c_latch & ~(1u << i));
+                LATCH_SET(i, latch_new);
                 if (is_near) tc = st.c_counts[i];
             }
         }
@@ -160,11 +173,11 @@
         int tm_c = 0, tm_t = 0;
         bool tm_h = false;
 #pragma unroll
-        for (int i = 0; i < MAXL; ++i) {
+        for (int i = 0; i < LEVEL_SLOTS; ++i) {
             if (i == best_i) {
                 tm_c = short_side ? st.tm_cnt[2 * i + 1] : st.tm_cnt[2 * i];
                 tm_t = short_side ? st.tm_ts[2 * i + 1] : st.tm_ts[2 * i];
-                tm_h = (st.tm_has >> (2 * i + short_side)) & 1u;
+                tm_h = TM_HAS_BIT((2 * i + short_side));
             }
         }
         const bool budget = tm_c >= a.tm_max_bounces;
@@ -208,9 +221,9 @@
             if ((v1 == 0.f && v2 == 0.f) || n < 3) slope = 0.f;
             int confl = 0, confl_pol = 0;
 #pragma unroll
-            for (int i = 0; i < MAXL; ++i) {
-                if (i < a.max_levels && a.level_valid[i]) {
-                    const float dl = fabsf(a.level_price[i] - best_p);
+            for (int i = 0; i < LEVEL_SLOTS; ++i) {
+                if (i < a.max_levels && LV_VALID(i)) {
+                    const float dl = fabsf(LV_PRICE(i) - best_p);
                     confl += dl <= a.confl_within ? 1 : 0;
                     confl_pol += dl <= 0.6f ? 1 : 0;
                 }
@@ -305,9 +318,9 @@
     const float vol_ma_s = sum5 / (float)max(1, min(5, n_after));
     const float vol_ma_l = sum20 / (float)max(1, min(VOL_RING, n_after));
 
-    // the guard: running box (the 60-minute window while W <= 61)
-    st.run_low = fminf(st.run_low, l);
-    st.run_high = fmaxf(st.run_high, h);
+    // the guard's box over the 60-minute window: the running min/max while W
+    // <= 61, the window's past it (GUARD_PUSH)
+    GUARD_PUSH
     const int n_win = min(n_after, 61);
     const bool s_def = n_win >= 5, l_def = n_win >= VOL_RING;
     const float gma_s = s_def ? sum5 / 5.0f : 0.f;
@@ -334,9 +347,9 @@
     if (st.regime == 1) {
         // touch registration on the finished bar, per (level, side)
 #pragma unroll
-        for (int i = 0; i < MAXL; ++i) {
-            if (i < a.max_levels && a.level_valid[i]) {
-                const float lr = a.level_round[i];
+        for (int i = 0; i < LEVEL_SLOTS; ++i) {
+            if (i < a.max_levels && LV_VALID(i)) {
+                const float lr = LV_ROUND(i);
                 const bool pierced = l - 1e-9f <= lr && lr <= h + 1e-9f;
                 const float bps_c = lr <= 0.f ? 0.f : fabsf(c - lr) / lr * 1e4f;
                 if (pierced || bps_c <= a.tm_tol_bps) {
@@ -344,14 +357,14 @@
                     const int j = 2 * i + sd;
                     const int ts_a = sd ? st.tm_ts[2 * i + 1] : st.tm_ts[2 * i];
                     const float px_a = sd ? st.tm_px[2 * i + 1] : st.tm_px[2 * i];
-                    const bool has_a = (st.tm_has >> j) & 1u;
+                    const bool has_a = TM_HAS_BIT(j);
                     const bool too_soon = has_a && (now_ms - ts_a) < a.tm_min_gap_ms;
                     const float bps_last = px_a <= 0.f ? 0.f : fabsf(c - px_a) / px_a * 1e4f;
                     const bool too_close = has_a && bps_last < a.tm_min_px_bps;
                     if (!(too_soon || too_close)) {
                         if (sd) { ++st.tm_cnt[2 * i + 1]; st.tm_ts[2 * i + 1] = now_ms; st.tm_px[2 * i + 1] = c; }
                         else { ++st.tm_cnt[2 * i]; st.tm_ts[2 * i] = now_ms; st.tm_px[2 * i] = c; }
-                        st.tm_has |= 1u << j;
+                        TM_HAS_MARK(j);
                     }
                 }
             }
@@ -376,8 +389,8 @@
     } else if (st.regime == 2 || st.regime == 3) {
         // a breakout resets the touch box
 #pragma unroll
-        for (int j = 0; j < 2 * MAXL; ++j) { st.tm_cnt[j] = 0; st.tm_ts[j] = 0; st.tm_px[j] = 0.f; }
-        st.tm_has = 0u;
+        for (int j = 0; j < 2 * LEVEL_SLOTS; ++j) { st.tm_cnt[j] = 0; st.tm_ts[j] = 0; st.tm_px[j] = 0.f; }
+        TM_HAS_CLEAR;
 #pragma unroll
         for (int j = 0; j < 2 * TAP_SLOTS; ++j) { st.tap_ts[j] = TAP_NEVER; st.tap_ratio[j] = 0.f; }
     }

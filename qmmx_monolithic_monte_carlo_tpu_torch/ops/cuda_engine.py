@@ -3,12 +3,16 @@
 Counterpart of ``qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1506-1806``
 (kernel #8, ``_engine_kernel`` with ``_engine_lifecycle_loop`` and
 ``_engine_accumulate``, entry ``mc_paths_pallas_engine`` ``:1617-1712``), with
-execution noise, antithetic lanes (gbm) and all four samplers, up to 8 levels
-and an even horizon of at most 61 bars, in the single configuration, the
-sweep, the universe, the sweep of universes and the correlated book.  9-64
-levels, odd horizons, longer horizons (the windowed guard) and the
-closed-trade harvest are not ported yet; ``sim/enginepath`` runs the same
-engine at any horizon.
+execution noise, antithetic lanes (gbm) and all four samplers, over the JAX
+kernels' envelope: 1-64 level slots (``MAX_KERNEL_LEVELS``), any horizon W
+>= 2 (an odd W ends with a half step; a book's W is even) and horizons past
+the guard's 61-bar window (the windowed guard), in the single configuration,
+the sweep, the universe, the sweep of universes and the correlated book.
+Each launch goes to the parent kernel where it fits (<= 8 level slots, an
+even W <= 61: ``ops/csrc/mc_engine*.cu``) and to the envelope kernel
+otherwise (``ops/csrc/mc_engine_wide*.cu``, ``needs_envelope``), counted under the
+parent's name with ``_wide`` (``mc_engine_wide``, ``mc_engine_wide_sampler``,
+...).  The closed-trade harvest is not ported yet.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -79,11 +83,11 @@ from .cuda_gated import (book_market, box_muller, gated_bar, lifecycle_rows,
 from .draws import (ENGINE_STREAM, ENGINE_SUB, MARKET_STREAM, EngineLayout, MarketLayout,
                     engine_uniforms)
 from .draws import market_uniforms as draws_market
-from .kernel_args import (BLOCK, MAX_LEVELS, SamplerArgs, book_pairs, check_blocks,
-                          check_uniforms, consts, device_rows, f32, fold_rows, grid_row,
-                          grid_size, knob_columns, knob_rows, launch_pointer, repeat_rows,
-                          sampler_args, sg_columns, sg_rows, symbol_columns, symbol_grid,
-                          symbol_rows, symbol_uniforms, tensor_leaves)
+from .kernel_args import (BLOCK, MAX_ENGINE_LEVELS, MAX_LEVELS, SamplerArgs, book_pairs,
+                          check_blocks, check_uniforms, consts, device_rows, f32, fold_rows,
+                          grid_row, grid_size, knob_columns, knob_rows, launch_pointer,
+                          repeat_rows, sampler_args, sg_columns, sg_rows, symbol_columns,
+                          symbol_grid, symbol_rows, symbol_uniforms, tensor_leaves)
 from .regular import GUARD_WINDOW_BARS
 from .samplers import Sampler, StreamBars, make_sampler, sampler_steps
 
@@ -97,6 +101,7 @@ PATH_COLS = 7 + N_SKIPS  # per-path output: equity, trades, wins, losses, open, 
                          # escalations, the 16 skip counts
 _SOURCE = "mc_engine"
 _F32 = torch.float32
+MAX_BARS = (2 ** 31 - 1) // 60_000   # bar timestamps are int32 milliseconds
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
@@ -107,6 +112,9 @@ LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
             "mc_engine_corr_reduce_rows": 0, "mc_engine_sweep_sampler": 0,
             "mc_engine_universe_sampler": 0, "mc_engine_universe_sweep_sampler": 0,
             "mc_engine_corr_sampler": 0}
+# the envelope kernels' launches: each parent launch counter with "_wide"
+LAUNCHES.update({"mc_engine_wide" + k[len("mc_engine"):]: 0 for k in list(LAUNCHES)
+                 if not k.endswith("reduce_rows")})
 
 
 def reset_launches() -> None:
@@ -146,16 +154,16 @@ def _check(seed, levels, kw: dict, *, num_paths, num_bars, lanes, noise,
            antithetic, external_uniforms, sampler: Sampler = Sampler(),
            book: bool = False) -> EngineLayout:
     """The checks of ``mc_paths_pallas_engine`` (pallas_engine.py:1678-1698)
-    and this kernel's envelope; ``book``: a book symbol's layout."""
+    and the kernels' envelope (up to 64 level slots, W >= 2, even in a book,
+    int32 bar timestamps); ``book``: a book symbol's layout."""
     check_blocks(seed, levels, num_paths=num_paths, lanes=lanes, sub=ENGINE_SUB,
-                 what="engine")
+                 what="engine", max_slots=MAX_ENGINE_LEVELS)
     if antithetic and sampler.kind != "gbm":
         raise ValueError("kernel antithetic pairs gbm normals only")
     layout = EngineLayout(num_bars, noise is not None, sampler.kind, book)
-    if num_bars > GUARD_WINDOW_BARS:
-        raise ValueError(f"the engine kernel takes num_bars <= {GUARD_WINDOW_BARS} "
-                         "(the running guard box); longer horizons are not "
-                         "ported yet (sim.enginepath runs them)")
+    if num_bars > MAX_BARS:
+        raise ValueError(f"the engine kernels take num_bars <= {MAX_BARS} (bar "
+                         "timestamps in int32 milliseconds)")
     if int(kw["touch_params"].fatigue_hits) != TAP_SLOTS:
         raise ValueError(f"the engine kernel is built for fatigue_hits == {TAP_SLOTS}")
     gp = kw["guard_params"]
@@ -221,7 +229,7 @@ def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, mark
         return
     nb, _, sub, lanes = u.shape
     log_s = torch.full((nb, sub, lanes), log_s0, dtype=_F32, device=u.device)
-    for t2 in range(layout.num_bars // 2):
+    for t2 in range((layout.num_bars + 1) // 2):
         def draw(k):
             return u[:, layout.row(t2, k)]
 
@@ -233,7 +241,8 @@ def _bars(u, layout: EngineLayout, antithetic: bool, cs, vc: _VolumeConsts, mark
             zm, beta = market[0][t2], market[1]
             z_pair = tuple(mix_shocks(beta, zm[h], z_pair[h]) for h in range(2))
         zv_pair = box_muller(draw(2), draw(3))
-        for half in range(2):
+        # an odd W's last step is a half step: the cos branch of each pair
+        for half in range(min(2, layout.num_bars - 2 * t2)):
             t, z = 2 * t2 + half, z_pair[half]
             u3, u4, tie = (draw(4 + 3 * half + i) for i in range(3))
             nz = None
@@ -302,7 +311,8 @@ def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
     for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc, market, sampler):
         if life is None:
             life = EngineLifecycle(torch.exp(log_open).reshape(-1), levels, params,
-                                   noise=noise, **kw)
+                                   noise=noise, windowed=layout.num_bars > GUARD_WINDOW_BARS,
+                                   **kw)
         reason = life.step(t, *(x.reshape(-1) for x in bar),
                            None if nz is None else tuple(x.reshape(-1) for x in nz))
         if per_path:
@@ -507,6 +517,52 @@ def _sampler_library() -> ctypes.CDLL:
     return lib
 
 
+_WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_wide*.cu)
+    # v: a pointer (or the stream), i: an int, u: an unsigned (the market key)
+    "_wide": ("qmmx_mc_engine_wide_sweep", "vviiivvvviv"),
+    "_wide_samplers": ("qmmx_mc_engine_wide_sampler", "vvviiiivvvviv"),
+    "_wide_corr": ("qmmx_mc_engine_wide_corr", "vvviiivvuvvvviv"),
+    "_wide_corr_samplers": ("qmmx_mc_engine_wide_corr_sampler", "vvvviiiivvuvvvviv"),
+}
+
+
+def _wide_library(suffix: str) -> ctypes.CDLL:
+    """An envelope kernel's library (``ops/csrc/mc_engine<suffix>.cu``), built
+    at first use, with its C signature set and its struct layouts checked
+    against the host's (``EngineArgs`` through the engine library, the level
+    slot through ``mc_engine_wide``'s, ``SamplerArgs``)."""
+    if suffix == "_wide":
+        _library()
+    else:
+        _wide_library("_wide")
+    lib = build.load(_SOURCE + suffix)
+    if id(lib) not in _BOUND:
+        name, sig = _WIDE_SIGNATURES[suffix]
+        types = {"v": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint}
+        fn = getattr(lib, name)
+        fn.argtypes = [types[c] for c in sig]
+        fn.restype = ctypes.c_int
+        if suffix == "_wide":
+            lib.qmmx_engine_wide_level_size.restype = ctypes.c_int
+            if lib.qmmx_engine_wide_level_size() != _WIDE_LEVEL.itemsize:
+                raise RuntimeError("WideLevel layout differs between mc_engine_wide.cuh "
+                                   "and cuda_engine._WIDE_LEVEL")
+        size = {"_wide_samplers": "qmmx_engine_wide_sampler_args_size",
+                "_wide_corr_samplers": "qmmx_engine_wide_corr_sampler_args_size"}.get(suffix)
+        if size is not None:
+            getattr(lib, size).restype = ctypes.c_int
+            if getattr(lib, size)() != ctypes.sizeof(SamplerArgs):
+                raise RuntimeError("SamplerArgs layout differs between sampler.cuh and "
+                                   "kernel_args.SamplerArgs")
+        _BOUND.add(id(lib))
+    return lib
+
+
+def _wide(what: str) -> str:
+    """The envelope kernel's launch counter of a parent's counter ``what``."""
+    return "mc_engine_wide" + what[len("mc_engine"):]
+
+
 SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
 
 
@@ -514,6 +570,36 @@ def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().qmmx_engine_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+# One level slot of the envelope kernels' level table (struct WideLevel of
+# ops/csrc/mc_engine_wide.cuh).
+_WIDE_LEVEL = np.dtype([("price", np.float32), ("round", np.float32), ("valid", np.int32),
+                        ("kind", np.int32)])
+
+
+def level_table(levels: Levels, n: int) -> np.ndarray:
+    """The level slots of ``n`` launch rows as a [n, L] table of
+    ``_WIDE_LEVEL`` (``levels`` [L], every row's, or [n, L]): the price
+    (invalid slots zeroed), its rounding to cents for the touch memory, 1/0
+    validity and 1 for a solid level, each float32 as the plain version
+    computes it.  The envelope kernels read it; the parents take its columns
+    in their ``EngineArgs``."""
+    cpu = levels.to("cpu")
+    price = cpu.price.to(_F32)
+    t = np.zeros((n, price.shape[-1]), _WIDE_LEVEL)
+    t["price"] = torch.where(torch.isfinite(price), price, 0.0).numpy()
+    t["round"] = torch.where(cpu.valid, torch.round(cpu.price * 100.0) / 100.0, 0.0).numpy()
+    t["valid"] = cpu.valid.numpy()
+    t["kind"] = (cpu.kind == KIND_SOLID).numpy()
+    return t
+
+
+def needs_envelope(max_levels: int, num_bars: int) -> bool:
+    """Whether the shape needs the envelope kernels: the parents take at most
+    8 level slots and an even W <= 61."""
+    return not (max_levels <= MAX_LEVELS and num_bars % 2 == 0
+                and num_bars <= GUARD_WINDOW_BARS)
 
 
 def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, n: int,
@@ -526,7 +612,9 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
     (float64, for ``consts``) and ``ext_offset`` scalars or [n]; the ML, policy, touch, guard and volume
     records shared; row r keyed as universe symbol ``symbols[r]``.  Every
     float32 is computed as the plain version computes it (torch float32 on
-    the CPU, or float64 rounded once)."""
+    the CPU, or float64 rounded once).  The level slots (``level_table``)
+    fill the struct's 8 where they fit; the envelope kernels read the
+    table."""
     tp, gp, ml, pol = (kw["touch_params"], kw["guard_params"], kw["ml_model"],
                        kw["policy"])
     a = np.zeros(n, dtype=np.dtype(_EngineArgs))
@@ -534,15 +622,12 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
     def col(x, dtype=np.float32):
         return np.broadcast_to(np.asarray(torch.as_tensor(x).detach().cpu().numpy(), dtype), (n,))
 
-    cpu = levels.to("cpu")
-    price = cpu.price.to(_F32)
-    n_lv = price.shape[-1]
-    a["level_price"][:, :n_lv] = torch.where(torch.isfinite(price), price, 0.0).numpy()
-    a["level_round"][:, :n_lv] = torch.where(
-        cpu.valid, torch.round(cpu.price * 100.0) / 100.0, 0.0).numpy()
-    a["level_valid"][:, :n_lv] = cpu.valid.numpy()
-    a["level_kind"][:, :n_lv] = (cpu.kind == KIND_SOLID).numpy()
-    a["has_levels"] = col(cpu.count > 0, bool)
+    table = level_table(levels, n)
+    n_lv = table.shape[1]
+    if n_lv <= MAX_LEVELS:
+        for k in ("price", "round", "valid", "kind"):
+            a["level_" + k][:, :n_lv] = table[k]
+    a["has_levels"] = col(levels.count.cpu() > 0, bool)
     a["num_paths"], a["ext_offset"] = num_paths, ext_offset
     for field, value in knob_columns(params, noise).items():
         a[field] = col(value)
@@ -585,22 +670,34 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
     return a
 
 
-def _launch(args, max_levels: int, num_bars: int, *, num_paths: int, ext_ptr,
-            device: torch.device, per_path: bool, what: str):
+def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
+            device: torch.device, per_path: bool, what: str, envelope=None):
     """One launch of ``mc_engine_sweep_kernel`` over the argument structs
-    ``args`` (one per grid row), counted in ``LAUNCHES[what]``: int64 [G,
-    grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
-    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    ``args`` (one per grid row) of ``levels`` ([L], or a row's [G, L]),
+    counted in ``LAUNCHES[what]``, or where the parent does not take the
+    shape (or with ``envelope`` set) of ``mc_engine_wide_kernel`` on the
+    rows' ``level_table``, counted in
+    ``LAUNCHES[_wide(what)]``: int64 [G, grid, 151] and f32 [G, grid, 6]
+    partial rows, one per (grid row, CTA), plus f32[G, P, PATH_COLS]
+    per-(row, path) rows when ``per_path``."""
+    max_levels = levels.max_levels
     args_dev = device_rows(args, device)
     g, grid = len(args), grid_size(num_paths)
     part_counts = torch.empty((g, grid, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((g, grid, ROW_FLOATS), dtype=_F32, device=device)
     path_rows = (torch.empty((g, num_paths, PATH_COLS), dtype=_F32, device=device)
                  if per_path else None)
-    rc = _library().qmmx_mc_engine_sweep(
-        args_dev.data_ptr(), g, max_levels, num_bars, ext_ptr, part_counts.data_ptr(),
-        part_floats.data_ptr(), path_rows.data_ptr() if per_path else None, grid,
-        torch.cuda.current_stream(device).cuda_stream)
+    tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
+            path_rows.data_ptr() if per_path else None, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    if needs_envelope(max_levels, num_bars) if envelope is None else envelope:
+        what = _wide(what)
+        table = device_rows(level_table(levels, g), device)
+        rc = _wide_library("_wide").qmmx_mc_engine_wide_sweep(
+            args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail)
+    else:
+        rc = _library().qmmx_mc_engine_sweep(args_dev.data_ptr(), g, max_levels, num_bars,
+                                             *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     out = (part_counts, part_floats)
@@ -615,13 +712,15 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
                 per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
-                hist_bars=None, tables=None, block_len: int = 10, heston=None):
+                hist_bars=None, tables=None, block_len: int = 10, heston=None, envelope=None):
     """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
-    the other samplers ``mc_engine_sampler_kernel``): int64 [grid, 151] count
+    the other samplers ``mc_engine_sampler_kernel``; their envelope forms
+    where the shape needs them, ``_launch``): int64 [grid, 151] count
     rows and f32 [grid, 6] float rows, one row per CTA, plus the f32[P,
     PATH_COLS] per-path rows of ``path_rows`` when ``per_path``; Philox keyed
     as universe symbol ``symbol``; ``sampler`` and its inputs as in
-    ``mc_paths_engine_fused``."""
+    ``mc_paths_engine_fused``.  ``envelope=True`` runs the envelope kernel
+    even where the parent fits, to hold the two against each other."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -635,23 +734,27 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                       sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=antithetic, volume_model=volume_model, symbols=[symbol])
     if samp.kind != "gbm":
-        out = _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
+        out = _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
                               ext_ptr=ext_ptr, device=device, per_path=per_path,
-                              what="mc_engine_sampler")
+                              what="mc_engine_sampler", envelope=envelope)
     else:
-        out = _launch(args, levels.max_levels, num_bars, num_paths=num_paths,
-                      ext_ptr=ext_ptr, device=device, per_path=per_path, what="mc_engine")
+        out = _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+                      device=device, per_path=per_path, what="mc_engine", envelope=envelope)
     return tuple(x[0] for x in out)
 
 
-def _sampler_launch(args, sampler: Sampler, max_levels: int, num_bars: int, *,
+def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
                     num_paths: int, ext_ptr, device: torch.device, per_path: bool, what: str,
-                    table_rows=None):
+                    table_rows=None, envelope=None):
     """One launch of ``mc_engine_sampler_kernel`` over the argument structs
-    ``args`` (one per row) under ``sampler``, row r reading table
-    ``table_rows[r]`` (default: the one history), counted in
-    ``LAUNCHES[what]``: int64 [R, grid, 151] and f32 [R, grid, 6] partial
-    rows, plus f32[R, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    ``args`` (one per row) of ``levels`` under ``sampler``, row r reading
+    table ``table_rows[r]`` (default: the one history), counted in
+    ``LAUNCHES[what]``, or where the parent does not take the shape of
+    ``mc_engine_wide_sampler_kernel`` (or with ``envelope`` set), counted
+    in ``LAUNCHES[_wide(what)]``: int64 [R,
+    grid, 151] and f32 [R, grid, 6] partial rows, plus f32[R, P, PATH_COLS]
+    per-(row, path) rows when ``per_path``."""
+    max_levels = levels.max_levels
     n, grid = len(args), grid_size(num_paths)
     args_dev = device_rows(args, device)
     samp_dev, _tables = sampler_args(sampler, device, [0] * n if table_rows is None
@@ -660,11 +763,19 @@ def _sampler_launch(args, sampler: Sampler, max_levels: int, num_bars: int, *,
     part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=_F32, device=device)
     path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=_F32, device=device)
                  if per_path else None)
-    rc = _sampler_library().qmmx_mc_engine_sampler(
-        args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind], max_levels,
-        num_bars, ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
-        path_rows.data_ptr() if per_path else None, grid,
-        torch.cuda.current_stream(device).cuda_stream)
+    tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
+            path_rows.data_ptr() if per_path else None, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    if needs_envelope(max_levels, num_bars) if envelope is None else envelope:
+        what = _wide(what)
+        table = device_rows(level_table(levels, n), device)
+        rc = _wide_library("_wide_samplers").qmmx_mc_engine_wide_sampler(
+            args_dev.data_ptr(), samp_dev.data_ptr(), table.data_ptr(), n,
+            SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail)
+    else:
+        rc = _sampler_library().qmmx_mc_engine_sampler(
+            args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind],
+            max_levels, num_bars, *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     out = (part_counts, part_floats)
@@ -680,12 +791,13 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                       dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
                       external_uniforms=None, device=None, per_path: bool = False,
                       sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
-                      heston=None):
+                      heston=None, envelope=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
     grid (``mc_engine_sweep_kernel``, or under the other samplers
     ``mc_engine_sampler_kernel``, every row on the same history): int64 [G,
     grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
-    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``;
+    ``envelope`` as in ``engine_rows``."""
     n_grid = len(knob_rows(grid_params, noise, n_grid))
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
@@ -703,11 +815,11 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                       s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=False, volume_model=volume_model, symbols=[0] * n_grid)
     if samp.kind != "gbm":
-        return _sampler_launch(args, samp, levels.max_levels, num_bars, num_paths=num_paths,
+        return _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
                                ext_ptr=ext_ptr, device=device, per_path=per_path,
-                               what="mc_engine_sweep_sampler")
-    return _launch(args, levels.max_levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                   device=device, per_path=per_path, what="mc_engine_sweep")
+                               what="mc_engine_sweep_sampler", envelope=envelope)
+    return _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
+                   device=device, per_path=per_path, what="mc_engine_sweep", envelope=envelope)
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
@@ -909,14 +1021,14 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                                device=None, per_path: bool = False,
                                what: str = "mc_engine_universe_sweep", sampler: str = "gbm",
                                hist_bars=None, tables=None, block_len: int = 10,
-                               heston=None):
+                               heston=None, envelope=None):
     """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
     ``mc_engine_sweep_kernel`` (or under the other samplers
     ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what + "_sampler"]``,
     cell (s, g) reading symbol s's history) with S x G rows (row s * G + g
     for (s, g)), under gbm counted in ``LAUNCHES[what]``: int64 [S, G, grid,
     151] and f32 [S, G, grid, 6] partial rows, plus f32[S, G, P, PATH_COLS]
-    per-path rows when ``per_path``."""
+    per-path rows when ``per_path``; ``envelope`` as in ``engine_rows``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     sym = symbol_rows(levels, s0, sigma)
@@ -929,20 +1041,23 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device, what)
     n_sym, n_grid = len(sym), len(grid[0])
     cell_sym = np.repeat(np.arange(n_sym), n_grid)          # cell (s, g) at s * G + g
-    args = _pack_args(seed, repeat_rows(levels, n_grid), sg_columns(grid_params, n_sym, n_grid),
+    cell_levels = repeat_rows(levels, n_grid)
+    args = _pack_args(seed, cell_levels, sg_columns(grid_params, n_sym, n_grid),
                       kw, layout, n=n_sym * n_grid, num_paths=paths_per_symbol,
                       s0=[sym[s][1] for s in cell_sym], sigma=[sym[s][2] for s in cell_sym],
                       mu=0.0, dt=dt, lanes=lanes, noise=sg_columns(noise, n_sym, n_grid),
                       antithetic=False, volume_model=volume_model, symbols=cell_sym.tolist(),
                       ext_offset=cell_sym * paths_per_symbol * layout.u_rows)
     if samp.kind != "gbm":
-        out = _sampler_launch(args, samp, levels.max_levels, num_bars,
+        out = _sampler_launch(args, cell_levels, samp, num_bars,
                               num_paths=paths_per_symbol, ext_ptr=ext_ptr, device=device,
                               per_path=per_path, what=what + "_sampler",
-                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym])
+                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym],
+                              envelope=envelope)
     else:
-        out = _launch(args, levels.max_levels, num_bars, num_paths=paths_per_symbol,
-                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
+        out = _launch(args, cell_levels, num_bars, num_paths=paths_per_symbol,
+                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what,
+                      envelope=envelope)
     return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
 
 
@@ -1165,11 +1280,14 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                      dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
                      external_uniforms=None, market_uniforms=None, sampler: str = "gbm",
                      hist_bars=None, tables=None, block_len: int = 10, heston=None,
-                     device=None, per_path: bool = False):
+                     device=None, per_path: bool = False, envelope=None):
     """Launch the engine book's pass 1 on a CUDA device, one launch of
     ``mc_engine_corr_kernel`` (or under the other samplers
     ``mc_engine_corr_sampler_kernel``, symbol s reading its own history or
-    the one every symbol shares): int64 [S + 1, grid, 151] and f32 [S + 1,
+    the one every symbol shares; where the parents do not take the shape,
+    ``mc_engine_wide_corr_kernel``, or with ``envelope`` as in
+    ``engine_rows``, counted under ``mc_engine_wide_corr(_sampler)``): int64
+    [S + 1, grid, 151] and f32 [S + 1,
     grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
     P, PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
     device-memory buffer (the engine's rings already take 25 KB of shared
@@ -1188,11 +1306,12 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     m_ptr = launch_pointer(paths_per_symbol, num_bars, market_uniforms, device,
                            "engine_corr_rows")
     n_sym, grid = len(cols["s0"]), grid_size(paths_per_symbol)
-    args_dev = device_rows(_pack_args(
+    args = _pack_args(
         seed, levels, params, kw, layout, n=n_sym, num_paths=paths_per_symbol, s0=cols["s0"],
         sigma=cols["sigma"], mu=0.0, dt=dt, lanes=lanes, noise=noise, antithetic=antithetic,
         volume_model=volume_model, symbols=range(n_sym),
-        ext_offset=np.arange(n_sym) * paths_per_symbol * layout.u_rows), device)
+        ext_offset=np.arange(n_sym) * paths_per_symbol * layout.u_rows)
+    args_dev = device_rows(args, device)
     part_counts = torch.empty((n_sym + 1, grid, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((n_sym + 1, grid, ROW_FLOATS), dtype=_F32, device=device)
     path_rows_ = (torch.empty((n_sym + 1, paths_per_symbol, PATH_COLS), dtype=_F32,
@@ -1202,12 +1321,26 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     tail = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
             part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
+    wide = needs_envelope(levels.max_levels, num_bars) if envelope is None else envelope
+    lv_dev = device_rows(level_table(levels, n_sym), device) if wide else None
     if samp.kind != "gbm":
         what = "mc_engine_corr_sampler"
         samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
-        rc = _corr_sampler_library().qmmx_mc_engine_corr_sampler(
-            args_dev.data_ptr(), samp_dev.data_ptr(), bw.data_ptr(), n_sym,
-            SAMPLER_KINDS[samp.kind], levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+        kind = SAMPLER_KINDS[samp.kind]
+        if wide:
+            what = _wide(what)
+            rc = _wide_library("_wide_corr_samplers").qmmx_mc_engine_wide_corr_sampler(
+                args_dev.data_ptr(), samp_dev.data_ptr(), lv_dev.data_ptr(), bw.data_ptr(),
+                n_sym, kind, levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+        else:
+            rc = _corr_sampler_library().qmmx_mc_engine_corr_sampler(
+                args_dev.data_ptr(), samp_dev.data_ptr(), bw.data_ptr(), n_sym, kind,
+                levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+    elif wide:
+        what = _wide("mc_engine_corr")
+        rc = _wide_library("_wide_corr").qmmx_mc_engine_wide_corr(
+            args_dev.data_ptr(), lv_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels,
+            num_bars, ext_ptr, m_ptr, *tail)
     else:
         what = "mc_engine_corr"
         rc = _corr_library().qmmx_mc_engine_corr(

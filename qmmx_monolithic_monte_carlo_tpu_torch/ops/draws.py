@@ -80,7 +80,15 @@ gbm (``ops/pallas_engine.py:108-144``, ``:374-435``): blocks of 8 rows of
                     target slip)
     k = 14 .. 17    the same of bar 2·t2+1
 
-stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  The
+stride = 10, or 18 with noise, on the stream ``ENGINE_STREAM``.  An odd W
+(not a book's, ``pallas_engine.py:3064``) ends with a half step at t2 = W //
+2 (``pallas_engine.py:1296-1334``) that draws one more step of rows and
+takes the first Box-Muller branch (cos) of each pair: gbm's price pair
+(k = 0, 1), volume pair (2, 3), bridge (4, 5) and tie (6); the bootstrap
+samplers' index (0) and tie (2); Heston's three pairs (0-5), bridge (6, 7)
+and tie (8); with noise the four noise normals from both branches of the two
+pairs at k_noise, as a first half's.  So ``u_rows = stride * ceil(W / 2)``.
+The
 other samplers (``_draw_stride``, ``pallas_engine.py:108-144``,
 ``:1299-1334``): bootstrap and block bootstrap as the gated kernel's
 (stride 4, 12 with noise; a recorded bar brings its own volume); heston
@@ -144,6 +152,14 @@ def _check_bars(num_bars: int, sampler: str, odd_ok: bool = False) -> None:
     if num_bars <= 0 or (num_bars % 2 and not odd_ok):
         raise ValueError("num_bars must be even and positive "
                          "(paired Box-Muller draws)")
+
+
+def _check_engine_bars(num_bars: int, sampler: str, book: bool) -> None:
+    """The engine's horizons: any W >= 2 under every sampler (an odd W ends
+    with a half step), a book's even (``pallas_engine.py:3064``)."""
+    _check_bars(num_bars, sampler, odd_ok=not book)
+    if num_bars < 2:
+        raise ValueError("num_bars must be at least 2")
 
 
 def _resamples(sampler: str) -> bool:
@@ -284,7 +300,7 @@ class EngineLayout:
     book: bool = False
 
     def __post_init__(self):
-        _check_bars(self.num_bars, self.sampler)
+        _check_engine_bars(self.num_bars, self.sampler, self.book)
 
     k_tie = GatedLayout.k_tie
 
@@ -307,7 +323,7 @@ class EngineLayout:
 
     @property
     def u_rows(self) -> int:
-        return self.stride * (self.num_bars // 2)
+        return self.stride * ((self.num_bars + 1) // 2)
 
     def row(self, t2: int, k: int) -> int:
         return t2 * self.stride + k

@@ -53,6 +53,8 @@ from ..types import Levels
 from ..utils import prng
 
 MAX_LEVELS = 8           # level slots a kernel holds in its arguments
+MAX_ENGINE_LEVELS = 64   # level slots of the engine's envelope kernels (a level table;
+                         # MAX_KERNEL_LEVELS, pallas_engine.py:95)
 BLOCK = 256              # CUDA threads per CTA (matches the .cu sources)
 MAX_CTAS = 4096          # pass-1 grid cap: fixed, so results do not depend on the card
 MAX_GRID_ROWS = 65535    # grid rows of one fused sweep (the gated and engine
@@ -110,16 +112,16 @@ def grid_size(num_paths: int) -> int:
 
 
 def check_blocks(seed, levels: Levels, *, num_paths: int, lanes: int, sub: int,
-                 what: str) -> None:
+                 what: str, max_slots: int = MAX_LEVELS) -> None:
     """The seed, whole blocks of ``sub`` x ``lanes`` paths, and at most
-    MAX_LEVELS level slots for the ``what`` kernel."""
+    ``max_slots`` level slots for the ``what`` kernel."""
     prng.check_seed(seed)
     block = sub * lanes
     if lanes <= 0 or num_paths <= 0 or num_paths % block != 0:
         raise ValueError(f"num_paths must be a positive multiple of {block} "
                          f"({sub} x lanes)")
-    if levels.max_levels > MAX_LEVELS:
-        raise ValueError(f"the {what} kernel supports up to {MAX_LEVELS} level slots")
+    if levels.max_levels > max_slots:
+        raise ValueError(f"the {what} kernel supports up to {max_slots} level slots")
 
 
 def check_uniforms(external_uniforms, want: tuple, *, antithetic: bool,

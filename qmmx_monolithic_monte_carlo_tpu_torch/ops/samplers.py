@@ -291,9 +291,11 @@ def sampler_steps(u, layout, market=None):
     its variance normal and zv its volume normal (the engine's Heston).  A
     book symbol's (``layout.book``) ``market`` = (``market_draws``, beta)
     gives its index uniforms, or mixes the market's normals into its price
-    and variance normals."""
+    and variance normals.  An odd W (the engine's) ends with a half step:
+    its bar takes the first branch (cos) of each pair of one more step of
+    rows (``pallas_engine.py:1296-1334``)."""
     heston = layout.sampler == "heston"
-    for t2 in range(layout.num_bars // 2):
+    for t2 in range((layout.num_bars + 1) // 2):
         def draw(k):
             return u[:, layout.row(t2, k)]
 
@@ -314,7 +316,7 @@ def sampler_steps(u, layout, market=None):
             xs = (draw(0), draw(1)) if market is None else market[0][t2]
             zqs, zvs, bridges = none, none, none
             ties = (draw(layout.k_tie), draw(layout.k_tie + 1))
-        for half in range(2):
+        for half in range(min(2, layout.num_bars - 2 * t2)):
             nz = None
             if layout.noise:
                 k = layout.k_noise + 4 * half

@@ -19,10 +19,20 @@ import torch
 
 def fma(x, y, z) -> torch.Tensor:
     """float32 ``x * y + z`` rounded once.  float64 holds the product of two
-    float32 exactly, so one float64 add and one rounding to float32 give the
-    fused result (but for a double rounding, about once in 2^29)."""
+    float32 exactly; the float64 sum is rounded to odd (its exact error by
+    TwoSum: where the sum is inexact and its last bit even, the neighbour
+    toward the exact value) and then to float32, which rounds the exact
+    value once (round-to-odd with 53 >= 24 + 2 bits).  A plain float64 sum
+    would round twice about once in 2^29 operations: on one path in ~10^5
+    of a 390-bar Heston book."""
     x, y, z = (torch.as_tensor(a) for a in (x, y, z))
-    return (x.double() * y.double() + z.double()).float()
+    p, zd = x.double() * y.double(), z.double()
+    s = p + zd
+    bb = s - p
+    err = (p - (s - bb)) + (zd - bb)
+    odd = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    return torch.where(odd, torch.nextafter(s, toward), s).float()
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

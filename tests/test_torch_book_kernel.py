@@ -339,8 +339,9 @@ def test_book_wrappers_take_the_plain_version_for_cpu():
                                  "levels", "market", "external"])
 def test_book_entries_reject_bad_inputs(engine, bad):
     lv, p = _levels(), _params(engine)
+    n_many = 65 if engine else 9      # past the engine kernels' 64 slots, the gated's 8
     many = U.stack_levels([[{"color": "blue", "type": "solid", "index": i,
-                             "price": 100.0 + i} for i in range(9)]] * 3, max_levels=9)
+                             "price": 100.0 + i} for i in range(9)]] * 3, max_levels=n_many)
     lanes, w = 256, 8
     layout = (EngineLayout if engine else GatedLayout)(w)
     args = dict(levels=lv, s0=S0, sigma=SIGMAS, beta=BETAS, weights=WEIGHTS)

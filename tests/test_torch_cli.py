@@ -132,19 +132,25 @@ def test_paths_auto_takes_the_kernel_only_when_the_shape_fits(
 @pytest.mark.parametrize("path", ["first-contact", "gated", "engine"])
 @pytest.mark.parametrize("num_bars", [40, 41])
 def test_fits_takes_an_even_bar_count_only(path, num_bars):
+    """The first-contact and gated kernels take an even W and 8 levels; the
+    engine's take any W and 64 levels."""
     flags = {"first-contact": [], "gated": ["--gated"], "engine": ["--engine"]}[path]
     args = cli.build_parser().parse_args(
         ["paths", "--num-paths", "16384", "--num-bars", str(num_bars), *flags])
     rows = [{"price": 100.0}] * 3
-    if num_bars % 2:
+    if num_bars % 2 and path != "engine":
         assert "even --num-bars" in cli._fits(args, rows)
     else:
         assert cli._fits(args, rows) is None
-    assert "8 levels" in cli._fits(args, rows * 3)
+    if path == "engine":
+        assert cli._fits(args, rows * 3) is None
+        assert "64 levels" in cli._fits(args, rows * 22)
+    else:
+        assert "8 levels" in cli._fits(args, rows * 3)
 
 
 @pytest.mark.parametrize("num_paths, num_bars, fits", [
-    (16384, 40, True), (16384 + 1024, 40, False), (16384, 62, False)])
+    (16384, 40, True), (16384 + 1024, 40, False), (16384, 62, True)])
 def test_fits_engine_envelope(num_paths, num_bars, fits):
     args = cli.build_parser().parse_args(
         ["paths", "--engine", "--num-paths", str(num_paths), "--num-bars", str(num_bars)])
@@ -288,7 +294,7 @@ def test_sweep_gate_axes_require_gated(tmp_path, flags):
     ("gated", 16384, 40, "cuda"),
     ("gated", 16384, 41, "torch"),           # the kernels take an even W only
     ("engine", 4096, 40, "cuda"),
-    ("engine", 4096, 62, "torch"),           # above the engine kernel's 61 bars
+    ("engine", 4096, 62, "cuda"),            # the windowed guard's envelope kernel
 ])
 def test_sweep_auto_takes_the_kernel_only_when_the_shape_fits(
         monkeypatch, form, num_paths, num_bars, want):
@@ -297,3 +303,71 @@ def test_sweep_auto_takes_the_kernel_only_when_the_shape_fits(
     args = cli.build_parser().parse_args(
         ["sweep", "--num-paths", str(num_paths), "--num-bars", str(num_bars), *flags])
     assert cli._backend(args, [{"price": 100.0}] * 3) == want
+
+
+# ---- the engine's envelope: 1-64 levels, any W >= 2 (even in a book)
+
+def _ladder_rows(n, s0=100.0, step=0.12):
+    """tests/test_engine_envelope.py's n-level ladder as DB rows."""
+    return [{"color": ("blue", "orange", "black", "teal")[i % 4],
+             "type": "solid" if (i // 4) % 2 == 0 else "dashed", "index": i // 8,
+             "price": round(s0 + (i - n // 2) * step, 2)} for i in range(n)]
+
+
+@pytest.mark.parametrize("num_bars", [25, 62, 390])
+def test_fits_takes_30_levels_at_any_engine_horizon(num_bars):
+    for cmd in ("paths", "sweep"):
+        args = cli.build_parser().parse_args(
+            [cmd, "--engine", "--num-paths", "16384", "--num-bars", str(num_bars)])
+        assert cli._fits(args, _ladder_rows(30)) is None
+        assert cli._fits(args, _ladder_rows(64)) is None
+
+
+def test_fits_names_the_64_level_cap_and_auto_takes_the_pipeline_past_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    args = cli.build_parser().parse_args(
+        ["paths", "--engine", "--num-paths", "16384", "--num-bars", "390"])
+    assert "at most 64 levels" in cli._fits(args, _ladder_rows(65))
+    assert cli._backend(args, _ladder_rows(65)) == "torch"
+    assert cli._backend(args, _ladder_rows(64)) == "cuda"
+    args.backend = "cuda"
+    with pytest.raises(SystemExit, match="at most 64 levels"):
+        cli._backend(args, _ladder_rows(65))
+
+
+def test_fits_names_an_even_horizon_for_the_engine_book():
+    args = cli.build_parser().parse_args(
+        ["book", "--engine", "--num-paths", "16384", "--num-bars", "25"])
+    assert "even --num-bars" in cli._fits(args, _ladder_rows(2))
+    args.num_bars = 62
+    assert cli._fits(args, _ladder_rows(2)) is None
+
+
+def test_paths_engine_on_a_30_level_db_at_an_odd_horizon(tmp_path, capsys):
+    """``paths --engine --device cpu`` on a 30-level DB at W = 25 prints the
+    totals of the plain pipeline (``sim.enginepath.mc_paths_engine``) on the
+    DB's 30 levels at the same seed."""
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim import enginepath
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    path = str(tmp_path / "t.db")
+    conn = db.db_connect(path)
+    db.db_init(conn)
+    rows = _ladder_rows(30)
+    db.replace_levels(conn, rows)
+    conn.close()
+    out = _run(cli.main, ["--db", path, "paths", "--engine", "--num-paths", "4096",
+                          "--num-bars", "25", *CPU], capsys)
+    conn = db.db_connect(path)
+    levels = Levels.from_rows(db.load_levels(conn), max_levels=64)
+    conn.close()
+    stats, skips, escal = enginepath.mc_paths_engine(
+        0, levels, EngineParams.default(), num_paths=4096, num_bars=25, s0=100.0, sigma=0.3,
+        block_paths=4096, device="cpu")
+    assert out["paths"] == 4096.0 and out["trades"] == float(stats.sum_trades) > 0
+    assert out["entered"] == float(stats.n_entered)
+    assert out["mean_r"] == pytest.approx(float(stats.mean_r), abs=1e-6)
+    assert out["escalations"] == int(escal)
+    assert out["skips"] == {r.name: int(n) for r, n in
+                            zip(enginepath.SKIP_REASONS, skips.tolist()) if n}

@@ -70,8 +70,9 @@ def test_layout_rows_and_philox_uniforms():
     lay = EngineLayout(40)
     assert (lay.stride, lay.u_rows, lay.row(3, 5)) == (10, 200, 35)
     assert (EngineLayout(40, True).stride, EngineLayout(40, True).u_rows) == (18, 360)
+    assert EngineLayout(41).u_rows == 210      # an odd W: one more step of rows
     with pytest.raises(ValueError):
-        EngineLayout(41)
+        EngineLayout(41, book=True)            # a book walks double bars
     u = engine_uniforms(5, lay, block0=3, n_blocks=2, lanes=64)
     assert u.shape == (2, 200, 8, 64)
     flat = prng.uniform_rows(5, prng.STREAM_ENGINE, block0=4, n_blocks=1,
@@ -218,9 +219,9 @@ def test_entry_points_default_to_the_card(name):
 
 BAD = {
     "paths": (dict(num_paths=8 * LANES + 256), "multiple of 2048"),
-    "odd_bars": (dict(num_bars=9), "even"),
-    "long_bars": (dict(num_bars=62), "num_bars <= 61"),
-    "levels": (dict(levels=16), "up to 8 level slots"),
+    "odd_bars": (dict(num_bars=1), "at least 2"),
+    "long_bars": (dict(num_bars=40000), "num_bars <= 35791"),
+    "levels": (dict(levels=65), "up to 64 level slots"),
     "shape": (dict(external_uniforms=torch.rand(2, 31, 8, LANES)), "shape"),
     "dtype": (dict(external_uniforms=torch.rand(2, 40, 8, LANES, dtype=torch.float64)),
               "float32"),

@@ -138,22 +138,23 @@ def test_plain_gated_matches_the_jax_kernel_interpret(sampler, noisy):
     assert float(t.sum_trades) > float(t.n_entered) > 0
 
 
-@pytest.mark.parametrize("sampler", ["bootstrap", "block_bootstrap", "heston"])
-def test_plain_engine_matches_the_jax_kernel_interpret(sampler):
-    """The engine loop's samplers (recorded volumes into the volume gates
-    under bootstrap): counts, the 16-reason skip table and the escalations
-    exact."""
+def engine_against_interpret(sampler, w, noisy, lanes=256, seed=60):
+    """The engine loop's sampler (recorded volumes into the volume gates
+    under bootstrap) at W = ``w`` on one block of 8 x ``lanes`` paths, the
+    plain version against the JAX kernel in interpret mode: counts, the
+    16-reason skip table and the escalations exact, the histogram within the
+    flip budget."""
     J, jhist, jtables = _jax()
-    lanes = 256
-    u = _uniforms(60, (1, EngineLayout(W, False, sampler).u_rows, 8, lanes))
+    jn, tn = _noises(noisy, J)
+    u = _uniforms(seed, (1, EngineLayout(w, noisy, sampler).u_rows, 8, lanes))
     js, jskips, jescal = J.engine(
         0, J.Levels.from_rows(ROWS, max_levels=8), J.Params.default(), num_paths=8 * lanes,
-        num_bars=W, sigma=0.3, lanes=lanes, hist_bars=jhist, interpret=True,
+        num_bars=w, sigma=0.3, lanes=lanes, hist_bars=jhist, noise=jn, interpret=True,
         external_uniforms=u, **_kw(sampler))
     ts, tskips, tescal = cuda_engine.mc_paths_engine_fused(
         0, Levels.from_rows(ROWS, max_levels=8), EngineParams.default(), num_paths=8 * lanes,
-        num_bars=W, sigma=0.3, lanes=lanes, tables=jtables, external_uniforms=torch.from_numpy(u),
-        **_kw(sampler))
+        num_bars=w, sigma=0.3, lanes=lanes, tables=jtables, noise=tn,
+        external_uniforms=torch.from_numpy(u), **_kw(sampler))
     for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
         assert float(getattr(ts, fld)) == float(getattr(js, fld)), fld
     np.testing.assert_array_equal(tskips.numpy(), np.asarray(jskips))
@@ -161,6 +162,13 @@ def test_plain_engine_matches_the_jax_kernel_interpret(sampler):
     f = _flips(8 * lanes)
     assert float(np.abs(ts.hist.numpy() - np.asarray(js.hist)).sum()) <= 2 * f
     assert float(ts.n_entered) > 0
+
+
+@pytest.mark.parametrize("sampler", ["bootstrap", "block_bootstrap", "heston"])
+def test_plain_engine_matches_the_jax_kernel_interpret(sampler):
+    """The engine loop's samplers at W = 16, 256 lanes, no noise
+    (``engine_against_interpret``)."""
+    engine_against_interpret(sampler, W, False)
 
 
 # ---------------------------------------------------------------- on the card

@@ -358,11 +358,12 @@ def test_cli_default_history_is_the_jax_fixture(tmp_path):
 
 
 @pytest.mark.parametrize("family,num_bars,fits", [
-    ("first contact", 25, True), ("gated", 25, False), ("engine", 25, False),
+    ("first contact", 25, True), ("gated", 25, False), ("engine", 25, True),
     ("first contact", 40, True)])
 def test_fits_takes_an_odd_bar_count_for_first_contact_bootstrap(family, num_bars, fits):
     """One index uniform a bar: the first-contact bootstrap kernel takes an
-    odd horizon; the gated and engine loops walk double bars."""
+    odd horizon; the gated loop walks double bars; the engine's kernels end
+    an odd horizon with a half step, under every sampler."""
     import argparse
 
     args = argparse.Namespace(cmd="paths", num_bars=num_bars, num_paths=1 << 16,
@@ -370,7 +371,7 @@ def test_fits_takes_an_odd_bar_count_for_first_contact_bootstrap(family, num_bar
                               sampler="bootstrap")
     assert (cli._fits(args, [{}]) is None) == fits
     args.sampler = "heston"
-    assert (cli._fits(args, [{}]) is None) == (num_bars % 2 == 0)
+    assert (cli._fits(args, [{}]) is None) == (num_bars % 2 == 0 or family == "engine")
 
 
 @pytest.mark.parametrize("sampler", ["gbm", "bootstrap", "block_bootstrap", "heston"])

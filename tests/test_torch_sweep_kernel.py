@@ -275,8 +275,8 @@ def test_sweep_wrappers_reject_bad_inputs(bad):
                      lambda: cuda_gated.mc_paths_gated_sweep_fused(
                          0, lv, p, [0.3], [0.2], **dict(life, num_bars=9))],
         "levels": [lambda: cuda_mc.mc_paths_sweep_fused(0, many, p, [0.3], [0.2], **fc),
-                   lambda: cuda_engine.mc_paths_engine_sweep_fused(0, many, p, n_grid=1,
-                                                                   **life)],
+                   lambda: cuda_engine.mc_paths_engine_sweep_fused(      # past 64 slots
+                       0, Levels.from_rows([], max_levels=65), p, n_grid=1, **life)],
         "gate_length": [lambda: cuda_gated.mc_paths_gated_sweep_fused(
             0, lv, p, [0.3, 0.4], [0.2, 0.3],
             GateConfig.default().replace(touch_limit=[1, 2, 3]), **life)],
