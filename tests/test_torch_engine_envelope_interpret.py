@@ -6,8 +6,11 @@ and escalations exact, the histogram within the flip budget.  W = 62 (the
 windowed guard) is ``tests/test_torch_engine_envelope_interpret_w62.py``."""
 
 import pytest
+import torch
 
 from .test_torch_sampler_kernels import engine_against_interpret
+
+torch.set_num_threads(2)
 
 W = 25
 

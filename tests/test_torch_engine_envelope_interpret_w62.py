@@ -5,8 +5,11 @@ one block of 8 x 128 paths: counts, the 16-reason skip table and escalations
 exact, the histogram within the flip budget."""
 
 import pytest
+import torch
 
 from .test_torch_sampler_kernels import engine_against_interpret
+
+torch.set_num_threads(2)
 
 W = 62
 
