@@ -21,7 +21,7 @@ Phases (any failure exits non-zero and prints no result line):
    before and read just after, the output checked, paths/s timed;
    gated lifecycle (kernel #4, ops/csrc/mc_gated.cu):
 6. injected uniforms — kernel on the card vs plain version on CPU copies,
-   path by path (W = 40, lanes 1024, 16 blocks of 8 x 1024 = 131072 paths;
+   path by path (W = 40, lanes 1024, 8 blocks of 8 x 1024 = 65536 paths;
    engine defaults, multi-trade, tight gates, execution noise, antithetic);
    every path that differs is traced bar by bar: the plain lifecycle over
    the card's bars must equal the kernel's row exactly, and over the CPU's
@@ -34,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
    output checked, paths/s timed; the kernel alone timed at 2^28;
    full 12-gate engine (kernel #8, ops/csrc/mc_engine.cu):
 9. injected uniforms — kernel on the card vs plain version on CPU copies,
-   path by path (W = 40, 16 blocks of 8 x 256 = 32768 paths, levels 100.0 /
+   path by path (W = 40, 8 blocks of 8 x 256 = 16384 paths, levels 100.0 /
    100.4 / 99.6; engine defaults, accumulation gates active, ML and policy
    gates armed, the same with a policy that lets entries through and with the
    blended gate, execution noise, antithetic); every differing path is traced
@@ -93,16 +93,19 @@ Phases (any failure exits non-zero and prints no result line):
    uniforms path by path with [S] noise stds, every differing path traced as
    in phase 6; Philox at 2^22 a symbol, each symbol equal to the single
    kernel bit for bit (per path included), the plain version on the card
-   equal to the kernel on every path, at three symbols and on config #4's
-   first 10 symbols at 2^16 paths a symbol; ``mc_paths_gated_universe_fused`` on
+   equal to the kernel on every path, at three symbols and on symbols 0, 11,
+   ..., 99 of config #4's full-width launch at 2^16 paths a symbol (each
+   against the single plain version keyed as its symbol);
+   ``mc_paths_gated_universe_fused`` on
    config #4's universe with its launches;
 17. engine universe (``mc_engine_sweep_kernel``, a row per symbol, the sweep
    of universes at one grid row): injected uniforms path by path with [S]
    knobs (proximity, paddings, q_min) and noise stds, every differing path
    traced as in phase 9; Philox, each symbol equal to the single kernel bit
    for bit at 2^22 and to the plain version on the card on every path at
-   2^20, and config #4's first 10 symbols equal to the plain version on the
-   card on every path at 2^16 a symbol; BASELINE config #4 through
+   2^20, and symbols 0, 11, ..., 99 of config #4's full-width launch equal to
+   the plain version on the card on every path at 2^16 a symbol; BASELINE
+   config #4 through
    ``mc_paths_engine_universe_fused``, one
    warm-up then timed, with its launches; then the per-symbol refresh
    (``universe_policy_refresh``) on run_all.py's [100, 64, 4] float32 shapes
@@ -122,14 +125,14 @@ Phases (any failure exits non-zero and prints no result line):
    with the CLI's level scaffold, sigma 0.3, betas 0.2 .. 0.8, equal
    weights, 2^20 paths a symbol, 40 bars):
 19. gated book (``mc_gated_corr_kernel``, mc_gated_corr.cu): injected uniforms
-   (16 blocks of 8 x 1024 paths a symbol, antithetic) path by path, symbols
+   (8 blocks of 8 x 1024 paths a symbol, antithetic) path by path, symbols
    and the book, every differing path traced as in phase 6 (a book path by
    its symbols' lifecycles over the CPU's and the card's bars, combined as
    the book combines them); Philox at
    2^20 a symbol, every symbol at beta 0 equal to the gated universe kernel
    (#5) bit for bit, per path included, and a one-symbol book of weight 1
-   equal to its symbol; on the main path's inputs (the book of its first 10
-   symbols) at 2^16 paths a symbol the plain version on the card equal to the
+   equal to its symbol; on the main path's inputs (a book of its symbols 0,
+   11, ..., 99) at 2^16 paths a symbol the plain version on the card equal to the
    kernel on every path, symbols and book; the kernel alone at the main-path size (the curves in shared
    memory), and the fold; the port CLI's ``book
    --backend cuda`` at the main-path size, launch counts set to 0 just
@@ -146,7 +149,8 @@ Phases (any failure exits non-zero and prints no result line):
    cents-rounded closes, opening gaps, highs and lows beyond open and close,
    nonzero volumes) written from a seed:
 21. first contact (``mc_first_contact_sampler_kernel``, mc_first_contact_samplers.cu): for
-   each sampler, injected uniforms at 2^16 paths (the engine's at 2^15; and with execution noise
+   each sampler, injected uniforms at 2^16 paths (the gated's at 2^15, the engine's at 2^14;
+   and with execution noise
    for bootstrap and Heston), kernel vs plain on CPU copies on totals;
    Philox at 2^22, kernel vs plain on the card, both timed; the kernel
    alone at 2^28 x 40 with its bound; the port CLI's ``paths --backend cuda
@@ -178,12 +182,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``mc_paths_sweep_fused``; launch counts set to 0 just before each main
    path and read just after (one sampler launch and one fold a run);
 25. gated: the same with and without noise ([S] and [G] stds), path by path,
-   every differing injected path traced as in phase 6, config #4's first 10
-   symbols against the plain version on the card; ``sweep --gated`` at
+   every differing injected path traced as in phase 6, symbols 0, 11, ...,
+   99 of config #4's full-width launch against the plain version on the
+   card; ``sweep --gated`` at
    2^26 x 18 rows (``--touch-limits 2 4``);
 26. engine: the same with the engine's two budgets, every differing path
-   traced as in phase 9, config #4's first 10 symbols against the plain
-   version on the card (launch-bound a symbol at a time) and all 100 of
+   traced as in phase 9, symbols 0, 11, ..., 99 of config #4's full-width
+   launch against the plain version on the card (launch-bound a symbol at a
+   time) and all 100 of
    the full-width launch against their one-row launches; ``sweep --engine``
    at 2^24 x 18 rows (``--jitter-stds 0 0.02``); and the sweep of universes
    (config #4's first 8 symbols x 4 configurations at 2^20 a cell), each
@@ -198,8 +204,8 @@ Phases (any failure exits non-zero and prints no result line):
    by path, symbols and the book, every differing path traced (as in phase
    19); Philox at 2^16 a symbol against the plain version on the card path
    by path; swapping two symbols' histories swaps their rows bit for bit,
-   and one shared [1, 5, H] table equals its copies; the book of the main
-   path's first 10 symbols at 2^16 against the plain version on the card
+   and one shared [1, 5, H] table equals its copies; a book of the main
+   path's symbols 0, 11, ..., 99 at 2^16 against the plain version on the card
    path by path; the
    kernel alone at 100 x 2^20; the port CLI's ``book --backend cuda
    --sampler ...`` at 100 x 2^20 x 40 on the CSV history, launch counts set
@@ -207,7 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
    run, nothing else);
 28. engine book (``mc_engine_corr_sampler_kernel``, mc_engine_corr_samplers.cu):
    the same with the engine's two budgets, the plain version on the card on
-   the main path's first 10 symbols (launch-bound a symbol at a time), and
+   a book of the main path's symbols 0, 11, ..., 99 (launch-bound a symbol at
+   a time), and
    ``book --engine``;
    the engine's envelope (the envelope kernels ``mc_engine_wide*.cu``, where
    the parents take at most 8 levels and an even W <= 61), at the reference's
@@ -218,21 +225,25 @@ Phases (any failure exits non-zero and prints no result line):
    bars, 64 x 16, 8 x 62, 8 x 63 with noise and antithetic, 3 x 25 and 30 x
    390 (2^14 paths); Philox at 30 x 390 x 2^16, kernel equal to the plain
    version on the card on every path; the envelope kernel forced to run at 3
-   levels x 40 bars equal to the parent kernel bit for bit at 2^20; the
-   sweep's 18 rows (3 x 3 x jitter 0, 0.02) and 8 universe symbols (each its
-   own 30-level ladder) at 30 x 390 each equal to its one-row launch bit for
-   bit; the port CLI's ``paths --engine --backend cuda`` on a 30-level DB at
+   levels x 40 bars equal to the parent kernel bit for bit at 2^20, and the
+   two timed at phase 11's 2^28 x 40; the sweep's 18 rows (3 x 3 x jitter 0,
+   0.02) and 8 universe symbols (each its own 30-level ladder) at 30 x 390
+   each equal to its one-row launch bit for bit, the sweep's jitter row (0.25,
+   0.15, 0.02) at 2048 paths equal to the plain version on the card on every
+   path; the port CLI's ``paths --engine --backend cuda`` on a 30-level DB at
    390 bars x 2^24 paths and ``sweep --engine`` at 2^20 x 18 rows, launch
    counts set to 0 just before and read just after (the envelope kernel and
-   the fold once a run, nothing else), the kernel alone timed;
+   the fold once, nothing else; one timed run, its kernel warm from the
+   phase's checks), the kernel alone timed;
 30. the samplers and books (``mc_engine_wide_sampler_kernel``,
    ``mc_engine_wide_corr_kernel``): bootstrap, block bootstrap and Heston at
    30 x 390 on a recorded year and at W 25 with noise, injected (CPU copies,
    traced) and Philox (the card, every path); ``paths --engine --sampler``
    at 2^24 x 390; the books under gbm and the three samplers at 10 symbols x
    30 levels x 390 bars x 2^20 a symbol through ``mc_paths_engine_corr_fused``
-   (warm-up then timed, its launches), every symbol and the book equal to
-   the plain version on the card on every path at 2^14 a symbol.
+   (one timed run, its launches), every symbol and the book of its
+   symbols 0 and 9 equal to the plain version on the card on every path at
+   2^14 a symbol.
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
@@ -345,7 +356,7 @@ PHILOX_PATHS = 1 << 22
 PLAIN_PATHS = 1 << 24
 LANES = 8192
 GATED_LANES = 1024
-GATED_INJECT_BLOCKS = 16
+GATED_INJECT_BLOCKS = 8
 CSRC = "qmmx_monolithic_monte_carlo_tpu_torch/ops/csrc/"
 FC_SOURCE = CSRC + "mc_first_contact.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
@@ -362,9 +373,9 @@ ENGINE_SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:18
 # 2^30 paths x 40 bars
 CONFIG5 = [(0.25, 0.15), (0.35, 0.25), (0.45, 0.35)]
 CONFIG5_PATHS = 1 << 30
-SWEEP_INJECT_BLOCKS = 8
+SWEEP_INJECT_BLOCKS = 4
 ENGINE_LANES = 256
-ENGINE_INJECT_BLOCKS = 16
+ENGINE_INJECT_BLOCKS = 8
 # the JAX engine kernel tests' levels (tests/test_pallas_engine.py:25-32)
 ENGINE_ROWS = [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
                {"color": "orange", "type": "dashed", "index": 0, "price": 100.4},
@@ -993,12 +1004,14 @@ def launch_counts() -> dict:
     return {k: v for m in (cuda_mc, cuda_gated, cuda_engine) for k, v in m.LAUNCHES.items()}
 
 
-CLI_RUNS = 2      # a CLI main path: one warm-up, one timed run (paths --engine in 29: two)
+CLI_RUNS = 2      # a CLI main path: one warm-up, one timed run
+ENV_RUNS = 1      # phases 29-30: one run, its kernels warm from the phase's own checks
 
 
 def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = None,
             unit: str = None, runs: int = CLI_RUNS) -> tuple[list, list, dict]:
-    """The CLI ``runs`` times (one warm-up, then timed), the launch counts
+    """The CLI ``runs`` times (one warm-up, then timed; a single run is
+    timed, its kernels warm from the phase's own checks), the launch counts
     set to 0 just before and read just after; the kernels named in
     ``expect`` (their counts a run) must have been launched exactly that
     often a run and no other kernel at all.  ``work`` counts what a run
@@ -1031,11 +1044,12 @@ def run_cli(cli, argv, reset, expect: dict, n_paths: int = None, work: int = Non
             raise AssertionError(f"non-finite cli output: {out}")
         if "hit_rate" in out and not 0.0 < out["hit_rate"] < 1.0:
             raise AssertionError(f"hit_rate out of (0, 1): {out}")
-    rep_s = sum(secs[1:]) / (runs - 1)
+    timed_s = secs[1:] or secs          # one run: its kernels warm from the phase's checks
+    rep_s = sum(timed_s) / len(timed_s)
     work = work or (n_paths or MAIN_PATHS) * len(lines)
     unit = unit or ("paths x rows" if len(lines) > 1 else "paths")
-    log(f"  cli wall per run: warm-up {secs[0]:.3f} s, reps "
-        f"{', '.join(f'{s:.3f}' for s in secs[1:])} s -> "
+    log("  cli wall per run: " + (f"warm-up {secs[0]:.3f} s, reps " if runs > 1 else "")
+        + f"{', '.join(f'{s:.3f}' for s in timed_s)} s -> "
         f"{work / rep_s:.6e} {unit}/s end to end")
     return lines, secs, {k: counts[k] for k in expect}
 
@@ -1076,9 +1090,10 @@ UNI_PATHS = 1 << 20        # paths a symbol
 UNI_SIGMA = 0.25
 UNI_SAMPLE_PATHS = 1 << 16    # a symbol: config #4's inputs, kernel vs plain on the card
 # the lifecycles' plain versions on the card are launch-bound a symbol at a
-# time: phases 16-17, 19-20 and 25-28 hold the main path's inputs on its first
-# 10 symbols
-CARD_PLAIN_SYMBOLS = 10
+# time: phases 16-17, 19-20 and 25-28 hold the main path's inputs on 10 of its
+# 100 symbols spread over them (0, 11, ..., 99): a universe's taken from its
+# full-width launch, each keyed as its symbol; a book's as a book of their own
+CARD_PLAIN_PICK = [round(i * (UNI_SYMBOLS - 1) / 9) for i in range(10)]
 UNI_ENGINE_PATHS = 1 << 20     # a symbol, for the engine universe's plain on the card
 UNI_SWEEP_PATHS = 1 << 18      # a symbol, for the sweep of universes' plain on the card
 UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:828"
@@ -1152,6 +1167,19 @@ def config4(n_sym: int | None = None):
     return (U.stack_levels(rows, max_levels=4),
             np.array([100.0 + i for i in range(n_sym)], np.float32),
             np.full(n_sym, UNI_SIGMA, np.float32))
+
+
+def plain_picks(single, c4, pick):
+    """The plain version on config #4's symbols ``pick``: ``single(symbol,
+    levels, s0, sigma)`` for each, the single configuration's plain version
+    keyed as that symbol (as the universe keys it), stacked as the
+    universe's plain version stacks its symbols."""
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
+
+    outs = [single(i, grid_row(c4[0], i), float(c4[1][i]), float(c4[2][i])) for i in pick]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def check_universe_stats(name: str, stats, n_sym: int, pps: int) -> None:
@@ -1406,18 +1434,21 @@ def universe_phases(dev, card, reset) -> list:
         f"equals the kernel on every path; at 3 x {PHILOX_PATHS} paths with noise: kernel "
         f"{g_ms:.3f} ms, bound {g_bound['bound_ms']:.3f} ms {g_bound['bound_parts']}, plain "
         f"{g_plain_ms:.3f} ms; fold {g_red_ms:.4f} ms")
-    n_cmp = CARD_PLAIN_SYMBOLS
-    main_inputs("the gated universe", f"config #4's first {n_cmp} symbols, path by path")
+    pick = CARD_PLAIN_PICK
+    n_cmp = len(pick)
+    main_inputs("the gated universe", f"symbols {pick} of config #4's full-width launch, "
+                "path by path")
     c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                 noise=None, external_uniforms=None, device=dev, per_path=True)
-    c4s = config4(n_cmp)
-    sc, sf, srow, held = cuda_gated.gated_universe_totals_reference(
-        0, c4s[0], params, *c4s[1:], chunk_blocks=64, work=True, **c4kw)
+    sc, sf, srow, held = plain_picks(lambda i, lv, s0, sg: cuda_gated.gated_totals_reference(
+        0, lv, params, num_paths=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, s0=s0, mu=0.0, sigma=sg,
+        dt=DT, lanes=lanes, device=dev, chunk_blocks=64, per_path=True, work=True, symbol=i),
+        c4, pick)
+    got = fold(cuda_gated, cuda_gated.gated_universe_rows(0, c4[0], params, *c4[1:], **c4kw))
     g_err = max(g_err, same_on_card(
-        "gated", (sc, sf, srow), fold(cuda_gated, cuda_gated.gated_universe_rows(
-            0, c4s[0], params, *c4s[1:], **c4kw)), n_cmp, UNI_SAMPLE_PATHS,
-        lambda s: f"symbol {s}", engine=False))
-    del srow
+        "gated", (sc, sf, srow), tuple(x[pick] for x in got), n_cmp, UNI_SAMPLE_PATHS,
+        lambda j: f"symbol {pick[j]}", engine=False))
+    del srow, got
     log(f"[16] main path: mc_paths_gated_universe_fused, config #4's universe "
         f"({UNI_SYMBOLS} x {UNI_PATHS} paths)")
     st, secs, launches = run_entry(
@@ -1515,18 +1546,21 @@ def universe_phases(dev, card, reset) -> list:
         f"equals the kernel on every path; at 3 x {e_paths} paths with noise: kernel "
         f"{e_ms:.3f} ms, bound {e_bound['bound_ms']:.3f} ms {e_bound['bound_parts']}, plain "
         f"{e_plain_ms:.3f} ms; fold {e_red_ms:.4f} ms")
-    n_cmp = CARD_PLAIN_SYMBOLS
-    main_inputs("the engine universe", f"config #4's first {n_cmp} symbols, path by path")
+    pick = CARD_PLAIN_PICK
+    n_cmp = len(pick)
+    main_inputs("the engine universe", f"symbols {pick} of config #4's full-width launch, "
+                "path by path")
     c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                 external_uniforms=None, device=dev, per_path=True)
-    c4s = config4(n_cmp)
-    sc, sf, srow = cuda_engine.engine_universe_totals_reference(
-        0, c4s[0], params, *c4s[1:], chunk_blocks=512, **c4kw)
+    sc, sf, srow = plain_picks(lambda i, lv, s0, sg: cuda_engine.engine_totals_reference(
+        0, lv, params, num_paths=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, s0=s0, mu=0.0, sigma=sg,
+        dt=DT, lanes=lanes, device=dev, chunk_blocks=512, per_path=True, symbol=i), c4, pick)
+    got = fold(cuda_engine, cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:],
+                                                             **c4kw))
     e_err = max(e_err, same_on_card(
-        "engine", (sc, sf, srow), fold(cuda_engine, cuda_engine.engine_universe_rows(
-            0, c4s[0], params, *c4s[1:], **c4kw)), n_cmp, UNI_SAMPLE_PATHS,
-        lambda s: f"symbol {s}"))
-    del srow
+        "engine", (sc, sf, srow), tuple(x[pick] for x in got), n_cmp, UNI_SAMPLE_PATHS,
+        lambda j: f"symbol {pick[j]}"))
+    del srow, got
     log(f"[17] main path: BASELINE config #4, mc_paths_engine_universe_fused ({UNI_SYMBOLS} "
         f"symbols x {UNI_PATHS} paths x {NUM_BARS} bars, sigma {UNI_SIGMA}, default params), "
         "one warm-up then timed")
@@ -1954,12 +1988,14 @@ def book_phases(dev, card, reset, cli) -> list:
                                        params, [100.0], [SIGMA], [0.7], [1.0], gate,
                                        paths_per_symbol=n, **dict(gkw, noise=None))),
         BOOK_PATHS)
-    n_cmp = CARD_PLAIN_SYMBOLS
-    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+    pick = CARD_PLAIN_PICK
+    n_cmp = len(pick)
+    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
+                                  "price": BOOK_S0[i]},
                                  {"color": "orange", "type": "dashed", "index": 0,
-                                  "price": x + 0.4}] for x in BOOK_S0[:n_cmp]], max_levels=4),
-                params) + tuple(x[:n_cmp] for x in book100[2:])
-    log(f"  on the main path's inputs (its first {n_cmp} symbols, a book of their own) at "
+                                  "price": BOOK_S0[i] + 0.4}] for i in pick], max_levels=4),
+                params) + tuple(x[pick] for x in book100[2:])
+    log(f"  on the main path's inputs (its symbols {pick}, a book of their own) at "
         f"{BOOK_SAMPLE_PATHS} paths a symbol, Philox: kernel vs plain on the card, path by path")
     skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                noise=None, external_uniforms=None, device=dev, per_path=True)
@@ -1977,7 +2013,7 @@ def book_phases(dev, card, reset, cli) -> list:
                 external_uniforms=None, device=dev)
     g_main_ms = alone("the gated book kernel",
                       lambda: cuda_gated.gated_corr_rows(0, *book100, **main))
-    cmp_scale = main_scale * BOOK_SYMBOLS / n_cmp    # the first symbols' work, for all 100
+    cmp_scale = main_scale * BOOK_SYMBOLS / n_cmp    # the sample's work, for all 100
     g_ops = gated_ops(BOOK_SYMBOLS * BOOK_PATHS, float(held.sum()) * cmp_scale,
                       float(sc[:-1, 5].sum()) * cmp_scale)
     for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
@@ -2106,15 +2142,17 @@ def book_phases(dev, card, reset, cli) -> list:
                                          params, [100.0], [SIGMA], [0.7], [1.0],
                                          paths_per_symbol=n, **dict(ekw, noise=None))),
         BOOK_PATHS)
-    n_cmp = CARD_PLAIN_SYMBOLS
-    log(f"  on the main path's inputs (its first {n_cmp} symbols, a book of their own) at "
+    pick = CARD_PLAIN_PICK
+    n_cmp = len(pick)
+    log(f"  on the main path's inputs (its symbols {pick}, a book of their own) at "
         f"{BOOK_SAMPLE_PATHS} paths a symbol, Philox: kernel vs plain on the card, path by path")
     skw = dict(paths_per_symbol=BOOK_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                noise=None, external_uniforms=None, device=dev, per_path=True)
-    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+    cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
+                                  "price": BOOK_S0[i]},
                                  {"color": "orange", "type": "dashed", "index": 0,
-                                  "price": x + 0.4}] for x in BOOK_S0[:n_cmp]], max_levels=4),
-                params) + tuple(x[:n_cmp] for x in book100[2:])
+                                  "price": BOOK_S0[i] + 0.4}] for i in pick], max_levels=4),
+                params) + tuple(x[pick] for x in book100[2:])
     (sc, sf, srow), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
         0, *cmp_book, chunk_blocks=64, **skw))
     krows = cuda_engine.engine_corr_rows(0, *cmp_book, **skw)
@@ -2130,7 +2168,7 @@ def book_phases(dev, card, reset, cli) -> list:
                       lambda: cuda_engine.engine_corr_rows(0, *book100, **main))
     sc = sc.cpu()
     e_ops = {"f32": 0.0, "sfu": 0.0, "imul": 0.0}
-    for s in range(n_cmp):       # the first symbols' work, for all 100
+    for s in range(n_cmp):       # the sample's work, for all 100
         for k, v in engine_ops(BOOK_PATHS, sc[s], main_scale * BOOK_SYMBOLS / n_cmp).items():
             e_ops[k] += v
     for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
@@ -2186,7 +2224,7 @@ def book_phases(dev, card, reset, cli) -> list:
 SAMPLERS = ("bootstrap", "block_bootstrap", "heston")
 SAMPLER_HIST_BARS = 390 * 252      # a year of regular sessions of 1-minute bars
 SAMPLER_BLOCK_LEN = 10
-SAMPLER_INJECT_PATHS = {"first contact": 1 << 16, "gated": 1 << 16, "engine": 1 << 15}
+SAMPLER_INJECT_PATHS = {"first contact": 1 << 16, "gated": 1 << 15, "engine": 1 << 14}
 FC_SAMPLER_SOURCE = CSRC + "mc_first_contact_samplers.cu"
 GATED_SAMPLER_SOURCE = CSRC + "mc_gated_samplers.cu"
 ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
@@ -2515,12 +2553,12 @@ def sampler_phases(dev, card, reset, cli) -> list:
 ROWS_INJECT_HIST_BARS = 390 * 20    # the 3-symbol universe's own histories
 ROWS_INJECT_BLOCKS = {"first contact": 4, "gated": 1, "engine": 1}
 # kernel vs plain on the card: paths a universe symbol, paths a sweep row
-ROWS_PLAIN_PATHS = {"first contact": 1 << 20, "gated": 1 << 20, "engine": 1 << 18}
+ROWS_PLAIN_PATHS = {"first contact": 1 << 20, "gated": 1 << 20, "engine": 1 << 17}
 ROWS_SWEEP_PLAIN_PATHS = {"first contact": 1 << 18, "gated": 1 << 18, "engine": 1 << 16}
 # config #4's main inputs, kernel vs plain on the card (and the bounds' work):
-# paths a symbol, on all its symbols for first contact and on the first
-# CARD_PLAIN_SYMBOLS for the lifecycles (every symbol of the full-width launch
-# is held to its one-row launch)
+# paths a symbol, on all its symbols for first contact and on CARD_PLAIN_PICK
+# for the lifecycles (every symbol of the full-width launch is also held to its
+# one-row launch)
 ROWS_SAMPLE_PATHS = {"first contact": 1 << 16, "gated": 1 << 16, "engine": 1 << 15}
 ROWS_UNI_SWEEP_SAMPLE_PATHS = 1 << 14
 ROWS_UNI_SWEEP_SAMPLE_SYMBOLS = 2   # of the sweep of universes' 8, kernel vs plain on the card
@@ -2734,6 +2772,16 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
             if self.engine:
                 return cuda_engine.mc_paths_engine_universe_fused(0, lv, p, s0, sg, **kw)[0]
             return cuda_gated.mc_paths_gated_universe_fused(0, lv, p, s0, sg, gate, **kw)
+
+        # -- the single configuration's plain version at symbol ``symbol`` (gated, engine)
+        def plain_single(self, seed, lv, p, n, s, tables, s0, sg, symbol, per_path=False,
+                         work=False, chunk_blocks=64):
+            kw = dict(num_paths=n, num_bars=NUM_BARS, s0=s0, mu=0.0, sigma=sg, dt=DT,
+                      lanes=self.lanes, external_uniforms=None, device=dev, symbol=symbol,
+                      per_path=per_path, chunk_blocks=chunk_blocks, **skw(s, tables))
+            if self.engine:
+                return cuda_engine.engine_totals_reference(seed, lv, p, **kw)
+            return cuda_gated.gated_totals_reference(seed, lv, p, gate, work=work, **kw)
 
         # -- the one-row launch of symbol ``symbol`` or of one grid row
         def single(self, seed, lv, p, n, s, tables, s0=100.0, sg=SIGMA, nz=None, symbol=0,
@@ -3003,25 +3051,29 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                 f"{NUM_BARS} bars" + ("" if s == "heston" else
                                      f", each symbol its own {SAMPLER_HIST_BARS} bars") + ")")
             c4t = None if s == "heston" else c4_tables
-            n_sample = UNI_SYMBOLS if fam.fc else CARD_PLAIN_SYMBOLS
-            c4s = config4(n_sample)
-            c4st = None if c4t is None else c4t[:n_sample]
+            pick = list(range(UNI_SYMBOLS)) if fam.fc else CARD_PLAIN_PICK
             log(f"  the main path's inputs, config #4's "
-                + (f"{n_sample}" if fam.fc else f"first {n_sample}")
-                + f" symbols at {pps_sample} paths a symbol: kernel vs plain on the card")
-            sample = fam.uni(0, c4s[0], params, *c4s[1:], pps_sample, s, c4st, plain=True,
-                             per_path=not fam.fc, work=not fam.engine)
-            krows = fam.uni(0, c4s[0], params, *c4s[1:], pps_sample, s, c4st,
+                + (f"{UNI_SYMBOLS}" if fam.fc else f"{len(pick)} {pick} of its")
+                + f" symbols at {pps_sample} paths a symbol from its full-width launch: "
+                "kernel vs plain on the card")
+            if fam.fc:
+                sample = fam.uni(0, c4[0], params, *c4[1:], pps_sample, s, c4t, plain=True,
+                                 work=True)
+            else:
+                sample = plain_picks(lambda i, lv, s0, sg: fam.plain_single(
+                    0, lv, params, pps_sample, s, None if c4t is None else c4t[i], s0, sg, i,
+                    per_path=True, work=not fam.engine), c4, pick)
+            krows = fam.uni(0, c4[0], params, *c4[1:], pps_sample, s, c4t,
                             per_path=not fam.fc)
-            kgot = (*fam.fold(krows), *krows[2:])
+            kgot = tuple(x[pick] for x in (*fam.fold(krows), *krows[2:]))
             if fam.fc:
                 e = max(compare(f"config #4 {s} symbol {i}", (sample[0][i], sample[1][i]),
                                 (kgot[0][i], kgot[1][i]), pps_sample, quiet=True)
-                        for i in range(n_sample))
+                        for i in range(UNI_SYMBOLS))
                 log(f"    every symbol within budget, |d mean_r| max {e:.3e}")
             else:
-                e = same_on_card(f"config #4 {s}", sample[:3], kgot, n_sample, pps_sample,
-                                 lambda i: f"symbol {i}", engine=fam.engine)
+                e = same_on_card(f"config #4 {s}", sample[:3], kgot, len(pick), pps_sample,
+                                 lambda j: f"symbol {pick[j]}", engine=fam.engine)
             err[s] = max(err[s], e)
             del krows, kgot
             st, secs, launches = run_entry(
@@ -3228,7 +3280,7 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
 # the market stream, Heston's second market pair
 GATED_CORR_SAMPLER_SOURCE = CSRC + "mc_gated_corr_samplers.cu"
 ENGINE_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_corr_samplers.cu"
-BOOK_SAMPLER_INJECT_BLOCKS = {"gated": 2, "engine": 2}
+BOOK_SAMPLER_INJECT_BLOCKS = {"gated": 1, "engine": 1}
 BOOK_SAMPLER_PHILOX_PATHS = 1 << 16
 
 
@@ -3269,8 +3321,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
     symbols' histories swaps their rows, and one shared [1, 5, H] table
     equals its copies; the CLI's ``book [--engine] --backend cuda --sampler
     S`` at 100 symbols x 2^20 x 40 on a year of 1-minute bars; the main
-    path's kernel against the plain version on the card (the book of its
-    first 10 symbols at 2^16).  Returns their entries
+    path's kernel against the plain version on the card (a book of its
+    symbols 0, 11, ..., 99 at 2^16).  Returns their entries
     of the ``kernels`` line."""
     import numpy as np
     import torch
@@ -3499,16 +3551,17 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
             log(f"  {s}: history swap swaps rows 0 and 1 bit for bit; [1, 5, H] == "
                 "[3, 5, H] copies bit for bit")
 
-        n_cmp = CARD_PLAIN_SYMBOLS
+        pick = CARD_PLAIN_PICK
+        n_cmp = len(pick)
         cmp_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0,
-                                      "price": x},
+                                      "price": BOOK_S0[i]},
                                      {"color": "orange", "type": "dashed", "index": 0,
-                                      "price": x + 0.4}] for x in BOOK_S0[:n_cmp]],
+                                      "price": BOOK_S0[i] + 0.4}] for i in pick],
                                    max_levels=4),) + tuple(
-            x[:n_cmp] if isinstance(x, list) else x for x in book100[1:])
+            [x[i] for i in pick] if isinstance(x, list) else x for x in book100[1:])
         log(f"[{ph}] main path: {BOOK_SYMBOLS} symbols x {BOOK_PATHS} paths x {NUM_BARS} bars "
             f"on the {SAMPLER_HIST_BARS}-bar history; kernel vs plain on the card at "
-            f"{BOOK_SAMPLE_PATHS} paths a symbol on {n_cmp} of its symbols")
+            f"{BOOK_SAMPLE_PATHS} paths a symbol on its symbols {pick}, a book of their own")
         for s in SAMPLERS:
             tb = None if s == "heston" else tables1
             extra = dict(per_path=True, chunk_blocks=64 if not eng else 256)
@@ -3527,7 +3580,7 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
             main_ms = cuda_ms(lambda: rows_fn(0, book100, BOOK_PATHS, s, tb), 2)
             sc = res[0].cpu()
             scale = BOOK_PATHS / BOOK_SAMPLE_PATHS * BOOK_SYMBOLS / n_cmp
-            # the sample's work (its first n_cmp symbols, for the engine) scaled to
+            # the sample's work (its n_cmp symbols, for the engine) scaled to
             # the main path's symbol-paths
             if eng:
                 ops, gathers = engine_sampler_ops(s, BOOK_SYMBOLS * BOOK_PATHS,
@@ -3573,17 +3626,18 @@ ENV_BARS = 390
 ENV_PATHS = 1 << 24             # paths --engine at the envelope (the CLI and the kernel alone)
 ENV_PHILOX_PATHS = 1 << 16      # Philox, kernel vs plain on the card
 ENV_DAY_INJECT_BLOCKS = 8       # 30 levels x 390 bars injected: 8 x 8 x 256 = 2^14 paths
-ENV_INJECT_BLOCKS = 2           # the other injected shapes: 4096 paths
+ENV_INJECT_BLOCKS = 1           # the other injected shapes: 2048 paths
 ENV_PARENT_PATHS = 1 << 20      # the envelope kernel against its parent, bit for bit
 ENV_ROW_PATHS = 1 << 16         # sweep rows and universe symbols against one-row launches
 ENV_SWEEP_PATHS = 1 << 20       # sweep --engine at the envelope: 18 rows
 ENV_UNI_SYMBOLS = 8
-ENV_SAMPLER_INJECT_BLOCKS = {ENV_BARS: 1, 25: 2}
+ENV_SAMPLER_INJECT_BLOCKS = {ENV_BARS: 1, 25: 1}
 ENV_BOOK_SYMBOLS = 10
 ENV_BOOK_PATHS = 1 << 20
 ENV_BOOK_PLAIN_PATHS = 1 << 14  # a symbol: the book's plain version on the card ...
-ENV_BOOK_PLAIN_SYMBOLS = 2      # ... on the first 2 symbols (launch-bound, ~20 ms a bar-step)
-ENV_SWEEP_PLAIN_ROWS = 1        # the sweep's plain version timed on its first row x 2048 paths
+ENV_BOOK_PLAIN_PICK = [0, 9]    # ... on a book of its first and last symbol (launch-bound,
+                                # ~20 ms a bar-step)
+ENV_SWEEP_PLAIN_ROWS = [1]      # the sweep's plain version on its row 1 (jitter 0.02) x 2048 paths
 WIDE_SOURCE = CSRC + "mc_engine_wide.cu"
 WIDE_SAMPLER_SOURCE = CSRC + "mc_engine_wide_samplers.cu"
 WIDE_CORR_SOURCE = CSRC + "mc_engine_wide_corr.cu"
@@ -3599,6 +3653,17 @@ def env_ladder(n: int, s0: float = 100.0, step: float = 0.12) -> list:
              "price": round(s0 + (i - n // 2) * step, 2)} for i in range(n)]
 
 
+@contextlib.contextmanager
+def forced_envelope(CE):
+    """While open, ``cuda_engine`` launches the envelope kernels even where
+    their parents fit (its ``_FORCE_ENVELOPE`` hook)."""
+    CE._FORCE_ENVELOPE = True
+    try:
+        yield
+    finally:
+        CE._FORCE_ENVELOPE = False
+
+
 def envelope_phases(dev, card, reset, cli) -> list:
     """Phases 29-30: the envelope kernels (``mc_engine_wide*.cu``) at 30
     levels x 390 bars and the envelope's other shapes.  [29] gbm: injected
@@ -3606,14 +3671,16 @@ def envelope_phases(dev, card, reset, cli) -> list:
     64 x 16, 8 x 62, 8 x 63 with noise and antithetic, 3 x 25, 30 x 390 at
     2^14), every differing path traced; Philox at 30 x 390 x 2^16 against the
     plain version on the card; the envelope kernel at 3 levels x 40 bars equal
-    to the parent bit for bit at 2^20; the sweep's 18 rows and 8 universe
-    symbols each equal to its one-row launch at 30 x 390; ``paths --engine``
-    at 2^24 and ``sweep --engine`` at 2^20 x 18 rows on a 30-level DB at 390
-    bars.  [30] the samplers at 30 x 390 (a recorded year) and at W 25,
-    injected and Philox, ``paths --engine --sampler`` at 2^24; the books (gbm
-    and the samplers) at 10 symbols x 30 levels x 390 x 2^20 through the
-    Python entry, every symbol and the book against the plain version on the
-    card path by path at 2^14 a symbol.  Returns their ``kernels`` entries."""
+    to the parent bit for bit at 2^20, both timed at 2^28; the sweep's 18 rows
+    and 8 universe symbols each equal to its one-row launch at 30 x 390, its
+    jitter row against the plain version on the card path by path at 2048
+    paths; ``paths --engine`` at 2^24 and ``sweep --engine`` at 2^20 x
+    18 rows on a 30-level DB at 390 bars.  [30] the samplers at 30 x 390 (a
+    recorded year) and at W 25, injected and Philox, ``paths --engine
+    --sampler`` at 2^24; the books (gbm and the samplers) at 10 symbols x 30
+    levels x 390 x 2^20 through the Python entry, a book of its symbols 0 and
+    9, every symbol and the book, against the plain version on the card path
+    by path at 2^14 a symbol.  Returns their ``kernels`` entries."""
     import numpy as np
     import torch
 
@@ -3721,12 +3788,21 @@ def envelope_phases(dev, card, reset, cli) -> list:
     pkw = dict(num_paths=ENV_PARENT_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                noise=noise, per_path=True, device=dev)
     parent = CE.engine_rows(3, cli_levels, params, **pkw)
-    wide = CE.engine_rows(3, cli_levels, params, envelope=True, **pkw)
+    with forced_envelope(CE):
+        wide = CE.engine_rows(3, cli_levels, params, **pkw)
     if not all(torch.equal(a, b) for a, b in zip(parent, wide)):
         raise AssertionError("the envelope kernel differs from its parent where both fit")
     del parent, wide
     log("  the envelope kernel == mc_engine_sweep_kernel bit for bit: partial rows and "
         "every path's row")
+    # what the parent saves where both fit: phase 11's kernel, its shape and inputs
+    kw11 = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+                device=dev)
+    parent_ms = cuda_ms(lambda: CE.engine_rows(0, cli_levels, params, **kw11), 1)
+    with forced_envelope(CE):
+        forced_ms = cuda_ms(lambda: CE.engine_rows(0, cli_levels, params, **kw11), 1)
+    log(f"  at 3 levels x {NUM_BARS} bars x {MAIN_PATHS} paths: the parent {parent_ms:.3f} ms, "
+        f"the envelope kernel forced {forced_ms:.3f} ms ({forced_ms / parent_ms:.3f}x)")
 
     grid18 = [(sp, tp, j) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)
               for j in (0.0, 0.02)]
@@ -3766,7 +3842,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
             str(ENV_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA)]
     (out,), secs, launches = run_cli(cli, argv, reset,
                                      {"mc_engine_wide": 1, "mc_engine_reduce_rows": 1},
-                                     n_paths=ENV_PATHS, runs=3)
+                                     n_paths=ENV_PATHS, runs=ENV_RUNS)
     if out["paths"] != float(ENV_PATHS) or not out["trades"] >= out["entered"] > 0:
         raise AssertionError(f"unexpected path counts: {out}")
     kw1 = dict(num_paths=ENV_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
@@ -3781,7 +3857,8 @@ def envelope_phases(dev, card, reset, cli) -> list:
     entries.append(entry("mc_engine_wide", WIDE_SOURCE, WIDE_REPLACES,
                          launches["mc_engine_wide"], err, main_ms, plain_ms, bound,
                          paths=ENV_PATHS, num_bars=ENV_BARS, levels=ENV_LEVELS,
-                         plain_paths=ENV_PHILOX_PATHS, cli_s=secs[1:]))
+                         plain_paths=ENV_PHILOX_PATHS, cli_s=secs,
+                         parent_ms_3x40=parent_ms, forced_ms_3x40=forced_ms))
 
     log(f"[29] main path: cli sweep --engine --backend cuda on the {ENV_LEVELS}-level DB, "
         f"--num-bars {ENV_BARS}, --num-paths {ENV_SWEEP_PATHS}, --jitter-stds 0 0.02 (18 rows)")
@@ -3790,22 +3867,30 @@ def envelope_phases(dev, card, reset, cli) -> list:
             "--jitter-stds", "0", "0.02"]
     lines, secs, launches = run_cli(
         cli, argv, reset, {"mc_engine_wide_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
-        n_paths=ENV_SWEEP_PATHS)
+        n_paths=ENV_SWEEP_PATHS, runs=ENV_RUNS)
     if len(lines) != len(grid18):
         raise AssertionError(f"{len(lines)} sweep rows, not {len(grid18)}")
     skw_ = dict(num_paths=ENV_SWEEP_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                 device=dev)
     sweep_ms = cuda_ms(lambda: CE.engine_sweep_rows(0, lv30, g_params, noise=g_noise, **skw_), 1)
-    # the plain sweep is launch-bound a row at a time (~20 ms a bar-step): timed on its
-    # first rows, whose work counts (a row's gates) stand for every row's in the bound
-    n_pl, r_pl = 8 * lanes, ENV_SWEEP_PLAIN_ROWS
-    pl_grid = params.replace(stop_padding=g_params.stop_padding[:r_pl],
-                             tp_padding=g_params.tp_padding[:r_pl])
-    pl_noise = McNoise(level_jitter_std=jit[:r_pl], entry_slip_std=torch.zeros(r_pl),
+    # the plain sweep is launch-bound a row at a time (~20 ms a bar-step): the kernel
+    # against it on a grid of the sweep's rows ENV_SWEEP_PLAIN_ROWS (the jitter row),
+    # path by path (every row of the sweep equals its one-row launch, above); their work
+    # counts (a row's gates) stand for every row's in the bound
+    pl_rows = ENV_SWEEP_PLAIN_ROWS
+    n_pl, r_pl = 8 * lanes, len(pl_rows)
+    pl_grid = params.replace(stop_padding=g_params.stop_padding[pl_rows],
+                             tp_padding=g_params.tp_padding[pl_rows])
+    pl_noise = McNoise(level_jitter_std=jit[pl_rows], entry_slip_std=torch.zeros(r_pl),
                        stop_slip_std=torch.zeros(r_pl), target_slip_std=torch.zeros(r_pl))
+    pl_kw = dict(noise=pl_noise, num_paths=n_pl, num_bars=ENV_BARS, sigma=SIGMA, dt=DT,
+                 lanes=lanes, device=dev, per_path=True)
     s_plain, s_plain_ms = timed(lambda: CE.engine_sweep_totals_reference(
-        0, lv30, pl_grid, noise=pl_noise, num_paths=n_pl, num_bars=ENV_BARS, sigma=SIGMA,
-        dt=DT, lanes=lanes, device=dev))
+        0, lv30, pl_grid, **pl_kw))
+    pc, pf, rows = CE.engine_sweep_rows(0, lv30, pl_grid, **pl_kw)
+    s_err = same_on_card("envelope sweep", s_plain, (*CE.reduce_rows(pc, pf), rows), r_pl, n_pl,
+                         lambda g: f"row {pl_rows[g]} (jitter {float(jit[pl_rows[g]])})")
+    del pc, pf, rows
     s_bound = card.bound(bytes_=len(grid18) * grid_size(ENV_SWEEP_PATHS) * (
         CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4), **engine_ops(
             ENV_SWEEP_PATHS * len(grid18), s_plain[0].sum(0).cpu(),
@@ -3815,10 +3900,10 @@ def envelope_phases(dev, card, reset, cli) -> list:
         f"{s_bound['bound_ms']:.3f} ms (every row's bars counted); plain on the card at "
         f"{n_pl} x {r_pl} rows: {s_plain_ms:.3f} ms")
     entries.append(entry("mc_engine_wide_sweep", WIDE_SOURCE, ENGINE_SWEEP_REPLACES,
-                         launches["mc_engine_wide_sweep"], err, sweep_ms, s_plain_ms, s_bound,
+                         launches["mc_engine_wide_sweep"], s_err, sweep_ms, s_plain_ms, s_bound,
                          paths=ENV_SWEEP_PATHS, grid_rows=len(grid18), num_bars=ENV_BARS,
                          levels=ENV_LEVELS, plain_paths=n_pl, plain_rows=r_pl,
-                         cli_s=secs[1:]))
+                         cli_s=secs))
 
     # ---------------------------------------------------------------- [30]
     log(f"[30] engine samplers at the envelope (mc_engine_wide_sampler_kernel, "
@@ -3844,7 +3929,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
             f"{ENV_BARS} on the {ENV_LEVELS}-level DB")
         (out,), secs, launches = run_cli(
             cli, argv, reset, {"mc_engine_wide_sampler": 1, "mc_engine_reduce_rows": 1},
-            n_paths=ENV_PATHS)
+            n_paths=ENV_PATHS, runs=ENV_RUNS)
         if out["paths"] != float(ENV_PATHS) or not out["trades"] >= out["entered"] > 0:
             raise AssertionError(f"unexpected path counts: {out}")
         main_ms = cuda_ms(lambda: CE.engine_rows(0, lv30, params, **kw1, **skw(s)), 1)
@@ -3859,22 +3944,23 @@ def envelope_phases(dev, card, reset, cli) -> list:
         entries.append(entry(f"mc_engine_wide_sampler/{s}", WIDE_SAMPLER_SOURCE,
                              WIDE_REPLACES, launches["mc_engine_wide_sampler"], err, main_ms,
                              plain_ms, bound, sampler=s, paths=ENV_PATHS, num_bars=ENV_BARS,
-                             levels=ENV_LEVELS, plain_paths=ENV_PHILOX_PATHS, cli_s=secs[1:]))
+                             levels=ENV_LEVELS, plain_paths=ENV_PHILOX_PATHS, cli_s=secs))
 
     s0_b = [100.0 + 10.0 * i for i in range(ENV_BOOK_SYMBOLS)]
     lv_b = U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_b], max_levels=ENV_LEVELS)
     betas = [0.2 + 0.6 * i / (ENV_BOOK_SYMBOLS - 1) for i in range(ENV_BOOK_SYMBOLS)]
     book = (lv_b, params, s0_b, [SIGMA] * ENV_BOOK_SYMBOLS, betas,
             [1.0 / ENV_BOOK_SYMBOLS] * ENV_BOOK_SYMBOLS)
-    n_cmp = ENV_BOOK_PLAIN_SYMBOLS                   # a book of the first symbols
-    cmp_book = (U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_b[:n_cmp]],
-                               max_levels=ENV_LEVELS), params) + tuple(x[:n_cmp] for x in book[2:])
+    pick = ENV_BOOK_PLAIN_PICK
+    n_cmp = len(pick)
+    cmp_book = (U.stack_levels([env_ladder(ENV_LEVELS, s0_b[i]) for i in pick],
+                               max_levels=ENV_LEVELS), params) + tuple(
+        [x[i] for i in pick] for x in book[2:])
     log(f"[30] engine books at the envelope (mc_engine_wide_corr_kernel, "
         f"mc_engine_wide_corr(_samplers).cu): {ENV_BOOK_SYMBOLS} symbols x {ENV_LEVELS} levels "
         f"x {ENV_BARS} bars x {ENV_BOOK_PATHS} paths a symbol through "
-        "mc_paths_engine_corr_fused; the book of its first "
-        f"{ENV_BOOK_PLAIN_SYMBOLS} symbols, every symbol and the book, vs plain on the card "
-        f"path by path at {ENV_BOOK_PLAIN_PATHS} a symbol")
+        f"mc_paths_engine_corr_fused; a book of its symbols {pick}, every symbol and the "
+        f"book, vs plain on the card path by path at {ENV_BOOK_PLAIN_PATHS} a symbol")
     tables1 = tables[None].to(dev)
     for s in ("gbm",) + SAMPLERS:
         bkw = dict(num_bars=ENV_BARS, dt=DT, lanes=lanes, device=dev,
@@ -3891,11 +3977,11 @@ def envelope_phases(dev, card, reset, cli) -> list:
         del krows
         kname = "mc_engine_wide_corr" + ("" if s == "gbm" else "_sampler")
         log(f"  main path: mc_paths_engine_corr_fused --sampler {s}, {ENV_BOOK_SYMBOLS} x "
-            f"{ENV_BOOK_PATHS} x {ENV_BARS} bars, warm-up then timed")
+            f"{ENV_BOOK_PATHS} x {ENV_BARS} bars, one timed run")
         (sym, port, skips, escal), secs, launches = run_entry(
             f"book {s}", lambda: CE.mc_paths_engine_corr_fused(
                 0, *book, paths_per_symbol=ENV_BOOK_PATHS, **bkw),
-            reset, {kname: 2, "mc_engine_corr_reduce_rows": 2})
+            reset, {kname: ENV_RUNS, "mc_engine_corr_reduce_rows": ENV_RUNS}, runs=ENV_RUNS)
         check_universe_stats(f"book {s}", sym, ENV_BOOK_SYMBOLS, ENV_BOOK_PATHS)
         if not (math.isfinite(float(port.mean_r)) and float(port.n) == ENV_BOOK_PATHS):
             raise AssertionError(f"book {s}: the book's row is not whole: {port}")
@@ -3925,7 +4011,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
                              ENGINE_CORR_REPLACES, launches[kname], err, main_ms, plain_ms,
                              bound, sampler=s, symbols=ENV_BOOK_SYMBOLS, paths=ENV_BOOK_PATHS,
                              num_bars=ENV_BARS, levels=ENV_LEVELS, plain_symbols=n_cmp,
-                             plain_paths=ENV_BOOK_PLAIN_PATHS, entry_s=secs[1:]))
+                             plain_paths=ENV_BOOK_PLAIN_PATHS, entry_s=secs))
     tmp.cleanup()
     return entries
 
@@ -4783,6 +4869,7 @@ def main() -> int:
     sampler_rows = sampler_rows_phases(dev, card, reset_all, cli)
     book_samplers = book_sampler_phases(dev, card, reset_all, cli)
     envelope = envelope_phases(dev, card, reset_all, cli)
+    log(f"all phases done: {time.perf_counter() - _T0:.1f} s since the start")
 
     print(json.dumps({"kernels": [
         entry("mc_first_contact", FC_SOURCE, FC_REPLACES,

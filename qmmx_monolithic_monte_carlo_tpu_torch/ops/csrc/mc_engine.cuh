@@ -166,6 +166,16 @@ struct Rings {
     st.run_low = fminf(st.run_low, l);    \
     st.run_high = fmaxf(st.run_high, h);
 
+// How the path loops shared with the envelope kernels (mc_engine_block.cuh,
+// mc_engine_sampler_block.cuh, mc_engine_book_walk.cuh and
+// mc_engine_book_sampler_walk.cuh) name the path state, a device function f
+// of the family (a bar step, init_state) and the level table a bar step takes
+// (the parents' is in EngineArgs: none); mc_engine_wide.cuh defines the
+// envelope's.
+#define ENGINE_STATE EngineState<MAXL>
+#define ENGINE_FN(f) f<MAXL>
+#define ENGINE_LV
+
 // One bar of one path (sim/enginepath.EngineLifecycle.step on the bar
 // generated as pallas_engine.py _one_bar generates it).  z / zv are the
 // bar's price and volume normals; u3, u4 the bridge uniforms; noise_row the

@@ -18,13 +18,12 @@
 //
 // Design: the parent's (mc_engine.cu's notes), on mc_engine_wide.cuh's
 // levels, state and guard.  The path loop, the reduction (per-thread sums,
-// warp shuffles, shared-memory counts) and the per-path rows repeat
-// engine_block's, so at <= 8 levels and an even W <= 61 this kernel equals the
-// parent bit for bit.  An odd W ends with one bar after the pair loop: the
-// cos branch of the price and volume pairs of one more step of rows (0-3),
-// the bridge at rows 4, 5, the tie at 6, antithetic as in the pairs, the noise
-// from row 10.  The wrapper (ops/cuda_engine.py) launches this kernel only
-// where the parent does not fit.
+// warp shuffles, shared-memory counts) and the per-path rows are
+// engine_block's own text (mc_engine_block.cuh), so at <= 8 levels and an even
+// W <= 61 this kernel equals the parent bit for bit.  An odd W ends with one
+// bar after the pair loop (mc_engine_block.cuh).  The wrapper
+// (ops/cuda_engine.py) launches this kernel only where the parent does not
+// fit.
 //
 // What bounds it on the H100: what bounds the parent (the special functions
 // and float32 work of each bar, 3 logf / 3 sqrtf / 4 expf a bar), plus the
@@ -37,134 +36,16 @@
 #include "mc_engine_wide.cuh"
 
 // The paths of this CTA under arguments ``a`` and levels ``lv``: the
-// engine along each, reduced to one partial row (crow, frow) as engine_block
-// (mc_engine.cu) reduces it; per-path rows at per_path[p] when not null.
+// engine along each, reduced to one partial row (crow, frow); per-path rows
+// at per_path[p] when not null.  The body is engine_block's
+// (mc_engine_block.cuh) on the envelope's state and bar step.
 template <bool WIN>
 __device__ __forceinline__ void wide_block(const EngineArgs& a, const WideLevel* lv,
                                            const float* __restrict__ ext,
                                            long long* __restrict__ crow,
                                            float* __restrict__ frow,
                                            float* __restrict__ per_path) {
-    __shared__ float s_vol[VOL_RING * BLOCK];
-    __shared__ float s_close[CLOSE_RING * BLOCK];
-    __shared__ unsigned long long s_counts[N_COUNTS + N_SKIPS];
-    __shared__ unsigned s_hist[HIST_BINS];
-    __shared__ float s_red[ROW_FLOATS][BLOCK / 32];
-    for (int i = threadIdx.x; i < HIST_BINS; i += BLOCK) s_hist[i] = 0u;
-    if (threadIdx.x < N_COUNTS + N_SKIPS) s_counts[threadIdx.x] = 0ull;
-    __syncthreads();
-
-    const Rings rg{s_vol + threadIdx.x, s_close + threadIdx.x};
-    const int row_len = ENGINE_SUB * a.lanes;
-    const int half_lanes = a.lanes >> 1;
-    unsigned long long cnt[N_COUNTS + N_SKIPS];
-#pragma unroll
-    for (int j = 0; j < N_COUNTS + N_SKIPS; ++j) cnt[j] = 0ull;
-    float sum_eq = 0.f, sum_eq2 = 0.f, sum_dd = 0.f;
-    float min_eq = BIG, max_eq = -BIG, max_dd = 0.f;
-
-    const long long stride = (long long)gridDim.x * BLOCK;
-    for (long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-         p < a.num_paths; p += stride) {
-        const long long blk = p / row_len;
-        const int col = (int)(p - blk * row_len);
-        // antithetic: right half-lanes take the left partner's normals negated
-        const bool mirror = a.antithetic && (col % a.lanes) >= half_lanes;
-        Draws dr{ext, blk, col, row_len, a.u_rows, a.seed, a.stream, -1,
-                 make_uint4(0u, 0u, 0u, 0u)};
-
-        WideState<WIN> st;
-        wide_init<WIN>(a, st, rg);
-
-#pragma unroll 1
-        for (int t2 = 0; t2 < (a.num_bars + 1) >> 1; ++t2) {
-            const int base = t2 * a.stride;
-            const bool pair = 2 * t2 + 1 < a.num_bars;     // else an odd W's half step
-            float u[10];
-#pragma unroll
-            for (int k = 0; k < 7; ++k) u[k] = dr.at(base + k);
-            u[7] = pair ? dr.at(base + 7) : 0.f;
-            u[8] = pair ? dr.at(base + 8) : 0.f;
-            u[9] = pair ? dr.at(base + 9) : 0.f;
-            if (mirror) {
-                const float2 m = dr.pair_of(col - half_lanes, base);
-                u[0] = m.x; u[1] = m.y;
-            }
-            const float rad = sqrtf(-2.0f * logf(u[0]));
-            float sn, cs;
-            sincosf(two_pi() * u[1], &sn, &cs);
-            float z0 = rad * cs, z1 = rad * sn;
-            if (mirror) { z0 = -z0; z1 = -z1; }
-            const float vrad = sqrtf(-2.0f * logf(u[2]));
-            float vsn, vcs;
-            sincosf(two_pi() * u[3], &vsn, &vcs);
-            wide_bar_step<WIN>(a, lv, st, dr, rg, 2 * t2, z0, vrad * vcs, u[4], u[5],
-                                     u[6], base + 10);
-            if (pair)
-                wide_bar_step<WIN>(a, lv, st, dr, rg, 2 * t2 + 1, z1, vrad * vsn, u[7],
-                                         u[8], u[9], base + 14);
-        }
-
-        const bool entered = st.trades > 0;
-        cnt[0] += 1ull;
-        cnt[1] += entered ? 1ull : 0ull;
-        cnt[2] += (unsigned long long)st.wins;
-        cnt[3] += (unsigned long long)st.losses;
-        cnt[4] += st.side != 0 ? 1ull : 0ull;
-        cnt[5] += (unsigned long long)st.trades;
-        cnt[6] += (unsigned long long)st.escal;
-#pragma unroll
-        for (int j = 0; j < N_SKIPS; ++j) cnt[N_COUNTS + j] += (unsigned long long)st.skips[j];
-        sum_eq += st.equity;
-        sum_eq2 += st.equity * st.equity;
-        sum_dd += st.dd;
-        max_dd = fmaxf(max_dd, st.dd);
-        if (entered) {
-            min_eq = fminf(min_eq, st.equity);
-            max_eq = fmaxf(max_eq, st.equity);
-            const int bin = min(max((int)((st.equity - LIFE_HIST_LO) * LIFE_BIN_SCALE), 0),
-                                HIST_BINS - 1);
-            atomicAdd(&s_hist[bin], 1u);
-        }
-        if (per_path) {
-            float* o = per_path + p * PATH_COLS;
-            o[0] = st.equity; o[1] = (float)st.trades; o[2] = (float)st.wins;
-            o[3] = (float)st.losses; o[4] = st.side != 0 ? 1.f : 0.f; o[5] = st.dd;
-            o[6] = (float)st.escal;
-#pragma unroll
-            for (int j = 0; j < N_SKIPS; ++j) o[7 + j] = (float)st.skips[j];
-        }
-    }
-
-    const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < N_COUNTS + N_SKIPS; ++j) {
-        const unsigned long long v = warp_count<unsigned long long>(cnt[j]);
-        if (wl == 0) atomicAdd(&s_counts[j], v);
-    }
-    sum_eq = warp_sum(sum_eq);
-    sum_eq2 = warp_sum(sum_eq2);
-    sum_dd = warp_sum(sum_dd);
-    min_eq = warp_min(min_eq);
-    max_eq = warp_max(max_eq);
-    max_dd = warp_max(max_dd);
-    if (wl == 0) {
-        s_red[0][warp] = sum_eq; s_red[1][warp] = sum_eq2; s_red[2][warp] = sum_dd;
-        s_red[3][warp] = min_eq; s_red[4][warp] = max_eq; s_red[5][warp] = max_dd;
-    }
-    __syncthreads();
-    if (threadIdx.x < N_COUNTS + N_SKIPS) crow[threadIdx.x] = (long long)s_counts[threadIdx.x];
-    for (int i = threadIdx.x; i < HIST_BINS; i += BLOCK)
-        crow[N_COUNTS + N_SKIPS + i] = (long long)s_hist[i];
-    if (threadIdx.x == 0) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, mn = BIG, mx = -BIG, md = 0.f;
-        for (int w = 0; w < BLOCK / 32; ++w) {
-            s0 += s_red[0][w]; s1 += s_red[1][w]; s2 += s_red[2][w];
-            mn = fminf(mn, s_red[3][w]); mx = fmaxf(mx, s_red[4][w]);
-            md = fmaxf(md, s_red[5][w]);
-        }
-        frow[0] = s0; frow[1] = s1; frow[2] = s2; frow[3] = mn; frow[4] = mx; frow[5] = md;
-    }
+#include "mc_engine_block.cuh"
 }
 
 // Row blockIdx.y of the grid ``rows`` with its levels (row r of the
@@ -183,9 +64,9 @@ mc_engine_wide_kernel(const EngineArgs* __restrict__ rows,
     __syncthreads();
     const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
     wide_block<WIN>(s_a, s_lv, ext ? ext + s_a.ext_offset : nullptr,
-                          part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS,
-                          per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
-                                   : nullptr);
+                    part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS,
+                    per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
+                             : nullptr);
 }
 
 extern "C" {
@@ -194,8 +75,8 @@ int qmmx_engine_wide_level_size(void) { return (int)sizeof(WideLevel); }
 
 // Pass 1 of the n_rows argument rows at ``rows`` with their [n_rows,
 // max_levels] level table at ``levels`` (device memory), 1 <= max_levels <=
-// 64; the windowed guard when num_bars > 61.  ext and per_path may be null.  The fold is mc_engine.cu's.  Returns
-// cudaGetLastError().
+// 64; the windowed guard when num_bars > 61.  ext and per_path may be null.
+// The fold is mc_engine.cu's.  Returns cudaGetLastError().
 int qmmx_mc_engine_wide_sweep(const EngineArgs* rows, const WideLevel* levels, int n_rows,
                               int max_levels, int num_bars, const float* ext,
                               long long* part_counts, float* part_floats, float* per_path,

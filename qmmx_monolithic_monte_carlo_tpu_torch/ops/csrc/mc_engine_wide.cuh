@@ -32,7 +32,11 @@
 //   running min/max, as in the parents.
 //
 // mc_engine_step.cuh is the bar's engine, as in the parents; this header
-// defines the macros it reads the levels, flags and guard through.
+// defines the macros it reads the levels, flags and guard through, and those
+// through which the parents' path loops (mc_engine_block.cuh,
+// mc_engine_sampler_block.cuh, mc_engine_book_walk.cuh,
+// mc_engine_book_sampler_walk.cuh) name the envelope's state, bar steps and
+// level table, with ENGINE_WIDE for the envelope's own lines there.
 
 #pragma once
 
@@ -82,6 +86,9 @@ struct WideState {
 #undef TM_HAS_MARK
 #undef TM_HAS_CLEAR
 #undef GUARD_PUSH
+#undef ENGINE_STATE
+#undef ENGINE_FN
+#undef ENGINE_LV
 
 #define LEVEL_SLOTS a.max_levels
 #define LV_PRICE(i) lv[i].price
@@ -109,12 +116,17 @@ struct WideState {
         st.run_low = fminf(st.run_low, l);                                  \
         st.run_high = fmaxf(st.run_high, h);                                \
     }
+// the path loops shared with the parents take the envelope's branches
+#define ENGINE_WIDE
+#define ENGINE_STATE WideState<WIN>
+#define ENGINE_FN(f) wide_##f<WIN>
+#define ENGINE_LV lv,
 
 // A path's state at the start of its walk (the slots up to the row's count),
 // its rings cleared.
 template <bool WIN>
-__device__ __forceinline__ void wide_init(const EngineArgs& a, WideState<WIN>& st,
-                                          const Rings& rg) {
+__device__ __forceinline__ void wide_init_state(const EngineArgs& a, WideState<WIN>& st,
+                                                const Rings& rg) {
     st.log_s = a.log_s0;
     st.prev_c = expf(a.log_s0);
     st.entry = st.stop = st.target = st.risk0 = 0.f;

@@ -12,7 +12,9 @@
 // thread a path walks every symbol in order; the CTA copies symbol s's
 // EngineArgs, its level row (row s of the [S, max_levels] table), its
 // SamplerArgs and its (beta, weight) into shared memory between two barriers;
-// the symbol's engine runs on mc_engine_wide.cuh's levels, state and guard;
+// the symbol's engine runs on mc_engine_wide.cuh's levels, state and guard,
+// its bars the parents' walks (mc_engine_book_walk.cuh,
+// mc_engine_book_sampler_walk.cuh);
 // its weighted post-bar equity goes into the path's book curve (device
 // memory, W floats a path); after the last symbol the curve is folded and the
 // book added to one more partial row.  Under gbm the market pair mixes into
@@ -37,67 +39,18 @@
 // levels ``lv``: its draws on the symbol's key (dr) and, under a sampler, the
 // market's (md); under gbm the market pair of bk, the antithetic mirror of
 // column col - half_lanes; the post-bar equity into the book curve after
-// every bar.
+// every bar.  The bars are the parents' walks (mc_engine_book_walk.cuh,
+// mc_engine_book_sampler_walk.cuh) on the envelope's state and bar steps.
 template <bool WIN, int KIND>
 __device__ __forceinline__ void wide_walk(const EngineArgs& a, const SamplerArgs& s,
                                           const WideLevel* lv, Draws& dr, Draws& md,
                                           const Rings& rg, int col, bool mirror, int half_lanes,
                                           WideState<WIN>& st, const BookPath& bk) {
-    wide_init<WIN>(a, st, rg);
-    const int k_noise = KIND == SAMPLER_RESAMPLE ? 4 : 12;
-    float carry = KIND == SAMPLER_HESTON ? s.v0 : 0.f;
-#pragma unroll 1
-    for (int t2 = 0; t2 < (a.num_bars >> 1); ++t2) {
-        const int r = t2 * a.stride;
-        if constexpr (KIND == WIDE_GBM) {
-            float u[10];
-#pragma unroll
-            for (int k = 0; k < 10; ++k) u[k] = dr.at(r + k);
-            if (mirror) {
-                const float2 m = dr.pair_of(col - half_lanes, r);
-                u[0] = m.x; u[1] = m.y;
-            }
-            const float rad = sqrtf(-2.0f * logf(u[0]));
-            float sn, cs;
-            sincosf(two_pi() * u[1], &sn, &cs);
-            float z0 = rad * cs, z1 = rad * sn;
-            if (mirror) { z0 = -z0; z1 = -z1; }
-            const float vrad = sqrtf(-2.0f * logf(u[2]));
-            float vsn, vcs;
-            sincosf(two_pi() * u[3], &vsn, &vcs);
-            const float2 zm = bk.market(t2);
-            z0 = bk.mix(zm.x, z0);
-            z1 = bk.mix(zm.y, z1);
-            wide_bar_step<WIN>(a, lv, st, dr, rg, 2 * t2, z0, vrad * vcs, u[4], u[5],
-                                     u[6], r + 10);
-            bk.add(2 * t2, st.equity);
-            wide_bar_step<WIN>(a, lv, st, dr, rg, 2 * t2 + 1, z1, vrad * vsn, u[7],
-                                     u[8], u[9], r + 14);
-        } else if constexpr (KIND == SAMPLER_RESAMPLE) {
-            const float x0 = md.at(2 * t2), x1 = md.at(2 * t2 + 1);
-            const float tie0 = dr.at(r), tie1 = dr.at(r + 1);
-            wide_resample_bar_step<WIN>(a, s, lv, st, dr, rg, 2 * t2, x0, tie0,
-                                              r + k_noise, carry);
-            bk.add(2 * t2, st.equity);
-            wide_resample_bar_step<WIN>(a, s, lv, st, dr, rg, 2 * t2 + 1, x1, tie1,
-                                              r + k_noise + 4, carry);
-        } else {
-            const float2 zm = normal_pair(md.at(4 * t2), md.at(4 * t2 + 1));
-            const float2 qm = normal_pair(md.at(4 * t2 + 2), md.at(4 * t2 + 3));
-            const float2 z = normal_pair(dr.at(r), dr.at(r + 1));
-            const float2 zv = normal_pair(dr.at(r + 2), dr.at(r + 3));
-            const float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
-            const float u30 = dr.at(r + 6), u40 = dr.at(r + 7), tie0 = dr.at(r + 8);
-            const float u31 = dr.at(r + 9), u41 = dr.at(r + 10), tie1 = dr.at(r + 11);
-            wide_heston_bar_step<WIN>(a, s, lv, st, dr, rg, 2 * t2, bk.mix(zm.x, z.x),
-                                            zv.x, bk.mix(qm.x, q.x), u30, u40, tie0,
-                                            r + k_noise, carry);
-            bk.add(2 * t2, st.equity);
-            wide_heston_bar_step<WIN>(a, s, lv, st, dr, rg, 2 * t2 + 1,
-                                            bk.mix(zm.y, z.y), zv.y, bk.mix(qm.y, q.y), u31,
-                                            u41, tie1, r + k_noise + 4, carry);
-        }
-        bk.add(2 * t2 + 1, st.equity);
+    wide_init_state<WIN>(a, st, rg);
+    if constexpr (KIND == WIDE_GBM) {
+#include "mc_engine_book_walk.cuh"
+    } else {
+#include "mc_engine_book_sampler_walk.cuh"
     }
 }
 

@@ -14,12 +14,10 @@
 // its own row of the [rows, max_levels] level table).
 //
 // Design: the parent's path loop and reduction (cta_add_path_row, chunk by
-// chunk), so at <= 8 levels and an even W <= 61 it equals the parent bit for
-// bit, on mc_engine_wide.cuh's levels, state and guard.  An odd W ends with one
-// bar after the pair loop from one more step of rows: the bootstrap samplers'
-// index at row 0 and tie at row 2, Heston's cos branch of its price (0, 1),
-// volume (2, 3) and variance (4, 5) pairs, bridge at 6, 7 and tie at 8; the
-// noise from row 4 (bootstrap) or 12 (Heston), as a first half's.
+// chunk) as its own text (mc_engine_sampler_block.cuh), so at <= 8 levels and
+// an even W <= 61 it equals the parent bit for bit, on mc_engine_wide.cuh's
+// levels, state and guard; an odd W ends with one bar after the pair loop
+// (mc_engine_sampler_block.cuh).
 //
 // What bounds it on the H100: the parent sampler kernel's work (special
 // functions and the per-bar gates; recorded bars' gathers from tables in L2)
@@ -30,7 +28,8 @@
 
 // Every path of row blockIdx.y of ``args`` / ``sargs`` with its levels (row
 // blockIdx.y of ``levels``), a thread a path in chunks of BLOCK: partial rows
-// [row][CTA], per-path rows [row][path] when per_path is not null.
+// [row][CTA], per-path rows [row][path] when per_path is not null
+// (mc_engine_sampler_block.cuh).
 template <bool WIN, int KIND>
 __global__ void __launch_bounds__(BLOCK)
 mc_engine_wide_sampler_kernel(const EngineArgs* __restrict__ args,
@@ -39,82 +38,7 @@ mc_engine_wide_sampler_kernel(const EngineArgs* __restrict__ args,
                               const float* __restrict__ ext,
                               long long* __restrict__ part_counts,
                               float* __restrict__ part_floats, float* __restrict__ per_path) {
-    __shared__ float s_vol[VOL_RING * BLOCK];
-    __shared__ float s_close[CLOSE_RING * BLOCK];
-    __shared__ EngineArgs s_a;
-    __shared__ SamplerArgs s_s;
-    __shared__ WideLevel s_lv[WIDE_LEVELS];
-    if (threadIdx.x == 0) { s_a = args[blockIdx.y]; s_s = sargs[blockIdx.y]; }
-    copy_levels(s_lv, levels, blockIdx.y, args[blockIdx.y].max_levels);
-    __syncthreads();
-    const EngineArgs& a = s_a;
-    const SamplerArgs& s = s_s;
-    const Rings rg{s_vol + threadIdx.x, s_close + threadIdx.x};
-    const int row_len = ENGINE_SUB * a.lanes;
-    const int k_noise = KIND == SAMPLER_RESAMPLE ? 4 : 12;
-    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    if (ext) ext += a.ext_offset;
-    if (per_path) per_path += (long long)blockIdx.y * a.num_paths * PATH_COLS;
-    int chunk = 0;
-    for (long long base = (long long)blockIdx.x * BLOCK; base < a.num_paths;
-         base += (long long)gridDim.x * BLOCK, ++chunk) {
-        const long long p = base + threadIdx.x;
-        const bool live = p < a.num_paths;
-        WideState<WIN> st;
-        wide_init<WIN>(a, st, rg);
-        if (live) {
-            const long long blk = p / row_len;
-            const int col = (int)(p - blk * row_len);
-            Draws dr{ext, blk, col, row_len, a.u_rows, a.seed, a.stream, -1,
-                     make_uint4(0u, 0u, 0u, 0u)};
-            float carry = KIND == SAMPLER_HESTON ? s.v0 : 0.f;
-#pragma unroll 1
-            for (int t2 = 0; t2 < (a.num_bars >> 1); ++t2) {
-                const int r = t2 * a.stride;
-                if constexpr (KIND == SAMPLER_RESAMPLE) {
-                    const float x0 = dr.at(r), x1 = dr.at(r + 1);
-                    const float tie0 = dr.at(r + 2), tie1 = dr.at(r + 3);
-                    wide_resample_bar_step<WIN>(a, s, s_lv, st, dr, rg, 2 * t2, x0, tie0,
-                                                      r + k_noise, carry);
-                    wide_resample_bar_step<WIN>(a, s, s_lv, st, dr, rg, 2 * t2 + 1, x1,
-                                                      tie1, r + k_noise + 4, carry);
-                } else {
-                    const float2 z = normal_pair(dr.at(r), dr.at(r + 1));
-                    const float2 zv = normal_pair(dr.at(r + 2), dr.at(r + 3));
-                    const float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
-                    const float u30 = dr.at(r + 6), u40 = dr.at(r + 7), tie0 = dr.at(r + 8);
-                    const float u31 = dr.at(r + 9), u41 = dr.at(r + 10), tie1 = dr.at(r + 11);
-                    wide_heston_bar_step<WIN>(a, s, s_lv, st, dr, rg, 2 * t2, z.x, zv.x,
-                                                    q.x, u30, u40, tie0, r + k_noise, carry);
-                    wide_heston_bar_step<WIN>(a, s, s_lv, st, dr, rg, 2 * t2 + 1, z.y,
-                                                    zv.y, q.y, u31, u41, tie1,
-                                                    r + k_noise + 4, carry);
-                }
-            }
-            if (a.num_bars & 1) {     // an odd W's half step on one more step of rows
-                const int t = a.num_bars - 1;
-                const int r = (a.num_bars >> 1) * a.stride;
-                if constexpr (KIND == SAMPLER_RESAMPLE) {
-                    const float x = dr.at(r), tie = dr.at(r + 2);
-                    wide_resample_bar_step<WIN>(a, s, s_lv, st, dr, rg, t, x, tie,
-                                                      r + k_noise, carry);
-                } else {
-                    const float z = normal_pair(dr.at(r), dr.at(r + 1)).x;
-                    const float zv = normal_pair(dr.at(r + 2), dr.at(r + 3)).x;
-                    const float zq = normal_pair(dr.at(r + 4), dr.at(r + 5)).x;
-                    const float u3 = dr.at(r + 6), u4 = dr.at(r + 7), tie = dr.at(r + 8);
-                    wide_heston_bar_step<WIN>(a, s, s_lv, st, dr, rg, t, z, zv, zq, u3,
-                                                    u4, tie, r + k_noise, carry);
-                }
-            }
-        }
-        int cnt[N_COUNTS + N_SKIPS];
-        wide_path_row<WIN>(st, live, cnt,
-                                 per_path && live ? per_path + p * PATH_COLS : nullptr);
-        cta_add_path_row<N_COUNTS + N_SKIPS>(cnt, st.trades > 0, st.equity, st.dd,
-                                             part_counts + seg * ROW_COUNTS,
-                                             part_floats + seg * ROW_FLOATS, chunk == 0);
-    }
+#include "mc_engine_sampler_block.cuh"
 }
 
 extern "C" {

@@ -602,6 +602,15 @@ def needs_envelope(max_levels: int, num_bars: int) -> bool:
                 and num_bars <= GUARD_WINDOW_BARS)
 
 
+# A check's hook: while true, every launch goes to the envelope kernel, even
+# where the parent fits, to hold the two against each other bit for bit.
+_FORCE_ENVELOPE = False
+
+
+def _use_envelope(max_levels: int, num_bars: int) -> bool:
+    return _FORCE_ENVELOPE or needs_envelope(max_levels, num_bars)
+
+
 def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, n: int,
                num_paths: int, s0, sigma, mu: float, dt: float, lanes: int, noise,
                antithetic: bool, volume_model, symbols, ext_offset=0) -> np.ndarray:
@@ -671,13 +680,12 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
 
 
 def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
-            device: torch.device, per_path: bool, what: str, envelope=None):
+            device: torch.device, per_path: bool, what: str):
     """One launch of ``mc_engine_sweep_kernel`` over the argument structs
     ``args`` (one per grid row) of ``levels`` ([L], or a row's [G, L]),
     counted in ``LAUNCHES[what]``, or where the parent does not take the
-    shape (or with ``envelope`` set) of ``mc_engine_wide_kernel`` on the
-    rows' ``level_table``, counted in
-    ``LAUNCHES[_wide(what)]``: int64 [G, grid, 151] and f32 [G, grid, 6]
+    shape (``_use_envelope``) of ``mc_engine_wide_kernel`` on the rows'
+    ``level_table``, counted in ``LAUNCHES[_wide(what)]``: int64 [G, grid, 151] and f32 [G, grid, 6]
     partial rows, one per (grid row, CTA), plus f32[G, P, PATH_COLS]
     per-(row, path) rows when ``per_path``."""
     max_levels = levels.max_levels
@@ -690,7 +698,7 @@ def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
     tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
             path_rows.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
-    if needs_envelope(max_levels, num_bars) if envelope is None else envelope:
+    if _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, g), device)
         rc = _wide_library("_wide").qmmx_mc_engine_wide_sweep(
@@ -712,15 +720,14 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
                 per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
-                hist_bars=None, tables=None, block_len: int = 10, heston=None, envelope=None):
+                hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
     the other samplers ``mc_engine_sampler_kernel``; their envelope forms
     where the shape needs them, ``_launch``): int64 [grid, 151] count
     rows and f32 [grid, 6] float rows, one row per CTA, plus the f32[P,
     PATH_COLS] per-path rows of ``path_rows`` when ``per_path``; Philox keyed
     as universe symbol ``symbol``; ``sampler`` and its inputs as in
-    ``mc_paths_engine_fused``.  ``envelope=True`` runs the envelope kernel
-    even where the parent fits, to hold the two against each other."""
+    ``mc_paths_engine_fused``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -736,23 +743,22 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
     if samp.kind != "gbm":
         out = _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
                               ext_ptr=ext_ptr, device=device, per_path=per_path,
-                              what="mc_engine_sampler", envelope=envelope)
+                              what="mc_engine_sampler")
     else:
         out = _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                      device=device, per_path=per_path, what="mc_engine", envelope=envelope)
+                      device=device, per_path=per_path, what="mc_engine")
     return tuple(x[0] for x in out)
 
 
 def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
                     num_paths: int, ext_ptr, device: torch.device, per_path: bool, what: str,
-                    table_rows=None, envelope=None):
+                    table_rows=None):
     """One launch of ``mc_engine_sampler_kernel`` over the argument structs
     ``args`` (one per row) of ``levels`` under ``sampler``, row r reading
     table ``table_rows[r]`` (default: the one history), counted in
     ``LAUNCHES[what]``, or where the parent does not take the shape of
-    ``mc_engine_wide_sampler_kernel`` (or with ``envelope`` set), counted
-    in ``LAUNCHES[_wide(what)]``: int64 [R,
-    grid, 151] and f32 [R, grid, 6] partial rows, plus f32[R, P, PATH_COLS]
+    ``mc_engine_wide_sampler_kernel`` (``_use_envelope``), counted in
+    ``LAUNCHES[_wide(what)]``: int64 [R, grid, 151] and f32 [R, grid, 6] partial rows, plus f32[R, P, PATH_COLS]
     per-(row, path) rows when ``per_path``."""
     max_levels = levels.max_levels
     n, grid = len(args), grid_size(num_paths)
@@ -766,7 +772,7 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
     tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
             path_rows.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
-    if needs_envelope(max_levels, num_bars) if envelope is None else envelope:
+    if _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, n), device)
         rc = _wide_library("_wide_samplers").qmmx_mc_engine_wide_sampler(
@@ -791,13 +797,12 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                       dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
                       external_uniforms=None, device=None, per_path: bool = False,
                       sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
-                      heston=None, envelope=None):
+                      heston=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
     grid (``mc_engine_sweep_kernel``, or under the other samplers
     ``mc_engine_sampler_kernel``, every row on the same history): int64 [G,
     grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
-    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``;
-    ``envelope`` as in ``engine_rows``."""
+    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
     n_grid = len(knob_rows(grid_params, noise, n_grid))
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
@@ -817,9 +822,9 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
     if samp.kind != "gbm":
         return _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
                                ext_ptr=ext_ptr, device=device, per_path=per_path,
-                               what="mc_engine_sweep_sampler", envelope=envelope)
+                               what="mc_engine_sweep_sampler")
     return _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                   device=device, per_path=per_path, what="mc_engine_sweep", envelope=envelope)
+                   device=device, per_path=per_path, what="mc_engine_sweep")
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):
@@ -1021,14 +1026,14 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                                device=None, per_path: bool = False,
                                what: str = "mc_engine_universe_sweep", sampler: str = "gbm",
                                hist_bars=None, tables=None, block_len: int = 10,
-                               heston=None, envelope=None):
+                               heston=None):
     """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
     ``mc_engine_sweep_kernel`` (or under the other samplers
     ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what + "_sampler"]``,
     cell (s, g) reading symbol s's history) with S x G rows (row s * G + g
     for (s, g)), under gbm counted in ``LAUNCHES[what]``: int64 [S, G, grid,
     151] and f32 [S, G, grid, 6] partial rows, plus f32[S, G, P, PATH_COLS]
-    per-path rows when ``per_path``; ``envelope`` as in ``engine_rows``."""
+    per-path rows when ``per_path``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     sym = symbol_rows(levels, s0, sigma)
@@ -1052,12 +1057,10 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
         out = _sampler_launch(args, cell_levels, samp, num_bars,
                               num_paths=paths_per_symbol, ext_ptr=ext_ptr, device=device,
                               per_path=per_path, what=what + "_sampler",
-                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym],
-                              envelope=envelope)
+                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym])
     else:
         out = _launch(args, cell_levels, num_bars, num_paths=paths_per_symbol,
-                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what,
-                      envelope=envelope)
+                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
     return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
 
 
@@ -1280,15 +1283,14 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                      dt: float = 1.0 / (390.0 * 252.0), lanes: int = ENGINE_LANES,
                      external_uniforms=None, market_uniforms=None, sampler: str = "gbm",
                      hist_bars=None, tables=None, block_len: int = 10, heston=None,
-                     device=None, per_path: bool = False, envelope=None):
+                     device=None, per_path: bool = False):
     """Launch the engine book's pass 1 on a CUDA device, one launch of
     ``mc_engine_corr_kernel`` (or under the other samplers
     ``mc_engine_corr_sampler_kernel``, symbol s reading its own history or
     the one every symbol shares; where the parents do not take the shape,
-    ``mc_engine_wide_corr_kernel``, or with ``envelope`` as in
-    ``engine_rows``, counted under ``mc_engine_wide_corr(_sampler)``): int64
-    [S + 1, grid, 151] and f32 [S + 1,
-    grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
+    ``mc_engine_wide_corr_kernel``, counted under
+    ``mc_engine_wide_corr(_sampler)``): int64 [S + 1, grid, 151] and f32
+    [S + 1, grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
     P, PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
     device-memory buffer (the engine's rings already take 25 KB of shared
     memory a CTA)."""
@@ -1321,7 +1323,7 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     tail = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
             part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
-    wide = needs_envelope(levels.max_levels, num_bars) if envelope is None else envelope
+    wide = _use_envelope(levels.max_levels, num_bars)
     lv_dev = device_rows(level_table(levels, n_sym), device) if wide else None
     if samp.kind != "gbm":
         what = "mc_engine_corr_sampler"

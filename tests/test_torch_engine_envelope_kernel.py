@@ -113,7 +113,7 @@ def test_cuda_envelope_kernel_matches_plain_per_path(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sampler", ["gbm", "bootstrap", "heston"])
-def test_cuda_envelope_kernel_equals_the_parent_where_both_fit(sampler):
+def test_cuda_envelope_kernel_equals_the_parent_where_both_fit(sampler, monkeypatch):
     """At 3 levels and W = 40 the envelope kernel (forced) and the parent
     give the same partial rows and per-path rows, bit for bit."""
     dev = _cuda()
@@ -126,7 +126,8 @@ def test_cuda_envelope_kernel_equals_the_parent_where_both_fit(sampler):
                                {"color": "teal", "type": "solid", "index": 0, "price": 99.7}],
                               max_levels=8)
     parent = CE.engine_rows(2, levels, EngineParams.default(), **kw)
-    wide = CE.engine_rows(2, levels, EngineParams.default(), envelope=True, **kw)
+    monkeypatch.setattr(CE, "_FORCE_ENVELOPE", True)
+    wide = CE.engine_rows(2, levels, EngineParams.default(), **kw)
     for a, b in zip(parent, wide):
         assert torch.equal(a, b)
 
@@ -168,7 +169,7 @@ def test_cuda_envelope_sweep_and_universe_rows_equal_their_one_row_launches():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sampler", ["gbm", "block_bootstrap", "heston"])
-def test_cuda_envelope_book_matches_plain_and_its_parent(sampler):
+def test_cuda_envelope_book_matches_plain_and_its_parent(sampler, monkeypatch):
     """The envelope book kernel at 30 levels x W = 62 against the plain
     version on the card, path by path (symbols and the book); forced at 2
     levels x W = 40, equal to the parent book kernel bit for bit."""
@@ -197,8 +198,9 @@ def test_cuda_envelope_book_matches_plain_and_its_parent(sampler):
                             "price": float(x) + 0.4}] for x in s0], max_levels=4)
     parent = CE.engine_corr_rows(3, two, EngineParams.default(), s0, sig, beta, wts,
                                  num_bars=40, **kw)
+    monkeypatch.setattr(CE, "_FORCE_ENVELOPE", True)
     wide = CE.engine_corr_rows(3, two, EngineParams.default(), s0, sig, beta, wts,
-                               num_bars=40, envelope=True, **kw)
+                               num_bars=40, **kw)
     for a, b in zip(parent, wide):
         assert torch.equal(a, b)
 
