@@ -243,12 +243,46 @@ Phases (any failure exits non-zero and prints no result line):
    30 levels x 390 bars x 2^20 a symbol through ``mc_paths_engine_corr_fused``
    (one timed run, its launches), every symbol and the book of its
    symbols 0 and 9 equal to the plain version on the card on every path at
-   2^14 a symbol.
+   2^14 a symbol;
+   the closed-trade label harvest (``harvest=True`` of kernels #8, #10 and
+   #12: the envelope kernels' harvest builds ``mc_engine_wide*_harvest.cu``)
+   rides on the plain runs above: in phases 9, 17, 20, 29 and 30 the plain
+   version runs once with the harvest (which changes no trade) and the
+   kernel a second time with it; its partial and per-path rows equal the
+   launch without the harvest bit for bit, and its harvest equals the plain
+   version's as the differing paths allow (``check_harvest``); every symbol
+   of config #4's full-width launch and the 3-symbol universe equals its
+   one-row harvest launch bit for bit, the book's symbols at beta 0 the
+   universe's; phase 17 also runs config #4 with the harvest (its launches,
+   every statistic equal to the run without) and the per-symbol refresh on
+   what it harvested (``models/harvest.ml_batch_from_harvest``), phase 20
+   ``book --engine --harvest`` (each symbol's labels and refreshed ML gate);
+31. the learning flywheel on the card: the port CLI's ``flywheel --rounds 3
+   --num-paths 2^28 --explore-paths 2^24 --backend cuda`` (launch counts set
+   to 0 just before and read just after; round 0 cold, later rounds armed,
+   the exploration merged), ``sim/flywheel.holdout_eval`` at 2^26 training
+   paths a round and 2^24 held-out paths on three seed pairs, a round on the
+   30-level DB at 390 bars x 2^22 (the windowed guard), the recorded-bar
+   flywheel (``policy_iteration`` under block_bootstrap, the sampler harvest
+   kernel) and ``book --engine --harvest --sampler block_bootstrap`` at 100 x
+   2^20; each harvest kernel timed against the same kernel without the
+   harvest in turn; the harvest rows' fold against its plain fold.
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
 (default: this one) at 2^28 x 40, for a parent unpacked with ``git archive``
-against this tree in one call.
+against this tree in one call.  ``python3 chip_smoke.py --parent-times``
+runs none of them either: it times every parent engine kernel against its
+envelope kernel forced to run where the parent fits (``parent_times``).
+
+Harvest (``check_harvest``, ``gap_within``): where every path
+agrees the count tables are equal; each path whose trades differ can move
+each of its trades to another (bucket, label), so the L1 gap of each count
+table is at most 2 a trade of those paths; a sum may move by those trades'
+x1 and x6 (each <= 1), an agreeing trade's x1 (a distance to a level) by 16
+price ulps (the bars' ulps on CPU copies), and by the reduction orders
+(float32 sums of n non-negative terms in two orders: 2 (n - 1) 2^-24 of the
+larger).
 
 Tolerances.  First contact (phases 3-4): the kernel sums each path's log
 increments serially in float32 and uses CUDA's logf/expf/sincosf, the plain
@@ -865,6 +899,123 @@ def drift_only(name, parted, kernel_rows, cpu_rows, prices, count_cols) -> int:
     return int(drift.sum())
 
 
+# The closed-trade harvest (kernels #8, #10, #12 with harvest=True, the
+# envelope kernels' harvest builds, ops/csrc/mc_engine_wide*_harvest.cu): the
+# largest sum error of each harvest kernel's checks against its plain version
+# (keyed by its launch counter), for the kernels line.
+HV_ERR: dict = {}
+
+
+def differing_trades(rows_a, rows_b) -> int:
+    """Trades (the larger side's) on the paths whose trades differ between
+    two runs' per-path rows (``ops/cuda_engine.path_rows``): a count column
+    (trades, wins, losses, open, escalations) differs, or equity / drawdown
+    by more than 1e-3 a trade (a path that agrees drifts less).  The
+    harvest's bound (``gap_within``) is set by it."""
+    import torch
+
+    a, b = rows_a.cpu(), rows_b.cpu()
+    cols = [1, 2, 3, 4, 6]
+    err = (a[:, [0, 5]] - b[:, [0, 5]]).abs().amax(dim=1)
+    differ = (a[:, cols] != b[:, cols]).any(dim=1) | (err > 1e-3 * torch.clamp(b[:, 1], min=1.0))
+    return int(torch.maximum(a[differ, 1], b[differ, 1]).sum())
+
+
+def gap_within(got, want, differing_trades: int, x1_drift: float = 0.0) -> tuple:
+    """Whether two harvests (``models/harvest.EngineHarvest``) of the same
+    paths agree as far as their differing paths allow, and how far they
+    part: ``differing_trades`` is the count of trades (the larger side's) on
+    paths whose trades differ between the two runs.  Each such trade can
+    move one count of each table to another (bucket, label): the L1 gap of
+    each count table is at most 2 a trade.  A sum can move by such a
+    trade's x (<= 1) on either side; an agreeing trade's x1 = min(1,
+    distance) by ``x1_drift`` where the two runs' bars part by price ulps
+    (x6 depends on the bar index alone); and two float32 sums of the same n
+    non-negative terms in different orders differ by at most 2 (n - 1)
+    2^-24 times the larger: so |d| <= 2 d + n x1_drift + 2 n 2^-24 max.
+    Returns (ok, {"ml_l1", "pol_l1", "sum_excess"}), the excess the largest
+    amount by which a sum of a bucket that holds a trade passes its bound
+    (<= 0 when ok; -inf with no trade)."""
+    import torch
+
+    g, w = (h.to("cpu") for h in (got, want))
+    d = int(differing_trades)
+    ml_l1 = int((g.ml_counts - w.ml_counts).abs().sum())
+    pol_l1 = int((g.pol_counts - w.pol_counts).abs().sum())
+    n = torch.maximum(g.pol_counts, w.pol_counts).to(torch.float64)
+    excess, ok_sums = -float("inf"), True
+    for a, b, drift in ((g.pol_sum_x1, w.pol_sum_x1, x1_drift),
+                        (g.pol_sum_x6, w.pol_sum_x6, 0.0)):
+        a, b = a.double(), b.double()
+        bound = 2.0 * d + n * drift + 2.0 * n * 2.0 ** -24 * torch.maximum(a.abs(), b.abs())
+        over = (a - b).abs() - bound
+        ok_sums = ok_sums and bool((over <= 0.0).all())
+        if bool((n > 0).any()):       # the margin where a bucket holds a trade
+            excess = max(excess, float(over[n > 0].max()))
+    ok = ml_l1 <= 2 * d and pol_l1 <= 2 * d and ok_sums
+    return ok, {"ml_l1": ml_l1, "pol_l1": pol_l1, "sum_excess": excess}
+
+
+def check_harvest(name: str, what: str, got, want, kernel_rows, plain_rows,
+                  price: float) -> None:
+    """A harvest kernel's harvest ``got`` against the plain version's ``want``
+    of the same paths (``gap_within``): the count tables equal
+    where every path agrees, else within 2 a trade of the differing paths'
+    trades; the sums within those trades, DRIFT_ULPS price ulps (at
+    ``price``) of x1 a trade (an agreeing path's bars part by ulps on CPU
+    copies) and the reduction orders.  Records the largest sum error under
+    ``HV_ERR[what]``."""
+    import numpy as np
+
+    d = differing_trades(kernel_rows, plain_rows)
+    ok, gap = gap_within(got, want, d,
+                            x1_drift=DRIFT_ULPS * float(np.spacing(np.float32(price))))
+    g, w = got.to("cpu"), want.to("cpu")
+    err = max(float((g.pol_sum_x1.double() - w.pol_sum_x1.double()).abs().max()),
+              float((g.pol_sum_x6.double() - w.pol_sum_x6.double()).abs().max()))
+    log(f"  {name} harvest: labeled {int(g.n_labeled.sum())}/{int(w.n_labeled.sum())} "
+        f"(kernel/plain), count L1 {gap['ml_l1']} (ML) {gap['pol_l1']} (policy) with "
+        f"{d} trades on differing paths, sums max |d| {err:.3e} (the bound's least "
+        f"margin {-gap['sum_excess']:.3e})")
+    if not ok:
+        raise AssertionError(f"{name}: the harvest kernel's harvest disagrees with the plain "
+                             f"version's: {gap}")
+    HV_ERR[what] = max(HV_ERR.get(what, 0.0), err)
+
+
+HV_MAIN: dict = {}   # the harvest kernels' main-path times, for the kernels line
+
+
+HV_PLAIN: dict = {}  # the harvest kernels' plain versions (with the harvest): ms and shape
+
+
+def harvest_bound(card, bytes_: float, ops: dict, trades: float, rows: int, grid: int) -> dict:
+    """A harvest kernel's bound: its envelope kernel's bytes and operations
+    (``ops``) plus the harvest's: the harvest partial rows it writes (``rows``
+    launch rows x ``grid`` CTAs x 72 int64 counts and 16 float sums) and ~10
+    float32 operations a trade (a close's two sums and two tallies, an
+    entry's four latches)."""
+    ops = dict(ops, f32=ops["f32"] + 10.0 * trades)
+    return card.bound(bytes_=bytes_ + rows * grid * (72 * 8 + 16 * 4), **ops)
+
+
+def hv_row(h, i):
+    """Row ``i`` of an [S]-batched harvest."""
+    from qmmx_monolithic_monte_carlo_tpu_torch.models import harvest as HV
+
+    return HV.EngineHarvest(*(f[i] for f in h))
+
+
+def same_launch(name: str, plain_launch, harvest_launch) -> None:
+    """The harvest launch's partial rows (and per-path rows) equal the launch
+    without harvest bit for bit: a harvest changes no trade."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(plain_launch, harvest_launch)):
+        raise AssertionError(f"{name}: the harvest launch's rows differ from the launch "
+                             "without harvest")
+
+
 def lifecycle_trace(bars, tie, nzs, levels, params, gate, noise):
     """Drive the plain ``Lifecycle`` over ``bars`` on the CPU, recording after
     every bar its integer state (side, trades, wins, losses, cooldown, touch
@@ -1178,8 +1329,11 @@ def plain_picks(single, c4, pick):
 
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
 
+    from qmmx_monolithic_monte_carlo_tpu_torch.models import harvest as HV
+
     outs = [single(i, grid_row(c4[0], i), float(c4[1][i]), float(c4[2][i])) for i in pick]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    return tuple(HV.stack(x) if isinstance(x[0], HV.EngineHarvest) else torch.stack(x)
+                 for x in zip(*outs))
 
 
 def check_universe_stats(name: str, stats, n_sym: int, pps: int) -> None:
@@ -1226,6 +1380,7 @@ def universe_phases(dev, card, reset) -> list:
     import torch
 
     from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.models import harvest as HV
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import (EngineLayout, GatedLayout,
                                                                  GbmLayout)
@@ -1486,11 +1641,17 @@ def universe_phases(dev, card, reset) -> list:
         1e-6, 1.0, (3, nb, EngineLayout(NUM_BARS, True).u_rows, 8, lanes)).astype(np.float32))
     kw = dict(paths_per_symbol=n_inj, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3)
     want = cuda_engine.engine_universe_totals_reference(0, lv3, p3e, s0_3, sg_3,
-                                                        external_uniforms=u, per_path=True, **kw)
+                                                        external_uniforms=u, per_path=True,
+                                                        harvest=True, **kw)
     pc, pf, prow = cuda_engine.engine_universe_rows(0, lv3, p3e, s0_3, sg_3, device=dev,
                                                     external_uniforms=u.to(dev), per_path=True,
                                                     **kw)
     ec, ef = cuda_engine.reduce_rows(pc, pf)
+    *h_rows, h_c, h_s = cuda_engine.engine_universe_rows(
+        0, lv3, p3e, s0_3, sg_3, device=dev, external_uniforms=u.to(dev), per_path=True,
+        harvest=True, **kw)
+    same_launch("engine universe, injected", (pc, pf, prow), h_rows)
+    h_got = cuda_engine.reduce_harvest(h_c, h_s)
     torch.cuda.synchronize()
     e_err = 0.0
     for s in range(3):
@@ -1503,20 +1664,27 @@ def universe_phases(dev, card, reset) -> list:
                                                grid_row(noise3, s), False, dev,
                                                s0=float(s0_3[s])))
         e_err = max(e_err, err)
+        check_harvest(f"symbol {s}", "mc_engine_wide_universe_harvest", hv_row(h_got, s),
+                      hv_row(want[3], s), prow[s], want[2][s], 100.4)
     e_paths = UNI_ENGINE_PATHS
     log(f"  Philox at {PHILOX_PATHS} paths a symbol: each symbol vs the single kernel "
         f"(engine_rows) bit for bit, per path and skip counts included; at {e_paths} paths a "
         "symbol kernel vs plain on the card path by path")
     kw = dict(num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=noise3, external_uniforms=None)
-    rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
-                                            paths_per_symbol=PHILOX_PATHS, **kw)
-    for s in range(3):
-        one = cuda_engine.engine_rows(7, grid_row(lv3, s), grid_row(p3e, s),
-                                      num_paths=PHILOX_PATHS, mu=0.0, device=dev,
-                                      per_path=True, **dict(kw, noise=grid_row(noise3, s)),
-                                      **sym(s))
-        if not all(torch.equal(a, b[s]) for a, b in zip(one, rows)):
-            raise AssertionError(f"engine universe symbol {s} differs from the single kernel")
+    for harvest in (False, True):
+        rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev,
+                                                per_path=True, paths_per_symbol=PHILOX_PATHS,
+                                                harvest=harvest, **kw)
+        for s in range(3):
+            one = cuda_engine.engine_rows(7, grid_row(lv3, s), grid_row(p3e, s),
+                                          num_paths=PHILOX_PATHS, mu=0.0, device=dev,
+                                          per_path=True, harvest=harvest,
+                                          **dict(kw, noise=grid_row(noise3, s)), **sym(s))
+            if not all(torch.equal(a, b[s]) for a, b in zip(one, rows)):
+                raise AssertionError(f"engine universe symbol {s} differs from the single "
+                                     "kernel" + (" (harvest)" if harvest else ""))
+    log("  with the harvest too: each symbol's rows and harvest rows equal the single "
+        "harvest kernel's bit for bit")
     del rows, one
     kw = dict(kw, paths_per_symbol=e_paths)
     rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
@@ -1552,15 +1720,40 @@ def universe_phases(dev, card, reset) -> list:
                 "path by path")
     c4kw = dict(paths_per_symbol=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes,
                 external_uniforms=None, device=dev, per_path=True)
-    sc, sf, srow = plain_picks(lambda i, lv, s0, sg: cuda_engine.engine_totals_reference(
-        0, lv, params, num_paths=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, s0=s0, mu=0.0, sigma=sg,
-        dt=DT, lanes=lanes, device=dev, chunk_blocks=512, per_path=True, symbol=i), c4, pick)
-    got = fold(cuda_engine, cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:],
-                                                             **c4kw))
+    (sc, sf, srow, shv), uh_plain_ms = timed(lambda: plain_picks(
+        lambda i, lv, s0, sg: cuda_engine.engine_totals_reference(
+            0, lv, params, num_paths=UNI_SAMPLE_PATHS, num_bars=NUM_BARS, s0=s0, mu=0.0,
+            sigma=sg, dt=DT, lanes=lanes, device=dev, chunk_blocks=512, per_path=True,
+            symbol=i, harvest=True), c4, pick))
+    HV_PLAIN["mc_engine_wide_universe_harvest"] = dict(
+        ms=uh_plain_ms, paths=UNI_SAMPLE_PATHS, symbols=n_cmp, num_bars=NUM_BARS)
+    k_rows = cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:], **c4kw)
+    got = fold(cuda_engine, k_rows)
     e_err = max(e_err, same_on_card(
         "engine", (sc, sf, srow), tuple(x[pick] for x in got), n_cmp, UNI_SAMPLE_PATHS,
         lambda j: f"symbol {pick[j]}"))
-    del srow, got
+    # the harvest: the full-width launch again with it, its rows those of the
+    # launch without; the picked symbols against the plain version's harvest,
+    # every symbol's harvest rows against its one-row launch
+    *h_rows, h_c, h_s = cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:],
+                                                         harvest=True, **c4kw)
+    same_launch("config #4's universe", k_rows, h_rows)
+    h_got = cuda_engine.reduce_harvest(h_c, h_s)
+    for j, i in enumerate(pick):
+        check_harvest(f"config #4 symbol {i}", "mc_engine_wide_universe_harvest",
+                      hv_row(h_got, i), hv_row(shv, j), k_rows[2][i], srow[j], 2 * c4[1][i])
+    for i in range(UNI_SYMBOLS):
+        one = cuda_engine.engine_rows(0, grid_row(c4[0], i), params, num_paths=UNI_SAMPLE_PATHS,
+                                      num_bars=NUM_BARS, s0=float(c4[1][i]), mu=0.0,
+                                      sigma=float(c4[2][i]), dt=DT, lanes=lanes, device=dev,
+                                      symbol=i, harvest=True)
+        if not (torch.equal(one[2], h_c[i]) and torch.equal(one[3], h_s[i])
+                and torch.equal(one[0], h_rows[0][i])):
+            raise AssertionError(f"config #4 symbol {i}: the harvest rows differ from its "
+                                 "one-row launch")
+    log(f"  every one of config #4's {UNI_SYMBOLS} symbols: its harvest rows equal its "
+        "one-row harvest launch bit for bit")
+    del srow, got, k_rows, h_rows, one
     log(f"[17] main path: BASELINE config #4, mc_paths_engine_universe_fused ({UNI_SYMBOLS} "
         f"symbols x {UNI_PATHS} paths x {NUM_BARS} bars, sigma {UNI_SIGMA}, default params), "
         "one warm-up then timed")
@@ -1589,32 +1782,77 @@ def universe_phases(dev, card, reset) -> list:
     log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {e_main_ms:.3f} ms "
         f"({UNI_SYMBOLS * UNI_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
         f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
-    # the refresh on run_all.py:205-209's shapes, made from a seed with numpy
-    rng = np.random.default_rng(0)
-    xs = rng.normal(0, 1, (UNI_SYMBOLS, 64, 4)).astype(np.float32)
-    ys = (rng.uniform(size=(UNI_SYMBOLS, 64)) < 0.5).astype(np.int32)
-    ws = np.ones((UNI_SYMBOLS, 64), np.float32)
+    log(f"[17] main path: BASELINE config #4 with the harvest (run_all.py:166-200), "
+        f"mc_paths_engine_universe_fused(harvest=True), one warm-up then timed; the "
+        "per-symbol refresh on it")
+    (st_h, skips_h, escal_h, hv4), secs_h, launches_h = run_entry(
+        "mc_paths_engine_universe_fused(harvest=True)",
+        lambda: cuda_engine.mc_paths_engine_universe_fused(
+            0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT,
+            harvest=True),
+        reset, {"mc_engine_wide_universe_harvest": 2, "mc_engine_universe_reduce_rows": 2,
+                "mc_engine_harvest_reduce_rows": 2})
+    if not (torch.equal(st_h.hist, st.hist) and torch.equal(st_h.sum_r, st.sum_r)
+            and torch.equal(skips_h, skips) and torch.equal(escal_h, escal)):
+        raise AssertionError("config #4 with the harvest differs from config #4 without it")
+    if not torch.equal(hv4.n_labeled.cpu(), (st.n_tp + st.n_stop).to(torch.int64).cpu()):
+        raise AssertionError("config #4's harvest does not label every closed trade once")
+    # the harvest build against the envelope kernel it is built from, forced
+    # at config #4's shape (the launch without the harvest goes to the parent)
+    hv_t = interleaved_ms({
+        "wide": forced(cuda_engine, lambda: cuda_engine.engine_universe_rows(
+            0, c4[0], params, *c4[1:], **e_main)),
+        "harvest": lambda: cuda_engine.engine_universe_rows(
+            0, c4[0], params, *c4[1:], harvest=True, **e_main)})
+    u_scale = main_scale * UNI_SYMBOLS / n_cmp
+    HV_MAIN["mc_engine_wide_universe_harvest"] = dict(
+        ms=hv_t["harvest"], ms_without=hv_t["wide"], ms_parent=e_main_ms, paths=UNI_PATHS,
+        symbols=UNI_SYMBOLS,
+        launches=launches_h["mc_engine_wide_universe_harvest"], config4_s=secs_h[1:],
+        bound=harvest_bound(card, row_bytes(cuda_engine, UNI_SYMBOLS, UNI_PATHS), engine_ops(
+            UNI_SYMBOLS * UNI_PATHS, sc.sum(0).cpu(), u_scale, NUM_BARS, 4),
+            float(sc.sum(0)[5]) * u_scale, UNI_SYMBOLS, grid_size(UNI_PATHS)))
+    log(f"  config #4 with the harvest: wall {secs_h[-1]:.3f} s, every statistic equal to the "
+        f"run without; {int(hv4.n_labeled.sum())} labels; kernel alone {hv_t['harvest']:.3f} "
+        f"ms, the envelope kernel without the harvest {hv_t['wide']:.3f} ms "
+        f"({hv_t['harvest'] / hv_t['wide']:.4f}x; the parent {e_main_ms:.3f} ms)")
+    # the refresh on what config #4 harvested (run_all.py:196-200): the
+    # per-symbol weighted bucket rows of ml_batch_from_harvest
+    xs, ys, ws = HV.ml_batch_from_harvest(hv4, stop_padding=float(params.stop_padding))
     U.universe_policy_refresh(None, xs, ys, ws)
     model, refresh_ms = timed(lambda: U.universe_policy_refresh(None, xs, ys, ws))
-    ref = U.universe_policy_refresh(None, xs.astype(np.float64), ys, ws.astype(np.float64),
+    ref = U.universe_policy_refresh(None, xs.cpu().double(), ys.cpu(), ws.cpu().double(),
                                     device="cpu")
     if model.coef.device.type != dev.type or model.coef.dtype != torch.float32:
         raise AssertionError(f"the refresh ran on {model.coef.device} in {model.coef.dtype}")
-    d_coef = float((model.coef.cpu().double() - ref.coef).abs().max())
-    d_icpt = float((model.intercept.cpu().double() - ref.intercept).abs().max())
-    # float32 against float64 on [64, 4] designs: agreement to ~1e-6, held to 1e-4
-    if not (d_coef <= 1e-4 and d_icpt <= 1e-4 and bool(torch.isfinite(model.coef).all())):
-        raise AssertionError(f"the refresh differs from its float64 CPU fit: coef {d_coef}, "
-                             f"intercept {d_icpt}")
-    log(f"  refresh: universe_policy_refresh on [{UNI_SYMBOLS}, 64, 4] float32 on the card "
-        f"{refresh_ms:.3f} ms (Newton steps {model.n_iter.tolist()[:4]}...); vs the float64 "
-        f"CPU fit (steps {ref.n_iter.tolist()[:4]}...): max |d coef| {d_coef:.3e}, "
-        f"|d intercept| {d_icpt:.3e}")
+
+    def proba(m, x):
+        z = (x.cpu().double() @ m.coef.cpu().double()[..., None])[..., 0]
+        return torch.sigmoid(z + m.intercept.cpu().double()[:, None])
+
+    # the stop-padding feature is one constant beside the intercept: its
+    # coefficient is float32 rounding at these weights (millions of labels;
+    # the float64 fit puts it at ~0), so the fit is held by its
+    # probabilities at every harvested row and by its other coefficients
+    used = ws.cpu() > 0
+    d_p = float((proba(model, xs) - proba(ref, xs)).abs()[used].max())
+    d_coef = float((model.coef.cpu().double() - ref.coef)[:, [0, 2, 3]].abs().max())
+    if not (d_p <= 1e-5 and d_coef <= 1e-4 and bool(torch.isfinite(model.coef).all())
+            and bool(torch.isfinite(model.intercept).all())):
+        raise AssertionError(f"the refresh on the harvest differs from its float64 CPU fit: "
+                             f"probabilities {d_p}, coefficients {d_coef}")
+    d_icpt = d_p
+    log(f"  refresh: universe_policy_refresh on config #4's harvest (xs [{UNI_SYMBOLS}, 64, 4],"
+        f" {int(ws.sum())} labels) float32 on the card {refresh_ms:.3f} ms (Newton steps "
+        f"{model.n_iter.tolist()[:4]}...); vs the float64 CPU fit: max |d probability| "
+        f"{d_p:.3e} at the harvested rows, max |d coef| (kind, touch count, side) "
+        f"{d_coef:.3e}")
     out += [entry("mc_engine_universe", ENGINE_SOURCE, ENGINE_UNI_REPLACES,
                   launches["mc_engine_universe"], e_err, e_ms, e_plain_ms, e_bound, symbols=3,
                   paths=e_paths, noise=True, main_path_ms=e_main_ms,
                   main_path_bound_ms=e_main_bound["bound_ms"], config4_s=secs[1:],
-                  refresh_ms=refresh_ms, refresh_max_abs_err=max(d_coef, d_icpt)),
+                  refresh_ms=refresh_ms, refresh_max_abs_err=max(d_coef, d_icpt),
+                  refresh_source="harvest"),
             entry("mc_engine_universe_reduce_rows", ENGINE_SOURCE, ENGINE_UNI_REPLACES,
                   launches["mc_engine_universe_reduce_rows"], e_red_err, e_red_ms,
                   e_red_plain_ms, e_red_bound, rows=int(rows[0].shape[1]), symbols=3)]
@@ -1804,6 +2042,24 @@ def check_book_output(lines: list, n_sym: int, engine: bool) -> None:
         raise AssertionError(f"book risk out of order: {port}")
 
 
+def check_book_harvest_output(lines: list, plain: list) -> None:
+    """``book --engine --harvest``'s rows: the rows of the run without it,
+    each symbol's with its ``labeled`` count (> 0) and the four coefficients
+    of its refreshed ML gate (finite) after them."""
+    if len(lines) != len(plain) or lines[-1] != plain[-1]:
+        raise AssertionError("book --harvest: its book row or row count differs from the "
+                             "run without")
+    for r, b in zip(lines[:-1], plain[:-1]):
+        keys = [k for k in r if k not in ("labeled", "ml_coef")]
+        if list(r)[-2:] != ["labeled", "ml_coef"] or {k: r[k] for k in keys} != b:
+            raise AssertionError(f"book --harvest: a symbol row differs: {r} vs {b}")
+        if not (r["labeled"] > 0 and len(r["ml_coef"]) == 4
+                and all(math.isfinite(c) for c in r["ml_coef"])):
+            raise AssertionError(f"book --harvest: a symbol's labels or coefficients: {r}")
+    log(f"  every symbol row carries labeled and ml_coef (symbol 0: {lines[0]['labeled']:.0f} "
+        f"labels, coef {lines[0]['ml_coef']}); every other key as without --harvest")
+
+
 def book_phases(dev, card, reset, cli) -> list:
     """Phases 19-20: the two book kernels against their plain versions and
     the universe kernels, and the CLI's ``book`` / ``book --engine`` at the
@@ -1904,14 +2160,22 @@ def book_phases(dev, card, reset, cli) -> list:
                                         trace_book, w3))
         return max(err, e)
 
-    def beta0_and_one_symbol(name, rows_fn, uni_fn, one_fn, paths):
+    def beta0_and_one_symbol(name, rows_fn, uni_fn, one_fn, paths, hv_fns=None):
         """At ``paths`` a symbol (one path a thread: a book CTA's rows then add
         its paths in the universe's order, so its float sums are the
-        universe's too)."""
+        universe's too); ``hv_fns``: the harvest launches of the two, whose
+        harvest rows must agree as well."""
         a = rows_fn(0.0, paths)
         b = uni_fn(paths)
         if not all(torch.equal(x[:3], y) for x, y in zip(a, b)):
             raise AssertionError(f"{name} at beta 0 differs from the universe kernel")
+        if hv_fns is not None:
+            a, b = hv_fns[0](0.0, paths), hv_fns[1](paths)
+            if not all(torch.equal(x, y) for x, y in zip(a[-2:], b[-2:])):
+                raise AssertionError(f"{name} at beta 0: its symbols' harvest rows differ "
+                                     "from the universe harvest kernel's")
+            log("  with the harvest: every symbol's harvest rows at beta 0 equal the "
+                "universe's (its one-row launches') bit for bit")
         c, f, r = one_fn(paths)
         cols = [0, 1, 2, 3, 4, 5]
         if not (torch.equal(r[1][:, :6], r[0][:, :6]) and torch.equal(f[1], f[0])
@@ -2092,11 +2356,17 @@ def book_phases(dev, card, reset, cli) -> list:
                   antithetic=anti, per_path=True, **gates)
         want = cuda_engine.engine_corr_totals_reference(0, lv3, p3e, s0_3, sig, b3, w3,
                                                         external_uniforms=u,
-                                                        market_uniforms=um, **kw)
+                                                        market_uniforms=um, harvest=True,
+                                                        **kw)
         pc, pf, prow = cuda_engine.engine_corr_rows(0, lv3, p3e, s0_3, sig, b3, w3, device=dev,
                                                     external_uniforms=u.to(dev),
                                                     market_uniforms=um.to(dev), **kw)
         ec, ef = cuda_engine.reduce_rows(pc, pf)
+        *h_rows, h_c, h_s = cuda_engine.engine_corr_rows(
+            0, lv3, p3e, s0_3, sig, b3, w3, device=dev, external_uniforms=u.to(dev),
+            market_uniforms=um.to(dev), harvest=True, **kw)
+        same_launch(f"engine book, {case}", (pc, pf, prow), h_rows)
+        h_got = cuda_engine.reduce_harvest(h_c, h_s)
         torch.cuda.synchronize()
         def engine_runs(s, on_card, idx, u=u, um=um, gates=gates, sig=sig, nz=nz, anti=anti):
             src = dev if on_card else torch.device("cpu")
@@ -2117,6 +2387,9 @@ def book_phases(dev, card, reset, cli) -> list:
                 f"symbol {s}", u[s], d, prow[s].cpu(), want[2][s].cpu(), grid_row(lv3, s),
                 grid_row(p3e, s), gates, float(sig[s]), grid_row(nz, s), anti, dev,
                 s0=float(s0_3[s]), market=(um, float(b3[s]))), engine_runs))
+        for s in range(3):
+            check_harvest(f"book symbol {s}, {case}", "mc_engine_wide_corr_harvest",
+                          hv_row(h_got, s), hv_row(want[3], s), prow[s], want[2][s], 100.4)
         skips = ec[:3, 7:23].sum(dim=0).tolist()
         named = dict(zip((r.name for r in SKIP_REASONS), skips))
         if case == "accumulation" and not (named["EDGE_FATIGUE"] + named["TOUCH_BUDGET"]
@@ -2141,7 +2414,13 @@ def book_phases(dev, card, reset, cli) -> list:
             cuda_engine.engine_corr_rows(7, U.stack_levels(UNI3_ROWS[:1], max_levels=8),
                                          params, [100.0], [SIGMA], [0.7], [1.0],
                                          paths_per_symbol=n, **dict(ekw, noise=None))),
-        BOOK_PATHS)
+        BOOK_PATHS,
+        (lambda beta, n: cuda_engine.engine_corr_rows(
+            7, lv3, p3e, s0_3, sg_3, beta, w3, paths_per_symbol=n, harvest=True,
+            **dict(ekw, per_path=False)),
+         lambda n: cuda_engine.engine_universe_rows(
+             7, lv3, p3e, s0_3, sg_3, paths_per_symbol=n, harvest=True,
+             **dict(ekw, per_path=False))))
     pick = CARD_PLAIN_PICK
     n_cmp = len(pick)
     log(f"  on the main path's inputs (its symbols {pick}, a book of their own) at "
@@ -2153,13 +2432,20 @@ def book_phases(dev, card, reset, cli) -> list:
                                  {"color": "orange", "type": "dashed", "index": 0,
                                   "price": BOOK_S0[i] + 0.4}] for i in pick], max_levels=4),
                 params) + tuple(x[pick] for x in book100[2:])
-    (sc, sf, srow), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
-        0, *cmp_book, chunk_blocks=64, **skw))
+    (sc, sf, srow, shv), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
+        0, *cmp_book, chunk_blocks=64, harvest=True, **skw))
     krows = cuda_engine.engine_corr_rows(0, *cmp_book, **skw)
     e_err = max(e_err, same_on_card(
         "engine book", (sc, sf, srow), (*cuda_engine.reduce_rows(krows[0], krows[1]), krows[2]),
         n_cmp + 1, BOOK_SAMPLE_PATHS, lambda i: "the book" if i == n_cmp else f"symbol {i}"))
-    del srow, krows
+    *h_rows, h_c, h_s = cuda_engine.engine_corr_rows(0, *cmp_book, harvest=True, **skw)
+    same_launch("the main path's book sample", krows, h_rows)
+    h_got = cuda_engine.reduce_harvest(h_c, h_s)
+    for j in range(n_cmp):
+        check_harvest(f"book sample symbol {pick[j]}", "mc_engine_wide_corr_harvest",
+                      hv_row(h_got, j), hv_row(shv, j), krows[2][j], srow[j],
+                      2 * BOOK_S0[pick[j]])
+    del srow, krows, h_rows
     e_sample_ms = cuda_ms(lambda: cuda_engine.engine_corr_rows(0, *cmp_book, **dict(
         skw, per_path=False)), 1)
     main = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, noise=None,
@@ -2167,10 +2453,9 @@ def book_phases(dev, card, reset, cli) -> list:
     e_main_ms = alone("the engine book kernel",
                       lambda: cuda_engine.engine_corr_rows(0, *book100, **main))
     sc = sc.cpu()
-    e_ops = {"f32": 0.0, "sfu": 0.0, "imul": 0.0}
-    for s in range(n_cmp):       # the sample's work, for all 100
-        for k, v in engine_ops(BOOK_PATHS, sc[s], main_scale * BOOK_SYMBOLS / n_cmp).items():
-            e_ops[k] += v
+    # the sample's work, for all 100 symbols' paths
+    e_ops = engine_ops(BOOK_SYMBOLS * BOOK_PATHS, sc[:-1].sum(0),
+                       main_scale * BOOK_SYMBOLS / n_cmp)
     for k, v in book_market_ops(BOOK_PATHS, BOOK_SYMBOLS).items():
         e_ops[k] += v
     e_rows = cuda_engine.engine_corr_rows(0, *book100, **main)
@@ -2207,6 +2492,29 @@ def book_phases(dev, card, reset, cli) -> list:
         check_book_output(dflt, 8, True)
         log(f"  cli book --engine --backend cuda at its defaults (8 x {1 << 16}): {len(dflt)} "
             "rows in the JAX CLI's form")
+        log(f"[20] main path: cli book --engine --harvest --backend cuda, {BOOK_SYMBOLS} "
+            f"symbols x {BOOK_PATHS} paths x {NUM_BARS} bars: each symbol's labels and its "
+            "refreshed ML gate")
+        h_lines, h_secs, h_launches = run_cli(
+            cli, db + book_argv(True) + ["--harvest"], reset,
+            {"mc_engine_wide_corr_harvest": 1, "mc_engine_corr_reduce_rows": 1,
+             "mc_engine_harvest_reduce_rows": 1},
+            work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
+        check_book_harvest_output(h_lines, lines)
+    # the harvest build against the envelope kernel it is built from, forced
+    h_t = interleaved_ms({
+        "wide": forced(cuda_engine, lambda: cuda_engine.engine_corr_rows(0, *book100, **main)),
+        "harvest": lambda: cuda_engine.engine_corr_rows(0, *book100, harvest=True, **main)})
+    b_trades = float(sc[:-1, 5].sum()) * main_scale * BOOK_SYMBOLS / n_cmp
+    HV_MAIN["mc_engine_wide_corr_harvest"] = dict(
+        ms=h_t["harvest"], ms_without=h_t["wide"], ms_parent=e_main_ms, paths=BOOK_PATHS,
+        symbols=BOOK_SYMBOLS,
+        launches=h_launches["mc_engine_wide_corr_harvest"], cli_s=h_secs[1:],
+        bound=harvest_bound(card, e_row_bytes, e_ops, b_trades, BOOK_SYMBOLS,
+                            grid_size(BOOK_PATHS)))
+    log(f"  the harvest book kernel alone at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: "
+        f"{h_t['harvest']:.3f} ms, the envelope kernel without the harvest {h_t['wide']:.3f} ms "
+        f"({h_t['harvest'] / h_t['wide']:.4f}x; the parent {e_main_ms:.3f} ms)")
     out += [entry("mc_engine_corr", ENGINE_CORR_SOURCE, ENGINE_CORR_REPLACES,
                   e_launches["mc_engine_corr"], e_err, e_main_ms, e_plain_ms, e_bound,
                   symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, plain_paths=BOOK_SAMPLE_PATHS,
@@ -3664,6 +3972,14 @@ def forced_envelope(CE):
         CE._FORCE_ENVELOPE = False
 
 
+def forced(CE, fn):
+    """``fn`` as a launch that runs under ``forced_envelope``."""
+    def run():
+        with forced_envelope(CE):
+            return fn()
+    return run
+
+
 def envelope_phases(dev, card, reset, cli) -> list:
     """Phases 29-30: the envelope kernels (``mc_engine_wide*.cu``) at 30
     levels x 390 bars and the envelope's other shapes.  [29] gbm: injected
@@ -3730,15 +4046,19 @@ def envelope_phases(dev, card, reset, cli) -> list:
         n = nb * 8 * lanes
         kw = dict(num_paths=n, num_bars=w, sigma=SIGMA, dt=DT, lanes=lanes, noise=nz,
                   antithetic=anti, per_path=True, **skw(s))
-        want = CE.engine_totals_reference(0, lv, params, external_uniforms=u, **kw)
+        want = CE.engine_totals_reference(0, lv, params, external_uniforms=u, harvest=True,
+                                          **kw)
         name = "mc_engine_wide" + ("" if s == "gbm" else "_sampler")
         before = CE.LAUNCHES[name]
         pc, pf, rows = CE.engine_rows(0, lv, params, device=dev, external_uniforms=u.to(dev),
                                       **kw)
         got = (*CE.reduce_rows(pc, pf), rows)
+        *h_rows, h_c, h_s = CE.engine_rows(0, lv, params, device=dev,
+                                           external_uniforms=u.to(dev), harvest=True, **kw)
         torch.cuda.synchronize()
         if CE.LAUNCHES[name] != before + 1:
             raise AssertionError(f"{case}: the launch did not go to {name}")
+        same_launch(case, (pc, pf, rows), h_rows)
         samp = None if s == "gbm" else make_sampler(s, tables=tables,
                                                     block_len=SAMPLER_BLOCK_LEN)
         err, _ = compare_lifecycle(
@@ -3748,6 +4068,8 @@ def envelope_phases(dev, card, reset, cli) -> list:
             trace=lambda d: trace_engine_flips(case, u, d, rows.cpu(), want[2].cpu(), lv,
                                                params, {}, SIGMA, nz, anti, dev,
                                                sampler=samp, num_bars=w))
+        check_harvest(case, name + "_harvest", CE.reduce_harvest(h_c, h_s), want[3], rows,
+                      want[2], max(r["price"] for r in env_ladder(n_lv)) + 1.0)
         return err
 
     def philox(case, lv, w, n, s="gbm", nz=None):
@@ -3757,13 +4079,17 @@ def envelope_phases(dev, card, reset, cli) -> list:
         kw = dict(num_paths=n, num_bars=w, sigma=SIGMA, dt=DT, lanes=lanes, noise=nz,
                   per_path=True, **skw(s))
         want, plain_ms = timed(lambda: CE.engine_totals_reference(
-            7, lv, params, device=dev, chunk_blocks=n // (8 * lanes), **kw))
+            7, lv, params, device=dev, chunk_blocks=n // (8 * lanes), harvest=True, **kw))
         pc, pf, rows = CE.engine_rows(7, lv, params, device=dev, **kw)
         got = (*CE.reduce_rows(pc, pf), rows)
         err, differ = compare_lifecycle(case, want, got, n, engine=True, num_bars=w)
         if bool(differ.any()):
             raise AssertionError(f"{case}: kernel and plain on the card differ on "
                                  f"{int(differ.sum())} paths")
+        *h_rows, h_c, h_s = CE.engine_rows(7, lv, params, device=dev, harvest=True, **kw)
+        same_launch(case, (pc, pf, rows), h_rows)
+        check_harvest(case, "mc_engine_wide" + ("" if s == "gbm" else "_sampler") + "_harvest",
+                      CE.reduce_harvest(h_c, h_s), want[3], rows, want[2], 2 * 100.0)
         return err, plain_ms, want[0].cpu()
 
     entries = []
@@ -3784,6 +4110,9 @@ def envelope_phases(dev, card, reset, cli) -> list:
         f"{NUM_BARS} bars x {ENV_PARENT_PATHS} paths")
     e, plain_ms, counts = philox("philox", lv30, ENV_BARS, ENV_PHILOX_PATHS)
     err = max(err, e)
+    HV_PLAIN["mc_engine_wide_harvest"] = dict(ms=plain_ms, paths=ENV_PHILOX_PATHS,
+                                              num_bars=ENV_BARS, levels=ENV_LEVELS)
+    HV_MAIN["env_counts"] = counts
     cli_levels = Levels.from_rows(CLI_ROWS, max_levels=8)
     pkw = dict(num_paths=ENV_PARENT_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                noise=noise, per_path=True, device=dev)
@@ -3803,6 +4132,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
         forced_ms = cuda_ms(lambda: CE.engine_rows(0, cli_levels, params, **kw11), 1)
     log(f"  at 3 levels x {NUM_BARS} bars x {MAIN_PATHS} paths: the parent {parent_ms:.3f} ms, "
         f"the envelope kernel forced {forced_ms:.3f} ms ({forced_ms / parent_ms:.3f}x)")
+    HV_MAIN["forced_3x40_ms"] = forced_ms        # phase 31's harvest kernel against it
 
     grid18 = [(sp, tp, j) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)
               for j in (0.0, 0.02)]
@@ -3848,6 +4178,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
     kw1 = dict(num_paths=ENV_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                device=dev)
     main_ms = cuda_ms(lambda: CE.engine_rows(0, lv30, params, **kw1), 2)
+    HV_MAIN["env_ms"] = main_ms                  # phase 31's harvest kernel against it
     bound = card.bound(bytes_=row_bytes_1, **engine_ops(
         ENV_PATHS, counts, ENV_PATHS / ENV_PHILOX_PATHS, ENV_BARS, ENV_LEVELS))
     log(f"  kernel alone at {ENV_PATHS} paths x {ENV_BARS} bars x {ENV_LEVELS} levels: "
@@ -3921,6 +4252,10 @@ def envelope_phases(dev, card, reset, cli) -> list:
             err = max(err, e)
             if w == ENV_BARS:
                 plain_ms, counts = p_ms, p_counts
+                if s == "block_bootstrap":
+                    HV_PLAIN["mc_engine_wide_sampler_harvest"] = dict(
+                        ms=p_ms, paths=ENV_PHILOX_PATHS, num_bars=w, levels=ENV_LEVELS,
+                        sampler=s)
         argv = (["--db", db_path, "paths", "--engine", "--backend", "cuda", "--num-paths",
                  str(ENV_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA),
                  "--sampler", s] + ([] if s == "heston" else ["--bars-csv", csv])
@@ -3968,13 +4303,27 @@ def envelope_phases(dev, card, reset, cli) -> list:
                       dict(sampler=s, tables=tables1, block_len=SAMPLER_BLOCK_LEN)))
         res, plain_ms = timed(lambda: CE.engine_corr_totals_reference(
             0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS, per_path=True,
-            chunk_blocks=ENV_BOOK_PLAIN_PATHS // (8 * lanes), **bkw))
+            chunk_blocks=ENV_BOOK_PLAIN_PATHS // (8 * lanes), harvest=True, **bkw))
         krows = CE.engine_corr_rows(0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS,
                                     per_path=True, **bkw)
-        err = same_on_card(f"book {s}", res, (*CE.reduce_rows(krows[0], krows[1]), krows[2]),
+        err = same_on_card(f"book {s}", res[:3], (*CE.reduce_rows(krows[0], krows[1]), krows[2]),
                            n_cmp + 1, ENV_BOOK_PLAIN_PATHS,
                            lambda i: "the book" if i == n_cmp else f"symbol {i}")
-        del krows
+        *h_rows, h_c, h_s = CE.engine_corr_rows(0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS,
+                                                per_path=True, harvest=True, **bkw)
+        same_launch(f"book {s}", krows, h_rows)
+        h_got = CE.reduce_harvest(h_c, h_s)
+        for j in range(n_cmp):
+            check_harvest(f"book {s} symbol {pick[j]}",
+                          "mc_engine_wide_corr" + ("" if s == "gbm" else "_sampler") + "_harvest",
+                          hv_row(h_got, j), hv_row(res[3], j), krows[2][j], res[2][j],
+                          2 * s0_b[pick[j]])
+        res = res[:3]
+        del krows, h_rows
+        if s in ("gbm", "block_bootstrap"):
+            HV_PLAIN["mc_engine_wide_corr" + ("" if s == "gbm" else "_sampler") + "_harvest"] = \
+                dict(ms=plain_ms, paths=ENV_BOOK_PLAIN_PATHS, symbols=n_cmp, num_bars=ENV_BARS,
+                     levels=ENV_LEVELS, sampler=s)
         kname = "mc_engine_wide_corr" + ("" if s == "gbm" else "_sampler")
         log(f"  main path: mc_paths_engine_corr_fused --sampler {s}, {ENV_BOOK_SYMBOLS} x "
             f"{ENV_BOOK_PATHS} x {ENV_BARS} bars, one timed run")
@@ -4014,6 +4363,328 @@ def envelope_phases(dev, card, reset, cli) -> list:
                              plain_paths=ENV_BOOK_PLAIN_PATHS, entry_s=secs))
     tmp.cleanup()
     return entries
+
+
+# ---- the learning flywheel on the card (phase 31): the closed-trade harvest
+# (kernels #8, #10, #12 with harvest=True: the envelope kernels' harvest
+# builds, ops/csrc/mc_engine_wide*_harvest.cu) feeding models/harvest and
+# sim/flywheel at full width
+HV_SOURCE = CSRC + "mc_engine_wide_harvest.cu"
+HV_SAMPLER_SOURCE = CSRC + "mc_engine_wide_samplers_harvest.cu"
+HV_CORR_SOURCE = CSRC + "mc_engine_wide_corr_harvest.cu"
+HV_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_wide_corr_samplers_harvest.cu"
+HV_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1437"      # #8's use_harvest
+HV_UNI_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2120"  # #10's
+HV_CORR_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:2714"  # #12's
+FLY_ROUNDS = 3                   # flywheel_demo.py's defaults (:114-122)
+FLY_PATHS = 1 << 28
+FLY_EXPLORE = 1 << 24
+HOLDOUT_TRAIN = 1 << 26          # held-out evaluation: training paths a round ...
+HOLDOUT_EVAL = 1 << 24           # ... and held-out paths, on three seed pairs
+HOLDOUT_SEEDS = ((0, 4242), (1, 4243), (2, 4244))
+FLY_ENV_PATHS = 1 << 22          # a round on the 30-level DB at 390 bars
+FLY_SAMPLER_PATHS = 1 << 24      # the recorded-bar flywheel (the sampler harvest kernel)
+FLY_KEYS = ["round", "labeled", "explored", "hit_rate", "mean_r", "trades", "escalations",
+            "ml_present", "skips"]
+
+
+def check_flywheel_output(lines: list, rounds: int, explore: bool) -> None:
+    """``flywheel``'s rows: one a round with the JAX CLI's keys; round 0 the
+    cold start (no ML gate armed, so no ML_CONF_LOW skip), every later round
+    armed by the previous round's refresh (ML_CONF_LOW skips) and, with
+    exploration, merging explored labels; a refreshed ML model every round."""
+    if [r.get("round") for r in lines] != list(range(rounds)):
+        raise AssertionError(f"flywheel: rounds {[r.get('round') for r in lines]}")
+    for r in lines:
+        if list(r) != FLY_KEYS:
+            raise AssertionError(f"flywheel: keys {list(r)}, not {FLY_KEYS}")
+        if not (r["labeled"] > 0 and r["trades"] > 0 and r["ml_present"]
+                and 0.0 < r["hit_rate"] < 1.0 and math.isfinite(r["mean_r"])):
+            raise AssertionError(f"flywheel: round {r['round']}: {r}")
+        armed = r["round"] > 0
+        if ("ML_CONF_LOW" in r["skips"]) != armed:
+            raise AssertionError(f"flywheel: round {r['round']}'s ML_CONF_LOW skips "
+                                 f"{r['skips'].get('ML_CONF_LOW')}")
+        if explore and armed and not (r["explored"] > 0 and r["labeled"] > r["explored"]):
+            raise AssertionError(f"flywheel: round {r['round']} merged no exploration: {r}")
+
+
+def interleaved_ms(fns: dict, rounds: int = 2) -> dict:
+    """Each of ``fns`` (name -> launch) timed by CUDA events, one launch at a
+    time in turn, ``rounds`` turns after one warm-up launch of each; the mean
+    milliseconds of each."""
+    for fn in fns.values():
+        fn()
+    ms = {k: 0.0 for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ms[k] += cuda_ms(fn, 1) / rounds
+    return ms
+
+
+def harvest_phases(dev, card, reset, cli, e_counts) -> list:
+    """Phase 31: the learning flywheel on the card.  The port CLI's
+    ``flywheel --rounds 3 --num-paths 2^28 --explore-paths 2^24 --backend
+    cuda`` (its rows checked); ``sim/flywheel.holdout_eval`` at 2^26 training
+    paths a round and 2^24 held-out paths on three seed pairs (its rows
+    printed); a round on the 30-level DB at 390 bars x 2^22 (the windowed
+    guard); the recorded-bar flywheel (``policy_iteration`` under
+    block_bootstrap at 2^24) and ``book --engine --harvest --sampler
+    block_bootstrap`` at 100 x 2^20, the sampler harvest kernels' main paths;
+    each harvest kernel timed against the same kernel without the harvest
+    (3 levels x 40 x 2^28 against the envelope kernel forced, 30 levels x 390 x
+    2^24, the samplers' at 2^24 and 100 x 2^20); the harvest rows' fold
+    against its plain fold.  (``book --engine --harvest`` and config #4's
+    refresh on its harvest are phases 20 and 17.)  Returns the ``kernels``
+    entries of the harvest kernels and their fold."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import db as qdb
+    from qmmx_monolithic_monte_carlo_tpu_torch.io import native
+    from qmmx_monolithic_monte_carlo_tpu_torch.models import harvest as HV
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine as CE
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import PathBars, bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim import flywheel as FW
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import SKIP_REASONS
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    params = EngineParams.default()
+    lanes = ENGINE_LANES
+    cli3 = Levels.from_rows(CLI_ROWS, max_levels=len(CLI_ROWS))     # the CLI's kernel levels
+    lv30 = Levels.from_rows(env_ladder(ENV_LEVELS), max_levels=ENV_LEVELS)
+    tmp = tempfile.TemporaryDirectory()
+    env_db = os.path.join(tmp.name, "env.db")
+    conn = qdb.db_connect(env_db)
+    qdb.db_init(conn)
+    qdb.replace_levels(conn, env_ladder(ENV_LEVELS))
+    conn.close()
+    csv = os.path.join(tmp.name, "bars.csv")
+    write_history(csv, SAMPLER_HIST_BARS)
+    cols = native.parse_bars_csv(csv)
+    hist = PathBars(*(torch.as_tensor(cols[k], dtype=torch.float32) for k in "ohlcv"))
+    tables = torch.stack(bootstrap_tables(*(cols[k] for k in "ohlcv")))
+
+    log(f"[31] main path: cli flywheel --backend cuda --rounds {FLY_ROUNDS} --num-paths "
+        f"{FLY_PATHS} --explore-paths {FLY_EXPLORE} (simulate -> harvest -> refresh -> "
+        "re-simulate armed)")
+    n_launch = FLY_ROUNDS + (FLY_ROUNDS - 1)
+    argv = ["--db", os.path.join(tmp.name, "fly.db"), "flywheel", "--backend", "cuda",
+            "--rounds", str(FLY_ROUNDS), "--num-paths", str(FLY_PATHS), "--explore-paths",
+            str(FLY_EXPLORE), "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
+    fly, fly_secs, fly_launches = run_cli(
+        cli, argv, reset, {"mc_engine_wide_harvest": n_launch, "mc_engine_reduce_rows": n_launch,
+                           "mc_engine_harvest_reduce_rows": n_launch},
+        work=FLY_ROUNDS * FLY_PATHS + (FLY_ROUNDS - 1) * FLY_EXPLORE, unit="paths",
+        runs=ENV_RUNS)
+    check_flywheel_output(fly, FLY_ROUNDS, True)
+    for r in fly:
+        log(f"  round {r['round']}: {json.dumps(r)}")
+    log(f"  {FLY_ROUNDS} rounds in {fly_secs[-1]:.3f} s: {fly_secs[-1] / FLY_ROUNDS:.3f} s a "
+        f"round (a simulation of {FLY_PATHS} paths, from round 1 one of {FLY_EXPLORE} more, "
+        "the harvest's fold and the two refreshes)")
+
+    log(f"[31] holdout_eval: {HOLDOUT_TRAIN} training paths a round (2 rounds, exploration "
+        f"{FLY_EXPLORE}), {HOLDOUT_EVAL} held-out paths, seed pairs {list(HOLDOUT_SEEDS)}")
+    hold_rows = []
+    for a, b in HOLDOUT_SEEDS:
+        (train, rows), h_ms = timed(lambda: FW.holdout_eval(
+            a, b, cli3, params, rounds=2, num_paths=HOLDOUT_TRAIN, eval_paths=HOLDOUT_EVAL,
+            num_bars=NUM_BARS, sigma=SIGMA, backend="cuda", device=dev,
+            explore_paths=FLY_EXPLORE))
+        if [r["arm"] for r in rows] != ["disarmed", "round0", "round1"]:
+            raise AssertionError(f"holdout_eval arms {[r['arm'] for r in rows]}")
+        if rows[0]["ml_armed"] or rows[0]["skips_ml"] != 0 or not all(
+                r["ml_armed"] and r["skips_ml"] > 0 for r in rows[1:]):
+            raise AssertionError(f"holdout_eval: the arms' ML gates: {rows}")
+        for r in rows:
+            if not all(math.isfinite(v) for v in r.values() if isinstance(v, float)):
+                raise AssertionError(f"holdout_eval: non-finite row {r}")
+            log(f"  seeds ({a}, {b}) {json.dumps(r)}")
+        log(f"  seeds ({a}, {b}): {h_ms / 1e3:.3f} s; labels a round "
+            f"{[t.labeled for t in train]} (explored {[t.explored for t in train]})")
+        hold_rows.append(rows)
+
+    log(f"[31] main path: cli flywheel --backend cuda --rounds 1 on the {ENV_LEVELS}-level DB "
+        f"at --num-bars {ENV_BARS} --num-paths {FLY_ENV_PATHS} (the windowed guard)")
+    argv = ["--db", env_db, "flywheel", "--backend", "cuda", "--rounds", "1", "--num-paths",
+            str(FLY_ENV_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA)]
+    env_fly, env_secs, _ = run_cli(
+        cli, argv, reset, {"mc_engine_wide_harvest": 1, "mc_engine_reduce_rows": 1,
+                           "mc_engine_harvest_reduce_rows": 1},
+        n_paths=FLY_ENV_PATHS, runs=ENV_RUNS)
+    check_flywheel_output(env_fly, 1, False)
+
+    log(f"[31] main path: sim/flywheel.policy_iteration under block_bootstrap (the "
+        f"{SAMPLER_HIST_BARS}-bar history), 2 rounds x {FLY_SAMPLER_PATHS} paths, "
+        "backend cuda")
+    s_rounds, s_secs, s_launches = run_entry(
+        "policy_iteration (block_bootstrap)", lambda: FW.policy_iteration(
+            0, cli3, params, rounds=2, num_paths=FLY_SAMPLER_PATHS, num_bars=NUM_BARS,
+            sigma=SIGMA, backend="cuda", device=dev, sampler="block_bootstrap",
+            hist_bars=hist, block_len=SAMPLER_BLOCK_LEN),
+        reset, {"mc_engine_wide_sampler_harvest": 2, "mc_engine_reduce_rows": 2,
+                "mc_engine_harvest_reduce_rows": 2}, runs=1)
+    ml_low = [r.name for r in SKIP_REASONS].index("ML_CONF_LOW")
+    if not (s_rounds[0].labeled > 0 and int(s_rounds[0].skips[ml_low]) == 0
+            and int(s_rounds[1].skips[ml_low]) > 0 and bool(s_rounds[1].ml_model.present)):
+        raise AssertionError("the recorded-bar flywheel: round 0 not cold or round 1 unarmed")
+    log(f"  labels a round {[r.labeled for r in s_rounds]}, ML_CONF_LOW skips "
+        f"{[int(r.skips[ml_low]) for r in s_rounds]}")
+
+    log(f"[31] main path: cli book --engine --harvest --backend cuda --sampler block_bootstrap "
+        f"on the history, {BOOK_SYMBOLS} symbols x {BOOK_PATHS} paths")
+    bargv = (["--db", os.path.join(tmp.name, "book.db")] + book_argv(True)
+             + ["--harvest", "--sampler", "block_bootstrap", "--bars-csv", csv, "--block-len",
+                str(SAMPLER_BLOCK_LEN)])
+    b_lines, b_secs, b_launches = run_cli(
+        cli, bargv, reset, {"mc_engine_wide_corr_sampler_harvest": 1,
+                            "mc_engine_corr_reduce_rows": 1, "mc_engine_harvest_reduce_rows": 1},
+        work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols", runs=ENV_RUNS)
+    check_book_output([{k: v for k, v in r.items() if k not in ("labeled", "ml_coef")}
+                       for r in b_lines], BOOK_SYMBOLS, True)
+    if not all(r["labeled"] > 0 and len(r["ml_coef"]) == 4
+               and all(math.isfinite(c) for c in r["ml_coef"]) for r in b_lines[:-1]):
+        raise AssertionError("book --harvest --sampler: a symbol's labels or coefficients")
+
+    log("[31] each harvest kernel against the same kernel without the harvest, CUDA events "
+        "(the gbm kernels' at 2^28 and 2^24 x 390 against phase 29's times of the kernels "
+        "without it, the others one launch at a time in turn)")
+    kw11 = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+                device=dev)
+
+    t = {"wide": HV_MAIN["forced_3x40_ms"],
+         "harvest": cuda_ms(lambda: CE.engine_rows(0, cli3, params, harvest=True, **kw11), 1)}
+    kw_env = dict(num_paths=ENV_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+                  device=dev)
+    t_env = {"wide": HV_MAIN["env_ms"],
+             "harvest": cuda_ms(lambda: CE.engine_rows(0, lv30, params, harvest=True, **kw_env),
+                                1)}
+    kw_s = dict(num_paths=FLY_SAMPLER_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
+                device=dev, sampler="block_bootstrap", tables=tables, block_len=SAMPLER_BLOCK_LEN)
+    t_s = interleaved_ms({
+        "wide": forced(CE, lambda: CE.engine_rows(0, cli3, params, **kw_s)),
+        "harvest": lambda: CE.engine_rows(0, cli3, params, harvest=True, **kw_s)})
+    book100 = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                                {"color": "orange", "type": "dashed", "index": 0,
+                                 "price": x + 0.4}] for x in BOOK_S0], max_levels=4), params,
+               BOOK_S0, [SIGMA] * BOOK_SYMBOLS, BOOK_BETAS,
+               [1.0 / BOOK_SYMBOLS] * BOOK_SYMBOLS)
+    kw_b = dict(paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, dt=DT, lanes=lanes, device=dev,
+                sampler="block_bootstrap", tables=tables[None].to(dev),
+                block_len=SAMPLER_BLOCK_LEN)
+    t_b = interleaved_ms({
+        "wide": forced(CE, lambda: CE.engine_corr_rows(0, *book100, **kw_b)),
+        "harvest": lambda: CE.engine_corr_rows(0, *book100, harvest=True, **kw_b)})
+    for name, tt, shape in (("gbm", t, f"3 levels x {NUM_BARS} x {MAIN_PATHS}"),
+                            ("gbm", t_env, f"{ENV_LEVELS} levels x {ENV_BARS} x {ENV_PATHS}"),
+                            ("block_bootstrap", t_s, f"3 levels x {NUM_BARS} x "
+                                                     f"{FLY_SAMPLER_PATHS}"),
+                            ("block_bootstrap book", t_b, f"{BOOK_SYMBOLS} x {BOOK_PATHS} x "
+                                                          f"{NUM_BARS}")):
+        log(f"  {name} at {shape}: without the harvest {tt['wide']:.3f} ms, with it "
+            f"{tt['harvest']:.3f} ms ({tt['harvest'] / tt['wide']:.4f}x)")
+    for k in ("mc_engine_wide_universe_harvest", "mc_engine_wide_corr_harvest"):
+        m = HV_MAIN[k]
+        log(f"  {k} (phases 17, 20): without the harvest {m['ms_without']:.3f} ms (the "
+            f"parent {m['ms_parent']:.3f} ms), with it {m['ms']:.3f} ms "
+            f"({m['ms'] / m['ms_without']:.4f}x)")
+
+    log("[31] the harvest rows' fold (fold_harvest_rows) against its plain fold")
+    pc, pf, h_c, h_s = CE.engine_rows(0, cli3, params, harvest=True, **kw11)
+    got = CE.reduce_harvest(h_c, h_s)
+    plain = CE.reduce_harvest(h_c.cpu(), h_s.cpu())
+    if not (torch.equal(got.ml_counts.cpu(), plain.ml_counts)
+            and torch.equal(got.pol_counts.cpu(), plain.pol_counts)):
+        raise AssertionError("the harvest fold's counts differ from its plain fold")
+    fold_err = max(float((a.cpu().double() - b.double()).abs().max())
+                   for a, b in ((got.pol_sum_x1, plain.pol_sum_x1),
+                                (got.pol_sum_x6, plain.pol_sum_x6)))
+    if fold_err > 1e-6 * max(1.0, float(plain.pol_sum_x6.abs().max())):
+        raise AssertionError(f"the harvest fold's sums differ by {fold_err}")
+    fold_ms = cuda_ms(lambda: CE.reduce_harvest(h_c, h_s), 20)
+    fold_plain_ms = cuda_ms(lambda: HV.EngineHarvest.from_columns(
+        h_c.sum(dim=-2), h_s.double().sum(dim=-2)), 20)
+    fold_bytes = h_c.numel() * 8 + h_s.numel() * 4 + 72 * 8 + 16 * 8
+    fold_bound = card.bound(bytes_=fold_bytes, f32=0.0, sfu=0.0, imul=0.0)
+    log(f"  {h_c.shape[1]} rows: counts exact, sums max |d| {fold_err:.3e}; kernel "
+        f"{fold_ms:.4f} ms, plain {fold_plain_ms:.4f} ms, bound {fold_bound['bound_ms']:.4f} ms")
+    del pc, pf, h_c, h_s
+    tmp.cleanup()
+
+    grid = grid_size(MAIN_PATHS)
+    gbm_bound = harvest_bound(card, grid * (CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4), engine_ops(
+        MAIN_PATHS, e_counts, MAIN_PATHS / PHILOX_PATHS, NUM_BARS, 3),
+        float(e_counts[5]) * MAIN_PATHS / PHILOX_PATHS, 1, grid)
+    env_counts = HV_MAIN["env_counts"]
+    env_bound = harvest_bound(card, grid_size(ENV_PATHS) * (CE.ROW_COUNTS * 8
+                                                            + CE.ROW_FLOATS * 4), engine_ops(
+        ENV_PATHS, env_counts, ENV_PATHS / ENV_PHILOX_PATHS, ENV_BARS, ENV_LEVELS),
+        float(env_counts[5]) * ENV_PATHS / ENV_PHILOX_PATHS, 1, grid_size(ENV_PATHS))
+    s_grid = grid_size(FLY_SAMPLER_PATHS)
+    s_ops, s_gathers = engine_sampler_ops("block_bootstrap", FLY_SAMPLER_PATHS, e_counts,
+                                          FLY_SAMPLER_PATHS / PHILOX_PATHS, NUM_BARS, 3)
+    s_bound = gather_bound(card, s_grid * (CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4 + 72 * 8
+                                           + 16 * 4), dict(s_ops, f32=s_ops["f32"] + 10.0 * float(
+                                               e_counts[5]) * FLY_SAMPLER_PATHS / PHILOX_PATHS),
+                           s_gathers, tables.numel() * 4)
+    b_grid = grid_size(BOOK_PATHS)
+    b_ops, b_gathers = engine_sampler_ops("block_bootstrap", BOOK_SYMBOLS * BOOK_PATHS,
+                                          e_counts, BOOK_SYMBOLS * BOOK_PATHS / PHILOX_PATHS)
+    for k, v in book_sampler_market_ops("block_bootstrap", BOOK_PATHS, BOOK_SYMBOLS).items():
+        b_ops[k] = b_ops[k] + v
+    b_bound = gather_bound(card, (BOOK_SYMBOLS + 1) * b_grid * (CE.ROW_COUNTS * 8
+                                                                + CE.ROW_FLOATS * 4)
+                           + BOOK_SYMBOLS * b_grid * (72 * 8 + 16 * 4),
+                           dict(b_ops, f32=b_ops["f32"] + 10.0 * float(e_counts[5])
+                                * BOOK_SYMBOLS * BOOK_PATHS / PHILOX_PATHS),
+                           b_gathers, tables.numel() * 4)
+    uni, corr = HV_MAIN["mc_engine_wide_universe_harvest"], HV_MAIN["mc_engine_wide_corr_harvest"]
+
+    def plain(k):
+        return HV_PLAIN[k]["ms"]
+
+    return [
+        entry("mc_engine_wide_harvest", HV_SOURCE, HV_REPLACES,
+              fly_launches["mc_engine_wide_harvest"], HV_ERR["mc_engine_wide_harvest"],
+              t["harvest"], plain("mc_engine_wide_harvest"), gbm_bound, paths=MAIN_PATHS,
+              levels=3, num_bars=NUM_BARS, ms_without_harvest=t["wide"],
+              ms_30x390=t_env["harvest"], ms_30x390_without_harvest=t_env["wide"],
+              bound_ms_30x390=env_bound["bound_ms"], plain_shape=HV_PLAIN["mc_engine_wide_harvest"],
+              flywheel_s=fly_secs, holdout_rows=len(hold_rows)),
+        entry("mc_engine_wide_universe_harvest", HV_SOURCE, HV_UNI_REPLACES, uni["launches"],
+              HV_ERR["mc_engine_wide_universe_harvest"], uni["ms"],
+              plain("mc_engine_wide_universe_harvest"), uni["bound"], symbols=uni["symbols"],
+              paths=uni["paths"], ms_without_harvest=uni["ms_without"],
+              parent_ms_without_harvest=uni["ms_parent"],
+              plain_shape=HV_PLAIN["mc_engine_wide_universe_harvest"],
+              config4_s=uni["config4_s"]),
+        entry("mc_engine_wide_sampler_harvest", HV_SAMPLER_SOURCE, HV_REPLACES,
+              s_launches["mc_engine_wide_sampler_harvest"],
+              HV_ERR["mc_engine_wide_sampler_harvest"], t_s["harvest"],
+              plain("mc_engine_wide_sampler_harvest"), s_bound, sampler="block_bootstrap",
+              paths=FLY_SAMPLER_PATHS, levels=3, num_bars=NUM_BARS,
+              ms_without_harvest=t_s["wide"],
+              plain_shape=HV_PLAIN["mc_engine_wide_sampler_harvest"], entry_s=s_secs),
+        entry("mc_engine_wide_corr_harvest", HV_CORR_SOURCE, HV_CORR_REPLACES,
+              corr["launches"], HV_ERR["mc_engine_wide_corr_harvest"], corr["ms"],
+              plain("mc_engine_wide_corr_harvest"), corr["bound"], symbols=corr["symbols"],
+              paths=corr["paths"], ms_without_harvest=corr["ms_without"],
+              parent_ms_without_harvest=corr["ms_parent"],
+              plain_shape=HV_PLAIN["mc_engine_wide_corr_harvest"], cli_s=corr["cli_s"]),
+        entry("mc_engine_wide_corr_sampler_harvest", HV_CORR_SAMPLER_SOURCE, HV_CORR_REPLACES,
+              b_launches["mc_engine_wide_corr_sampler_harvest"],
+              HV_ERR["mc_engine_wide_corr_sampler_harvest"], t_b["harvest"],
+              plain("mc_engine_wide_corr_sampler_harvest"), b_bound, sampler="block_bootstrap",
+              symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, ms_without_harvest=t_b["wide"],
+              plain_shape=HV_PLAIN["mc_engine_wide_corr_sampler_harvest"], cli_s=b_secs),
+        entry("mc_engine_harvest_reduce_rows", HV_SOURCE, HV_REPLACES,
+              fly_launches["mc_engine_harvest_reduce_rows"], fold_err, fold_ms, fold_plain_ms,
+              fold_bound, rows=grid),
+    ]
 
 
 def single_sampler_times(tree: str) -> int:
@@ -4079,6 +4750,85 @@ def single_sampler_times(tree: str) -> int:
                       "ptxas": ptxas}))
     return 0
 
+def parent_times() -> int:
+    """Each parent engine kernel against its envelope kernel, forced
+    (``cuda_engine._FORCE_ENVELOPE``) where the parent fits (<= 8 levels, an
+    even W <= 61), at its main path's shape: the single configuration (3
+    levels x 40 x 2^28), the three single samplers (2^26 on
+    ``history_arrays``' year of bars), the sweep (the CLI's 3 x 3 grid x
+    2^24), config #4's universe (100 x 2^20) and the book and its three
+    samplers (100 x 2^20); one launch of each in turn, two turns, CUDA
+    events.  Prints each pair, then one JSON line with them and the card's
+    name and power limit.  Outside the main run (``--parent-times``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine as CE
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    build.build_all(["mc_engine", "mc_engine_samplers", "mc_engine_corr",
+                     "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
+                     "mc_engine_wide_corr", "mc_engine_wide_corr_samplers"])
+    dev = torch.device("cuda", 0)
+    params = EngineParams.default()
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    one = dict(num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=ENGINE_LANES, device=dev)
+
+    def samp(s, book=False):
+        return ({} if s == "gbm" else dict(sampler=s) if s == "heston" else
+                dict(sampler=s, tables=tables[None].to(dev) if book else tables,
+                     block_len=SAMPLER_BLOCK_LEN))
+
+    grid9 = params.replace(stop_padding=[sp for sp in (0.25, 0.35, 0.45) for _ in range(3)],
+                           tp_padding=[tp for _ in range(3) for tp in (0.15, 0.25, 0.35)])
+    c4 = config4()
+    book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                             {"color": "orange", "type": "dashed", "index": 0,
+                              "price": x + 0.4}] for x in BOOK_S0], max_levels=4), params,
+            BOOK_S0, [SIGMA] * BOOK_SYMBOLS, BOOK_BETAS, [1.0 / BOOK_SYMBOLS] * BOOK_SYMBOLS)
+    cases = {f"single (mc_engine_sweep_kernel, 1 row) 3 x {NUM_BARS} x {MAIN_PATHS}":
+             lambda: CE.engine_rows(0, levels, params, num_paths=MAIN_PATHS, **one)}
+    for s in SAMPLERS:
+        cases[f"sampler {s} (mc_engine_sampler_kernel) 3 x {NUM_BARS} x {1 << 26}"] = (
+            lambda s=s: CE.engine_rows(0, levels, params, num_paths=1 << 26, **one, **samp(s)))
+    cases[f"sweep (mc_engine_sweep_kernel) 9 rows x {1 << 24}"] = (
+        lambda: CE.engine_sweep_rows(0, levels, grid9, num_paths=1 << 24, **one))
+    cases[f"universe (mc_engine_sweep_kernel) config #4 {UNI_SYMBOLS} x {UNI_PATHS}"] = (
+        lambda: CE.engine_universe_rows(0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS,
+                                        num_bars=NUM_BARS, dt=DT, lanes=ENGINE_LANES,
+                                        device=dev))
+    for s in ("gbm",) + SAMPLERS:
+        kernel = "mc_engine_corr_kernel" if s == "gbm" else "mc_engine_corr_sampler_kernel"
+        cases[f"book {s} ({kernel}) {BOOK_SYMBOLS} x {BOOK_PATHS}"] = (
+            lambda s=s: CE.engine_corr_rows(0, *book, paths_per_symbol=BOOK_PATHS,
+                                            num_bars=NUM_BARS, dt=DT, lanes=ENGINE_LANES,
+                                            device=dev, **samp(s, book=True)))
+    out = {}
+    for name, fn in cases.items():
+        def forced(fn=fn):
+            with forced_envelope(CE):
+                return fn()
+        fn()
+        forced()                                          # warm both
+        torch.cuda.synchronize()
+        t = interleaved_ms({"parent": fn, "envelope": forced})
+        out[name] = dict(t, ratio=t["envelope"] / t["parent"])
+        print(f"  {name}: parent {t['parent']:.3f} ms, envelope forced {t['envelope']:.3f} ms "
+              f"({t['envelope'] / t['parent']:.4f}x)", flush=True)
+    print(json.dumps({"card": smi, "parent_vs_envelope_ms": out}))
+    return 0
+
 
 def main() -> int:
     import torch
@@ -4128,7 +4878,9 @@ def main() -> int:
                      "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
                      "mc_engine_samplers", "mc_gated_corr_samplers",
                      "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
-                     "mc_engine_wide_corr", "mc_engine_wide_corr_samplers"])
+                     "mc_engine_wide_corr", "mc_engine_wide_corr_samplers",
+                     "mc_engine_wide_harvest", "mc_engine_wide_samplers_harvest",
+                     "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -4382,8 +5134,10 @@ def main() -> int:
             1e-6, 1.0, (ENGINE_INJECT_BLOCKS, EngineLayout(NUM_BARS, nz is not None).u_rows,
                         8, ENGINE_LANES)).astype(np.float32))
         kw = dict(ecommon, sigma=sig, num_paths=n_einj, noise=nz, antithetic=anti, **gates)
+        # the plain version runs once, with the harvest (which changes no trade)
         want = cuda_engine.engine_totals_reference(0, e_levels, e_params,
-                                                   external_uniforms=u, per_path=True, **kw)
+                                                   external_uniforms=u, per_path=True,
+                                                   harvest=True, **kw)
         pc, pf, rows = cuda_engine.engine_rows(0, e_levels, e_params, device=dev,
                                                external_uniforms=u.to(dev),
                                                per_path=True, **kw)
@@ -4394,6 +5148,12 @@ def main() -> int:
             trace=lambda d: trace_engine_flips(case, u, d, rows.cpu(), want[2].cpu(),
                                                e_levels, e_params, gates, sig, nz, anti, dev))
         engine_err = max(engine_err, err)
+        *h_rows, h_c, h_s = cuda_engine.engine_rows(0, e_levels, e_params, device=dev,
+                                                    external_uniforms=u.to(dev),
+                                                    per_path=True, harvest=True, **kw)
+        same_launch(case, (pc, pf, rows), h_rows)
+        check_harvest(case, "mc_engine_wide_harvest", cuda_engine.reduce_harvest(h_c, h_s),
+                      want[3], rows, want[2], 100.4)
         skips = dict(zip((r.name for r in SKIP_REASONS), got[0][7:23].tolist()))
         if case == "accumulation" and not (skips["EDGE_FATIGUE"] + skips["TOUCH_BUDGET"]
                                            + skips["TOUCH_COOLDOWN"]) > 0:
@@ -4869,6 +5629,7 @@ def main() -> int:
     sampler_rows = sampler_rows_phases(dev, card, reset_all, cli)
     book_samplers = book_sampler_phases(dev, card, reset_all, cli)
     envelope = envelope_phases(dev, card, reset_all, cli)
+    harvest = harvest_phases(dev, card, reset_all, cli, e_counts)
     log(f"all phases done: {time.perf_counter() - _T0:.1f} s since the start")
 
     print(json.dumps({"kernels": [
@@ -4915,7 +5676,7 @@ def main() -> int:
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books + samplers + sampler_rows + book_samplers + envelope}))
+    ] + universe + books + samplers + sampler_rows + book_samplers + envelope + harvest}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4928,6 +5689,8 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--single-sampler-times"]:
             code = single_sampler_times(sys.argv[2] if len(sys.argv) > 2
                                         else os.path.dirname(os.path.abspath(__file__)))
+        elif sys.argv[1:2] == ["--parent-times"]:
+            code = parent_times()
         else:
             code = main()
     except Exception as exc:  # any failed phase: report it, print no result

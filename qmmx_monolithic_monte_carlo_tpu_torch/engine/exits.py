@@ -63,7 +63,7 @@ def should_escalate_on_target(*, side, entry, current_price, levels: Levels,
     bars, all valid, oldest -> newest."""
     price = torch.as_tensor(current_price, dtype=_F32)
     _, dist, level_price, _ = F.nearest_level_full(levels, price)
-    has_levels = bool(levels.count > 0)
+    has_levels = levels.count > 0           # a tensor: nothing waits on the device
     near = dist <= proximity_window
     inferred = F.infer_approach_full_window(bar_prices, level_price)
     fallback = torch.where(price > level_price, 0, 1)

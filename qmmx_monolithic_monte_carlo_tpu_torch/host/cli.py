@@ -22,7 +22,14 @@ subcommands the port carries so far:
             gbm, or bootstrap / block_bootstrap (joint recorded days of one
             ``--bars-csv`` history every symbol shares, rebased on its own
             spot) or heston (the market factor in the price and variance
-            shocks)
+            shocks); ``--engine --harvest`` also harvests each symbol's
+            closed-trade labels and refreshes its ML gate on them (the
+            ``labeled`` and ``ml_coef`` keys)
+  flywheel — simulate -> label -> retrain -> re-simulate (``sim/flywheel``):
+            each round runs the full engine with the label harvest, refreshes
+            the ML gate and the OnlinePolicy entry heads on it and arms them
+            for the next round (``--explore-paths``: a gates-off exploration
+            population merged into every armed round); one JSON row per round
 
 ``--device`` (default ``cuda``) says where it runs; without a GPU the CLI
 exits unless ``--device cpu`` is given.  ``--backend cuda`` runs the fused
@@ -47,6 +54,10 @@ yet" message.
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --backend cuda
     python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --backend cuda \
         --sampler block_bootstrap --bars-csv bars.csv
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli book --engine --harvest \
+        --backend cuda
+    python -m qmmx_monolithic_monte_carlo_tpu_torch.host.cli flywheel --backend cuda \
+        --rounds 3 --explore-paths 16777216
 """
 
 from __future__ import annotations
@@ -194,6 +205,8 @@ def _fits(args, rows) -> str | None:
             return f"--num-bars from 2 to {cuda_engine.MAX_BARS}"
         if args.num_paths % block:
             return f"--num-paths a multiple of {block}"
+        if getattr(args, "explore_paths", 0) % block:
+            return f"--explore-paths a multiple of {block}"
         return None
     if len(rows) > cuda_mc.MAX_LEVELS:
         return f"at most {cuda_mc.MAX_LEVELS} levels"
@@ -447,10 +460,13 @@ def cmd_book(args):
     from ..parallel import portfolio as P
     from ..parallel.universe import stack_levels
 
-    for flag, on in (("--harvest", args.harvest), ("--exact-tail", args.exact_tail)):
-        if on:
-            raise SystemExit(f"{flag} is not ported yet (the flywheel slice; use "
-                             "qmmx_monolithic_monte_carlo_tpu)")
+    if args.exact_tail:
+        raise SystemExit("--exact-tail is not ported yet (the exact-tail slice; use "
+                         "qmmx_monolithic_monte_carlo_tpu)")
+    harvest = args.harvest
+    if harvest and not args.engine:
+        raise SystemExit("--harvest needs --engine (the label harvest rides the "
+                         "full-engine ladder)")
     conn = _connect(args)
     try:
         _rows, _lv, params = _levels_and_params(conn, args)
@@ -470,17 +486,17 @@ def cmd_book(args):
     backend = _backend(args, rows[0])
     common = dict(num_bars=args.num_bars, antithetic=args.antithetic, device=args.device,
                   **_book_sampler_kw(args, n, backend == "cuda"))
-    skips = escal = None
+    skips = escal = hv = None
     if args.engine and backend == "cuda":
         from ..ops.cuda_engine import mc_paths_engine_corr_fused
 
-        sym, port, skips, escal = mc_paths_engine_corr_fused(
+        sym, port, skips, escal, *hv = mc_paths_engine_corr_fused(
             args.seed, levels, params, s0, sigma, beta, w, paths_per_symbol=args.num_paths,
-            **common)
+            harvest=harvest, **common)
     elif args.engine:
-        sym, port, skips, escal = P.portfolio_mc_engine(
+        sym, port, skips, escal, *hv = P.portfolio_mc_engine(
             args.seed, levels, params, s0, sigma, beta, w, num_paths=args.num_paths,
-            block_paths=min(args.num_paths, 1 << 12), **common)
+            block_paths=min(args.num_paths, 1 << 12), harvest=harvest, **common)
     elif backend == "cuda":
         from ..ops.cuda_gated import mc_paths_gated_corr_fused
 
@@ -491,17 +507,62 @@ def cmd_book(args):
         sym, port = P.portfolio_mc(
             args.seed, levels, params, s0, sigma, beta, w, num_paths=args.num_paths,
             block_paths=min(args.num_paths, 1 << 13), **common)
+    hv = hv[0] if hv else None
+    if hv is not None:
+        # the book's flywheel: each symbol's LR refresh on the labels harvested
+        # from the correlated run (ref :3833-3853 per book member)
+        from ..models import harvest as HVM
+        from ..parallel.universe import universe_policy_refresh
+
+        xs, ys, ws = HVM.ml_batch_from_harvest(hv, stop_padding=float(params.stop_padding))
+        ml_refreshed = universe_policy_refresh(None, xs, ys, ws)
     for s in range(n):
         row = {"symbol": s, "beta": round(float(beta[s]), 4), "weight": round(float(w[s]), 4),
                "hit_rate": float(sym.hit_rate[s]), "mean_r": float(sym.mean_r[s]),
                "mean_trades": float(sym.mean_trades[s]), "max_dd": float(sym.max_dd[s])}
         if escal is not None:
             row["escalations"] = int(escal[s])
+        if hv is not None:
+            row["labeled"] = float(hv.n_labeled[s])
+            row["ml_coef"] = [round(float(c), 6) for c in ml_refreshed.coef[s].tolist()]
         print(json.dumps(row))
     print(json.dumps({
         "portfolio": True, "mean_r": float(port.mean_r), "std_r": float(port.std_r),
         "var_05": float(port.quantile(0.05)), "cvar_05": float(port.cvar(0.05)),
         "max_dd": float(port.max_dd), "mean_dd": float(port.mean_dd)}))
+    return 0
+
+
+def cmd_flywheel(args):
+    """simulate -> label -> retrain -> re-simulate at path scale
+    (``sim/flywheel.policy_iteration``): one JSON row per round, with the
+    JAX CLI's keys."""
+    from ..sim import enginepath
+    from ..sim import flywheel as FW
+
+    conn = _connect(args)
+    try:
+        rows, levels, params = _levels_and_params(conn, args)
+    finally:
+        conn.close()
+    backend = _backend(args, rows)
+    if backend == "cuda":
+        levels = _kernel_levels(args, rows)
+    rounds = FW.policy_iteration(
+        args.seed, levels, params, rounds=args.rounds, num_paths=args.num_paths,
+        num_bars=args.num_bars, s0=args.s0, sigma=args.sigma, backend=backend,
+        device=args.device, min_samples=args.min_samples,
+        arm_policy_gate=args.arm_policy_gate, block_paths=min(args.num_paths, 1 << 13),
+        explore_paths=args.explore_paths)
+    names = [r.name for r in enginepath.SKIP_REASONS]
+    for i, rd in enumerate(rounds):
+        st = rd.stats
+        print(json.dumps({
+            "round": i, "labeled": rd.labeled, "explored": rd.explored,
+            "hit_rate": round(float(st.hit_rate), 5), "mean_r": round(float(st.mean_r), 5),
+            "trades": float(st.sum_trades), "escalations": rd.escalations,
+            "ml_present": bool(rd.ml_model.present),
+            "skips": {n: float(s) for n, s in zip(names, rd.skips) if float(s) > 0}}))
     return 0
 
 
@@ -631,7 +692,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="antithetic book pairs: market AND idio shocks sign-flipped per "
                          "pair")
     bk.add_argument("--exact-tail", action="store_true", help="not ported yet")
-    bk.add_argument("--harvest", action="store_true", help="not ported yet")
+    bk.add_argument("--harvest", action="store_true",
+                    help="with --engine: harvest each symbol's closed-trade labels and "
+                         "refresh its ML gate on them (the labeled and ml_coef keys)")
     bk.add_argument("--sampler", choices=["gbm", "bootstrap", "block_bootstrap", "heston"],
                     default="gbm",
                     help="bootstrap family replays JOINT recorded days (shared resample "
@@ -649,6 +712,28 @@ def build_parser() -> argparse.ArgumentParser:
                         help=f"heston sampler: {k} (default {dv})")
     _device_flags(bk)
     bk.set_defaults(fn=cmd_book, gated=True)
+
+    fw = sub.add_parser("flywheel", help="simulate->label->retrain->re-simulate policy "
+                        "iteration at path scale")
+    fw.add_argument("--rounds", type=int, default=2)
+    fw.add_argument("--num-paths", type=int, default=1 << 16)
+    fw.add_argument("--num-bars", type=int, default=40)
+    fw.add_argument("--s0", type=float, default=100.0)
+    fw.add_argument("--sigma", type=float, default=0.3)
+    fw.add_argument("--seed", type=int, default=0)
+    fw.add_argument("--qmin", type=float, default=None)
+    fw.add_argument("--min-samples", type=int, default=50,
+                    help="retrain gate (>=50 labeled trades, ref :3838)")
+    fw.add_argument("--explore-paths", type=int, default=0,
+                    help="per armed round, also harvest this many gates-off exploration "
+                         "paths and merge them before the model refresh (fixes pure "
+                         "on-policy retraining's survivorship collapse)")
+    fw.add_argument("--arm-policy-gate", action="store_true",
+                    help="also arm the refreshed OnlinePolicy two-head gate (chosen >= "
+                         "0.60 vetoes everything when the win rate is below 60%%: the "
+                         "reference's DISABLE_POLICY_GATE posture is the default)")
+    _device_flags(fw)
+    fw.set_defaults(fn=cmd_flywheel, engine=True, gated=False)
     return p
 
 

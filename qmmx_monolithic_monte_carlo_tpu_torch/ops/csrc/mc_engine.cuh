@@ -176,6 +176,12 @@ struct Rings {
 #define ENGINE_FN(f) f<MAXL>
 #define ENGINE_LV
 
+// The closed-trade harvest's hooks in the bar's engine (mc_engine_step.cuh):
+// at a close (pnl in scope) and at an entry.  Empty for every kernel but the
+// envelope's harvest builds (mc_engine_wide.cuh under ENGINE_HARVEST).
+#define HARVEST_CLOSE
+#define HARVEST_ENTRY
+
 // One bar of one path (sim/enginepath.EngineLifecycle.step on the bar
 // generated as pallas_engine.py _one_bar generates it).  z / zv are the
 // bar's price and volume normals; u3, u4 the bridge uniforms; noise_row the

@@ -8,6 +8,9 @@
 // wide_init_state and an odd W ends with a half step: the cos branch of the
 // price and volume pairs of one more step of rows (0-3), the bridge at rows
 // 4, 5, the tie at 6, antithetic as in the pairs, the noise from row 10.
+// Under ENGINE_HARVEST (the harvest build, mc_engine_wide_harvest.cu) each
+// close also goes into the CTA's tallies and the thread's sums, written to the
+// harvest partial row (hv_crow, hv_frow) with the lifecycle row.
 // Text, not a function: the parents keep their code (utils/sass_diff).
 
     __shared__ float s_vol[VOL_RING * BLOCK];
@@ -17,6 +20,13 @@
     __shared__ float s_red[ROW_FLOATS][BLOCK / 32];
     for (int i = threadIdx.x; i < HIST_BINS; i += BLOCK) s_hist[i] = 0u;
     if (threadIdx.x < N_COUNTS + N_SKIPS) s_counts[threadIdx.x] = 0ull;
+#ifdef ENGINE_HARVEST
+    __shared__ unsigned long long s_hv[HV_COUNTS];
+    hv_clear(s_hv);
+    float hsum[HV_SUMS];
+#pragma unroll
+    for (int j = 0; j < HV_SUMS; ++j) hsum[j] = 0.f;
+#endif
     __syncthreads();
 
     const Rings rg{s_vol + threadIdx.x, s_close + threadIdx.x};
@@ -41,6 +51,9 @@
         ENGINE_STATE st;
 #ifdef ENGINE_WIDE
         wide_init_state<WIN>(a, st, rg);
+#ifdef ENGINE_HARVEST
+        st.hv_cnt = s_hv;
+#endif
 #else
         st.log_s = a.log_s0;
         st.prev_c = expf(a.log_s0);
@@ -111,6 +124,10 @@
         }
 #endif
 
+#ifdef ENGINE_HARVEST
+#pragma unroll
+        for (int j = 0; j < HV_SUMS; ++j) hsum[j] = hsum[j] + st.hv_sum[j];
+#endif
         const bool entered = st.trades > 0;
         cnt[0] += 1ull;
         cnt[1] += entered ? 1ull : 0ull;
@@ -171,3 +188,6 @@
         }
         frow[0] = s0; frow[1] = s1; frow[2] = s2; frow[3] = mn; frow[4] = mx; frow[5] = md;
     }
+#ifdef ENGINE_HARVEST
+    hv_cta_row(s_hv, hsum, hv_crow, hv_frow, true);
+#endif

@@ -12,7 +12,10 @@
 // row 0 and tie at row 2, Heston's cos branch of its price (0, 1), volume
 // (2, 3) and variance (4, 5) pairs, bridge at 6, 7 and tie at 8; the noise
 // from row 4 (bootstrap) or 12 (Heston), as a first half's.  Text, not a
-// function: the parents keep their code (utils/sass_diff).
+// function: the parents keep their code (utils/sass_diff).  Under
+// ENGINE_HARVEST (mc_engine_wide_samplers_harvest.cu) each close also goes
+// into the CTA's tallies and the thread's sums, written after the last chunk
+// to the harvest partial row [row][CTA] at hv_counts / hv_sums.
 
     __shared__ float s_vol[VOL_RING * BLOCK];
     __shared__ float s_close[CLOSE_RING * BLOCK];
@@ -22,6 +25,13 @@
 #ifdef ENGINE_WIDE
     __shared__ WideLevel lv[WIDE_LEVELS];
     copy_levels(lv, levels, blockIdx.y, args[blockIdx.y].max_levels);
+#endif
+#ifdef ENGINE_HARVEST
+    __shared__ unsigned long long s_hv[HV_COUNTS];
+    hv_clear(s_hv);
+    float hsum[HV_SUMS];
+#pragma unroll
+    for (int j = 0; j < HV_SUMS; ++j) hsum[j] = 0.f;
 #endif
     __syncthreads();
     const EngineArgs& a = s_a;
@@ -39,6 +49,9 @@
         const bool live = p < a.num_paths;
         ENGINE_STATE st;
         ENGINE_FN(init_state)(a, st, rg);
+#ifdef ENGINE_HARVEST
+        st.hv_cnt = s_hv;
+#endif
         if (live) {
             const long long blk = p / row_len;
             const int col = (int)(p - blk * row_len);
@@ -92,6 +105,10 @@
             }
 #endif
         }
+#ifdef ENGINE_HARVEST
+#pragma unroll
+        for (int j = 0; j < HV_SUMS; ++j) hsum[j] = hsum[j] + st.hv_sum[j];
+#endif
         const bool entered = st.trades > 0;
         const int open = st.side != 0;
         int cnt[N_COUNTS + N_SKIPS] = {live ? 1 : 0, entered, st.wins, st.losses, open,
@@ -110,4 +127,6 @@
             for (int j = 0; j < N_SKIPS; ++j) o[7 + j] = (float)st.skips[j];
         }
     }
-
+#ifdef ENGINE_HARVEST
+    hv_cta_row(s_hv, hsum, hv_counts + seg * HV_COUNTS, hv_sums + seg * HV_SUMS, true);
+#endif

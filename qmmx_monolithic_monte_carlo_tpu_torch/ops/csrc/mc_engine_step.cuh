@@ -15,7 +15,9 @@
 // for the parent kernels (the slots of EngineArgs and bit masks; after
 // preprocessing the statements of the parent's own text, so its code stays),
 // mc_engine_wide.cuh for the envelope kernels (a level table in shared memory,
-// flag arrays, the windowed guard).
+// flag arrays, the windowed guard).  HARVEST_CLOSE and HARVEST_ENTRY fold a
+// closed trade into the label harvest and latch an entry's features; they
+// are empty but in the envelope's harvest builds.
 //
 // now_ms is an int: exact for every bar below 2^31 / 60000 (the wrappers
 // refuse longer horizons); the JAX kernel's float32 t * 60000 is exact below
@@ -116,6 +118,7 @@
             st.peak = fmaxf(st.peak, st.equity);
             st.dd = fmaxf(st.dd, st.peak - st.equity);
             if (pnl > 0.f) ++st.wins; else ++st.losses;
+            HARVEST_CLOSE
             st.side = 0;
             st.cooldown_until = now_ms + a.cooldown_ms;
         }
@@ -302,6 +305,7 @@
                 st.target = tgt_new;
                 st.risk0 = fabsf(fill - stop_new);
                 ++st.trades;
+                HARVEST_ENTRY
             }
         }
     }

@@ -31,6 +31,18 @@
 //   guard's 5/20-bar MAs read n_after as before.  Without WIN the box is the
 //   running min/max, as in the parents.
 //
+// * The closed-trade harvest (ENGINE_HARVEST, defined by the harvest builds
+//   before they include this header: mc_engine_wide*_harvest.cu).  A path's
+//   state also latches its open trade's ML bucket, policy bucket, x1 =
+//   min(1, distance) and x6 = min(1, (bar0 minute + t) / 390) at entry
+//   (HARVEST_ENTRY, pallas_engine.py:910-917) and sums the closes' x1 and x6
+//   per (policy bucket, label) in 16 floats; each close adds one to its two
+//   (bucket, label) counts in the CTA's shared 64-bit tallies (HARVEST_CLOSE,
+//   :629-648), exact in any order.  The float sums go path -> thread (in path
+//   order) -> warp shuffle tree -> the fixed per-warp loop (hv_cta_row), as
+//   the lifecycle sums do, so a row equals its one-row launch bit for bit.
+//   The other builds compile none of it.
+//
 // mc_engine_step.cuh is the bar's engine, as in the parents; this header
 // defines the macros it reads the levels, flags and guard through, and those
 // through which the parents' path loops (mc_engine_block.cuh,
@@ -48,6 +60,14 @@
 
 #define GUARD_WINDOW 61       // GUARD_WINDOW_BARS: the 60-minute box of the guard
 #define WIDE_LEVELS 64        // MAX_KERNEL_LEVELS: the level slots a row may have
+
+#ifdef ENGINE_HARVEST
+#define HV_TC_CAP 8           // models/harvest.TC_CAP
+#define HV_ML_COLS 64         // ml_counts[bucket][label]: (tc, kind, glf) x 2
+#define HV_POL_COLS 8         // pol_counts[bucket][label]: (glf, confl) x 2
+#define HV_COUNTS (HV_ML_COLS + HV_POL_COLS)
+#define HV_SUMS (2 * HV_POL_COLS)  // Σx1[bucket][label], then Σx6
+#endif
 
 // One level slot (host mirror: ops/cuda_engine.py _WIDE_LEVEL); an invalid
 // slot is all zeros.
@@ -73,6 +93,12 @@ struct WideState {
     float tap_ratio[2 * TAP_SLOTS];
     int skips[N_SKIPS];
     float win_low[WIN ? GUARD_WINDOW : 1], win_high[WIN ? GUARD_WINDOW : 1];
+#ifdef ENGINE_HARVEST
+    int pend_ml, pend_pol;              // the open trade's buckets, latched at entry
+    float pend_x1, pend_x6;             // and its x1, x6
+    float hv_sum[HV_SUMS];              // this path's Σx1, Σx6 [bucket * 2 + label]
+    unsigned long long* hv_cnt;         // the CTA's tallies (shared memory)
+#endif
 };
 
 #undef LEVEL_SLOTS
@@ -122,6 +148,26 @@ struct WideState {
 #define ENGINE_FN(f) wide_##f<WIN>
 #define ENGINE_LV lv,
 
+#ifdef ENGINE_HARVEST
+#undef HARVEST_CLOSE
+#undef HARVEST_ENTRY
+#define HARVEST_CLOSE                                                       \
+    {                                                                       \
+        const int lab = pnl > 0.f ? 1 : 0;                                  \
+        const int pj = st.pend_pol * 2 + lab;                               \
+        atomicAdd(&st.hv_cnt[st.pend_ml * 2 + lab], 1ull);                  \
+        atomicAdd(&st.hv_cnt[HV_ML_COLS + pj], 1ull);                       \
+        st.hv_sum[pj] = st.hv_sum[pj] + st.pend_x1;                         \
+        st.hv_sum[HV_POL_COLS + pj] = st.hv_sum[HV_POL_COLS + pj] + st.pend_x6; \
+    }
+#define HARVEST_ENTRY                                                       \
+    st.pend_ml = min(tc, HV_TC_CAP - 1) * 4 + (best_k == KIND_SOLID ? 2 : 0) \
+                 + (go_long ? 1 : 0);                                       \
+    st.pend_pol = (go_long ? 2 : 0) + (confl_pol > 1 ? 1 : 0);              \
+    st.pend_x1 = fminf(best_d, 1.0f);                                       \
+    st.pend_x6 = fminf((float)(a.bar0_minute + t) / 390.0f, 1.0f);
+#endif
+
 // A path's state at the start of its walk (the slots up to the row's count),
 // its rings cleared.
 template <bool WIN>
@@ -147,6 +193,12 @@ __device__ __forceinline__ void wide_init_state(const EngineArgs& a, WideState<W
     if constexpr (WIN) {
         for (int k = 0; k < GUARD_WINDOW; ++k) { st.win_low[k] = INF_F; st.win_high[k] = -INF_F; }
     }
+#ifdef ENGINE_HARVEST
+    st.pend_ml = st.pend_pol = 0;
+    st.pend_x1 = st.pend_x6 = 0.f;
+#pragma unroll
+    for (int j = 0; j < HV_SUMS; ++j) st.hv_sum[j] = 0.f;
+#endif
     for (int j = 0; j < VOL_RING; ++j) rg.vol[j * BLOCK] = 0.f;
     for (int j = 0; j < CLOSE_RING; ++j) rg.close[j * BLOCK] = 0.f;
 }
@@ -234,6 +286,40 @@ __device__ __forceinline__ void wide_path_row(const WideState<WIN>& st, bool liv
         for (int j = 0; j < N_SKIPS; ++j) o[7 + j] = (float)st.skips[j];
     }
 }
+
+#ifdef ENGINE_HARVEST
+// The CTA's tallies zeroed (every thread calls it; a barrier follows before
+// the first close).
+__device__ __forceinline__ void hv_clear(unsigned long long* s_hv) {
+    for (int c = threadIdx.x; c < HV_COUNTS; c += BLOCK) s_hv[c] = 0ull;
+}
+
+// Adds the CTA's harvest to its partial row (every thread calls it): the
+// shared tallies s_hv to the int64 counts crow, each thread's sums hsum to
+// the floats frow, reduced as the lifecycle sums are (a warp shuffle tree,
+// then the warps in order from 0).  ``first`` writes the row; later calls
+// (a book's chunks) add to it, in call order.
+__device__ __forceinline__ void hv_cta_row(const unsigned long long* s_hv,
+                                           const float (&hsum)[HV_SUMS],
+                                           long long* __restrict__ crow,
+                                           float* __restrict__ frow, bool first) {
+    __shared__ float s_hred[HV_SUMS][BLOCK / 32];
+    const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < HV_SUMS; ++j) {
+        const float v = warp_sum(hsum[j]);
+        if (wl == 0) s_hred[j][warp] = v;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < HV_COUNTS; c += BLOCK)
+        crow[c] = (first ? 0ll : crow[c]) + (long long)s_hv[c];
+    if (threadIdx.x < HV_SUMS) {
+        float s = 0.f;
+        for (int w = 0; w < BLOCK / 32; ++w) s += s_hred[threadIdx.x][w];
+        frow[threadIdx.x] = first ? s : frow[threadIdx.x] + s;
+    }
+}
+#endif
 
 // Call f(windowed) with ``windowed`` a compile-time constant
 // (std::true_type / std::false_type); returns f's value.

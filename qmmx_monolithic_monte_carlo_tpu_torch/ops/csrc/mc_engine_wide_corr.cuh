@@ -28,12 +28,29 @@
 // special functions and the per-bar gates, the level loops over local-memory
 // state, the windowed guard's folds) plus the market draws, counted once a
 // path.  Three CTAs an SM, as the parents (__launch_bounds__(BLOCK, 3)).
+//
+// The harvest builds (ENGINE_HARVEST: mc_engine_wide_corr{,_samplers}_harvest.cu)
+// name the kernel mc_engine_wide_corr_harvest_kernel and give it two more
+// outputs: symbol s's closed-trade harvest, a partial row per (symbol, CTA)
+// (HV_COUNTS int64 counts, HV_SUMS floats), added chunk by chunk as the
+// lifecycle rows are (the book's own row has none).  Each symbol clears the
+// CTA's tallies between the barriers that load its arguments.
 
 #pragma once
 
 #include "mc_engine_wide.cuh"
 
 #define WIDE_GBM 0            // KIND of the gbm book (sampler.cuh numbers the others)
+
+#ifdef ENGINE_HARVEST
+#define WIDE_CORR_KERNEL mc_engine_wide_corr_harvest_kernel
+#define HV_PARAMS , long long* __restrict__ hv_counts, float* __restrict__ hv_sums
+#define HV_ARGS , hv_counts, hv_sums
+#else
+#define WIDE_CORR_KERNEL mc_engine_wide_corr_kernel
+#define HV_PARAMS
+#define HV_ARGS
+#endif
 
 // One path of a book under symbol arguments ``a`` (and sampler ``s``), its
 // levels ``lv``: its draws on the symbol's key (dr) and, under a sampler, the
@@ -61,20 +78,24 @@ __device__ __forceinline__ void wide_walk(const EngineArgs& a, const SamplerArgs
 // Partial rows [S + 1][CTA]; per-path rows [S + 1][path].
 template <bool WIN, int KIND>
 __global__ void __launch_bounds__(BLOCK, 3)
-mc_engine_wide_corr_kernel(const EngineArgs* __restrict__ rows,
+WIDE_CORR_KERNEL(const EngineArgs* __restrict__ rows,
                            const SamplerArgs* __restrict__ sargs,
                            const WideLevel* __restrict__ levels,
                            const float2* __restrict__ bw, int n_sym,
                            const float* __restrict__ ext, const float* __restrict__ ext_m,
                            uint32_t m_stream, float* __restrict__ curve_mem,
                            long long* __restrict__ part_counts,
-                           float* __restrict__ part_floats, float* __restrict__ per_path) {
+                           float* __restrict__ part_floats,
+                           float* __restrict__ per_path HV_PARAMS) {
     __shared__ float s_vol[VOL_RING * BLOCK];
     __shared__ float s_close[CLOSE_RING * BLOCK];
     __shared__ EngineArgs s_a;
     __shared__ SamplerArgs s_s;
     __shared__ float2 s_bw;        // symbol s's (beta, weight)
     __shared__ WideLevel s_lv[WIDE_LEVELS];
+#ifdef ENGINE_HARVEST
+    __shared__ unsigned long long s_hv[HV_COUNTS];
+#endif
     const Rings rg{s_vol + threadIdx.x, s_close + threadIdx.x};
     const long long num_paths = rows[0].num_paths;
     const int num_bars = rows[0].num_bars, lanes = rows[0].lanes;
@@ -110,6 +131,9 @@ mc_engine_wide_corr_kernel(const EngineArgs* __restrict__ rows,
                 s_bw = bw[sym];
             }
             copy_levels(s_lv, levels, sym, max_levels);
+#ifdef ENGINE_HARVEST
+            hv_clear(s_hv);
+#endif
             __syncthreads();
             const EngineArgs& a = s_a;
             bk.beta = s_bw.x;
@@ -120,6 +144,9 @@ mc_engine_wide_corr_kernel(const EngineArgs* __restrict__ rows,
             Draws md{ext_m, blk, col, row_len, m_rows, a.seed, m_stream, -1,
                      make_uint4(0u, 0u, 0u, 0u)};
             WideState<WIN> st;
+#ifdef ENGINE_HARVEST
+            st.hv_cnt = s_hv;
+#endif
             wide_walk<WIN, KIND>(a, s_s, s_lv, dr, md, rg, col, bk.mirror, half_lanes, st,
                                        bk);
 
@@ -134,6 +161,10 @@ mc_engine_wide_corr_kernel(const EngineArgs* __restrict__ rows,
             cta_add_path_row<N_COUNTS + N_SKIPS>(cnt, st.trades > 0, st.equity, st.dd,
                                                  part_counts + seg * ROW_COUNTS,
                                                  part_floats + seg * ROW_FLOATS, chunk == 0);
+#ifdef ENGINE_HARVEST
+            hv_cta_row(s_hv, st.hv_sum, hv_counts + seg * HV_COUNTS, hv_sums + seg * HV_SUMS,
+                       chunk == 0);
+#endif
         }
 
         const float2 fin = book_fold(bk.curve, bk.cstride, num_bars);   // (final R, drawdown)
@@ -160,16 +191,16 @@ template <int KIND>
 int wide_corr_launch(const EngineArgs* rows, const SamplerArgs* sargs, const WideLevel* levels,
                      const float2* bw, int n_sym, int max_levels, int num_bars,
                      const float* ext, const float* ext_m, unsigned m_stream, float* curve_mem,
-                     long long* part_counts, float* part_floats, float* per_path, int grid,
-                     void* stream) {
+                     long long* part_counts, float* part_floats, float* per_path HV_PARAMS,
+                     int grid, void* stream) {
     if (max_levels < 1 || max_levels > WIDE_LEVELS || num_bars < 2 || (num_bars & 1) || n_sym < 1
         || !curve_mem)
         return (int)cudaErrorInvalidValue;
     return wide_dispatch(num_bars > GUARD_WINDOW, [&](auto win) {
-        mc_engine_wide_corr_kernel<decltype(win)::value, KIND>
+        WIDE_CORR_KERNEL<decltype(win)::value, KIND>
             <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(rows, sargs, levels, bw, n_sym, ext,
                                                        ext_m, m_stream, curve_mem, part_counts,
-                                                       part_floats, per_path);
+                                                       part_floats, per_path HV_ARGS);
         return (int)cudaGetLastError();
     });
 }

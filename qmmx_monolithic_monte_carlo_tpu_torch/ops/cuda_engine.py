@@ -12,7 +12,13 @@ Each launch goes to the parent kernel where it fits (<= 8 level slots, an
 even W <= 61: ``ops/csrc/mc_engine*.cu``) and to the envelope kernel
 otherwise (``ops/csrc/mc_engine_wide*.cu``, ``needs_envelope``), counted under the
 parent's name with ``_wide`` (``mc_engine_wide``, ``mc_engine_wide_sampler``,
-...).  The closed-trade harvest is not ported yet.
+...).  ``harvest=True`` (the single run, the universe and the book) adds the
+closed-trade label harvest (``models/harvest.EngineHarvest``) and goes to the
+envelope kernels' harvest builds at every shape
+(``ops/csrc/mc_engine_wide*_harvest.cu``, counted under the envelope's name
+with ``_harvest``: ``mc_engine_wide_harvest``, ``mc_engine_wide_universe_harvest``,
+``mc_engine_wide_corr_harvest``, ...; the rows fold in
+``mc_engine_harvest_reduce_rows``); the sweeps take no harvest, as in JAX.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -38,8 +44,8 @@ parent's name with ``_wide`` (``mc_engine_wide``, ``mc_engine_wide_sampler``,
   ``mc_engine_sweep_kernel`` with one row per symbol (its levels, s0, sigma,
   all 17 knobs and noise stds, its key ``prng.stream_key``; the ML, policy,
   touch and guard records shared); row s equals ``mc_paths_engine_fused`` at
-  symbol s's inputs and ``symbol=s``, bit for bit.  ``harvest=True`` is not
-  ported yet.
+  symbol s's inputs and ``symbol=s``, bit for bit; with ``harvest=True``
+  each symbol's harvest too.
 * ``mc_paths_engine_universe_sweep_fused`` -- the sweep of universes (kernel
   #11, ``_engine_universe_sweep_kernel``, ``pallas_engine.py:2282-2588``): S x
   G rows in one launch, row (s, g) under row g of symbol s's knob grid
@@ -68,6 +74,7 @@ import math
 import numpy as np
 import torch
 
+from ..models import harvest as HV
 from ..ops.pathgen import PathBars, VolumeModel
 from ..sim.book import BookCurve, mix_shocks
 from ..sim.enginepath import (SKIP_REASONS, EngineLifecycle, blend_weights, engine_knobs,
@@ -115,6 +122,14 @@ LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
 # the envelope kernels' launches: each parent launch counter with "_wide"
 LAUNCHES.update({"mc_engine_wide" + k[len("mc_engine"):]: 0 for k in list(LAUNCHES)
                  if not k.endswith("reduce_rows")})
+# the harvest builds' launches (the single run, the universe, the book) and
+# their rows' fold
+LAUNCHES.update({k + "_harvest": 0 for k in (
+    "mc_engine_wide", "mc_engine_wide_sampler", "mc_engine_wide_universe",
+    "mc_engine_wide_universe_sampler", "mc_engine_wide_corr",
+    "mc_engine_wide_corr_sampler")})
+LAUNCHES["mc_engine_harvest_reduce_rows"] = 0
+HV_COUNTS, HV_SUMS = HV.COUNT_COLS, HV.SUM_COLS   # a harvest partial row's columns
 
 
 def reset_launches() -> None:
@@ -301,18 +316,19 @@ def path_rows(out, path_skips: torch.Tensor) -> torch.Tensor:
 
 def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
                   antithetic, per_path: bool, market=None, book=None, weight=None,
-                  sampler: Sampler = Sampler()):
-    """Totals (and per-path rows) of one chunk of blocks, u f32[nb, u_rows,
-    8, lanes]: the TPU kernel's block computation with the engine of
-    ``sim.enginepath``, binned as ``_engine_accumulate`` bins.  A book
-    symbol (``market`` as in ``_bars``) adds its post-bar equity, times
-    ``weight``, into the ``book`` (``sim/book.BookCurve``) after every bar."""
+                  sampler: Sampler = Sampler(), harvest: bool = False):
+    """Totals, per-path rows (or None) and harvest (or None) of one chunk
+    of blocks, u f32[nb, u_rows, 8, lanes]: the TPU kernel's block
+    computation with the engine of ``sim.enginepath``, binned as
+    ``_engine_accumulate`` bins.  A book symbol (``market`` as in ``_bars``)
+    adds its post-bar equity, times ``weight``, into the ``book``
+    (``sim/book.BookCurve``) after every bar."""
     life, path_skips = None, 0
     for t, log_open, *bar, nz in _bars(u, layout, antithetic, cs, vc, market, sampler):
         if life is None:
             life = EngineLifecycle(torch.exp(log_open).reshape(-1), levels, params,
                                    noise=noise, windowed=layout.num_bars > GUARD_WINDOW_BARS,
-                                   **kw)
+                                   harvest=harvest, **kw)
         reason = life.step(t, *(x.reshape(-1) for x in bar),
                            None if nz is None else tuple(x.reshape(-1) for x in nz))
         if per_path:
@@ -325,7 +341,8 @@ def _chunk_engine(u, layout: EngineLayout, levels, params, kw, noise, cs, vc,
     counts, floats = lifecycle_totals(out, N_COUNTS + N_SKIPS)
     counts[6] = out.escalations.sum()
     counts[N_COUNTS:N_COUNTS + N_SKIPS] = out.skip_counts
-    return counts, floats, path_rows(out, path_skips) if per_path else None
+    return (counts, floats, path_rows(out, path_skips) if per_path else None,
+            out.harvest)
 
 
 def stats_from_engine_totals(counts: torch.Tensor, floats: torch.Tensor):
@@ -350,13 +367,14 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
                             device=None, chunk_blocks: int = 16,
                             per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
                             hist_bars=None, tables=None, block_len: int = 10,
-                            heston=None):
+                            heston=None, harvest: bool = False):
     """The plain version's (int64 counts, float64 floats) totals, computed
     on ``device`` (default: that of ``external_uniforms``, else the CUDA
     device) in chunks of ``chunk_blocks`` blocks, Philox draws keyed as
     universe symbol ``symbol``, ``sampler`` and its inputs as in
     ``mc_paths_engine_fused``; then, when ``per_path``, the f32[P,
-    PATH_COLS] per-path rows of ``path_rows``."""
+    PATH_COLS] per-path rows of ``path_rows``; then, with ``harvest``, the
+    ``models/harvest.EngineHarvest`` of the closed trades."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -370,6 +388,7 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
     n_blocks = num_paths // (ENGINE_SUB * lanes)
     tot, rows = None, []
+    hv = HV.EngineHarvest.zero(device=device) if harvest else None
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         if external_uniforms is not None:
@@ -377,12 +396,15 @@ def engine_totals_reference(seed, levels: Levels, params, *, policy=None,
         else:
             u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
                                 symbol=symbol, device=device)
-        *part, part_rows = _chunk_engine(u, layout, levels, params, kw, noise, cs,
-                                         vc, antithetic, per_path, sampler=samp)
+        *part, part_rows, part_hv = _chunk_engine(u, layout, levels, params, kw, noise, cs,
+                                                  vc, antithetic, per_path, sampler=samp,
+                                                  harvest=harvest)
         tot = merge_totals(tot, part)
         if per_path:
             rows.append(part_rows)
-    return (*tot, torch.cat(rows)) if per_path else tot
+        if harvest:
+            hv = hv.merge(part_hv)
+    return (*tot, *((torch.cat(rows),) if per_path else ()), *((hv,) if harvest else ()))
 
 
 def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=None,
@@ -396,10 +418,11 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
                                   device=None, chunk_blocks: int = 16,
                                   per_path: bool = False, symbol: int = 0,
                                   sampler: str = "gbm", hist_bars=None, tables=None,
-                                  block_len: int = 10, heston=None):
+                                  block_len: int = 10, heston=None, harvest: bool = False):
     """The plain version of the sweep: int64 [G, 151] counts and float64
     [G, 6] floats, then f32[G, P, PATH_COLS] per-(row, path) rows when
-    ``per_path``.  Each chunk's uniforms are drawn once (keyed as universe
+    ``per_path``, then with ``harvest`` (the universes' rows: the sweeps
+    themselves take none) the [G] ``EngineHarvest``.  Each chunk's uniforms are drawn once (keyed as universe
     symbol ``symbol``) and every row runs the whole engine on them (the TPU
     kernel's reseeding); ``sampler`` and its inputs as in
     ``mc_paths_engine_fused`` (every row on the same history)."""
@@ -417,6 +440,7 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
     vc = _VolumeConsts(VolumeModel() if volume_model is None else volume_model)
     n_blocks = num_paths // (ENGINE_SUB * lanes)
     tot, path_rows = [None] * len(rows), [[] for _ in rows]
+    hvs = [HV.EngineHarvest.zero(device=device) for _ in rows]
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         if external_uniforms is not None:
@@ -425,13 +449,18 @@ def engine_sweep_totals_reference(seed, levels: Levels, grid_params, *, n_grid=N
             u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
                                 symbol=symbol, device=device)
         for g, (p_g, noise_g) in enumerate(rows):
-            *part, part_rows = _chunk_engine(u, layout, levels, p_g, kw, noise_g, cs, vc,
-                                             False, per_path, sampler=samp)
+            *part, part_rows, part_hv = _chunk_engine(u, layout, levels, p_g, kw, noise_g,
+                                                      cs, vc, False, per_path, sampler=samp,
+                                                      harvest=harvest)
             tot[g] = merge_totals(tot[g], part)
             if per_path:
                 path_rows[g].append(part_rows)
+            if harvest:
+                hvs[g] = hvs[g].merge(part_hv)
     out = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
-    return out + (torch.stack([torch.cat(r) for r in path_rows]),) if per_path else out
+    if per_path:
+        out += (torch.stack([torch.cat(r) for r in path_rows]),)
+    return out + (HV.stack(hvs),) if harvest else out
 
 
 # --------------------------------------------------------------------------
@@ -523,6 +552,12 @@ _WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_w
     "_wide_samplers": ("qmmx_mc_engine_wide_sampler", "vvviiiivvvviv"),
     "_wide_corr": ("qmmx_mc_engine_wide_corr", "vvviiivvuvvvviv"),
     "_wide_corr_samplers": ("qmmx_mc_engine_wide_corr_sampler", "vvvviiiivvuvvvviv"),
+    # the harvest builds: two more pointers (the harvest rows) before the grid
+    "_wide_harvest": ("qmmx_mc_engine_wide_harvest", "vviiivvvvvviv"),
+    "_wide_samplers_harvest": ("qmmx_mc_engine_wide_sampler_harvest", "vvviiiivvvvvviv"),
+    "_wide_corr_harvest": ("qmmx_mc_engine_wide_corr_harvest", "vvviiivvuvvvvvviv"),
+    "_wide_corr_samplers_harvest": ("qmmx_mc_engine_wide_corr_sampler_harvest",
+                                    "vvvviiiivvuvvvvvviv"),
 }
 
 
@@ -547,8 +582,19 @@ def _wide_library(suffix: str) -> ctypes.CDLL:
             if lib.qmmx_engine_wide_level_size() != _WIDE_LEVEL.itemsize:
                 raise RuntimeError("WideLevel layout differs between mc_engine_wide.cuh "
                                    "and cuda_engine._WIDE_LEVEL")
+        if suffix == "_wide_harvest":
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.qmmx_mc_engine_harvest_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+            lib.qmmx_mc_engine_harvest_reduce_rows.restype = ci
+            lib.qmmx_engine_harvest_cols.restype = ci
+            if lib.qmmx_engine_harvest_cols() != HV_COUNTS * 100 + HV_SUMS:
+                raise RuntimeError("the harvest row layout differs between "
+                                   "mc_engine_wide.cuh and models/harvest.py")
         size = {"_wide_samplers": "qmmx_engine_wide_sampler_args_size",
-                "_wide_corr_samplers": "qmmx_engine_wide_corr_sampler_args_size"}.get(suffix)
+                "_wide_corr_samplers": "qmmx_engine_wide_corr_sampler_args_size",
+                "_wide_samplers_harvest": "qmmx_engine_wide_sampler_harvest_args_size",
+                "_wide_corr_samplers_harvest":
+                    "qmmx_engine_wide_corr_sampler_harvest_args_size"}.get(suffix)
         if size is not None:
             getattr(lib, size).restype = ctypes.c_int
             if getattr(lib, size)() != ctypes.sizeof(SamplerArgs):
@@ -561,6 +607,41 @@ def _wide_library(suffix: str) -> ctypes.CDLL:
 def _wide(what: str) -> str:
     """The envelope kernel's launch counter of a parent's counter ``what``."""
     return "mc_engine_wide" + what[len("mc_engine"):]
+
+
+def _harvest_rows(n: int, grid: int, device) -> tuple:
+    """Empty harvest partial rows of ``n`` launch rows: int64 [n, grid,
+    HV_COUNTS] and f32 [n, grid, HV_SUMS]."""
+    return (torch.empty((n, grid, HV_COUNTS), dtype=torch.int64, device=device),
+            torch.empty((n, grid, HV_SUMS), dtype=_F32, device=device))
+
+
+def reduce_harvest(part_counts: torch.Tensor, part_sums: torch.Tensor) -> HV.EngineHarvest:
+    """The harvest rows' pass 2: int64 [..., R, HV_COUNTS] and f32 [..., R,
+    HV_SUMS] partial rows -> the [...] ``EngineHarvest`` (counts summed in
+    int64, sums in float64 in row order, then rounded to float32), one launch
+    of ``fold_harvest_rows`` (a CTA a segment) counted in
+    ``LAUNCHES["mc_engine_harvest_reduce_rows"]`` for CUDA tensors, the plain
+    version for CPU tensors."""
+    lead = part_counts.shape[:-2]
+    if part_counts.device.type == "cpu" and part_sums.device.type == "cpu":
+        return HV.EngineHarvest.from_columns(part_counts.sum(dim=-2),
+                                             part_sums.double().sum(dim=-2))
+    pc = part_counts.reshape(-1, *part_counts.shape[-2:]).contiguous()
+    ps = part_sums.reshape(-1, *part_sums.shape[-2:]).contiguous()
+    segs, rows = pc.shape[:2]
+    if pc.dtype != torch.int64 or ps.dtype != _F32 or ps.shape[:2] != pc.shape[:2] \
+            or pc.shape[2] != HV_COUNTS or ps.shape[2] != HV_SUMS:
+        raise ValueError(f"harvest rows must be int64 [..., R, {HV_COUNTS}] and "
+                         f"float32 [..., R, {HV_SUMS}]")
+    tc = torch.empty((segs, HV_COUNTS), dtype=torch.int64, device=pc.device)
+    ts = torch.empty((segs, HV_SUMS), dtype=torch.float64, device=pc.device)
+    rc = _wide_library("_wide_harvest").qmmx_mc_engine_harvest_reduce_rows(
+        pc.data_ptr(), ps.data_ptr(), rows, segs, tc.data_ptr(), ts.data_ptr(),
+        torch.cuda.current_stream(pc.device).cuda_stream)
+    _raise_on(rc, "mc_engine_harvest_reduce_rows")
+    LAUNCHES["mc_engine_harvest_reduce_rows"] += 1
+    return HV.EngineHarvest.from_columns(tc.view(*lead, HV_COUNTS), ts.view(*lead, HV_SUMS))
 
 
 SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
@@ -607,8 +688,11 @@ def needs_envelope(max_levels: int, num_bars: int) -> bool:
 _FORCE_ENVELOPE = False
 
 
-def _use_envelope(max_levels: int, num_bars: int) -> bool:
-    return _FORCE_ENVELOPE or needs_envelope(max_levels, num_bars)
+def _use_envelope(max_levels: int, num_bars: int, harvest: bool = False) -> bool:
+    """Whether a launch goes to the envelope kernels: where the parents do
+    not take the shape, under the checks' hook, and always with the harvest
+    (only the envelope kernels have a harvest build)."""
+    return harvest or _FORCE_ENVELOPE or needs_envelope(max_levels, num_bars)
 
 
 def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, n: int,
@@ -680,14 +764,17 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
 
 
 def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
-            device: torch.device, per_path: bool, what: str):
+            device: torch.device, per_path: bool, what: str, harvest: bool = False):
     """One launch of ``mc_engine_sweep_kernel`` over the argument structs
     ``args`` (one per grid row) of ``levels`` ([L], or a row's [G, L]),
     counted in ``LAUNCHES[what]``, or where the parent does not take the
     shape (``_use_envelope``) of ``mc_engine_wide_kernel`` on the rows'
-    ``level_table``, counted in ``LAUNCHES[_wide(what)]``: int64 [G, grid, 151] and f32 [G, grid, 6]
-    partial rows, one per (grid row, CTA), plus f32[G, P, PATH_COLS]
-    per-(row, path) rows when ``per_path``."""
+    ``level_table``, counted in ``LAUNCHES[_wide(what)]``, or with
+    ``harvest`` of ``mc_engine_wide_harvest_kernel``, counted in
+    ``LAUNCHES[_wide(what) + "_harvest"]``: int64 [G, grid, 151] and f32 [G,
+    grid, 6] partial rows, one per (grid row, CTA), plus f32[G, P, PATH_COLS]
+    per-(row, path) rows when ``per_path``, plus the harvest rows
+    (``_harvest_rows``) with ``harvest``."""
     max_levels = levels.max_levels
     args_dev = device_rows(args, device)
     g, grid = len(args), grid_size(num_paths)
@@ -698,7 +785,14 @@ def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
     tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
             path_rows.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
-    if _use_envelope(max_levels, num_bars):
+    hv = _harvest_rows(g, grid, device) if harvest else ()
+    if harvest:
+        what = _wide(what) + "_harvest"
+        table = device_rows(level_table(levels, g), device)
+        rc = _wide_library("_wide_harvest").qmmx_mc_engine_wide_harvest(
+            args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail[:4],
+            *(x.data_ptr() for x in hv), *tail[4:])
+    elif _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, g), device)
         rc = _wide_library("_wide").qmmx_mc_engine_wide_sweep(
@@ -708,8 +802,7 @@ def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
                                              *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
-    out = (part_counts, part_floats)
-    return out + (path_rows,) if per_path else out
+    return (part_counts, part_floats) + ((path_rows,) if per_path else ()) + hv
 
 
 def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
@@ -720,14 +813,16 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                 lanes: int = ENGINE_LANES, external_uniforms=None, device=None,
                 per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
-                hist_bars=None, tables=None, block_len: int = 10, heston=None):
+                hist_bars=None, tables=None, block_len: int = 10, heston=None,
+                harvest: bool = False):
     """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
     the other samplers ``mc_engine_sampler_kernel``; their envelope forms
-    where the shape needs them, ``_launch``): int64 [grid, 151] count
-    rows and f32 [grid, 6] float rows, one row per CTA, plus the f32[P,
-    PATH_COLS] per-path rows of ``path_rows`` when ``per_path``; Philox keyed
-    as universe symbol ``symbol``; ``sampler`` and its inputs as in
-    ``mc_paths_engine_fused``."""
+    where the shape needs them, their harvest builds with ``harvest``,
+    ``_launch``): int64 [grid, 151] count rows and f32 [grid, 6] float rows,
+    one row per CTA, plus the f32[P, PATH_COLS] per-path rows of
+    ``path_rows`` when ``per_path``, plus int64 [grid, 72] and f32 [grid, 16]
+    harvest rows with ``harvest``; Philox keyed as universe symbol
+    ``symbol``; ``sampler`` and its inputs as in ``mc_paths_engine_fused``."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                     policy_gate_disabled, escalation, bar0_minute)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -743,23 +838,26 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
     if samp.kind != "gbm":
         out = _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
                               ext_ptr=ext_ptr, device=device, per_path=per_path,
-                              what="mc_engine_sampler")
+                              what="mc_engine_sampler", harvest=harvest)
     else:
         out = _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                      device=device, per_path=per_path, what="mc_engine")
+                      device=device, per_path=per_path, what="mc_engine", harvest=harvest)
     return tuple(x[0] for x in out)
 
 
 def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
                     num_paths: int, ext_ptr, device: torch.device, per_path: bool, what: str,
-                    table_rows=None):
+                    table_rows=None, harvest: bool = False):
     """One launch of ``mc_engine_sampler_kernel`` over the argument structs
     ``args`` (one per row) of ``levels`` under ``sampler``, row r reading
     table ``table_rows[r]`` (default: the one history), counted in
     ``LAUNCHES[what]``, or where the parent does not take the shape of
     ``mc_engine_wide_sampler_kernel`` (``_use_envelope``), counted in
-    ``LAUNCHES[_wide(what)]``: int64 [R, grid, 151] and f32 [R, grid, 6] partial rows, plus f32[R, P, PATH_COLS]
-    per-(row, path) rows when ``per_path``."""
+    ``LAUNCHES[_wide(what)]``, or with ``harvest`` of
+    ``mc_engine_wide_sampler_harvest_kernel``, counted in
+    ``LAUNCHES[_wide(what) + "_harvest"]``: int64 [R, grid, 151] and f32 [R,
+    grid, 6] partial rows, plus f32[R, P, PATH_COLS] per-(row, path) rows when
+    ``per_path``, plus the harvest rows with ``harvest``."""
     max_levels = levels.max_levels
     n, grid = len(args), grid_size(num_paths)
     args_dev = device_rows(args, device)
@@ -772,7 +870,15 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
     tail = (ext_ptr, part_counts.data_ptr(), part_floats.data_ptr(),
             path_rows.data_ptr() if per_path else None, grid,
             torch.cuda.current_stream(device).cuda_stream)
-    if _use_envelope(max_levels, num_bars):
+    hv = _harvest_rows(n, grid, device) if harvest else ()
+    if harvest:
+        what = _wide(what) + "_harvest"
+        table = device_rows(level_table(levels, n), device)
+        rc = _wide_library("_wide_samplers_harvest").qmmx_mc_engine_wide_sampler_harvest(
+            args_dev.data_ptr(), samp_dev.data_ptr(), table.data_ptr(), n,
+            SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail[:4],
+            *(x.data_ptr() for x in hv), *tail[4:])
+    elif _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, n), device)
         rc = _wide_library("_wide_samplers").qmmx_mc_engine_wide_sampler(
@@ -784,8 +890,7 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
             max_levels, num_bars, *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
-    out = (part_counts, part_floats)
-    return out + (path_rows,) if per_path else out
+    return (part_counts, part_floats) + ((path_rows,) if per_path else ()) + hv
 
 
 def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=None,
@@ -848,7 +953,8 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
                           sigma: float = 0.15, dt: float = 1.0 / (390.0 * 252.0),
                           lanes: int = ENGINE_LANES, external_uniforms=None,
                           device=None, symbol: int = 0, sampler: str = "gbm",
-                          hist_bars=None, tables=None, block_len: int = 10, heston=None):
+                          hist_bars=None, tables=None, block_len: int = 10, heston=None,
+                          harvest: bool = False):
     """Fused full-engine MC, the counterpart of ``mc_paths_pallas_engine``:
     returns (PathStats, int64[16] skip table ordered as
     ``sim.enginepath.SKIP_REASONS``, int64 escalations), the contract of
@@ -858,7 +964,10 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
     ``hist_bars``, ``tables``, ``block_len`` and ``heston`` as in
     ``ops/cuda_mc.mc_paths_fused``: a recorded bar brings its recorded
     volume to the volume gates; injected uniforms then follow
-    ``ops/draws.EngineLayout``'s layout for the sampler.
+    ``ops/draws.EngineLayout``'s layout for the sampler.  ``harvest=True``
+    returns a 4-tuple ending in the ``models/harvest.EngineHarvest`` of the
+    closed trades (the kernel: ``mc_engine_wide_harvest_kernel`` or its
+    sampler form, at every shape).
 
     ``device`` (default: that of ``external_uniforms``, else the CUDA device,
     which raises where there is none) picks the path: a CUDA device launches
@@ -869,7 +978,8 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
               escalation=escalation, bar0_minute=bar0_minute,
               volume_model=volume_model, noise=noise, antithetic=antithetic,
               num_paths=num_paths, num_bars=num_bars, s0=s0, mu=mu, sigma=sigma,
-              dt=dt, lanes=lanes, external_uniforms=external_uniforms, symbol=symbol)
+              dt=dt, lanes=lanes, external_uniforms=external_uniforms, symbol=symbol,
+              harvest=harvest)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     kw.update(sampler=sampler, tables=samp.tables, block_len=block_len, heston=heston)
@@ -879,10 +989,14 @@ def mc_paths_engine_fused(seed, levels: Levels, params, *, policy=None,
            antithetic=antithetic, external_uniforms=external_uniforms, sampler=samp)
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
-        return stats_from_engine_totals(*engine_totals_reference(
-            seed, levels, params, device=device, **kw))
-    rows = engine_rows(seed, levels, params, device=device, **kw)
-    return stats_from_engine_totals(*reduce_rows(*rows))
+        out = engine_totals_reference(seed, levels, params, device=device, **kw)
+        stats = stats_from_engine_totals(*out[:2])
+    else:
+        out = engine_rows(seed, levels, params, device=device, **kw)
+        stats = stats_from_engine_totals(*reduce_rows(*out[:2]))
+        if harvest:
+            out = (reduce_harvest(*out[2:]),)
+    return stats + (out[-1],) if harvest else stats
 
 
 def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=None,
@@ -954,13 +1068,10 @@ def _universe_layout(seed, sym_levels: Levels, kw: dict, noise, n_sym: int, *,
     return layout, samp
 
 
-def _one_row(levels: Levels, s0, sigma, params, noise, harvest: bool):
+def _one_row(levels: Levels, s0, sigma, params, noise):
     """The engine universe's knobs as the sweep of universes takes them at
     one grid row: ``params`` and ``noise`` with their [S] leaves as [S, 1],
-    after the universe's own checks (scalar or [S] leaves, no harvest)."""
-    if harvest:
-        raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
-                                  "with models/harvest.py)")
+    after the universe's own checks (scalar or [S] leaves)."""
     symbol_rows(levels, s0, sigma, params, noise)
 
     def column(obj):
@@ -987,10 +1098,11 @@ def engine_universe_sweep_totals_reference(seed, levels: Levels, grid_params, s0
                                            external_uniforms=None, device=None,
                                            chunk_blocks: int = 16, per_path: bool = False,
                                            sampler: str = "gbm", hist_bars=None, tables=None,
-                                           block_len: int = 10, heston=None):
+                                           block_len: int = 10, heston=None,
+                                           harvest: bool = False):
     """The plain version of the sweep of universes: int64 [S, G, 151] counts
     and float64 [S, G, 6] floats, then f32[S, G, P, PATH_COLS] per-path rows
-    with ``per_path``; symbol s by ``engine_sweep_totals_reference`` over its
+    with ``per_path``, then the [S, G] ``EngineHarvest`` with ``harvest``; symbol s by ``engine_sweep_totals_reference`` over its
     grid (the [S, G] leaves of ``grid_params`` and ``noise`` cut to row s)
     at its levels, s0, sigma, mu 0 and its uniforms or key, and its own
     history under the bootstrap samplers (``_universe_layout``)."""
@@ -1011,9 +1123,11 @@ def engine_universe_sweep_totals_reference(seed, levels: Levels, grid_params, s0
         s0=s0_s, mu=0.0, sigma=sg_s, dt=dt, lanes=lanes, symbol=s,
         external_uniforms=symbol_uniforms(external_uniforms, s), device=device,
         chunk_blocks=chunk_blocks, per_path=per_path, sampler=sampler,
-        tables=samp.row(s).tables, block_len=block_len, heston=heston, **gates)
+        tables=samp.row(s).tables, block_len=block_len, heston=heston, harvest=harvest,
+        **gates)
         for s, (lv, s0_s, sg_s) in enumerate(sym)]
-    return tuple(torch.stack(x) for x in zip(*out))
+    return tuple(HV.stack(x) if isinstance(x[0], HV.EngineHarvest) else torch.stack(x)
+                 for x in zip(*out))
 
 
 def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
@@ -1026,14 +1140,16 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                                device=None, per_path: bool = False,
                                what: str = "mc_engine_universe_sweep", sampler: str = "gbm",
                                hist_bars=None, tables=None, block_len: int = 10,
-                               heston=None):
+                               heston=None, harvest: bool = False):
     """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
     ``mc_engine_sweep_kernel`` (or under the other samplers
     ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what + "_sampler"]``,
     cell (s, g) reading symbol s's history) with S x G rows (row s * G + g
     for (s, g)), under gbm counted in ``LAUNCHES[what]``: int64 [S, G, grid,
     151] and f32 [S, G, grid, 6] partial rows, plus f32[S, G, P, PATH_COLS]
-    per-path rows when ``per_path``."""
+    per-path rows when ``per_path``, plus int64 [S, G, grid, 72] and f32 [S,
+    G, grid, 16] harvest rows with ``harvest`` (the harvest builds of the
+    envelope kernels, counted under ``_wide(...) + "_harvest"``)."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     sym = symbol_rows(levels, s0, sigma)
@@ -1057,26 +1173,31 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
         out = _sampler_launch(args, cell_levels, samp, num_bars,
                               num_paths=paths_per_symbol, ext_ptr=ext_ptr, device=device,
                               per_path=per_path, what=what + "_sampler",
-                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym])
+                              table_rows=np.asarray(samp.table_rows(n_sym))[cell_sym],
+                              harvest=harvest)
     else:
         out = _launch(args, cell_levels, num_bars, num_paths=paths_per_symbol,
-                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what)
+                      ext_ptr=ext_ptr, device=device, per_path=per_path, what=what,
+                      harvest=harvest)
     return tuple(x.view(n_sym, n_grid, *x.shape[1:]) for x in out)
 
 
 def _universe_sweep_totals(seed, levels: Levels, grid_params, s0, sigma, *, device,
                            what: str, **kw):
     """(int64 [S, G, 151], float64 [S, G, 6]) of the sweep of universes on
-    the resolved ``device``: the plain version on the CPU, else one launch
-    and one fold, counted under ``what`` and ``what + "_reduce_rows"``."""
+    the resolved ``device``, then the [S, G] ``EngineHarvest`` with
+    ``harvest``: the plain version on the CPU, else one launch and one fold
+    (and the harvest rows' fold), counted under ``what`` and ``what +
+    "_reduce_rows"``."""
     device = devices.resolve(device, kw.get("external_uniforms"))
     if device.type == "cpu":
         return engine_universe_sweep_totals_reference(seed, levels, grid_params, s0, sigma,
                                                       device=device, **kw)
-    pc, pf = engine_universe_sweep_rows(seed, levels, grid_params, s0, sigma, device=device,
-                                        what=what, **kw)
+    pc, pf, *hv = engine_universe_sweep_rows(seed, levels, grid_params, s0, sigma,
+                                             device=device, what=what, **kw)
     c, f = reduce_rows(pc.flatten(0, 1), pf.flatten(0, 1), what=what + "_reduce_rows")
-    return c.view(*pc.shape[:2], -1), f.view(*pf.shape[:2], -1)
+    out = (c.view(*pc.shape[:2], -1), f.view(*pf.shape[:2], -1))
+    return out + (reduce_harvest(*hv),) if hv else out
 
 
 def engine_universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
@@ -1085,24 +1206,33 @@ def engine_universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
     float64 [S, 6] floats, then f32[S, P, PATH_COLS] per-(symbol, path) rows
     with ``per_path``; the sweep of universes' plain version at one grid row
     (symbol s by ``engine_totals_reference`` at its levels, s0, sigma, knobs
-    and noise stds, mu 0, its uniforms ``external_uniforms[s]`` or its key).
-    Keywords as in ``engine_universe_sweep_totals_reference``."""
-    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
+    and noise stds, mu 0, its uniforms ``external_uniforms[s]`` or its key),
+    then the [S] ``EngineHarvest`` with ``harvest``.  Keywords as in
+    ``engine_universe_sweep_totals_reference``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise)
     out = engine_universe_sweep_totals_reference(seed, levels, grid, s0, sigma, n_grid=1,
-                                                 noise=g_noise, **kw)
-    return tuple(x[:, 0] for x in out)
+                                                 noise=g_noise, harvest=harvest, **kw)
+    return tuple(_row0(x) for x in out)
+
+
+def _row0(x):
+    """Grid row 0 of an [S, G, ...] tensor or ``EngineHarvest``."""
+    return HV.EngineHarvest(*(f[:, 0] for f in x)) if isinstance(x, HV.EngineHarvest) \
+        else x[:, 0]
 
 
 def engine_universe_rows(seed, levels: Levels, params, s0, sigma, *, noise=None,
                          harvest: bool = False, **kw):
     """Launch the universe's pass 1 on a CUDA device: the sweep of
     universes' launch at one grid row, counted in
-    ``LAUNCHES["mc_engine_universe"]``: int64 [S, grid, 151] and f32 [S,
+    ``LAUNCHES["mc_engine_universe"]`` (with ``harvest``: its harvest build,
+    ``mc_engine_wide_universe_harvest``): int64 [S, grid, 151] and f32 [S,
     grid, 6] partial rows, plus f32[S, P, PATH_COLS] per-(symbol, path) rows
-    with ``per_path``.  Keywords as in ``engine_universe_sweep_rows``."""
-    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
+    with ``per_path``, plus int64 [S, grid, 72] and f32 [S, grid, 16] harvest
+    rows with ``harvest``.  Keywords as in ``engine_universe_sweep_rows``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise)
     out = engine_universe_sweep_rows(seed, levels, grid, s0, sigma, n_grid=1, noise=g_noise,
-                                     what="mc_engine_universe", **kw)
+                                     what="mc_engine_universe", harvest=harvest, **kw)
     return tuple(x[:, 0] for x in out)
 
 
@@ -1117,8 +1247,9 @@ def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
                                    device=None, sampler: str = "gbm", hist_bars=None,
                                    tables=None, block_len: int = 10, heston=None):
     """Fused per-symbol full-engine universe, the counterpart of
-    ``mc_paths_pallas_engine_universe`` (no harvest): ([S] PathStats,
-    int64 [S, 16] skip tables, int64 [S] escalations), symbol s under its own
+    ``mc_paths_pallas_engine_universe``: ([S] PathStats, int64 [S, 16] skip
+    tables, int64 [S] escalations[, the [S] EngineHarvest with ``harvest``]),
+    symbol s under its own
     [S, L] levels row, s0[s], sigma[s], all engine knobs (``params`` leaves
     scalar or [S]), noise stds (``noise`` leaves scalar or [S]) and key, the
     ML, policy, touch and guard records shared; drift, sig_dt and log_s0 per
@@ -1128,10 +1259,10 @@ def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
     history, its recorded volumes into the volume gates.  It runs as the
     sweep of universes at one grid row.  Row s equals
     ``mc_paths_engine_fused`` at those inputs with ``symbol=s`` bit for bit;
-    injected uniforms are f32[S, blocks, u_rows, 8, lanes].  ``harvest=True``
-    raises (not ported yet).  ``device`` as in ``mc_paths_engine_fused``."""
-    grid, g_noise = _one_row(levels, s0, sigma, params, noise, harvest)
-    c, f = _universe_sweep_totals(
+    injected uniforms are f32[S, blocks, u_rows, 8, lanes].  ``device`` as in
+    ``mc_paths_engine_fused``."""
+    grid, g_noise = _one_row(levels, s0, sigma, params, noise)
+    out = _universe_sweep_totals(
         seed, levels, grid, s0, sigma, n_grid=1, policy=policy, ml_model=ml_model,
         touch_params=touch_params, guard_params=guard_params,
         policy_gate_disabled=policy_gate_disabled, escalation=escalation,
@@ -1139,8 +1270,9 @@ def mc_paths_engine_universe_fused(seed, levels: Levels, params, s0, sigma, *,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, dt=dt, lanes=lanes,
         external_uniforms=external_uniforms, device=device, what="mc_engine_universe",
         sampler=sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
-        heston=heston)
-    return stats_from_engine_totals(c[:, 0], f[:, 0])
+        heston=heston, harvest=harvest)
+    stats = stats_from_engine_totals(out[0][:, 0], out[1][:, 0])
+    return stats + (_row0(out[2]),) if harvest else stats
 
 
 def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, sigma, *,
@@ -1181,7 +1313,7 @@ def mc_paths_engine_universe_sweep_fused(seed, levels: Levels, grid_params, s0, 
 
 def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, kw: dict, noise, *,
                 paths_per_symbol: int, num_bars: int, lanes: int, antithetic: bool,
-                external_uniforms, market_uniforms, sampler: str, harvest: bool,
+                external_uniforms, market_uniforms, sampler: str,
                 hist_bars=None, tables=None, block_len: int = 10, heston=None,
                 dt: float = 1.0 / (390.0 * 252.0)):
     """The checks of ``mc_paths_pallas_engine_corr`` (pallas_engine.py:
@@ -1189,9 +1321,6 @@ def _check_corr(seed, levels: Levels, params, s0, sigma, beta, weights, kw: dict
     most 61 bars); returns (layout, market layout, ``symbol_columns``, the
     book's ``Sampler`` as ``ops/cuda_gated._check_corr``'s, Heston at mu 0,
     pallas_engine.py:3100)."""
-    if harvest:
-        raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
-                                  "with models/harvest.py)")
     cols = symbol_columns(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     n_sym, n_blocks = len(cols["s0"]), paths_per_symbol // (ENGINE_SUB * lanes)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -1223,7 +1352,8 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
     """The plain version of the engine book: int64 [S + 1, 151] counts and
     float64 [S + 1, 6] floats (row s symbol s's, row S the book's, whose
     escalation and skip columns are zero), then f32[S + 1, P, PATH_COLS]
-    per-path rows with ``per_path``.  Symbol s runs as the engine
+    per-path rows with ``per_path``, then the symbols' [S] ``EngineHarvest``
+    with ``harvest``.  Symbol s runs as the engine
     universe's symbol s, its price normal mixed with the market's
     (``sim/book.mix_shocks``) before the volume model sees it, and adds its
     weighted post-bar equity into the book's curve (``sim/book.BookCurve``);
@@ -1236,7 +1366,7 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
         seed, levels, params, s0, sigma, beta, weights, kw, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+        market_uniforms=market_uniforms, sampler=sampler,
         hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     rows = symbol_rows(levels, s0, sigma, params, noise, beta=beta, weights=weights)
     device = devices.resolve(device, external_uniforms)
@@ -1244,6 +1374,7 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
     n_blocks = paths_per_symbol // (ENGINE_SUB * lanes)
     n_sym = len(rows)
     tot, path_rows_ = [None] * (n_sym + 1), [[] for _ in range(n_sym + 1)]
+    hvs = [HV.EngineHarvest.zero(device=device) for _ in range(n_sym)]
     for b0 in range(0, n_blocks, chunk_blocks):
         nb = min(chunk_blocks, n_blocks - b0)
         um = (market_uniforms[b0:b0 + nb] if market_uniforms is not None else
@@ -1256,13 +1387,15 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
             else:
                 u = engine_uniforms(seed, layout, block0=b0, n_blocks=nb, lanes=lanes,
                                     symbol=s, device=device)
-            *part, part_rows = _chunk_engine(u, layout, lv.to(device), p, kw, nz,
-                                             consts(s0_s, 0.0, sg_s, dt), vc, antithetic,
-                                             per_path, market=(mk, beta_s), book=book,
-                                             weight=w_s, sampler=samp.row(s))
+            *part, part_rows, part_hv = _chunk_engine(
+                u, layout, lv.to(device), p, kw, nz, consts(s0_s, 0.0, sg_s, dt), vc,
+                antithetic, per_path, market=(mk, beta_s), book=book, weight=w_s,
+                sampler=samp.row(s), harvest=harvest)
             tot[s] = merge_totals(tot[s], part)
             if per_path:
                 path_rows_[s].append(part_rows)
+            if harvest:
+                hvs[s] = hvs[s].merge(part_hv)
         out = book.outcome()
         tot[n_sym] = merge_totals(tot[n_sym], lifecycle_totals(out, N_COUNTS + N_SKIPS))
         if per_path:   # the book's escalation and skip columns are zero
@@ -1271,7 +1404,7 @@ def engine_corr_totals_reference(seed, levels: Levels, params, s0, sigma, beta, 
     res = (torch.stack([t[0] for t in tot]), torch.stack([t[1] for t in tot]))
     if per_path:
         res += (torch.stack([torch.cat(r) for r in path_rows_]),)
-    return res
+    return res + (HV.stack(hvs),) if harvest else res
 
 
 def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, policy=None,
@@ -1291,16 +1424,19 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     ``mc_engine_wide_corr_kernel``, counted under
     ``mc_engine_wide_corr(_sampler)``): int64 [S + 1, grid, 151] and f32
     [S + 1, grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
-    P, PATH_COLS] per-path rows when ``per_path``.  The book curves lie in a
-    device-memory buffer (the engine's rings already take 25 KB of shared
-    memory a CTA)."""
+    P, PATH_COLS] per-path rows when ``per_path``, plus the symbols' int64
+    [S, grid, 72] and f32 [S, grid, 16] harvest rows with ``harvest`` (the
+    harvest builds ``mc_engine_wide_corr_harvest_kernel``, at every shape,
+    counted under ``mc_engine_wide_corr(_sampler)_harvest``).  The book
+    curves lie in a device-memory buffer (the engine's rings already take 25
+    KB of shared memory a CTA)."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     layout, _, cols, samp = _check_corr(
         seed, levels, params, s0, sigma, beta, weights, kw, noise,
         paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
         antithetic=antithetic, external_uniforms=external_uniforms,
-        market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+        market_uniforms=market_uniforms, sampler=sampler,
         hist_bars=hist_bars, tables=tables, block_len=block_len, heston=heston, dt=dt)
     device = torch.device("cuda" if device is None else device)
     ext_ptr = launch_pointer(paths_per_symbol, num_bars, external_uniforms, device,
@@ -1320,16 +1456,23 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                               device=device) if per_path else None)
     curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
     bw = book_pairs(cols, device)
+    hv = _harvest_rows(n_sym, grid, device) if harvest else ()
     tail = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
-            part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None, grid,
-            torch.cuda.current_stream(device).cuda_stream)
-    wide = _use_envelope(levels.max_levels, num_bars)
+            part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None,
+            *(x.data_ptr() for x in hv), grid, torch.cuda.current_stream(device).cuda_stream)
+    wide = _use_envelope(levels.max_levels, num_bars, harvest)
     lv_dev = device_rows(level_table(levels, n_sym), device) if wide else None
     if samp.kind != "gbm":
         what = "mc_engine_corr_sampler"
         samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
         kind = SAMPLER_KINDS[samp.kind]
-        if wide:
+        if harvest:
+            what = _wide(what) + "_harvest"
+            lib = _wide_library("_wide_corr_samplers_harvest")
+            rc = lib.qmmx_mc_engine_wide_corr_sampler_harvest(
+                args_dev.data_ptr(), samp_dev.data_ptr(), lv_dev.data_ptr(), bw.data_ptr(),
+                n_sym, kind, levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+        elif wide:
             what = _wide(what)
             rc = _wide_library("_wide_corr_samplers").qmmx_mc_engine_wide_corr_sampler(
                 args_dev.data_ptr(), samp_dev.data_ptr(), lv_dev.data_ptr(), bw.data_ptr(),
@@ -1338,6 +1481,11 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
             rc = _corr_sampler_library().qmmx_mc_engine_corr_sampler(
                 args_dev.data_ptr(), samp_dev.data_ptr(), bw.data_ptr(), n_sym, kind,
                 levels.max_levels, num_bars, ext_ptr, m_ptr, *tail)
+    elif harvest:
+        what = _wide("mc_engine_corr") + "_harvest"
+        rc = _wide_library("_wide_corr_harvest").qmmx_mc_engine_wide_corr_harvest(
+            args_dev.data_ptr(), lv_dev.data_ptr(), bw.data_ptr(), n_sym, levels.max_levels,
+            num_bars, ext_ptr, m_ptr, *tail)
     elif wide:
         what = _wide("mc_engine_corr")
         rc = _wide_library("_wide_corr").qmmx_mc_engine_wide_corr(
@@ -1350,8 +1498,7 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
             m_ptr, *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
-    out = (part_counts, part_floats)
-    return out + (path_rows_,) if per_path else out
+    return (part_counts, part_floats) + ((path_rows_,) if per_path else ()) + hv
 
 
 def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, weights, *,
@@ -1365,9 +1512,10 @@ def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, we
                                market_uniforms=None, sampler: str = "gbm", hist_bars=None,
                                tables=None, block_len: int = 10, heston=None, device=None):
     """Fused correlated full-engine book, the counterpart of
-    ``mc_paths_pallas_engine_corr`` (no harvest): ([S] PathStats, the
-    book's PathStats, int64 [S, 16] skip tables, int64 [S] escalations) from
-    one launch, in ``portfolio_mc_engine``'s order.  Symbol s runs the full
+    ``mc_paths_pallas_engine_corr``: ([S] PathStats, the book's PathStats,
+    int64 [S, 16] skip tables, int64 [S] escalations[, the symbols' [S]
+    ``EngineHarvest`` with ``harvest``]) from one launch, in
+    ``portfolio_mc_engine``'s order.  Symbol s runs the full
     engine under its own [S, L] levels row, s0[s], sigma[s], all engine
     knobs (``params`` leaves scalar or [S]), noise stds (``noise`` leaves
     scalar or [S]) and key, the ML, policy, touch and guard records shared;
@@ -1397,18 +1545,19 @@ def mc_paths_engine_corr_fused(seed, levels: Levels, params, s0, sigma, beta, we
                                         policy_gate_disabled, escalation, bar0_minute), noise,
                            paths_per_symbol=paths_per_symbol, num_bars=num_bars, lanes=lanes,
                            antithetic=antithetic, external_uniforms=external_uniforms,
-                           market_uniforms=market_uniforms, sampler=sampler, harvest=harvest,
+                           market_uniforms=market_uniforms, sampler=sampler,
                            hist_bars=hist_bars, tables=tables, block_len=block_len,
                            heston=heston, dt=dt)
     kw["tables"] = samp.tables
     device = devices.resolve(device, external_uniforms)
     if device.type == "cpu":
-        c, f = engine_corr_totals_reference(seed, levels, params, s0, sigma, beta, weights,
-                                            device=device, **kw)
+        c, f, *hv = engine_corr_totals_reference(seed, levels, params, s0, sigma, beta,
+                                                 weights, device=device, **kw)
     else:
-        c, f = reduce_rows(*engine_corr_rows(seed, levels, params, s0, sigma, beta, weights,
-                                             device=device, **kw),
-                           what="mc_engine_corr_reduce_rows")
+        pc, pf, *rows = engine_corr_rows(seed, levels, params, s0, sigma, beta, weights,
+                                         device=device, **kw)
+        c, f = reduce_rows(pc, pf, what="mc_engine_corr_reduce_rows")
+        hv = [reduce_harvest(*rows)] if harvest else []
     sym, skips, escal = stats_from_engine_totals(c[:-1], f[:-1])
     book, _, _ = stats_from_engine_totals(c[-1], f[-1])
-    return sym, book, skips, escal
+    return (sym, book, skips, escal, *hv)

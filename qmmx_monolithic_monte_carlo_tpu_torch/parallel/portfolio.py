@@ -41,13 +41,17 @@ likewise on its ``STREAM_PATH`` rows, mixes each pair with the symbol's
 loading and steps the variance (``ops/pathgen.heston_bars_from_shocks``);
 its volume comes from the volume model on the mixed price shock.
 
-Not ported yet: ``harvest=True`` and ``exact_tail_book`` (the flywheel).
+``portfolio_mc_engine(harvest=True)`` also returns each symbol's
+closed-trade label harvest (``models/harvest.EngineHarvest``), the
+flywheel's input from correlated books.  Not ported yet: ``exact_tail_book``
+(the exact tail).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..models import harvest as HV
 from ..ops import pathgen as PG
 from ..ops.draws import SAMPLERS
 from ..ops.kernel_args import symbol_rows
@@ -242,10 +246,8 @@ def portfolio_mc_engine(seed: int, levels: Levels, params, s0, sigma, beta, weig
     symbol replays the same recorded day, gathered from its own history with
     its recorded volumes; under ``heston`` the market factor moves both the
     price and the variance shocks through the same loading.
-    ``harvest=True`` is not ported yet."""
-    if harvest:
-        raise NotImplementedError("harvest=True is not ported yet (the flywheel slice, "
-                                  "with models/harvest.py)")
+    ``harvest=True`` returns a 5-tuple ending in the [S]-batched
+    ``models/harvest.EngineHarvest`` (JAX portfolio.py:407, :547-584)."""
     rows = _f32_rows(symbol_rows(levels, s0, sigma, params, beta=beta, weights=weights))
     samp = _check(sampler, antithetic, block_paths, num_paths, n_sym=len(rows),
                   hist_bars=hist_bars, block_len=block_len)
@@ -254,9 +256,15 @@ def portfolio_mc_engine(seed: int, levels: Levels, params, s0, sigma, beta, weig
                      guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
                      escalation=escalation, bar0_minute=bar0_minute)
 
+    hvs = [HV.EngineHarvest.zero(device=device) for _ in rows]
+
     def replay(s, bars, tie, row):
-        return enginepath.engine_path_replay(bars, row[0].to(device), row[3], tie,
-                                             return_curve=True, **engine_kw)
+        out, curve = enginepath.engine_path_replay(bars, row[0].to(device), row[3], tie,
+                                                   return_curve=True, harvest=harvest,
+                                                   **engine_kw)
+        if harvest:
+            hvs[s] = hvs[s].merge(out.harvest)
+        return out, curve
 
     def tally(out):
         return torch.cat([out.skip_counts.to(torch.int64),
@@ -269,7 +277,7 @@ def portfolio_mc_engine(seed: int, levels: Levels, params, s0, sigma, beta, weig
         sampler=samp, heston=heston, device=device, tally=tally)
     tallies = torch.stack(tallies)
     skips, escal = tallies[:, :-1], tallies[:, -1]
-    return sym, book, skips, escal
+    return (sym, book, skips, escal) + ((HV.stack(hvs),) if harvest else ())
 
 
 def exact_tail_book(*args, **kwargs):

@@ -40,6 +40,7 @@ from ..config import EngineParams
 from ..engine import exits
 from ..engine.gates import _ml_allowed
 from ..engine.state import MlModel
+from ..models import harvest as HV
 from ..models import online_policy as OP
 from ..ops import confidence as C
 from ..ops import features as F
@@ -110,6 +111,8 @@ class EngineLifecycleOutcome(NamedTuple):
     max_dd: torch.Tensor       # f32 peak-tracked max drawdown in R (>= 0)
     escalations: torch.Tensor  # i32 target rolls taken
     skip_counts: torch.Tensor  # int64[16], ordered as SKIP_REASONS
+    harvest: HV.EngineHarvest | None = None   # closed-trade label statistics
+                                              # (models/harvest.py), with harvest
 
 
 def blend_weights(params: EngineParams) -> tuple[torch.Tensor, torch.Tensor]:
@@ -151,11 +154,14 @@ class EngineLifecycle:
     The engine's knobs (policy, ML model, touch and guard parameters, the
     policy-gate switch, escalation, bar 0's minute of the trading day) default as
     ``engine_knobs`` fills them.  ``windowed`` carries the guard's 61-slot
-    extreme rings, which horizons past GUARD_WINDOW_BARS need."""
+    extreme rings, which horizons past GUARD_WINDOW_BARS need.  ``harvest``
+    folds every closed trade into ``hv`` (models/harvest.EngineHarvest),
+    labelled by pnl > 0 with the buckets and features latched at its entry
+    (JAX enginepath.py:265-269, :453-460)."""
 
     def __init__(self, prev_c: torch.Tensor, levels: Levels, params: EngineParams,
                  *, noise=None, exit_at_close: bool = False, windowed: bool = False,
-                 **knobs):
+                 harvest: bool = False, **knobs):
         k = engine_knobs(**knobs)
         self.tp, self.gp = k["touch_params"], k["guard_params"]
         _check_state_envelope(self.tp, self.gp)
@@ -188,6 +194,10 @@ class EngineLifecycle:
         self.equity = self.peak = self.dd = zf
         self.trades = self.wins = self.losses = self.escal = zi
         self.skips = torch.zeros((len(SKIP_REASONS),), dtype=torch.int64, device=dev)
+        self.skip_codes = torch.tensor(_SKIP_CODES, device=dev)
+        self.hv = HV.EngineHarvest.zero(device=dev) if harvest else None
+        self.pend_ml = self.pend_pol = zi
+        self.pend_x1 = self.pend_x6 = zf
 
     def step(self, t: int, h, l, c, v, tie, nz=None) -> torch.Tensor:
         """Bar ``t`` (high/low/close/volume/tie coin f32[P]; ``nz`` the bar's
@@ -222,6 +232,11 @@ class EngineLifecycle:
                                               entry - exit_px), 0.0)
         # R on the risk at open (a trailed stop would blow R up)
         r = torch.where(closed, pnl / torch.clamp(self.risk0, min=1e-9), 0.0)
+        if self.hv is not None:
+            # label on close by pnl sign, with the entry's latched features
+            self.hv = HV.harvest_closed(
+                self.hv, closed=closed, label_pos=pnl > 0, pend_ml=self.pend_ml,
+                pend_pol=self.pend_pol, pend_x1=self.pend_x1, pend_x6=self.pend_x6)
         self.equity = self.equity + r
         self.peak = torch.maximum(self.peak, self.equity)
         self.dd = torch.maximum(self.dd, self.peak - self.equity)
@@ -303,11 +318,10 @@ class EngineLifecycle:
                             Reason.ACC_BREAKOUT_GATE)
 
         # 10) soft volume veto (:1677-1705 -> :1773-1794), over the finished
-        # bars oldest -> newest
-        n_hist = min(t, BARS_RING)
-        valid_on = (torch.arange(BARS_RING, device=c.device) < n_hist).flip(-1)
-        vslope = F.volume_slope(self.ring_v.flip(-1), valid_on.expand_as(self.ring_v),
-                                window=6)
+        # bars oldest -> newest: the slope reads the newest min(6, t) of them,
+        # so only those go in (the same sums, in the same order)
+        win = self.ring_v[:, :min(6, t, BARS_RING)].flip(-1)
+        vslope = F.volume_slope(win, torch.ones_like(win, dtype=torch.bool), window=6)
         veto_ok, veto_reason = C.soft_veto(
             side=new_side, volume_slope=vslope, approach_from_below=direction == DIR_UP,
             confluence=F.has_confluence_near(levels, lvlp, params.confluence_within),
@@ -330,13 +344,15 @@ class EngineLifecycle:
             reason = first_fail(reason, ran_ml & ~ok_ml, Reason.ML_CONF_LOW)
 
         # 12) OnlinePolicy gate (:3046-3112); the live loop hardcodes the
-        # volume trend feature to 0.0 (:3072)
-        if not self.policy_off:
+        # volume trend feature to 0.0 (:3072).  The harvest latches the same
+        # features, gate or no gate.
+        if not self.policy_off or self.hv is not None:
             x = F.policy_features(
                 proximity_abs=dist, volume_trend=torch.zeros_like(dist),
                 approach=go_long.to(_I32),
                 confluence=F.confluence_count(levels, lvlp, exits.CONFLUENCE_WINDOW) > 1,
                 minutes_since_open=self.bar0_minute + t)
+        if not self.policy_off:
             reason = first_fail(reason, ~OP.entry_gate(self.policy, x, go_long),
                                 Reason.ONLINE_POLICY)
 
@@ -362,6 +378,14 @@ class EngineLifecycle:
         self.target = torch.where(enter, tgt_new, target)
         self.risk0 = torch.where(enter, (fill - stop_new).abs(), self.risk0)
         self.trades = self.trades + enter.to(_I32)
+        if self.hv is not None:
+            # latch the entry-time features until this trade closes
+            self.pend_ml = torch.where(enter, HV.ml_bucket(tc, lvlk == KIND_SOLID, go_long),
+                                       self.pend_ml)
+            self.pend_pol = torch.where(enter, HV.pol_bucket(go_long, x[:, 5] > 0.5),
+                                        self.pend_pol)
+            self.pend_x1 = torch.where(enter, x[:, 1], self.pend_x1)
+            self.pend_x6 = torch.where(enter, x[:, 6], self.pend_x6)
         if t > 0:
             # direction state (:2952-2955): exact != (no eps)
             self.last_dir = torch.where(
@@ -384,14 +408,18 @@ class EngineLifecycle:
                     | (guard.regime == G.REGIME_BREAKOUT_DOWN))
         self.guard, self.touch = guard, touch.reset_box(breakout)
         self.prev_c = c
-        self.skips += torch.bincount(reason.long(), minlength=_N_CODES)[_SKIP_CODES]
+        # a scatter-add, not bincount: on the card bincount waits for the device
+        per_code = torch.zeros(_N_CODES, dtype=torch.int64, device=reason.device)
+        per_code.scatter_add_(0, reason.long(), torch.ones_like(reason, dtype=torch.int64))
+        self.skips += per_code[self.skip_codes]
         return reason
 
     def outcome(self) -> EngineLifecycleOutcome:
         return EngineLifecycleOutcome(
             equity=self.equity, trades=self.trades, wins=self.wins,
             losses=self.losses, open_at_end=self.side != SIDE_FLAT,
-            max_dd=self.dd, escalations=self.escal, skip_counts=self.skips)
+            max_dd=self.dd, escalations=self.escal, skip_counts=self.skips,
+            harvest=self.hv)
 
 
 def engine_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
@@ -406,10 +434,8 @@ def engine_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
     ``noise`` (sim.montecarlo.McNoise) jitters each entry's scaffold with the
     bar's normals in ``noise_normals`` (f32[4, P, W]); ``exit_at_close``
     prices exits at the close, as the live loop does.  ``return_curve=True``
-    also returns the post-bar equity curve f32[W, P].  The closed-trade label
-    harvest is not ported yet."""
-    if harvest:
-        raise NotImplementedError("harvest=True is not ported yet")
+    also returns the post-bar equity curve f32[W, P].  ``harvest=True`` fills
+    the outcome's ``harvest`` (closed-trade label statistics)."""
     close = torch.as_tensor(paths.close, dtype=_F32)
     w = close.shape[1]
     life = EngineLifecycle(
@@ -417,7 +443,7 @@ def engine_path_replay(paths: PG.PathBars, levels: Levels, params: EngineParams,
         policy=policy, ml_model=ml_model, touch_params=touch_params,
         guard_params=guard_params, policy_gate_disabled=policy_gate_disabled,
         escalation=escalation, bar0_minute=bar0_minute, noise=noise,
-        exit_at_close=exit_at_close, windowed=w > R.GUARD_WINDOW_BARS)
+        exit_at_close=exit_at_close, windowed=w > R.GUARD_WINDOW_BARS, harvest=harvest)
     tie = torch.as_tensor(tie_uniform, dtype=_F32)
     high, low = (torch.as_tensor(x, dtype=_F32) for x in (paths.high, paths.low))
     vol = torch.as_tensor(paths.volume, dtype=_F32)
@@ -450,7 +476,7 @@ def _one_block_engine(seed: int, block: int, *, levels, params, block_paths,
     stats = PathStats.from_lifecycle(
         equity=out.equity, trades=out.trades, wins=out.wins, losses=out.losses,
         open_at_end=out.open_at_end, max_dd=out.max_dd)
-    return stats, out.skip_counts, out.escalations.sum(dtype=torch.int64)
+    return stats, out.skip_counts, out.escalations.sum(dtype=torch.int64), out.harvest
 
 
 def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
@@ -468,11 +494,10 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
     histogram range, int64[16] skip table ordered as SKIP_REASONS, int64
     escalations); ``symbol`` keys the draws and ``sampler``, ``hist_bars``,
     ``block_len`` and ``heston`` pick the bars as in ``pathsim.mc_paths``
-    (the bootstrap samplers' recorded volumes reach the volume gates).  Runs
-    on ``device``: the CUDA device by default (raising where there is none),
-    the CPU when asked."""
-    if harvest:
-        raise NotImplementedError("harvest=True is not ported yet")
+    (the bootstrap samplers' recorded volumes reach the volume gates).  With
+    ``harvest=True`` returns a 4-tuple ending in the merged
+    ``models/harvest.EngineHarvest``.  Runs on ``device``: the CUDA device by
+    default (raising where there is none), the CPU when asked."""
     if num_paths % block_paths != 0:
         raise ValueError("num_paths must be a multiple of block_paths")
     device = devices.resolve(device)
@@ -480,10 +505,11 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
     stats = PathStats.zero(LIFE_HIST_LO, LIFE_HIST_HI, device=device)
     skips = torch.zeros((len(SKIP_REASONS),), dtype=torch.int64, device=device)
     escal = torch.zeros((), dtype=torch.int64, device=device)
+    hv = HV.EngineHarvest.zero(device=device) if harvest else None
     sampler_kw = dict(block_len=block_len, heston=heston,
                       tables=pathsim.sampler_tables(sampler, hist_bars))
     for b in range(num_paths // block_paths):
-        st, sk, es = _one_block_engine(
+        st, sk, es, bh = _one_block_engine(
             seed, b, levels=levels, params=params, block_paths=block_paths,
             num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt, sampler=sampler,
             antithetic=antithetic, volume_model=volume_model, noise=noise,
@@ -491,6 +517,7 @@ def mc_paths_engine(seed: int, levels: Levels, params: EngineParams, *,
             ml_model=ml_model,
             touch_params=touch_params, guard_params=guard_params,
             policy_gate_disabled=policy_gate_disabled, escalation=escalation,
-            bar0_minute=bar0_minute)
+            bar0_minute=bar0_minute, harvest=harvest)
         stats, skips, escal = stats.merge(st), skips + sk, escal + es
-    return stats, skips, escal
+        hv = hv.merge(bh) if harvest else None
+    return (stats, skips, escal, hv) if harvest else (stats, skips, escal)

@@ -366,17 +366,23 @@ def test_book_entries_reject_bad_inputs(engine, bad):
 
 
 def test_book_entries_refuse_what_is_not_ported_yet():
-    """The harvest and the exact tail are not ported yet; the samplers are
-    (``tests/test_torch_book_samplers.py``): a Heston book runs."""
+    """The exact tail is not ported yet; the harvest is (both books return
+    each symbol's, and harvesting moves none of their numbers) and so are the
+    samplers (``tests/test_torch_book_samplers.py``): a Heston book runs."""
     lv, p = _levels(), _params(False)
     base = (0, lv, p, S0, SIGMAS, BETAS, WEIGHTS)
     kw = dict(paths_per_symbol=8 * 256, num_bars=8, lanes=256, device="cpu")
     pipe = dict(num_paths=256, num_bars=8, block_paths=256, device="cpu")
-    for call in (lambda: cuda_engine.mc_paths_engine_corr_fused(*base, harvest=True, **kw),
-                 lambda: P.portfolio_mc_engine(*base, harvest=True, **pipe),
-                 lambda: P.exact_tail_book(*base, num_paths=256)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    for on, off in ((cuda_engine.mc_paths_engine_corr_fused(*base, harvest=True, **kw),
+                     cuda_engine.mc_paths_engine_corr_fused(*base, **kw)),
+                    (P.portfolio_mc_engine(*base, harvest=True, **pipe),
+                     P.portfolio_mc_engine(*base, **pipe))):
+        assert len(on) == 5 and len(off) == 4
+        assert torch.equal(on[4].n_labeled, (on[0].n_tp + on[0].n_stop).to(torch.int64))
+        assert torch.equal(on[0].hist, off[0].hist) and torch.equal(on[1].hist, off[1].hist)
+        assert torch.equal(on[2], off[2])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        P.exact_tail_book(*base, num_paths=256)
     sym, book = cuda_gated.mc_paths_gated_corr_fused(*base, sampler="heston", **kw)
     assert float(book.n) == 8 * 256 and bool((sym.n == 8 * 256).all())
 
@@ -475,16 +481,29 @@ def test_cli_book_rows_have_the_jax_keys(tmp_path, engine):
                                   ["--bars-csv", "x.csv"], ["--block-len", "5"],
                                   ["--heston-xi", "0.5"]])
 def test_cli_book_unported_flags_exit(tmp_path, flag):
-    """``--harvest`` and ``--exact-tail`` exit ("not ported yet"); the
-    sampler options run since the books took the samplers: ``--sampler
-    heston`` changes the rows, and ``--bars-csv``, ``--block-len`` and the
-    ``--heston-*`` values alone leave the gbm book as it is (as in the JAX
-    CLI, the gbm sampler reads none of them; no file is opened)."""
+    """``--exact-tail`` exits ("not ported yet"); ``--harvest`` exits without
+    ``--engine`` as the JAX CLI does, and with it adds each symbol's
+    ``labeled`` and ``ml_coef`` to its row, the other keys and values as
+    without it; the sampler options run since the books took the samplers:
+    ``--sampler heston`` changes the rows, and ``--bars-csv``,
+    ``--block-len`` and the ``--heston-*`` values alone leave the gbm book as
+    it is (as in the JAX CLI, the gbm sampler reads none of them; no file is
+    opened)."""
     small = ["--device", "cpu", "--backend", "torch", "--num-symbols", "2", "--num-paths",
              "512", "--num-bars", "8"]
-    if flag[0] in ("--harvest", "--exact-tail"):
+    if flag[0] == "--exact-tail":
         with pytest.raises(SystemExit, match="not ported yet"):
             _cli(tmp_path, *small, *flag)
+        return
+    if flag[0] == "--harvest":
+        with pytest.raises(SystemExit, match="needs --engine"):
+            _cli(tmp_path, *small, *flag)
+        rc, base = _cli(tmp_path, *small, "--engine")
+        rc2, rows = _cli(tmp_path, *small, "--engine", *flag)
+        assert rc == rc2 == 0 and rows[-1] == base[-1]
+        for r, b in zip(rows[:-1], base[:-1]):
+            assert {k: v for k, v in r.items() if k not in ("labeled", "ml_coef")} == b
+            assert r["labeled"] > 0 and len(r["ml_coef"]) == 4
         return
     rc, gbm = _cli(tmp_path, *small)
     rc2, rows = _cli(tmp_path, *small, *flag)

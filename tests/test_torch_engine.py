@@ -177,9 +177,12 @@ def test_engine_replay_curve_and_unported_harvest():
                                        return_curve=True)
     np.testing.assert_array_equal(curve.numpy(), np.asarray(jcurve))
     assert torch.equal(curve[-1], out.equity)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EP.engine_path_replay(tbars, _levels(), EngineParams.default(),
-                              torch.from_numpy(np.array(tie)), harvest=True)
+    # the harvest is ported (tests/test_torch_engine_harvest.py holds it
+    # against JAX): it labels every close and changes no trade
+    hv_out = EP.engine_path_replay(tbars, _levels(), EngineParams.default(),
+                                   torch.from_numpy(np.array(tie)), harvest=True)
+    assert int(hv_out.harvest.n_labeled) == int(out.wins.sum() + out.losses.sum())
+    assert torch.equal(hv_out.equity, out.equity) and torch.equal(hv_out.trades, out.trades)
 
 
 def _path_rows(out):
@@ -298,8 +301,11 @@ def test_state_envelope_rejects_unrepresentable_params():
     ok_touch = T.TouchMemoryParams.default().replace(fatigue_hits=R.TAP_STACK)
     stats, _, _ = EP.mc_paths_engine(0, _levels(), params, touch_params=ok_touch, **kw)
     assert float(stats.n) == 1 << 8
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EP.mc_paths_engine(0, _levels(), params, harvest=True, **kw)
+    # harvest=True is ported: a 4-tuple, one label a closed trade
+    stats_h, _, _, hv = EP.mc_paths_engine(0, _levels(), params, touch_params=ok_touch,
+                                           harvest=True, **kw)
+    assert torch.equal(stats_h.hist, stats.hist)
+    assert int(hv.n_labeled) == int(stats.n_tp + stats.n_stop)
 
 
 @pytest.mark.slow

@@ -282,11 +282,15 @@ def test_universe_wrappers_take_the_plain_version_for_cpu():
 
 
 def test_unported_harvest_and_mesh_raise():
+    """The harvest is ported (the universe returns each symbol's, and
+    harvesting changes no statistic); a mesh is not."""
     lv, p = _levels(), EngineParams.default()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cuda_engine.mc_paths_engine_universe_fused(0, lv, p, S0, SIGMAS, harvest=True,
-                                                   paths_per_symbol=2048, num_bars=8,
-                                                   device="cpu")
+    kw = dict(paths_per_symbol=2048, num_bars=8, device="cpu")
+    on = cuda_engine.mc_paths_engine_universe_fused(0, lv, p, S0, SIGMAS, harvest=True, **kw)
+    off = cuda_engine.mc_paths_engine_universe_fused(0, lv, p, S0, SIGMAS, **kw)
+    assert len(on) == 4 and tuple(on[3].n_labeled.shape) == (3,)
+    assert torch.equal(on[3].n_labeled, (on[0].n_tp + on[0].n_stop).to(torch.int64))
+    assert torch.equal(on[0].hist, off[0].hist) and torch.equal(on[1], off[1])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         U.universe_policy_refresh(object(), np.zeros((2, 8, 3)), np.zeros((2, 8)),
                                   device="cpu")
