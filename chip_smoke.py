@@ -234,7 +234,11 @@ Phases (any failure exits non-zero and prints no result line):
    390 bars x 2^24 paths and ``sweep --engine`` at 2^20 x 18 rows, launch
    counts set to 0 just before and read just after (the envelope kernel and
    the fold once, nothing else; one timed run, its kernel warm from the
-   phase's checks), the kernel alone timed;
+   phase's checks), the kernel alone timed; the envelope kernels' ptxas
+   registers, stack and spill, and digests of the main paths' folded int64
+   count totals (the skip table, escalations, the harvest's counts) at seed
+   7 (the sweep's at seed 5), which do not depend on the CTA size
+   (``count_digest``);
 30. the samplers and books (``mc_engine_wide_sampler_kernel``,
    ``mc_engine_wide_corr_kernel``): bootstrap, block bootstrap and Heston at
    30 x 390 on a recorded year and at W 25 with noise, injected (CPU copies,
@@ -266,14 +270,33 @@ Phases (any failure exits non-zero and prints no result line):
    flywheel (``policy_iteration`` under block_bootstrap, the sampler harvest
    kernel) and ``book --engine --harvest --sampler block_bootstrap`` at 100 x
    2^20; each harvest kernel timed against the same kernel without the
-   harvest in turn; the harvest rows' fold against its plain fold.
+   harvest in turn; the harvest rows' fold against its plain fold;
+32. first contact past 128 bars (``mc_first_contact_long.cu``, where the
+   register kernels keep at most 64 sine halves; ``long_phases``): at W =
+   390 injected uniforms against the plain version on CPU copies, Philox at
+   2^20 (single with noise and antithetic, the 3 x 3 sweep, a 3-symbol
+   universe) against the plain version on the card, the same launches
+   forced at W = 40 and 128 equal to the register kernels bit for bit; the
+   port CLI's ``paths --num-bars 390`` (default ``--backend auto``) at 2^28
+   and ``sweep --num-bars 390`` at 2^26, config #4's universe at 390 bars
+   through ``mc_paths_universe_fused``, launch counts set to 0 just before
+   and read just after; the samplers at W = 390 (single, sweep, universe)
+   against their plain versions on the card, and ``paths --sampler ...
+   --num-bars 390`` at 2^28 through the CLI; every kernel timed beside its
+   bound.  Flip budgets F = 2 + paths/1024 x ceil(W / 40).
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
 (default: this one) at 2^28 x 40, for a parent unpacked with ``git archive``
 against this tree in one call.  ``python3 chip_smoke.py --parent-times``
 runs none of them either: it times every parent engine kernel against its
-envelope kernel forced to run where the parent fits (``parent_times``).
+envelope kernel forced to run where the parent fits (``parent_times``), with
+their count digests.  ``python3 chip_smoke.py --envelope-times TREE
+[--no-guard | --min-blocks G,S]`` times the envelope kernels of the port in
+TREE at their main paths' shapes, with count digests and ptxas resources
+(``envelope_times``), for a parent unpacked with ``git archive`` against this
+tree in turns (the two options build probes: no windowed guard, or other
+``__launch_bounds__``).
 
 Harvest (``check_harvest``, ``gap_within``): where every path
 agrees the count tables are equal; each path whose trades differ can move
@@ -377,6 +400,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -408,6 +433,8 @@ ENGINE_SWEEP_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:18
 CONFIG5 = [(0.25, 0.15), (0.35, 0.25), (0.45, 0.35)]
 CONFIG5_PATHS = 1 << 30
 SWEEP_INJECT_BLOCKS = 4
+SWEEP_WORK_PATHS = 1 << 18        # the CLI sweeps' bounds: the plain version's work on these
+ENGINE_SWEEP_WORK_PATHS = 1 << 14
 ENGINE_LANES = 256
 ENGINE_INJECT_BLOCKS = 8
 # the JAX engine kernel tests' levels (tests/test_pallas_engine.py:25-32)
@@ -633,19 +660,20 @@ def r_ulp(price: float, stop: float) -> float:
 
 
 def compare(name: str, want, got, n_paths: int, quiet: bool = False, ties=None,
-            tie_ulp: float = 0.0) -> float:
+            tie_ulp: float = 0.0, num_bars: int = NUM_BARS) -> float:
     """Hold first-contact kernel totals ``got`` against plain totals ``want``
     (both (int64 counts, float64 floats)); returns |delta mean R|.  ``quiet``
     logs only a failure.  ``ties`` = (the plain version's per-path R, the
     kernel's), f32[P] with NaN where a path did not enter: the histogram is
     then held after binning each true edge tie (both R within TIE_ULPS price
     ulps, ``tie_ulp`` = ``r_ulp`` of the row, of one bin edge) as the kernel
-    bins it (``edge_ties``)."""
+    bins it (``edge_ties``).  The flip budget is F = 2 + paths/1024 x
+    ceil(``num_bars`` / 40)."""
     import torch
 
     wc, wf = (t.cpu() for t in want)
     gc, gf = (t.cpu() for t in got)
-    flips = 2 + n_paths // 1024
+    flips = 2 + n_paths // 1024 * math.ceil(num_bars / NUM_BARS)
     bad = []
     want_hist, n_ties = wc[5:], None
     if ties is not None:
@@ -4011,6 +4039,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
     from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
 
     CE = cuda_engine
     params = EngineParams.default()
@@ -4074,8 +4103,10 @@ def envelope_phases(dev, card, reset, cli) -> list:
 
     def philox(case, lv, w, n, s="gbm", nz=None):
         """Philox: kernel against the plain version on the card, equal on
-        every path (one device's transcendentals); returns (error, plain ms,
-        the plain version's int64 counts)."""
+        every path (one device's transcendentals); logs the digests of the
+        kernel's folded int64 totals and of its harvest's counts at seed 7
+        (``count_digest``); returns (error, plain ms, the plain version's
+        int64 counts)."""
         kw = dict(num_paths=n, num_bars=w, sigma=SIGMA, dt=DT, lanes=lanes, noise=nz,
                   per_path=True, **skw(s))
         want, plain_ms = timed(lambda: CE.engine_totals_reference(
@@ -4088,14 +4119,22 @@ def envelope_phases(dev, card, reset, cli) -> list:
                                  f"{int(differ.sum())} paths")
         *h_rows, h_c, h_s = CE.engine_rows(7, lv, params, device=dev, harvest=True, **kw)
         same_launch(case, (pc, pf, rows), h_rows)
+        h_got = CE.reduce_harvest(h_c, h_s)
         check_harvest(case, "mc_engine_wide" + ("" if s == "gbm" else "_sampler") + "_harvest",
-                      CE.reduce_harvest(h_c, h_s), want[3], rows, want[2], 2 * 100.0)
+                      h_got, want[3], rows, want[2], 2 * 100.0)
+        log(f"  {case}: count digests (the totals, the harvest's): {count_digest(got[0])}, "
+            f"{count_digest(h_got.ml_counts, h_got.pol_counts)}")
         return err, plain_ms, want[0].cpu()
 
     entries = []
     # ---------------------------------------------------------------- [29]
     log(f"[29] gbm engine envelope (mc_engine_wide_kernel, mc_engine_wide.cu): injected "
         "uniforms, kernel vs plain on CPU copies path by path, every differing path traced")
+    for name in ("mc_engine_wide", "mc_engine_wide_samplers", "mc_engine_wide_harvest",
+                 "mc_engine_wide_samplers_harvest"):
+        for fn, res in sorted(ptxas_resources(build.BUILD_LOG.get(name, {}).get("log", ""))
+                              .items()):
+            log(f"  ptxas {fn[:72]}: {res}")
     err = 0.0
     for case, n_lv, w, nz, anti, nb in (
             ("30 levels, W 40", 30, 40, None, False, ENV_INJECT_BLOCKS),
@@ -4144,6 +4183,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
     rkw = dict(num_paths=ENV_ROW_PATHS, num_bars=ENV_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                per_path=True, device=dev)
     pc, pf, rows = CE.engine_sweep_rows(5, lv30, g_params, noise=g_noise, **rkw)
+    log(f"  the sweep's 18 rows at seed 5: count digest {count_digest(CE.reduce_rows(pc, pf)[0])}")
     for g in range(len(grid18)):
         one = CE.engine_rows(5, lv30, grid_row(g_params, g), noise=grid_row(g_noise, g), **rkw)
         if not (torch.equal(pc[g], one[0]) and torch.equal(pf[g], one[1])
@@ -4687,6 +4727,296 @@ def harvest_phases(dev, card, reset, cli, e_counts) -> list:
     ]
 
 
+
+# ---- first contact past 128 bars (phase 32): kernels #1-#3 and their
+# samplers at the desk's 390-bar day (ops/csrc/mc_first_contact_long.cu)
+LONG_BARS = 390
+LONG_INJECT_BLOCKS = 4           # 4 x 8192 paths injected, against the plain version on CPU copies
+LONG_PHILOX_PATHS = 1 << 20      # kernel vs plain on the card; the bounds' work sample
+LONG_SAMPLER_PATHS = 1 << 18     # the samplers' rows against the plain version on the card
+LONG_PATHS = 1 << 24             # the kernels alone (the sweep: 9 rows of it)
+LONG_SYMBOLS = 3
+LONG_SOURCE = CSRC + "mc_first_contact_long.cu"
+
+
+def long_phases(dev, card, reset, cli) -> list:
+    """Phase 32: first contact at W = 390, where the register kernels (W <=
+    128) do not reach and ``--backend auto`` now takes the long-horizon
+    kernels.  gbm: injected uniforms (noise, antithetic) against the plain
+    version on CPU copies; Philox at 2^20 against the plain version on the
+    card, single (noise, antithetic), the 3 x 3 sweep and a 3-symbol
+    universe; the same launches forced (``cuda_mc._FORCE_LONG``) at W = 40
+    and 128 equal to the register kernels bit for bit; ``paths --num-bars
+    390`` (default ``--backend auto``) at 2^28 and ``sweep --num-bars 390`` at
+    2^26 through the CLI, config #4's universe at 390 bars through
+    ``mc_paths_universe_fused``; each kernel timed beside its bound.  The
+    samplers (bootstrap, block bootstrap, Heston; their kernels always draw
+    their pairs again) at W = 390: single, sweep and universe against the
+    plain version on the card at 2^18 a row, timed, and ``paths --sampler
+    ... --num-bars 390`` at 2^28 through the CLI.  Flip budgets F = 2 +
+    paths/1024 x ceil(W / 40).  Returns the ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import GbmLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_size
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    w = LONG_BARS
+    params = EngineParams.default()
+    noise = McNoise.make(entry_slip_std=0.01, level_jitter_std=0.02, stop_slip_std=0.015,
+                         target_slip_std=0.015)
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    common = dict(num_bars=w, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=LANES)
+    grid9 = [(sp, tp) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)]
+    stops9, tps9 = [c[0] for c in grid9], [c[1] for c in grid9]
+    lv3 = U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                           {"color": "orange", "type": "dashed", "index": 0, "price": x + 0.4}]
+                          for x in (100.0, 50.0, 75.0)], max_levels=8)
+    s0_3, sg_3 = np.array([100.0, 50.0, 75.0], np.float32), np.array([0.3, 0.4, 0.25], np.float32)
+    ukw = dict(num_bars=w, dt=DT, lanes=LANES, external_uniforms=None, device=dev)
+
+    def cmp(name, want, got, n):
+        return compare(name, want, got, n, num_bars=w)
+
+    log(f"[32] first contact at W = {w} (mc_first_contact_long.cu), injected uniforms: "
+        f"kernel vs plain on CPU copies, {LONG_INJECT_BLOCKS * LANES} paths")
+    err = {"mc_first_contact_long": 0.0, "mc_sweep_long": 0.0, "mc_universe_long": 0.0}
+    n_inj = LONG_INJECT_BLOCKS * LANES
+    for case, nz, anti in (("plain", None, False), ("noise+antithetic", noise, True)):
+        u = torch.from_numpy(np.random.default_rng(3200 + len(case)).uniform(
+            1e-9, 1.0, (LONG_INJECT_BLOCKS, GbmLayout(w, nz is not None).n_rows, LANES))
+            .astype(np.float32))
+        kw = dict(common, num_paths=n_inj, noise=nz, antithetic=anti)
+        want = cuda_mc.fused_totals_reference(0, levels, params, external_uniforms=u, **kw)
+        got = cuda_mc.reduce_rows(*cuda_mc.first_contact_rows(
+            0, levels, params, device=dev, external_uniforms=u.to(dev), **kw))
+        err["mc_first_contact_long"] = max(err["mc_first_contact_long"], cmp(case, want, got, n_inj))
+
+    log(f"[32] Philox at {LONG_PHILOX_PATHS} paths: single (noise, antithetic), the 3 x 3 "
+        f"sweep, a {LONG_SYMBOLS}-symbol universe, kernel vs plain on the card")
+    kw = dict(common, num_paths=LONG_PHILOX_PATHS, external_uniforms=None)
+    want, fc_plain_ms = timed(lambda: cuda_mc.fused_totals_reference(
+        7, levels, params, device=dev, noise=noise, antithetic=True, **kw))
+    got = cuda_mc.reduce_rows(*cuda_mc.first_contact_rows(7, levels, params, device=dev,
+                                                          noise=noise, antithetic=True, **kw))
+    err["mc_first_contact_long"] = max(err["mc_first_contact_long"],
+                                       cmp("philox+noise+antithetic", want, got,
+                                           LONG_PHILOX_PATHS))
+    sc, _, work = cuda_mc.fused_totals_reference(0, levels, params, device=dev, work=True,
+                                                 noise=None, antithetic=False, **kw)
+    (swc, swf, swork), sw_plain_ms = timed(lambda: cuda_mc.sweep_totals_reference(
+        0, levels, params, stops9, tps9, device=dev, work=True, **kw))
+    got = cuda_mc.reduce_rows(*cuda_mc.sweep_rows(0, levels, params, stops9, tps9, device=dev,
+                                                  **kw))
+    for g in range(len(grid9)):
+        err["mc_sweep_long"] = max(err["mc_sweep_long"], cmp(
+            f"sweep row {g}", (swc[g], swf[g]), (got[0][g], got[1][g]), LONG_PHILOX_PATHS))
+    (uwc, uwf, uwork), uni_plain_ms = timed(lambda: cuda_mc.universe_totals_reference(
+        7, lv3, params, s0_3, sg_3, paths_per_symbol=LONG_PHILOX_PATHS, work=True, **ukw))
+    got = cuda_mc.reduce_rows(*cuda_mc.universe_rows(
+        7, lv3, params, s0_3, sg_3, paths_per_symbol=LONG_PHILOX_PATHS, **ukw))
+    for i in range(LONG_SYMBOLS):
+        err["mc_universe_long"] = max(err["mc_universe_long"], cmp(
+            f"universe symbol {i}", (uwc[i], uwf[i]), (got[0][i], got[1][i]), LONG_PHILOX_PATHS))
+
+    log("[32] forced long path (cuda_mc._FORCE_LONG) at W = 40 and 128 against the "
+        f"register kernels at {LONG_PHILOX_PATHS} paths: partial rows bit for bit")
+    for wf in (40, 128):
+        fkw = dict(common, num_bars=wf, num_paths=LONG_PHILOX_PATHS, external_uniforms=None)
+
+        def launches():
+            return (cuda_mc.first_contact_rows(3, levels, params, device=dev, noise=noise,
+                                               antithetic=True, **fkw),
+                    cuda_mc.sweep_rows(3, levels, params, stops9, tps9, device=dev, **fkw),
+                    cuda_mc.universe_rows(3, lv3, params, s0_3, sg_3,
+                                          paths_per_symbol=LONG_PHILOX_PATHS,
+                                          **dict(ukw, num_bars=wf)))
+
+        reg = launches()
+        cuda_mc._FORCE_LONG = True
+        try:
+            forced_rows = launches()
+        finally:
+            cuda_mc._FORCE_LONG = False
+        for name, a, b in zip(("single", "sweep", "universe"), reg, forced_rows):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"W {wf} {name}: the long path differs from the "
+                                     "register kernel")
+    log("  single (noise, antithetic), sweep and universe: the long path == the register "
+        "kernels bit for bit at W = 40 and 128")
+
+    def row_bytes_of(rows):
+        return rows[0].numel() * 8 + rows[1].numel() * 4
+
+    def run_fc(n):
+        return cuda_mc.first_contact_rows(0, levels, params, device=dev, noise=None,
+                                          antithetic=False, **dict(kw, num_paths=n))
+
+    def run_sw(n):
+        return cuda_mc.sweep_rows(0, levels, params, stops9, tps9, device=dev,
+                                  **dict(kw, num_paths=n))
+
+    run_fc(LONG_PATHS)
+    fc_ms = cuda_ms(lambda: run_fc(LONG_PATHS), 2)
+    fc_rows = run_fc(LONG_PATHS)
+    fc_bound = card.bound(bytes_=row_bytes_of(fc_rows),
+                          **fc_ops(work.cpu(), int(sc[1]), LONG_PATHS / LONG_PHILOX_PATHS))
+    sw_paths = LONG_PATHS
+    run_sw(sw_paths)
+    sw_ms = cuda_ms(lambda: run_sw(sw_paths), 2)
+    sw_bound = card.bound(bytes_=row_bytes_of(run_sw(sw_paths)), **sweep_ops(
+        swork.cpu(), int(swc[0, 1]), len(grid9), sw_paths / LONG_PHILOX_PATHS))
+    log(f"  kernels alone: single at {LONG_PATHS} paths {fc_ms:.3f} ms, bound "
+        f"{fc_bound['bound_ms']:.3f} ms {fc_bound['bound_parts']}, plain at "
+        f"{LONG_PHILOX_PATHS} {fc_plain_ms:.3f} ms; sweep at 9 x {sw_paths} {sw_ms:.3f} ms, "
+        f"bound {sw_bound['bound_ms']:.3f} ms, plain at 9 x {LONG_PHILOX_PATHS} "
+        f"{sw_plain_ms:.3f} ms")
+
+    log(f"[32] main path: cli paths --num-bars {w} --num-paths {MAIN_PATHS} (--backend auto)")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "paths", "--num-paths", str(MAIN_PATHS),
+                "--num-bars", str(w), "--sigma", str(SIGMA)]
+        (out,), fc_secs, fc_launches = run_cli(
+            cli, argv, reset, {"mc_first_contact_long": 1, "mc_reduce_rows": 1})
+    check_paths_output(out)
+    fc_main_ms = cuda_ms(lambda: run_fc(MAIN_PATHS), 1)
+    fc_main_bound = card.bound(bytes_=row_bytes_of(fc_rows),
+                               **fc_ops(work.cpu(), int(sc[1]), MAIN_PATHS / LONG_PHILOX_PATHS))
+    log(f"  kernel alone at {MAIN_PATHS} paths: {fc_main_ms:.3f} ms "
+        f"({MAIN_PATHS / fc_main_ms * 1e3:.6e} paths/s), bound "
+        f"{fc_main_bound['bound_ms']:.3f} ms")
+    sw_cli_paths = 1 << 26
+    log(f"[32] main path: cli sweep --num-bars {w} --num-paths {sw_cli_paths} (3 x 3 grid, "
+        "--backend auto)")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--db", os.path.join(tmp, "smoke.db"), "sweep", "--num-paths",
+                str(sw_cli_paths), "--num-bars", str(w), "--sigma", str(SIGMA)]
+        sw_out, sw_secs, sw_launches = run_cli(
+            cli, argv, reset, {"mc_sweep_long": 1, "mc_sweep_reduce_rows": 1},
+            n_paths=sw_cli_paths)
+    check_sweep_output(sw_out, grid9, ["stop_padding", "tp_padding", "hit_rate", "mean_r"])
+    c4 = config4()
+    log(f"[32] main path: mc_paths_universe_fused, config #4's universe ({UNI_SYMBOLS} symbols "
+        f"x {UNI_PATHS} paths) at {w} bars")
+    st, uni_secs, uni_launches = run_entry(
+        "mc_paths_universe_fused", lambda: cuda_mc.mc_paths_universe_fused(
+            0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=w, dt=DT),
+        reset, {"mc_universe_long": 2, "mc_universe_reduce_rows": 2})
+    check_universe_stats("first-contact universe at 390 bars", st, UNI_SYMBOLS, UNI_PATHS)
+    uni_rows = cuda_mc.universe_rows(0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS,
+                                     **dict(ukw, lanes=cuda_mc.UNIVERSE_LANES))
+    uni_ms = cuda_ms(lambda: cuda_mc.universe_rows(
+        0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS,
+        **dict(ukw, lanes=cuda_mc.UNIVERSE_LANES)), 2)
+    c4kw = dict(ukw, lanes=cuda_mc.UNIVERSE_LANES)
+    cc, _, cwork = cuda_mc.universe_totals_reference(0, c4[0], params, *c4[1:], work=True,
+                                                     paths_per_symbol=UNI_SAMPLE_PATHS, **c4kw)
+    uni_bound = card.bound(bytes_=row_bytes_of(uni_rows), **fc_ops(
+        cwork.sum(0).cpu(), int(cc[:, 1].sum()), UNI_PATHS / UNI_SAMPLE_PATHS))
+    log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {uni_ms:.3f} ms, bound "
+        f"{uni_bound['bound_ms']:.3f} ms {uni_bound['bound_parts']}; plain at "
+        f"{LONG_SYMBOLS} x {LONG_PHILOX_PATHS} {uni_plain_ms:.3f} ms")
+    del uni_rows
+
+    log(f"[32] the samplers at W = {w}: single, the 3 x 3 sweep and a {LONG_SYMBOLS}-symbol "
+        f"universe (the history shared) against the plain version on the card at "
+        f"{LONG_SAMPLER_PATHS} paths a row; kernels alone; cli paths --sampler ... "
+        f"--num-bars {w} at {MAIN_PATHS}")
+    tmp = tempfile.TemporaryDirectory()
+    csv = os.path.join(tmp.name, "bars.csv")
+    write_history(csv, SAMPLER_HIST_BARS)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    table_bytes = tables.numel() * 4
+    samp = []
+    kws = dict(kw, num_paths=LONG_SAMPLER_PATHS)
+    for smp in SAMPLERS:
+        skw = (dict(sampler=smp) if smp == "heston" else
+               dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+        ukw_s = dict(ukw, **({} if smp == "heston" else
+                             dict(sampler=smp, tables=tables[None].expand(LONG_SYMBOLS, -1, -1)
+                                  .contiguous(), block_len=SAMPLER_BLOCK_LEN)),
+                     **({"sampler": smp} if smp == "heston" else {}))
+        tb = 0.0 if smp == "heston" else table_bytes
+        e = 0.0
+        (pc_, pf_, pwork), p_ms = timed(lambda: cuda_mc.fused_totals_reference(
+            0, levels, params, device=dev, noise=None, antithetic=False, work=True, **kws, **skw))
+        got = cuda_mc.reduce_rows(*cuda_mc.first_contact_rows(0, levels, params, device=dev,
+                                                              noise=None, antithetic=False,
+                                                              **kws, **skw))
+        e = max(e, cmp(f"{smp} single", (pc_, pf_), got, LONG_SAMPLER_PATHS))
+        ms = cuda_ms(lambda: cuda_mc.first_contact_rows(
+            0, levels, params, device=dev, noise=None, antithetic=False,
+            **dict(kws, num_paths=LONG_PATHS), **skw), 2)
+        ops, g = fc_sampler_ops(smp, pwork.cpu(), int(pc_[1]), LONG_PATHS / LONG_SAMPLER_PATHS)
+        bnd = gather_bound(card, row_bytes_of(fc_rows), ops, g, tb)
+        (sc_, sf_, swk), sp_ms = timed(lambda: cuda_mc.sweep_totals_reference(
+            0, levels, params, stops9, tps9, device=dev, work=True, **kws, **skw))
+        got = cuda_mc.reduce_rows(*cuda_mc.sweep_rows(0, levels, params, stops9, tps9,
+                                                      device=dev, **kws, **skw))
+        for gi in range(len(grid9)):
+            e = max(e, cmp(f"{smp} sweep row {gi}", (sc_[gi], sf_[gi]), (got[0][gi], got[1][gi]),
+                           LONG_SAMPLER_PATHS))
+        s_ms = cuda_ms(lambda: cuda_mc.sweep_rows(0, levels, params, stops9, tps9, device=dev,
+                                                  **dict(kws, num_paths=sw_paths), **skw), 2)
+        ops, g = sampler_sweep_ops("first contact", smp, (sc_, sf_, swk), sw_paths, len(grid9),
+                                   sw_paths / LONG_SAMPLER_PATHS)
+        s_bnd = gather_bound(card, len(grid9) * grid_size(sw_paths) * (
+            cuda_mc.ROW_COUNTS * 8 + cuda_mc.ROW_FLOATS * 4), ops, g, tb)
+        (uc_, uf_, uwk), u_ms_plain = timed(lambda: cuda_mc.universe_totals_reference(
+            0, lv3, params, s0_3, sg_3, paths_per_symbol=LONG_SAMPLER_PATHS, work=True, **ukw_s))
+        got = cuda_mc.reduce_rows(*cuda_mc.universe_rows(
+            0, lv3, params, s0_3, sg_3, paths_per_symbol=LONG_SAMPLER_PATHS, **ukw_s))
+        for i in range(LONG_SYMBOLS):
+            e = max(e, cmp(f"{smp} universe symbol {i}", (uc_[i], uf_[i]), (got[0][i], got[1][i]),
+                           LONG_SAMPLER_PATHS))
+        u_ms = cuda_ms(lambda: cuda_mc.universe_rows(
+            0, lv3, params, s0_3, sg_3, paths_per_symbol=LONG_SAMPLER_PATHS, **ukw_s), 2)
+        ops, g = rows_ops("first contact", smp, (uc_, uf_, uwk), LONG_SAMPLER_PATHS, 1.0)
+        u_bnd = gather_bound(card, LONG_SYMBOLS * grid_size(LONG_SAMPLER_PATHS) * (
+            cuda_mc.ROW_COUNTS * 8 + cuda_mc.ROW_FLOATS * 4), ops, g, tb)
+        argv = ["--db", os.path.join(tmp.name, "smoke.db")] + sampler_argv(
+            "first contact", smp, csv)
+        argv[argv.index("--num-bars") + 1] = str(w)
+        (res,), secs, launches = run_cli(cli, argv, reset,
+                                         {"mc_first_contact_sampler": 1, "mc_reduce_rows": 1})
+        check_paths_output(res)
+        log(f"  {smp}: single at {LONG_PATHS} {ms:.3f} ms (bound {bnd['bound_ms']:.3f} ms, "
+            f"plain at {LONG_SAMPLER_PATHS} {p_ms:.3f} ms); sweep at 9 x {sw_paths} {s_ms:.3f} ms "
+            f"(bound {s_bnd['bound_ms']:.3f} ms, plain at 9 x {LONG_SAMPLER_PATHS} "
+            f"{sp_ms:.3f} ms); universe at {LONG_SYMBOLS} x {LONG_SAMPLER_PATHS} {u_ms:.3f} ms "
+            f"(bound {u_bnd['bound_ms']:.3f} ms, plain {u_ms_plain:.3f} ms)")
+        samp.append(entry(f"mc_first_contact_sampler/{smp}/W{w}", FC_SAMPLER_SOURCE,
+                          FC_REPLACES, launches["mc_first_contact_sampler"], e, ms, p_ms, bnd,
+                          sampler=smp, num_bars=w, cli_s=secs[1:],
+                          paths=LONG_PATHS, plain_paths=LONG_SAMPLER_PATHS,
+                          sweep_ms=s_ms, sweep_paths=sw_paths, sweep_rows=len(grid9),
+                          sweep_bound_ms=s_bnd["bound_ms"], sweep_plain_ms=sp_ms,
+                          universe_ms=u_ms, universe_symbols=LONG_SYMBOLS,
+                          universe_paths=LONG_SAMPLER_PATHS, universe_bound_ms=u_bnd["bound_ms"],
+                          universe_plain_ms=u_ms_plain))
+    tmp.cleanup()
+    return [
+        entry("mc_first_contact_long", LONG_SOURCE, FC_REPLACES,
+              fc_launches["mc_first_contact_long"], err["mc_first_contact_long"], fc_ms,
+              fc_plain_ms, fc_bound, num_bars=w, paths=LONG_PATHS, plain_paths=LONG_PHILOX_PATHS,
+              main_path_ms=fc_main_ms, main_path_bound_ms=fc_main_bound["bound_ms"],
+              cli_s=fc_secs[1:]),
+        entry("mc_sweep_long", LONG_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep_long"],
+              err["mc_sweep_long"], sw_ms, sw_plain_ms, sw_bound, num_bars=w, paths=sw_paths,
+              grid_rows=len(grid9), plain_paths=LONG_PHILOX_PATHS, cli_s=sw_secs[1:]),
+        entry("mc_universe_long", LONG_SOURCE, UNI_REPLACES,
+              uni_launches["mc_universe_long"], err["mc_universe_long"], uni_ms, uni_plain_ms,
+              uni_bound, num_bars=w, symbols=UNI_SYMBOLS, paths=UNI_PATHS,
+              plain_symbols=LONG_SYMBOLS, plain_paths=LONG_PHILOX_PATHS, main_s=uni_secs[1:]),
+    ] + samp
+
+
 def single_sampler_times(tree: str) -> int:
     """The nine single-configuration sampler launches (first contact, gated,
     engine x bootstrap, block bootstrap, Heston: ``first_contact_rows``,
@@ -4776,9 +5106,13 @@ def parent_times() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    wide = ["mc_engine_wide", "mc_engine_wide_samplers", "mc_engine_wide_corr",
+            "mc_engine_wide_corr_samplers"]
     build.build_all(["mc_engine", "mc_engine_samplers", "mc_engine_corr",
-                     "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
-                     "mc_engine_wide_corr", "mc_engine_wide_corr_samplers"])
+                     "mc_engine_corr_samplers"] + wide)
+    for name in wide:
+        for fn, res in sorted(ptxas_resources(build.BUILD_LOG[name]["log"]).items()):
+            print(f"  ptxas {fn[:72]}: {res}", flush=True)
     dev = torch.device("cuda", 0)
     params = EngineParams.default()
     levels = Levels.from_rows(CLI_ROWS, max_levels=8)
@@ -4823,10 +5157,200 @@ def parent_times() -> int:
         forced()                                          # warm both
         torch.cuda.synchronize()
         t = interleaved_ms({"parent": fn, "envelope": forced})
-        out[name] = dict(t, ratio=t["envelope"] / t["parent"])
+        dig = {k: count_digest(CE.reduce_rows(*f()[:2])[0])
+               for k, f in (("parent", fn), ("envelope", forced))}
+        out[name] = dict(t, ratio=t["envelope"] / t["parent"], counts=dig)
         print(f"  {name}: parent {t['parent']:.3f} ms, envelope forced {t['envelope']:.3f} ms "
-              f"({t['envelope'] / t['parent']:.4f}x)", flush=True)
+              f"({t['envelope'] / t['parent']:.4f}x); count digests {dig['parent']}, "
+              f"{dig['envelope']}", flush=True)
     print(json.dumps({"card": smi, "parent_vs_envelope_ms": out}))
+    return 0
+
+
+
+ENV_TIMES_LEVELS = (8, 30, 64)   # the level counts timed at 390 bars x 2^24
+
+
+def count_digest(*tensors) -> str:
+    """A digest of int64 count totals (folded partial rows: the counts, the
+    skip table, escalations, the histogram; a harvest's counts): equal totals
+    give equal digests, whatever the kernel's CTA size."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ptxas_resources(log: str) -> dict:
+    """{function: {registers, stack, spill}} of the ``mc_engine_wide*``
+    kernels and the bar steps (their stack frames) in an nvcc ``-Xptxas -v``
+    log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and ("mc_engine_wide" in fn or "bar_step" in fn):
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+            if m:
+                out.setdefault(fn, {}).update(stack=int(m.group(1)), spill=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def probe_tree(tree: str, name: str, edits: dict) -> str:
+    """A copy of ``tree``'s package under ``tree/build/<name>`` with each
+    ``ops/csrc`` source of ``edits`` rewritten by its (pattern, replacement)
+    once: a timing probe, not a result."""
+    src = os.path.join(tree, "qmmx_monolithic_monte_carlo_tpu_torch")
+    dst = os.path.join(tree, "build", name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, os.path.join(dst, "qmmx_monolithic_monte_carlo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for source, (pattern, repl) in edits.items():
+        path = os.path.join(dst, "qmmx_monolithic_monte_carlo_tpu_torch", "ops", "csrc", source)
+        text, n = re.subn(pattern, repl, open(path).read())
+        if n != 1:
+            raise RuntimeError(f"{path}: {pattern!r} matched {n} times, not once")
+        open(path, "w").write(text)
+    return dst
+
+
+def no_guard_tree(tree: str) -> str:
+    """``tree``'s package whose gbm envelope kernel never takes the windowed
+    guard (the running box at any W): the guard's cost, by ``probe_tree``."""
+    return probe_tree(tree, "no-guard", {"mc_engine_wide.cu": (
+        r"wide_dispatch\((num_bars > GUARD_WINDOW|win),", "wide_dispatch(false,")})
+
+
+def min_blocks_tree(tree: str, gbm: int, sampler: int) -> str:
+    """``tree``'s package with its envelope kernels' ``__launch_bounds__``
+    CTAs an SM set to ``gbm`` and ``sampler`` (mc_engine_env.cuh's
+    ENV_MIN_BLOCKS, ENV_SAMPLER_MIN_BLOCKS), by ``probe_tree``."""
+    return probe_tree(tree, f"min-blocks-{gbm}-{sampler}", {"mc_engine_env.cuh": (
+        r"#define ENV_MIN_BLOCKS \d+\n#define ENV_SAMPLER_MIN_BLOCKS \d+\n",
+        f"#define ENV_MIN_BLOCKS {gbm}\n#define ENV_SAMPLER_MIN_BLOCKS {sampler}\n")})
+
+
+def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
+    """The envelope kernels of the port in ``tree`` (``mc_engine_wide*``)
+    timed at their main paths' shapes by CUDA events (a warm-up, then the mean
+    of two runs), each with a digest of its folded int64 count totals
+    (``count_digest``): gbm at 8, 30 and 64 levels x 390 bars x 2^24 on
+    ``env_ladder``; at 30 x 390 the three samplers (2^24, ``history_arrays``'
+    year), the sweep's 18 rows (3 x 3 x jitter 0, 0.02) at 2^20 and the
+    harvest build at 2^24; at the CLI's 3 levels x 40 x 2^28 the envelope
+    kernel forced beside the parent and the harvest build (the flywheel's
+    round).  With ``no_guard`` the tree's gbm envelope kernel is built
+    without the windowed guard (``no_guard_tree``) and only gbm at 390 bars is
+    timed; with ``min_blocks`` (gbm, sampler) the tree's envelope kernels are
+    built with those ``__launch_bounds__`` CTAs an SM (``min_blocks_tree``).
+    Builds into the tree's ``build/kernels-times`` and prints the
+    ptxas registers, stack and spill of each ``mc_engine_wide*`` kernel
+    built; prints each time, then one JSON line with all of them, the card's
+    name and power limit.  Run once a tree, in turns with another tree
+    (``--envelope-times TREE [--no-guard]``)."""
+    tree = os.path.abspath(tree)
+    root = (no_guard_tree(tree) if no_guard else
+            min_blocks_tree(tree, *min_blocks) if min_blocks else tree)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from pathlib import Path
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine as CE
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    build.BUILD_DIR = Path(root) / "build" / "kernels-times"
+    names = (["mc_engine_wide"] if no_guard else
+             ["mc_engine", "mc_engine_wide", "mc_engine_wide_samplers", "mc_engine_wide_harvest",
+              "mc_engine_wide_samplers_harvest"])
+    build.build_all(names)
+    ptxas = {}
+    for name in names:
+        ptxas.update(ptxas_resources(build.BUILD_LOG[name]["log"]))
+    for fn, r in sorted(ptxas.items()):
+        print(f"  ptxas {fn[:70]}: {r}", flush=True)
+    dev = torch.device("cuda", 0)
+    params = EngineParams.default()
+    one = dict(sigma=SIGMA, dt=DT, lanes=ENGINE_LANES, device=dev)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+
+    def ladder(n):
+        return Levels.from_rows(env_ladder(n), max_levels=n)
+
+    def rows_case(fn, harvest=False):
+        def run():
+            return fn()
+        def digest():
+            out = fn()
+            c, _ = CE.reduce_rows(out[0], out[1])
+            if not harvest:
+                return count_digest(c)
+            h = CE.reduce_harvest(out[-2], out[-1])
+            return count_digest(c, h.ml_counts, h.pol_counts)
+        return run, digest
+
+    cases = {}
+    for n in ENV_TIMES_LEVELS:
+        cases[f"gbm {n} x {ENV_BARS} x {ENV_PATHS}"] = rows_case(
+            lambda n=n: CE.engine_rows(0, ladder(n), params, num_paths=ENV_PATHS,
+                                       num_bars=ENV_BARS, **one))
+    if not no_guard:
+        lv30 = ladder(ENV_LEVELS)
+        for smp in SAMPLERS:
+            skw = (dict(sampler=smp) if smp == "heston" else
+                   dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+            cases[f"{smp} {ENV_LEVELS} x {ENV_BARS} x {ENV_PATHS}"] = rows_case(
+                lambda skw=skw: CE.engine_rows(0, lv30, params, num_paths=ENV_PATHS,
+                                               num_bars=ENV_BARS, **one, **skw))
+        grid18 = [(sp, tp, j) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)
+                  for j in (0.0, 0.02)]
+        g_params = params.replace(stop_padding=[c[0] for c in grid18],
+                                  tp_padding=[c[1] for c in grid18])
+        jit = torch.tensor([c[2] for c in grid18])
+        g_noise = McNoise(level_jitter_std=jit, entry_slip_std=torch.zeros_like(jit),
+                          stop_slip_std=torch.zeros_like(jit),
+                          target_slip_std=torch.zeros_like(jit))
+        cases[f"sweep 18 rows {ENV_LEVELS} x {ENV_BARS} x {ENV_SWEEP_PATHS}"] = rows_case(
+            lambda: CE.engine_sweep_rows(0, lv30, g_params, noise=g_noise,
+                                         num_paths=ENV_SWEEP_PATHS, num_bars=ENV_BARS, **one))
+        cases[f"harvest {ENV_LEVELS} x {ENV_BARS} x {ENV_PATHS}"] = rows_case(
+            lambda: CE.engine_rows(0, lv30, params, num_paths=ENV_PATHS, num_bars=ENV_BARS,
+                                   harvest=True, **one), harvest=True)
+        lv3 = Levels.from_rows(CLI_ROWS, max_levels=8)
+        kw3 = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, **one)
+        cases[f"parent (mc_engine_sweep_kernel) 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
+            lambda: CE.engine_rows(0, lv3, params, **kw3))
+        cases[f"forced 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
+            forced(CE, lambda: CE.engine_rows(0, lv3, params, **kw3)))
+        cases[f"harvest 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
+            lambda: CE.engine_rows(0, lv3, params, harvest=True, **kw3), harvest=True)
+    ms, digests = {}, {}
+    for name, (run, digest) in cases.items():
+        digests[name] = digest()             # also the warm-up
+        torch.cuda.synchronize()
+        ms[name] = cuda_ms(run, 2)
+        print(f"  {name}: {ms[name]:.3f} ms, counts {digests[name]}", flush=True)
+    print(json.dumps({"tree": tree, "no_guard": no_guard, "min_blocks": min_blocks,
+                      "card": smi, "ms": ms,
+                      "digest": digests, "ptxas": ptxas}))
     return 0
 
 
@@ -4847,7 +5371,7 @@ def main() -> int:
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import EngineLayout, GatedLayout
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.guard import GuardParams
-    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row, grid_size
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.touch import TouchMemoryParams
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.enginepath import SKIP_REASONS
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
@@ -4874,7 +5398,8 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    build.build_all(["mc_first_contact", "mc_gated", "mc_engine", "mc_gated_corr",
+    build.build_all(["mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_engine",
+                     "mc_gated_corr",
                      "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
                      "mc_engine_samplers", "mc_gated_corr_samplers",
                      "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
@@ -5331,7 +5856,15 @@ def main() -> int:
             cli, argv, reset_all, {"mc_sweep": 1, "mc_sweep_reduce_rows": 1})
     check_sweep_output(sw_out, grid9, ["stop_padding", "tp_padding", "hit_rate", "mean_r"])
     sw_main_ms = cuda_ms(lambda: run_sw(MAIN_PATHS, grid9), 2)
-    log(f"  kernel alone on the CLI's grid ({MAIN_PATHS} paths x 9 rows): {sw_main_ms:.3f} ms")
+    s9c, _, s9work = cuda_mc.sweep_totals_reference(
+        0, cli_levels, params, stops9, tps9, device=dev, work=True,
+        **dict(kw, num_paths=SWEEP_WORK_PATHS))
+    sw_main_bound = card.bound(bytes_=len(grid9) * grid_size(MAIN_PATHS) * (
+        cuda_mc.ROW_COUNTS * 8 + cuda_mc.ROW_FLOATS * 4), **sweep_ops(
+        s9work.cpu(), int(s9c[0, 1]), len(grid9), MAIN_PATHS / SWEEP_WORK_PATHS))
+    log(f"  kernel alone on the CLI's grid ({MAIN_PATHS} paths x 9 rows): {sw_main_ms:.3f} ms, "
+        f"bound {sw_main_bound['bound_ms']:.3f} ms {sw_main_bound['bound_parts']} (work of "
+        f"the first {SWEEP_WORK_PATHS} paths)")
 
     # ---- phase 13: gated sweep (kernel #6)
     g_stops, g_tps = [0.35, 0.35, 0.25], [0.25, 0.25, 0.15]
@@ -5458,10 +5991,20 @@ def main() -> int:
                         "mean_trades", "mean_dd"])
     gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in grid9
                                                                  for tl in (2, 4)])
-    gs_main_ms = cuda_ms(lambda: run_gs(gs_cli_paths, [r[0] for r in grid9 for _ in (2, 4)],
-                                        [r[1] for r in grid9 for _ in (2, 4)], gate18), 1)
+    stops18, tps18 = [r[0] for r in grid9 for _ in (2, 4)], [r[1] for r in grid9 for _ in (2, 4)]
+    gs_main_ms = cuda_ms(lambda: run_gs(gs_cli_paths, stops18, tps18, gate18), 1)
+    w18 = cuda_gated.gated_sweep_totals_reference(
+        0, cli_levels, params, stops18, tps18, gate18, device=dev, chunk_blocks=32, work=True,
+        **dict(kw, num_paths=SWEEP_WORK_PATHS))
+    sc18 = gs_cli_paths / SWEEP_WORK_PATHS
+    gs_main_bound = card.bound(
+        bytes_=18 * grid_size(gs_cli_paths) * (cuda_gated.ROW_COUNTS * 8
+                                               + cuda_gated.ROW_FLOATS * 4),
+        **gated_sweep_ops(gs_cli_paths, [float(x) * sc18 for x in w18[-1]],
+                          [float(x) * sc18 for x in w18[0][:, 5]]))
     log(f"  kernel alone on the CLI's grid ({gs_cli_paths} paths x 18 rows): "
-        f"{gs_main_ms:.3f} ms")
+        f"{gs_main_ms:.3f} ms, bound {gs_main_bound['bound_ms']:.3f} ms "
+        f"{gs_main_bound['bound_parts']} (work of the first {SWEEP_WORK_PATHS} paths)")
 
     # ---- phase 14: engine sweep (kernel #9)
     e_cfgs = [EngineParams.default(),
@@ -5609,8 +6152,16 @@ def main() -> int:
     noise18 = McNoise(level_jitter_std=jit18, entry_slip_std=torch.zeros(18),
                       stop_slip_std=torch.zeros(18), target_slip_std=torch.zeros(18))
     es_cli_ms = cuda_ms(lambda: run_es(es_cli_paths, grid18_e, noise18), 1)
+    es18_counts = cuda_engine.engine_sweep_totals_reference(
+        0, cli_levels, grid18_e, noise=noise18, device=dev, chunk_blocks=128,
+        **dict(kw, num_paths=ENGINE_SWEEP_WORK_PATHS))[0].cpu()
+    es_cli_bound = card.bound(
+        bytes_=18 * grid_size(es_cli_paths) * (cuda_engine.ROW_COUNTS * 8
+                                               + cuda_engine.ROW_FLOATS * 4),
+        **engine_sweep_ops(es_cli_paths, es18_counts, es_cli_paths / ENGINE_SWEEP_WORK_PATHS))
     log(f"  kernel alone on the CLI's grid ({es_cli_paths} paths x 18 rows, with noise): "
-        f"{es_cli_ms:.3f} ms")
+        f"{es_cli_ms:.3f} ms, bound {es_cli_bound['bound_ms']:.3f} ms "
+        f"{es_cli_bound['bound_parts']} (work of the first {ENGINE_SWEEP_WORK_PATHS} paths)")
     grid9_e = params.replace(stop_padding=[r[0] for r in grid9], tp_padding=[r[1] for r in grid9])
     es9_counts = cuda_engine.engine_sweep_totals_reference(
         0, cli_levels, grid9_e, device=dev, chunk_blocks=512,
@@ -5630,6 +6181,7 @@ def main() -> int:
     book_samplers = book_sampler_phases(dev, card, reset_all, cli)
     envelope = envelope_phases(dev, card, reset_all, cli)
     harvest = harvest_phases(dev, card, reset_all, cli, e_counts)
+    long_horizon = long_phases(dev, card, reset_all, cli)
     log(f"all phases done: {time.perf_counter() - _T0:.1f} s since the start")
 
     print(json.dumps({"kernels": [
@@ -5658,13 +6210,15 @@ def main() -> int:
         entry("mc_sweep", FC_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep"], sw_err, sw_ms,
               sw_plain_ms, sw_bound_plain, paths=PLAIN_PATHS, grid_rows=3,
               config5_ms=c5_ms, config5_bound_ms=c5_bound["bound_ms"],
-              cli_kernel_ms=sw_main_ms, cli_s=sw_secs[1:]),
+              cli_kernel_ms=sw_main_ms, cli_kernel_bound_ms=sw_main_bound["bound_ms"],
+              cli_s=sw_secs[1:]),
         entry("mc_sweep_reduce_rows", FC_SOURCE, SWEEP_REPLACES,
               sw_launches["mc_sweep_reduce_rows"], sw_red_err, sw_red_ms, sw_red_plain_ms,
               sw_red_bound, rows=int(sw_rows[0].shape[1]), grid_rows=3),
         entry("mc_gated_sweep", GATED_SOURCE, GATED_SWEEP_REPLACES,
               gs_launches["mc_gated_sweep"], gs_err, gs_ms, gs_plain_ms, gs_bound,
-              paths=PHILOX_PATHS, grid_rows=3, cli_kernel_ms=gs_main_ms, cli_s=gs_secs[1:]),
+              paths=PHILOX_PATHS, grid_rows=3, cli_kernel_ms=gs_main_ms,
+              cli_kernel_bound_ms=gs_main_bound["bound_ms"], cli_s=gs_secs[1:]),
         entry("mc_gated_sweep_reduce_rows", GATED_SOURCE, GATED_SWEEP_REPLACES,
               gs_launches["mc_gated_sweep_reduce_rows"], gs_red_err, gs_red_ms,
               gs_red_plain_ms, gs_red_bound, rows=int(g_sw_rows[0].shape[1]), grid_rows=3),
@@ -5672,11 +6226,12 @@ def main() -> int:
               es_launches["mc_engine_sweep"], es_err, es_ms, es_plain_ms, es_bound,
               paths=es_paths, grid_rows=4, main_path_ms=es_main_ms,
               main_path_bound_ms=es_main_bound["bound_ms"], cli_kernel_ms=es_cli_ms,
-              cli_s=es_secs[1:]),
+              cli_kernel_bound_ms=es_cli_bound["bound_ms"], cli_s=es_secs[1:]),
         entry("mc_engine_sweep_reduce_rows", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
               es_launches["mc_engine_sweep_reduce_rows"], es_red_err, es_red_ms,
               es_red_plain_ms, es_red_bound, rows=int(e_sw_rows[0].shape[1]), grid_rows=4),
-    ] + universe + books + samplers + sampler_rows + book_samplers + envelope + harvest}))
+    ] + universe + books + samplers + sampler_rows + book_samplers + envelope + harvest
+        + long_horizon}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5691,6 +6246,14 @@ if __name__ == "__main__":
                                         else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--parent-times"]:
             code = parent_times()
+        elif sys.argv[1:2] == ["--envelope-times"]:
+            args = sys.argv[2:]
+            mb = (tuple(int(x) for x in args[args.index("--min-blocks") + 1].split(","))
+                  if "--min-blocks" in args else None)
+            rest = [a for i, a in enumerate(args) if not a.startswith("--")
+                    and (i == 0 or args[i - 1] != "--min-blocks")]
+            code = envelope_times(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
+                                  no_guard="--no-guard" in args, min_blocks=mb)
         else:
             code = main()
     except Exception as exc:  # any failed phase: report it, print no result

@@ -189,7 +189,9 @@ def _fits(args, rows) -> str | None:
     """None when the shape fits the path's CUDA kernel (``paths``, ``sweep``
     or ``book``), else what it needs.  The engine's kernels take up to 64
     levels and any --num-bars >= 2 (an even one in a book), as the JAX CLI's
-    (``host/cli.py:323-346``); the others up to 8 levels."""
+    (``host/cli.py:323-346``); the others up to 8 levels and any even
+    --num-bars (any --num-bars for first contact's bootstrap samplers), as
+    the JAX kernels do."""
     from ..ops import cuda_engine, cuda_gated, cuda_mc
     from ..ops.kernel_args import MAX_ENGINE_LEVELS, MAX_GRID_ROWS
 
@@ -218,9 +220,8 @@ def _fits(args, rows) -> str | None:
         block = cuda_gated.GATED_SUB * cuda_gated.GATED_LANES
         if args.num_paths % block:
             return f"--num-paths a multiple of {block}"
-    elif args.num_bars > cuda_mc.MAX_KERNEL_BARS or args.num_paths % cuda_mc.SINGLE_LANES:
-        return (f"--num-bars <= {cuda_mc.MAX_KERNEL_BARS} and --num-paths a multiple "
-                f"of {cuda_mc.SINGLE_LANES}")
+    elif args.num_paths % cuda_mc.SINGLE_LANES:
+        return f"--num-paths a multiple of {cuda_mc.SINGLE_LANES}"
     return None
 
 

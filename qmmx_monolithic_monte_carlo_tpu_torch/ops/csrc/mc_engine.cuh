@@ -148,8 +148,9 @@ struct Rings {
     v = fmaxf(v, a.vm_floor);
 
 // How the parent kernels' bar steps (this header's and
-// mc_engine_sampler_step.cuh's) read the level slots of EngineArgs, the bit
-// masks of EngineState and the running guard box (mc_engine_step.cuh); each
+// mc_engine_sampler_step.cuh's) read the level slots of EngineArgs, the
+// arrays and bit masks of EngineState, the rings and the running guard box
+// (mc_engine_step.cuh); each
 // expands to the statement the step had before the envelope kernels came
 // (mc_engine_wide.cuh defines its own), so the parents compile as before.
 #define LEVEL_SLOTS MAXL
@@ -162,16 +163,23 @@ struct Rings {
 #define TM_HAS_BIT(j) (st.tm_has >> j) & 1u
 #define TM_HAS_MARK(j) st.tm_has |= 1u << j
 #define TM_HAS_CLEAR st.tm_has = 0u
+#define C_COUNT(i) st.c_counts[i]
+#define TM_CNT(j) st.tm_cnt[j]
+#define TM_CNT_INC(j) ++st.tm_cnt[j]
+#define TM_ZERO(j) st.tm_cnt[j] = 0; st.tm_ts[j] = 0; st.tm_px[j] = 0.f
+#define TM_TS(j) st.tm_ts[j]
+#define TM_TS_SET(j, ms) st.tm_ts[j] = ms
+#define TM_PX(j) st.tm_px[j]
+#define RG_STRIDE BLOCK
 #define GUARD_PUSH                        \
     st.run_low = fminf(st.run_low, l);    \
     st.run_high = fmaxf(st.run_high, h);
 
-// How the path loops shared with the envelope kernels (mc_engine_block.cuh,
-// mc_engine_sampler_block.cuh, mc_engine_book_walk.cuh and
-// mc_engine_book_sampler_walk.cuh) name the path state, a device function f
-// of the family (a bar step, init_state) and the level table a bar step takes
-// (the parents' is in EngineArgs: none); mc_engine_wide.cuh defines the
-// envelope's.
+// How the book walks shared with the envelope's books
+// (mc_engine_book_walk.cuh and mc_engine_book_sampler_walk.cuh) name the path
+// state, a device function f of the family (a bar step) and the level table
+// a bar step takes (the parents' is in EngineArgs: none); mc_engine_wide.cuh
+// defines the envelope's.
 #define ENGINE_STATE EngineState<MAXL>
 #define ENGINE_FN(f) f<MAXL>
 #define ENGINE_LV

@@ -8,14 +8,19 @@
 // noise_row, the first of its four noise rows.  No include guard: it is
 // included once in each bar step.
 //
-// The level slots, the latch and touch flags and the guard's window are read
-// through the macros LEVEL_SLOTS, LV_PRICE / LV_ROUND / LV_VALID / LV_KIND,
-// LATCH_BIT / LATCH_SET, TM_HAS_BIT / TM_HAS_MARK / TM_HAS_CLEAR and
+// The level slots, the per-level state, the rings' stride and the guard's
+// window are read through the macros LEVEL_SLOTS, LV_PRICE / LV_ROUND /
+// LV_VALID / LV_KIND, LATCH_BIT / LATCH_SET, C_COUNT, TM_CNT / TM_CNT_INC /
+// TM_TS / TM_TS_SET / TM_PX / TM_ZERO, TM_HAS_BIT / TM_HAS_MARK /
+// TM_HAS_CLEAR, RG_STRIDE and
 // GUARD_PUSH, which each family defines before its bar steps: mc_engine.cuh
-// for the parent kernels (the slots of EngineArgs and bit masks; after
-// preprocessing the statements of the parent's own text, so its code stays),
-// mc_engine_wide.cuh for the envelope kernels (a level table in shared memory,
-// flag arrays, the windowed guard).  HARVEST_CLOSE and HARVEST_ENTRY fold a
+// for the parent kernels (the slots of EngineArgs, arrays and bit masks of
+// the path state; after preprocessing the statements of the parent's own
+// text, so its code stays), mc_engine_wide.cuh for the envelope's books (a
+// level table in shared memory, flag arrays, the windowed guard) and
+// mc_engine_env.cuh for the envelope's other kernels (the latch and touch
+// flags and contact counts in the CTA's shared memory, the touch registers in
+// a device scratch, the windowed guard a block at a time).  HARVEST_CLOSE and HARVEST_ENTRY fold a
 // closed trade into the label harvest and latch an entry's features; they
 // are empty but in the envelope's harvest builds.
 //
@@ -151,10 +156,10 @@
                 const bool inside = di <= a.prox;
                 const bool is_near = i == best_i;
                 const bool latched = LATCH_BIT(i);
-                if (is_near && inside && !latched) ++st.c_counts[i];
+                if (is_near && inside && !latched) ++C_COUNT(i);
                 const bool latch_new = (is_near ? inside : (latched && inside)) && valid;
                 LATCH_SET(i, latch_new);
-                if (is_near) tc = st.c_counts[i];
+                if (is_near) tc = C_COUNT(i);
             }
         }
         FIRST_FAIL(tc >= a.overtouch_limit, SK_OVERTOUCHED);
@@ -178,8 +183,8 @@
 #pragma unroll
         for (int i = 0; i < LEVEL_SLOTS; ++i) {
             if (i == best_i) {
-                tm_c = short_side ? st.tm_cnt[2 * i + 1] : st.tm_cnt[2 * i];
-                tm_t = short_side ? st.tm_ts[2 * i + 1] : st.tm_ts[2 * i];
+                tm_c = short_side ? TM_CNT(2 * i + 1) : TM_CNT(2 * i);
+                tm_t = short_side ? TM_TS(2 * i + 1) : TM_TS(2 * i);
                 tm_h = TM_HAS_BIT((2 * i + short_side));
             }
         }
@@ -312,8 +317,8 @@
     if (t > 0 && c != st.prev_c) st.last_dir = c > st.prev_c ? 1 : -1;
 
     // ---- D) the minute close of bar t
-    rg.vol[(t % VOL_RING) * BLOCK] = v;
-    rg.close[(t % CLOSE_RING) * BLOCK] = c;
+    rg.vol[(t % VOL_RING) * RG_STRIDE] = v;
+    rg.close[(t % CLOSE_RING) * RG_STRIDE] = c;
     const int n_after = t + 1;
     float sum5 = 0.f;
     for (int j = 0; j < min(5, n_after); ++j) sum5 = sum5 + rg.v(t - j);   // newest first
@@ -359,15 +364,15 @@
                 if (pierced || bps_c <= a.tm_tol_bps) {
                     const int sd = c > lr ? 1 : 0;
                     const int j = 2 * i + sd;
-                    const int ts_a = sd ? st.tm_ts[2 * i + 1] : st.tm_ts[2 * i];
-                    const float px_a = sd ? st.tm_px[2 * i + 1] : st.tm_px[2 * i];
+                    const int ts_a = sd ? TM_TS(2 * i + 1) : TM_TS(2 * i);
+                    const float px_a = sd ? TM_PX(2 * i + 1) : TM_PX(2 * i);
                     const bool has_a = TM_HAS_BIT(j);
                     const bool too_soon = has_a && (now_ms - ts_a) < a.tm_min_gap_ms;
                     const float bps_last = px_a <= 0.f ? 0.f : fabsf(c - px_a) / px_a * 1e4f;
                     const bool too_close = has_a && bps_last < a.tm_min_px_bps;
                     if (!(too_soon || too_close)) {
-                        if (sd) { ++st.tm_cnt[2 * i + 1]; st.tm_ts[2 * i + 1] = now_ms; st.tm_px[2 * i + 1] = c; }
-                        else { ++st.tm_cnt[2 * i]; st.tm_ts[2 * i] = now_ms; st.tm_px[2 * i] = c; }
+                        if (sd) { TM_CNT_INC(2 * i + 1); TM_TS_SET(2 * i + 1, now_ms); TM_PX(2 * i + 1) = c; }
+                        else { TM_CNT_INC(2 * i); TM_TS_SET(2 * i, now_ms); TM_PX(2 * i) = c; }
                         TM_HAS_MARK(j);
                     }
                 }
@@ -393,7 +398,7 @@
     } else if (st.regime == 2 || st.regime == 3) {
         // a breakout resets the touch box
 #pragma unroll
-        for (int j = 0; j < 2 * LEVEL_SLOTS; ++j) { st.tm_cnt[j] = 0; st.tm_ts[j] = 0; st.tm_px[j] = 0.f; }
+        for (int j = 0; j < 2 * LEVEL_SLOTS; ++j) { TM_ZERO(j); }
         TM_HAS_CLEAR;
 #pragma unroll
         for (int j = 0; j < 2 * TAP_SLOTS; ++j) { st.tap_ts[j] = TAP_NEVER; st.tap_ratio[j] = 0.f; }

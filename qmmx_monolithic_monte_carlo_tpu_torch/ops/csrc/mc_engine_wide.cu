@@ -11,84 +11,64 @@
 // levels.max_levels slots, :250, :302-306), the windowed guard past
 // GUARD_WINDOW_BARS = 61 bars (:203, :312-315, :949-953, :983-988) and an odd
 // W's final half step (:1296-1334), under gbm with execution noise and
-// antithetic lanes.  The rows are the parent's: blockIdx.y a single
-// configuration, a sweep's grid row, a universe's symbol or a sweep of
-// universes' cell, each with its own row of the [rows, max_levels] level
-// table; row r equals the one-row launch of its arguments bit for bit.
+// antithetic lanes.  The rows are the parent's: a single configuration, a
+// sweep's grid row, a universe's symbol or a sweep of universes' cell, each
+// with its own row of the [rows, max_levels] level table; row r equals the
+// one-row launch of its arguments bit for bit, and every path equals the
+// parent's where both fit.
 //
-// Design: the parent's (mc_engine.cu's notes), on mc_engine_wide.cuh's
-// levels, state and guard.  The path loop, the reduction (per-thread sums,
-// warp shuffles, shared-memory counts) and the per-path rows are
-// engine_block's own text (mc_engine_block.cuh), so at <= 8 levels and an even
-// W <= 61 this kernel equals the parent bit for bit.  An odd W ends with one
-// bar after the pair loop (mc_engine_block.cuh).  The wrapper
-// (ops/cuda_engine.py) launches this kernel only where the parent does not
-// fit.
+// Design: mc_engine_env.cuh (the flags and contact counts in shared memory
+// sized by the row's slots; the touch registers and the guard's rings in a
+// scratch of the resident threads, the guard's box a 61-bar block at a time;
+// a persistent grid over the (row, CTA) cells).  The wrapper (ops/cuda_engine.py) launches this kernel only
+// where the parent does not fit, or with the checks' hook.
 //
 // What bounds it on the H100: what bounds the parent (the special functions
 // and float32 work of each bar, 3 logf / 3 sqrtf / 4 expf a bar), plus the
 // level loops (each runs to the row's slot count: the nearest level every
 // bar, the latch, confluence and touch-registration loops where a bar reaches
-// them) over per-level state in local memory, plus with the windowed guard
-// two 61-float folds from local memory a bar.  Bytes stay negligible: it
-// reads its arguments and writes a partial row per CTA.
+// them) and their flags in shared memory.  Bytes: its arguments, a partial
+// row per cell, and in L2 the touch registers where a touch registers and,
+// with the windowed guard, two ring loads and stores a bar (and a 61-slot
+// pass every 61 bars).
 
-#include "mc_engine_wide.cuh"
+#include "mc_engine_env.cuh"
 
-// The paths of this CTA under arguments ``a`` and levels ``lv``: the
-// engine along each, reduced to one partial row (crow, frow); per-path rows
-// at per_path[p] when not null.  The body is engine_block's
-// (mc_engine_block.cuh) on the envelope's state and bar step.
 template <bool WIN>
-__device__ __forceinline__ void wide_block(const EngineArgs& a, const WideLevel* lv,
-                                           const float* __restrict__ ext,
-                                           long long* __restrict__ crow,
-                                           float* __restrict__ frow,
-                                           float* __restrict__ per_path) {
-#include "mc_engine_block.cuh"
-}
-
-// Row blockIdx.y of the grid ``rows`` with its levels (row r of the
-// [rows, max_levels] table ``levels``): partial rows [row][CTA], per-path rows
-// [row][path].
-template <bool WIN>
-__global__ void __launch_bounds__(BLOCK)
-mc_engine_wide_kernel(const EngineArgs* __restrict__ rows,
-                      const WideLevel* __restrict__ levels, const float* __restrict__ ext,
-                      long long* __restrict__ part_counts, float* __restrict__ part_floats,
-                      float* __restrict__ per_path) {
-    __shared__ EngineArgs s_a;
-    __shared__ WideLevel s_lv[WIDE_LEVELS];
-    if (threadIdx.x == 0) s_a = rows[blockIdx.y];
-    copy_levels(s_lv, levels, blockIdx.y, rows[blockIdx.y].max_levels);
-    __syncthreads();
-    const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-    wide_block<WIN>(s_a, s_lv, ext ? ext + s_a.ext_offset : nullptr,
-                    part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS,
-                    per_path ? per_path + (long long)blockIdx.y * s_a.num_paths * PATH_COLS
-                             : nullptr);
+__global__ void __launch_bounds__(ENV_THREADS, ENV_MIN_BLOCKS) mc_engine_wide_kernel(const EnvLaunch p) {
+    env_rows<WIN, ENV_GBM>(p);
 }
 
 extern "C" {
 
 int qmmx_engine_wide_level_size(void) { return (int)sizeof(WideLevel); }
 
+int qmmx_engine_env_smem_bytes(int max_levels, int threads) {
+    return env_smem_bytes(max_levels, threads);
+}
+
+int qmmx_engine_env_scratch_slots(int max_levels, int windowed) {
+    return env_scratch_slots(max_levels, windowed != 0);
+}
+
 // Pass 1 of the n_rows argument rows at ``rows`` with their [n_rows,
 // max_levels] level table at ``levels`` (device memory), 1 <= max_levels <=
-// 64; the windowed guard when num_bars > 61.  ext and per_path may be null.
-// The fold is mc_engine.cu's.  Returns cudaGetLastError().
+// 64, grid cells a row; the threads' scratch (env_scratch_slots a thread,
+// the windowed guard's rings when num_bars > 61) at ``scratch`` for
+// ``scratch_ctas`` CTAs; ``next`` an int of device memory.  ext and per_path
+// may be null.  The fold is mc_engine.cu's.  Returns the first CUDA error.
 int qmmx_mc_engine_wide_sweep(const EngineArgs* rows, const WideLevel* levels, int n_rows,
                               int max_levels, int num_bars, const float* ext,
                               long long* part_counts, float* part_floats, float* per_path,
-                              int grid, void* stream) {
-    if (max_levels < 1 || max_levels > WIDE_LEVELS || num_bars < 2 || n_rows < 1
-        || n_rows > 65535)
-        return (int)cudaErrorInvalidValue;
-    return wide_dispatch(num_bars > GUARD_WINDOW, [&](auto win) {
-        mc_engine_wide_kernel<decltype(win)::value>
-            <<<dim3(grid, n_rows), BLOCK, 0, (cudaStream_t)stream>>>(
-                rows, levels, ext, part_counts, part_floats, per_path);
-        return (int)cudaGetLastError();
+                              int grid, float* scratch, int scratch_ctas, int* next,
+                              void* stream) {
+    const bool win = num_bars > GUARD_WINDOW;
+    if (!env_shape_ok(n_rows, max_levels, num_bars, grid)) return (int)cudaErrorInvalidValue;
+    const EnvLaunch p{rows, nullptr, levels, ext, part_counts, part_floats, per_path,
+                      nullptr, nullptr, scratch, next, grid, n_rows};
+    return wide_dispatch(win, [&](auto w) {
+        return env_launch(mc_engine_wide_kernel<decltype(w)::value>, p, max_levels,
+                          scratch_ctas, (cudaStream_t)stream);
     });
 }
 

@@ -1,9 +1,11 @@
 // The full engine's envelope: its device code for 1-64 level slots, any
 // horizon W >= 2 (an odd one ends with a half step) and horizons past the
-// guard's 61-bar window, shared by the envelope kernels -- mc_engine_wide.cu
-// (single, sweep, universe and sweep-of-universe rows), mc_engine_wide_samplers.cu
-// (the same under the recorded-bar and Heston samplers), mc_engine_wide_corr.cu
-// and mc_engine_wide_corr_samplers.cu (the correlated books, even W).  Each
+// guard's 61-bar window.  The correlated books' envelope kernels
+// (mc_engine_wide_corr.cu, mc_engine_wide_corr_samplers.cu and their harvest
+// builds, even W) are built on this header's state and bar steps; the other
+// envelope kernels (mc_engine_wide{,_samplers}{,_harvest}.cu) on
+// mc_engine_env.cuh, which takes this header's level table, harvest hooks and
+// helpers and keeps the per-level state in shared memory instead.  Each
 // source is a library of its own, so the parent kernels (mc_engine.cu and its
 // three neighbours, <= 8 levels and an even W <= 61) keep their code.
 //
@@ -45,10 +47,9 @@
 //
 // mc_engine_step.cuh is the bar's engine, as in the parents; this header
 // defines the macros it reads the levels, flags and guard through, and those
-// through which the parents' path loops (mc_engine_block.cuh,
-// mc_engine_sampler_block.cuh, mc_engine_book_walk.cuh,
-// mc_engine_book_sampler_walk.cuh) name the envelope's state, bar steps and
-// level table, with ENGINE_WIDE for the envelope's own lines there.
+// through which the book walks shared with the parents
+// (mc_engine_book_walk.cuh, mc_engine_book_sampler_walk.cuh) name the
+// envelope's state, bar steps and level table.
 
 #pragma once
 
@@ -142,8 +143,7 @@ struct WideState {
         st.run_low = fminf(st.run_low, l);                                  \
         st.run_high = fmaxf(st.run_high, h);                                \
     }
-// the path loops shared with the parents take the envelope's branches
-#define ENGINE_WIDE
+// the book walks shared with the parents take the envelope's state and steps
 #define ENGINE_STATE WideState<WIN>
 #define ENGINE_FN(f) wide_##f<WIN>
 #define ENGINE_LV lv,

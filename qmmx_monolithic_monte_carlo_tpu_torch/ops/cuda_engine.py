@@ -19,6 +19,12 @@ envelope kernels' harvest builds at every shape
 with ``_harvest``: ``mc_engine_wide_harvest``, ``mc_engine_wide_universe_harvest``,
 ``mc_engine_wide_corr_harvest``, ...; the rows fold in
 ``mc_engine_harvest_reduce_rows``); the sweeps take no harvest, as in JAX.
+The envelope's gbm and sampler kernels and their harvest builds
+(``ops/csrc/mc_engine_env.cuh``) keep a path's flags and contact counts in
+shared memory sized by the launch's level count (``env_smem_bytes``);
+``env_tail`` passes the device scratch of the touch registers and the
+windowed guard's rings (``env_scratch_slots``) and the persistent grid's cell
+counter.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
   ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
@@ -548,13 +554,15 @@ def _sampler_library() -> ctypes.CDLL:
 
 _WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_wide*.cu)
     # v: a pointer (or the stream), i: an int, u: an unsigned (the market key)
-    "_wide": ("qmmx_mc_engine_wide_sweep", "vviiivvvviv"),
-    "_wide_samplers": ("qmmx_mc_engine_wide_sampler", "vvviiiivvvviv"),
+    # (the gbm and sampler entries end with the scratch and the cell counter:
+    # scratch, scratch_ctas, next; env_tail)
+    "_wide": ("qmmx_mc_engine_wide_sweep", "vviiivvvvivivv"),
+    "_wide_samplers": ("qmmx_mc_engine_wide_sampler", "vvviiiivvvvivivv"),
     "_wide_corr": ("qmmx_mc_engine_wide_corr", "vvviiivvuvvvviv"),
     "_wide_corr_samplers": ("qmmx_mc_engine_wide_corr_sampler", "vvvviiiivvuvvvviv"),
     # the harvest builds: two more pointers (the harvest rows) before the grid
-    "_wide_harvest": ("qmmx_mc_engine_wide_harvest", "vviiivvvvvviv"),
-    "_wide_samplers_harvest": ("qmmx_mc_engine_wide_sampler_harvest", "vvviiiivvvvvviv"),
+    "_wide_harvest": ("qmmx_mc_engine_wide_harvest", "vviiivvvvvvivivv"),
+    "_wide_samplers_harvest": ("qmmx_mc_engine_wide_sampler_harvest", "vvviiiivvvvvvivivv"),
     "_wide_corr_harvest": ("qmmx_mc_engine_wide_corr_harvest", "vvviiivvuvvvvvviv"),
     "_wide_corr_samplers_harvest": ("qmmx_mc_engine_wide_corr_sampler_harvest",
                                     "vvvviiiivvuvvvvvviv"),
@@ -582,6 +590,16 @@ def _wide_library(suffix: str) -> ctypes.CDLL:
             if lib.qmmx_engine_wide_level_size() != _WIDE_LEVEL.itemsize:
                 raise RuntimeError("WideLevel layout differs between mc_engine_wide.cuh "
                                    "and cuda_engine._WIDE_LEVEL")
+            for fn in (lib.qmmx_engine_env_smem_bytes, lib.qmmx_engine_env_scratch_slots):
+                fn.argtypes = [ctypes.c_int, ctypes.c_int]
+                fn.restype = ctypes.c_int
+            for n in range(1, MAX_ENGINE_LEVELS + 1):
+                if (lib.qmmx_engine_env_smem_bytes(n, ENV_THREADS) != env_smem_bytes(n)
+                        or lib.qmmx_engine_env_scratch_slots(n, 1)
+                        != env_scratch_slots(n, GUARD_WINDOW_BARS + 1)
+                        or lib.qmmx_engine_env_scratch_slots(n, 0) != env_scratch_slots(n, 2)):
+                    raise RuntimeError("the shared-memory or scratch layout differs between "
+                                       "mc_engine_env.cuh and cuda_engine.env_*")
         if suffix == "_wide_harvest":
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.qmmx_mc_engine_harvest_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
@@ -602,6 +620,53 @@ def _wide_library(suffix: str) -> ctypes.CDLL:
                                    "kernel_args.SamplerArgs")
         _BOUND.add(id(lib))
     return lib
+
+
+# The redesigned envelope kernels (gbm, the samplers and their harvest
+# builds; ops/csrc/mc_engine_env.cuh): a path's flags and contact counts are
+# in dynamic shared memory, ``env_thread_bytes`` a thread, in CTAs of
+# ENV_THREADS at every level count (64 levels: 64.5 KB of an SM's 228); its
+# touch registers and the windowed guard's rings in a device scratch,
+# ``env_scratch_slots`` 4-byte slots a thread, for the most threads an SM
+# holds at the kernels' register bounds (1024: the samplers' 64 registers a
+# thread); the C side launches no more CTAs than the scratch holds.
+ENV_THREADS = 256
+ENV_STATIC_MAX = 4096          # the kernels' static shared memory, at most (checked at launch)
+_ENV_SCRATCH_THREADS_SM = 1024
+_VOL_RING, _CLOSE_RING = 20, 5  # mc_engine.cuh's VOL_RING, CLOSE_RING
+
+
+def env_thread_bytes(max_levels: int) -> int:
+    """A thread's shared memory in the envelope kernels (mc_engine_env.cuh's
+    ``env_thread_bytes``): the volume and close rings and the latch and
+    touch-flag words in 4 bytes a slot, the contact counts in 2."""
+    words = (max_levels + 31) // 32 + (2 * max_levels + 31) // 32
+    return 4 * (_VOL_RING + _CLOSE_RING + words) + 2 * max_levels
+
+
+def env_smem_bytes(max_levels: int) -> int:
+    """A CTA's dynamic shared memory at ``max_levels`` slots (``env_smem_bytes``):
+    the [max_levels] level table and its threads' ``env_thread_bytes``."""
+    return _WIDE_LEVEL.itemsize * max_levels + ENV_THREADS * env_thread_bytes(max_levels)
+
+
+def env_scratch_slots(max_levels: int, num_bars: int) -> int:
+    """A thread's 4-byte slots of the envelope kernels' device scratch
+    (``env_scratch_slots``): each (level, side)'s touch count and bar, and
+    its price; the windowed guard's 61 lows and 61 highs past 61 bars."""
+    return 4 * max_levels + (2 * GUARD_WINDOW_BARS if num_bars > GUARD_WINDOW_BARS else 0)
+
+
+def env_tail(max_levels: int, num_bars: int, device) -> tuple:
+    """The envelope entries' last arguments before the stream: (scratch,
+    scratch_ctas, next) and the tensors behind the two pointers (kept alive
+    by the caller until the launch is queued)."""
+    ctas = (torch.cuda.get_device_properties(device).multi_processor_count
+            * _ENV_SCRATCH_THREADS_SM // ENV_THREADS)
+    scratch = torch.empty(env_scratch_slots(max_levels, num_bars) * ctas * ENV_THREADS,
+                          dtype=_F32, device=device)
+    next_cell = torch.empty(1, dtype=torch.int32, device=device)
+    return (scratch.data_ptr(), ctas, next_cell.data_ptr()), (scratch, next_cell)
 
 
 def _wide(what: str) -> str:
@@ -789,14 +854,17 @@ def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
     if harvest:
         what = _wide(what) + "_harvest"
         table = device_rows(level_table(levels, g), device)
+        env, _keep = env_tail(max_levels, num_bars, device)
         rc = _wide_library("_wide_harvest").qmmx_mc_engine_wide_harvest(
             args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail[:4],
-            *(x.data_ptr() for x in hv), *tail[4:])
+            *(x.data_ptr() for x in hv), tail[4], *env, tail[5])
     elif _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, g), device)
+        env, _keep = env_tail(max_levels, num_bars, device)
         rc = _wide_library("_wide").qmmx_mc_engine_wide_sweep(
-            args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail)
+            args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail[:5], *env,
+            tail[5])
     else:
         rc = _library().qmmx_mc_engine_sweep(args_dev.data_ptr(), g, max_levels, num_bars,
                                              *tail)
@@ -874,16 +942,18 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
     if harvest:
         what = _wide(what) + "_harvest"
         table = device_rows(level_table(levels, n), device)
+        env, _keep = env_tail(max_levels, num_bars, device)
         rc = _wide_library("_wide_samplers_harvest").qmmx_mc_engine_wide_sampler_harvest(
             args_dev.data_ptr(), samp_dev.data_ptr(), table.data_ptr(), n,
             SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail[:4],
-            *(x.data_ptr() for x in hv), *tail[4:])
+            *(x.data_ptr() for x in hv), tail[4], *env, tail[5])
     elif _use_envelope(max_levels, num_bars):
         what = _wide(what)
         table = device_rows(level_table(levels, n), device)
+        env, _keep = env_tail(max_levels, num_bars, device)
         rc = _wide_library("_wide_samplers").qmmx_mc_engine_wide_sampler(
             args_dev.data_ptr(), samp_dev.data_ptr(), table.data_ptr(), n,
-            SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail)
+            SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail[:5], *env, tail[5])
     else:
         rc = _sampler_library().qmmx_mc_engine_sampler(
             args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind],

@@ -35,6 +35,14 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   lanes, as the TPU universe kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
+The gbm kernels keep the sine halves of the Box-Muller pairs in registers up
+to W = ``MAX_HALF_BARS`` (128) bars; past it (or under ``_FORCE_LONG``) the
+same launches go to ``ops/csrc/mc_first_contact_long.cu``, which draws a
+pair again for its sine half and equals them bit for bit where both fit,
+counted under the kernel's name with ``_long`` (``mc_first_contact_long``,
+``mc_sweep_long``, ``mc_universe_long``).  The sampler kernels draw their
+pairs again at every W.  No first-contact launch has a horizon cap.
+
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
 ``utils/prng`` (the kernel computes the same bits), or they are injected as
 ``external_uniforms`` f32[n_blocks, n_rows, lanes], lane j of block i being
@@ -68,7 +76,7 @@ from .samplers import (Sampler, block_offset, block_start, gather, heston_shock,
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
 UNIVERSE_LANES = 2048    # the TPU universe kernel's block (pallas_mc.LANES)
-MAX_KERNEL_BARS = 128    # the kernel keeps W/2 sine normals in registers
+MAX_HALF_BARS = 128      # past it the gbm kernels draw a pair again for its sine half
 N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
 ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
@@ -76,11 +84,23 @@ _BIG = 3.4e38            # empty min/max sentinel, as the TPU kernel's
 SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu)
 _SOURCE = "mc_first_contact"
 _SAMPLER_SOURCE = "mc_first_contact_samplers"
+_LONG_SOURCE = "mc_first_contact_long"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
             "mc_sweep_reduce_rows": 0, "mc_universe": 0, "mc_universe_reduce_rows": 0,
-            "mc_first_contact_sampler": 0, "mc_sweep_sampler": 0, "mc_universe_sampler": 0}
+            "mc_first_contact_sampler": 0, "mc_sweep_sampler": 0, "mc_universe_sampler": 0,
+            "mc_first_contact_long": 0, "mc_sweep_long": 0, "mc_universe_long": 0}
+
+# A check's hook: while true, every gbm launch goes to the long-horizon
+# kernels (mc_first_contact_long.cu), even where the register kernels fit,
+# to hold the two against each other bit for bit.
+_FORCE_LONG = False
+
+
+def _long(num_bars: int) -> bool:
+    """Whether a gbm launch goes to the long-horizon kernels."""
+    return _FORCE_LONG or num_bars > MAX_HALF_BARS
 
 
 def reset_launches() -> None:
@@ -548,6 +568,24 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _long_library() -> ctypes.CDLL:
+    """The long-horizon gbm kernels' library (``ops/csrc/mc_first_contact_long.cu``,
+    its own build of ``mc_first_contact_kernels.cuh``), built at first use,
+    with its C signatures set; the first-contact library's struct-layout
+    check first (the fold is that library's)."""
+    _library()
+    lib = build.load(_LONG_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_mc_sweep_long.argtypes = [
+            ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), vp, vp, vp, ci, vp]
+        lib.qmmx_mc_sweep_long.restype = ci
+        lib.qmmx_mc_universe_long.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_universe_long.restype = ci
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _sampler_library() -> ctypes.CDLL:
     """The sampler kernels' library (``ops/csrc/mc_first_contact_samplers.cu``,
     its own build of ``mc_first_contact.cuh``), built at first use, with its
@@ -579,8 +617,6 @@ def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: 
     """The launch checks of pass 1, and (McArgs, injected-uniform pointer);
     the Philox key is universe symbol ``symbol``'s."""
     ext_ptr = launch_pointer(num_paths, num_bars, external_uniforms, device, what)
-    if num_bars > MAX_KERNEL_BARS:
-        raise ValueError(f"the CUDA kernel takes num_bars <= {MAX_KERNEL_BARS}")
     lp, lv = level_slots(levels)
     drift, sig_dt, log_s0 = consts(s0, mu, sigma, dt)
     args = _McArgs(
@@ -600,15 +636,20 @@ def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: 
 def _launch(args, num_bars: int, *, num_paths: int, ext_ptr, device: torch.device,
             what: str):
     """One launch of ``mc_universe_kernel`` over the argument structs ``args``
-    (one per symbol), counted in ``LAUNCHES[what]``: int64 [S, grid, 133] and
-    f32 [S, grid, 4] partial rows, one per (symbol, CTA)."""
+    (one per symbol), counted in ``LAUNCHES[what]``, or past ``MAX_HALF_BARS``
+    (``_long``) of its long-horizon build, counted in ``LAUNCHES[what +
+    "_long"]``: int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one
+    per (symbol, CTA)."""
     args_dev = device_rows(args, device)
     n, ctas = len(args), grid_size(num_paths)
     part_counts = torch.empty((n, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((n, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
-    rc = _library().qmmx_mc_universe(args_dev.data_ptr(), n, num_bars, ext_ptr,
-                                     part_counts.data_ptr(), part_floats.data_ptr(), ctas,
-                                     torch.cuda.current_stream(device).cuda_stream)
+    if _long(num_bars):
+        what, launch = what + "_long", _long_library().qmmx_mc_universe_long
+    else:
+        launch = _library().qmmx_mc_universe
+    rc = launch(args_dev.data_ptr(), n, num_bars, ext_ptr, part_counts.data_ptr(),
+                part_floats.data_ptr(), ctas, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     return part_counts, part_floats
@@ -697,8 +738,9 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
                hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device: int64 [G, grid, 133] count
     rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA); under
-    gbm one launch of ``mc_sweep_kernel`` per SWEEP_ROWS grid rows, under the
-    other samplers one launch of ``mc_first_contact_sampler_kernel`` with a
+    gbm one launch of ``mc_sweep_kernel`` per SWEEP_ROWS grid rows (past
+    ``MAX_HALF_BARS`` its long-horizon build, counted as ``mc_sweep_long``),
+    under the other samplers one launch of ``mc_first_contact_sampler_kernel`` with a
     row per grid row (each row walks the same draws and history again)."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
@@ -720,18 +762,19 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
                                device=device, what="mc_sweep_sampler")
     part_counts = torch.empty((g, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((g, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
-    lib = _library()
+    what = "mc_sweep_long" if _long(num_bars) else "mc_sweep"
+    launch = (_long_library().qmmx_mc_sweep_long if _long(num_bars)
+              else _library().qmmx_mc_sweep)
     stream = torch.cuda.current_stream(device).cuda_stream
     for g0 in range(0, g, SWEEP_ROWS):
         sp, tp = stops[g0:g0 + SWEEP_ROWS], tps[g0:g0 + SWEEP_ROWS]
         pad = [0.0] * (SWEEP_ROWS - len(sp))
         rows = _SweepGrid(n_rows=len(sp), stop_pad=(ctypes.c_float * SWEEP_ROWS)(*sp, *pad),
                           tp_pad=(ctypes.c_float * SWEEP_ROWS)(*tp, *pad))
-        rc = lib.qmmx_mc_sweep(ctypes.byref(args), ctypes.byref(rows), ext_ptr,
-                               part_counts[g0].data_ptr(), part_floats[g0].data_ptr(),
-                               ctas, stream)
-        _raise_on(rc, "mc_sweep")
-        LAUNCHES["mc_sweep"] += 1
+        rc = launch(ctypes.byref(args), ctypes.byref(rows), ext_ptr, part_counts[g0].data_ptr(),
+                    part_floats[g0].data_ptr(), ctas, stream)
+        _raise_on(rc, what)
+        LAUNCHES[what] += 1
     return part_counts, part_floats
 
 

@@ -117,7 +117,7 @@ def test_paths_gated_cuda_backend_without_gpu_raises(tmp_path):
     (True, 16384, 25, "torch"),      # the gated kernel takes an even W only
     (True, 12288, 24, "torch"),      # not a multiple of 8 x 1024
     (False, 16384, 25, "torch"),     # the first-contact layout takes an even W only
-    (False, 16384, 130, "torch"),    # above the first-contact kernel's 128 bars
+    (False, 16384, 130, "cuda"),     # past 128 bars: the long-horizon first-contact kernels
 ])
 def test_paths_auto_takes_the_kernel_only_when_the_shape_fits(
         monkeypatch, gated, num_paths, num_bars, want):
