@@ -167,8 +167,10 @@ Phases (any failure exits non-zero and prints no result line):
    volume gates);
    the samplers of the sweeps and universes, a row axis on the three sampler
    kernels (kernels #2, #3, #5, #6, #9, #10, #11):
-24. first contact (``mc_first_contact_sampler_kernel`` with a row a symbol or
-   a grid row): under bootstrap, block bootstrap and Heston, injected
+24. first contact (``mc_first_contact_sampler_kernel`` with a row a symbol;
+   the sweep's grid rows ``mc_first_contact_sampler_sweep_kernel``,
+   mc_first_contact_sampler_sweep.cu, each path walked once for every row):
+   under bootstrap, block bootstrap and Heston, injected
    uniforms on a 3-symbol universe with its own histories and on the CLI's
    3 x 3 grid, kernel vs plain on CPU copies; Philox at 2^22 a row, every
    universe symbol and sweep row equal to its one-row launch bit for bit, the
@@ -247,7 +249,9 @@ Phases (any failure exits non-zero and prints no result line):
    30 levels x 390 bars x 2^20 a symbol through ``mc_paths_engine_corr_fused``
    (one timed run, its launches), every symbol and the book of its
    symbols 0 and 9 equal to the plain version on the card on every path at
-   2^14 a symbol;
+   2^14 a symbol; the book kernels forced at the parent's shape (3 symbols
+   x 3 levels x 40 bars x 2^16) equal to the parent book kernels bit for
+   bit, per path included;
    the closed-trade label harvest (``harvest=True`` of kernels #8, #10 and
    #12: the envelope kernels' harvest builds ``mc_engine_wide*_harvest.cu``)
    rides on the plain runs above: in phases 9, 17, 20, 29 and 30 the plain
@@ -281,9 +285,10 @@ Phases (any failure exits non-zero and prints no result line):
    and ``sweep --num-bars 390`` at 2^26, config #4's universe at 390 bars
    through ``mc_paths_universe_fused``, launch counts set to 0 just before
    and read just after; the samplers at W = 390 (single, sweep, universe)
-   against their plain versions on the card, and ``paths --sampler ...
-   --num-bars 390`` at 2^28 through the CLI; every kernel timed beside its
-   bound.  Flip budgets F = 2 + paths/1024 x ceil(W / 40).
+   against their plain versions on the card, an 18-row sampler sweep (two
+   launches) each row equal to its one-row launch bit for bit, and ``paths
+   --sampler ... --num-bars 390`` at 2^28 through the CLI; every kernel
+   timed beside its bound.  Flip budgets F = 2 + paths/1024 x ceil(W / 40).
 
 ``python3 chip_smoke.py --single-sampler-times [TREE]`` runs none of these: it
 times the nine single-configuration sampler launches of the port in TREE
@@ -292,11 +297,16 @@ against this tree in one call.  ``python3 chip_smoke.py --parent-times``
 runs none of them either: it times every parent engine kernel against its
 envelope kernel forced to run where the parent fits (``parent_times``), with
 their count digests.  ``python3 chip_smoke.py --envelope-times TREE
-[--no-guard | --min-blocks G,S]`` times the envelope kernels of the port in
-TREE at their main paths' shapes, with count digests and ptxas resources
-(``envelope_times``), for a parent unpacked with ``git archive`` against this
-tree in turns (the two options build probes: no windowed guard, or other
-``__launch_bounds__``).
+[--no-guard | --min-blocks G,S[,B]] [--books]`` times the envelope
+kernels of the port in TREE at their main paths' shapes, the books included
+(``--books``: the books alone), with count
+digests and ptxas resources (``envelope_times``), for a parent unpacked with
+``git archive`` against this tree in turns (the two options build probes: no
+windowed guard, or other ``__launch_bounds__``, B the books').
+``python3 chip_smoke.py --sampler-sweep-times TREE`` times the first-contact
+sampler sweeps of the port in TREE at 9 rows x 2^28 x 40 and 9 x 2^24 x 390,
+with count digests and ptxas resources (``sampler_sweep_times``), in turns
+with another tree in the same way.
 
 Harvest (``check_harvest``, ``gap_within``): where every path
 agrees the count tables are equal; each path whose trades differ can move
@@ -2562,6 +2572,7 @@ SAMPLER_HIST_BARS = 390 * 252      # a year of regular sessions of 1-minute bars
 SAMPLER_BLOCK_LEN = 10
 SAMPLER_INJECT_PATHS = {"first contact": 1 << 16, "gated": 1 << 15, "engine": 1 << 14}
 FC_SAMPLER_SOURCE = CSRC + "mc_first_contact_samplers.cu"
+FC_SAMPLER_SWEEP_SOURCE = CSRC + "mc_first_contact_sampler_sweep.cu"
 GATED_SAMPLER_SOURCE = CSRC + "mc_gated_samplers.cu"
 ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
 L2_BYTES = 50e6
@@ -2935,7 +2946,8 @@ def sampler_sweep_ops(family: str, sampler: str, work, n_paths: float, n_rows: i
     """(operations, gathered values) of a sampler sweep of ``n_rows`` rows
     of ``n_paths`` paths, from the plain sweep's output ``work`` on a sample
     (its rows the CLI's 3 x 3 grid), scaled by ``scale``: each path's bars
-    once (the sampler kernels make them again for every row), every row's
+    once (the gated and engine sampler kernels make them again for every
+    row; first contact's sweep kernel walks them once), every row's
     decisions, as ``sweep_ops``, ``gated_sweep_ops`` and ``engine_sweep_ops``
     count them."""
     c = work[0].cpu()
@@ -3216,6 +3228,7 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     "gated": (GATED_UNI_REPLACES, GATED_SWEEP_REPLACES),
                     "engine": (ENGINE_UNI_REPLACES, ENGINE_SWEEP_REPLACES)}[fam_name]
         source = ROWS_SOURCES[fam_name]
+        sweep_source = FC_SAMPLER_SWEEP_SOURCE if fam.fc else source
         nb = ROWS_INJECT_BLOCKS[fam_name]
         plain_n, sweep_n = ROWS_PLAIN_PATHS[fam_name], ROWS_SWEEP_PLAIN_PATHS[fam_name]
         n_uni, n_sw = nb * fam.block, nb * fam.sweep_block
@@ -3517,8 +3530,9 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
             log(f"  kernel alone at {n_cli} paths x {n_rows} rows: {sw_main_ms:.3f} ms "
                 f"({n_cli * n_rows / sw_main_ms * 1e3:.6e} paths x rows/s), bound "
                 f"{sw_main_b['bound_ms']:.3f} ms {sw_main_b['bound_parts']} (each path's bars "
-                "counted once; every row makes them again)")
-            out.append(entry(f"{sweep_kname}/{s}", source, replaces[1], launches[sweep_kname],
+                "counted once)")
+            out.append(entry(f"{sweep_kname}/{s}", sweep_source, replaces[1],
+                             launches[sweep_kname],
                              err[s], st_["sw_ms"], st_["sw_plain_ms"], sw_b, sampler=s,
                              grid_rows=len(GRID9), paths=sweep_n,
                              main_path_ms=sw_main_ms, main_path_bound_ms=sw_main_b["bound_ms"],
@@ -3971,6 +3985,7 @@ ENV_SAMPLER_INJECT_BLOCKS = {ENV_BARS: 1, 25: 1}
 ENV_BOOK_SYMBOLS = 10
 ENV_BOOK_PATHS = 1 << 20
 ENV_BOOK_PLAIN_PATHS = 1 << 14  # a symbol: the book's plain version on the card ...
+ENV_BOOK_PARENT_PATHS = 1 << 16  # a symbol: the book kernels forced at the parent's shape
 ENV_BOOK_PLAIN_PICK = [0, 9]    # ... on a book of its first and last symbol (launch-bound,
                                 # ~20 ms a bar-step)
 ENV_SWEEP_PLAIN_ROWS = [1]      # the sweep's plain version on its row 1 (jitter 0.02) x 2048 paths
@@ -4024,7 +4039,8 @@ def envelope_phases(dev, card, reset, cli) -> list:
     --sampler`` at 2^24; the books (gbm and the samplers) at 10 symbols x 30
     levels x 390 x 2^20 through the Python entry, a book of its symbols 0 and
     9, every symbol and the book, against the plain version on the card path
-    by path at 2^14 a symbol.  Returns their ``kernels`` entries."""
+    by path at 2^14 a symbol, and forced at 3 x 3 levels x 40 bars equal to
+    the parent book kernels bit for bit.  Returns their ``kernels`` entries."""
     import numpy as np
     import torch
 
@@ -4337,10 +4353,24 @@ def envelope_phases(dev, card, reset, cli) -> list:
         f"mc_paths_engine_corr_fused; a book of its symbols {pick}, every symbol and the "
         f"book, vs plain on the card path by path at {ENV_BOOK_PLAIN_PATHS} a symbol")
     tables1 = tables[None].to(dev)
+    # the parent's shape: 3 symbols x 3 levels x 40 bars
+    par_book = (U.stack_levels([CLI_ROWS] * 3, max_levels=8), params, [100.0, 100.2, 99.8],
+                [SIGMA, 0.25, 0.35], [0.2, 0.5, 0.8], [0.5, 0.3, 0.2])
     for s in ("gbm",) + SAMPLERS:
         bkw = dict(num_bars=ENV_BARS, dt=DT, lanes=lanes, device=dev,
                    **({} if s == "gbm" else dict(sampler=s) if s == "heston" else
                       dict(sampler=s, tables=tables1, block_len=SAMPLER_BLOCK_LEN)))
+        pkw = dict(bkw, num_bars=NUM_BARS, paths_per_symbol=ENV_BOOK_PARENT_PATHS,
+                   per_path=True)
+        par = CE.engine_corr_rows(0, *par_book, **pkw)
+        env = forced(CE, lambda: CE.engine_corr_rows(0, *par_book, **pkw))()
+        if not all(torch.equal(x, y) for x, y in zip(par, env)):
+            raise AssertionError(f"book {s}: the envelope kernel forced at 3 levels x "
+                                 f"{NUM_BARS} bars differs from the parent book kernel")
+        log(f"  {s}: forced at 3 symbols x 3 levels x {NUM_BARS} bars x "
+            f"{ENV_BOOK_PARENT_PATHS}, every symbol, the book and every path's row equal "
+            f"to the parent's bit for bit (counts {count_digest(CE.reduce_rows(*env[:2])[0])})")
+        del par, env
         res, plain_ms = timed(lambda: CE.engine_corr_totals_reference(
             0, *cmp_book, paths_per_symbol=ENV_BOOK_PLAIN_PATHS, per_path=True,
             chunk_blocks=ENV_BOOK_PLAIN_PATHS // (8 * lanes), harvest=True, **bkw))
@@ -4752,8 +4782,10 @@ def long_phases(dev, card, reset, cli) -> list:
     ``mc_paths_universe_fused``; each kernel timed beside its bound.  The
     samplers (bootstrap, block bootstrap, Heston; their kernels always draw
     their pairs again) at W = 390: single, sweep and universe against the
-    plain version on the card at 2^18 a row, timed, and ``paths --sampler
-    ... --num-bars 390`` at 2^28 through the CLI.  Flip budgets F = 2 +
+    plain version on the card at 2^18 a row, timed, an 18-row sweep (two
+    launches of ``mc_first_contact_sampler_sweep_kernel``) each row equal to
+    its one-row launch bit for bit, and ``paths --sampler ... --num-bars
+    390`` at 2^28 through the CLI.  Flip budgets F = 2 +
     paths/1024 x ceil(W / 40).  Returns the ``kernels`` entries."""
     import numpy as np
     import torch
@@ -4926,8 +4958,9 @@ def long_phases(dev, card, reset, cli) -> list:
 
     log(f"[32] the samplers at W = {w}: single, the 3 x 3 sweep and a {LONG_SYMBOLS}-symbol "
         f"universe (the history shared) against the plain version on the card at "
-        f"{LONG_SAMPLER_PATHS} paths a row; kernels alone; cli paths --sampler ... "
-        f"--num-bars {w} at {MAIN_PATHS}")
+        f"{LONG_SAMPLER_PATHS} paths a row, an 18-row sweep (two launches) against its "
+        f"one-row launches; kernels alone; cli paths --sampler ... --num-bars {w} at "
+        f"{MAIN_PATHS}")
     tmp = tempfile.TemporaryDirectory()
     csv = os.path.join(tmp.name, "bars.csv")
     write_history(csv, SAMPLER_HIST_BARS)
@@ -4935,6 +4968,8 @@ def long_phases(dev, card, reset, cli) -> list:
     table_bytes = tables.numel() * 4
     samp = []
     kws = dict(kw, num_paths=LONG_SAMPLER_PATHS)
+    stops18 = [sp for sp in (0.15, 0.25, 0.35, 0.45, 0.55, 0.65) for _ in range(3)]
+    tps18 = [tp for _ in range(6) for tp in (0.15, 0.25, 0.35)]
     for smp in SAMPLERS:
         skw = (dict(sampler=smp) if smp == "heston" else
                dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
@@ -4962,6 +4997,21 @@ def long_phases(dev, card, reset, cli) -> list:
         for gi in range(len(grid9)):
             e = max(e, cmp(f"{smp} sweep row {gi}", (sc_[gi], sf_[gi]), (got[0][gi], got[1][gi]),
                            LONG_SAMPLER_PATHS))
+        # 18 rows: two launches of the sampler sweep kernel, each row equal to
+        # its one-row launch of mc_first_contact_sampler_kernel bit for bit
+        before = cuda_mc.LAUNCHES["mc_sweep_sampler"]
+        sw18 = cuda_mc.sweep_rows(0, levels, params, stops18, tps18, device=dev, **kws, **skw)
+        if cuda_mc.LAUNCHES["mc_sweep_sampler"] != before + 2:
+            raise AssertionError(f"{smp}: 18 sweep rows took "
+                                 f"{cuda_mc.LAUNCHES['mc_sweep_sampler'] - before} launches")
+        for gi, (sp, tp) in enumerate(zip(stops18, tps18)):
+            one = cuda_mc.first_contact_rows(
+                0, levels, params.replace(stop_padding=sp, tp_padding=tp), device=dev,
+                noise=None, antithetic=False, **kws, **skw)
+            if not (torch.equal(one[0], sw18[0][gi]) and torch.equal(one[1], sw18[1][gi])):
+                raise AssertionError(f"{smp} W {w}: sweep row {gi} of 18 differs from its "
+                                     "one-row launch")
+        del sw18
         s_ms = cuda_ms(lambda: cuda_mc.sweep_rows(0, levels, params, stops9, tps9, device=dev,
                                                   **dict(kws, num_paths=sw_paths), **skw), 2)
         ops, g = sampler_sweep_ops("first contact", smp, (sc_, sf_, swk), sw_paths, len(grid9),
@@ -4986,7 +5036,8 @@ def long_phases(dev, card, reset, cli) -> list:
         (res,), secs, launches = run_cli(cli, argv, reset,
                                          {"mc_first_contact_sampler": 1, "mc_reduce_rows": 1})
         check_paths_output(res)
-        log(f"  {smp}: single at {LONG_PATHS} {ms:.3f} ms (bound {bnd['bound_ms']:.3f} ms, "
+        log(f"  {smp}: the 18 rows of two sweep launches each equal to their one-row "
+            f"launch; single at {LONG_PATHS} {ms:.3f} ms (bound {bnd['bound_ms']:.3f} ms, "
             f"plain at {LONG_SAMPLER_PATHS} {p_ms:.3f} ms); sweep at 9 x {sw_paths} {s_ms:.3f} ms "
             f"(bound {s_bnd['bound_ms']:.3f} ms, plain at 9 x {LONG_SAMPLER_PATHS} "
             f"{sp_ms:.3f} ms); universe at {LONG_SYMBOLS} x {LONG_SAMPLER_PATHS} {u_ms:.3f} ms "
@@ -4996,6 +5047,7 @@ def long_phases(dev, card, reset, cli) -> list:
                           sampler=smp, num_bars=w, cli_s=secs[1:],
                           paths=LONG_PATHS, plain_paths=LONG_SAMPLER_PATHS,
                           sweep_ms=s_ms, sweep_paths=sw_paths, sweep_rows=len(grid9),
+                          sweep_source=FC_SAMPLER_SWEEP_SOURCE,
                           sweep_bound_ms=s_bnd["bound_ms"], sweep_plain_ms=sp_ms,
                           universe_ms=u_ms, universe_symbols=LONG_SYMBOLS,
                           universe_paths=LONG_SAMPLER_PATHS, universe_bound_ms=u_bnd["bound_ms"],
@@ -5229,16 +5281,23 @@ def no_guard_tree(tree: str) -> str:
         r"wide_dispatch\((num_bars > GUARD_WINDOW|win),", "wide_dispatch(false,")})
 
 
-def min_blocks_tree(tree: str, gbm: int, sampler: int) -> str:
+def min_blocks_tree(tree: str, gbm: int, sampler: int, book=None) -> str:
     """``tree``'s package with its envelope kernels' ``__launch_bounds__``
     CTAs an SM set to ``gbm`` and ``sampler`` (mc_engine_env.cuh's
-    ENV_MIN_BLOCKS, ENV_SAMPLER_MIN_BLOCKS), by ``probe_tree``."""
-    return probe_tree(tree, f"min-blocks-{gbm}-{sampler}", {"mc_engine_env.cuh": (
+    ENV_MIN_BLOCKS, ENV_SAMPLER_MIN_BLOCKS) and, given ``book``, the books'
+    (mc_engine_wide_corr.cuh's ENV_BOOK_MIN_BLOCKS), by ``probe_tree``."""
+    edits = {"mc_engine_env.cuh": (
         r"#define ENV_MIN_BLOCKS \d+\n#define ENV_SAMPLER_MIN_BLOCKS \d+\n",
-        f"#define ENV_MIN_BLOCKS {gbm}\n#define ENV_SAMPLER_MIN_BLOCKS {sampler}\n")})
+        f"#define ENV_MIN_BLOCKS {gbm}\n#define ENV_SAMPLER_MIN_BLOCKS {sampler}\n")}
+    if book:
+        edits["mc_engine_wide_corr.cuh"] = (r"#define ENV_BOOK_MIN_BLOCKS \d+\n",
+                                            f"#define ENV_BOOK_MIN_BLOCKS {book}\n")
+    name = "-".join(str(x) for x in (gbm, sampler, book) if x)
+    return probe_tree(tree, f"min-blocks-{name}", edits)
 
 
-def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
+def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
+                   books_only: bool = False) -> int:
     """The envelope kernels of the port in ``tree`` (``mc_engine_wide*``)
     timed at their main paths' shapes by CUDA events (a warm-up, then the mean
     of two runs), each with a digest of its folded int64 count totals
@@ -5247,10 +5306,15 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
     year), the sweep's 18 rows (3 x 3 x jitter 0, 0.02) at 2^20 and the
     harvest build at 2^24; at the CLI's 3 levels x 40 x 2^28 the envelope
     kernel forced beside the parent and the harvest build (the flywheel's
-    round).  With ``no_guard`` the tree's gbm envelope kernel is built
-    without the windowed guard (``no_guard_tree``) and only gbm at 390 bars is
-    timed; with ``min_blocks`` (gbm, sampler) the tree's envelope kernels are
-    built with those ``__launch_bounds__`` CTAs an SM (``min_blocks_tree``).
+    round); the books (``mc_engine_wide_corr_kernel``) under gbm and the three
+    samplers at 10 symbols x 30 levels x 390 x 2^20 (and the harvest builds
+    under gbm and block bootstrap), their digests with every path's row of a
+    2^16-path run, and at the parents' 100 x 2^20 x 40 each book forced
+    beside its parent.  With ``no_guard`` the tree's gbm envelope kernel is
+    built without the windowed guard (``no_guard_tree``) and only gbm at 390
+    bars is timed; with ``min_blocks`` (gbm, sampler[, book]) the tree's
+    envelope kernels are built with those ``__launch_bounds__`` CTAs an SM
+    (``min_blocks_tree``); ``books_only`` times the books' cases alone.
     Builds into the tree's ``build/kernels-times`` and prints the
     ptxas registers, stack and spill of each ``mc_engine_wide*`` kernel
     built; prints each time, then one JSON line with all of them, the card's
@@ -5269,6 +5333,7 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
     from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine as CE
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
     from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
@@ -5280,7 +5345,9 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
     build.BUILD_DIR = Path(root) / "build" / "kernels-times"
     names = (["mc_engine_wide"] if no_guard else
              ["mc_engine", "mc_engine_wide", "mc_engine_wide_samplers", "mc_engine_wide_harvest",
-              "mc_engine_wide_samplers_harvest"])
+              "mc_engine_wide_samplers_harvest", "mc_engine_corr", "mc_engine_corr_samplers",
+              "mc_engine_wide_corr", "mc_engine_wide_corr_samplers",
+              "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest"])
     build.build_all(names)
     ptxas = {}
     for name in names:
@@ -5295,24 +5362,25 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
     def ladder(n):
         return Levels.from_rows(env_ladder(n), max_levels=n)
 
-    def rows_case(fn, harvest=False):
+    def rows_case(fn, harvest=False, also=None):
         def run():
             return fn()
         def digest():
             out = fn()
             c, _ = CE.reduce_rows(out[0], out[1])
+            extra = also() if also else ()
             if not harvest:
-                return count_digest(c)
+                return count_digest(c, *extra)
             h = CE.reduce_harvest(out[-2], out[-1])
-            return count_digest(c, h.ml_counts, h.pol_counts)
+            return count_digest(c, h.ml_counts, h.pol_counts, *extra)
         return run, digest
 
     cases = {}
-    for n in ENV_TIMES_LEVELS:
+    for n in () if books_only else ENV_TIMES_LEVELS:
         cases[f"gbm {n} x {ENV_BARS} x {ENV_PATHS}"] = rows_case(
             lambda n=n: CE.engine_rows(0, ladder(n), params, num_paths=ENV_PATHS,
                                        num_bars=ENV_BARS, **one))
-    if not no_guard:
+    if not (no_guard or books_only):
         lv30 = ladder(ENV_LEVELS)
         for smp in SAMPLERS:
             skw = (dict(sampler=smp) if smp == "heston" else
@@ -5342,6 +5410,44 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
             forced(CE, lambda: CE.engine_rows(0, lv3, params, **kw3)))
         cases[f"harvest 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
             lambda: CE.engine_rows(0, lv3, params, harvest=True, **kw3), harvest=True)
+    if not no_guard:
+        # the books: phase 30's at 30 levels x 390 bars, the parents' at 40 bars
+        n_b = ENV_BOOK_SYMBOLS
+        s0_b = [100.0 + 10.0 * i for i in range(n_b)]
+        book = (U.stack_levels([env_ladder(ENV_LEVELS, s0) for s0 in s0_b],
+                               max_levels=ENV_LEVELS), params, s0_b, [SIGMA] * n_b,
+                [0.2 + 0.6 * i / (n_b - 1) for i in range(n_b)], [1.0 / n_b] * n_b)
+        par_book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                                     {"color": "orange", "type": "dashed", "index": 0,
+                                      "price": x + 0.4}] for x in BOOK_S0], max_levels=4),
+                    params, BOOK_S0, [SIGMA] * BOOK_SYMBOLS, BOOK_BETAS,
+                    [1.0 / BOOK_SYMBOLS] * BOOK_SYMBOLS)
+        tables1 = tables[None].to(dev)
+
+        def book_case(fn, harvest=False):
+            """rows_case of a book, its digest also over every path's row
+            (symbols and book) of a run at 2^16 paths a symbol."""
+            return rows_case(lambda: fn(ENV_BOOK_PATHS, False), harvest,
+                             also=lambda: (fn(1 << 16, True)[2],))
+
+        for smp in ("gbm",) + SAMPLERS:
+            bkw = dict(dt=DT, lanes=ENGINE_LANES, device=dev,
+                       **({} if smp == "gbm" else dict(sampler=smp) if smp == "heston" else
+                          dict(sampler=smp, tables=tables1, block_len=SAMPLER_BLOCK_LEN)))
+            cases[f"book {smp} {n_b} x {ENV_LEVELS} x {ENV_BARS} x {ENV_BOOK_PATHS}"] = \
+                book_case(lambda n, pp, bkw=bkw: CE.engine_corr_rows(
+                    0, *book, paths_per_symbol=n, num_bars=ENV_BARS, per_path=pp, **bkw))
+            if smp in ("gbm", "block_bootstrap"):
+                cases[f"book harvest {smp} {n_b} x {ENV_LEVELS} x {ENV_BARS} x "
+                      f"{ENV_BOOK_PATHS}"] = book_case(
+                    lambda n, pp, bkw=bkw: CE.engine_corr_rows(
+                        0, *book, paths_per_symbol=n, num_bars=ENV_BARS, per_path=pp,
+                        harvest=True, **bkw), harvest=True)
+            pkw = dict(bkw, paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS)
+            cases[f"book parent {smp} {BOOK_SYMBOLS} x {NUM_BARS} x {BOOK_PATHS}"] = rows_case(
+                lambda pkw=pkw: CE.engine_corr_rows(0, *par_book, **pkw))
+            cases[f"book forced {smp} {BOOK_SYMBOLS} x {NUM_BARS} x {BOOK_PATHS}"] = rows_case(
+                forced(CE, lambda pkw=pkw: CE.engine_corr_rows(0, *par_book, **pkw)))
     ms, digests = {}, {}
     for name, (run, digest) in cases.items():
         digests[name] = digest()             # also the warm-up
@@ -5351,6 +5457,74 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None) -> int:
     print(json.dumps({"tree": tree, "no_guard": no_guard, "min_blocks": min_blocks,
                       "card": smi, "ms": ms,
                       "digest": digests, "ptxas": ptxas}))
+    return 0
+
+
+SWEEP_TIMES_SHAPES = ((NUM_BARS, MAIN_PATHS), (390, 1 << 24))   # (W, paths), 9 rows
+
+
+def sampler_sweep_times(tree: str) -> int:
+    """The first-contact sampler sweeps (``cuda_mc.sweep_rows`` under
+    bootstrap, block bootstrap and Heston) of the port in ``tree`` on the
+    CLI's levels and 3 x 3 (stop, tp) grid at 2^28 x 40 and 2^24 x 390 bars
+    on ``history_arrays``' year of 1-minute bars, each timed by CUDA events (a
+    warm-up that also takes a digest of the folded counts and floats,
+    ``count_digest``, then the mean of two runs).  Builds into the tree's
+    ``build/kernels-times``; prints the sweep's libraries' ptxas lines, each
+    time, then one JSON line with all of them, the card's name and power
+    limit.  Run once a tree, in turns with another tree
+    (``--sampler-sweep-times TREE``)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from pathlib import Path
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"tree {tree}; {smi}", flush=True)
+    build.BUILD_DIR = Path(tree) / "build" / "kernels-times"
+    libs = [n for n in ("mc_first_contact", "mc_first_contact_samplers",
+                        "mc_first_contact_sampler_sweep") if (build.CSRC / f"{n}.cu").exists()]
+    build.build_all(libs)
+    ptxas = {name: [line.strip() for line in build.BUILD_LOG[name]["log"].splitlines()
+                    if any(k in line for k in ("Compiling entry", "registers", "spill"))]
+             for name in libs[1:]}
+    for name, lines in ptxas.items():
+        for line in lines:
+            print(f"  {name}: {line}")
+    dev = torch.device("cuda", 0)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    params = EngineParams.default()
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    stops9, tps9 = [g[0] for g in GRID9], [g[1] for g in GRID9]
+    ms, digests = {}, {}
+    for w, n in SWEEP_TIMES_SHAPES:
+        for smp in SAMPLERS:
+            skw = (dict(sampler=smp) if smp == "heston" else
+                   dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+
+            def run(w=w, n=n, skw=skw):
+                return cuda_mc.sweep_rows(0, levels, params, stops9, tps9, num_paths=n,
+                                          num_bars=w, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT,
+                                          lanes=LANES, external_uniforms=None, device=dev,
+                                          **skw)
+
+            name = f"{smp} 9 x {n} x {w}"
+            digests[name] = count_digest(*cuda_mc.reduce_rows(*run()))   # also the warm-up
+            torch.cuda.synchronize()
+            ms[name] = cuda_ms(run, 2)
+            print(f"  {name}: {ms[name]:.3f} ms, totals {digests[name]}", flush=True)
+    print(json.dumps({"tree": tree, "card": smi, "ms": ms, "digest": digests, "ptxas": ptxas}))
     return 0
 
 
@@ -5400,7 +5574,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(["mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_engine",
                      "mc_gated_corr",
-                     "mc_engine_corr", "mc_first_contact_samplers", "mc_gated_samplers",
+                     "mc_engine_corr", "mc_first_contact_samplers",
+                     "mc_first_contact_sampler_sweep", "mc_gated_samplers",
                      "mc_engine_samplers", "mc_gated_corr_samplers",
                      "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
                      "mc_engine_wide_corr", "mc_engine_wide_corr_samplers",
@@ -6246,6 +6421,9 @@ if __name__ == "__main__":
                                         else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--parent-times"]:
             code = parent_times()
+        elif sys.argv[1:2] == ["--sampler-sweep-times"]:
+            code = sampler_sweep_times(sys.argv[2] if len(sys.argv) > 2
+                                       else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--envelope-times"]:
             args = sys.argv[2:]
             mb = (tuple(int(x) for x in args[args.index("--min-blocks") + 1].split(","))
@@ -6253,7 +6431,8 @@ if __name__ == "__main__":
             rest = [a for i, a in enumerate(args) if not a.startswith("--")
                     and (i == 0 or args[i - 1] != "--min-blocks")]
             code = envelope_times(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
-                                  no_guard="--no-guard" in args, min_blocks=mb)
+                                  no_guard="--no-guard" in args, min_blocks=mb,
+                                  books_only="--books" in args)
         else:
             code = main()
     except Exception as exc:  # any failed phase: report it, print no result

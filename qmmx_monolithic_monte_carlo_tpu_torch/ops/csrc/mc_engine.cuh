@@ -152,7 +152,7 @@ struct Rings {
 // arrays and bit masks of EngineState, the rings and the running guard box
 // (mc_engine_step.cuh); each
 // expands to the statement the step had before the envelope kernels came
-// (mc_engine_wide.cuh defines its own), so the parents compile as before.
+// (mc_engine_env.cuh defines the envelope's), so the parents compile as before.
 #define LEVEL_SLOTS MAXL
 #define LV_PRICE(i) a.level_price[i]
 #define LV_ROUND(i) a.level_round[i]
@@ -176,13 +176,13 @@ struct Rings {
     st.run_high = fmaxf(st.run_high, h);
 
 // How the book walks shared with the envelope's books
-// (mc_engine_book_walk.cuh and mc_engine_book_sampler_walk.cuh) name the path
-// state, a device function f of the family (a bar step) and the level table
-// a bar step takes (the parents' is in EngineArgs: none); mc_engine_wide.cuh
-// defines the envelope's.
-#define ENGINE_STATE EngineState<MAXL>
+// (mc_engine_book_walk.cuh and mc_engine_book_sampler_walk.cuh) name a
+// device function f of the family (a bar step), the level table a bar step
+// takes (the parents' is in EngineArgs: none) and its rings (the parents'
+// Rings rg); mc_engine_wide_corr.cuh defines the envelope's.
 #define ENGINE_FN(f) f<MAXL>
 #define ENGINE_LV
+#define ENGINE_RG rg
 
 // The closed-trade harvest's hooks in the bar's engine (mc_engine_step.cuh):
 // at a close (pnl in scope) and at an entry.  Empty for every kernel but the

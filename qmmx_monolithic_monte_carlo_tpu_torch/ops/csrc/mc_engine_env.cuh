@@ -1,19 +1,19 @@
 // The envelope's engine kernels redesigned for Hopper: mc_engine_wide_kernel
 // (gbm, mc_engine_wide.cu), mc_engine_wide_sampler_kernel (the recorded-bar
-// and Heston samplers, mc_engine_wide_samplers.cu) and their harvest builds
-// (mc_engine_wide_harvest.cu, mc_engine_wide_samplers_harvest.cu, which
+// and Heston samplers, mc_engine_wide_samplers.cu), the books'
+// mc_engine_wide_corr_kernel (mc_engine_wide_corr.cuh) and their harvest
+// builds (mc_engine_wide{,_samplers,_corr,_corr_samplers}_harvest.cu, which
 // define ENGINE_HARVEST first).  The envelope is the engine at 1-64 level
-// slots, any horizon W >= 2 (an odd one ends with a half step) and horizons
-// past the guard's 61-bar window.  The books' envelope kernels keep
-// mc_engine_wide.cuh's state (mc_engine_wide_corr.cuh).
+// slots, any horizon W >= 2 (an odd one ends with a half step; a book's is
+// even) and horizons past the guard's 61-bar window.
 //
-// What held the first envelope kernels back (mc_engine_wide.cuh): every
-// thread kept its per-level state (64 slots of contact counts and latch, 128
-// of touch count, time, price and flag) and the guard's two 61-float rings in
-// its local-memory stack, 2.3-2.8 KB, and folded both rings every bar: at 30
-// levels x 390 bars the fold took a third of the time (PERF.md).  The design
-// here does the same arithmetic (every path's result is the first kernels'
-// bit for bit) and keeps as many threads resident as the registers allow:
+// What held the first envelope kernels back: every thread kept its per-level
+// state (64 slots of contact counts and latch, 128 of touch count, time,
+// price and flag) and the guard's two 61-float rings in its local-memory
+// stack, 2.3-2.8 KB, and folded both rings every bar: at 30 levels x 390
+// bars the fold took a third of the time (PERF.md).  The design here does
+// the same arithmetic (every path's result is the first kernels' bit for
+// bit) and keeps as many threads resident as the registers allow:
 //
 // * What a bar reads at every level stays on chip: the latch and touch flags
 //   as bits of 32-bit words ([i / 32][thread]) and the 16-bit contact counts
@@ -141,8 +141,9 @@ struct EnvRings {
     __device__ float c(int bar) const { return close[(bar % CLOSE_RING) * nt]; }
 };
 
-// A path's scalars: WideState without its arrays (env_view holds them), with
-// the windowed guard's running extrema of the current 61-bar block.
+// A path's scalars (the first envelope kernels' state without its per-level
+// arrays, which env_view holds), with the windowed guard's running extrema of
+// the current 61-bar block.
 struct EnvState {
     float log_s, prev_c, entry, stop, target, risk0, equity, peak, dd;
     float run_low, run_high, box_low, box_high;
@@ -708,13 +709,13 @@ __device__ __forceinline__ void env_rows(const EnvLaunch& p) {
     }
 }
 
-// Launch ``kernel`` (an env_rows kernel) over p's cells: CTAs of
-// ENV_THREADS with the level count's dynamic shared memory, as many as
-// the card holds at once (and no more than the cells, or the
-// ``scratch_ctas`` the scratch holds).  Returns the first CUDA error.
-template <class K>
-__host__ int env_launch(K kernel, const EnvLaunch& p, int max_levels, int scratch_ctas,
-                        cudaStream_t stream) {
+// Launch ``kernel`` (an env kernel taking p) over ``cells`` cells: CTAs of
+// ENV_THREADS with the level count's dynamic shared memory, as many as the
+// card holds at once (and no more than the cells, or the ``scratch_ctas``
+// the scratch holds).  Returns the first CUDA error.
+template <class K, class P>
+__host__ int env_launch_cells(K kernel, const P& p, long long cells, int max_levels,
+                              int scratch_ctas, cudaStream_t stream) {
     const int threads = ENV_THREADS, smem = env_smem_bytes(max_levels, threads);
     if (!p.next || !p.scratch || scratch_ctas < 1) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes fa;
@@ -730,12 +731,20 @@ __host__ int env_launch(K kernel, const EnvLaunch& p, int max_levels, int scratc
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     long long ctas = (long long)sms * per_sm;
-    if ((long long)p.grid * p.n_rows < ctas) ctas = (long long)p.grid * p.n_rows;
+    if (cells < ctas) ctas = cells;
     if (scratch_ctas < ctas) ctas = scratch_ctas;
     e = cudaMemsetAsync(p.next, 0, sizeof(int), stream);
     if (e != cudaSuccess) return (int)e;
     kernel<<<(unsigned)ctas, threads, smem, stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+// env_launch_cells over an env_rows kernel's (row, CTA) cells.
+template <class K>
+__host__ int env_launch(K kernel, const EnvLaunch& p, int max_levels, int scratch_ctas,
+                        cudaStream_t stream) {
+    return env_launch_cells(kernel, p, (long long)p.grid * p.n_rows, max_levels, scratch_ctas,
+                            stream);
 }
 
 // The checks every env entry makes of its shape.

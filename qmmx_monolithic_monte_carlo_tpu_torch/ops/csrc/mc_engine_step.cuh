@@ -16,11 +16,10 @@
 // GUARD_PUSH, which each family defines before its bar steps: mc_engine.cuh
 // for the parent kernels (the slots of EngineArgs, arrays and bit masks of
 // the path state; after preprocessing the statements of the parent's own
-// text, so its code stays), mc_engine_wide.cuh for the envelope's books (a
-// level table in shared memory, flag arrays, the windowed guard) and
-// mc_engine_env.cuh for the envelope's other kernels (the latch and touch
-// flags and contact counts in the CTA's shared memory, the touch registers in
-// a device scratch, the windowed guard a block at a time).  HARVEST_CLOSE and HARVEST_ENTRY fold a
+// text, so its code stays) and mc_engine_env.cuh for the envelope's kernels,
+// the books' included (the level table, the latch and touch flags and
+// contact counts in the CTA's shared memory, the touch registers in a device
+// scratch, the windowed guard a block at a time).  HARVEST_CLOSE and HARVEST_ENTRY fold a
 // closed trade into the label harvest and latch an entry's features; they
 // are empty but in the envelope's harvest builds.
 //

@@ -15,23 +15,22 @@ int qmmx_engine_wide_corr_sampler_args_size(void) { return (int)sizeof(SamplerAr
 // The book under sampler ``kind`` (SAMPLER_RESAMPLE or SAMPLER_HESTON):
 // n_sym argument rows at ``rows``, sampler rows at ``sargs``, their [n_sym,
 // max_levels] level table at ``levels`` and (beta, weight) pairs at ``bw``
-// (device memory), 1 <= max_levels <= 64; partial rows and
-// curves as qmmx_mc_engine_wide_corr's.  Returns cudaGetLastError().
+// (device memory), 1 <= max_levels <= 64; partial rows, curves and the
+// scratch as qmmx_mc_engine_wide_corr's.  Returns the first CUDA error.
 int qmmx_mc_engine_wide_corr_sampler(const EngineArgs* rows, const SamplerArgs* sargs,
                                      const WideLevel* levels, const float2* bw, int n_sym,
                                      int kind, int max_levels, int num_bars,
                                      const float* ext, const float* ext_m, unsigned m_stream,
                                      float* curve_mem, long long* part_counts,
                                      float* part_floats, float* per_path, int grid,
+                                     float* scratch, int scratch_ctas, int* next,
                                      void* stream) {
+    const EnvBook p{rows, sargs, levels, bw, ext, ext_m, curve_mem, part_counts, part_floats,
+                    per_path, nullptr, nullptr, scratch, next, m_stream, n_sym, grid};
     if (kind == SAMPLER_RESAMPLE)
-        return wide_corr_launch<SAMPLER_RESAMPLE>(
-            rows, sargs, levels, bw, n_sym, max_levels, num_bars, ext, ext_m, m_stream,
-            curve_mem, part_counts, part_floats, per_path, grid, stream);
+        return wide_corr_launch<SAMPLER_RESAMPLE>(p, max_levels, num_bars, scratch_ctas, stream);
     if (kind == SAMPLER_HESTON)
-        return wide_corr_launch<SAMPLER_HESTON>(
-            rows, sargs, levels, bw, n_sym, max_levels, num_bars, ext, ext_m, m_stream,
-            curve_mem, part_counts, part_floats, per_path, grid, stream);
+        return wide_corr_launch<SAMPLER_HESTON>(p, max_levels, num_bars, scratch_ctas, stream);
     return (int)cudaErrorInvalidValue;
 }
 

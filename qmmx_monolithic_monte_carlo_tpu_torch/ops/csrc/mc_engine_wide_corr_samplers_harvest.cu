@@ -16,7 +16,7 @@ int qmmx_engine_wide_corr_sampler_harvest_args_size(void) { return (int)sizeof(S
 
 // The book under sampler ``kind`` as qmmx_mc_engine_wide_corr_sampler's, with
 // symbol s's harvest partial rows [s][CTA] at hv_counts and hv_sums.
-// Returns cudaGetLastError().
+// Returns the first CUDA error.
 int qmmx_mc_engine_wide_corr_sampler_harvest(const EngineArgs* rows, const SamplerArgs* sargs,
                                              const WideLevel* levels, const float2* bw,
                                              int n_sym, int kind, int max_levels, int num_bars,
@@ -24,16 +24,15 @@ int qmmx_mc_engine_wide_corr_sampler_harvest(const EngineArgs* rows, const Sampl
                                              unsigned m_stream, float* curve_mem,
                                              long long* part_counts, float* part_floats,
                                              float* per_path, long long* hv_counts,
-                                             float* hv_sums, int grid, void* stream) {
+                                             float* hv_sums, int grid, float* scratch,
+                                             int scratch_ctas, int* next, void* stream) {
     if (!hv_counts || !hv_sums) return (int)cudaErrorInvalidValue;
+    const EnvBook p{rows, sargs, levels, bw, ext, ext_m, curve_mem, part_counts, part_floats,
+                    per_path, hv_counts, hv_sums, scratch, next, m_stream, n_sym, grid};
     if (kind == SAMPLER_RESAMPLE)
-        return wide_corr_launch<SAMPLER_RESAMPLE>(
-            rows, sargs, levels, bw, n_sym, max_levels, num_bars, ext, ext_m, m_stream,
-            curve_mem, part_counts, part_floats, per_path, hv_counts, hv_sums, grid, stream);
+        return wide_corr_launch<SAMPLER_RESAMPLE>(p, max_levels, num_bars, scratch_ctas, stream);
     if (kind == SAMPLER_HESTON)
-        return wide_corr_launch<SAMPLER_HESTON>(
-            rows, sargs, levels, bw, n_sym, max_levels, num_bars, ext, ext_m, m_stream,
-            curve_mem, part_counts, part_floats, per_path, hv_counts, hv_sums, grid, stream);
+        return wide_corr_launch<SAMPLER_HESTON>(p, max_levels, num_bars, scratch_ctas, stream);
     return (int)cudaErrorInvalidValue;
 }
 

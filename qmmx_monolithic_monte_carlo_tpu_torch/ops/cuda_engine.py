@@ -19,8 +19,8 @@ envelope kernels' harvest builds at every shape
 with ``_harvest``: ``mc_engine_wide_harvest``, ``mc_engine_wide_universe_harvest``,
 ``mc_engine_wide_corr_harvest``, ...; the rows fold in
 ``mc_engine_harvest_reduce_rows``); the sweeps take no harvest, as in JAX.
-The envelope's gbm and sampler kernels and their harvest builds
-(``ops/csrc/mc_engine_env.cuh``) keep a path's flags and contact counts in
+The envelope kernels and their harvest builds, the books' included
+(``ops/csrc/mc_engine_env.cuh``), keep a path's flags and contact counts in
 shared memory sized by the launch's level count (``env_smem_bytes``);
 ``env_tail`` passes the device scratch of the touch registers and the
 windowed guard's rings (``env_scratch_slots``) and the persistent grid's cell
@@ -554,18 +554,18 @@ def _sampler_library() -> ctypes.CDLL:
 
 _WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_wide*.cu)
     # v: a pointer (or the stream), i: an int, u: an unsigned (the market key)
-    # (the gbm and sampler entries end with the scratch and the cell counter:
-    # scratch, scratch_ctas, next; env_tail)
+    # (every entry ends with the scratch and the cell counter before the
+    # stream: scratch, scratch_ctas, next; env_tail)
     "_wide": ("qmmx_mc_engine_wide_sweep", "vviiivvvvivivv"),
     "_wide_samplers": ("qmmx_mc_engine_wide_sampler", "vvviiiivvvvivivv"),
-    "_wide_corr": ("qmmx_mc_engine_wide_corr", "vvviiivvuvvvviv"),
-    "_wide_corr_samplers": ("qmmx_mc_engine_wide_corr_sampler", "vvvviiiivvuvvvviv"),
+    "_wide_corr": ("qmmx_mc_engine_wide_corr", "vvviiivvuvvvvivivv"),
+    "_wide_corr_samplers": ("qmmx_mc_engine_wide_corr_sampler", "vvvviiiivvuvvvvivivv"),
     # the harvest builds: two more pointers (the harvest rows) before the grid
     "_wide_harvest": ("qmmx_mc_engine_wide_harvest", "vviiivvvvvvivivv"),
     "_wide_samplers_harvest": ("qmmx_mc_engine_wide_sampler_harvest", "vvviiiivvvvvvivivv"),
-    "_wide_corr_harvest": ("qmmx_mc_engine_wide_corr_harvest", "vvviiivvuvvvvvviv"),
+    "_wide_corr_harvest": ("qmmx_mc_engine_wide_corr_harvest", "vvviiivvuvvvvvvivivv"),
     "_wide_corr_samplers_harvest": ("qmmx_mc_engine_wide_corr_sampler_harvest",
-                                    "vvvviiiivvuvvvvvviv"),
+                                    "vvvviiiivvuvvvvvvivivv"),
 }
 
 
@@ -622,9 +622,9 @@ def _wide_library(suffix: str) -> ctypes.CDLL:
     return lib
 
 
-# The redesigned envelope kernels (gbm, the samplers and their harvest
-# builds; ops/csrc/mc_engine_env.cuh): a path's flags and contact counts are
-# in dynamic shared memory, ``env_thread_bytes`` a thread, in CTAs of
+# The redesigned envelope kernels (gbm, the samplers, the books and their
+# harvest builds; ops/csrc/mc_engine_env.cuh): a path's flags and contact
+# counts are in dynamic shared memory, ``env_thread_bytes`` a thread, in CTAs of
 # ENV_THREADS at every level count (64 levels: 64.5 KB of an SM's 228); its
 # touch registers and the windowed guard's rings in a device scratch,
 # ``env_scratch_slots`` 4-byte slots a thread, for the most threads an SM
@@ -655,6 +655,20 @@ def env_scratch_slots(max_levels: int, num_bars: int) -> int:
     (``env_scratch_slots``): each (level, side)'s touch count and bar, and
     its price; the windowed guard's 61 lows and 61 highs past 61 bars."""
     return 4 * max_levels + (2 * GUARD_WINDOW_BARS if num_bars > GUARD_WINDOW_BARS else 0)
+
+
+ENV_BOOK_MIN_BLOCKS = 4   # the books' CTAs an SM under __launch_bounds__ (mc_engine_wide_corr.cuh)
+
+
+def env_book_static_bytes(harvest: bool) -> int:
+    """The book kernels' static shared memory (mc_engine_wide_corr.cuh): the
+    symbol's EngineArgs, SamplerArgs and (beta, weight), the cell index, and
+    env_add_path_row's counts, histogram and warp sums; with the harvest the
+    CTA's 64-bit tallies and hv_cta_row's warp sums."""
+    warps = ENV_THREADS // 32
+    n = (ctypes.sizeof(_EngineArgs) + ctypes.sizeof(SamplerArgs) + 8 + 4
+         + 4 * (N_COUNTS + N_SKIPS) + 4 * HIST_BINS + 4 * 6 * warps)
+    return n + (8 * HV_COUNTS + 4 * HV_SUMS * warps if harvest else 0)
 
 
 def env_tail(max_levels: int, num_bars: int, device) -> tuple:
@@ -1497,9 +1511,9 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     P, PATH_COLS] per-path rows when ``per_path``, plus the symbols' int64
     [S, grid, 72] and f32 [S, grid, 16] harvest rows with ``harvest`` (the
     harvest builds ``mc_engine_wide_corr_harvest_kernel``, at every shape,
-    counted under ``mc_engine_wide_corr(_sampler)_harvest``).  The book
-    curves lie in a device-memory buffer (the engine's rings already take 25
-    KB of shared memory a CTA)."""
+    counted under ``mc_engine_wide_corr(_sampler)_harvest``; with ``env_tail``'s
+    scratch).  The book curves lie in a device-memory buffer (the engine's
+    rings already take 25 KB of shared memory a CTA)."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     layout, _, cols, samp = _check_corr(
@@ -1527,11 +1541,17 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
     bw = book_pairs(cols, device)
     hv = _harvest_rows(n_sym, grid, device) if harvest else ()
-    tail = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
+    stream = torch.cuda.current_stream(device).cuda_stream
+    head = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
             part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None,
-            *(x.data_ptr() for x in hv), grid, torch.cuda.current_stream(device).cuda_stream)
+            *(x.data_ptr() for x in hv), grid)
     wide = _use_envelope(levels.max_levels, num_bars, harvest)
-    lv_dev = device_rows(level_table(levels, n_sym), device) if wide else None
+    if wide:
+        lv_dev = device_rows(level_table(levels, n_sym), device)
+        env, _keep = env_tail(levels.max_levels, num_bars, device)
+        tail = head + env + (stream,)
+    else:
+        tail = head + (stream,)
     if samp.kind != "gbm":
         what = "mc_engine_corr_sampler"
         samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))

@@ -19,10 +19,10 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   contact once, replayed for every (stop, tp) row; row g equals
   ``mc_paths_fused`` with (stop_g, tp_g) bit for bit.  For a CUDA device it
   launches ``mc_sweep_kernel`` (partial rows per (row, CTA); under the other
-  samplers ``mc_first_contact_sampler_kernel`` with a row per grid row) and
-  one fold of all rows, or raises; for the CPU it runs
-  ``sweep_totals_reference``.  No noise and no antithetic lanes, as the TPU
-  sweep kernel has none.
+  samplers ``mc_first_contact_sampler_sweep_kernel``, which also walks each
+  path once for every row) and one fold of all rows, or raises; for the CPU
+  it runs ``sweep_totals_reference``.  No noise and no antithetic lanes, as
+  the TPU sweep kernel has none.
 * ``mc_paths_universe_fused`` — the per-symbol universe, the counterpart of
   ``mc_paths_pallas_universe`` (kernel #2, ``_universe_kernel``,
   ``pallas_mc.py:828-1024``): S symbols in one launch, each with its own
@@ -85,6 +85,7 @@ SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu
 _SOURCE = "mc_first_contact"
 _SAMPLER_SOURCE = "mc_first_contact_samplers"
 _LONG_SOURCE = "mc_first_contact_long"
+_SAMPLER_SWEEP_SOURCE = "mc_first_contact_sampler_sweep"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
@@ -605,6 +606,30 @@ def _sampler_library() -> ctypes.CDLL:
     return lib
 
 
+def _sampler_sweep_library() -> ctypes.CDLL:
+    """The sampler sweep kernel's library
+    (``ops/csrc/mc_first_contact_sampler_sweep.cu``, its own build of
+    ``mc_first_contact.cuh``), built at first use, with its C signature set
+    and its struct layouts checked; the first-contact library's first (the
+    fold is that library's)."""
+    _library()
+    lib = build.load(_SAMPLER_SWEEP_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_sampler_sweep_struct_size.argtypes = [ci]
+        lib.qmmx_sampler_sweep_struct_size.restype = ci
+        lib.qmmx_mc_sampler_sweep.argtypes = [vp, vp, ctypes.POINTER(_SweepGrid), ci, ci, vp,
+                                              vp, vp, ci, vp]
+        lib.qmmx_mc_sampler_sweep.restype = ci
+        sizes = [lib.qmmx_sampler_sweep_struct_size(i) for i in range(3)]
+        if sizes != [ctypes.sizeof(_McArgs), ctypes.sizeof(SamplerArgs),
+                     ctypes.sizeof(_SweepGrid)]:
+            raise RuntimeError("McArgs, SamplerArgs or SweepGrid layout differs between "
+                               "mc_first_contact_sampler_sweep.cu and cuda_mc.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _library().qmmx_cuda_error_string(rc).decode(errors="replace")
@@ -732,16 +757,27 @@ def _sampler_launch(args, sampler: Sampler, num_bars: int, *, num_paths: int, ex
     return part_counts, part_floats
 
 
+def _sweep_grids(stops, tps):
+    """The (first row, ``_SweepGrid``) of each launch of a sweep: SWEEP_ROWS
+    grid rows a launch."""
+    for g0 in range(0, len(stops), SWEEP_ROWS):
+        sp, tp = stops[g0:g0 + SWEEP_ROWS], tps[g0:g0 + SWEEP_ROWS]
+        pad = [0.0] * (SWEEP_ROWS - len(sp))
+        yield g0, _SweepGrid(n_rows=len(sp), stop_pad=(ctypes.c_float * SWEEP_ROWS)(*sp, *pad),
+                             tp_pad=(ctypes.c_float * SWEEP_ROWS)(*tp, *pad))
+
+
 def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths: int,
                num_bars: int, s0: float, mu: float, sigma: float, dt: float,
                lanes: int, external_uniforms, device: torch.device, sampler: str = "gbm",
                hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device: int64 [G, grid, 133] count
-    rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA); under
-    gbm one launch of ``mc_sweep_kernel`` per SWEEP_ROWS grid rows (past
+    rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA), one
+    launch per SWEEP_ROWS grid rows: under gbm of ``mc_sweep_kernel`` (past
     ``MAX_HALF_BARS`` its long-horizon build, counted as ``mc_sweep_long``),
-    under the other samplers one launch of ``mc_first_contact_sampler_kernel`` with a
-    row per grid row (each row walks the same draws and history again)."""
+    under the other samplers of ``mc_first_contact_sampler_sweep_kernel``
+    (counted as ``mc_sweep_sampler``); each walks a path's bars once for
+    every row of its launch."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
@@ -753,25 +789,26 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
         mu=mu, sigma=sigma, dt=dt, lanes=lanes, noise=None, antithetic=False,
         external_uniforms=external_uniforms, device=device, what="sweep_rows")
     g, ctas = len(stops), grid_size(num_paths)
-    if samp.kind != "gbm":
-        grid = (_McArgs * g)()
-        for r, (sp, tp) in enumerate(zip(stops, tps)):
-            grid[r] = args
-            grid[r].stop_pad, grid[r].tp_pad = sp, tp
-        return _sampler_launch(grid, samp, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                               device=device, what="mc_sweep_sampler")
     part_counts = torch.empty((g, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((g, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if samp.kind != "gbm":
+        what, lib = "mc_sweep_sampler", _sampler_sweep_library()
+        args_dev = device_rows((_McArgs * 1)(args), device)
+        samp_dev, _tables = sampler_args(samp, device)
+        for g0, grid in _sweep_grids(stops, tps):
+            rc = lib.qmmx_mc_sampler_sweep(
+                args_dev.data_ptr(), samp_dev.data_ptr(), ctypes.byref(grid),
+                SAMPLER_KINDS[samp.kind], num_bars, ext_ptr, part_counts[g0].data_ptr(),
+                part_floats[g0].data_ptr(), ctas, stream)
+            _raise_on(rc, what)
+            LAUNCHES[what] += 1
+        return part_counts, part_floats
     what = "mc_sweep_long" if _long(num_bars) else "mc_sweep"
     launch = (_long_library().qmmx_mc_sweep_long if _long(num_bars)
               else _library().qmmx_mc_sweep)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for g0 in range(0, g, SWEEP_ROWS):
-        sp, tp = stops[g0:g0 + SWEEP_ROWS], tps[g0:g0 + SWEEP_ROWS]
-        pad = [0.0] * (SWEEP_ROWS - len(sp))
-        rows = _SweepGrid(n_rows=len(sp), stop_pad=(ctypes.c_float * SWEEP_ROWS)(*sp, *pad),
-                          tp_pad=(ctypes.c_float * SWEEP_ROWS)(*tp, *pad))
-        rc = launch(ctypes.byref(args), ctypes.byref(rows), ext_ptr, part_counts[g0].data_ptr(),
+    for g0, grid in _sweep_grids(stops, tps):
+        rc = launch(ctypes.byref(args), ctypes.byref(grid), ext_ptr, part_counts[g0].data_ptr(),
                     part_floats[g0].data_ptr(), ctas, stream)
         _raise_on(rc, what)
         LAUNCHES[what] += 1

@@ -1,6 +1,7 @@
 """The sampler kernels' row axis on the card (marked ``cuda``, skipped without
 one): under bootstrap, block bootstrap and Heston, the universe and sweep
-launches of ``mc_first_contact_sampler_kernel``, ``mc_gated_sampler_kernel``
+launches of ``mc_first_contact_sampler_kernel`` (the sweep's
+``mc_first_contact_sampler_sweep_kernel``), ``mc_gated_sampler_kernel``
 and ``mc_engine_sampler_kernel`` (kernels #2, #3, #5, #6, #9, #10, #11)
 against their plain versions on injected uniforms, and every row of a launch
 equal, bit for bit, to the one-row launch of its arguments (a universe's
@@ -106,7 +107,9 @@ def _equal(a, b) -> bool:
 def test_cuda_first_contact_sampler_rows(sampler):
     """#2 and #3 under ``sampler``: totals within F of the plain version on
     injected uniforms; each universe symbol and sweep row equal to its
-    one-row launch on Philox, bit for bit."""
+    one-row launch on Philox, bit for bit; the sweep kernel
+    (``mc_first_contact_sampler_sweep_kernel``) at 18 rows, two launches, at
+    W = 40 and 390."""
     dev = _cuda()
     levels = stack_levels(SYM_ROWS, max_levels=8)
     params = EngineParams.default()
@@ -149,6 +152,24 @@ def test_cuda_first_contact_sampler_rows(sampler):
             num_paths=pps, num_bars=W, s0=100.0, mu=0.0, sigma=0.3, dt=DT, lanes=8192,
             noise=None, antithetic=False, external_uniforms=None, device=dev, **skw)
         assert _equal((sw[0][g], sw[1][g]), one), g
+    # 18 rows take two launches of the sweep kernel, each path walked once a
+    # launch; at W = 40 and 390 every row equals its one-row launch bit for bit
+    stops18 = [sp for sp in (0.15, 0.25, 0.35, 0.45, 0.55, 0.65) for _ in range(3)]
+    tps18 = [tp for _ in range(6) for tp in (0.15, 0.25, 0.35)]
+    for w in (W, 390):
+        before = cuda_mc.LAUNCHES["mc_sweep_sampler"]
+        sw = cuda_mc.sweep_rows(5, grid_row(levels, 0), params, stops18, tps18, num_paths=pps,
+                                num_bars=w, s0=100.0, mu=0.0, sigma=0.3, dt=DT, lanes=8192,
+                                external_uniforms=None, device=dev, **skw)
+        torch.cuda.synchronize()
+        assert cuda_mc.LAUNCHES["mc_sweep_sampler"] == before + 2
+        assert (cuda_mc.reduce_rows(*sw)[0][:, 1] > 0).all()
+        for g, (sp, tp) in enumerate(zip(stops18, tps18)):
+            one = cuda_mc.first_contact_rows(
+                5, grid_row(levels, 0), params.replace(stop_padding=sp, tp_padding=tp),
+                num_paths=pps, num_bars=w, s0=100.0, mu=0.0, sigma=0.3, dt=DT, lanes=8192,
+                noise=None, antithetic=False, external_uniforms=None, device=dev, **skw)
+            assert _equal((sw[0][g], sw[1][g]), one), (w, g)
 
 
 def _lifecycle_launchers(engine: bool):
