@@ -48,7 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
    (``mc_engine`` and its fold once a run, no other kernel), the output
    checked, paths/s timed; the kernel alone timed at 2^28;
    the common-random-number grid sweeps (kernels #3, #6, #9):
-12. first-contact sweep (``mc_sweep_kernel``, mc_first_contact.cu): injected
+12. first-contact sweep (``mc_first_contact_sweep_kernel``, mc_first_contact_sweep.cu:
+   McArgs in shared memory, the path state in registers, a Philox call a
+   group of four rows a stream): injected
    uniforms, the CLI's 3 x 3 (stop, tp) grid (BASELINE config #5's three
    rows among them), each row against the plain version on CPU copies;
    Philox at 2^22 on the same 9 rows, each row equal to the single
@@ -186,8 +188,11 @@ Phases (any failure exits non-zero and prints no result line):
 25. gated: the same with and without noise ([S] and [G] stds), path by path,
    every differing injected path traced as in phase 6, symbols 0, 11, ...,
    99 of config #4's full-width launch against the plain version on the
-   card; ``sweep --gated`` at
-   2^26 x 18 rows (``--touch-limits 2 4``);
+   card; the sweep's grid rows through ``mc_gated_sampler_sweep_kernel``
+   (mc_gated_sampler_sweep.cu: each path's bars made once for every row);
+   ``sweep --gated`` at 2^26 x 18 rows (``--touch-limits 2 4``), one sweep
+   launch and one fold a run, each of the 18 rows equal to its one-row
+   launch of ``mc_gated_sampler_kernel`` bit for bit;
 26. engine: the same with the engine's two budgets, every differing path
    traced as in phase 9, symbols 0, 11, ..., 99 of config #4's full-width
    launch against the plain version on the card (launch-bound a symbol at a
@@ -225,7 +230,7 @@ Phases (any failure exits non-zero and prints no result line):
    kernel vs plain on CPU copies path by path, every differing path traced
    and an agreeing path held to 16 price ulps a trade, at 30 levels x 40
    bars, 64 x 16, 8 x 62, 8 x 63 with noise and antithetic, 3 x 25 and 30 x
-   390 (2^14 paths); Philox at 30 x 390 x 2^16, kernel equal to the plain
+   390 (2^13 paths); Philox at 30 x 390 x 2^16, kernel equal to the plain
    version on the card on every path; the envelope kernel forced to run at 3
    levels x 40 bars equal to the parent kernel bit for bit at 2^20, and the
    two timed at phase 11's 2^28 x 40; the sweep's 18 rows (3 x 3 x jitter 0,
@@ -280,7 +285,12 @@ Phases (any failure exits non-zero and prints no result line):
    390 injected uniforms against the plain version on CPU copies, Philox at
    2^20 (single with noise and antithetic, the 3 x 3 sweep, a 3-symbol
    universe) against the plain version on the card, the same launches
-   forced at W = 40 and 128 equal to the register kernels bit for bit; the
+   forced at W = 40, 90, 92 and 128 equal to the register kernels bit for
+   bit (the gbm sweep, ``mc_first_contact_sweep_kernel``, with its sine
+   halves kept in shared memory and drawn again, each row against the
+   register one-row kernel; W 90 and 92 the last of its four-CTA build and
+   the first of its three-CTA one), the gbm sweep's 18 rows at W = 390 each equal
+   to its one-row launch; the
    port CLI's ``paths --num-bars 390`` (default ``--backend auto``) at 2^28
    and ``sweep --num-bars 390`` at 2^26, config #4's universe at 390 bars
    through ``mc_paths_universe_fused``, launch counts set to 0 just before
@@ -428,6 +438,7 @@ GATED_LANES = 1024
 GATED_INJECT_BLOCKS = 8
 CSRC = "qmmx_monolithic_monte_carlo_tpu_torch/ops/csrc/"
 FC_SOURCE = CSRC + "mc_first_contact.cu"
+FC_SWEEP_SOURCE = CSRC + "mc_first_contact_sweep.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
 GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
@@ -471,11 +482,9 @@ _T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    """Print a line; a phase's heading ("[N] ...") carries the seconds since
-    the start."""
-    if msg.startswith("[") and msg[1:2].isdigit():
-        msg = f"{msg} (+{time.perf_counter() - _T0:.1f} s)"
-    print(msg, flush=True)
+    """Print a line with the seconds since the start, so the log shows where
+    the run's time goes."""
+    print(f"{msg} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -511,18 +520,24 @@ class Card:
                 "bound_parts": parts}
 
 
-def fc_ops(work, entered: int, scale: float) -> dict:
+def fc_ops(work, entered: int, scale: float, by_groups: bool = True) -> dict:
     """Operations of the first-contact kernel (no noise) from the plain
-    version's work counts [Box-Muller pairs, bars walked, bars after contact],
-    scaled by ``scale``."""
-    pairs, walked, post = (float(x) * scale for x in work)
+    version's work counts [Box-Muller pairs, bars walked, bars after contact,
+    ..., Philox calls], scaled by ``scale``.  A Philox4x32-10 call gives four
+    uniforms, rows 4j .. 4j + 3 of a path's layout (``ops/draws.GbmLayout``),
+    so the least work counts one call for each group of four rows a path
+    touches (the last entry, ``cuda_mc.philox_groups``: its radius, angle,
+    high and low rows, rounded up to groups a path); ``by_groups=False``
+    counts a call a uniform, as the bound did before the recount and the
+    Heston sampler's bound still does (``fc_sampler_ops``)."""
+    pairs, walked, post = (float(x) * scale for x in work[:3])
     entered *= scale
     logf = pairs + 2 * post
     sqrtf = pairs + 2 * post
     expf = (walked - post) + entered + 2 * post     # closes, the entry's open, high/low
     sincos = pairs
     div = entered                                   # reward / risk
-    philox = 2 * pairs + 2 * post
+    philox = float(work[-1]) * scale if by_groups else 2 * pairs + 2 * post
     # float32 work counted one operation per transcendental plus ~20 per bar
     f32 = logf + sqrtf + expf + 2 * sincos + div + 20 * walked
     return dict(f32=f32, sfu=logf + sqrtf + expf + div, imul=PHILOX_IMULS * philox)
@@ -580,10 +595,11 @@ def engine_ops(n_paths: float, counts, scale: float, num_bars: int = NUM_BARS,
 def sweep_ops(work, entered: int, rows: int, scale: float) -> dict:
     """Operations of the first-contact sweep for its work counts [Box-Muller
     pairs, bars walked (to the last row's hit), bars walked after contact,
-    bars x rows checked after contact], scaled by ``scale``: each path's bars
-    and contact once (``fc_ops``), plus every row's stop/target recomputed
-    and checked (~8 float32 operations a row and bar) and its R division."""
-    ops = fc_ops(work[:3], entered, scale)
+    bars x rows checked after contact, Philox calls], scaled by ``scale``:
+    each path's bars and contact once (``fc_ops``), plus every row's
+    stop/target recomputed and checked (~8 float32 operations a row and bar)
+    and its R division."""
+    ops = fc_ops(work, entered, scale)
     row_bars = float(work[3]) * scale
     extra_div = (rows - 1) * entered * scale
     ops["f32"] += 8 * row_bars + extra_div
@@ -2574,6 +2590,7 @@ SAMPLER_INJECT_PATHS = {"first contact": 1 << 16, "gated": 1 << 15, "engine": 1 
 FC_SAMPLER_SOURCE = CSRC + "mc_first_contact_samplers.cu"
 FC_SAMPLER_SWEEP_SOURCE = CSRC + "mc_first_contact_sampler_sweep.cu"
 GATED_SAMPLER_SOURCE = CSRC + "mc_gated_samplers.cu"
+GATED_SAMPLER_SWEEP_SOURCE = CSRC + "mc_gated_sampler_sweep.cu"
 ENGINE_SAMPLER_SOURCE = CSRC + "mc_engine_samplers.cu"
 L2_BYTES = 50e6
 
@@ -2642,10 +2659,10 @@ def fc_sampler_ops(sampler: str, work, entered: int, scale: float):
     """(operations, gathered values) of the first-contact sampler kernel (no
     noise) from the plain version's work counts [Box-Muller pairs, bars
     walked, bars after contact], scaled by ``scale``."""
-    pairs, walked, post = (float(x) * scale for x in work)
+    pairs, walked, post = (float(x) * scale for x in work[:3])
     entered *= scale
     if sampler == "heston":
-        ops = fc_ops(work, entered / scale, scale)
+        ops = fc_ops(work, entered / scale, scale, by_groups=False)
         ops["sfu"] += 2 * pairs + walked          # the shock pair's logf, sqrtf; sig_bar
         ops["f32"] += 4 * pairs + 8 * walked
         ops["imul"] += PHILOX_IMULS * 2 * pairs   # the shock pair's two rows
@@ -2926,7 +2943,7 @@ def rows_ops(family: str, sampler: str, work, sample_pps: int, scale: float):
     again."""
     c = work[0].cpu()
     if family == "first contact":
-        w = work[2].cpu().reshape(-1, 3).sum(0)
+        w = work[2].cpu().reshape(-1, work[2].shape[-1]).sum(0)
         return fc_sampler_ops(sampler, w, int(c[..., 1].sum()), scale)
     if family == "gated":
         return gated_sampler_ops(sampler, c.shape[0] * sample_pps * scale,
@@ -3228,7 +3245,8 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     "gated": (GATED_UNI_REPLACES, GATED_SWEEP_REPLACES),
                     "engine": (ENGINE_UNI_REPLACES, ENGINE_SWEEP_REPLACES)}[fam_name]
         source = ROWS_SOURCES[fam_name]
-        sweep_source = FC_SAMPLER_SWEEP_SOURCE if fam.fc else source
+        sweep_source = (FC_SAMPLER_SWEEP_SOURCE if fam.fc else GATED_SAMPLER_SWEEP_SOURCE
+                        if fam_name == "gated" else source)
         nb = ROWS_INJECT_BLOCKS[fam_name]
         plain_n, sweep_n = ROWS_PLAIN_PATHS[fam_name], ROWS_SWEEP_PLAIN_PATHS[fam_name]
         n_uni, n_sw = nb * fam.block, nb * fam.sweep_block
@@ -3975,7 +3993,7 @@ ENV_LEVELS = 30
 ENV_BARS = 390
 ENV_PATHS = 1 << 24             # paths --engine at the envelope (the CLI and the kernel alone)
 ENV_PHILOX_PATHS = 1 << 16      # Philox, kernel vs plain on the card
-ENV_DAY_INJECT_BLOCKS = 8       # 30 levels x 390 bars injected: 8 x 8 x 256 = 2^14 paths
+ENV_DAY_INJECT_BLOCKS = 4       # 30 levels x 390 bars injected: 4 x 8 x 256 = 2^13 paths
 ENV_INJECT_BLOCKS = 1           # the other injected shapes: 2048 paths
 ENV_PARENT_PATHS = 1 << 20      # the envelope kernel against its parent, bit for bit
 ENV_ROW_PATHS = 1 << 16         # sweep rows and universe symbols against one-row launches
@@ -4775,8 +4793,11 @@ def long_phases(dev, card, reset, cli) -> list:
     kernels.  gbm: injected uniforms (noise, antithetic) against the plain
     version on CPU copies; Philox at 2^20 against the plain version on the
     card, single (noise, antithetic), the 3 x 3 sweep and a 3-symbol
-    universe; the same launches forced (``cuda_mc._FORCE_LONG``) at W = 40
-    and 128 equal to the register kernels bit for bit; ``paths --num-bars
+    universe; the same launches forced (``cuda_mc._FORCE_LONG``) at W = 40,
+    90, 92 and 128 equal to the register kernels bit for bit (the gbm sweep, its
+    sine halves kept and drawn again, row by row against the register
+    one-row kernel), the gbm sweep at 18 rows x W 390 (two launches) each
+    row against its one-row launch; ``paths --num-bars
     390`` (default ``--backend auto``) at 2^28 and ``sweep --num-bars 390`` at
     2^26 through the CLI, config #4's universe at 390 bars through
     ``mc_paths_universe_fused``; each kernel timed beside its bound.  The
@@ -4857,9 +4878,9 @@ def long_phases(dev, card, reset, cli) -> list:
         err["mc_universe_long"] = max(err["mc_universe_long"], cmp(
             f"universe symbol {i}", (uwc[i], uwf[i]), (got[0][i], got[1][i]), LONG_PHILOX_PATHS))
 
-    log("[32] forced long path (cuda_mc._FORCE_LONG) at W = 40 and 128 against the "
+    log("[32] forced long path (cuda_mc._FORCE_LONG) at W = 40, 90, 92 and 128 against the "
         f"register kernels at {LONG_PHILOX_PATHS} paths: partial rows bit for bit")
-    for wf in (40, 128):
+    for wf in (40, 90, 92, 128):
         fkw = dict(common, num_bars=wf, num_paths=LONG_PHILOX_PATHS, external_uniforms=None)
 
         def launches():
@@ -4880,8 +4901,19 @@ def long_phases(dev, card, reset, cli) -> list:
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
                 raise AssertionError(f"W {wf} {name}: the long path differs from the "
                                      "register kernel")
+        # the gbm sweep kernel (every sine half in shared memory, then none
+        # under _FORCE_LONG) against the register one-row kernel, row by row
+        for gi, (sp, tp) in enumerate(zip(stops9, tps9)):
+            one = cuda_mc.first_contact_rows(3, levels, params.replace(
+                stop_padding=sp, tp_padding=tp), device=dev, noise=None, antithetic=False,
+                **fkw)
+            for name, sw in (("kept", reg[1]), ("drawn again", forced_rows[1])):
+                if not (torch.equal(one[0], sw[0][gi]) and torch.equal(one[1], sw[1][gi])):
+                    raise AssertionError(f"W {wf}: gbm sweep row {gi} (sine halves {name}) "
+                                         "differs from the register one-row kernel")
     log("  single (noise, antithetic), sweep and universe: the long path == the register "
-        "kernels bit for bit at W = 40 and 128")
+        "kernels bit for bit at W = 40, 90, 92 and 128; each gbm sweep row, sine halves kept "
+        "or drawn again, == its one-row launch of the register kernel")
 
     def row_bytes_of(rows):
         return rows[0].numel() * 8 + rows[1].numel() * 4
@@ -4970,6 +5002,24 @@ def long_phases(dev, card, reset, cli) -> list:
     kws = dict(kw, num_paths=LONG_SAMPLER_PATHS)
     stops18 = [sp for sp in (0.15, 0.25, 0.35, 0.45, 0.55, 0.65) for _ in range(3)]
     tps18 = [tp for _ in range(6) for tp in (0.15, 0.25, 0.35)]
+    # gbm, 18 rows at W = 390: two launches of mc_first_contact_sweep_kernel (64
+    # sine halves kept, the rest drawn again), each row equal to its one-row
+    # launch of mc_universe_kernel's long build bit for bit
+    before = cuda_mc.LAUNCHES["mc_sweep_long"]
+    sw18 = cuda_mc.sweep_rows(0, levels, params, stops18, tps18, device=dev, **kws)
+    if cuda_mc.LAUNCHES["mc_sweep_long"] != before + 2:
+        raise AssertionError(f"gbm: 18 sweep rows took "
+                             f"{cuda_mc.LAUNCHES['mc_sweep_long'] - before} launches")
+    for gi, (sp, tp) in enumerate(zip(stops18, tps18)):
+        one = cuda_mc.first_contact_rows(
+            0, levels, params.replace(stop_padding=sp, tp_padding=tp), device=dev,
+            noise=None, antithetic=False, **kws)
+        if not (torch.equal(one[0], sw18[0][gi]) and torch.equal(one[1], sw18[1][gi])):
+            raise AssertionError(f"gbm W {w}: sweep row {gi} of 18 differs from its one-row "
+                                 "launch")
+    del sw18
+    log(f"  gbm sweep at 18 rows x {LONG_SAMPLER_PATHS} x {w} (two launches): every row == "
+        "its one-row launch bit for bit")
     for smp in SAMPLERS:
         skw = (dict(sampler=smp) if smp == "heston" else
                dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
@@ -5059,7 +5109,7 @@ def long_phases(dev, card, reset, cli) -> list:
               fc_plain_ms, fc_bound, num_bars=w, paths=LONG_PATHS, plain_paths=LONG_PHILOX_PATHS,
               main_path_ms=fc_main_ms, main_path_bound_ms=fc_main_bound["bound_ms"],
               cli_s=fc_secs[1:]),
-        entry("mc_sweep_long", LONG_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep_long"],
+        entry("mc_sweep_long", FC_SWEEP_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep_long"],
               err["mc_sweep_long"], sw_ms, sw_plain_ms, sw_bound, num_bars=w, paths=sw_paths,
               grid_rows=len(grid9), plain_paths=LONG_PHILOX_PATHS, cli_s=sw_secs[1:]),
         entry("mc_universe_long", LONG_SOURCE, UNI_REPLACES,
@@ -5528,6 +5578,98 @@ def sampler_sweep_times(tree: str) -> int:
     return 0
 
 
+# --sweep-times: the gbm and the gated sampler sweeps at their main paths' shapes
+SWEEP_AB_GBM = ((CONFIG5, 1 << 30, NUM_BARS), (GRID9, MAIN_PATHS, NUM_BARS),
+                (GRID9, 1 << 24, 390))           # (rows, paths, W): config #5, the CLI's 9
+SWEEP_AB_GATED_PATHS = 1 << 26                   # sweep --gated --touch-limits 2 4: 18 rows
+
+
+def sweep_times(tree: str) -> int:
+    """The gbm and the gated sampler sweeps of the port in ``tree``, at their
+    main paths' shapes: the gbm first-contact sweep (``cuda_mc.sweep_rows``)
+    at config #5 (3 rows x 2^30 x 40), the CLI's 9 rows at 2^28 x 40 and 9 x
+    2^24 x 390; the gated sweep (``cuda_gated.gated_sweep_rows``) on the
+    CLI's ``sweep --gated --touch-limits 2 4`` grid (18 rows) at 2^26 x 40
+    under bootstrap, block bootstrap and Heston on ``history_arrays``' year
+    of 1-minute bars.  Each timed by CUDA events (a warm-up that also takes a
+    digest of the folded counts and floats, ``count_digest``, then the mean of
+    two runs).  Builds into the tree's ``build/kernels-times``; prints the
+    sweep kernels' ptxas lines, each time, then one JSON line with all of
+    them, the card's name and power limit.  Run once a tree, in turns with
+    another tree (``--sweep-times TREE``)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from pathlib import Path
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"tree {tree}; {smi}", flush=True)
+    build.BUILD_DIR = Path(tree) / "build" / "kernels-times"
+    libs = [n for n in ("mc_first_contact", "mc_first_contact_long", "mc_first_contact_sweep",
+                        "mc_gated", "mc_gated_samplers", "mc_gated_sampler_sweep")
+            if (build.CSRC / f"{n}.cu").exists()]
+    build.build_all(libs)
+    ptxas = {}
+    for name in libs:
+        fn = None
+        for line in build.BUILD_LOG[name]["log"].splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'? ",
+                          line + " ")
+            if m:
+                fn = m.group(1)
+            if fn and "sweep" in fn and re.search(r"registers|spill", line):
+                ptxas.setdefault(f"{name}:{fn}", []).append(line.strip())
+    for fn, lines in ptxas.items():
+        for line in lines:
+            print(f"  {fn[:100]}: {line}")
+    dev = torch.device("cuda", 0)
+    params = EngineParams.default()
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    ms, digests = {}, {}
+
+    def timed(name, run, fold):
+        digests[name] = count_digest(*fold(*run()))          # also the warm-up
+        torch.cuda.synchronize()
+        ms[name] = cuda_ms(run, 2)
+        print(f"  {name}: {ms[name]:.3f} ms, totals {digests[name]}", flush=True)
+
+    for rows, n, w in SWEEP_AB_GBM:
+        stops, tps = [r[0] for r in rows], [r[1] for r in rows]
+        timed(f"gbm sweep {len(rows)} x {n} x {w}",
+              lambda stops=stops, tps=tps, n=n, w=w: cuda_mc.sweep_rows(
+                  0, levels, params, stops, tps, num_paths=n, num_bars=w, s0=100.0, mu=0.0,
+                  sigma=SIGMA, dt=DT, lanes=LANES, external_uniforms=None, device=dev),
+              cuda_mc.reduce_rows)
+    stops18 = [r[0] for r in GRID9 for _ in (2, 4)]
+    tps18 = [r[1] for r in GRID9 for _ in (2, 4)]
+    gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in GRID9
+                                                                 for tl in (2, 4)])
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    for smp in SAMPLERS:
+        skw = (dict(sampler=smp) if smp == "heston" else
+               dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+        timed(f"gated sweep {smp} 18 x {SWEEP_AB_GATED_PATHS} x {NUM_BARS}",
+              lambda skw=skw: cuda_gated.gated_sweep_rows(
+                  0, levels, params, stops18, tps18, gate18, num_paths=SWEEP_AB_GATED_PATHS,
+                  num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=GATED_LANES,
+                  noise=None, external_uniforms=None, device=dev, **skw),
+              cuda_gated.reduce_rows)
+    print(json.dumps({"tree": tree, "card": smi, "ms": ms, "digest": digests, "ptxas": ptxas}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5668,8 +5810,8 @@ def main() -> int:
         f"({PLAIN_PATHS / fc_ms * 1e3:.6e} paths/s), bound {fc_bound['bound_ms']:.3f} ms "
         f"{fc_bound['bound_parts']}, plain {plain_ms:.3f} ms "
         f"({PLAIN_PATHS / plain_ms * 1e3:.6e} paths/s)")
-    log(f"  work per path (first {PHILOX_PATHS} paths): pairs, walked, after contact "
-        f"{[round(float(x) / PHILOX_PATHS, 4) for x in work.cpu()]}")
+    log(f"  work per path (first {PHILOX_PATHS} paths): pairs, walked, after contact, "
+        f"Philox calls {[round(float(x) / PHILOX_PATHS, 4) for x in work.cpu()]}")
     log(f"  row reduction ({fc_rows[0].shape[0]} rows): kernel {red_ms:.4f} ms, "
         f"plain {red_plain_ms:.4f} ms, bound {red_bound['bound_ms']:.4f} ms")
 
@@ -6014,7 +6156,8 @@ def main() -> int:
         f"({PLAIN_PATHS / sw_ms * 1e3:.6e} paths/s), bound {sw_bound_plain['bound_ms']:.3f} ms "
         f"{sw_bound_plain['bound_parts']}, plain {sw_plain_ms:.3f} ms")
     log(f"  work per path (first {PHILOX_PATHS} paths): pairs, walked, after contact, "
-        f"rows x bars after contact {[round(float(x) / PHILOX_PATHS, 4) for x in swork.cpu()]}")
+        f"rows x bars after contact, Philox calls "
+        f"{[round(float(x) / PHILOX_PATHS, 4) for x in swork.cpu()]}")
     log(f"  row fold (3 x {sw_rows[0].shape[1]} rows): kernel {sw_red_ms:.4f} ms, plain "
         f"{sw_red_plain_ms:.4f} ms, bound {sw_red_bound['bound_ms']:.4f} ms")
     c5_ms = cuda_ms(lambda: run_sw(CONFIG5_PATHS), 2)
@@ -6382,8 +6525,8 @@ def main() -> int:
         entry("mc_engine_reduce_rows", ENGINE_SOURCE, ENGINE_REPLACES,
               e_launches["mc_engine_reduce_rows"], engine_red_err, e_red_ms,
               e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[0])),
-        entry("mc_sweep", FC_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep"], sw_err, sw_ms,
-              sw_plain_ms, sw_bound_plain, paths=PLAIN_PATHS, grid_rows=3,
+        entry("mc_sweep", FC_SWEEP_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep"], sw_err,
+              sw_ms, sw_plain_ms, sw_bound_plain, paths=PLAIN_PATHS, grid_rows=3,
               config5_ms=c5_ms, config5_bound_ms=c5_bound["bound_ms"],
               cli_kernel_ms=sw_main_ms, cli_kernel_bound_ms=sw_main_bound["bound_ms"],
               cli_s=sw_secs[1:]),
@@ -6424,6 +6567,9 @@ if __name__ == "__main__":
         elif sys.argv[1:2] == ["--sampler-sweep-times"]:
             code = sampler_sweep_times(sys.argv[2] if len(sys.argv) > 2
                                        else os.path.dirname(os.path.abspath(__file__)))
+        elif sys.argv[1:2] == ["--sweep-times"]:
+            code = sweep_times(sys.argv[2] if len(sys.argv) > 2
+                               else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--envelope-times"]:
             args = sys.argv[2:]
             mb = (tuple(int(x) for x in args[args.index("--min-blocks") + 1].split(","))

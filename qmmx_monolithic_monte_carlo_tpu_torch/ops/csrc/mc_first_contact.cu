@@ -32,23 +32,7 @@
 // kernel that folds the partial rows in row order.  Counts are integers from
 // the thread to the final int64 totals.
 //
-// mc_sweep_kernel replaces the TPU kernel pallas_mc.py _sweep_kernel: the
-// stop/target grid under common random numbers.  Each path's bars and its
-// first contact are computed once; the stop/target replay (with the tie coin)
-// then runs for every grid row.  What bounds it is what bounds the single
-// kernel, plus a few float32 compares per row and bar after contact.  Design:
-// one thread per path, as above, on the same draws and the same bar
-// arithmetic (contact() and bridge(), shared with bar_step); a row's state is
-// two bits (resolved, target first) of two masks, its stop and target are
-// recomputed from the level and the row's paddings on each bar (two adds),
-// and the walk ends when every row has resolved.  At the end of a path each
-// row's R is folded into that row's per-thread sums, in the order the single
-// kernel folds them, so row g's partial row (row-major [row][CTA]) equals
-// the single configuration's for (stop_g, tp_g) bit for bit.  The per-row
-// sums live in a per-thread array (local memory, touched once per path); a
-// launch takes at most SWEEP_ROWS rows, and the wrapper launches again for
-// more (the draws do not depend on the row, so every launch sees the same
-// paths).
+// The gbm sweep (#3, pallas_mc.py _sweep_kernel) is mc_first_contact_sweep.cu.
 //
 // mc_universe_kernel replaces the TPU kernel pallas_mc.py _universe_kernel:
 // the first-contact replay for S symbols in one launch, each with its own
@@ -108,27 +92,8 @@ extern "C" {
 
 int qmmx_mc_args_size(void) { return (int)sizeof(McArgs); }
 
-int qmmx_sweep_grid_size(void) { return (int)sizeof(SweepGrid); }
-
 const char* qmmx_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
-}
-
-// Sweep pass 1 over the rows of ``grid`` (at most SWEEP_ROWS): partial rows
-// [row][CTA] at part_counts / part_floats.  Returns cudaGetLastError().
-int qmmx_mc_sweep(const McArgs* a, const SweepGrid* grid, const float* ext,
-                  long long* part_counts, float* part_floats, int ctas, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (grid->n_rows < 1 || grid->n_rows > SWEEP_ROWS) return (int)cudaErrorInvalidValue;
-    const int half = a->num_bars / 2;
-    if (half <= 20) {
-        mc_sweep_kernel<20><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
-    } else if (half <= 64) {
-        mc_sweep_kernel<64><<<ctas, BLOCK, 0, s>>>(*a, *grid, ext, part_counts, part_floats);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
 }
 
 // Pass 1: the n_rows symbol rows at ``rows`` (device memory; one for a single

@@ -1,9 +1,9 @@
 // The first-contact family's device code -- its constants, the argument
 // struct (mirrored by ops/cuda_mc.py:_McArgs), the uniform draw, the path
 // state, the sweep's grid and state, and the contact, bridge and tie-coin
-// steps -- shared by mc_first_contact.cu (the single, sweep and universe
-// kernels) and mc_first_contact_samplers.cu (the bootstrap, block-bootstrap
-// and Heston kernels).  Each source is its own library, so the samplers'
+// steps -- shared by mc_first_contact.cu (the single and universe kernels),
+// mc_first_contact_sweep.cu (the gbm sweep) and the sampler kernels
+// (mc_first_contact_samplers.cu, mc_first_contact_sampler_sweep.cu).  Each source is its own library, so the samplers'
 // kernels do not change how the others compile (the non-inlined bar step is
 // register-allocated per library).
 #pragma once

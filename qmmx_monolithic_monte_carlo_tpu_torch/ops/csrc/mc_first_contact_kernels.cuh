@@ -1,14 +1,14 @@
-// The first-contact family's gbm kernels -- the bar steps, the per-CTA path
-// loop and reduction, mc_universe_kernel (the single configuration at one
-// symbol, and the universe) and mc_sweep_kernel -- included by
-// mc_first_contact.cu (W/2 <= 64: MAXHALF = 20 or 64 sine halves kept in
-// registers for bars W/2..W-1) and by mc_first_contact_long.cu, which defines
-// FIRST_CONTACT_LONG first: any even W, bar t >= W/2 drawing pair t - W/2
-// again (Philox is counter-based, and sincosf of the same argument gives the
-// same sine), so its paths equal the register kernels' bit for bit.  Each
-// source is a library of its own (the non-inlined bar step is
-// register-allocated per library), so mc_first_contact.cu compiles the
-// statements it had before the long kernels came (utils/sass_diff).
+// The first-contact family's gbm kernels -- the bar step, the per-CTA path
+// loop and reduction, and mc_universe_kernel (the single configuration at one
+// symbol, and the universe) -- included by mc_first_contact.cu (W/2 <= 64:
+// MAXHALF = 20 or 64 sine halves kept in registers for bars W/2..W-1) and by
+// mc_first_contact_long.cu, which defines FIRST_CONTACT_LONG first: any even
+// W, bar t >= W/2 drawing pair t - W/2 again (Philox is counter-based, and
+// sincosf of the same argument gives the same sine), so its paths equal the
+// register kernels' bit for bit.  Each source is a library of its own (the
+// non-inlined bar step is register-allocated per library), so
+// mc_first_contact.cu compiles the statements it had before the long kernels
+// came (utils/sass_diff).  The gbm sweep is mc_first_contact_sweep.cu.
 #pragma once
 
 // One bar of one path: contact search before entry, stop/target after it.
@@ -173,160 +173,4 @@ mc_universe_kernel(const McArgs* __restrict__ rows, const float* __restrict__ ex
     const long long seg = (long long)blockIdx.y * gridDim.x + blockIdx.x;
     first_contact_block<MAXHALF>(s_a, ext ? ext + s_a.ext_offset : nullptr,
                                  part_counts + seg * ROW_COUNTS, part_floats + seg * ROW_FLOATS);
-}
-
-// One bar of one path against every row of the grid (bar_step's arithmetic).
-__device__ __noinline__ void sweep_bar_step(const McArgs& a, const SweepGrid& gr,
-                                            const Draw& draw, SweepState& st,
-                                            int lane, int k, float z, float sig2dt) {
-    const float incr = a.drift + a.sig_dt * z;
-    st.acc = st.acc + incr;
-    const float log_close = a.log_s0 + st.acc;
-    const float log_open = log_close - incr;
-    if (!st.entered) {
-        st.entered = contact(a, log_close, log_open, st.entry, st.lvl, st.is_long);
-        return;
-    }
-    float high, low;
-    bridge(a, draw, lane, k, log_close, log_open, sig2dt, high, low);
-    int coin = -1;                       // the tie coin, drawn once a bar if needed
-    for (int g = 0; g < gr.n_rows; ++g) {
-        if ((st.done >> g) & 1u) continue;
-        const float stop = row_stop(st, gr.stop_pad[g]);
-        const float target = row_target(st, gr.tp_pad[g]);
-        const bool stop_hit = st.is_long ? low <= stop : high >= stop;
-        const bool tgt_hit = st.is_long ? high >= target : low <= target;
-        if (!(stop_hit || tgt_hit)) continue;
-        st.done |= 1u << g;
-        bool tf = tgt_hit;
-        if (stop_hit && tgt_hit) {
-            if (coin < 0) coin = tie_coin(a, draw, lane, high, low, st.entry) ? 1 : 0;
-            tf = coin == 1;
-        }
-        if (tf) st.target_first |= 1u << g;
-    }
-}
-
-template <int MAXHALF>
-__global__ void __launch_bounds__(BLOCK)
-mc_sweep_kernel(const McArgs a, const SweepGrid grid, const float* __restrict__ ext,
-                long long* __restrict__ part_counts, float* __restrict__ part_floats) {
-    __shared__ SweepGrid s_grid;
-    __shared__ unsigned s_counts[SWEEP_ROWS][ROW_COUNTS];
-    __shared__ float s_red[SWEEP_ROWS][ROW_FLOATS][BLOCK / 32];
-    const int n = grid.n_rows;
-    if (threadIdx.x == 0) s_grid = grid;
-    for (int i = threadIdx.x; i < n * ROW_COUNTS; i += BLOCK)
-        s_counts[i / ROW_COUNTS][i % ROW_COUNTS] = 0u;
-    __syncthreads();
-
-    const int half = a.num_bars >> 1;
-    const float sig2dt = a.sig_dt * a.sig_dt;
-    const unsigned all = (1u << n) - 1u;   // n <= SWEEP_ROWS
-    // per-row sums, folded path by path in the single kernel's order
-    unsigned n_paths = 0u, n_entered = 0u;
-    unsigned n_tp[SWEEP_ROWS], n_stop[SWEEP_ROWS];
-    float sum_r[SWEEP_ROWS], sum_r2[SWEEP_ROWS], min_r[SWEEP_ROWS], max_r[SWEEP_ROWS];
-    for (int g = 0; g < n; ++g) {
-        n_tp[g] = n_stop[g] = 0u;
-        sum_r[g] = sum_r2[g] = 0.f; min_r[g] = BIG; max_r[g] = -BIG;
-    }
-
-    const long long stride = (long long)gridDim.x * BLOCK;
-    for (long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-         p < a.num_paths; p += stride) {
-        const long long blk = p / a.lanes;
-        const int lane = (int)(p - blk * a.lanes);
-        const Draw draw{ext, blk, a.lanes, a.n_rows, a.seed, a.stream};
-
-        SweepState st;
-        st.acc = 0.f; st.entry = 0.f; st.lvl = 0.f;
-        st.entered = false; st.is_long = false;
-        st.done = 0u; st.target_first = 0u;
-#ifdef FIRST_CONTACT_LONG
-        for (int t = 0; t < 2 * half && st.done != all; ++t) {
-            const int k = t < half ? t : t - half;
-            const float rad = sqrtf(-2.0f * logf(draw(k, lane)));
-            float sn, cs;
-            sincosf(two_pi() * draw(half + k, lane), &sn, &cs);
-            sweep_bar_step(a, s_grid, draw, st, lane, t, rad * (t < half ? cs : sn), sig2dt);
-        }
-#else
-        float zsin[MAXHALF];
-#pragma unroll
-        for (int k = 0; k < MAXHALF; ++k) {
-            if (k >= half || st.done == all) break;
-            const float rad = sqrtf(-2.0f * logf(draw(k, lane)));
-            float sn, cs;
-            sincosf(two_pi() * draw(half + k, lane), &sn, &cs);
-            zsin[k] = rad * sn;
-            sweep_bar_step(a, s_grid, draw, st, lane, k, rad * cs, sig2dt);
-        }
-#pragma unroll
-        for (int k = 0; k < MAXHALF; ++k) {
-            if (k >= half || st.done == all) break;
-            sweep_bar_step(a, s_grid, draw, st, lane, half + k, zsin[k], sig2dt);
-        }
-#endif
-
-        n_paths += 1u;
-        if (!st.entered) continue;
-        n_entered += 1u;
-        for (int g = 0; g < n; ++g) {
-            float r = 0.f;
-            if ((st.done >> g) & 1u) {
-                if ((st.target_first >> g) & 1u) {
-                    n_tp[g] += 1u;
-                    const float stop = row_stop(st, s_grid.stop_pad[g]);
-                    const float target = row_target(st, s_grid.tp_pad[g]);
-                    r = fabsf(target - st.entry) / fmaxf(fabsf(st.entry - stop), 1e-9f);
-                } else {
-                    n_stop[g] += 1u;
-                    r = -1.f;
-                }
-            }
-            sum_r[g] += r;
-            sum_r2[g] += r * r;
-            min_r[g] = fminf(min_r[g], r);
-            max_r[g] = fmaxf(max_r[g], r);
-            const int bin = min(max((int)((r - (-1.5f)) * 32.0f), 0), HIST_BINS - 1);
-            atomicAdd(&s_counts[g][N_COUNTS + bin], 1u);
-        }
-    }
-
-    const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-    const unsigned w_paths = warp_count<unsigned>(n_paths);
-    const unsigned w_entered = warp_count<unsigned>(n_entered);
-    for (int g = 0; g < n; ++g) {
-        const unsigned w_tp = warp_count<unsigned>(n_tp[g]);
-        const unsigned w_stop = warp_count<unsigned>(n_stop[g]);
-        const float s0 = warp_sum(sum_r[g]), s1 = warp_sum(sum_r2[g]);
-        const float mn = warp_min(min_r[g]), mx = warp_max(max_r[g]);
-        if (wl == 0) {
-            atomicAdd(&s_counts[g][0], w_paths);
-            atomicAdd(&s_counts[g][1], w_entered);
-            atomicAdd(&s_counts[g][2], w_tp);
-            atomicAdd(&s_counts[g][3], w_stop);
-            atomicAdd(&s_counts[g][4], w_entered - w_tp - w_stop);
-            s_red[g][0][warp] = s0; s_red[g][1][warp] = s1;
-            s_red[g][2][warp] = mn; s_red[g][3][warp] = mx;
-        }
-    }
-    __syncthreads();
-    // partial rows are laid out [row][CTA]: row g of this launch is segment g
-    for (int i = threadIdx.x; i < n * ROW_COUNTS; i += BLOCK) {
-        const int g = i / ROW_COUNTS, c = i % ROW_COUNTS;
-        part_counts[((long long)g * gridDim.x + blockIdx.x) * ROW_COUNTS + c] =
-            (long long)s_counts[g][c];
-    }
-    if (threadIdx.x < n) {
-        const int g = threadIdx.x;
-        float s0 = 0.f, s1 = 0.f, mn = BIG, mx = -BIG;
-        for (int w = 0; w < BLOCK / 32; ++w) {
-            s0 += s_red[g][0][w]; s1 += s_red[g][1][w];
-            mn = fminf(mn, s_red[g][2][w]); mx = fmaxf(mx, s_red[g][3][w]);
-        }
-        float* row = part_floats + ((long long)g * gridDim.x + blockIdx.x) * ROW_FLOATS;
-        row[0] = s0; row[1] = s1; row[2] = mn; row[3] = mx;
-    }
 }

@@ -1,12 +1,11 @@
-// First-contact Monte Carlo on Hopper past 128 bars: the gbm kernels of
+// First-contact Monte Carlo on Hopper past 128 bars: the gbm kernel of
 // mc_first_contact.cu (mc_universe_kernel, one symbol for a single
-// configuration or a row a symbol; mc_sweep_kernel, the (stop, tp) grid) at
-// any even horizon W.
+// configuration or a row a symbol) at any even horizon W.
 //
 // Replaces the branch W > 128 of the TPU kernels
 // qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py _mc_kernel (#1, any even
-// W: :724-738), _universe_kernel (#2) and _sweep_kernel (#3), which
-// mc_first_contact.cu does not take: it keeps the W/2 sine halves of the
+// W: :724-738) and _universe_kernel (#2), which mc_first_contact.cu does not
+// take: it keeps the W/2 sine halves of the
 // Box-Muller pairs in registers for bars W/2..W-1, at most 64 of them.
 //
 // Design: the same kernels' text (mc_first_contact_kernels.cuh) with
@@ -27,17 +26,6 @@
 #include "mc_first_contact_kernels.cuh"
 
 extern "C" {
-
-// Pass 1 of the (stop, tp) rows of ``grid`` (at most SWEEP_ROWS) at any even
-// W: partial rows [row][CTA].  Returns cudaGetLastError().
-int qmmx_mc_sweep_long(const McArgs* a, const SweepGrid* grid, const float* ext,
-                       long long* part_counts, float* part_floats, int ctas, void* stream) {
-    if (grid->n_rows < 1 || grid->n_rows > SWEEP_ROWS || a->num_bars < 2 || (a->num_bars & 1))
-        return (int)cudaErrorInvalidValue;
-    mc_sweep_kernel<0><<<ctas, BLOCK, 0, (cudaStream_t)stream>>>(*a, *grid, ext, part_counts,
-                                                                 part_floats);
-    return (int)cudaGetLastError();
-}
 
 // Pass 1 of the n_rows symbol rows at ``rows`` (device memory) at any even
 // W, one per blockIdx.y: partial rows [symbol][CTA].  Returns

@@ -1,6 +1,6 @@
 // The first-contact (stop, tp) sweep on Hopper under the recorded-bar and
 // Heston samplers: each path's bars made once and replayed against every grid
-// row, as mc_sweep_kernel (mc_first_contact_kernels.cuh) does under gbm.
+// row, as mc_first_contact_sweep_kernel (mc_first_contact_sweep.cu) does under gbm.
 //
 // mc_first_contact_sampler_sweep_kernel<KIND> replaces the sampler branches
 // (bootstrap, block bootstrap, Heston) of the TPU kernel
@@ -16,7 +16,7 @@
 // and checked against every open row, the tie coin drawn at most once a bar --
 // and stops when every row has resolved, so a path costs the bars of its
 // longest row.  A row's state is two bits of the SweepState masks.  The rows'
-// sums are reduced as mc_sweep_kernel reduces them: counts in shared memory,
+// sums are reduced as the gbm sweep reduces them: counts in shared memory,
 // float sums path by path in the thread, then a warp shuffle tree, then the
 // warps in order.  A row's stop and target are lvl -+ pad plus a zero slip,
 // as enter() of mc_first_contact_samplers.cu sets them without noise, and the
@@ -106,7 +106,7 @@ __device__ __noinline__ void sweep_heston_bar(const McArgs& a, const SamplerArgs
 
 // The rows of ``grid`` (at most SWEEP_ROWS) under the one argument row at
 // ``args`` and ``sargs``, copied into shared memory once a CTA with the grid;
-// partial rows [row][CTA], as mc_sweep_kernel's.
+// partial rows [row][CTA], as the gbm sweep's.
 template <int KIND>
 __global__ void __launch_bounds__(BLOCK)
 mc_first_contact_sampler_sweep_kernel(const McArgs* __restrict__ args,

@@ -37,7 +37,7 @@
 // Rows: blockIdx.y picks the row, as in mc_universe_kernel, so one launch
 // serves the single configuration (#1, one row), the (stop, tp) sweep (#3,
 // rows on the same draws and history; each row walks its bars again, where
-// mc_sweep_kernel walks them once for every row) and the universe (#2, a row
+// mc_first_contact_sampler_sweep.cu walks them once for every row) and the universe (#2, a row
 // a symbol on its own key, injected uniforms and history).  A CTA works on one
 // row, and the x index runs fastest, so resident CTAs share one or two rows'
 // tables in L2 at a time.

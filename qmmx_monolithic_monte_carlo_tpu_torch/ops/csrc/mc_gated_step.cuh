@@ -4,8 +4,19 @@
 // and Heston bars) include it after making the bar, so each compiles the
 // same statements.  In scope: a, st, t, the bar's close c, its tie coin tie
 // and noise uniforms nu, and the hook GATED_EXTREMES, statements that define
-// the bar's high and low, run only while a position is open.  No include
-// guard: it is included once in each bar step.
+// the bar's high and low, run only while a position is open.  Two hooks
+// that only mc_gated_sampler_sweep.cu defines (elsewhere they stand for the
+// same tokens as before): GATED_TIE, the expression of the tie coin, read
+// only on a bar that hits both stop and target (default ``tie``; it draws
+// the coin again there), and GATED_ENTRY_NOISE, statements run where a trade
+// opens before its noise is read (default empty; it draws nu there).  No
+// include guard: it is included once in each bar step.
+#ifndef GATED_ENTRY_NOISE
+#define GATED_ENTRY_NOISE
+#endif
+#ifndef GATED_TIE
+#define GATED_TIE tie
+#endif
     // 1) position management: stop/target off the bridge high/low
     const bool was_open = st.side != 0;
     bool closed = false;
@@ -21,7 +32,7 @@
                 // same-bar tie: distance-weighted coin, up share for both sides
                 const float up = fmaxf(0.f, high - st.entry);
                 const float dn = fmaxf(0.f, st.entry - low);
-                target_first = tie < up / (up + dn + 1e-9f);
+                target_first = GATED_TIE < up / (up + dn + 1e-9f);
             }
             const float risk = fmaxf(fabsf(st.entry - st.stop), 1e-9f);
             const float reward = fabsf(st.target - st.entry);
@@ -73,6 +84,7 @@
                 const bool go_long = c > st.prev_c;
                 st.side = go_long ? 1 : -1;
                 ++st.trades;
+                GATED_ENTRY_NOISE
                 if (a.use_noise) {
                     // per-entry execution noise; the gates saw the true level
                     const float r1 = sqrtf(-2.0f * logf(nu.x));

@@ -20,8 +20,10 @@ universe and the correlated book.
   (kernel #6, ``_gated_sweep_kernel``, ``pallas_mc.py:2163-2401``): the whole
   lifecycle re-run for every row of (stop, tp, gate knobs, noise stds) on the
   same uniforms; row g equals ``mc_paths_gated_fused`` under row g's knobs,
-  bit for bit.  A CUDA device launches ``mc_gated_sweep_kernel`` (CTAs x G)
-  and one fold of all rows, or raises; the CPU runs
+  bit for bit.  A CUDA device launches ``mc_gated_sweep_kernel`` (CTAs x G;
+  under the other samplers ``mc_gated_sampler_sweep_kernel`` of
+  ``ops/csrc/mc_gated_sampler_sweep.cu``, each path's bars made once for
+  every row) and one fold of all rows, or raises; the CPU runs
   ``gated_sweep_totals_reference``.
 * ``mc_paths_gated_universe_fused`` -- the per-symbol gated universe, the
   counterpart of ``mc_paths_pallas_gated_universe`` (kernel #5,
@@ -75,6 +77,12 @@ LIFE_BIN_SCALE = f32(HIST_BINS / (LIFE_HIST_HI - LIFE_HIST_LO))
 _BIG = 3.4e38
 _SOURCE = "mc_gated"
 _SAMPLER_SOURCE = "mc_gated_samplers"
+_SAMPLER_SWEEP_SOURCE = "mc_gated_sampler_sweep"
+# the sampler sweep's bar store (mc_gated_sampler_sweep.cu): its planes (close, high, low)
+BAR_PLANES = 3
+# GatedArgs fields that make a path's bars: every row of a sampler sweep shares them
+_BAR_FIELDS = ("num_paths", "ext_offset", "drift", "sig_dt", "log_s0", "seed", "stream",
+               "num_bars", "lanes", "u_rows", "use_noise", "antithetic")
 SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
 MAX_CURVE_SHARED_BYTES = 160 * 1024  # the book's curves in shared memory (W x BLOCK
                                      # floats, 40 KB at W = 40), beside its 227 KB less the rest
@@ -664,6 +672,36 @@ def _sampler_library() -> ctypes.CDLL:
     return lib
 
 
+def _sampler_sweep_library() -> ctypes.CDLL:
+    """The sampler sweep kernel's library (``ops/csrc/mc_gated_sampler_sweep.cu``,
+    its own build of ``mc_gated.cuh``), built at first use, with its C
+    signatures set and its struct layouts checked; the gated library's first
+    (the fold is that library's)."""
+    _library()
+    lib = build.load(_SAMPLER_SWEEP_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_gated_sampler_sweep_size.argtypes = [ci]
+        lib.qmmx_gated_sampler_sweep_size.restype = ci
+        lib.qmmx_gated_sampler_sweep_ctas.argtypes = [ci, ci]
+        lib.qmmx_gated_sampler_sweep_ctas.restype = ci
+        lib.qmmx_mc_gated_sampler_sweep.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, vp,
+                                                    vp, vp]
+        lib.qmmx_mc_gated_sampler_sweep.restype = ci
+        if [lib.qmmx_gated_sampler_sweep_size(i) for i in (0, 1, 3)] != [
+                ctypes.sizeof(_GatedArgs), ctypes.sizeof(SamplerArgs), BAR_PLANES]:
+            raise RuntimeError("GatedArgs, SamplerArgs or the bar store's planes differ "
+                               "between mc_gated_sampler_sweep.cu and cuda_gated.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
+def sweep_store_floats(ctas: int, num_bars: int) -> int:
+    """The sampler sweep's bar store: BAR_PLANES planes of W x BLOCK floats
+    for each of ``ctas`` resident CTAs."""
+    return ctas * BAR_PLANES * num_bars * BLOCK
+
+
 def _corr_library() -> ctypes.CDLL:
     """The book kernel's library (``ops/csrc/mc_gated_corr.cu``, its own
     build of ``mc_gated.cuh``), built at first use, with its C signature set;
@@ -823,16 +861,54 @@ def _sampler_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int, 
     return out + (path_rows,) if per_path else out
 
 
+def _sampler_sweep_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int,
+                          ext_ptr, device: torch.device, per_path: bool, what: str):
+    """One launch of ``mc_gated_sampler_sweep_kernel`` for the grid rows
+    ``args`` under ``sampler`` (every row on the one history and the same
+    draws: the bars' fields of ``args`` agree), counted in ``LAUNCHES[what]``:
+    each path's bars made once into a bar store of the resident CTAs, then
+    every row replayed over them; int64 [G, grid, 134] and f32 [G, grid, 6]
+    partial rows, plus f32[G, P, 6] per-(row, path) rows when ``per_path``,
+    as ``_sampler_launch``'s."""
+    for field in _BAR_FIELDS:
+        if not (args[field] == args[field][:1]).all():
+            raise ValueError(f"the sweep's rows must share the bars: {field} differs")
+    n, grid = len(args), grid_size(num_paths)
+    num_bars = int(args["num_bars"][0])
+    lib = _sampler_sweep_library()
+    kind = SAMPLER_KINDS[sampler.kind]
+    ctas = lib.qmmx_gated_sampler_sweep_ctas(kind, grid)
+    if ctas < 1:
+        _raise_on(-ctas, what)
+    args_dev = device_rows(args, device)
+    samp_dev, _tables = sampler_args(sampler, device, [0])
+    store = torch.empty(sweep_store_floats(ctas, num_bars), dtype=torch.float32, device=device)
+    part_counts = torch.empty((n, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=torch.float32, device=device)
+    path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=torch.float32, device=device)
+                 if per_path else None)
+    rc = lib.qmmx_mc_gated_sampler_sweep(
+        args_dev.data_ptr(), n, samp_dev.data_ptr(), kind, max_levels, ext_ptr,
+        store.data_ptr(), ctas, grid, part_counts.data_ptr(), part_floats.data_ptr(),
+        path_rows.data_ptr() if per_path else None,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, what)
+    LAUNCHES[what] += 1
+    out = (part_counts, part_floats)
+    return out + (path_rows,) if per_path else out
+
+
 def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_gate=None,
                      *, num_paths: int, num_bars: int, s0: float, mu: float,
                      sigma: float, dt: float, lanes: int, noise, external_uniforms,
                      device: torch.device, per_path: bool = False, sampler: str = "gbm",
                      hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
-    grid (``mc_gated_sweep_kernel``, or under the other samplers
-    ``mc_gated_sampler_kernel``, every row on the same history): int64 [G,
-    grid, 134] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
-    plus f32[G, P, 6] per-(row, path) rows when ``per_path``."""
+    grid (``mc_gated_sweep_kernel``, a row a grid row, or under the other
+    samplers ``mc_gated_sampler_sweep_kernel``, each path's bars made once on
+    the one history and replayed for every row): int64 [G, grid, 134] and
+    f32 [G, grid, 6] partial rows, one per (grid row, CTA), plus f32[G, P, 6]
+    per-(row, path) rows when ``per_path``."""
     gate = GateConfig.from_params(params) if grid_gate is None else grid_gate
     n_grid, grid_params = grid_columns(params, grid_stops, grid_tps, gate, noise)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -847,9 +923,9 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
                        num_paths=num_paths, s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes,
                        antithetic=False, symbols=[0] * n_grid)
     if samp.kind != "gbm":
-        return _sampler_launch(args, samp, levels.max_levels, num_paths=num_paths,
-                               ext_ptr=ext_ptr, device=device, per_path=per_path,
-                               what="mc_gated_sweep_sampler")
+        return _sampler_sweep_launch(args, samp, levels.max_levels, num_paths=num_paths,
+                                     ext_ptr=ext_ptr, device=device, per_path=per_path,
+                                     what="mc_gated_sweep_sampler")
     return _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
                    device=device, per_path=per_path, what="mc_gated_sweep")
 

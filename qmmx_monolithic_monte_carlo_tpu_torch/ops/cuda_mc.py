@@ -18,9 +18,10 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   ``_sweep_kernel``, ``pallas_mc.py:1978-2156``): each path's bars and first
   contact once, replayed for every (stop, tp) row; row g equals
   ``mc_paths_fused`` with (stop_g, tp_g) bit for bit.  For a CUDA device it
-  launches ``mc_sweep_kernel`` (partial rows per (row, CTA); under the other
-  samplers ``mc_first_contact_sampler_sweep_kernel``, which also walks each
-  path once for every row) and one fold of all rows, or raises; for the CPU
+  launches ``mc_first_contact_sweep_kernel`` (``ops/csrc/mc_first_contact_sweep.cu``,
+  partial rows per (row, CTA); under the other samplers
+  ``mc_first_contact_sampler_sweep_kernel``; each walks a path once for every
+  row) and one fold of all rows, or raises; for the CPU
   it runs ``sweep_totals_reference``.  No noise and no antithetic lanes, as
   the TPU sweep kernel has none.
 * ``mc_paths_universe_fused`` — the per-symbol universe, the counterpart of
@@ -35,13 +36,18 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   lanes, as the TPU universe kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
-The gbm kernels keep the sine halves of the Box-Muller pairs in registers up
-to W = ``MAX_HALF_BARS`` (128) bars; past it (or under ``_FORCE_LONG``) the
-same launches go to ``ops/csrc/mc_first_contact_long.cu``, which draws a
-pair again for its sine half and equals them bit for bit where both fit,
-counted under the kernel's name with ``_long`` (``mc_first_contact_long``,
-``mc_sweep_long``, ``mc_universe_long``).  The sampler kernels draw their
-pairs again at every W.  No first-contact launch has a horizon cap.
+The gbm single and universe kernel keeps the sine halves of the Box-Muller
+pairs in registers up to W = ``MAX_HALF_BARS`` (128) bars; past it (or under
+``_FORCE_LONG``) the same launches go to ``ops/csrc/mc_first_contact_long.cu``,
+which draws a pair again for its sine half and equals them bit for bit where
+both fit, counted under the kernel's name with ``_long``
+(``mc_first_contact_long``, ``mc_universe_long``).  The gbm sweep kernel keeps
+up to 64 sine halves a path in shared memory and draws the pairs past them
+again (the kernel's launch owns that policy and reports it,
+``sweep_plan``): its launches count as ``mc_sweep`` where it keeps every
+half (W <= 128), else (or under ``_FORCE_LONG``, which keeps none) as
+``mc_sweep_long``.  The sampler kernels draw their pairs again at every W.
+No first-contact launch has a horizon cap.
 
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
 ``utils/prng`` (the kernel computes the same bits), or they are injected as
@@ -81,8 +87,9 @@ N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
 ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
 _BIG = 3.4e38            # empty min/max sentinel, as the TPU kernel's
-SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu)
+SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cuh)
 _SOURCE = "mc_first_contact"
+_SWEEP_SOURCE = "mc_first_contact_sweep"
 _SAMPLER_SOURCE = "mc_first_contact_samplers"
 _LONG_SOURCE = "mc_first_contact_long"
 _SAMPLER_SWEEP_SOURCE = "mc_first_contact_sampler_sweep"
@@ -95,7 +102,8 @@ LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
 
 # A check's hook: while true, every gbm launch goes to the long-horizon
 # kernels (mc_first_contact_long.cu), even where the register kernels fit,
-# to hold the two against each other bit for bit.
+# and the gbm sweep keeps no sine half (each pair drawn again), to hold the
+# two ways against each other bit for bit.
 _FORCE_LONG = False
 
 
@@ -130,7 +138,7 @@ class _McArgs(ctypes.Structure):
 
 
 class _SweepGrid(ctypes.Structure):
-    """Mirror of ``struct SweepGrid`` in ops/csrc/mc_first_contact.cu."""
+    """Mirror of ``struct SweepGrid`` in ops/csrc/mc_first_contact.cuh."""
 
     _fields_ = [("n_rows", ctypes.c_int32),
                 ("stop_pad", ctypes.c_float * SWEEP_ROWS),
@@ -345,11 +353,41 @@ def _replay(ct: dict, layout: GbmLayout, knobs) -> tuple:
     return counts, floats, walked, torch.where(entered, r, float("nan")).reshape(-1)
 
 
+def philox_groups(walked, ebar, entered, w: int):
+    """Per path, the Philox4x32-10 calls its uniforms need (``GbmLayout``,
+    rows 4j .. 4j + 3 the four words of call j): the distinct groups of four
+    rows among its radius rows 0 .. p-1 and angle rows W/2 .. W/2 + p-1 (p =
+    min(walked, W/2) Box-Muller pairs) and, after contact at bar ``ebar``,
+    its high rows W + t and low rows 2W + t of the bars t it walks on (the
+    tie coin and the noise rows not counted)."""
+    half = w // 2
+    pairs = torch.clamp(walked, max=half)
+    post = entered & (walked - 1 > ebar)
+    spans = ((0, pairs - 1, pairs > 0), (half, half + pairs - 1, pairs > 0),
+             (w + ebar + 1, w + walked - 1, post), (2 * w + ebar + 1, 2 * w + walked - 1, post))
+    total = torch.zeros_like(walked)
+    last = torch.full_like(walked, -1)          # the last group counted (spans ascend)
+    for lo, hi, on in spans:
+        g0 = torch.maximum(torch.as_tensor(lo, device=walked.device) // 4, last + 1)
+        n = torch.clamp(hi // 4 - g0 + 1, min=0)
+        total = total + torch.where(on, n, 0)
+        last = torch.where(on, torch.maximum(last, hi // 4), last)
+    return total
+
+
 def _work(ct: dict, walked, w: int):
-    """int64 [Box-Muller pairs, bars walked, bars walked after contact] of
-    per-path ``walked`` bars (bars to the first hit, else all W)."""
+    """int64 [Box-Muller pairs, bars walked, bars walked after contact,
+    Philox calls (``philox_groups``)] of per-path ``walked`` bars (bars to
+    the first hit, else all W)."""
     return torch.stack([torch.clamp(walked, max=w // 2).sum(), walked.sum(),
-                        torch.where(ct["entered"], walked - ct["ebar"] - 1, 0).sum()])
+                        torch.where(ct["entered"], walked - ct["ebar"] - 1, 0).sum(),
+                        philox_groups(walked, ct["ebar"], ct["entered"], w).sum()])
+
+
+def _sweep_work(work, row_bars):
+    """A sweep's work: ``_work``'s with the bars x rows checked after contact
+    before the Philox calls (the Philox calls last, as in ``_work``)."""
+    return torch.cat([work[:3], row_bars.view(1), work[3:]])
 
 
 def _merge_totals(a, b):
@@ -400,8 +438,8 @@ def fused_totals_reference(seed, levels: Levels, params, *, num_paths: int,
     symbol ``symbol``; ``sampler`` and its inputs as in ``mc_paths_fused``.
     ``per_path=True`` adds each path's R, f32[P] (NaN where it did not
     enter); ``work=True`` then the kernel's work on these paths, int64
-    [Box-Muller pairs, bars walked, bars walked after contact], for bounding
-    its time."""
+    [Box-Muller pairs, bars walked, bars walked after contact, Philox calls],
+    for bounding its time."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     layout = _check(seed, levels, num_paths=num_paths, num_bars=num_bars,
@@ -449,7 +487,7 @@ def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *
     same history).  ``per_path=True`` adds each row's per-path R, f32[G, P]
     (NaN where a path did not enter); ``work=True`` then the sweep kernel's
     work, int64 [Box-Muller pairs, bars walked (to the last row's hit), bars
-    walked after contact, bars x rows checked after contact]."""
+    walked after contact, bars x rows checked after contact, Philox calls]."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
@@ -474,7 +512,7 @@ def sweep_totals_reference(seed, levels: Levels, params, grid_stops, grid_tps, *
         row_bars = sum(_work(ct, x[2], num_bars)[2] for x in per_row)
         tot = _merge_totals(tot, (torch.stack([x[0] for x in per_row]),
                                   torch.stack([x[1] for x in per_row]),
-                                  torch.cat([_work(ct, walked, num_bars), row_bars.view(1)])))
+                                  _sweep_work(_work(ct, walked, num_bars), row_bars)))
         rs.append(torch.stack([x[3] for x in per_row]))
     return tot[:2] + ((torch.cat(rs, dim=1),) if per_path else ()) + (tot[2:] if work else ())
 
@@ -508,7 +546,7 @@ def universe_totals_reference(seed, levels: Levels, params, s0, sigma, *,
                               per_path: bool = False):
     """The plain version of the universe: int64 [S, 133] counts and float64
     [S, 4] floats (then f32[S, P] per-path R with ``per_path``, then int64
-    [S, 3] work with ``work``), symbol s by
+    [S, 4] work with ``work``), symbol s by
     ``fused_totals_reference`` at its levels, s0, sigma, knobs (``params``
     leaves scalar or [S]), mu 0, its uniforms ``external_uniforms[s]`` or
     its key, and its own history (``_check_universe``); on ``device`` as
@@ -550,21 +588,15 @@ def _library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.qmmx_mc_args_size.argtypes = []
         lib.qmmx_mc_args_size.restype = ci
-        lib.qmmx_sweep_grid_size.argtypes = []
-        lib.qmmx_sweep_grid_size.restype = ci
         lib.qmmx_cuda_error_string.argtypes = [ci]
         lib.qmmx_cuda_error_string.restype = ctypes.c_char_p
-        lib.qmmx_mc_sweep.argtypes = [
-            ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), vp, vp, vp, ci, vp]
-        lib.qmmx_mc_sweep.restype = ci
         lib.qmmx_mc_universe.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
         lib.qmmx_mc_universe.restype = ci
         lib.qmmx_mc_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
         lib.qmmx_mc_reduce_rows.restype = ci
-        if (lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs)
-                or lib.qmmx_sweep_grid_size() != ctypes.sizeof(_SweepGrid)):
-            raise RuntimeError("McArgs or SweepGrid layout differs between "
-                               "mc_first_contact.cu and cuda_mc.py")
+        if lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs):
+            raise RuntimeError("McArgs layout differs between mc_first_contact.cu and "
+                               "cuda_mc.py")
         _BOUND.add(id(lib))
     return lib
 
@@ -578,13 +610,45 @@ def _long_library() -> ctypes.CDLL:
     lib = build.load(_LONG_SOURCE)
     if id(lib) not in _BOUND:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmmx_mc_sweep_long.argtypes = [
-            ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), vp, vp, vp, ci, vp]
-        lib.qmmx_mc_sweep_long.restype = ci
         lib.qmmx_mc_universe_long.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
         lib.qmmx_mc_universe_long.restype = ci
         _BOUND.add(id(lib))
     return lib
+
+
+def _sweep_library() -> ctypes.CDLL:
+    """The gbm sweep kernel's library (``ops/csrc/mc_first_contact_sweep.cu``,
+    its own build of ``mc_first_contact.cuh``), built at first use, with its C
+    signature set and its struct layouts checked; the first-contact library's
+    first (the fold is that library's)."""
+    _library()
+    lib = build.load(_SWEEP_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_fc_sweep_size.argtypes = [ci]
+        lib.qmmx_fc_sweep_size.restype = ci
+        lib.qmmx_fc_sweep_plan.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int * 4)]
+        lib.qmmx_fc_sweep_plan.restype = ci
+        lib.qmmx_fc_sweep.argtypes = [ctypes.POINTER(_McArgs), ctypes.POINTER(_SweepGrid), ci,
+                                      vp, vp, vp, ci, vp]
+        lib.qmmx_fc_sweep.restype = ci
+        if [lib.qmmx_fc_sweep_size(i) for i in range(2)] != [ctypes.sizeof(_McArgs),
+                                                            ctypes.sizeof(_SweepGrid)]:
+            raise RuntimeError("McArgs or SweepGrid layout differs between "
+                               "mc_first_contact_sweep.cu and cuda_mc.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
+def sweep_plan(num_bars: int) -> tuple[int, int, int, int]:
+    """What a gbm sweep launch at ``num_bars`` takes, as the kernel's launch
+    decides it (``qmmx_fc_sweep_plan``): (sine halves a thread keeps, its
+    build's CTAs an SM, static and dynamic shared memory in bytes); it keeps
+    none under ``_FORCE_LONG``."""
+    out = (ctypes.c_int * 4)()
+    rc = _sweep_library().qmmx_fc_sweep_plan(num_bars, int(not _FORCE_LONG), ctypes.byref(out))
+    _raise_on(rc, "mc_sweep")
+    return tuple(out)
 
 
 def _sampler_library() -> ctypes.CDLL:
@@ -773,11 +837,13 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
                hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device: int64 [G, grid, 133] count
     rows and f32 [G, grid, 4] float rows, one row per (grid row, CTA), one
-    launch per SWEEP_ROWS grid rows: under gbm of ``mc_sweep_kernel`` (past
-    ``MAX_HALF_BARS`` its long-horizon build, counted as ``mc_sweep_long``),
-    under the other samplers of ``mc_first_contact_sampler_sweep_kernel``
-    (counted as ``mc_sweep_sampler``); each walks a path's bars once for
-    every row of its launch."""
+    launch per SWEEP_ROWS grid rows: under gbm of
+    ``mc_first_contact_sweep_kernel`` (counted as ``mc_sweep``, or as
+    ``mc_sweep_long`` where it draws pairs again for their sine halves: past
+    ``MAX_HALF_BARS``, or under ``_FORCE_LONG``), under the other samplers
+    of ``mc_first_contact_sampler_sweep_kernel`` (counted as
+    ``mc_sweep_sampler``); each walks a path's bars once for every row of its
+    launch."""
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
                         heston=heston, mu=mu, dt=dt)
     layout, rows = _check_sweep(seed, levels, params, grid_stops, grid_tps,
@@ -804,12 +870,12 @@ def sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, *, num_paths:
             _raise_on(rc, what)
             LAUNCHES[what] += 1
         return part_counts, part_floats
-    what = "mc_sweep_long" if _long(num_bars) else "mc_sweep"
-    launch = (_long_library().qmmx_mc_sweep_long if _long(num_bars)
-              else _library().qmmx_mc_sweep)
+    what = "mc_sweep" if 2 * sweep_plan(num_bars)[0] == num_bars else "mc_sweep_long"
+    lib = _sweep_library()
     for g0, grid in _sweep_grids(stops, tps):
-        rc = launch(ctypes.byref(args), ctypes.byref(grid), ext_ptr, part_counts[g0].data_ptr(),
-                    part_floats[g0].data_ptr(), ctas, stream)
+        rc = lib.qmmx_fc_sweep(ctypes.byref(args), ctypes.byref(grid), int(not _FORCE_LONG),
+                               ext_ptr, part_counts[g0].data_ptr(), part_floats[g0].data_ptr(),
+                               ctas, stream)
         _raise_on(rc, what)
         LAUNCHES[what] += 1
     return part_counts, part_floats

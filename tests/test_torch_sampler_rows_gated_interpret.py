@@ -10,12 +10,14 @@ import torch
 from qmmx_monolithic_monte_carlo_tpu.config import EngineParams as JParams
 from qmmx_monolithic_monte_carlo_tpu.ops import pallas_mc as jPM
 from qmmx_monolithic_monte_carlo_tpu.parallel import universe as jU
+from qmmx_monolithic_monte_carlo_tpu.sim.gatedpath import GateConfig as JGateConfig
 from qmmx_monolithic_monte_carlo_tpu.sim.montecarlo import McNoise as JMcNoise
 from qmmx_monolithic_monte_carlo_tpu.types import Levels as JLevels
 from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
 from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated
 from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import GatedLayout
 from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
 from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
 from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
 
@@ -69,3 +71,48 @@ def test_plain_gated_sweep_matches_the_jax_kernel_interpret(sampler):
     rows = cuda_gated.gated_sweep_totals_reference(*args, per_path=True, **kw)[2]
     for g in range(2):
         _assert_lifecycle(t, j, 8 * lanes, g, float(rows[g][:, 0].abs().max()))
+
+
+# four rows that differ in the gate knobs as well as in the paddings and the
+# noise stds: (stop, tp, touch_limit, cooldown_bars, level jitter)
+GATE_ROWS = [(0.25, 0.35, 4, 0, 0.0), (0.45, 0.15, 4, 2, 0.03), (0.25, 0.35, 2, 0, 0.0),
+             (0.35, 0.25, 3, 1, 0.02)]
+
+
+@pytest.mark.parametrize("sampler", ["bootstrap", "heston"])
+def test_plain_gated_sweep_gate_rows_match_the_jax_kernel_interpret(sampler):
+    """#6 on four rows that differ in touch_limit and cooldown_bars too, with
+    [G] noise stds, on the same uniforms: each row of the plain sweep (the
+    oracle of ``mc_gated_sampler_sweep_kernel``, which makes a path's bars
+    once for every row) against the JAX sweep kernel in interpret mode, which
+    makes them again for each row: counts exact, the histogram within 2F, the
+    sums within F x max|equity| (``_assert_lifecycle``)."""
+    w, lanes = 8, jPM.GATED_LANES
+    jhist, jtables = _jax_history(False)
+    u = _uniforms(75, (1, GatedLayout(w, True, sampler).u_rows, 8, lanes))
+    stops, tps, limits, cools, jit = (list(c) for c in zip(*GATE_ROWS))
+    stds = {k: np.full(len(GATE_ROWS), v, np.float32) for k, v in STDS.items()}
+    stds["level_jitter_std"] = np.float32(jit)
+    jgate = JGateConfig.from_params(JParams.default())
+    jgate = JGateConfig(touch_limit=jnp.int32(limits), q_min_prob=jgate.q_min_prob,
+                        cooldown_bars=jnp.int32(cools), touch_gap_bars=jgate.touch_gap_bars,
+                        use_confidence=jgate.use_confidence)
+    j = jPM.mc_paths_pallas_gated_sweep(
+        0, JLevels.from_rows(ROWS, max_levels=8), JParams.default(), np.float32(stops),
+        np.float32(tps), jgate, num_paths=8 * lanes, num_bars=w, sigma=0.3, hist_bars=jhist,
+        noise=JMcNoise(**{k: jnp.asarray(v) for k, v in stds.items()}), interpret=True,
+        external_uniforms=u, **_kw(sampler))
+    gate = GateConfig.from_params(EngineParams.default()).replace(
+        touch_limit=torch.tensor(limits, dtype=torch.int32),
+        cooldown_bars=torch.tensor(cools, dtype=torch.int32))
+    noise = McNoise(**{k: torch.from_numpy(v) for k, v in stds.items()})
+    kw = dict(noise=noise, num_paths=8 * lanes, num_bars=w, sigma=0.3, tables=jtables,
+              external_uniforms=torch.from_numpy(u), **_kw(sampler))
+    args = (0, Levels.from_rows(ROWS, max_levels=8), EngineParams.default(), stops, tps, gate)
+    t = cuda_gated.mc_paths_gated_sweep_fused(*args, **kw)
+    rows = cuda_gated.gated_sweep_totals_reference(*args, per_path=True, **kw)[2]
+    for g in range(len(GATE_ROWS)):
+        _assert_lifecycle(t, j, 8 * lanes, g, float(rows[g][:, 0].abs().max()))
+    # the knobs matter: the touch limit 2 and the cooldown rows trade less
+    trades = t.sum_trades.tolist()
+    assert trades[2] < trades[0] and trades[1] != trades[0], trades

@@ -2,7 +2,8 @@
 one): under bootstrap, block bootstrap and Heston, the universe and sweep
 launches of ``mc_first_contact_sampler_kernel`` (the sweep's
 ``mc_first_contact_sampler_sweep_kernel``), ``mc_gated_sampler_kernel``
-and ``mc_engine_sampler_kernel`` (kernels #2, #3, #5, #6, #9, #10, #11)
+(the gated sweep's ``mc_gated_sampler_sweep_kernel``) and
+``mc_engine_sampler_kernel`` (kernels #2, #3, #5, #6, #9, #10, #11)
 against their plain versions on injected uniforms, and every row of a launch
 equal, bit for bit, to the one-row launch of its arguments (a universe's
 symbol s at its own key and history, a sweep's row g at its knobs).  No JAX
@@ -234,9 +235,11 @@ def test_cuda_lifecycle_sampler_universe_rows(engine, sampler):
 def test_cuda_lifecycle_sampler_sweep_rows(engine, sampler):
     """#6 / #9 under ``sampler`` with [G] noise stds: path by path against
     the plain version on injected uniforms; on Philox each grid row equal to
-    the one-row launch under its knobs; for the engine also #11, each cell of
-    a 3 x 2 sweep of universes equal to the one-row launch at its symbol and
-    knobs."""
+    the one-row launch under its knobs; for the gated sweep also the CLI's 18
+    rows (two touch limits, [G] noise stds) at W 40 and 390 in one launch of
+    ``mc_gated_sampler_sweep_kernel``, each row equal to its one-row launch;
+    for the engine also #11, each cell of a 3 x 2 sweep of universes equal to
+    the one-row launch at its symbol and knobs."""
     dev = _cuda()
     mod, single = _lifecycle_launchers(engine)
     levels = Levels.from_rows(SYM_ROWS[2], max_levels=8)
@@ -278,6 +281,33 @@ def test_cuda_lifecycle_sampler_sweep_rows(engine, sampler):
                      **skw)
         assert _equal((pc[g], pf[g], prow[g]), one), g
     if not engine:
+        # the CLI's 18 rows (3 x 3 (stop, tp) x touch limits 2, 4) with [G]
+        # noise stds, one launch of mc_gated_sampler_sweep_kernel for the
+        # grid: each row's partial and per-path rows equal the one-row launch
+        # (mc_gated_sampler_kernel) under its knobs, at W 40 and 390
+        sp18 = [sp for sp in STOPS for _ in range(6)]
+        tp18 = [tp for _ in STOPS for tp in TPS for _ in (2, 4)]
+        tl18 = [tl for _ in range(9) for tl in (2, 4)]
+        jit18 = torch.tensor([0.0, 0.02, 0.04] * 6)
+        noise18 = McNoise(level_jitter_std=jit18, entry_slip_std=torch.full_like(jit18, 0.01),
+                          stop_slip_std=torch.full_like(jit18, 0.015),
+                          target_slip_std=torch.full_like(jit18, 0.015))
+        grid18 = params.replace(stop_padding=torch.tensor(sp18), tp_padding=torch.tensor(tp18))
+        gate18 = GateConfig.from_params(params).replace(
+            touch_limit=torch.tensor(tl18, dtype=torch.int32))
+        for w in (W, 390):
+            kw18 = dict(kw, num_bars=w, noise=noise18)
+            before = mod.LAUNCHES[name]
+            pc, pf, prow = mod.gated_sweep_rows(0, levels, params, sp18, tp18, gate18,
+                                                external_uniforms=None, device=dev, **kw18)
+            assert mod.LAUNCHES[name] == before + 1
+            for g in range(18):
+                one = mod.gated_rows(0, levels, grid_row(grid18, g), grid_row(gate18, g),
+                                     num_paths=n, num_bars=w, s0=100.0, mu=0.0, sigma=0.3,
+                                     dt=DT, lanes=lanes, noise=grid_row(noise18, g),
+                                     antithetic=False, external_uniforms=None, device=dev,
+                                     per_path=True, **skw)
+                assert _equal((pc[g], pf[g], prow[g]), one), (w, g)
         return
     slv = stack_levels(SYM_ROWS, max_levels=8)
     sg = params.replace(stop_padding=torch.tensor(STOPS[:2]), tp_padding=torch.tensor(TPS[:2]))

@@ -403,20 +403,34 @@ def test_cuda_sweeps_match_their_plain_versions():
 @pytest.mark.cuda
 def test_cuda_sweep_rows_equal_single_config_kernels():
     """Row g of each sweep kernel equals the single-configuration kernel at
-    the same seed, bit for bit (Philox mode)."""
+    the same seed, bit for bit (Philox mode): the gbm sweep
+    (``mc_first_contact_sweep_kernel``) at config #5's three rows, the CLI's
+    9 and 18 rows (two launches) at W = 40, 128 and 390, and at W = 76, 90
+    and 92 (the four-CTA build past the default 48 KB of shared memory, its
+    last W, and the three-CTA build's first), each row's partial rows
+    against its one-row ``mc_universe_kernel`` launch, with the launch
+    counts (``mc_sweep`` where the sine halves all fit, else
+    ``mc_sweep_long``)."""
     _need_cuda()
     dev = torch.device("cuda")
-    stops, tps = zip(*GRID9)
     p = EngineParams.default()
     kw = dict(num_paths=1 << 16, num_bars=40, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT,
               external_uniforms=None, device=dev)
-    sc, sf = cuda_mc.reduce_rows(*cuda_mc.sweep_rows(
-        3, _levels(), p, stops, tps, lanes=8192, **kw))
-    for g, (sp, tp) in enumerate(GRID9):
-        c, f = cuda_mc.reduce_rows(*cuda_mc.first_contact_rows(
-            3, _levels(), p.replace(stop_padding=sp, tp_padding=tp), lanes=8192,
-            noise=None, antithetic=False, **kw))
-        assert torch.equal(c, sc[g]) and torch.equal(f, sf[g]), g
+    rows18 = [(sp, tp) for sp in (0.15, 0.25, 0.35, 0.45, 0.55, 0.65)
+              for tp in (0.15, 0.25, 0.35)]
+    for w in (40, 76, 90, 92, 128, 390):
+        wkw = dict(kw, num_bars=w)
+        name = "mc_sweep" if w <= cuda_mc.MAX_HALF_BARS else "mc_sweep_long"
+        for rows in (CONFIG5, GRID9, rows18):
+            stops, tps = zip(*rows)
+            before = dict(cuda_mc.LAUNCHES)
+            pc, pf = cuda_mc.sweep_rows(3, _levels(), p, stops, tps, lanes=8192, **wkw)
+            assert cuda_mc.LAUNCHES[name] == before[name] + -(-len(rows) // cuda_mc.SWEEP_ROWS)
+            for g, (sp, tp) in enumerate(rows):
+                c, f = cuda_mc.first_contact_rows(
+                    3, _levels(), p.replace(stop_padding=sp, tp_padding=tp), lanes=8192,
+                    noise=None, antithetic=False, **wkw)
+                assert torch.equal(c, pc[g]) and torch.equal(f, pf[g]), (w, len(rows), g)
     params, grid, gate_g = _gated_grid()
     noise = _noise_rows([(0.0,) * 4, (0.02, 0.01, 0.015, 0.015), (0.0,) * 4, (0.0,) * 4])
     got = cuda_gated.gated_sweep_rows(3, _levels(), params, grid.stop_padding,
