@@ -68,13 +68,16 @@ Phases (any failure exits non-zero and prints no result line):
    path; ``PathStats.from_lifecycle`` / ``from_outcomes``
    bins on the card equal to the CPU's; the CLI's ``sweep --gated --backend
    cuda --num-paths 2^26 --touch-limits 2 4`` (18 rows) with its launches;
-14. engine sweep (``mc_engine_sweep_kernel``, mc_engine.cu): injected uniforms
-   path by path with the four configurations of the JAX engine sweep test,
+14. engine sweep (``mc_engine_bar_sweep_kernel``, mc_engine_bar_sweep.cu: each
+   path's bars made once into a bar store, every row replayed over them):
+   injected uniforms path by path with the four configurations of the JAX
+   engine sweep test,
    then with [G] noise stds (level jitter 0 and 0.02, the main path's rows,
    and a slip row), every differing path traced as in phase 9; Philox at
    2^22, each row of both grids equal to the one-row launch
-   (``mc_paths_engine_fused``'s) bit for bit, skip counts included; kernel
-   vs plain on the card path by path at 2^20 x both grids; the CLI's ``sweep
+   (``mc_paths_engine_fused``'s: ``mc_engine_sweep_kernel`` at one row) bit
+   for bit, skip counts included; kernel vs plain on the card path by path
+   at 2^20 x both grids; the CLI's ``sweep
    --engine --backend cuda --num-paths 2^24 --jitter-stds 0 0.02`` (18 rows)
    with its launches; the kernel alone at 2^26 paths x 9 rows;
    the per-symbol universes (kernels #2, #5, #10, #11), three symbols with
@@ -198,7 +201,9 @@ Phases (any failure exits non-zero and prints no result line):
    launch against the plain version on the card (launch-bound a symbol at a
    time) and all 100 of
    the full-width launch against their one-row launches; ``sweep --engine``
-   at 2^24 x 18 rows (``--jitter-stds 0 0.02``); and the sweep of universes
+   at 2^24 x 18 rows (``--jitter-stds 0 0.02``) through
+   ``mc_engine_bar_sweep_kernel`` (mc_engine_bar_sweep.cu), each row equal to
+   its one-row launch of ``mc_engine_sampler_kernel``; and the sweep of universes
    (config #4's first 8 symbols x 4 configurations at 2^20 a cell), each
    cell equal to its one-row launch at 2^14 (per path) and at 2^20;
    the samplers of the books (kernels #7 and #12 under bootstrap, block
@@ -234,8 +239,9 @@ Phases (any failure exits non-zero and prints no result line):
    version on the card on every path; the envelope kernel forced to run at 3
    levels x 40 bars equal to the parent kernel bit for bit at 2^20, and the
    two timed at phase 11's 2^28 x 40; the sweep's 18 rows (3 x 3 x jitter 0,
-   0.02) and 8 universe symbols (each its own 30-level ladder) at 30 x 390
-   each equal to its one-row launch bit for bit, the sweep's jitter row (0.25,
+   0.02; ``mc_engine_bar_sweep_kernel``) and 8 universe symbols (each its own
+   30-level ladder) at 30 x 390 each equal to its one-row launch bit for bit,
+   the sweep's jitter row (0.25,
    0.15, 0.02) at 2048 paths equal to the plain version on the card on every
    path; the port CLI's ``paths --engine --backend cuda`` on a 30-level DB at
    390 bars x 2^24 paths and ``sweep --engine`` at 2^20 x 18 rows, launch
@@ -443,6 +449,7 @@ GATED_SOURCE = CSRC + "mc_gated.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
 GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
 ENGINE_CORR_SOURCE = CSRC + "mc_engine_corr.cu"
+BAR_SWEEP_SOURCE = CSRC + "mc_engine_bar_sweep.cu"
 FC_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:584"
 GATED_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067"
 ENGINE_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_engine.py:1415"
@@ -617,16 +624,18 @@ def gated_sweep_ops(n_paths: float, held_rows, trades_rows) -> dict:
     return ops
 
 
-def engine_sweep_ops(n_paths: float, counts_rows, scale: float) -> dict:
+def engine_sweep_ops(n_paths: float, counts_rows, scale: float, num_bars: int = NUM_BARS,
+                     n_levels: int = 0) -> dict:
     """A floor on the engine sweep's operations with each path's bars, its
     volumes and their MAs made once: ``engine_ops`` for the first row, plus
     for each further row the divisions of the gates it reached and ~100
-    float32 operations of logic a bar."""
-    ops = engine_ops(n_paths, counts_rows[0], scale)
+    float32 operations of logic a bar (and, with ``n_levels``, the nearest
+    level's search a bar)."""
+    ops = engine_ops(n_paths, counts_rows[0], scale, num_bars, n_levels)
     for c in counts_rows[1:]:
-        div = engine_gate_divs(c, scale)
+        div = engine_gate_divs(c, scale, num_bars)
         ops["sfu"] += div
-        ops["f32"] += div + 100 * n_paths * NUM_BARS
+        ops["f32"] += div + (100 + 3 * n_levels) * n_paths * num_bars
     return ops
 
 
@@ -3239,14 +3248,16 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
         mod = fam.mod
         pre = fam.prefix
         uni_kname, sweep_kname = (("mc_universe_sampler", "mc_sweep_sampler") if fam.fc else
-                                  (f"{pre}_universe_sampler", f"{pre}_sweep_sampler"))
+                                  (f"{pre}_universe_sampler",
+                                   "mc_engine_bar_sweep_sampler" if fam.engine
+                                   else f"{pre}_sweep_sampler"))
         uni_fold, sweep_fold = f"{pre}_universe_reduce_rows", f"{pre}_sweep_reduce_rows"
         replaces = {"first contact": (UNI_REPLACES, SWEEP_REPLACES),
                     "gated": (GATED_UNI_REPLACES, GATED_SWEEP_REPLACES),
                     "engine": (ENGINE_UNI_REPLACES, ENGINE_SWEEP_REPLACES)}[fam_name]
         source = ROWS_SOURCES[fam_name]
         sweep_source = (FC_SAMPLER_SWEEP_SOURCE if fam.fc else GATED_SAMPLER_SWEEP_SOURCE
-                        if fam_name == "gated" else source)
+                        if fam_name == "gated" else BAR_SWEEP_SOURCE)
         nb = ROWS_INJECT_BLOCKS[fam_name]
         plain_n, sweep_n = ROWS_PLAIN_PATHS[fam_name], ROWS_SWEEP_PLAIN_PATHS[fam_name]
         n_uni, n_sw = nb * fam.block, nb * fam.sweep_block
@@ -4271,7 +4282,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
             str(ENV_SWEEP_PATHS), "--num-bars", str(ENV_BARS), "--sigma", str(SIGMA),
             "--jitter-stds", "0", "0.02"]
     lines, secs, launches = run_cli(
-        cli, argv, reset, {"mc_engine_wide_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
+        cli, argv, reset, {"mc_engine_bar_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
         n_paths=ENV_SWEEP_PATHS, runs=ENV_RUNS)
     if len(lines) != len(grid18):
         raise AssertionError(f"{len(lines)} sweep rows, not {len(grid18)}")
@@ -4297,15 +4308,16 @@ def envelope_phases(dev, card, reset, cli) -> list:
                          lambda g: f"row {pl_rows[g]} (jitter {float(jit[pl_rows[g]])})")
     del pc, pf, rows
     s_bound = card.bound(bytes_=len(grid18) * grid_size(ENV_SWEEP_PATHS) * (
-        CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4), **engine_ops(
-            ENV_SWEEP_PATHS * len(grid18), s_plain[0].sum(0).cpu(),
-            ENV_SWEEP_PATHS * len(grid18) / (n_pl * r_pl), ENV_BARS, ENV_LEVELS))
+        CE.ROW_COUNTS * 8 + CE.ROW_FLOATS * 4), **engine_sweep_ops(
+            ENV_SWEEP_PATHS, [s_plain[0].sum(0).cpu()] * len(grid18),
+            ENV_SWEEP_PATHS / (n_pl * r_pl), ENV_BARS, ENV_LEVELS))
     log(f"  kernel alone at {ENV_SWEEP_PATHS} paths x 18 rows: {sweep_ms:.3f} ms "
         f"({ENV_SWEEP_PATHS * 18 / sweep_ms * 1e3:.6e} paths x rows/s), bound "
-        f"{s_bound['bound_ms']:.3f} ms (every row's bars counted); plain on the card at "
+        f"{s_bound['bound_ms']:.3f} ms (each path's bars counted once); plain on the card at "
         f"{n_pl} x {r_pl} rows: {s_plain_ms:.3f} ms")
-    entries.append(entry("mc_engine_wide_sweep", WIDE_SOURCE, ENGINE_SWEEP_REPLACES,
-                         launches["mc_engine_wide_sweep"], s_err, sweep_ms, s_plain_ms, s_bound,
+    entries.append(entry("mc_engine_bar_sweep/envelope", BAR_SWEEP_SOURCE,
+                         ENGINE_SWEEP_REPLACES, launches["mc_engine_bar_sweep"], s_err,
+                         sweep_ms, s_plain_ms, s_bound,
                          paths=ENV_SWEEP_PATHS, grid_rows=len(grid18), num_bars=ENV_BARS,
                          levels=ENV_LEVELS, plain_paths=n_pl, plain_rows=r_pl,
                          cli_s=secs))
@@ -5187,11 +5199,12 @@ def parent_times() -> int:
     (``cuda_engine._FORCE_ENVELOPE``) where the parent fits (<= 8 levels, an
     even W <= 61), at its main path's shape: the single configuration (3
     levels x 40 x 2^28), the three single samplers (2^26 on
-    ``history_arrays``' year of bars), the sweep (the CLI's 3 x 3 grid x
-    2^24), config #4's universe (100 x 2^20) and the book and its three
-    samplers (100 x 2^20); one launch of each in turn, two turns, CUDA
-    events.  Prints each pair, then one JSON line with them and the card's
-    name and power limit.  Outside the main run (``--parent-times``)."""
+    ``history_arrays``' year of bars), config #4's universe (100 x 2^20) and
+    the book and its three samplers (100 x 2^20); one launch of each in
+    turn, two turns, CUDA events (the sweep has one kernel at every shape,
+    ``mc_engine_bar_sweep_kernel``: ``--sweep-times`` times it against
+    another tree's).  Prints each pair, then one JSON line with them and the
+    card's name and power limit.  Outside the main run (``--parent-times``)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -5226,8 +5239,6 @@ def parent_times() -> int:
                 dict(sampler=s, tables=tables[None].to(dev) if book else tables,
                      block_len=SAMPLER_BLOCK_LEN))
 
-    grid9 = params.replace(stop_padding=[sp for sp in (0.25, 0.35, 0.45) for _ in range(3)],
-                           tp_padding=[tp for _ in range(3) for tp in (0.15, 0.25, 0.35)])
     c4 = config4()
     book = (U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
                              {"color": "orange", "type": "dashed", "index": 0,
@@ -5238,8 +5249,6 @@ def parent_times() -> int:
     for s in SAMPLERS:
         cases[f"sampler {s} (mc_engine_sampler_kernel) 3 x {NUM_BARS} x {1 << 26}"] = (
             lambda s=s: CE.engine_rows(0, levels, params, num_paths=1 << 26, **one, **samp(s)))
-    cases[f"sweep (mc_engine_sweep_kernel) 9 rows x {1 << 24}"] = (
-        lambda: CE.engine_sweep_rows(0, levels, grid9, num_paths=1 << 24, **one))
     cases[f"universe (mc_engine_sweep_kernel) config #4 {UNI_SYMBOLS} x {UNI_PATHS}"] = (
         lambda: CE.engine_universe_rows(0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS,
                                         num_bars=NUM_BARS, dt=DT, lanes=ENGINE_LANES,
@@ -5582,21 +5591,31 @@ def sampler_sweep_times(tree: str) -> int:
 SWEEP_AB_GBM = ((CONFIG5, 1 << 30, NUM_BARS), (GRID9, MAIN_PATHS, NUM_BARS),
                 (GRID9, 1 << 24, 390))           # (rows, paths, W): config #5, the CLI's 9
 SWEEP_AB_GATED_PATHS = 1 << 26                   # sweep --gated --touch-limits 2 4: 18 rows
+SWEEP_AB_ENGINE_PATHS = 1 << 24                  # sweep --engine --jitter-stds 0 0.02: 18 rows
+# the engine sweep kernels' ptxas lines: the sweep, and the one-row kernels it replaced
+SWEEP_AB_PTXAS = ("sweep", "bar_step", "mc_engine_sampler_kernel", "mc_engine_wide_kernel",
+                  "mc_engine_wide_sampler_kernel")
 
 
-def sweep_times(tree: str) -> int:
-    """The gbm and the gated sampler sweeps of the port in ``tree``, at their
-    main paths' shapes: the gbm first-contact sweep (``cuda_mc.sweep_rows``)
-    at config #5 (3 rows x 2^30 x 40), the CLI's 9 rows at 2^28 x 40 and 9 x
-    2^24 x 390; the gated sweep (``cuda_gated.gated_sweep_rows``) on the
-    CLI's ``sweep --gated --touch-limits 2 4`` grid (18 rows) at 2^26 x 40
-    under bootstrap, block bootstrap and Heston on ``history_arrays``' year
-    of 1-minute bars.  Each timed by CUDA events (a warm-up that also takes a
-    digest of the folded counts and floats, ``count_digest``, then the mean of
-    two runs).  Builds into the tree's ``build/kernels-times``; prints the
-    sweep kernels' ptxas lines, each time, then one JSON line with all of
-    them, the card's name and power limit.  Run once a tree, in turns with
-    another tree (``--sweep-times TREE``)."""
+def sweep_times(tree: str, engine_only: bool = False) -> int:
+    """The gbm, the gated sampler and the engine sweeps of the port in
+    ``tree``, at their main paths' shapes: the gbm first-contact sweep
+    (``cuda_mc.sweep_rows``) at config #5 (3 rows x 2^30 x 40), the CLI's 9
+    rows at 2^28 x 40 and 9 x 2^24 x 390; the gated sweep
+    (``cuda_gated.gated_sweep_rows``) on the CLI's ``sweep --gated
+    --touch-limits 2 4`` grid (18 rows) at 2^26 x 40 under bootstrap, block
+    bootstrap and Heston on ``history_arrays``' year of 1-minute bars; the
+    engine sweep (``cuda_engine.engine_sweep_rows``) on the CLI's ``sweep
+    --engine --jitter-stds 0 0.02`` grid (18 rows) at 2^24 x 40 under gbm and
+    the three samplers, and at phase 29's envelope (30 levels x 390 bars x
+    2^20, 18 rows), and each at one row (the bars and one row's replay).
+    ``engine_only`` (``--engine``) times the engine sweeps alone.  Each
+    timed by CUDA events (a warm-up that
+    also takes a digest of the folded counts and floats, ``count_digest``,
+    then the mean of two runs).  Builds into the tree's
+    ``build/kernels-times``; prints the sweep kernels' ptxas lines, each time,
+    then one JSON line with all of them, the card's name and power limit.
+    Run once a tree, in turns with another tree (``--sweep-times TREE``)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -5606,9 +5625,11 @@ def sweep_times(tree: str) -> int:
     from pathlib import Path
 
     from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
-    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
     from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
 
@@ -5617,19 +5638,25 @@ def sweep_times(tree: str) -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(f"tree {tree}; {smi}", flush=True)
     build.BUILD_DIR = Path(tree) / "build" / "kernels-times"
-    libs = [n for n in ("mc_first_contact", "mc_first_contact_long", "mc_first_contact_sweep",
-                        "mc_gated", "mc_gated_samplers", "mc_gated_sampler_sweep")
+    engine_libs = ("mc_engine", "mc_engine_samplers", "mc_engine_wide",
+                   "mc_engine_wide_samplers", "mc_engine_bar_sweep")
+    libs = [n for n in (() if engine_only else (
+                "mc_first_contact", "mc_first_contact_long", "mc_first_contact_sweep",
+                "mc_gated", "mc_gated_samplers", "mc_gated_sampler_sweep")) + engine_libs
             if (build.CSRC / f"{n}.cu").exists()]
+    t0 = time.perf_counter()
     build.build_all(libs)
+    print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     ptxas = {}
     for name in libs:
         fn = None
+        keys = SWEEP_AB_PTXAS if name in engine_libs else ("sweep",)
         for line in build.BUILD_LOG[name]["log"].splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'? ",
                           line + " ")
             if m:
                 fn = m.group(1)
-            if fn and "sweep" in fn and re.search(r"registers|spill", line):
+            if fn and any(k in fn for k in keys) and re.search(r"registers|spill", line):
                 ptxas.setdefault(f"{name}:{fn}", []).append(line.strip())
     for fn, lines in ptxas.items():
         for line in lines:
@@ -5645,6 +5672,35 @@ def sweep_times(tree: str) -> int:
         ms[name] = cuda_ms(run, 2)
         print(f"  {name}: {ms[name]:.3f} ms, totals {digests[name]}", flush=True)
 
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    # the engine sweeps: the CLI's 18 rows (3 x 3 x level jitter 0, 0.02)
+    jit18 = torch.tensor([j for _ in GRID9 for j in (0.0, 0.02)])
+    grid18 = params.replace(stop_padding=[r[0] for r in GRID9 for _ in (0, 1)],
+                            tp_padding=[r[1] for r in GRID9 for _ in (0, 1)])
+    noise18 = McNoise(level_jitter_std=jit18, entry_slip_std=torch.zeros(18),
+                      stop_slip_std=torch.zeros(18), target_slip_std=torch.zeros(18))
+    lv30 = Levels.from_rows(env_ladder(ENV_LEVELS), max_levels=ENV_LEVELS)
+    ekw = dict(noise=noise18, sigma=SIGMA, dt=DT, lanes=ENGINE_LANES, device=dev)
+    grid1 = grid_row(grid18, 1)
+    ekw1 = dict(ekw, noise=grid_row(noise18, 1), n_grid=1)
+    for smp in ("gbm",) + SAMPLERS:
+        skw = ({} if smp == "gbm" else dict(sampler=smp) if smp == "heston" else
+               dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
+        for g, p_g, kw_g in ((18, grid18, ekw), (1, grid1, ekw1)):
+            timed(f"engine sweep {smp} {g} x {SWEEP_AB_ENGINE_PATHS} x {NUM_BARS}",
+                  lambda p_g=p_g, kw_g=kw_g, skw=skw: cuda_engine.engine_sweep_rows(
+                      0, levels, p_g, num_paths=SWEEP_AB_ENGINE_PATHS, num_bars=NUM_BARS,
+                      **kw_g, **skw),
+                  cuda_engine.reduce_rows)
+    for g, p_g, kw_g in ((18, grid18, ekw), (1, grid1, ekw1)):
+        timed(f"engine sweep gbm {g} x {ENV_SWEEP_PATHS} x {ENV_BARS} x {ENV_LEVELS} levels",
+              lambda p_g=p_g, kw_g=kw_g: cuda_engine.engine_sweep_rows(
+                  0, lv30, p_g, num_paths=ENV_SWEEP_PATHS, num_bars=ENV_BARS, **kw_g),
+              cuda_engine.reduce_rows)
+    if engine_only:
+        print(json.dumps({"tree": tree, "card": smi, "ms": ms, "digest": digests,
+                          "ptxas": ptxas}))
+        return 0
     for rows, n, w in SWEEP_AB_GBM:
         stops, tps = [r[0] for r in rows], [r[1] for r in rows]
         timed(f"gbm sweep {len(rows)} x {n} x {w}",
@@ -5656,7 +5712,6 @@ def sweep_times(tree: str) -> int:
     tps18 = [r[1] for r in GRID9 for _ in (2, 4)]
     gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in GRID9
                                                                  for tl in (2, 4)])
-    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
     for smp in SAMPLERS:
         skw = (dict(sampler=smp) if smp == "heston" else
                dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
@@ -5722,7 +5777,9 @@ def main() -> int:
                      "mc_engine_corr_samplers", "mc_engine_wide", "mc_engine_wide_samplers",
                      "mc_engine_wide_corr", "mc_engine_wide_corr_samplers",
                      "mc_engine_wide_harvest", "mc_engine_wide_samplers_harvest",
-                     "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest"])
+                     "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest",
+                     "mc_first_contact_sweep", "mc_gated_sampler_sweep",
+                     "mc_engine_bar_sweep"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -6457,7 +6514,8 @@ def main() -> int:
                 "cuda", "--num-paths", str(es_cli_paths), "--num-bars", str(NUM_BARS),
                 "--sigma", str(SIGMA), "--jitter-stds", "0", "0.02"]
         es_out, es_secs, es_launches = run_cli(
-            cli, argv, reset_all, {"mc_engine_sweep": 1, "mc_engine_sweep_reduce_rows": 1},
+            cli, argv, reset_all, {"mc_engine_bar_sweep": 1,
+                                   "mc_engine_sweep_reduce_rows": 1},
             n_paths=es_cli_paths)
     check_sweep_output(es_out, [(sp, tp, j) for sp, tp in grid9 for j in (0.0, 0.02)],
                        ["stop_padding", "tp_padding", "hit_rate", "mean_r", "mean_trades",
@@ -6540,8 +6598,8 @@ def main() -> int:
         entry("mc_gated_sweep_reduce_rows", GATED_SOURCE, GATED_SWEEP_REPLACES,
               gs_launches["mc_gated_sweep_reduce_rows"], gs_red_err, gs_red_ms,
               gs_red_plain_ms, gs_red_bound, rows=int(g_sw_rows[0].shape[1]), grid_rows=3),
-        entry("mc_engine_sweep", ENGINE_SOURCE, ENGINE_SWEEP_REPLACES,
-              es_launches["mc_engine_sweep"], es_err, es_ms, es_plain_ms, es_bound,
+        entry("mc_engine_bar_sweep", BAR_SWEEP_SOURCE, ENGINE_SWEEP_REPLACES,
+              es_launches["mc_engine_bar_sweep"], es_err, es_ms, es_plain_ms, es_bound,
               paths=es_paths, grid_rows=4, main_path_ms=es_main_ms,
               main_path_bound_ms=es_main_bound["bound_ms"], cli_kernel_ms=es_cli_ms,
               cli_kernel_bound_ms=es_cli_bound["bound_ms"], cli_s=es_secs[1:]),
@@ -6568,8 +6626,10 @@ if __name__ == "__main__":
             code = sampler_sweep_times(sys.argv[2] if len(sys.argv) > 2
                                        else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--sweep-times"]:
-            code = sweep_times(sys.argv[2] if len(sys.argv) > 2
-                               else os.path.dirname(os.path.abspath(__file__)))
+            args = sys.argv[2:]
+            rest = [a for a in args if not a.startswith("--")]
+            code = sweep_times(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
+                               engine_only="--engine" in args)
         elif sys.argv[1:2] == ["--envelope-times"]:
             args = sys.argv[2:]
             mb = (tuple(int(x) for x in args[args.index("--min-blocks") + 1].split(","))

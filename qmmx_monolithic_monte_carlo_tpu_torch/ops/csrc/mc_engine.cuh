@@ -174,6 +174,9 @@ struct Rings {
 #define GUARD_PUSH                        \
     st.run_low = fminf(st.run_low, l);    \
     st.run_high = fmaxf(st.run_high, h);
+// The bar's tie coin where it hits both stop and target: the bar step's
+// argument in every family but the engine sweep's (mc_engine_bar_sweep.cu).
+#define ENGINE_TIE tie
 
 // How the book walks shared with the envelope's books
 // (mc_engine_book_walk.cuh and mc_engine_book_sampler_walk.cuh) name a

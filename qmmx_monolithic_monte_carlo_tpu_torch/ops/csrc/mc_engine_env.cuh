@@ -358,6 +358,18 @@ __device__ __noinline__ void env_heston_bar_step(const EngineArgs& a, const Samp
 
 #define ENV_GBM 0                     // KIND of the gbm kernels (sampler.cuh has the others)
 
+// The uniform rows of a pair of bars under sampler KIND, from the pair's
+// first row (a.stride rows a pair): the first bar's tie coin (the second's
+// tie_step rows on) and the first of its four noise rows (the second's four
+// on).  env_walk reads them here, the engine sweep (mc_engine_bar_sweep.cu)
+// where a row's replay needs them.
+template <int KIND>
+struct EnvRows {
+    static constexpr int tie = KIND == ENV_GBM ? 6 : KIND == SAMPLER_RESAMPLE ? 2 : 8;
+    static constexpr int tie_step = KIND == SAMPLER_RESAMPLE ? 1 : 3;
+    static constexpr int noise = KIND == ENV_GBM ? 10 : KIND == SAMPLER_RESAMPLE ? 4 : 12;
+};
+
 // One path's walk under sampler KIND: the pairs of bars, as the parents
 // walk them (mc_engine.cu, mc_engine_samplers.cu), then an odd W's half
 // step: the cos branch of one more step of rows (gbm: the price and volume
@@ -374,6 +386,7 @@ __device__ __forceinline__ void env_walk(const EngineArgs& a, const SamplerArgs&
     const int col = (int)(p - blk * row_len);
     Draws dr{ext, blk, col, row_len, a.u_rows, a.seed, a.stream, -1,
              make_uint4(0u, 0u, 0u, 0u)};
+    using R = EnvRows<KIND>;
     if constexpr (KIND == ENV_GBM) {
         const int half_lanes = a.lanes >> 1;
         // antithetic: right half-lanes take the left partner's normals negated
@@ -396,10 +409,10 @@ __device__ __forceinline__ void env_walk(const EngineArgs& a, const SamplerArgs&
             const float vrad = sqrtf(-2.0f * logf(u[2]));
             float vsn, vcs;
             sincosf(two_pi() * u[3], &vsn, &vcs);
-            env_bar_step<WIN>(a, st, dr, scratch, 2 * t2, z0, vrad * vcs, u[4], u[5], u[6],
-                              base + 10);
-            env_bar_step<WIN>(a, st, dr, scratch, 2 * t2 + 1, z1, vrad * vsn, u[7], u[8], u[9],
-                              base + 14);
+            env_bar_step<WIN>(a, st, dr, scratch, 2 * t2, z0, vrad * vcs, u[4], u[5],
+                              u[R::tie], base + R::noise);
+            env_bar_step<WIN>(a, st, dr, scratch, 2 * t2 + 1, z1, vrad * vsn, u[7], u[8],
+                              u[R::tie + R::tie_step], base + R::noise + 4);
         }
         if (a.num_bars & 1) {
             const int base = (a.num_bars >> 1) * a.stride;
@@ -419,46 +432,46 @@ __device__ __forceinline__ void env_walk(const EngineArgs& a, const SamplerArgs&
             float vsn, vcs;
             sincosf(two_pi() * u[3], &vsn, &vcs);
             env_bar_step<WIN>(a, st, dr, scratch, a.num_bars - 1, z0, vrad * vcs, u[4], u[5],
-                              u[6], base + 10);
+                              u[R::tie], base + R::noise);
         }
     } else {
-        const int k_noise = KIND == SAMPLER_RESAMPLE ? 4 : 12;
         float carry = KIND == SAMPLER_HESTON ? s.v0 : 0.f;
 #pragma unroll 1
         for (int t2 = 0; t2 < (a.num_bars >> 1); ++t2) {
             const int r = t2 * a.stride;
             if constexpr (KIND == SAMPLER_RESAMPLE) {
                 const float x0 = dr.at(r), x1 = dr.at(r + 1);
-                const float tie0 = dr.at(r + 2), tie1 = dr.at(r + 3);
-                env_resample_bar_step<WIN>(a, s, st, dr, scratch, 2 * t2, x0, tie0, r + k_noise,
+                const float tie0 = dr.at(r + R::tie), tie1 = dr.at(r + R::tie + R::tie_step);
+                env_resample_bar_step<WIN>(a, s, st, dr, scratch, 2 * t2, x0, tie0, r + R::noise,
                                            carry);
                 env_resample_bar_step<WIN>(a, s, st, dr, scratch, 2 * t2 + 1, x1, tie1,
-                                           r + k_noise + 4, carry);
+                                           r + R::noise + 4, carry);
             } else {
                 const float2 z = normal_pair(dr.at(r), dr.at(r + 1));
                 const float2 zv = normal_pair(dr.at(r + 2), dr.at(r + 3));
                 const float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
-                const float u30 = dr.at(r + 6), u40 = dr.at(r + 7), tie0 = dr.at(r + 8);
-                const float u31 = dr.at(r + 9), u41 = dr.at(r + 10), tie1 = dr.at(r + 11);
+                const float u30 = dr.at(r + 6), u40 = dr.at(r + 7), tie0 = dr.at(r + R::tie);
+                const float u31 = dr.at(r + 9), u41 = dr.at(r + 10);
+                const float tie1 = dr.at(r + R::tie + R::tie_step);
                 env_heston_bar_step<WIN>(a, s, st, dr, scratch, 2 * t2, z.x, zv.x, q.x, u30, u40,
-                                         tie0, r + k_noise, carry);
+                                         tie0, r + R::noise, carry);
                 env_heston_bar_step<WIN>(a, s, st, dr, scratch, 2 * t2 + 1, z.y, zv.y, q.y, u31,
-                                         u41, tie1, r + k_noise + 4, carry);
+                                         u41, tie1, r + R::noise + 4, carry);
             }
         }
         if (a.num_bars & 1) {
             const int t = a.num_bars - 1;
             const int r = (a.num_bars >> 1) * a.stride;
             if constexpr (KIND == SAMPLER_RESAMPLE) {
-                const float x = dr.at(r), tie = dr.at(r + 2);
-                env_resample_bar_step<WIN>(a, s, st, dr, scratch, t, x, tie, r + k_noise, carry);
+                const float x = dr.at(r), tie = dr.at(r + R::tie);
+                env_resample_bar_step<WIN>(a, s, st, dr, scratch, t, x, tie, r + R::noise, carry);
             } else {
                 const float z = normal_pair(dr.at(r), dr.at(r + 1)).x;
                 const float zv = normal_pair(dr.at(r + 2), dr.at(r + 3)).x;
                 const float zq = normal_pair(dr.at(r + 4), dr.at(r + 5)).x;
-                const float u3 = dr.at(r + 6), u4 = dr.at(r + 7), tie = dr.at(r + 8);
+                const float u3 = dr.at(r + 6), u4 = dr.at(r + 7), tie = dr.at(r + R::tie);
                 env_heston_bar_step<WIN>(a, s, st, dr, scratch, t, z, zv, zq, u3, u4, tie,
-                                         r + k_noise, carry);
+                                         r + R::noise, carry);
             }
         }
     }

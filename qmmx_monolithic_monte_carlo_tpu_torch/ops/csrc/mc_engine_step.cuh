@@ -12,14 +12,16 @@
 // window are read through the macros LEVEL_SLOTS, LV_PRICE / LV_ROUND /
 // LV_VALID / LV_KIND, LATCH_BIT / LATCH_SET, C_COUNT, TM_CNT / TM_CNT_INC /
 // TM_TS / TM_TS_SET / TM_PX / TM_ZERO, TM_HAS_BIT / TM_HAS_MARK /
-// TM_HAS_CLEAR, RG_STRIDE and
+// TM_HAS_CLEAR, RG_STRIDE, ENGINE_TIE and
 // GUARD_PUSH, which each family defines before its bar steps: mc_engine.cuh
 // for the parent kernels (the slots of EngineArgs, arrays and bit masks of
 // the path state; after preprocessing the statements of the parent's own
 // text, so its code stays) and mc_engine_env.cuh for the envelope's kernels,
 // the books' included (the level table, the latch and touch flags and
 // contact counts in the CTA's shared memory, the touch registers in a device
-// scratch, the windowed guard a block at a time).  HARVEST_CLOSE and HARVEST_ENTRY fold a
+// scratch, the windowed guard a block at a time).  The engine sweep
+// (mc_engine_bar_sweep.cu) replays stored bars and draws a bar's tie coin
+// where it is read (ENGINE_TIE).  HARVEST_CLOSE and HARVEST_ENTRY fold a
 // closed trade into the label harvest and latch an entry's features; they
 // are empty but in the envelope's harvest builds.
 //
@@ -50,7 +52,7 @@
         if (stop_hit && tgt_hit) {
             const float up = fmaxf(h - st.entry, 0.f);
             const float dn = fmaxf(st.entry - l, 0.f);
-            tf = tie < up / (up + dn + 1e-9f);
+            tf = ENGINE_TIE < up / (up + dn + 1e-9f);
         }
         bool escalate = false;
         float esc_target = 0.f, esc_stop = 0.f;

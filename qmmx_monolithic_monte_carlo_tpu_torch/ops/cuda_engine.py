@@ -41,8 +41,10 @@ counter.
   whole engine re-run for every row of EngineParams (and McNoise stds) with
   [G] leaves on the same uniforms; row g equals ``mc_paths_engine_fused``
   under row g's knobs, bit for bit.  A CUDA device launches
-  ``mc_engine_sweep_kernel`` (CTAs x G) and one fold of all rows, or raises;
-  the CPU runs ``engine_sweep_totals_reference``.
+  ``mc_engine_bar_sweep_kernel`` (``ops/csrc/mc_engine_bar_sweep.cu``, under
+  every sampler and at every shape: each path's bars made once into a bar
+  store, every row replayed over them, ``bar_sweep_plan``) and one fold of
+  all rows, or raises; the CPU runs ``engine_sweep_totals_reference``.
 * ``mc_paths_engine_universe_fused`` -- the per-symbol engine universe, the
   counterpart of ``mc_paths_pallas_engine_universe`` (kernel #10,
   ``_engine_universe_kernel``, ``pallas_engine.py:2098-2279``, ``:2598-2689``):
@@ -58,7 +60,7 @@ counter.
   (leaves scalar, [G] or [S, G]) on symbol s's key (common random numbers
   within a symbol); it equals the engine universe at symbol s under row g's
   knobs, bit for bit.  Under the bootstrap, block-bootstrap and Heston
-  samplers the sweep, the universe and the sweep of universes launch
+  samplers the universe and the sweep of universes launch
   ``mc_engine_sampler_kernel`` (``ops/csrc/mc_engine_samplers.cu``) with the
   same rows, a universe's symbols each on their own recorded history.
 * ``LAUNCHES`` -- how many times each kernel was launched.
@@ -118,11 +120,10 @@ MAX_BARS = (2 ** 31 - 1) // 60_000   # bar timestamps are int32 milliseconds
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
 LAUNCHES = {"mc_engine": 0, "mc_engine_reduce_rows": 0, "mc_engine_sampler": 0,
-            "mc_engine_sweep": 0,
             "mc_engine_sweep_reduce_rows": 0, "mc_engine_universe": 0,
             "mc_engine_universe_reduce_rows": 0, "mc_engine_universe_sweep": 0,
             "mc_engine_universe_sweep_reduce_rows": 0, "mc_engine_corr": 0,
-            "mc_engine_corr_reduce_rows": 0, "mc_engine_sweep_sampler": 0,
+            "mc_engine_corr_reduce_rows": 0,
             "mc_engine_universe_sampler": 0, "mc_engine_universe_sweep_sampler": 0,
             "mc_engine_corr_sampler": 0}
 # the envelope kernels' launches: each parent launch counter with "_wide"
@@ -135,6 +136,8 @@ LAUNCHES.update({k + "_harvest": 0 for k in (
     "mc_engine_wide_universe_sampler", "mc_engine_wide_corr",
     "mc_engine_wide_corr_sampler")})
 LAUNCHES["mc_engine_harvest_reduce_rows"] = 0
+# the engine sweep (every launch of engine_sweep_rows): gbm, and the samplers
+LAUNCHES.update({"mc_engine_bar_sweep": 0, "mc_engine_bar_sweep_sampler": 0})
 HV_COUNTS, HV_SUMS = HV.COUNT_COLS, HV.SUM_COLS   # a harvest partial row's columns
 
 
@@ -977,6 +980,129 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
     return (part_counts, part_floats) + ((path_rows,) if per_path else ()) + hv
 
 
+# The engine sweep (ops/csrc/mc_engine_bar_sweep.cu): each path's bars made
+# once into a bar store of the resident CTAs, every grid row replayed over
+# them.  Its store, shared memory and scratch come from the library
+# (qmmx_engine_bar_sweep_plan).
+BAR_SWEEP_SOURCE = "mc_engine_bar_sweep"
+_GBM_KIND = 0                 # mc_engine_env.cuh's ENV_GBM
+# the argument fields that make the bars: every row of a sweep shares them
+_BAR_FIELDS = ("num_paths", "ext_offset", "drift", "sig_dt", "two_s2", "log_s0", "seed",
+               "stream", "num_bars", "lanes", "u_rows", "stride", "use_noise", "antithetic",
+               "max_levels") + tuple("vm_" + k for k in (
+                   "base", "uamp", "sigma", "rc", "day", "open", "den", "third", "half_s2",
+                   "mean_abs", "sd_abs", "floor"))
+
+
+@dataclasses.dataclass(frozen=True)
+class BarSweepPlan:
+    """How ``engine_sweep_rows`` launches a grid: the kernel and its launch
+    counter, the sampler kind it is built for and whether it takes the
+    windowed guard."""
+    kernel: str
+    counter: str
+    kind: int
+    windowed: bool
+
+
+def bar_sweep_plan(sampler: str, max_levels: int, num_bars: int, n_rows: int) -> BarSweepPlan:
+    """The launch of a sweep of ``n_rows`` grid rows under ``sampler`` at
+    ``max_levels`` slots and ``num_bars`` bars: ``mc_engine_bar_sweep_kernel``
+    at every shape the engine takes (1-64 slots, any W >= 2; past 61 bars
+    with the windowed guard), gbm counted as ``mc_engine_bar_sweep``, the
+    samplers as ``mc_engine_bar_sweep_sampler``."""
+    kind = _GBM_KIND if sampler == "gbm" else SAMPLER_KINDS[sampler]
+    if not (1 <= max_levels <= MAX_ENGINE_LEVELS and num_bars >= 2 and n_rows >= 1):
+        raise ValueError(f"no engine sweep at {max_levels} levels, {num_bars} bars, "
+                         f"{n_rows} rows")
+    gbm = kind == _GBM_KIND
+    return BarSweepPlan(kernel="mc_engine_bar_sweep_kernel",
+                        counter="mc_engine_bar_sweep" + ("" if gbm else "_sampler"), kind=kind,
+                        windowed=num_bars > GUARD_WINDOW_BARS)
+
+
+def _bar_sweep_library() -> ctypes.CDLL:
+    """The engine sweep's library (``ops/csrc/mc_engine_bar_sweep.cu``),
+    built at first use, with its C signatures set and its struct layouts
+    checked against the host's; the engine library first (the fold is its)."""
+    _library()
+    lib = build.load(BAR_SWEEP_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_engine_bar_sweep_size.argtypes = [ci]
+        lib.qmmx_engine_bar_sweep_size.restype = ci
+        lib.qmmx_engine_bar_sweep_plan.argtypes = [ci, ci, ci, ci, ci,
+                                                   ctypes.POINTER(ctypes.c_longlong)]
+        lib.qmmx_engine_bar_sweep_plan.restype = ci
+        lib.qmmx_engine_bar_sweep_error_string.argtypes = [ci]
+        lib.qmmx_engine_bar_sweep_error_string.restype = ctypes.c_char_p
+        lib.qmmx_mc_engine_bar_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci,
+                                                 vp, vp, vp, vp]
+        lib.qmmx_mc_engine_bar_sweep.restype = ci
+        want = [ctypes.sizeof(_EngineArgs), ctypes.sizeof(SamplerArgs), _WIDE_LEVEL.itemsize]
+        if [lib.qmmx_engine_bar_sweep_size(i) for i in range(3)] != want:
+            raise RuntimeError("the struct layouts differ between mc_engine_bar_sweep.cu "
+                               "and cuda_engine.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
+def bar_sweep_launch_plan(kind: int, max_levels: int, num_bars: int, n_rows: int,
+                          vgrid: int) -> dict:
+    """The library's plan of a launch (``qmmx_engine_bar_sweep_plan``): the
+    physical CTAs, the store's and the scratch's floats, a CTA's dynamic
+    shared memory and the rows replayed over one making of the bars."""
+    lib = _bar_sweep_library()
+    out = (ctypes.c_longlong * 5)()
+    rc = lib.qmmx_engine_bar_sweep_plan(kind, max_levels, num_bars, n_rows, vgrid, out)
+    if rc != 0:
+        msg = lib.qmmx_engine_bar_sweep_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"no engine sweep plan: CUDA error {rc} ({msg})")
+    return dict(zip(("ctas", "store_floats", "scratch_floats", "smem_bytes", "rows_per_pass"),
+                    out))
+
+
+def _bar_sweep_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
+                      num_paths: int, ext_ptr, device: torch.device, per_path: bool):
+    """One launch of ``mc_engine_bar_sweep_kernel`` for the grid rows
+    ``args`` of ``levels`` under ``sampler`` (every row on the same draws
+    and the one history: the bars' fields of ``args`` agree), counted in
+    ``LAUNCHES[plan.counter]`` (``bar_sweep_plan``): each path's bars made
+    once into a bar store of the resident CTAs, every row replayed over
+    them; int64 [G, grid, 151] and f32 [G, grid, 6] partial rows, plus
+    f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``, each row
+    equal to the one-row launch (``engine_rows``) at its arguments."""
+    for field in _BAR_FIELDS:
+        if not (args[field] == args[field][:1]).all():
+            raise ValueError(f"the sweep's rows must share the bars: {field} differs")
+    max_levels = levels.max_levels
+    n, grid = len(args), grid_size(num_paths)
+    plan = bar_sweep_plan(sampler.kind, max_levels, num_bars, n)
+    lib = _bar_sweep_library()
+    launch = bar_sweep_launch_plan(plan.kind, max_levels, num_bars, n, grid)
+    args_dev = device_rows(args, device)
+    table = device_rows(level_table(levels, n), device)
+    samp_dev, _tables = (sampler_args(sampler, device) if plan.kind != _GBM_KIND
+                         else (None, None))
+    store = torch.empty(launch["store_floats"], dtype=_F32, device=device)
+    scratch = torch.empty(launch["scratch_floats"], dtype=_F32, device=device)
+    part_counts = torch.empty((n, grid, ROW_COUNTS), dtype=torch.int64, device=device)
+    part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=_F32, device=device)
+    path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=_F32, device=device)
+                 if per_path else None)
+    rc = lib.qmmx_mc_engine_bar_sweep(
+        args_dev.data_ptr(), None if samp_dev is None else samp_dev.data_ptr(),
+        table.data_ptr(), n, plan.kind, max_levels, num_bars, ext_ptr, store.data_ptr(),
+        scratch.data_ptr(), launch["ctas"], grid, part_counts.data_ptr(),
+        part_floats.data_ptr(), path_rows.data_ptr() if per_path else None,
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.qmmx_engine_bar_sweep_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{plan.counter} launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES[plan.counter] += 1
+    return (part_counts, part_floats) + ((path_rows,) if per_path else ())
+
+
 def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=None,
                       ml_model=None, touch_params=None, guard_params=None,
                       policy_gate_disabled=None, escalation: bool = True,
@@ -987,11 +1113,13 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
                       external_uniforms=None, device=None, per_path: bool = False,
                       sampler: str = "gbm", hist_bars=None, tables=None, block_len: int = 10,
                       heston=None):
-    """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
-    grid (``mc_engine_sweep_kernel``, or under the other samplers
-    ``mc_engine_sampler_kernel``, every row on the same history): int64 [G,
-    grid, 151] and f32 [G, grid, 6] partial rows, one per (grid row, CTA),
-    plus f32[G, P, PATH_COLS] per-(row, path) rows when ``per_path``."""
+    """Launch the sweep's pass 1 on a CUDA device, one launch of
+    ``mc_engine_bar_sweep_kernel`` for the whole grid under every sampler and
+    at every shape (``bar_sweep_plan``; each path's bars made once, every row
+    on the same draws and history): int64 [G, grid, 151] and f32 [G, grid,
+    6] partial rows, one per (grid row, CTA), plus f32[G, P, PATH_COLS]
+    per-(row, path) rows when ``per_path``; row g equals ``engine_rows`` at
+    row g's knobs bit for bit."""
     n_grid = len(knob_rows(grid_params, noise, n_grid))
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
@@ -1008,12 +1136,8 @@ def engine_sweep_rows(seed, levels: Levels, grid_params, *, n_grid=None, policy=
     args = _pack_args(seed, levels, grid_params, kw, layout, n=n_grid, num_paths=num_paths,
                       s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes, noise=noise,
                       antithetic=False, volume_model=volume_model, symbols=[0] * n_grid)
-    if samp.kind != "gbm":
-        return _sampler_launch(args, levels, samp, num_bars, num_paths=num_paths,
-                               ext_ptr=ext_ptr, device=device, per_path=per_path,
-                               what="mc_engine_sweep_sampler")
-    return _launch(args, levels, num_bars, num_paths=num_paths, ext_ptr=ext_ptr,
-                   device=device, per_path=per_path, what="mc_engine_sweep")
+    return _bar_sweep_launch(args, levels, samp, num_bars, num_paths=num_paths,
+                             ext_ptr=ext_ptr, device=device, per_path=per_path)
 
 
 def reduce_rows(part_counts: torch.Tensor, part_floats: torch.Tensor, what=None):

@@ -259,7 +259,7 @@ def test_cuda_lifecycle_sampler_sweep_rows(engine, sampler):
     if engine:
         ref = lambda **k: mod.engine_sweep_totals_reference(0, levels, grid, **k)
         launch = lambda **k: mod.engine_sweep_rows(0, levels, grid, **k)
-        name = "mc_engine_sweep_sampler"
+        name = "mc_engine_bar_sweep_sampler"
     else:
         ref = lambda **k: mod.gated_sweep_totals_reference(0, levels, params, STOPS, TPS,
                                                            **k)
