@@ -60,12 +60,14 @@ Phases (any failure exits non-zero and prints no result line):
    port CLI's ``sweep --backend cuda`` at 2^28 paths (the 3 x 3 grid),
    launch counts set to 0 just before and read just after (one sweep launch
    and one fold a run, nothing else), rows and keys in the JAX CLI's order;
-13. gated sweep (``mc_gated_sweep_kernel``, mc_gated.cu): injected uniforms
+13. gated sweep (the gbm kind of ``mc_gated_sampler_sweep_kernel``,
+   mc_gated_sampler_sweep.cu: each path's bars made once into a bar store,
+   every row replayed over them): injected uniforms
    path by path, 3 rows with a noise-std row, every differing path traced
    as in phase 6; Philox at 2^22, each row equal to the one-row launch of
-   the same kernel (``mc_paths_gated_fused``'s) bit for bit, per path
-   included, and the plain version on the card equal to the kernel on every
-   path; ``PathStats.from_lifecycle`` / ``from_outcomes``
+   ``mc_gated_sweep_kernel`` (``mc_paths_gated_fused``'s) bit for bit, per
+   path included, and the plain version on the card equal to the kernel on
+   every path; ``PathStats.from_lifecycle`` / ``from_outcomes``
    bins on the card equal to the CPU's; the CLI's ``sweep --gated --backend
    cuda --num-paths 2^26 --touch-limits 2 4`` (18 rows) with its launches;
 14. engine sweep (``mc_engine_bar_sweep_kernel``, mc_engine_bar_sweep.cu: each
@@ -286,17 +288,19 @@ Phases (any failure exits non-zero and prints no result line):
    kernel) and ``book --engine --harvest --sampler block_bootstrap`` at 100 x
    2^20; each harvest kernel timed against the same kernel without the
    harvest in turn; the harvest rows' fold against its plain fold;
-32. first contact past 128 bars (``mc_first_contact_long.cu``, where the
-   register kernels keep at most 64 sine halves; ``long_phases``): at W =
+32. first contact past 128 bars (``mc_universe_kernel`` keeps at most 24
+   sine halves a thread and the gbm sweep 64, and they draw the pairs past
+   them again; ``long_phases``): at W =
    390 injected uniforms against the plain version on CPU copies, Philox at
    2^20 (single with noise and antithetic, the 3 x 3 sweep, a 3-symbol
    universe) against the plain version on the card, the same launches
-   forced at W = 40, 90, 92 and 128 equal to the register kernels bit for
-   bit (the gbm sweep, ``mc_first_contact_sweep_kernel``, with its sine
-   halves kept in shared memory and drawn again, each row against the
-   register one-row kernel; W 90 and 92 the last of its four-CTA build and
-   the first of its three-CTA one), the gbm sweep's 18 rows at W = 390 each equal
-   to its one-row launch; the
+   forced to keep no sine half (``cap = 0``) at W = 40, 90, 92 and 128
+   equal to the launches keeping every half they keep (up to 24 for the
+   single run and the universe, 64 for the sweep) bit for bit (the gbm sweep,
+   ``mc_first_contact_sweep_kernel``, each row also against the one-row
+   ``mc_universe_kernel`` keeping every half it keeps; W 90 and 92 the last
+   of the sweep's four-CTA build and the first of its three-CTA one), the
+   gbm sweep's 18 rows at W = 390 each equal to its one-row launch; the
    port CLI's ``paths --num-bars 390`` (default ``--backend auto``) at 2^28
    and ``sweep --num-bars 390`` at 2^26, config #4's universe at 390 bars
    through ``mc_paths_universe_fused``, launch counts set to 0 just before
@@ -319,6 +323,8 @@ kernels of the port in TREE at their main paths' shapes, the books included
 digests and ptxas resources (``envelope_times``), for a parent unpacked with
 ``git archive`` against this tree in turns (the two options build probes: no
 windowed guard, or other ``__launch_bounds__``, B the books').
+``python3 chip_smoke.py --fc-rows-digests TREE`` prints the digests of first
+contact's gbm partial rows (``fc_rows_cases``) of the port in TREE.
 ``python3 chip_smoke.py --sampler-sweep-times TREE`` times the first-contact
 sampler sweeps of the port in TREE at 9 rows x 2^28 x 40 and 9 x 2^24 x 390,
 with count digests and ptxas resources (``sampler_sweep_times``), in turns
@@ -446,6 +452,7 @@ CSRC = "qmmx_monolithic_monte_carlo_tpu_torch/ops/csrc/"
 FC_SOURCE = CSRC + "mc_first_contact.cu"
 FC_SWEEP_SOURCE = CSRC + "mc_first_contact_sweep.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
+GATED_SWEEP_SOURCE = CSRC + "mc_gated_sampler_sweep.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
 GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
 ENGINE_CORR_SOURCE = CSRC + "mc_engine_corr.cu"
@@ -4789,27 +4796,30 @@ def harvest_phases(dev, card, reset, cli, e_counts) -> list:
 
 
 # ---- first contact past 128 bars (phase 32): kernels #1-#3 and their
-# samplers at the desk's 390-bar day (ops/csrc/mc_first_contact_long.cu)
+# samplers at the desk's 390-bar day (the gbm kernels keep 24 or 64 sine
+# halves a thread and draw the pairs past them again)
 LONG_BARS = 390
 LONG_INJECT_BLOCKS = 4           # 4 x 8192 paths injected, against the plain version on CPU copies
 LONG_PHILOX_PATHS = 1 << 20      # kernel vs plain on the card; the bounds' work sample
 LONG_SAMPLER_PATHS = 1 << 18     # the samplers' rows against the plain version on the card
 LONG_PATHS = 1 << 24             # the kernels alone (the sweep: 9 rows of it)
 LONG_SYMBOLS = 3
-LONG_SOURCE = CSRC + "mc_first_contact_long.cu"
 
 
 def long_phases(dev, card, reset, cli) -> list:
-    """Phase 32: first contact at W = 390, where the register kernels (W <=
-    128) do not reach and ``--backend auto`` now takes the long-horizon
-    kernels.  gbm: injected uniforms (noise, antithetic) against the plain
-    version on CPU copies; Philox at 2^20 against the plain version on the
-    card, single (noise, antithetic), the 3 x 3 sweep and a 3-symbol
-    universe; the same launches forced (``cuda_mc._FORCE_LONG``) at W = 40,
-    90, 92 and 128 equal to the register kernels bit for bit (the gbm sweep, its
-    sine halves kept and drawn again, row by row against the register
-    one-row kernel), the gbm sweep at 18 rows x W 390 (two launches) each
-    row against its one-row launch; ``paths --num-bars
+    """Phase 32: first contact at W = 390, where the gbm kernels keep 24
+    (``mc_universe_kernel``) or 64 (the sweep) of the 195 sine halves a
+    thread (their launches counted with ``_long``) and
+    ``--backend auto`` takes the kernels.  gbm: injected uniforms (noise,
+    antithetic) against the plain version on CPU copies; Philox at 2^20
+    against the plain version on the card, single (noise, antithetic), the 3
+    x 3 sweep and a 3-symbol universe; the same launches forced to keep no
+    sine half (``cuda_mc._FORCE_LONG``: ``cap = 0``) at W = 40, 90, 92 and
+    128 equal to the launches keeping every half they keep (up to 24 for the
+    single run and the universe, 64 for the sweep) bit for bit (the gbm
+    sweep, its sine halves kept and drawn again, row by row against the
+    one-row launch keeping every half it keeps), the gbm sweep at 18 rows x W 390 (two
+    launches) each row against its one-row launch; ``paths --num-bars
     390`` (default ``--backend auto``) at 2^28 and ``sweep --num-bars 390`` at
     2^26 through the CLI, config #4's universe at 390 bars through
     ``mc_paths_universe_fused``; each kernel timed beside its bound.  The
@@ -4849,7 +4859,8 @@ def long_phases(dev, card, reset, cli) -> list:
     def cmp(name, want, got, n):
         return compare(name, want, got, n, num_bars=w)
 
-    log(f"[32] first contact at W = {w} (mc_first_contact_long.cu), injected uniforms: "
+    log(f"[32] first contact at W = {w} (mc_universe_kernel, 24 sine halves kept), "
+        "injected uniforms: "
         f"kernel vs plain on CPU copies, {LONG_INJECT_BLOCKS * LANES} paths")
     err = {"mc_first_contact_long": 0.0, "mc_sweep_long": 0.0, "mc_universe_long": 0.0}
     n_inj = LONG_INJECT_BLOCKS * LANES
@@ -4890,8 +4901,9 @@ def long_phases(dev, card, reset, cli) -> list:
         err["mc_universe_long"] = max(err["mc_universe_long"], cmp(
             f"universe symbol {i}", (uwc[i], uwf[i]), (got[0][i], got[1][i]), LONG_PHILOX_PATHS))
 
-    log("[32] forced long path (cuda_mc._FORCE_LONG) at W = 40, 90, 92 and 128 against the "
-        f"register kernels at {LONG_PHILOX_PATHS} paths: partial rows bit for bit")
+    log("[32] no sine half kept (cuda_mc._FORCE_LONG: cap = 0) at W = 40, 90, 92 and 128 "
+        f"against the launches keeping every half they keep (up to 24 for the single run and "
+        f"universe, 64 for the sweep) at {LONG_PHILOX_PATHS} paths: partial rows bit for bit")
     for wf in (40, 90, 92, 128):
         fkw = dict(common, num_bars=wf, num_paths=LONG_PHILOX_PATHS, external_uniforms=None)
 
@@ -4911,10 +4923,11 @@ def long_phases(dev, card, reset, cli) -> list:
             cuda_mc._FORCE_LONG = False
         for name, a, b in zip(("single", "sweep", "universe"), reg, forced_rows):
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f"W {wf} {name}: the long path differs from the "
-                                     "register kernel")
+                raise AssertionError(f"W {wf} {name}: cap = 0 differs from the sine halves "
+                                     "kept")
         # the gbm sweep kernel (every sine half in shared memory, then none
-        # under _FORCE_LONG) against the register one-row kernel, row by row
+        # under _FORCE_LONG) against the one-row kernel keeping the halves it
+        # keeps, row by row
         for gi, (sp, tp) in enumerate(zip(stops9, tps9)):
             one = cuda_mc.first_contact_rows(3, levels, params.replace(
                 stop_padding=sp, tp_padding=tp), device=dev, noise=None, antithetic=False,
@@ -4922,10 +4935,10 @@ def long_phases(dev, card, reset, cli) -> list:
             for name, sw in (("kept", reg[1]), ("drawn again", forced_rows[1])):
                 if not (torch.equal(one[0], sw[0][gi]) and torch.equal(one[1], sw[1][gi])):
                     raise AssertionError(f"W {wf}: gbm sweep row {gi} (sine halves {name}) "
-                                         "differs from the register one-row kernel")
-    log("  single (noise, antithetic), sweep and universe: the long path == the register "
-        "kernels bit for bit at W = 40, 90, 92 and 128; each gbm sweep row, sine halves kept "
-        "or drawn again, == its one-row launch of the register kernel")
+                                         "differs from the one-row kernel")
+    log("  single (noise, antithetic), sweep and universe: cap = 0 == the sine halves kept, "
+        "bit for bit at W = 40, 90, 92 and 128; each gbm sweep row, sine halves kept or drawn "
+        "again, == its one-row launch keeping the halves it keeps")
 
     def row_bytes_of(rows):
         return rows[0].numel() * 8 + rows[1].numel() * 4
@@ -5016,7 +5029,7 @@ def long_phases(dev, card, reset, cli) -> list:
     tps18 = [tp for _ in range(6) for tp in (0.15, 0.25, 0.35)]
     # gbm, 18 rows at W = 390: two launches of mc_first_contact_sweep_kernel (64
     # sine halves kept, the rest drawn again), each row equal to its one-row
-    # launch of mc_universe_kernel's long build bit for bit
+    # launch of mc_universe_kernel bit for bit
     before = cuda_mc.LAUNCHES["mc_sweep_long"]
     sw18 = cuda_mc.sweep_rows(0, levels, params, stops18, tps18, device=dev, **kws)
     if cuda_mc.LAUNCHES["mc_sweep_long"] != before + 2:
@@ -5116,7 +5129,7 @@ def long_phases(dev, card, reset, cli) -> list:
                           universe_plain_ms=u_ms_plain))
     tmp.cleanup()
     return [
-        entry("mc_first_contact_long", LONG_SOURCE, FC_REPLACES,
+        entry("mc_first_contact_long", FC_SOURCE, FC_REPLACES,
               fc_launches["mc_first_contact_long"], err["mc_first_contact_long"], fc_ms,
               fc_plain_ms, fc_bound, num_bars=w, paths=LONG_PATHS, plain_paths=LONG_PHILOX_PATHS,
               main_path_ms=fc_main_ms, main_path_bound_ms=fc_main_bound["bound_ms"],
@@ -5124,7 +5137,7 @@ def long_phases(dev, card, reset, cli) -> list:
         entry("mc_sweep_long", FC_SWEEP_SOURCE, SWEEP_REPLACES, sw_launches["mc_sweep_long"],
               err["mc_sweep_long"], sw_ms, sw_plain_ms, sw_bound, num_bars=w, paths=sw_paths,
               grid_rows=len(grid9), plain_paths=LONG_PHILOX_PATHS, cli_s=sw_secs[1:]),
-        entry("mc_universe_long", LONG_SOURCE, UNI_REPLACES,
+        entry("mc_universe_long", FC_SOURCE, UNI_REPLACES,
               uni_launches["mc_universe_long"], err["mc_universe_long"], uni_ms, uni_plain_ms,
               uni_bound, num_bars=w, symbols=UNI_SYMBOLS, paths=UNI_PATHS,
               plain_symbols=LONG_SYMBOLS, plain_paths=LONG_PHILOX_PATHS, main_s=uni_secs[1:]),
@@ -5587,19 +5600,113 @@ def sampler_sweep_times(tree: str) -> int:
     return 0
 
 
+# --fc-rows-digests: first contact's gbm partial rows at these horizons, held
+# bit for bit against those of the kernel mc_universe_kernel replaced
+# (tests/test_torch_universe_gated_redesign.py keeps that kernel's digests)
+FC_ROWS_BARS = (2, 40, 128, 130, 390)
+FC_ROWS_INJECT_PATHS = 1 << 16      # a symbol, injected (8 blocks of 8192 lanes; 3 of 2048 x 8)
+FC_ROWS_PHILOX_PATHS = 1 << 21      # a symbol, Philox: two chunks a thread of 4096 CTAs
+
+
+def fc_rows_cases(cuda_mc, dev):
+    """{case: a function giving its gbm partial rows}: at each W of
+    FC_ROWS_BARS, the single run with noise and antithetic lanes and a
+    3-symbol universe, on injected uniforms (numpy, seeded by W) and on
+    Philox; the public launchers only, so any tree of the port runs them."""
+    import numpy as np
+    import torch
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.draws import GbmLayout
+    from qmmx_monolithic_monte_carlo_tpu_torch.parallel import universe as U
+    from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
+    from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
+
+    params = EngineParams.default()
+    levels = Levels.from_rows(CLI_ROWS, max_levels=8)
+    noise = McNoise.make(entry_slip_std=0.01, level_jitter_std=0.02, stop_slip_std=0.015,
+                         target_slip_std=0.015)
+    lv3 = U.stack_levels([[{"color": "blue", "type": "solid", "index": 0, "price": x},
+                           {"color": "orange", "type": "dashed", "index": 0, "price": x + 0.4}]
+                          for x in (100.0, 50.0, 75.0)], max_levels=8)
+    s0_3, sg_3 = np.array([100.0, 50.0, 75.0], np.float32), np.array([0.3, 0.4, 0.25], np.float32)
+
+    def uniforms(seed, shape):
+        return torch.from_numpy(np.random.default_rng(seed).uniform(1e-9, 1.0, shape)
+                                .astype(np.float32)).to(dev)
+
+    cases = {}
+    for w in FC_ROWS_BARS:
+        common = dict(num_bars=w, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=LANES)
+        n_rows = GbmLayout(w, True).n_rows
+        cases[f"single inject W{w}"] = lambda w=w, common=common, n_rows=n_rows: (
+            cuda_mc.first_contact_rows(
+                0, levels, params, num_paths=FC_ROWS_INJECT_PATHS, noise=noise, antithetic=True,
+                external_uniforms=uniforms(w, (FC_ROWS_INJECT_PATHS // LANES, n_rows, LANES)),
+                device=dev, **common))
+        cases[f"single philox W{w}"] = lambda common=common: cuda_mc.first_contact_rows(
+            5, levels, params, num_paths=FC_ROWS_PHILOX_PATHS, noise=noise, antithetic=True,
+            external_uniforms=None, device=dev, **common)
+        ukw = dict(num_bars=w, dt=DT, lanes=cuda_mc.UNIVERSE_LANES, device=dev)
+        n_u = GbmLayout(w).n_rows
+        cases[f"universe inject W{w}"] = lambda w=w, ukw=ukw, n_u=n_u: cuda_mc.universe_rows(
+            0, lv3, params, s0_3, sg_3, paths_per_symbol=FC_ROWS_INJECT_PATHS // 4,
+            external_uniforms=uniforms(1000 + w, (3, FC_ROWS_INJECT_PATHS // 4
+                                                  // cuda_mc.UNIVERSE_LANES, n_u,
+                                                  cuda_mc.UNIVERSE_LANES)), **ukw)
+        cases[f"universe philox W{w}"] = lambda ukw=ukw: cuda_mc.universe_rows(
+            5, lv3, params, s0_3, sg_3, paths_per_symbol=FC_ROWS_PHILOX_PATHS,
+            external_uniforms=None, **ukw)
+    return cases
+
+
+def fc_rows_digests(tree: str) -> int:
+    """The digests (``count_digest`` of the int64 and float32 partial rows) of
+    ``fc_rows_cases`` run by the port in ``tree``, as one JSON line, beside
+    the card's name and power limit: a parent unpacked with ``git archive``
+    gives the digests the redesigned kernel is held to."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the kernels run on the card")
+    from pathlib import Path
+
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_mc
+    from qmmx_monolithic_monte_carlo_tpu_torch.utils import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    build.BUILD_DIR = Path(tree) / "build" / "kernels-digests"
+    dev = torch.device("cuda", 0)
+    out = {name: count_digest(*run()) for name, run in fc_rows_cases(cuda_mc, dev).items()}
+    print(json.dumps({"tree": tree, "card": smi, "digest": out}))
+    return 0
+
+
 # --sweep-times: the gbm and the gated sampler sweeps at their main paths' shapes
 SWEEP_AB_GBM = ((CONFIG5, 1 << 30, NUM_BARS), (GRID9, MAIN_PATHS, NUM_BARS),
                 (GRID9, 1 << 24, 390))           # (rows, paths, W): config #5, the CLI's 9
 SWEEP_AB_GATED_PATHS = 1 << 26                   # sweep --gated --touch-limits 2 4: 18 rows
+# first contact's single run (``paths``: 2^28 paths, at 40 and 390 bars, on
+# the CLI's levels) and config #4's universe (100 x 2^20) at 40 and 390 bars
+SWEEP_AB_FC_BARS = (NUM_BARS, 390)
 SWEEP_AB_ENGINE_PATHS = 1 << 24                  # sweep --engine --jitter-stds 0 0.02: 18 rows
 # the engine sweep kernels' ptxas lines: the sweep, and the one-row kernels it replaced
 SWEEP_AB_PTXAS = ("sweep", "bar_step", "mc_engine_sampler_kernel", "mc_engine_wide_kernel",
                   "mc_engine_wide_sampler_kernel")
 
 
-def sweep_times(tree: str, engine_only: bool = False) -> int:
+def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = False) -> int:
     """The gbm, the gated sampler and the engine sweeps of the port in
-    ``tree``, at their main paths' shapes: the gbm first-contact sweep
+    ``tree``, at their main paths' shapes: first contact's single run
+    (``cuda_mc.first_contact_rows``) at 2^28 x 40 and 2^28 x 390 on the
+    CLI's levels and config #4's universe (``cuda_mc.universe_rows``, 100
+    x 2^20) at 40 and 390 bars; the gated sweep's gbm launch
+    (``cuda_gated.gated_sweep_rows``) on the CLI's ``sweep --gated
+    --touch-limits 2 4`` grid (18 rows) at 2^26 x 40; the gbm first-contact sweep
     (``cuda_mc.sweep_rows``) at config #5 (3 rows x 2^30 x 40), the CLI's 9
     rows at 2^28 x 40 and 9 x 2^24 x 390; the gated sweep
     (``cuda_gated.gated_sweep_rows``) on the CLI's ``sweep --gated
@@ -5609,8 +5716,9 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
     --engine --jitter-stds 0 0.02`` grid (18 rows) at 2^24 x 40 under gbm and
     the three samplers, and at phase 29's envelope (30 levels x 390 bars x
     2^20, 18 rows), and each at one row (the bars and one row's replay).
-    ``engine_only`` (``--engine``) times the engine sweeps alone.  Each
-    timed by CUDA events (a warm-up that
+    ``engine_only`` (``--engine``) times the engine sweeps alone,
+    ``redesign_only`` (``--redesign``) the first five shapes alone.
+    Each timed by CUDA events (a warm-up that
     also takes a digest of the folded counts and floats, ``count_digest``,
     then the mean of two runs).  Builds into the tree's
     ``build/kernels-times``; prints the sweep kernels' ptxas lines, each time,
@@ -5640,9 +5748,10 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
     build.BUILD_DIR = Path(tree) / "build" / "kernels-times"
     engine_libs = ("mc_engine", "mc_engine_samplers", "mc_engine_wide",
                    "mc_engine_wide_samplers", "mc_engine_bar_sweep")
-    libs = [n for n in (() if engine_only else (
-                "mc_first_contact", "mc_first_contact_long", "mc_first_contact_sweep",
-                "mc_gated", "mc_gated_samplers", "mc_gated_sampler_sweep")) + engine_libs
+    # (mc_first_contact_long: an earlier tree's first contact past 128 bars)
+    fc_libs = ("mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_gated_sampler_sweep")
+    libs = [n for n in (fc_libs if redesign_only else (() if engine_only else fc_libs + (
+                "mc_first_contact_sweep", "mc_gated_samplers")) + engine_libs)
             if (build.CSRC / f"{n}.cu").exists()]
     t0 = time.perf_counter()
     build.build_all(libs)
@@ -5650,7 +5759,7 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
     ptxas = {}
     for name in libs:
         fn = None
-        keys = SWEEP_AB_PTXAS if name in engine_libs else ("sweep",)
+        keys = SWEEP_AB_PTXAS if name in engine_libs else ("sweep", "universe", "bar_step")
         for line in build.BUILD_LOG[name]["log"].splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'? ",
                           line + " ")
@@ -5665,6 +5774,11 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
     params = EngineParams.default()
     levels = Levels.from_rows(CLI_ROWS, max_levels=8)
     ms, digests = {}, {}
+    # the CLI's sweep --gated --touch-limits 2 4 grid: 3 x 3 (stop, tp) x touch limits 2, 4
+    stops18 = [r[0] for r in GRID9 for _ in (2, 4)]
+    tps18 = [r[1] for r in GRID9 for _ in (2, 4)]
+    gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in GRID9
+                                                                 for tl in (2, 4)])
 
     def timed(name, run, fold):
         digests[name] = count_digest(*fold(*run()))          # also the warm-up
@@ -5672,6 +5786,33 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
         ms[name] = cuda_ms(run, 2)
         print(f"  {name}: {ms[name]:.3f} ms, totals {digests[name]}", flush=True)
 
+    # first contact's single run and config #4's universe
+    # (mc_universe_kernel), the gated sweep under gbm
+    if not engine_only:
+        for w in SWEEP_AB_FC_BARS:
+            timed(f"first contact {MAIN_PATHS} x {w}",
+                  lambda w=w: cuda_mc.first_contact_rows(
+                      0, levels, params, num_paths=MAIN_PATHS, num_bars=w, s0=100.0, mu=0.0,
+                      sigma=SIGMA, dt=DT, lanes=LANES, noise=None, antithetic=False,
+                      external_uniforms=None, device=dev),
+                  cuda_mc.reduce_rows)
+        c4 = config4()
+        for w in SWEEP_AB_FC_BARS:
+            timed(f"universe config #4 {UNI_SYMBOLS} x {UNI_PATHS} x {w}",
+                  lambda w=w: cuda_mc.universe_rows(
+                      0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=w,
+                      dt=DT, lanes=cuda_mc.UNIVERSE_LANES, external_uniforms=None, device=dev),
+                  cuda_mc.reduce_rows)
+        timed(f"gated sweep gbm 18 x {SWEEP_AB_GATED_PATHS} x {NUM_BARS}",
+              lambda: cuda_gated.gated_sweep_rows(
+                  0, levels, params, stops18, tps18, gate18, num_paths=SWEEP_AB_GATED_PATHS,
+                  num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=GATED_LANES,
+                  noise=None, external_uniforms=None, device=dev),
+              cuda_gated.reduce_rows)
+    if redesign_only:
+        print(json.dumps({"tree": tree, "card": smi, "ms": ms, "digest": digests,
+                          "ptxas": ptxas}))
+        return 0
     tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
     # the engine sweeps: the CLI's 18 rows (3 x 3 x level jitter 0, 0.02)
     jit18 = torch.tensor([j for _ in GRID9 for j in (0.0, 0.02)])
@@ -5708,10 +5849,6 @@ def sweep_times(tree: str, engine_only: bool = False) -> int:
                   0, levels, params, stops, tps, num_paths=n, num_bars=w, s0=100.0, mu=0.0,
                   sigma=SIGMA, dt=DT, lanes=LANES, external_uniforms=None, device=dev),
               cuda_mc.reduce_rows)
-    stops18 = [r[0] for r in GRID9 for _ in (2, 4)]
-    tps18 = [r[1] for r in GRID9 for _ in (2, 4)]
-    gate18 = GateConfig.from_params(params).replace(touch_limit=[tl for _ in GRID9
-                                                                 for tl in (2, 4)])
     for smp in SAMPLERS:
         skw = (dict(sampler=smp) if smp == "heston" else
                dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN))
@@ -5769,7 +5906,7 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    build.build_all(["mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_engine",
+    build.build_all(["mc_first_contact", "mc_gated", "mc_engine",
                      "mc_gated_corr",
                      "mc_engine_corr", "mc_first_contact_samplers",
                      "mc_first_contact_sampler_sweep", "mc_gated_samplers",
@@ -6591,7 +6728,7 @@ def main() -> int:
         entry("mc_sweep_reduce_rows", FC_SOURCE, SWEEP_REPLACES,
               sw_launches["mc_sweep_reduce_rows"], sw_red_err, sw_red_ms, sw_red_plain_ms,
               sw_red_bound, rows=int(sw_rows[0].shape[1]), grid_rows=3),
-        entry("mc_gated_sweep", GATED_SOURCE, GATED_SWEEP_REPLACES,
+        entry("mc_gated_sweep", GATED_SWEEP_SOURCE, GATED_SWEEP_REPLACES,
               gs_launches["mc_gated_sweep"], gs_err, gs_ms, gs_plain_ms, gs_bound,
               paths=PHILOX_PATHS, grid_rows=3, cli_kernel_ms=gs_main_ms,
               cli_kernel_bound_ms=gs_main_bound["bound_ms"], cli_s=gs_secs[1:]),
@@ -6629,7 +6766,11 @@ if __name__ == "__main__":
             args = sys.argv[2:]
             rest = [a for a in args if not a.startswith("--")]
             code = sweep_times(rest[0] if rest else os.path.dirname(os.path.abspath(__file__)),
-                               engine_only="--engine" in args)
+                               engine_only="--engine" in args,
+                               redesign_only="--redesign" in args)
+        elif sys.argv[1:2] == ["--fc-rows-digests"]:
+            code = fc_rows_digests(sys.argv[2] if len(sys.argv) > 2
+                                   else os.path.dirname(os.path.abspath(__file__)))
         elif sys.argv[1:2] == ["--envelope-times"]:
             args = sys.argv[2:]
             mb = (tuple(int(x) for x in args[args.index("--min-blocks") + 1].split(","))

@@ -1,7 +1,8 @@
 // The first-contact family's device code -- its constants, the argument
-// struct (mirrored by ops/cuda_mc.py:_McArgs), the uniform draw, the path
-// state, the sweep's grid and state, and the contact, bridge and tie-coin
-// steps -- shared by mc_first_contact.cu (the single and universe kernels),
+// struct (mirrored by ops/cuda_mc.py:_McArgs), the uniform draws (one a
+// call, and a stream keeping its last call's words), the path state, the
+// sweep's grid and state, and the contact, bridge and tie-coin steps --
+// shared by mc_first_contact.cu (the single and universe kernel),
 // mc_first_contact_sweep.cu (the gbm sweep) and the sampler kernels
 // (mc_first_contact_samplers.cu, mc_first_contact_sampler_sweep.cu).  Each source is its own library, so the samplers'
 // kernels do not change how the others compile (the non-inlined bar step is
@@ -49,6 +50,26 @@ struct Draw {
         return to_uniform(word_of(w, row & 3));
     }
 };
+
+// One stream of a path's uniforms: the words of its last Philox call.
+struct StreamDraw {
+    int group;
+    uint4 words;
+};
+
+// Uniform (block, row, lane) of the layout in ops/draws.py, as Draw reads it:
+// injected, or word row % 4 of Philox with counter (lane, row / 4, block lo,
+// block hi), drawn only when the row leaves the stream's last group.
+__device__ __forceinline__ float stream_at(const McArgs& a, const float* __restrict__ ext,
+                                           long long blk, int lane, int row, StreamDraw& s) {
+    if (ext) return ext[(blk * a.n_rows + row) * (long long)a.lanes + lane];
+    if ((row >> 2) != s.group) {
+        s.group = row >> 2;
+        s.words = philox4((uint32_t)lane, (uint32_t)s.group, (uint32_t)blk,
+                          (uint32_t)((unsigned long long)blk >> 32), a.seed, a.stream);
+    }
+    return to_uniform(word_of(s.words, row & 3));
+}
 
 struct PathState {
     float acc;          // running sum of log increments

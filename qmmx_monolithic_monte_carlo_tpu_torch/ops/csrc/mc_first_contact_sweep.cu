@@ -5,10 +5,10 @@
 // mc_first_contact_sweep_kernel replaces the TPU kernel
 // qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py _sweep_kernel (#3, :1978,
 // gbm) at every even W: the stop/target grid under common random numbers.
-// It replaces mc_sweep_kernel, which mc_first_contact.cu (W <= 128, the sine
-// halves in an unrolled register array) and mc_first_contact_long.cu (any
-// even W, each pair drawn again for its sine half) built from one text; they
-// keep mc_universe_kernel (the single configuration and the universe).
+// It replaced mc_sweep_kernel (a row a launch, the sine halves in an unrolled
+// register array up to W = 128, past it each pair drawn again); the single
+// configuration and the universe are mc_first_contact.cu's
+// mc_universe_kernel, which has since taken this design at one row.
 //
 // What bounds it on the H100: the first-contact walk's transcendentals and
 // integer multiplies (Philox4x32-10: 40 a call), plus a compare a row a bar
@@ -23,10 +23,11 @@
 // - The sine halves of the Box-Muller pairs wait in shared memory, [half][CTA
 //   thread] floats, thread index fastest: ``cap`` of them a thread (W/2 up to
 //   W = 128; 64 KB a CTA at most, so three CTAs fit an SM), and a bar whose
-//   pair lies past ``cap`` draws the pair again, as mc_first_contact_long.cu
-//   does (sincosf of the same argument gives the same sine).
+//   pair lies past ``cap`` draws the pair again (sincosf of the same
+//   argument gives the same sine).
 // - The radius, angle, high and low streams (rows k, W/2 + k, W + t, 2W + t
-//   of ops/draws.GbmLayout) each keep their last Philox call's four words: a
+//   of ops/draws.GbmLayout) each keep their last Philox call's four words
+//   (mc_first_contact.cuh's StreamDraw): a
 //   path reads each stream in increasing row order, so a group of four rows
 //   costs one call, not four.  The tie coin (row 3W, at most once a bar)
 //   draws its own call.
@@ -53,26 +54,6 @@
 #define FC_SWEEP_MIN_BLOCKS_NARROW 4
 #define FC_SWEEP_NARROW_CAP 45
 #define FC_SWEEP_MAX_CAP 64          // sine halves a thread keeps, at most
-
-// One stream of a path's uniforms: the words of its last Philox call.
-struct StreamDraw {
-    int group;
-    uint4 words;
-};
-
-// Uniform (block, row, lane) of the layout in ops/draws.py, as Draw reads it:
-// injected, or word row % 4 of Philox with counter (lane, row / 4, block lo,
-// block hi), drawn only when the row leaves the stream's last group.
-__device__ __forceinline__ float stream_at(const McArgs& a, const float* __restrict__ ext,
-                                           long long blk, int lane, int row, StreamDraw& s) {
-    if (ext) return ext[(blk * a.n_rows + row) * (long long)a.lanes + lane];
-    if ((row >> 2) != s.group) {
-        s.group = row >> 2;
-        s.words = philox4((uint32_t)lane, (uint32_t)s.group, (uint32_t)blk,
-                          (uint32_t)((unsigned long long)blk >> 32), a.seed, a.stream);
-    }
-    return to_uniform(word_of(s.words, row & 3));
-}
 
 // The rows of ``grid`` (at most SWEEP_ROWS) under ``args``, the first ``cap``
 // sine halves of a path in dynamic shared memory: partial rows [row][CTA].

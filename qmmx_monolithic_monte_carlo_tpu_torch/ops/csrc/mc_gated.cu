@@ -57,7 +57,10 @@
 // at one row.  The Philox key and counters ignore the row, so row g equals
 // the one-row launch under row g's arguments bit for bit, per path included;
 // partial rows are laid out [row][CTA] and the fold takes one CTA per row.
-// Sharing a block's bars across rows is left to a later change.
+// A sweep's rows no longer come here: mc_gated_sampler_sweep.cu's
+// mc_gated_sampler_sweep_kernel<MAXL, SAMPLER_GBM> makes a path's bars once
+// for every row (gbm_double_bar, as gated_block) and equals this kernel's
+// one-row launches bit for bit.
 //
 // The same kernel replaces the TPU kernel pallas_mc.py _gated_universe_kernel:
 // a universe of S symbols is S rows, row s packed on the host with symbol s's
@@ -112,26 +115,11 @@ __device__ __forceinline__ void gated_block(const GatedArgs& a, const float* __r
 #pragma unroll
         for (int i = 0; i < MAXL; ++i) { st.touch[i] = 0; st.last_tb[i] = NEVER; }
 
-        const float4 no_noise = make_float4(0.5f, 0.5f, 0.5f, 0.5f);
 #pragma unroll 1
         for (int t2 = 0; t2 < (a.num_bars >> 1); ++t2) {
-            const int g = t2 * groups;
-            const float4 d0 = dr.group(g, col);      // u1, u2, u3, u4 of bar 2t2
-            const float4 d1 = dr.group(g + 1, col);  // tie; u3, u4, tie of 2t2+1
-            float u1 = d0.x, u2 = d0.y;
-            if (mirror) {
-                const float4 m = dr.group(g, col - half_lanes);
-                u1 = m.x; u2 = m.y;
-            }
-            const float4 n0 = a.use_noise ? dr.group(g + 2, col) : no_noise;
-            const float4 n1 = a.use_noise ? dr.group(g + 3, col) : no_noise;
-            const float rad = sqrtf(-2.0f * logf(u1));
-            float sn, cs;
-            sincosf(two_pi() * u2, &sn, &cs);
-            float z0 = rad * cs, z1 = rad * sn;
-            if (mirror) { z0 = -z0; z1 = -z1; }
-            bar_step<MAXL>(a, st, 2 * t2, z0, d0.z, d0.w, d1.x, n0);
-            bar_step<MAXL>(a, st, 2 * t2 + 1, z1, d1.y, d1.z, d1.w, n1);
+            const GbmDoubleBar d = gbm_double_bar(a, dr, t2 * groups, col, mirror, half_lanes);
+            bar_step<MAXL>(a, st, 2 * t2, d.z0, d.d0.z, d.d0.w, d.d1.x, d.n0);
+            bar_step<MAXL>(a, st, 2 * t2 + 1, d.z1, d.d1.y, d.d1.z, d.d1.w, d.n1);
         }
 
         const bool entered = st.trades > 0;

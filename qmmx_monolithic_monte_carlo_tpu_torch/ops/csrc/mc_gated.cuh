@@ -1,8 +1,9 @@
 // The gated lifecycle's device code -- its constants, the argument struct
 // (mirrored by ops/cuda_gated.py:_GatedArgs), the uniform layout, the path
 // state and the GBM bar step -- shared by mc_gated.cu (the single, sweep and
-// universe kernels), mc_gated_corr.cu (the correlated book) and
-// mc_gated_samplers.cu (the bootstrap, block-bootstrap and Heston kernels).
+// universe kernels), mc_gated_corr.cu (the correlated book),
+// mc_gated_samplers.cu (the bootstrap, block-bootstrap and Heston kernels)
+// and mc_gated_sampler_sweep.cu (the sweeps over a bar store).
 // Each source is its own library, so the book's and the samplers' kernels do
 // not change how the others compile (the non-inlined bar step is
 // register-allocated per library).  A bar's lifecycle is mc_gated_step.cuh,
@@ -63,6 +64,42 @@ struct Draws {
                            to_uniform(w.w));
     }
 };
+
+// The draws of gbm double bar t2 of a path under ``a`` (gated_block's
+// layout: groups g = t2 x (use_noise ? 4 : 2) .. of column col): the
+// Box-Muller pair z0, z1 from d0's u1, u2 (the partner column's, negated, on
+// a mirrored antithetic lane), bar 2 t2's u3, u4 in d0.z, d0.w and its tie
+// coin in d1.x, bar 2 t2 + 1's u3, u4 and tie coin in d1.y, d1.z, d1.w, and
+// the two bars' noise uniforms n0, n1 (groups g + 2, g + 3 under use_noise,
+// else 0.5).  In uniform rows of the double bar: the tie coins 4 and 7, the
+// noise from 8 and 12.
+struct GbmDoubleBar {
+    float z0, z1;
+    float4 d0, d1, n0, n1;
+};
+
+__device__ __forceinline__ GbmDoubleBar gbm_double_bar(const GatedArgs& a, const Draws& dr,
+                                                       int g, int col, bool mirror,
+                                                       int half_lanes) {
+    const float4 no_noise = make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+    GbmDoubleBar d;
+    d.d0 = dr.group(g, col);
+    d.d1 = dr.group(g + 1, col);
+    float u1 = d.d0.x, u2 = d.d0.y;
+    if (mirror) {
+        const float4 m = dr.group(g, col - half_lanes);
+        u1 = m.x; u2 = m.y;
+    }
+    d.n0 = a.use_noise ? dr.group(g + 2, col) : no_noise;
+    d.n1 = a.use_noise ? dr.group(g + 3, col) : no_noise;
+    const float rad = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(two_pi() * u2, &sn, &cs);
+    d.z0 = rad * cs;
+    d.z1 = rad * sn;
+    if (mirror) { d.z0 = -d.z0; d.z1 = -d.z1; }
+    return d;
+}
 
 template <int MAXL>
 struct GatedState {

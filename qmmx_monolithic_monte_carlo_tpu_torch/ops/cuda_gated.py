@@ -20,10 +20,9 @@ universe and the correlated book.
   (kernel #6, ``_gated_sweep_kernel``, ``pallas_mc.py:2163-2401``): the whole
   lifecycle re-run for every row of (stop, tp, gate knobs, noise stds) on the
   same uniforms; row g equals ``mc_paths_gated_fused`` under row g's knobs,
-  bit for bit.  A CUDA device launches ``mc_gated_sweep_kernel`` (CTAs x G;
-  under the other samplers ``mc_gated_sampler_sweep_kernel`` of
-  ``ops/csrc/mc_gated_sampler_sweep.cu``, each path's bars made once for
-  every row) and one fold of all rows, or raises; the CPU runs
+  bit for bit.  A CUDA device launches ``mc_gated_sampler_sweep_kernel``
+  (``ops/csrc/mc_gated_sampler_sweep.cu``, its gbm kind or a sampler's; each
+  path's bars made once for every row) and one fold of all rows, or raises; the CPU runs
   ``gated_sweep_totals_reference``.
 * ``mc_paths_gated_universe_fused`` -- the per-symbol gated universe, the
   counterpart of ``mc_paths_pallas_gated_universe`` (kernel #5,
@@ -80,7 +79,7 @@ _SAMPLER_SOURCE = "mc_gated_samplers"
 _SAMPLER_SWEEP_SOURCE = "mc_gated_sampler_sweep"
 # the sampler sweep's bar store (mc_gated_sampler_sweep.cu): its planes (close, high, low)
 BAR_PLANES = 3
-# GatedArgs fields that make a path's bars: every row of a sampler sweep shares them
+# GatedArgs fields that make a path's bars: every row of a sweep shares them
 _BAR_FIELDS = ("num_paths", "ext_offset", "drift", "sig_dt", "log_s0", "seed", "stream",
                "num_bars", "lanes", "u_rows", "use_noise", "antithetic")
 SAMPLER_KINDS = {"bootstrap": 1, "block_bootstrap": 1, "heston": 3}   # sampler.cuh
@@ -688,6 +687,10 @@ def _sampler_sweep_library() -> ctypes.CDLL:
         lib.qmmx_mc_gated_sampler_sweep.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci, ci, vp, vp,
                                                     vp, vp]
         lib.qmmx_mc_gated_sampler_sweep.restype = ci
+        lib.qmmx_gated_gbm_sweep_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ctypes.c_int64 * 5)]
+        lib.qmmx_gated_gbm_sweep_plan.restype = ci
+        lib.qmmx_mc_gated_gbm_sweep.argtypes = [vp, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+        lib.qmmx_mc_gated_gbm_sweep.restype = ci
         if [lib.qmmx_gated_sampler_sweep_size(i) for i in (0, 1, 3)] != [
                 ctypes.sizeof(_GatedArgs), ctypes.sizeof(SamplerArgs), BAR_PLANES]:
             raise RuntimeError("GatedArgs, SamplerArgs or the bar store's planes differ "
@@ -700,6 +703,18 @@ def sweep_store_floats(ctas: int, num_bars: int) -> int:
     """The sampler sweep's bar store: BAR_PLANES planes of W x BLOCK floats
     for each of ``ctas`` resident CTAs."""
     return ctas * BAR_PLANES * num_bars * BLOCK
+
+
+def gbm_sweep_plan(num_bars: int, n_rows: int, vgrid: int) -> tuple:
+    """The gbm sweep launch of ``n_rows`` rows over ``vgrid`` virtual CTAs at
+    ``num_bars``, as its library sizes it (``qmmx_gated_gbm_sweep_plan``):
+    (physical CTAs, store floats, scratch floats, rows a pass, store
+    planes)."""
+    out = (ctypes.c_int64 * 5)()
+    rc = _sampler_sweep_library().qmmx_gated_gbm_sweep_plan(num_bars, n_rows, vgrid,
+                                                            ctypes.byref(out))
+    _raise_on(rc, "mc_gated_sweep")
+    return tuple(out)
 
 
 def _corr_library() -> ctypes.CDLL:
@@ -861,37 +876,47 @@ def _sampler_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int, 
     return out + (path_rows,) if per_path else out
 
 
-def _sampler_sweep_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int,
-                          ext_ptr, device: torch.device, per_path: bool, what: str):
-    """One launch of ``mc_gated_sampler_sweep_kernel`` for the grid rows
-    ``args`` under ``sampler`` (every row on the one history and the same
-    draws: the bars' fields of ``args`` agree), counted in ``LAUNCHES[what]``:
-    each path's bars made once into a bar store of the resident CTAs, then
-    every row replayed over them; int64 [G, grid, 134] and f32 [G, grid, 6]
-    partial rows, plus f32[G, P, 6] per-(row, path) rows when ``per_path``,
-    as ``_sampler_launch``'s."""
+def _bar_sweep_launch(args, sampler: Sampler, max_levels: int, *, num_paths: int,
+                      ext_ptr, device: torch.device, per_path: bool, what: str):
+    """One launch of a bar-store sweep for the grid rows ``args`` (every row
+    on the same draws, and the one history: the bars' fields of ``args``
+    agree), counted in ``LAUNCHES[what]``: ``mc_gated_sampler_sweep_kernel`` of the
+    sampler's kind (gbm's with a float-sum scratch); each path's bars made once into a bar
+    store of the resident CTAs, then every row replayed over them; int64 [G,
+    grid, 134] and f32 [G, grid, 6] partial rows, plus f32[G, P, 6] per-(row,
+    path) rows when ``per_path``, each row equal to its one-row launch's."""
     for field in _BAR_FIELDS:
         if not (args[field] == args[field][:1]).all():
             raise ValueError(f"the sweep's rows must share the bars: {field} differs")
     n, grid = len(args), grid_size(num_paths)
     num_bars = int(args["num_bars"][0])
     lib = _sampler_sweep_library()
-    kind = SAMPLER_KINDS[sampler.kind]
-    ctas = lib.qmmx_gated_sampler_sweep_ctas(kind, grid)
-    if ctas < 1:
-        _raise_on(-ctas, what)
     args_dev = device_rows(args, device)
-    samp_dev, _tables = sampler_args(sampler, device, [0])
-    store = torch.empty(sweep_store_floats(ctas, num_bars), dtype=torch.float32, device=device)
     part_counts = torch.empty((n, grid, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((n, grid, ROW_FLOATS), dtype=torch.float32, device=device)
     path_rows = (torch.empty((n, num_paths, PATH_COLS), dtype=torch.float32, device=device)
                  if per_path else None)
-    rc = lib.qmmx_mc_gated_sampler_sweep(
-        args_dev.data_ptr(), n, samp_dev.data_ptr(), kind, max_levels, ext_ptr,
-        store.data_ptr(), ctas, grid, part_counts.data_ptr(), part_floats.data_ptr(),
-        path_rows.data_ptr() if per_path else None,
-        torch.cuda.current_stream(device).cuda_stream)
+    path_ptr = path_rows.data_ptr() if per_path else None
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if sampler.kind == "gbm":
+        ctas, store_n, scratch_n = gbm_sweep_plan(num_bars, n, grid)[:3]
+        store = torch.empty(store_n, dtype=torch.float32, device=device)
+        scratch = torch.empty(scratch_n, dtype=torch.float32, device=device)
+        rc = lib.qmmx_mc_gated_gbm_sweep(
+            args_dev.data_ptr(), n, max_levels, ext_ptr, store.data_ptr(), scratch.data_ptr(),
+            ctas, grid, part_counts.data_ptr(), part_floats.data_ptr(), path_ptr, stream)
+    else:
+        kind = SAMPLER_KINDS[sampler.kind]
+        ctas = lib.qmmx_gated_sampler_sweep_ctas(kind, grid)
+        if ctas < 1:
+            _raise_on(-ctas, what)
+        samp_dev, _tables = sampler_args(sampler, device, [0])
+        store = torch.empty(sweep_store_floats(ctas, num_bars), dtype=torch.float32,
+                            device=device)
+        rc = lib.qmmx_mc_gated_sampler_sweep(
+            args_dev.data_ptr(), n, samp_dev.data_ptr(), kind, max_levels, ext_ptr,
+            store.data_ptr(), ctas, grid, part_counts.data_ptr(), part_floats.data_ptr(),
+            path_ptr, stream)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     out = (part_counts, part_floats)
@@ -904,11 +929,11 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
                      device: torch.device, per_path: bool = False, sampler: str = "gbm",
                      hist_bars=None, tables=None, block_len: int = 10, heston=None):
     """Launch the sweep's pass 1 on a CUDA device, one launch for the whole
-    grid (``mc_gated_sweep_kernel``, a row a grid row, or under the other
-    samplers ``mc_gated_sampler_sweep_kernel``, each path's bars made once on
-    the one history and replayed for every row): int64 [G, grid, 134] and
-    f32 [G, grid, 6] partial rows, one per (grid row, CTA), plus f32[G, P, 6]
-    per-(row, path) rows when ``per_path``."""
+    grid (``mc_gated_sampler_sweep_kernel`` of the sampler's kind, counted as
+    ``mc_gated_sweep`` under gbm, else ``mc_gated_sweep_sampler``; each path's bars made once and replayed for
+    every row): int64 [G, grid, 134] and f32 [G, grid, 6] partial rows, one
+    per (grid row, CTA), plus f32[G, P, 6] per-(row, path) rows when
+    ``per_path``."""
     gate = GateConfig.from_params(params) if grid_gate is None else grid_gate
     n_grid, grid_params = grid_columns(params, grid_stops, grid_tps, gate, noise)
     samp = make_sampler(sampler, hist_bars=hist_bars, tables=tables, block_len=block_len,
@@ -922,12 +947,10 @@ def gated_sweep_rows(seed, levels: Levels, params, grid_stops, grid_tps, grid_ga
     args = _gated_args(seed, levels, grid_params, gate, noise, layout, n=n_grid,
                        num_paths=num_paths, s0=s0, sigma=sigma, mu=mu, dt=dt, lanes=lanes,
                        antithetic=False, symbols=[0] * n_grid)
-    if samp.kind != "gbm":
-        return _sampler_sweep_launch(args, samp, levels.max_levels, num_paths=num_paths,
-                                     ext_ptr=ext_ptr, device=device, per_path=per_path,
-                                     what="mc_gated_sweep_sampler")
-    return _launch(args, levels.max_levels, num_paths=num_paths, ext_ptr=ext_ptr,
-                   device=device, per_path=per_path, what="mc_gated_sweep")
+    return _bar_sweep_launch(args, samp, levels.max_levels, num_paths=num_paths,
+                             ext_ptr=ext_ptr, device=device, per_path=per_path,
+                             what="mc_gated_sweep" if samp.kind == "gbm"
+                             else "mc_gated_sweep_sampler")
 
 
 def gated_universe_rows(seed, levels: Levels, params, s0, sigma, gate=None, *,

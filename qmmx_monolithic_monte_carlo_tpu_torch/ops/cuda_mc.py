@@ -6,8 +6,8 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
 
 * ``mc_paths_fused`` — the entry.  For a CUDA device it launches
   ``ops/csrc/mc_first_contact.cu`` (pass 1: ``mc_universe_kernel`` at one
-  symbol, one thread per path, one partial row per CTA; pass 2: a
-  fixed-order fold of the rows) or, for the other samplers,
+  symbol, one thread per path, one partial row per CTA, any even W; pass 2:
+  a fixed-order fold of the rows) or, for the other samplers,
   ``ops/csrc/mc_first_contact_samplers.cu`` (pass 1:
   ``mc_first_contact_sampler_kernel``; the same fold), or raises.
   For the CPU it runs the plain version.
@@ -36,18 +36,17 @@ samplers: gbm, and the bootstrap, block-bootstrap and Heston branches.
   lanes, as the TPU universe kernel has none.
 * ``LAUNCHES`` — how many times each kernel was launched.
 
-The gbm single and universe kernel keeps the sine halves of the Box-Muller
-pairs in registers up to W = ``MAX_HALF_BARS`` (128) bars; past it (or under
-``_FORCE_LONG``) the same launches go to ``ops/csrc/mc_first_contact_long.cu``,
-which draws a pair again for its sine half and equals them bit for bit where
-both fit, counted under the kernel's name with ``_long``
-(``mc_first_contact_long``, ``mc_universe_long``).  The gbm sweep kernel keeps
-up to 64 sine halves a path in shared memory and draws the pairs past them
-again (the kernel's launch owns that policy and reports it,
-``sweep_plan``): its launches count as ``mc_sweep`` where it keeps every
-half (W <= 128), else (or under ``_FORCE_LONG``, which keeps none) as
-``mc_sweep_long``.  The sampler kernels draw their pairs again at every W.
-No first-contact launch has a horizon cap.
+The gbm kernels keep the first sine halves of a path's Box-Muller pairs in
+shared memory and draw the pairs past them again (each kernel's launch owns
+that policy and reports it: ``universe_plan``, ``sweep_plan``), so a path's
+results do not depend on how many are kept: ``mc_universe_kernel`` up to 24
+(every one up to W = 48), the sweep's ``mc_first_contact_sweep_kernel`` up to
+64 (W = ``MAX_HALF_BARS``, 128).  Their launches count under the kernel's
+name (``mc_first_contact``, ``mc_universe``, ``mc_sweep``) where the plan
+keeps every half, else with ``_long``
+(``mc_first_contact_long``, ``mc_universe_long``, ``mc_sweep_long``); under
+``_FORCE_LONG`` (a checks' hook) they keep none.  The sampler kernels draw
+their pairs again at every W.  No first-contact launch has a horizon cap.
 
 Uniforms follow ``ops/draws.GbmLayout``; in Philox mode they come from
 ``utils/prng`` (the kernel computes the same bits), or they are injected as
@@ -82,7 +81,7 @@ from .samplers import (Sampler, block_offset, block_start, gather, heston_shock,
 
 SINGLE_LANES = 8192      # logical paths per block (the TPU kernel's default)
 UNIVERSE_LANES = 2048    # the TPU universe kernel's block (pallas_mc.LANES)
-MAX_HALF_BARS = 128      # past it the gbm kernels draw a pair again for its sine half
+MAX_HALF_BARS = 128      # past it the gbm sweep draws pairs again for their sine halves
 N_COUNTS = 5             # n, entered, tp, stop, open
 ROW_COUNTS = N_COUNTS + HIST_BINS
 ROW_FLOATS = 4           # sum_r, sum_r2, min_r, max_r
@@ -91,7 +90,6 @@ SWEEP_ROWS = 16          # grid rows one sweep launch takes (mc_first_contact.cu
 _SOURCE = "mc_first_contact"
 _SWEEP_SOURCE = "mc_first_contact_sweep"
 _SAMPLER_SOURCE = "mc_first_contact_samplers"
-_LONG_SOURCE = "mc_first_contact_long"
 _SAMPLER_SWEEP_SOURCE = "mc_first_contact_sampler_sweep"
 
 # Kernel launches, counted by the wrappers where they launch and nowhere else.
@@ -100,16 +98,10 @@ LAUNCHES = {"mc_first_contact": 0, "mc_reduce_rows": 0, "mc_sweep": 0,
             "mc_first_contact_sampler": 0, "mc_sweep_sampler": 0, "mc_universe_sampler": 0,
             "mc_first_contact_long": 0, "mc_sweep_long": 0, "mc_universe_long": 0}
 
-# A check's hook: while true, every gbm launch goes to the long-horizon
-# kernels (mc_first_contact_long.cu), even where the register kernels fit,
-# and the gbm sweep keeps no sine half (each pair drawn again), to hold the
-# two ways against each other bit for bit.
+# A check's hook: while true, the gbm kernels keep no sine half (each pair
+# drawn again), even where every half fits, to hold the two ways against
+# each other bit for bit.
 _FORCE_LONG = False
-
-
-def _long(num_bars: int) -> bool:
-    """Whether a gbm launch goes to the long-horizon kernels."""
-    return _FORCE_LONG or num_bars > MAX_HALF_BARS
 
 
 def reset_launches() -> None:
@@ -590,28 +582,15 @@ def _library() -> ctypes.CDLL:
         lib.qmmx_mc_args_size.restype = ci
         lib.qmmx_cuda_error_string.argtypes = [ci]
         lib.qmmx_cuda_error_string.restype = ctypes.c_char_p
-        lib.qmmx_mc_universe.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_universe_plan.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int * 4)]
+        lib.qmmx_mc_universe_plan.restype = ci
+        lib.qmmx_mc_universe.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.qmmx_mc_universe.restype = ci
         lib.qmmx_mc_reduce_rows.argtypes = [vp, vp, ci, ci, vp, vp, vp]
         lib.qmmx_mc_reduce_rows.restype = ci
         if lib.qmmx_mc_args_size() != ctypes.sizeof(_McArgs):
             raise RuntimeError("McArgs layout differs between mc_first_contact.cu and "
                                "cuda_mc.py")
-        _BOUND.add(id(lib))
-    return lib
-
-
-def _long_library() -> ctypes.CDLL:
-    """The long-horizon gbm kernels' library (``ops/csrc/mc_first_contact_long.cu``,
-    its own build of ``mc_first_contact_kernels.cuh``), built at first use,
-    with its C signatures set; the first-contact library's struct-layout
-    check first (the fold is that library's)."""
-    _library()
-    lib = build.load(_LONG_SOURCE)
-    if id(lib) not in _BOUND:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qmmx_mc_universe_long.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
-        lib.qmmx_mc_universe_long.restype = ci
         _BOUND.add(id(lib))
     return lib
 
@@ -638,6 +617,17 @@ def _sweep_library() -> ctypes.CDLL:
                                "mc_first_contact_sweep.cu and cuda_mc.py")
         _BOUND.add(id(lib))
     return lib
+
+
+def universe_plan(num_bars: int) -> tuple[int, int, int, int]:
+    """What a gbm single or universe launch at ``num_bars`` takes, as the
+    kernel's launch decides it (``qmmx_mc_universe_plan``): (sine halves a
+    thread keeps, the kernel's CTAs an SM, static and dynamic shared memory
+    in bytes); it keeps none under ``_FORCE_LONG``."""
+    out = (ctypes.c_int * 4)()
+    rc = _library().qmmx_mc_universe_plan(num_bars, int(not _FORCE_LONG), ctypes.byref(out))
+    _raise_on(rc, "mc_universe")
+    return tuple(out)
 
 
 def sweep_plan(num_bars: int) -> tuple[int, int, int, int]:
@@ -725,20 +715,20 @@ def _launch_args(seed, levels: Levels, params, layout: GbmLayout, *, num_paths: 
 def _launch(args, num_bars: int, *, num_paths: int, ext_ptr, device: torch.device,
             what: str):
     """One launch of ``mc_universe_kernel`` over the argument structs ``args``
-    (one per symbol), counted in ``LAUNCHES[what]``, or past ``MAX_HALF_BARS``
-    (``_long``) of its long-horizon build, counted in ``LAUNCHES[what +
-    "_long"]``: int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one
-    per (symbol, CTA)."""
+    (one per symbol), counted in ``LAUNCHES[what]``, or where its plan draws
+    pairs again for their sine halves (``universe_plan``: past 48 bars, or
+    under ``_FORCE_LONG``, which keeps none) in ``LAUNCHES[what + "_long"]``:
+    int64 [S, grid, 133] and f32 [S, grid, 4] partial rows, one per (symbol,
+    CTA)."""
     args_dev = device_rows(args, device)
     n, ctas = len(args), grid_size(num_paths)
     part_counts = torch.empty((n, ctas, ROW_COUNTS), dtype=torch.int64, device=device)
     part_floats = torch.empty((n, ctas, ROW_FLOATS), dtype=torch.float32, device=device)
-    if _long(num_bars):
-        what, launch = what + "_long", _long_library().qmmx_mc_universe_long
-    else:
-        launch = _library().qmmx_mc_universe
-    rc = launch(args_dev.data_ptr(), n, num_bars, ext_ptr, part_counts.data_ptr(),
-                part_floats.data_ptr(), ctas, torch.cuda.current_stream(device).cuda_stream)
+    if 2 * universe_plan(num_bars)[0] != num_bars:
+        what = what + "_long"
+    rc = _library().qmmx_mc_universe(
+        args_dev.data_ptr(), n, num_bars, int(not _FORCE_LONG), ext_ptr, part_counts.data_ptr(),
+        part_floats.data_ptr(), ctas, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     return part_counts, part_floats

@@ -10,7 +10,8 @@ Each tree builds its own sources with its own ``utils/build.py`` (one
 ``nvcc`` per source, all at once).  For every source the two trees share,
 every kernel and device function of the other tree's library is compared
 instruction by instruction with this tree's (addresses and encodings
-dropped).  Prints one line per function and, last, a JSON object {"sources":
+dropped), found by its mangled name or else by its name and template
+arguments (``key``: a kernel given another parameter is still compared).  Prints one line per function and, last, a JSON object {"sources":
 ..., "functions": n, "identical": n, "differ": [...]}; exits 1 if a function
 differs or is missing.
 """
@@ -56,6 +57,17 @@ def functions(library: str) -> dict:
     return out
 
 
+def key(name: str) -> str:
+    """A mangled function name without its parameters: the name and its
+    integer template arguments (``_Z3fooILi8ELi1EEvPKf`` -> ``fooILi8ELi1EE``)."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    n, i = int(m.group(1)), m.end()
+    t = re.match(r"I(?:L[a-z]+n?\d+E)*E", name[i + n:])
+    return name[i:i + n] + (t.group(0) if t else "")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 1:
@@ -67,14 +79,16 @@ def main(argv=None) -> int:
     n, same, differ = 0, 0, []
     for src in shared:
         a, b = functions(theirs[src]), functions(mine[src])
+        by_key = {key(g): g for g in b}
         for f in sorted(a):
             n += 1
-            if a[f] == b.get(f):
+            g = f if f in b else by_key.get(key(f))
+            if g is not None and a[f] == b[g]:
                 same += 1
-                state = "identical"
+                state = "identical" if g == f else f"identical as {g[:60]}"
             else:
                 differ.append(f"{src}:{f}")
-                state = (f"DIFFERS ({len(a[f])} vs {len(b[f])} instructions)" if f in b
+                state = (f"DIFFERS ({len(a[f])} vs {len(b[g])} instructions)" if g is not None
                          else "MISSING")
             print(f"{src} {f[:90]} {state}")
     print(json.dumps({"sources": shared, "functions": n, "identical": same, "differ": differ}))

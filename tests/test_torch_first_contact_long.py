@@ -8,10 +8,13 @@ interpret-mode build takes ~40 s, in ``test_torch_first_contact_long_heston.py``
 so that the test workers share them); the CLI's
 ``--backend auto`` choosing the kernel at ``paths --num-bars 390`` on a
 (reported) CUDA device; the wrappers' checks taking W > 128.  Marked
-``cuda`` (skipped without a card): the long-horizon kernels
-(``ops/csrc/mc_first_contact_long.cu``) against their plain versions at W =
-390, and, forced where the register kernels fit (W = 40, 128), equal to
-them bit for bit.  JAX is imported inside the interpret-mode tests only.
+``cuda`` (skipped without a card): the gbm kernels past 128 bars
+(``mc_universe_kernel`` keeps up to 24 sine halves a thread and the sweep
+64, and they draw the pairs past them again, counted with ``_long``) against their plain
+versions at W = 390, and, forced to keep no sine half (``_FORCE_LONG``:
+``cap = 0``) where every one fits (W = 40, 128), equal to the launches
+keeping them bit for bit.  JAX is imported inside the interpret-mode tests
+only.
 
 Tolerance: the JAX kernels take the log-price cumsum as a triangular matmul
 and the port a serial float32 sum, which flips O(1) outcomes per 1024 paths
@@ -19,6 +22,8 @@ a 40 bars (``tests/test_pallas_mc.py:133-146``): counts within F = 2 +
 paths / 1024 x ceil(W / 40), the histogram within 2F."""
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -172,10 +177,35 @@ def test_auto_backend_takes_the_kernel_at_390_bars(monkeypatch):
         assert cli._backend(args, rows) == "cuda", argv
 
 
+def _define(source: str, name: str) -> int:
+    """An integer ``#define`` of a kernel source."""
+    text = (Path(cuda_mc.__file__).parent / "csrc" / source).read_text()
+    return int(re.search(rf"^#define {name} (\d+)\b", text, re.M).group(1))
+
+
+class _PlanLibs:
+    """Stand-in kernel libraries whose launch plans keep the sine halves of
+    their sources' caps (``qmmx_mc_universe_plan``: FC_MAX_CAP,
+    ``qmmx_fc_sweep_plan``: FC_SWEEP_MAX_CAP), none when ``keep`` is 0."""
+
+    caps = {"qmmx_mc_universe_plan": _define("mc_first_contact.cu", "FC_MAX_CAP"),
+            "qmmx_fc_sweep_plan": _define("mc_first_contact_sweep.cu", "FC_SWEEP_MAX_CAP")}
+
+    def __getattr__(self, name):
+        def plan(w, keep, out):
+            out._obj[0] = min(w // 2, self.caps[name]) if keep else 0
+            return 0
+        return plan
+
+
 @pytest.mark.parametrize("w,want", [(40, False), (128, False), (130, True), (390, True)])
-def test_wrapper_checks_take_any_even_w(w, want):
-    """The launch arguments pack at any W (no horizon cap); past 128 bars,
-    or under the checks' hook, the launches go to the long-horizon kernels."""
+def test_wrapper_checks_take_any_even_w(w, want, monkeypatch):
+    """The launch arguments pack at any W (no horizon cap); by the launches'
+    plans (``sweep_plan``, ``universe_plan``, on stand-in libraries with the
+    sources' caps) the gbm sweep draws pairs again for their sine halves
+    past 128 bars (``want``), the single run and the universe past 48, and
+    all of them under the checks' hook (their launches counted with
+    ``_long`` there)."""
     layout = GbmLayout(w)
     ok = cuda_mc._check(0, Levels.from_rows(ROWS, max_levels=8), num_paths=LANES,
                         num_bars=w, lanes=LANES, noise=None, antithetic=False,
@@ -187,7 +217,13 @@ def test_wrapper_checks_take_any_even_w(w, want):
                              sigma=SIGMA, dt=1.0 / (390.0 * 252.0), lanes=LANES, noise=None,
                              antithetic=False, external_uniforms=None,
                              device=torch.device("cpu"), what="test")
-    assert cuda_mc._long(w) == want
+    libs = _PlanLibs()
+    monkeypatch.setattr(cuda_mc, "_library", lambda: libs)
+    monkeypatch.setattr(cuda_mc, "_sweep_library", lambda: libs)
+    assert (2 * cuda_mc.sweep_plan(w)[0] != w) == want
+    assert (2 * cuda_mc.universe_plan(w)[0] != w) == (w > 48)
+    monkeypatch.setattr(cuda_mc, "_FORCE_LONG", True)
+    assert cuda_mc.sweep_plan(w)[0] == cuda_mc.universe_plan(w)[0] == 0
 
 
 def _cuda():
@@ -244,9 +280,10 @@ def test_cuda_long_first_contact_matches_plain_at_390_bars(sampler):
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [40, 128])
 def test_cuda_long_first_contact_equals_the_register_kernels_where_both_fit(w, monkeypatch):
-    """Forced (``_FORCE_LONG``), the long-horizon kernels give the register
-    kernels' partial rows bit for bit: the single run with noise and
-    antithetic lanes (Philox), the sweep and the universe."""
+    """Forced (``_FORCE_LONG``), the gbm kernels keep no sine half (``cap =
+    0``) and give the partial rows of the launches keeping every one bit for
+    bit: the single run with noise and antithetic lanes (Philox), the sweep
+    and the universe, counted with ``_long``."""
     dev = _cuda()
     levels = Levels.from_rows(ROWS, max_levels=8)
     p = EngineParams.default()
@@ -263,8 +300,8 @@ def test_cuda_long_first_contact_equals_the_register_kernels_where_both_fit(w, m
                                       dt=1.0 / (390.0 * 252.0), lanes=8192,
                                       external_uniforms=None, device=dev))
 
-    before = dict(cuda_mc.LAUNCHES)
     reg = launches()
+    before = dict(cuda_mc.LAUNCHES)
     monkeypatch.setattr(cuda_mc, "_FORCE_LONG", True)
     long_ = launches()
     for name in ("mc_first_contact_long", "mc_sweep_long", "mc_universe_long"):
