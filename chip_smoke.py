@@ -32,21 +32,26 @@ Phases (any failure exits non-zero and prints no result line):
 8. main path — the port CLI's ``paths --gated --backend cuda`` at 2^28 paths
    x 40 bars, launch counts set to 0 just before and read just after, the
    output checked, paths/s timed; the kernel alone timed at 2^28;
-   full 12-gate engine (kernel #8, ops/csrc/mc_engine.cu):
+   full 12-gate engine (kernel #8, ops/csrc/mc_engine_rows.cu: two producer
+   warpgroups make the bars, two consumer warpgroups run the lifecycle):
 9. injected uniforms — kernel on the card vs plain version on CPU copies,
    path by path (W = 40, 8 blocks of 8 x 256 = 16384 paths, levels 100.0 /
    100.4 / 99.6; engine defaults, accumulation gates active, ML and policy
    gates armed, the same with a policy that lets entries through and with the
    blended gate, execution noise, antithetic); every differing path is traced
    bar by bar as in phase 6 (the card's bars run through the plain engine on
-   the card, so its sigmoid is CUDA's too);
+   the card, so its sigmoid is CUDA's too); each case's rows kernel equal to
+   the parent it replaced bit for bit, partial rows and per path (the gates
+   its producers compute, the policy's among them, armed);
 10. Philox — kernel vs plain version, both on the card, path by path at 2^22
    paths with and without noise; the row fold vs its plain fold; the work
-   counts for the bound; kernel and plain timed at 2^22;
+   counts for the bound; the rows kernel equal to the parent it replaced
+   (mc_engine_sweep_kernel, mc_engine.cu) bit for bit, partial rows and per
+   path, with and without noise; kernel, parent and plain timed at 2^22;
 11. main path — the port CLI's ``paths --engine --backend cuda`` at 2^28
    paths x 40 bars, launch counts set to 0 just before and read just after
-   (``mc_engine`` and its fold once a run, no other kernel), the output
-   checked, paths/s timed; the kernel alone timed at 2^28;
+   (``mc_engine_rows`` and its fold once a run, no other kernel), the output
+   checked, paths/s timed; the kernel alone and the parent timed at 2^28;
    the common-random-number grid sweeps (kernels #3, #6, #9):
 12. first-contact sweep (``mc_first_contact_sweep_kernel``, mc_first_contact_sweep.cu:
    McArgs in shared memory, the path state in registers, a Philox call a
@@ -77,7 +82,7 @@ Phases (any failure exits non-zero and prints no result line):
    then with [G] noise stds (level jitter 0 and 0.02, the main path's rows,
    and a slip row), every differing path traced as in phase 9; Philox at
    2^22, each row of both grids equal to the one-row launch
-   (``mc_paths_engine_fused``'s: ``mc_engine_sweep_kernel`` at one row) bit
+   (``mc_paths_engine_fused``'s: ``mc_engine_rows_kernel`` at one row) bit
    for bit, skip counts included; kernel vs plain on the card path by path
    at 2^20 x both grids; the CLI's ``sweep
    --engine --backend cuda --num-paths 2^24 --jitter-stds 0 0.02`` (18 rows)
@@ -105,11 +110,12 @@ Phases (any failure exits non-zero and prints no result line):
    against the single plain version keyed as its symbol);
    ``mc_paths_gated_universe_fused`` on
    config #4's universe with its launches;
-17. engine universe (``mc_engine_sweep_kernel``, a row per symbol, the sweep
+17. engine universe (``mc_engine_rows_kernel``, a row per symbol, the sweep
    of universes at one grid row): injected uniforms path by path with [S]
    knobs (proximity, paddings, q_min) and noise stds, every differing path
    traced as in phase 9; Philox, each symbol equal to the single kernel bit
-   for bit at 2^22 and to the plain version on the card on every path at
+   for bit at 2^22 (and the launch to the parent's), to the plain version on
+   the card on every path at
    2^20, and symbols 0, 11, ..., 99 of config #4's full-width launch equal to
    the plain version on the card on every path at 2^16 a symbol; BASELINE
    config #4 through
@@ -117,10 +123,11 @@ Phases (any failure exits non-zero and prints no result line):
    warm-up then timed, with its launches; then the per-symbol refresh
    (``universe_policy_refresh``) on run_all.py's [100, 64, 4] float32 shapes
    on the card, timed and held against the float64 fit on the CPU (1e-4);
-18. sweep of universes (``mc_engine_sweep_kernel``, S x G rows): an [S, G]
+18. sweep of universes (``mc_engine_rows_kernel``, S x G rows): an [S, G]
    grid ([S, G] stop paddings, [G] q_min and noise stds) on injected
    uniforms path by path, every differing path traced; Philox, cell (s, g)
-   equal to the engine universe under row g's knobs bit for bit, the plain
+   equal to the engine universe under row g's knobs bit for bit (and the
+   launch to the parent's), the plain
    version on the card equal to the kernel on every path, and so on the
    main path's inputs (config #4's first 8 symbols x the 4 configurations)
    at 2^16 paths a symbol; the entry ``mc_paths_engine_universe_sweep_fused``
@@ -168,10 +175,11 @@ Phases (any failure exits non-zero and prints no result line):
 22. gated (``mc_gated_sampler_kernel``, mc_gated_samplers.cu): the same, path
    by path, every differing injected path traced as in phase 6, and ``paths
    --gated``;
-23. engine (``mc_engine_sampler_kernel``, mc_engine_samplers.cu): the same,
+23. engine (``mc_engine_rows_kernel``, mc_engine_rows.cu): the same,
    path by path with its two budgets, every differing injected path traced
-   as in phase 9, and ``paths --engine`` (the recorded volumes reach the
-   volume gates);
+   as in phase 9, each sampler's Philox launch equal to the parent's
+   (``mc_engine_sampler_kernel``) bit for bit, and ``paths --engine`` (the
+   recorded volumes reach the volume gates);
    the samplers of the sweeps and universes, a row axis on the three sampler
    kernels (kernels #2, #3, #5, #6, #9, #10, #11):
 24. first contact (``mc_first_contact_sampler_kernel`` with a row a symbol;
@@ -205,7 +213,7 @@ Phases (any failure exits non-zero and prints no result line):
    the full-width launch against their one-row launches; ``sweep --engine``
    at 2^24 x 18 rows (``--jitter-stds 0 0.02``) through
    ``mc_engine_bar_sweep_kernel`` (mc_engine_bar_sweep.cu), each row equal to
-   its one-row launch of ``mc_engine_sampler_kernel``; and the sweep of universes
+   its one-row launch of ``mc_engine_rows_kernel``; and the sweep of universes
    (config #4's first 8 symbols x 4 configurations at 2^20 a cell), each
    cell equal to its one-row launch at 2^14 (per path) and at 2^20;
    the samplers of the books (kernels #7 and #12 under bootstrap, block
@@ -329,6 +337,12 @@ contact's gbm partial rows (``fc_rows_cases``) of the port in TREE.
 sampler sweeps of the port in TREE at 9 rows x 2^28 x 40 and 9 x 2^24 x 390,
 with count digests and ptxas resources (``sampler_sweep_times``), in turns
 with another tree in the same way.
+``python3 chip_smoke.py --sweep-times TREE [--engine | --redesign]`` times
+the sweeps, first contact's single run and universe and the engine's single
+run and universe of the port in TREE at their main paths' shapes
+(``sweep_times``; ``--engine``: the engine sweeps alone, ``--redesign``: the
+engine's single run at 2^28 x 40 and config #4's engine universe, gbm and
+the three samplers, alone), in turns with another tree in the same way.
 
 Harvest (``check_harvest``, ``gap_within``): where every path
 agrees the count tables are equal; each path whose trades differ can move
@@ -454,6 +468,7 @@ FC_SWEEP_SOURCE = CSRC + "mc_first_contact_sweep.cu"
 GATED_SOURCE = CSRC + "mc_gated.cu"
 GATED_SWEEP_SOURCE = CSRC + "mc_gated_sampler_sweep.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
+ENGINE_ROWS_SOURCE = CSRC + "mc_engine_rows.cu"
 GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
 ENGINE_CORR_SOURCE = CSRC + "mc_engine_corr.cu"
 BAR_SWEEP_SOURCE = CSRC + "mc_engine_bar_sweep.cu"
@@ -1704,7 +1719,7 @@ def universe_phases(dev, card, reset) -> list:
     # ---- phase 17: engine universe (kernel #10), BASELINE config #4 and its refresh
     lanes = ENGINE_LANES
     n_inj = nb * 8 * lanes
-    log(f"[17] engine universe (mc_engine_sweep_kernel, a row per symbol), injected "
+    log(f"[17] engine universe (mc_engine_rows_kernel, a row per symbol), injected "
         f"uniforms: 3 symbols x {n_inj} paths, [S] knobs and noise stds, kernel vs plain on "
         "CPU copies path by path, every differing path traced")
     u = torch.from_numpy(np.random.default_rng(602).uniform(
@@ -1755,6 +1770,10 @@ def universe_phases(dev, card, reset) -> list:
                                      "kernel" + (" (harvest)" if harvest else ""))
     log("  with the harvest too: each symbol's rows and harvest rows equal the single "
         "harvest kernel's bit for bit")
+    same_as_parent("engine universe, Philox", cuda_engine,
+                   lambda: cuda_engine.engine_universe_rows(
+                       7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
+                       paths_per_symbol=PHILOX_PATHS, **kw))
     del rows, one
     kw = dict(kw, paths_per_symbol=e_paths)
     rows = cuda_engine.engine_universe_rows(7, lv3, p3e, s0_3, sg_3, device=dev, per_path=True,
@@ -1830,7 +1849,7 @@ def universe_phases(dev, card, reset) -> list:
     (st, skips, escal), secs, launches = run_entry(
         "mc_paths_engine_universe_fused", lambda: cuda_engine.mc_paths_engine_universe_fused(
             0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
-        reset, {"mc_engine_universe": 2, "mc_engine_universe_reduce_rows": 2})
+        reset, {"mc_engine_rows_universe": 2, "mc_engine_universe_reduce_rows": 2})
     check_universe_stats("engine universe", st, UNI_SYMBOLS, UNI_PATHS)
     # one level a symbol: no next level to escalate to, so no escalation
     if not (tuple(skips.shape) == (UNI_SYMBOLS, 16) and bool((skips.sum(1) > 0).all())
@@ -1845,13 +1864,16 @@ def universe_phases(dev, card, reset) -> list:
                   external_uniforms=None, device=dev)
     e_main_ms = cuda_ms(lambda: cuda_engine.engine_universe_rows(0, c4[0], params, *c4[1:],
                                                                  **e_main), 1)
+    e_main_parent_ms = cuda_ms(parent_run(cuda_engine, lambda: cuda_engine.engine_universe_rows(
+        0, c4[0], params, *c4[1:], **e_main)), 1)
     e_main_bound = card.bound(
         bytes_=row_bytes(cuda_engine, UNI_SYMBOLS, UNI_PATHS),
         **engine_ops(UNI_SYMBOLS * UNI_PATHS, sc.sum(0).cpu(),
                      main_scale * UNI_SYMBOLS / n_cmp))
     log(f"  kernel alone at {UNI_SYMBOLS} x {UNI_PATHS} paths: {e_main_ms:.3f} ms "
         f"({UNI_SYMBOLS * UNI_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
-        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
+        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}; the parent "
+        f"{e_main_parent_ms:.3f} ms")
     log(f"[17] main path: BASELINE config #4 with the harvest (run_all.py:166-200), "
         f"mc_paths_engine_universe_fused(harvest=True), one warm-up then timed; the "
         "per-symbol refresh on it")
@@ -1868,7 +1890,7 @@ def universe_phases(dev, card, reset) -> list:
     if not torch.equal(hv4.n_labeled.cpu(), (st.n_tp + st.n_stop).to(torch.int64).cpu()):
         raise AssertionError("config #4's harvest does not label every closed trade once")
     # the harvest build against the envelope kernel it is built from, forced
-    # at config #4's shape (the launch without the harvest goes to the parent)
+    # at config #4's shape (the launch without the harvest goes to the rows kernel)
     hv_t = interleaved_ms({
         "wide": forced(cuda_engine, lambda: cuda_engine.engine_universe_rows(
             0, c4[0], params, *c4[1:], **e_main)),
@@ -1885,7 +1907,7 @@ def universe_phases(dev, card, reset) -> list:
     log(f"  config #4 with the harvest: wall {secs_h[-1]:.3f} s, every statistic equal to the "
         f"run without; {int(hv4.n_labeled.sum())} labels; kernel alone {hv_t['harvest']:.3f} "
         f"ms, the envelope kernel without the harvest {hv_t['wide']:.3f} ms "
-        f"({hv_t['harvest'] / hv_t['wide']:.4f}x; the parent {e_main_ms:.3f} ms)")
+        f"({hv_t['harvest'] / hv_t['wide']:.4f}x; the rows kernel {e_main_ms:.3f} ms)")
     # the refresh on what config #4 harvested (run_all.py:196-200): the
     # per-symbol weighted bucket rows of ml_batch_from_harvest
     xs, ys, ws = HV.ml_batch_from_harvest(hv4, stop_padding=float(params.stop_padding))
@@ -1917,9 +1939,10 @@ def universe_phases(dev, card, reset) -> list:
         f"{model.n_iter.tolist()[:4]}...); vs the float64 CPU fit: max |d probability| "
         f"{d_p:.3e} at the harvested rows, max |d coef| (kind, touch count, side) "
         f"{d_coef:.3e}")
-    out += [entry("mc_engine_universe", ENGINE_SOURCE, ENGINE_UNI_REPLACES,
-                  launches["mc_engine_universe"], e_err, e_ms, e_plain_ms, e_bound, symbols=3,
-                  paths=e_paths, noise=True, main_path_ms=e_main_ms,
+    out += [entry("mc_engine_rows_universe", ENGINE_ROWS_SOURCE, ENGINE_UNI_REPLACES,
+                  launches["mc_engine_rows_universe"], e_err, e_ms, e_plain_ms, e_bound,
+                  symbols=3, paths=e_paths, noise=True, main_path_ms=e_main_ms,
+                  main_path_parent_ms=e_main_parent_ms,
                   main_path_bound_ms=e_main_bound["bound_ms"], config4_s=secs[1:],
                   refresh_ms=refresh_ms, refresh_max_abs_err=max(d_coef, d_icpt),
                   refresh_source="harvest"),
@@ -1937,7 +1960,7 @@ def universe_phases(dev, card, reset) -> list:
                       target_slip_std=torch.tensor([0.0, 0.0, 0.015]))
     nb2 = 2
     n_inj = nb2 * 8 * lanes
-    log(f"[18] sweep of universes (mc_engine_sweep_kernel, S x G rows), injected uniforms: "
+    log(f"[18] sweep of universes (mc_engine_rows_kernel, S x G rows), injected uniforms: "
         f"3 symbols x 3 rows x {n_inj} paths ([S, G] stop paddings, [G] q_min and noise "
         "stds), kernel vs plain on CPU copies path by path, every differing path traced")
     u = torch.from_numpy(np.random.default_rng(603).uniform(
@@ -1975,6 +1998,9 @@ def universe_phases(dev, card, reset) -> list:
             device=dev, per_path=True, **dict(kw, noise=grid_row(g_noise, g)))
         if not all(torch.equal(a, b[:, g]) for a, b in zip(uni, rows)):
             raise AssertionError(f"sweep-of-universes row {g} differs from the engine universe")
+    same_as_parent("sweep of universes, Philox", cuda_engine,
+                   lambda: cuda_engine.engine_universe_sweep_rows(7, lv3, grid, s0_3, sg_3,
+                                                                  device=dev, per_path=True, **kw))
     ec, ef = cuda_engine.reduce_rows(rows[0].flatten(0, 1), rows[1].flatten(0, 1))
     (wc, wf, wrow), es_plain_ms = timed(
         lambda: cuda_engine.engine_universe_sweep_totals_reference(
@@ -2029,7 +2055,7 @@ def universe_phases(dev, card, reset) -> list:
         "mc_paths_engine_universe_sweep_fused",
         lambda: cuda_engine.mc_paths_engine_universe_sweep_fused(
             0, c8[0], grid4, *c8[1:], paths_per_symbol=UNI_PATHS, num_bars=NUM_BARS, dt=DT),
-        reset, {"mc_engine_universe_sweep": 2, "mc_engine_universe_sweep_reduce_rows": 2})
+        reset, {"mc_engine_rows_universe_sweep": 2, "mc_engine_universe_sweep_reduce_rows": 2})
     if tuple(st.n.shape) != (UNI_SWEEP_SYMBOLS, 4) or not bool((st.n == UNI_PATHS).all()):
         raise AssertionError(f"sweep of universes: counts {st.n.tolist()}")
     if not (bool((st.n_entered > 0).all()) and bool(torch.isfinite(st.sum_r).all())
@@ -2047,8 +2073,9 @@ def universe_phases(dev, card, reset) -> list:
     log(f"  kernel alone at {UNI_SWEEP_SYMBOLS} x 4 x {UNI_PATHS}: {es_main_ms:.3f} ms "
         f"({UNI_SWEEP_SYMBOLS * 4 * UNI_PATHS / es_main_ms * 1e3:.6e} paths x rows/s), bound "
         f"{es_main_bound['bound_ms']:.3f} ms {es_main_bound['bound_parts']}")
-    out += [entry("mc_engine_universe_sweep", ENGINE_SOURCE, ENGINE_UNI_SWEEP_REPLACES,
-                  launches["mc_engine_universe_sweep"], es_err, es_ms, es_plain_ms, es_bound,
+    out += [entry("mc_engine_rows_universe_sweep", ENGINE_ROWS_SOURCE,
+                  ENGINE_UNI_SWEEP_REPLACES, launches["mc_engine_rows_universe_sweep"], es_err,
+                  es_ms, es_plain_ms, es_bound,
                   symbols=3, grid_rows=3, paths=es_paths, noise=True, main_path_ms=es_main_ms,
                   main_path_bound_ms=es_main_bound["bound_ms"], main_s=secs[1:]),
             entry("mc_engine_universe_sweep_reduce_rows", ENGINE_SOURCE,
@@ -2804,14 +2831,15 @@ def sampler_phases(dev, card, reset, cli) -> list:
          "mc_reduce_rows"),
         ("gated", "22", cuda_gated, GATED_SAMPLER_SOURCE, GATED_REPLACES, "mc_gated_sampler",
          "mc_gated_reduce_rows"),
-        ("engine", "23", cuda_engine, ENGINE_SAMPLER_SOURCE, ENGINE_REPLACES,
-         "mc_engine_sampler", "mc_engine_reduce_rows"))
+        ("engine", "23", cuda_engine, ENGINE_ROWS_SOURCE, ENGINE_REPLACES,
+         "mc_engine_rows_sampler", "mc_engine_reduce_rows"))
     for family, ph, mod, source, replaces, kname, fold in families:
         lanes = {"first contact": LANES, "gated": GATED_LANES, "engine": ENGINE_LANES}[family]
         block = lanes if family == "first contact" else 8 * lanes
         n_blocks = SAMPLER_INJECT_PATHS[family] // block
         common = dict(num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=lanes)
-        log(f"[{ph}] {family} samplers ({kname}_kernel, {source.split('/')[-1]}): injected "
+        kernel = "mc_engine_rows_kernel" if family == "engine" else kname + "_kernel"
+        log(f"[{ph}] {family} samplers ({kernel}, {source.split('/')[-1]}): injected "
             f"uniforms at {SAMPLER_INJECT_PATHS[family]} paths, kernel vs plain on CPU copies"
             + ("" if family == "first contact" else
                ", path by path, every differing path traced"))
@@ -2890,6 +2918,9 @@ def sampler_phases(dev, card, reset, cli) -> list:
                 err[s] = max(err[s], compare_lifecycle(f"{s} philox", want, got, PHILOX_PATHS,
                                                        engine=family == "engine")[0])
                 del prow, got
+                if family == "engine":
+                    same_as_parent(f"{s} philox", cuda_engine,
+                                   lambda: rows_fn(0, s, PHILOX_PATHS, per_path=True))
             rows = rows_fn(0, s, PHILOX_PATHS)
             ms = cuda_ms(lambda: rows_fn(0, s, PHILOX_PATHS), 3)
             rows_fn(0, s, MAIN_PATHS)
@@ -2947,7 +2978,7 @@ ROWS_UNI_SWEEP_SAMPLE_SYMBOLS = 2   # of the sweep of universes' 8, kernel vs pl
 GRID9 = [(sp, tp) for sp in (0.25, 0.35, 0.45) for tp in (0.15, 0.25, 0.35)]
 ROWS_CLI_PATHS = {"first contact": MAIN_PATHS, "gated": 1 << 26, "engine": 1 << 24}
 ROWS_SOURCES = {"first contact": FC_SAMPLER_SOURCE, "gated": GATED_SAMPLER_SOURCE,
-                "engine": ENGINE_SAMPLER_SOURCE}
+                "engine": ENGINE_ROWS_SOURCE}
 
 
 def rows_ops(family: str, sampler: str, work, sample_pps: int, scale: float):
@@ -3255,7 +3286,8 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
         mod = fam.mod
         pre = fam.prefix
         uni_kname, sweep_kname = (("mc_universe_sampler", "mc_sweep_sampler") if fam.fc else
-                                  (f"{pre}_universe_sampler",
+                                  ("mc_engine_rows_universe_sampler" if fam.engine
+                                   else f"{pre}_universe_sampler",
                                    "mc_engine_bar_sweep_sampler" if fam.engine
                                    else f"{pre}_sweep_sampler"))
         uni_fold, sweep_fold = f"{pre}_universe_reduce_rows", f"{pre}_sweep_reduce_rows"
@@ -3450,6 +3482,9 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     per_path=True, work=not fam.engine), c4, pick)
             krows = fam.uni(0, c4[0], params, *c4[1:], pps_sample, s, c4t,
                             per_path=not fam.fc)
+            if fam.engine:
+                same_as_parent(f"config #4 {s}", cuda_engine, lambda: fam.uni(
+                    0, c4[0], params, *c4[1:], pps_sample, s, c4t, per_path=True))
             kgot = tuple(x[pick] for x in (*fam.fold(krows), *krows[2:]))
             if fam.fc:
                 e = max(compare(f"config #4 {s} symbol {i}", (sample[0][i], sample[1][i]),
@@ -3592,6 +3627,9 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     f"{ROWS_UNI_SWEEP_SAMPLE_PATHS} paths a cell")
                 cells = cuda_engine.engine_universe_sweep_rows(0, lv8, g4, s0_8, sg_8,
                                                                per_path=True, **kw)
+                same_as_parent(f"sweep of universes {s}", cuda_engine,
+                               lambda: cuda_engine.engine_universe_sweep_rows(
+                                   0, lv8, g4, s0_8, sg_8, per_path=True, **kw))
                 for i in range(n8):
                     for g in range(4):
                         one = fam.single(0, grid_row(lv8, i), grid_row(g4, g),
@@ -3627,7 +3665,7 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                     f"sweep of universes {s}",
                     lambda: cuda_engine.mc_paths_engine_universe_sweep_fused(
                         0, lv8, g4, s0_8, sg_8, **main_kw)[0], reset,
-                    {"mc_engine_universe_sweep_sampler": 2,
+                    {"mc_engine_rows_universe_sweep_sampler": 2,
                      "mc_engine_universe_sweep_reduce_rows": 2})
                 if tuple(st.n.shape) != (n8, 4) or not bool((st.n == UNI_PATHS).all()):
                     raise AssertionError(f"sweep of universes {s}: path counts {st.n}")
@@ -3652,9 +3690,10 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
                 log(f"  kernel alone at {n8} x 4 x {UNI_PATHS}: {us_main_ms:.3f} ms, bound "
                     f"{us_main_b['bound_ms']:.3f} ms; {n2} x 4 x {ROWS_UNI_SWEEP_SAMPLE_PATHS}: "
                     f"kernel {us_ms:.3f} ms, plain on the card {us_plain_ms:.3f} ms")
-                out.append(entry(f"mc_engine_universe_sweep_sampler/{s}", source,
+                out.append(entry(f"mc_engine_rows_universe_sweep_sampler/{s}", source,
                                  ENGINE_UNI_SWEEP_REPLACES,
-                                 launches["mc_engine_universe_sweep_sampler"], max(err[s], e),
+                                 launches["mc_engine_rows_universe_sweep_sampler"],
+                                 max(err[s], e),
                                  us_ms, us_plain_ms, us_b, sampler=s, symbols=n2, grid_rows=4,
                                  paths=ROWS_UNI_SWEEP_SAMPLE_PATHS, main_path_ms=us_main_ms,
                                  main_path_bound_ms=us_main_b["bound_ms"], main_s=secs[1:]))
@@ -4059,6 +4098,41 @@ def forced(CE, fn):
     return run
 
 
+@contextlib.contextmanager
+def forced_parent(CE):
+    """While open, ``cuda_engine`` launches the parents the rows kernel
+    replaced (mc_engine_sweep_kernel, mc_engine_sampler_kernel) where the
+    rows kernel would run (its ``_FORCE_PARENT`` hook)."""
+    CE._FORCE_PARENT = True
+    try:
+        yield
+    finally:
+        CE._FORCE_PARENT = False
+
+
+def parent_run(CE, fn):
+    """``fn`` as a launch that runs under ``forced_parent``."""
+    def run():
+        with forced_parent(CE):
+            return fn()
+    return run
+
+
+def same_as_parent(name: str, CE, launch) -> None:
+    """``launch()`` on the rows kernel (mc_engine_rows.cu) and on the parent
+    it replaced: every output tensor (partial rows, per-path rows) equal bit
+    for bit, or raise."""
+    import torch
+
+    got = launch()
+    want = parent_run(CE, launch)()
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the rows kernel differs from the parent kernel")
+    log(f"  {name}: the rows kernel == the parent bit for bit (partial counts "
+        f"{count_digest(got[0])})")
+
+
 def envelope_phases(dev, card, reset, cli) -> list:
     """Phases 29-30: the envelope kernels (``mc_engine_wide*.cu``) at 30
     levels x 390 bars and the envelope's other shapes.  [29] gbm: injected
@@ -4207,7 +4281,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
     cli_levels = Levels.from_rows(CLI_ROWS, max_levels=8)
     pkw = dict(num_paths=ENV_PARENT_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                noise=noise, per_path=True, device=dev)
-    parent = CE.engine_rows(3, cli_levels, params, **pkw)
+    parent = parent_run(CE, lambda: CE.engine_rows(3, cli_levels, params, **pkw))()
     with forced_envelope(CE):
         wide = CE.engine_rows(3, cli_levels, params, **pkw)
     if not all(torch.equal(a, b) for a, b in zip(parent, wide)):
@@ -4218,7 +4292,7 @@ def envelope_phases(dev, card, reset, cli) -> list:
     # what the parent saves where both fit: phase 11's kernel, its shape and inputs
     kw11 = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, sigma=SIGMA, dt=DT, lanes=lanes,
                 device=dev)
-    parent_ms = cuda_ms(lambda: CE.engine_rows(0, cli_levels, params, **kw11), 1)
+    parent_ms = cuda_ms(parent_run(CE, lambda: CE.engine_rows(0, cli_levels, params, **kw11)), 1)
     with forced_envelope(CE):
         forced_ms = cuda_ms(lambda: CE.engine_rows(0, cli_levels, params, **kw11), 1)
     log(f"  at 3 levels x {NUM_BARS} bars x {MAIN_PATHS} paths: the parent {parent_ms:.3f} ms, "
@@ -5277,6 +5351,7 @@ def parent_times() -> int:
         def forced(fn=fn):
             with forced_envelope(CE):
                 return fn()
+        fn = parent_run(CE, fn)       # the parent, not the rows kernel that replaced it
         fn()
         forced()                                          # warm both
         torch.cuda.synchronize()
@@ -5477,7 +5552,7 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
         lv3 = Levels.from_rows(CLI_ROWS, max_levels=8)
         kw3 = dict(num_paths=MAIN_PATHS, num_bars=NUM_BARS, **one)
         cases[f"parent (mc_engine_sweep_kernel) 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
-            lambda: CE.engine_rows(0, lv3, params, **kw3))
+            parent_run(CE, lambda: CE.engine_rows(0, lv3, params, **kw3)))
         cases[f"forced 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
             forced(CE, lambda: CE.engine_rows(0, lv3, params, **kw3)))
         cases[f"harvest 3 x {NUM_BARS} x {MAIN_PATHS}"] = rows_case(
@@ -5694,9 +5769,10 @@ SWEEP_AB_GATED_PATHS = 1 << 26                   # sweep --gated --touch-limits 
 # the CLI's levels) and config #4's universe (100 x 2^20) at 40 and 390 bars
 SWEEP_AB_FC_BARS = (NUM_BARS, 390)
 SWEEP_AB_ENGINE_PATHS = 1 << 24                  # sweep --engine --jitter-stds 0 0.02: 18 rows
-# the engine sweep kernels' ptxas lines: the sweep, and the one-row kernels it replaced
+# the engine kernels' ptxas lines: the sweep, the one-row kernels it replaced,
+# the single run's rows kernel and the parents it replaced
 SWEEP_AB_PTXAS = ("sweep", "bar_step", "mc_engine_sampler_kernel", "mc_engine_wide_kernel",
-                  "mc_engine_wide_sampler_kernel")
+                  "mc_engine_wide_sampler_kernel", "mc_engine_rows_kernel")
 
 
 def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = False) -> int:
@@ -5715,9 +5791,14 @@ def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = Fals
     engine sweep (``cuda_engine.engine_sweep_rows``) on the CLI's ``sweep
     --engine --jitter-stds 0 0.02`` grid (18 rows) at 2^24 x 40 under gbm and
     the three samplers, and at phase 29's envelope (30 levels x 390 bars x
-    2^20, 18 rows), and each at one row (the bars and one row's replay).
-    ``engine_only`` (``--engine``) times the engine sweeps alone,
-    ``redesign_only`` (``--redesign``) the first five shapes alone.
+    2^20, 18 rows), and each at one row (the bars and one row's replay); the
+    engine's single run (``cuda_engine.engine_rows``, ``paths --engine``) at
+    2^28 x 40 on the CLI's levels and config #4's engine universe
+    (``engine_universe_rows``, 100 x 2^20 x 40; symbol i on
+    ``universe_history``'s history 1000 + i) under gbm and the three
+    samplers.  ``engine_only`` (``--engine``) times the engine sweeps alone,
+    ``redesign_only`` (``--redesign``) the engine's single run and universe
+    alone.
     Each timed by CUDA events (a warm-up that
     also takes a digest of the folded counts and floats, ``count_digest``,
     then the mean of two runs).  Builds into the tree's
@@ -5735,7 +5816,8 @@ def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = Fals
     from qmmx_monolithic_monte_carlo_tpu_torch.config import EngineParams
     from qmmx_monolithic_monte_carlo_tpu_torch.ops import cuda_engine, cuda_gated, cuda_mc
     from qmmx_monolithic_monte_carlo_tpu_torch.ops.kernel_args import grid_row
-    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import bootstrap_tables
+    from qmmx_monolithic_monte_carlo_tpu_torch.ops.pathgen import (bootstrap_tables,
+                                                                   universe_tables)
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.gatedpath import GateConfig
     from qmmx_monolithic_monte_carlo_tpu_torch.sim.montecarlo import McNoise
     from qmmx_monolithic_monte_carlo_tpu_torch.types import Levels
@@ -5747,11 +5829,12 @@ def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = Fals
     print(f"tree {tree}; {smi}", flush=True)
     build.BUILD_DIR = Path(tree) / "build" / "kernels-times"
     engine_libs = ("mc_engine", "mc_engine_samplers", "mc_engine_wide",
-                   "mc_engine_wide_samplers", "mc_engine_bar_sweep")
+                   "mc_engine_wide_samplers", "mc_engine_bar_sweep", "mc_engine_rows")
     # (mc_first_contact_long: an earlier tree's first contact past 128 bars)
-    fc_libs = ("mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_gated_sampler_sweep")
-    libs = [n for n in (fc_libs if redesign_only else (() if engine_only else fc_libs + (
-                "mc_first_contact_sweep", "mc_gated_samplers")) + engine_libs)
+    fc_libs = ("mc_first_contact", "mc_first_contact_long", "mc_gated", "mc_gated_sampler_sweep",
+               "mc_first_contact_sweep", "mc_gated_samplers")
+    libs = [n for n in (("mc_engine", "mc_engine_samplers", "mc_engine_rows") if redesign_only
+                        else (() if engine_only else fc_libs) + engine_libs)
             if (build.CSRC / f"{n}.cu").exists()]
     t0 = time.perf_counter()
     build.build_all(libs)
@@ -5788,7 +5871,7 @@ def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = Fals
 
     # first contact's single run and config #4's universe
     # (mc_universe_kernel), the gated sweep under gbm
-    if not engine_only:
+    if not (engine_only or redesign_only):
         for w in SWEEP_AB_FC_BARS:
             timed(f"first contact {MAIN_PATHS} x {w}",
                   lambda w=w: cuda_mc.first_contact_rows(
@@ -5809,11 +5892,36 @@ def sweep_times(tree: str, engine_only: bool = False, redesign_only: bool = Fals
                   num_bars=NUM_BARS, s0=100.0, mu=0.0, sigma=SIGMA, dt=DT, lanes=GATED_LANES,
                   noise=None, external_uniforms=None, device=dev),
               cuda_gated.reduce_rows)
+    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
+    # the engine's single run and config #4's engine universe
+    # (mc_engine_rows_kernel, or the parents in an earlier tree)
+    if not engine_only:
+        c4 = config4()
+        c4_tables = universe_tables(universe_history(UNI_SYMBOLS, SAMPLER_HIST_BARS, 1000)).to(dev)
+
+        def engine_fold(*rows):
+            return cuda_engine.reduce_rows(*rows[:2])
+
+        for smp in ("gbm",) + SAMPLERS:
+            skw, ukw = (({}, {}) if smp == "gbm" else
+                        ((dict(sampler=smp),) * 2) if smp == "heston" else
+                        (dict(sampler=smp, tables=tables, block_len=SAMPLER_BLOCK_LEN),
+                         dict(sampler=smp, tables=c4_tables, block_len=SAMPLER_BLOCK_LEN)))
+            timed(f"paths --engine {smp} {MAIN_PATHS} x {NUM_BARS}",
+                  lambda skw=skw: cuda_engine.engine_rows(
+                      0, levels, params, num_paths=MAIN_PATHS, num_bars=NUM_BARS, s0=100.0,
+                      mu=0.0, sigma=SIGMA, dt=DT, lanes=ENGINE_LANES, noise=None,
+                      antithetic=False, external_uniforms=None, device=dev, **skw),
+                  engine_fold)
+            timed(f"engine universe {smp} config #4 {UNI_SYMBOLS} x {UNI_PATHS} x {NUM_BARS}",
+                  lambda ukw=ukw: cuda_engine.engine_universe_rows(
+                      0, c4[0], params, *c4[1:], paths_per_symbol=UNI_PATHS,
+                      num_bars=NUM_BARS, dt=DT, lanes=ENGINE_LANES, device=dev, **ukw),
+                  engine_fold)
     if redesign_only:
         print(json.dumps({"tree": tree, "card": smi, "ms": ms, "digest": digests,
                           "ptxas": ptxas}))
         return 0
-    tables = torch.stack(bootstrap_tables(*history_arrays(SAMPLER_HIST_BARS)[1:]))
     # the engine sweeps: the CLI's 18 rows (3 x 3 x level jitter 0, 0.02)
     jit18 = torch.tensor([j for _ in GRID9 for j in (0.0, 0.02)])
     grid18 = params.replace(stop_padding=[r[0] for r in GRID9 for _ in (0, 1)],
@@ -5916,7 +6024,7 @@ def main() -> int:
                      "mc_engine_wide_harvest", "mc_engine_wide_samplers_harvest",
                      "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest",
                      "mc_first_contact_sweep", "mc_gated_sampler_sweep",
-                     "mc_engine_bar_sweep"])
+                     "mc_engine_bar_sweep", "mc_engine_rows"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
@@ -6179,6 +6287,11 @@ def main() -> int:
                                                per_path=True, **kw)
         got = (*cuda_engine.reduce_rows(pc, pf), rows)
         torch.cuda.synchronize()
+        # every gate case (the bar-only gates, the policy's among them, are
+        # the rows kernel's producers' work) against the parent, bit for bit
+        same_as_parent(case, cuda_engine, lambda kw=kw, e_params=e_params, u=u: (
+            cuda_engine.engine_rows(0, e_levels, e_params, device=dev,
+                                    external_uniforms=u.to(dev), per_path=True, **kw)))
         err, _ = compare_lifecycle(
             case, want, got, n_einj, engine=True,
             trace=lambda d: trace_engine_flips(case, u, d, rows.cpu(), want[2].cpu(),
@@ -6220,6 +6333,8 @@ def main() -> int:
         engine_err = max(engine_err, compare_lifecycle(case, want, got, PHILOX_PATHS, engine=True)[0])
         engine_red_err = max(engine_red_err, check_fold(
             "mc_engine_reduce_rows", cuda_engine.reduce_rows_reference(pc, pf), got[:2]))
+        same_as_parent(case, cuda_engine, lambda kw=kw: cuda_engine.engine_rows(
+            0, cli_levels, params, device=dev, per_path=True, **kw))
         if nz is None:
             e_counts, e_plain_ms = want[0].cpu(), plain_s * 1e3
     log(f"  mc_engine_reduce_rows: counts exact, float max abs err {engine_red_err:.3e}")
@@ -6238,6 +6353,7 @@ def main() -> int:
 
     run_engine()
     e_ms = cuda_ms(run_engine, 3)
+    e_parent_ms = cuda_ms(parent_run(cuda_engine, run_engine), 3)
     e_rows = run_engine()
     e_red_ms = cuda_ms(lambda: cuda_engine.reduce_rows(*e_rows), 20)
     e_red_plain_ms = cuda_ms(lambda: cuda_engine.reduce_rows_reference(*e_rows), 20)
@@ -6251,7 +6367,8 @@ def main() -> int:
                              + cuda_engine.ROW_FLOATS * 8, f32=0.0, sfu=0.0, imul=0.0)
     log(f"  at {PHILOX_PATHS} paths: kernel {e_ms:.3f} ms "
         f"({PHILOX_PATHS / e_ms * 1e3:.6e} paths/s), bound {e_bound_philox['bound_ms']:.3f} ms "
-        f"{e_bound_philox['bound_parts']}, plain {e_plain_ms:.3f} ms")
+        f"{e_bound_philox['bound_parts']}, plain {e_plain_ms:.3f} ms, the parent "
+        f"{e_parent_ms:.3f} ms")
     log(f"  row fold ({e_rows[0].shape[0]} rows): kernel {e_red_ms:.4f} ms, "
         f"plain {e_red_plain_ms:.4f} ms, bound {e_red_bound['bound_ms']:.4f} ms")
 
@@ -6262,7 +6379,7 @@ def main() -> int:
                 "--backend", "cuda", "--num-paths", str(MAIN_PATHS),
                 "--num-bars", str(NUM_BARS), "--sigma", str(SIGMA)]
         (e_out,), e_secs, e_launches = run_cli(
-            cli, argv, reset_all, {"mc_engine": 1, "mc_engine_reduce_rows": 1})
+            cli, argv, reset_all, {"mc_engine_rows": 1, "mc_engine_reduce_rows": 1})
     check_paths_output(e_out)
     if not e_out["trades"] >= e_out["entered"] > 0 or not e_out["escalations"] > 0:
         raise AssertionError(f"trades < entered, or no escalation: {e_out}")
@@ -6271,10 +6388,12 @@ def main() -> int:
             and sk.get("CONTRA_VOL_LONG", 0) + sk.get("CONTRA_VOL_SHORT", 0) > 0):
         raise AssertionError(f"skips lack TOO_FAR, CONF_LOW or a CONTRA_VOL entry: {sk}")
     e_main_ms = cuda_ms(lambda: run_engine(MAIN_PATHS), 2)
+    e_main_parent_ms = cuda_ms(parent_run(cuda_engine, lambda: run_engine(MAIN_PATHS)), 1)
     e_main_bound = e_bound(MAIN_PATHS)
     log(f"  kernel alone at {MAIN_PATHS} paths: {e_main_ms:.3f} ms "
         f"({MAIN_PATHS / e_main_ms * 1e3:.6e} paths/s), bound "
-        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}")
+        f"{e_main_bound['bound_ms']:.3f} ms {e_main_bound['bound_parts']}; the parent "
+        f"{e_main_parent_ms:.3f} ms")
 
     # ---- phase 12: first-contact sweep (kernel #3)
     stops5, tps5 = [c[0] for c in CONFIG5], [c[1] for c in CONFIG5]
@@ -6713,10 +6832,11 @@ def main() -> int:
         entry("mc_gated_reduce_rows", GATED_SOURCE, GATED_REPLACES,
               g_launches["mc_gated_reduce_rows"], gated_red_err, g_red_ms,
               g_red_plain_ms, g_red_bound, rows=int(g_rows[0].shape[0])),
-        entry("mc_engine", ENGINE_SOURCE, ENGINE_REPLACES, e_launches["mc_engine"],
-              engine_err, e_ms, e_plain_ms, e_bound_philox, paths=PHILOX_PATHS,
-              main_path_ms=e_main_ms, main_path_bound_ms=e_main_bound["bound_ms"],
-              cli_s=e_secs[1:]),
+        entry("mc_engine_rows", ENGINE_ROWS_SOURCE, ENGINE_REPLACES,
+              e_launches["mc_engine_rows"], engine_err, e_ms, e_plain_ms, e_bound_philox,
+              paths=PHILOX_PATHS, parent_ms=e_parent_ms, main_path_ms=e_main_ms,
+              main_path_parent_ms=e_main_parent_ms,
+              main_path_bound_ms=e_main_bound["bound_ms"], cli_s=e_secs[1:]),
         entry("mc_engine_reduce_rows", ENGINE_SOURCE, ENGINE_REPLACES,
               e_launches["mc_engine_reduce_rows"], engine_red_err, e_red_ms,
               e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[0])),

@@ -61,6 +61,7 @@
 // atomics.  A library of its own, so the other engine kernels keep their code.
 
 #include "mc_engine_env.cuh"
+#include "mc_engine_bars.cuh"
 
 #define BAR_SWEEP_PLANES 4        // close, high, low, volume
 #define BAR_SWEEP_ROWS 32         // gbm: the rows replayed over one making of the bars
@@ -132,118 +133,16 @@ __device__ __forceinline__ void sweep_init_state(const EngineArgs& a, EnvState& 
     for (int j = 0; j < CLOSE_RING; ++j) ev.close[j * nt] = 0.f;
 }
 
-// ---- making the bars (env_walk's draws and bar arithmetic)
-
-// Bar t into the store at ``b`` (this thread's close at bar t; planes
-// ``plane`` floats apart).
-__device__ __forceinline__ void put_bar(float* b, int plane, float c, float h, float l, float v) {
-    b[0] = c;
-    b[plane] = h;
-    b[2 * plane] = l;
-    b[3 * plane] = v;
-}
-
-// One GBM bar (env_bar_step's bar).
-__device__ __forceinline__ void gbm_bar(const EngineArgs& a, float& log_s, int t, float z,
-                                        float zv, float u3, float u4, float* b, int plane) {
-    const float log_open = log_s;
-    const float log_close = log_open + (a.drift + a.sig_dt * z);
-    const float c = expf(log_close);
-    log_s = log_close;
-    ENGINE_BRIDGE(a.two_s2)
-    ENGINE_VOLUME_MODEL
-    put_bar(b, plane, c, h, l, v);
-}
-
-// One recorded bar (env_resample_bar_step's bar).
-__device__ __forceinline__ void resample_bar(const SamplerArgs& s, float& log_s, int t, float x,
-                                             float& start, float* b, int plane) {
-    const float idx = resample_index(s, t, x, start);
-    const float log_open = log_s;
-    const float log_close = log_open + table_at(s, CH_LOGC, idx);
-    const float c = expf(log_close);
-    log_s = log_close;
-    const float h = expf(log_open + table_at(s, CH_LOGH, idx));
-    const float l = expf(log_open + table_at(s, CH_LOGL, idx));
-    put_bar(b, plane, c, h, l, table_at(s, CH_VOL, idx));
-}
-
-// One Heston bar (env_heston_bar_step's bar).
-__device__ __forceinline__ void heston_bar(const EngineArgs& a, const SamplerArgs& s,
-                                           float& log_s, int t, float z, float zv, float zq,
-                                           float u3, float u4, float& var, float* b, int plane) {
-    float v_pos;
-    const float sig_bar = heston_step(s, z, zq, var, v_pos);
-    const float two_s2 = 2.0f * (v_pos * s.dt);
-    const float log_open = log_s;
-    const float log_close = fmaf(sig_bar, z, fmaf(s.mu - 0.5f * v_pos, s.dt, log_open));
-    const float c = expf(log_close);
-    log_s = log_close;
-    ENGINE_BRIDGE(two_s2)
-    ENGINE_VOLUME_MODEL
-    put_bar(b, plane, c, h, l, v);
-}
+// ---- making the bars (env_walk's draws and mc_engine_bars.cuh's arithmetic)
 
 // One path's W bars under sampler KIND into the store (``bar``: this
-// thread's bar 0 of the close plane), from the uniform rows env_walk reads
-// (the tie and noise rows aside).
+// thread's bar 0 of the close plane; mc_engine_bars.cuh's make_bars).
 template <bool WIN, int KIND>
-__device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs& s, Draws& dr,
-                                          float* bar, int plane, float* scratch) {
+__device__ __forceinline__ void sweep_bars(const EngineArgs& a, const SamplerArgs& s, Draws& dr,
+                                           float* bar, int plane, float* scratch) {
     float log_s = a.log_s0;
-    if constexpr (KIND == ENV_GBM) {
-        const int half_lanes = a.lanes >> 1;
-        const bool mirror = a.antithetic && (dr.col % a.lanes) >= half_lanes;
-#pragma unroll 1
-        for (int t2 = 0; t2 < ((a.num_bars + 1) >> 1); ++t2) {
-            const int base = t2 * a.stride;
-            const bool pair = 2 * t2 + 1 < a.num_bars;
-            float u[10];
-#pragma unroll
-            for (int k = 0; k < 6; ++k) u[k] = dr.at(base + k);
-            if (pair) {
-                u[7] = dr.at(base + 7);
-                u[8] = dr.at(base + 8);
-            }
-            if (mirror) {
-                const float2 m = dr.pair_of(dr.col - half_lanes, base);
-                u[0] = m.x; u[1] = m.y;
-            }
-            const float rad = sqrtf(-2.0f * logf(u[0]));
-            float sn, cs;
-            sincosf(two_pi() * u[1], &sn, &cs);
-            float z0 = rad * cs, z1 = rad * sn;
-            if (mirror) { z0 = -z0; z1 = -z1; }
-            const float vrad = sqrtf(-2.0f * logf(u[2]));
-            float vsn, vcs;
-            sincosf(two_pi() * u[3], &vsn, &vcs);
-            float* const b = bar + (long long)(2 * t2) * ENV_THREADS;
-            gbm_bar(a, log_s, 2 * t2, z0, vrad * vcs, u[4], u[5], b, plane);
-            if (pair) gbm_bar(a, log_s, 2 * t2 + 1, z1, vrad * vsn, u[7], u[8], b + ENV_THREADS,
-                              plane);
-        }
-    } else if constexpr (KIND == SAMPLER_RESAMPLE) {
-        float start = 0.f;
-#pragma unroll 1
-        for (int t = 0; t < a.num_bars; ++t)
-            resample_bar(s, log_s, t, dr.at((t >> 1) * a.stride + (t & 1)), start,
-                         bar + (long long)t * ENV_THREADS, plane);
-    } else {
-        float var = s.v0;
-#pragma unroll 1
-        for (int t2 = 0; t2 < ((a.num_bars + 1) >> 1); ++t2) {
-            const int r = t2 * a.stride;
-            const float2 z = normal_pair(dr.at(r), dr.at(r + 1));
-            const float2 zv = normal_pair(dr.at(r + 2), dr.at(r + 3));
-            const float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
-            float* const b = bar + (long long)(2 * t2) * ENV_THREADS;
-            heston_bar(a, s, log_s, 2 * t2, z.x, zv.x, q.x, dr.at(r + 6), dr.at(r + 7), var, b,
-                       plane);
-            if (2 * t2 + 1 < a.num_bars)
-                heston_bar(a, s, log_s, 2 * t2 + 1, z.y, zv.y, q.y, dr.at(r + 9), dr.at(r + 10),
-                           var, b + ENV_THREADS, plane);
-        }
-    }
+    float carry = KIND == SAMPLER_HESTON ? s.v0 : 0.f;
+    make_bars<KIND, false>(a, s, dr, log_s, carry, 0, a.num_bars, bar, ENV_THREADS, plane);
     if constexpr (WIN) {
         // the windowed guard's box after each bar (env_guard_begin / _end on
         // the thread's guard rings in the scratch), for the replay's GUARD_PUSH
@@ -290,18 +189,6 @@ __device__ __noinline__ void replay_bar_step(const EngineArgs& a, EnvState& st, 
     const EnvRings rg{ev.vol, ev.close, ev.nt};
     const float c = bar[0], h = bar[plane], l = bar[2 * plane], v = bar[3 * plane];
 #include "mc_engine_step.cuh"
-}
-
-// The tie coin's and the first noise uniform's rows of bar t under sampler
-// KIND (env_walk's, EnvRows).
-template <int KIND>
-__device__ __forceinline__ int tie_row_of(int t, int stride) {
-    return (t >> 1) * stride + EnvRows<KIND>::tie + EnvRows<KIND>::tie_step * (t & 1);
-}
-
-template <int KIND>
-__device__ __forceinline__ int noise_row_of(int t, int stride) {
-    return (t >> 1) * stride + EnvRows<KIND>::noise + 4 * (t & 1);
 }
 
 // Row ``src`` of the argument rows into the CTA's shared copy, a word a
@@ -384,7 +271,7 @@ mc_engine_bar_sweep_kernel(const BarSweepLaunch p) {
                 if (live) {
                     Draws dr{ext, blk, col, row_len, b.u_rows, b.seed, b.stream, -1,
                              make_uint4(0u, 0u, 0u, 0u)};
-                    make_bars<WIN, KIND>(b, s_s, dr, bar0, plane, scratch);
+                    sweep_bars<WIN, KIND>(b, s_s, dr, bar0, plane, scratch);
                 }
                 for (int j = 0; j < nr; ++j) {
                     const int g = g0 + j;

@@ -356,19 +356,7 @@ __device__ __noinline__ void env_heston_bar_step(const EngineArgs& a, const Samp
 #include "mc_engine_step.cuh"
 }
 
-#define ENV_GBM 0                     // KIND of the gbm kernels (sampler.cuh has the others)
-
-// The uniform rows of a pair of bars under sampler KIND, from the pair's
-// first row (a.stride rows a pair): the first bar's tie coin (the second's
-// tie_step rows on) and the first of its four noise rows (the second's four
-// on).  env_walk reads them here, the engine sweep (mc_engine_bar_sweep.cu)
-// where a row's replay needs them.
-template <int KIND>
-struct EnvRows {
-    static constexpr int tie = KIND == ENV_GBM ? 6 : KIND == SAMPLER_RESAMPLE ? 2 : 8;
-    static constexpr int tie_step = KIND == SAMPLER_RESAMPLE ? 1 : 3;
-    static constexpr int noise = KIND == ENV_GBM ? 10 : KIND == SAMPLER_RESAMPLE ? 4 : 12;
-};
+#include "mc_engine_bars.cuh"        // ENV_GBM, EnvRows
 
 // One path's walk under sampler KIND: the pairs of bars, as the parents
 // walk them (mc_engine.cu, mc_engine_samplers.cu), then an odd W's half

@@ -25,21 +25,25 @@
 // closed trade into the label harvest and latch an entry's features; they
 // are empty but in the envelope's harvest builds.
 //
+// What depends on the bars, the levels and the row's knobs alone -- the
+// nearest level, the direction, the volume veto's outcome and the policy
+// gate's -- is the text of mc_engine_nearest.cuh, mc_engine_veto.cuh,
+// mc_engine_policy.cuh and the direction's three lines, unless the family
+// defines ENGINE_BAR_NEAREST, ENGINE_BAR_DIRECTION, ENGINE_BAR_VETO and
+// ENGINE_BAR_POLICY_FAILS: the rows kernel (mc_engine_rows.cu), whose
+// producers compute them from that same text and hand them to the step.
+//
 // now_ms is an int: exact for every bar below 2^31 / 60000 (the wrappers
 // refuse longer horizons); the JAX kernel's float32 t * 60000 is exact below
 // 8947 bars (a multiple of 32 below 2^29), so the two agree at W = 390 or 1200.
     const int now_ms = t * 60000;
 
     // nearest valid level at the close (strict <: the first minimum wins)
-    float best_d = INF_F, best_p = 0.f;
-    int best_k = 0, best_i = 0;
-#pragma unroll
-    for (int i = 0; i < LEVEL_SLOTS; ++i) {
-        if (i < a.max_levels && LV_VALID(i)) {
-            const float d = fabsf(c - LV_PRICE(i));
-            if (d < best_d) { best_d = d; best_p = LV_PRICE(i); best_k = LV_KIND(i); best_i = i; }
-        }
-    }
+#ifdef ENGINE_BAR_NEAREST
+    ENGINE_BAR_NEAREST
+#else
+#include "mc_engine_nearest.cuh"
+#endif
 
     // ---- B) position management
     const bool was_open = st.side != 0;
@@ -140,10 +144,14 @@
     FIRST_FAIL(was_open, SK_IN_POSITION);
     FIRST_FAIL(now_ms < st.cooldown_until, SK_COOLDOWN);
     FIRST_FAIL(!a.has_levels, SK_NOLEVELS);
+#ifdef ENGINE_BAR_DIRECTION
+    const int direction = ENGINE_BAR_DIRECTION;
+#else
     int direction = 0;
     if (t > 0) {
         direction = c > st.prev_c + 1e-9f ? 1 : (c < st.prev_c - 1e-9f ? -1 : st.last_dir);
     }
+#endif
     FIRST_FAIL(direction == 0, SK_DIR_UNKNOWN);
     FIRST_FAIL(best_d > a.prox, SK_TOO_FAR);
     if (ok) {
@@ -215,35 +223,11 @@
 
         if (ok) {
             // 10) soft volume veto: slope over the newest min(6, t) volumes
-            const int n = min(t, 32);
-            const int m = min(6, n);
-            const int half = max(2, m / 2);
-            float v1 = 0.f, v2 = 0.f;
-            for (int i = 0; i < m; ++i) {            // oldest first
-                const float vi = rg.v(t - m + i);
-                if (i < half) v1 = v1 + vi;
-                if (i >= m - half) v2 = v2 + vi;
-            }
-            v1 = v1 / (float)half;
-            v2 = v2 / (float)half;
-            float slope = (v2 - v1) / (fabsf(v1) + 1e-9f);
-            if ((v1 == 0.f && v2 == 0.f) || n < 3) slope = 0.f;
-            int confl = 0, confl_pol = 0;
-#pragma unroll
-            for (int i = 0; i < LEVEL_SLOTS; ++i) {
-                if (i < a.max_levels && LV_VALID(i)) {
-                    const float dl = fabsf(LV_PRICE(i) - best_p);
-                    confl += dl <= a.confl_within ? 1 : 0;
-                    confl_pol += dl <= 0.6f ? 1 : 0;
-                }
-            }
-            const bool weak = fabsf(slope) < 0.05f && !(confl >= 2);
-            const bool near_v = best_d <= a.veto_near;
-            // coming from below <=> direction up <=> a long
-            const bool contra_long = go_long ? slope < -a.veto_strong : slope > a.veto_strong;
-            const bool contra_short = go_long ? slope > a.veto_strong : slope < -a.veto_strong;
-            const bool veto_long = near_v && go_long && contra_long;
-            const bool veto_short = near_v && !go_long && contra_short;
+#ifdef ENGINE_BAR_VETO
+            ENGINE_BAR_VETO
+#else
+#include "mc_engine_veto.cuh"
+#endif
             if (a.enable_veto && !weak && (veto_long || veto_short)) {
                 ok = false;
                 ++st.skips[veto_long ? SK_CONTRA_LONG : SK_CONTRA_SHORT];
@@ -270,20 +254,12 @@
 
             // 12) OnlinePolicy gate; the volume-trend feature is 0
             if (a.policy_on && ok) {
-                const float x[7] = {1.0f, fminf(best_d, 1.0f), 0.0f,
-                                    go_long ? 0.0f : 1.0f, go_long ? 1.0f : 0.0f,
-                                    confl_pol > 1 ? 1.0f : 0.0f,
-                                    fminf((float)(a.bar0_minute + t) / 390.0f, 1.0f)};
-                float s[3];
-#pragma unroll
-                for (int act = 0; act < 3; ++act) {
-                    float zp = a.pol_w[act][0] * x[0];
-#pragma unroll
-                    for (int d = 1; d < 7; ++d) zp = zp + a.pol_w[act][d] * x[d];
-                    s[act] = zp < -50.f ? 0.f : (zp > 50.f ? 1.f : 1.0f / (1.0f + expf(-zp)));
-                }
-                const float chosen = go_long ? s[0] : s[1];
+#ifdef ENGINE_BAR_POLICY_FAILS
+                FIRST_FAIL(ENGINE_BAR_POLICY_FAILS, SK_ONLINE_POLICY);
+#else
+#include "mc_engine_policy.cuh"
                 FIRST_FAIL(!(chosen >= 0.6f && s[2] < 0.55f), SK_ONLINE_POLICY);
+#endif
             }
 
             if (ok) {

@@ -8,12 +8,19 @@ kernels' envelope: 1-64 level slots (``MAX_KERNEL_LEVELS``), any horizon W
 >= 2 (an odd W ends with a half step; a book's W is even) and horizons past
 the guard's 61-bar window (the windowed guard), in the single configuration,
 the sweep, the universe, the sweep of universes and the correlated book.
-Each launch goes to the parent kernel where it fits (<= 8 level slots, an
-even W <= 61: ``ops/csrc/mc_engine*.cu``) and to the envelope kernel
-otherwise (``ops/csrc/mc_engine_wide*.cu``, ``needs_envelope``), counted under the
-parent's name with ``_wide`` (``mc_engine_wide``, ``mc_engine_wide_sampler``,
-...).  ``harvest=True`` (the single run, the universe and the book) adds the
-closed-trade label harvest (``models/harvest.EngineHarvest``) and goes to the
+Where the parent kernels fit (<= 8 level slots, an even W <= 61) the single
+run, the universe and the sweep of universes go to the rows kernel
+(``ops/csrc/mc_engine_rows.cu``: producer warpgroups make the bars, two
+consumer warpgroups run the lifecycle; equal to the parents
+``mc_engine_sweep_kernel`` and ``mc_engine_sampler_kernel`` bit for bit),
+counted under the parent's name with ``_rows`` (``mc_engine_rows``,
+``mc_engine_rows_sampler``, ``mc_engine_rows_universe``, ...; the parents
+stay built, as the checks' A/B, ``_FORCE_PARENT``), the books to their
+parents (``ops/csrc/mc_engine_corr*.cu``); elsewhere each launch goes to the
+envelope kernel (``ops/csrc/mc_engine_wide*.cu``, ``needs_envelope``), counted
+under the parent's name with ``_wide`` (``mc_engine_wide``,
+``mc_engine_wide_sampler``, ...).  ``harvest=True`` (the single run, the
+universe and the book) adds the closed-trade label harvest (``models/harvest.EngineHarvest``) and goes to the
 envelope kernels' harvest builds at every shape
 (``ops/csrc/mc_engine_wide*_harvest.cu``, counted under the envelope's name
 with ``_harvest``: ``mc_engine_wide_harvest``, ``mc_engine_wide_universe_harvest``,
@@ -27,11 +34,10 @@ windowed guard's rings (``env_scratch_slots``) and the persistent grid's cell
 counter.
 
 * ``mc_paths_engine_fused`` -- the entry.  For a CUDA device it launches
-  ``ops/csrc/mc_engine.cu`` (pass 1: the sweep kernel at one grid row, one
-  thread per path, one partial row per CTA; pass 2: a fixed-order fold of
-  the rows), or for the bootstrap, block-bootstrap and Heston samplers
-  ``ops/csrc/mc_engine_samplers.cu`` (pass 1: ``mc_engine_sampler_kernel``;
-  the same fold), or raises.  For the CPU it runs the plain version.
+  ``ops/csrc/mc_engine_rows.cu`` (pass 1: ``mc_engine_rows_kernel`` at one
+  row, under gbm and the bootstrap, block-bootstrap and Heston samplers, one
+  partial row per CTA; pass 2: ``ops/csrc/mc_engine.cu``'s fixed-order fold
+  of the rows), or raises.  For the CPU it runs the plain version.
 * ``engine_totals_reference`` -- the plain PyTorch version: the TPU kernel's
   double-bar streaming loop over (block, 8, lanes) tensors, driving
   ``sim.enginepath.EngineLifecycle.step``; optionally per path.
@@ -49,7 +55,7 @@ counter.
   counterpart of ``mc_paths_pallas_engine_universe`` (kernel #10,
   ``_engine_universe_kernel``, ``pallas_engine.py:2098-2279``, ``:2598-2689``):
   the sweep of universes below at one grid row, so S symbols in one launch of
-  ``mc_engine_sweep_kernel`` with one row per symbol (its levels, s0, sigma,
+  ``mc_engine_rows_kernel`` with one row per symbol (its levels, s0, sigma,
   all 17 knobs and noise stds, its key ``prng.stream_key``; the ML, policy,
   touch and guard records shared); row s equals ``mc_paths_engine_fused`` at
   symbol s's inputs and ``symbol=s``, bit for bit; with ``harvest=True``
@@ -60,9 +66,9 @@ counter.
   (leaves scalar, [G] or [S, G]) on symbol s's key (common random numbers
   within a symbol); it equals the engine universe at symbol s under row g's
   knobs, bit for bit.  Under the bootstrap, block-bootstrap and Heston
-  samplers the universe and the sweep of universes launch
-  ``mc_engine_sampler_kernel`` (``ops/csrc/mc_engine_samplers.cu``) with the
-  same rows, a universe's symbols each on their own recorded history.
+  samplers the universe and the sweep of universes launch the same kernel's
+  sampler kinds with the same rows, a universe's symbols each on their own
+  recorded history.
 * ``LAUNCHES`` -- how many times each kernel was launched.
 
 Uniforms follow ``ops/draws.EngineLayout``: injected as ``external_uniforms``
@@ -138,6 +144,12 @@ LAUNCHES.update({k + "_harvest": 0 for k in (
 LAUNCHES["mc_engine_harvest_reduce_rows"] = 0
 # the engine sweep (every launch of engine_sweep_rows): gbm, and the samplers
 LAUNCHES.update({"mc_engine_bar_sweep": 0, "mc_engine_bar_sweep_sampler": 0})
+# the single-run rows kernel (ops/csrc/mc_engine_rows.cu): each launch counter
+# of the parents it takes, with "_rows" (mc_engine_rows, mc_engine_rows_sampler,
+# mc_engine_rows_universe, ...)
+LAUNCHES.update({"mc_engine_rows" + k: 0 for k in (
+    "", "_sampler", "_universe", "_universe_sampler", "_universe_sweep",
+    "_universe_sweep_sampler")})
 HV_COUNTS, HV_SUMS = HV.COUNT_COLS, HV.SUM_COLS   # a harvest partial row's columns
 
 
@@ -555,6 +567,30 @@ def _sampler_library() -> ctypes.CDLL:
     return lib
 
 
+ROWS_SOURCE = "mc_engine_rows"
+
+
+def _rows_library() -> ctypes.CDLL:
+    """The single-run rows kernel's library (``ops/csrc/mc_engine_rows.cu``),
+    built at first use, with its C signature set and its struct layouts
+    checked against the host's; the engine library first (the fold and the
+    error strings are its)."""
+    _library()
+    lib = build.load(ROWS_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmmx_engine_rows_size.argtypes = [ci]
+        lib.qmmx_engine_rows_size.restype = ci
+        lib.qmmx_mc_engine_rows.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_rows.restype = ci
+        if [lib.qmmx_engine_rows_size(i) for i in range(2)] != [ctypes.sizeof(_EngineArgs),
+                                                                ctypes.sizeof(SamplerArgs)]:
+            raise RuntimeError("the struct layouts differ between mc_engine_rows.cu "
+                               "and cuda_engine.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
 _WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_wide*.cu)
     # v: a pointer (or the stream), i: an int, u: an unsigned (the market key)
     # (every entry ends with the scratch and the cell counter before the
@@ -686,6 +722,13 @@ def env_tail(max_levels: int, num_bars: int, device) -> tuple:
     return (scratch.data_ptr(), ctas, next_cell.data_ptr()), (scratch, next_cell)
 
 
+def _rows(what: str) -> str:
+    """The rows kernel's launch counter of a parent's: ``mc_engine`` ->
+    ``mc_engine_rows``, ``mc_engine_universe_sampler`` ->
+    ``mc_engine_rows_universe_sampler``."""
+    return "mc_engine_rows" + what[len("mc_engine"):]
+
+
 def _wide(what: str) -> str:
     """The envelope kernel's launch counter of a parent's counter ``what``."""
     return "mc_engine_wide" + what[len("mc_engine"):]
@@ -770,6 +813,12 @@ def needs_envelope(max_levels: int, num_bars: int) -> bool:
 _FORCE_ENVELOPE = False
 
 
+# A check's hook: while true, the launches the rows kernel takes go to the
+# parents it replaced (mc_engine_sweep_kernel, mc_engine_sampler_kernel), to
+# hold the two against each other bit for bit.
+_FORCE_PARENT = False
+
+
 def _use_envelope(max_levels: int, num_bars: int, harvest: bool = False) -> bool:
     """Whether a launch goes to the envelope kernels: where the parents do
     not take the shape, under the checks' hook, and always with the harvest
@@ -847,10 +896,12 @@ def _pack_args(seed, levels: Levels, params, kw: dict, layout: EngineLayout, *, 
 
 def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
             device: torch.device, per_path: bool, what: str, harvest: bool = False):
-    """One launch of ``mc_engine_sweep_kernel`` over the argument structs
-    ``args`` (one per grid row) of ``levels`` ([L], or a row's [G, L]),
-    counted in ``LAUNCHES[what]``, or where the parent does not take the
-    shape (``_use_envelope``) of ``mc_engine_wide_kernel`` on the rows'
+    """One launch of ``mc_engine_rows_kernel`` under gbm over the argument
+    structs ``args`` (one per grid row) of ``levels`` ([L], or a row's [G,
+    L]), counted in ``LAUNCHES[_rows(what)]`` (under ``_FORCE_PARENT`` of the
+    parent it replaced, ``mc_engine_sweep_kernel``, counted in
+    ``LAUNCHES[what]``), or where the parents do not take the shape
+    (``_use_envelope``) of ``mc_engine_wide_kernel`` on the rows'
     ``level_table``, counted in ``LAUNCHES[_wide(what)]``, or with
     ``harvest`` of ``mc_engine_wide_harvest_kernel``, counted in
     ``LAUNCHES[_wide(what) + "_harvest"]``: int64 [G, grid, 151] and f32 [G,
@@ -882,9 +933,13 @@ def _launch(args, levels: Levels, num_bars: int, *, num_paths: int, ext_ptr,
         rc = _wide_library("_wide").qmmx_mc_engine_wide_sweep(
             args_dev.data_ptr(), table.data_ptr(), g, max_levels, num_bars, *tail[:5], *env,
             tail[5])
-    else:
+    elif _FORCE_PARENT:
         rc = _library().qmmx_mc_engine_sweep(args_dev.data_ptr(), g, max_levels, num_bars,
                                              *tail)
+    else:
+        what = _rows(what)
+        rc = _rows_library().qmmx_mc_engine_rows(args_dev.data_ptr(), None, g, _GBM_KIND,
+                                                 max_levels, num_bars, *tail)
     _raise_on(rc, what)
     LAUNCHES[what] += 1
     return (part_counts, part_floats) + ((path_rows,) if per_path else ()) + hv
@@ -900,10 +955,10 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
                 per_path: bool = False, symbol: int = 0, sampler: str = "gbm",
                 hist_bars=None, tables=None, block_len: int = 10, heston=None,
                 harvest: bool = False):
-    """Launch pass 1 on a CUDA device (the kernel at one grid row, or for
-    the other samplers ``mc_engine_sampler_kernel``; their envelope forms
-    where the shape needs them, their harvest builds with ``harvest``,
-    ``_launch``): int64 [grid, 151] count rows and f32 [grid, 6] float rows,
+    """Launch pass 1 on a CUDA device (``mc_engine_rows_kernel`` at one row,
+    under gbm or the other samplers; the envelope kernels where the shape
+    needs them, their harvest builds with ``harvest``; ``_launch``,
+    ``_sampler_launch``): int64 [grid, 151] count rows and f32 [grid, 6] float rows,
     one row per CTA, plus the f32[P, PATH_COLS] per-path rows of
     ``path_rows`` when ``per_path``, plus int64 [grid, 72] and f32 [grid, 16]
     harvest rows with ``harvest``; Philox keyed as universe symbol
@@ -933,10 +988,12 @@ def engine_rows(seed, levels: Levels, params, *, policy=None, ml_model=None,
 def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
                     num_paths: int, ext_ptr, device: torch.device, per_path: bool, what: str,
                     table_rows=None, harvest: bool = False):
-    """One launch of ``mc_engine_sampler_kernel`` over the argument structs
-    ``args`` (one per row) of ``levels`` under ``sampler``, row r reading
+    """One launch of ``mc_engine_rows_kernel`` under ``sampler`` over the
+    argument structs ``args`` (one per row) of ``levels``, row r reading
     table ``table_rows[r]`` (default: the one history), counted in
-    ``LAUNCHES[what]``, or where the parent does not take the shape of
+    ``LAUNCHES[_rows(what)]`` (under ``_FORCE_PARENT`` of the parent it
+    replaced, ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what]``),
+    or where the parents do not take the shape of
     ``mc_engine_wide_sampler_kernel`` (``_use_envelope``), counted in
     ``LAUNCHES[_wide(what)]``, or with ``harvest`` of
     ``mc_engine_wide_sampler_harvest_kernel``, counted in
@@ -971,8 +1028,13 @@ def _sampler_launch(args, levels: Levels, sampler: Sampler, num_bars: int, *,
         rc = _wide_library("_wide_samplers").qmmx_mc_engine_wide_sampler(
             args_dev.data_ptr(), samp_dev.data_ptr(), table.data_ptr(), n,
             SAMPLER_KINDS[sampler.kind], max_levels, num_bars, *tail[:5], *env, tail[5])
-    else:
+    elif _FORCE_PARENT:
         rc = _sampler_library().qmmx_mc_engine_sampler(
+            args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind],
+            max_levels, num_bars, *tail)
+    else:
+        what = _rows(what)
+        rc = _rows_library().qmmx_mc_engine_rows(
             args_dev.data_ptr(), samp_dev.data_ptr(), n, SAMPLER_KINDS[sampler.kind],
             max_levels, num_bars, *tail)
     _raise_on(rc, what)
@@ -1250,7 +1312,7 @@ def mc_paths_engine_sweep_fused(seed, levels: Levels, grid_params, *, n_grid=Non
 
 
 # --------------------------------------------------------------------------
-# the universes (kernels #10 and #11): one row of mc_engine_sweep_kernel per
+# the universes (kernels #10 and #11): one row of mc_engine_rows_kernel per
 # (symbol, grid row); the engine universe is the sweep of universes at one
 # grid row
 # --------------------------------------------------------------------------
@@ -1350,10 +1412,10 @@ def engine_universe_sweep_rows(seed, levels: Levels, grid_params, s0, sigma, *,
                                hist_bars=None, tables=None, block_len: int = 10,
                                heston=None, harvest: bool = False):
     """Launch the sweep of universes' pass 1 on a CUDA device, one launch of
-    ``mc_engine_sweep_kernel`` (or under the other samplers
-    ``mc_engine_sampler_kernel``, counted in ``LAUNCHES[what + "_sampler"]``,
-    cell (s, g) reading symbol s's history) with S x G rows (row s * G + g
-    for (s, g)), under gbm counted in ``LAUNCHES[what]``: int64 [S, G, grid,
+    ``mc_engine_rows_kernel`` (``_launch``, ``_sampler_launch``; under the
+    other samplers counted in ``LAUNCHES[_rows(what) + "_sampler"]``, cell
+    (s, g) reading symbol s's history) with S x G rows (row s * G + g for (s,
+    g)), under gbm counted in ``LAUNCHES[_rows(what)]``: int64 [S, G, grid,
     151] and f32 [S, G, grid, 6] partial rows, plus f32[S, G, P, PATH_COLS]
     per-path rows when ``per_path``, plus int64 [S, G, grid, 72] and f32 [S,
     G, grid, 16] harvest rows with ``harvest`` (the harvest builds of the
@@ -1433,7 +1495,7 @@ def engine_universe_rows(seed, levels: Levels, params, s0, sigma, *, noise=None,
                          harvest: bool = False, **kw):
     """Launch the universe's pass 1 on a CUDA device: the sweep of
     universes' launch at one grid row, counted in
-    ``LAUNCHES["mc_engine_universe"]`` (with ``harvest``: its harvest build,
+    ``LAUNCHES["mc_engine_rows_universe"]`` (with ``harvest``: its harvest build,
     ``mc_engine_wide_universe_harvest``): int64 [S, grid, 151] and f32 [S,
     grid, 6] partial rows, plus f32[S, P, PATH_COLS] per-(symbol, path) rows
     with ``per_path``, plus int64 [S, grid, 72] and f32 [S, grid, 16] harvest

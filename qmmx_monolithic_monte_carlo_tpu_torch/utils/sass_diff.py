@@ -52,8 +52,8 @@ def functions(library: str) -> dict:
         if m:
             cur = m.group(1)
             out[cur] = []
-        elif cur and re.search(r"/\*[0-9a-f]{4}\*/", line):
-            out[cur].append(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0].strip())
+        elif cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[cur].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split(";")[0].strip())
     return out
 
 

@@ -200,7 +200,8 @@ def _differ(got, want):
             | (err > 1e-3 * np.maximum(want[:, 1], 1.0)))
 
 
-@pytest.mark.parametrize("noisy,anti", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("noisy,anti", [(False, False), (True, False), (False, True),
+                                        (True, True)])
 def test_plain_version_matches_jax_replay_on_the_kernel_test_bars(noisy, anti):
     """tests/test_pallas_engine.py:_bars_from_uniforms is the JAX kernel
     test's own reference.  The plain version makes its bars from the same

@@ -298,12 +298,12 @@ def test_cuda_kernel_matches_plain_per_path(case):
               **(armed() if armed else {}))
     want = CE.engine_totals_reference(0, _levels(), params,
                                       external_uniforms=u, per_path=True, **kw)
-    before = CE.LAUNCHES["mc_engine"]
+    before = CE.LAUNCHES["mc_engine_rows"]
     pc, pf, rows = CE.engine_rows(0, _levels(), params,
                                   external_uniforms=u.cuda(), per_path=True, **kw)
     counts, _ = CE.reduce_rows(pc, pf)
     torch.cuda.synchronize()
-    assert CE.LAUNCHES["mc_engine"] == before + 1
+    assert CE.LAUNCHES["mc_engine_rows"] == before + 1
     flips = 2 + kw["num_paths"] // 1024
     differing = per_path_budget(rows.cpu(), want[2])
     assert differing <= flips

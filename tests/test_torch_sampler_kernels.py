@@ -240,7 +240,7 @@ def test_cuda_lifecycle_sampler_kernels_match_plain_per_path(engine, sampler):
     ref = mod.engine_totals_reference if engine else mod.gated_totals_reference
     launch = mod.engine_rows if engine else mod.gated_rows
     want = ref(*args, external_uniforms=u, **kw)
-    name = "mc_engine_sampler" if engine else "mc_gated_sampler"
+    name = "mc_engine_rows_sampler" if engine else "mc_gated_sampler"
     before = mod.LAUNCHES[name]
     pc, pf, rows = launch(*args, external_uniforms=u.to(dev), device=dev, **kw)
     counts, _ = mod.reduce_rows(pc, pf)

@@ -204,7 +204,7 @@ def test_cuda_lifecycle_sampler_universe_rows(engine, sampler):
         ref = lambda **k: mod.engine_universe_totals_reference(0, levels, params, S0, SIGMAS,
                                                                **k)
         launch = lambda **k: mod.engine_universe_rows(0, levels, params, S0, SIGMAS, **k)
-        name = "mc_engine_universe_sampler"
+        name = "mc_engine_rows_universe_sampler"
     else:
         gate = GateConfig.from_params(params)
         ref = lambda **k: mod.gated_universe_totals_reference(0, levels, params, S0, SIGMAS,
@@ -311,11 +311,11 @@ def test_cuda_lifecycle_sampler_sweep_rows(engine, sampler):
         return
     slv = stack_levels(SYM_ROWS, max_levels=8)
     sg = params.replace(stop_padding=torch.tensor(STOPS[:2]), tp_padding=torch.tensor(TPS[:2]))
-    before = mod.LAUNCHES["mc_engine_universe_sweep_sampler"]
+    before = mod.LAUNCHES["mc_engine_rows_universe_sweep_sampler"]
     pc, pf, prow = mod.engine_universe_sweep_rows(
         0, slv, sg, S0, SIGMAS, paths_per_symbol=n, num_bars=W, dt=DT, lanes=lanes,
         device=dev, per_path=True, **_skw(sampler, True))
-    assert mod.LAUNCHES["mc_engine_universe_sweep_sampler"] == before + 1
+    assert mod.LAUNCHES["mc_engine_rows_universe_sweep_sampler"] == before + 1
     for s in range(3):
         for g in range(2):
             one = single(grid_row(slv, s), grid_row(sg, g), num_paths=n, num_bars=W,
