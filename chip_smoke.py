@@ -152,10 +152,12 @@ Phases (any failure exits non-zero and prints no result line):
    --backend cuda`` at the main-path size, launch counts set to 0 just
    before and read just after (one ``mc_gated_corr`` and one fold a run,
    nothing else), rows in the JAX CLI's form; the CLI's defaults once;
-20. engine book (``mc_engine_corr_kernel``, mc_engine_corr.cu): the same, with
-   the ML and policy gates armed, noise and antithetic in one injected case
-   and the accumulation gates active in another, the identity against the
-   engine universe kernel (#10), the curves in device memory, and ``book
+20. engine book (``mc_engine_book_rows_kernel``, mc_engine_book_rows.cu): the
+   same, with the ML and policy gates armed, noise and antithetic in one
+   injected case and the accumulation gates active in another, every case
+   and the main path's sample equal bit for bit to the parent it replaced
+   (``mc_engine_corr_kernel``), the identity against the engine universe
+   kernel (#10), the parent timed at the main path's size, and ``book
    --engine --backend cuda``;
    the recorded-bar and Heston samplers of kernels #1, #4 and #8 (bootstrap,
    block bootstrap with ``--block-len 10``, Heston at the JAX defaults), the
@@ -233,8 +235,11 @@ Phases (any failure exits non-zero and prints no result line):
    --sampler ...`` at 100 x 2^20 x 40 on the CSV history, launch counts set
    to 0 just before and read just after (one sampler launch and one fold a
    run, nothing else);
-28. engine book (``mc_engine_corr_sampler_kernel``, mc_engine_corr_samplers.cu):
-   the same with the engine's two budgets, the plain version on the card on
+28. engine book samplers (``mc_engine_book_rows_kernel``,
+   mc_engine_book_rows.cu): the same with the engine's two budgets, every
+   injected and Philox case equal bit for bit to the parent it replaced
+   (``mc_engine_corr_sampler_kernel``), the parent timed at the main path's
+   size, the plain version on the card on
    a book of the main path's symbols 0, 11, ..., 99 (launch-bound a symbol at
    a time), and
    ``book --engine``;
@@ -327,7 +332,8 @@ envelope kernel forced to run where the parent fits (``parent_times``), with
 their count digests.  ``python3 chip_smoke.py --envelope-times TREE
 [--no-guard | --min-blocks G,S[,B]] [--books]`` times the envelope
 kernels of the port in TREE at their main paths' shapes, the books included
-(``--books``: the books alone), with count
+(``--books``: the books alone; at 100 x 2^20 x 40 the parent book, the book
+rows kernel and the envelope book forced in turns), with count
 digests and ptxas resources (``envelope_times``), for a parent unpacked with
 ``git archive`` against this tree in turns (the two options build probes: no
 windowed guard, or other ``__launch_bounds__``, B the books').
@@ -470,7 +476,7 @@ GATED_SWEEP_SOURCE = CSRC + "mc_gated_sampler_sweep.cu"
 ENGINE_SOURCE = CSRC + "mc_engine.cu"
 ENGINE_ROWS_SOURCE = CSRC + "mc_engine_rows.cu"
 GATED_CORR_SOURCE = CSRC + "mc_gated_corr.cu"
-ENGINE_CORR_SOURCE = CSRC + "mc_engine_corr.cu"
+BOOK_ROWS_SOURCE = CSRC + "mc_engine_book_rows.cu"
 BAR_SWEEP_SOURCE = CSRC + "mc_engine_bar_sweep.cu"
 FC_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:584"
 GATED_REPLACES = "qmmx_monolithic_monte_carlo_tpu/ops/pallas_mc.py:1067"
@@ -2440,9 +2446,9 @@ def book_phases(dev, card, reset, cli) -> list:
              ENGINE_INJECT_BLOCKS),
             ("accumulation", accumulating, np.full(3, 0.05, np.float32), None, False, 4)):
         n = blocks * 8 * lanes
-        log(f"[20] engine book (mc_engine_corr_kernel), injected uniforms: 3 symbols x {n} "
-            f"paths ([S] knobs, beta, weight), {case}: kernel vs plain on CPU copies path by "
-            "path, every differing path traced")
+        log(f"[20] engine book (mc_engine_book_rows_kernel), injected uniforms: 3 symbols x "
+            f"{n} paths ([S] knobs, beta, weight), {case}: kernel vs plain on CPU copies path "
+            "by path, every differing path traced; kernel vs the parent bit for bit")
         rng = np.random.default_rng(800 + blocks)
         u = torch.from_numpy(rng.uniform(1e-6, 1.0, (
             3, blocks, EngineLayout(NUM_BARS, nz is not None).u_rows, 8, lanes)).astype(
@@ -2455,9 +2461,14 @@ def book_phases(dev, card, reset, cli) -> list:
                                                         external_uniforms=u,
                                                         market_uniforms=um, harvest=True,
                                                         **kw)
-        pc, pf, prow = cuda_engine.engine_corr_rows(0, lv3, p3e, s0_3, sig, b3, w3, device=dev,
-                                                    external_uniforms=u.to(dev),
-                                                    market_uniforms=um.to(dev), **kw)
+
+        def inj(kw=kw, sig=sig, u=u, um=um):
+            return cuda_engine.engine_corr_rows(0, lv3, p3e, s0_3, sig, b3, w3, device=dev,
+                                                external_uniforms=u.to(dev),
+                                                market_uniforms=um.to(dev), **kw)
+
+        pc, pf, prow = inj()
+        same_as_parent(f"engine book, {case}", cuda_engine, inj)
         ec, ef = cuda_engine.reduce_rows(pc, pf)
         *h_rows, h_c, h_s = cuda_engine.engine_corr_rows(
             0, lv3, p3e, s0_3, sig, b3, w3, device=dev, external_uniforms=u.to(dev),
@@ -2532,6 +2543,8 @@ def book_phases(dev, card, reset, cli) -> list:
     (sc, sf, srow, shv), e_plain_ms = timed(lambda: cuda_engine.engine_corr_totals_reference(
         0, *cmp_book, chunk_blocks=64, harvest=True, **skw))
     krows = cuda_engine.engine_corr_rows(0, *cmp_book, **skw)
+    same_as_parent("the main path's book sample", cuda_engine,
+                   lambda: cuda_engine.engine_corr_rows(0, *cmp_book, **skw))
     e_err = max(e_err, same_on_card(
         "engine book", (sc, sf, srow), (*cuda_engine.reduce_rows(krows[0], krows[1]), krows[2]),
         n_cmp + 1, BOOK_SAMPLE_PATHS, lambda i: "the book" if i == n_cmp else f"symbol {i}"))
@@ -2549,6 +2562,10 @@ def book_phases(dev, card, reset, cli) -> list:
                 external_uniforms=None, device=dev)
     e_main_ms = alone("the engine book kernel",
                       lambda: cuda_engine.engine_corr_rows(0, *book100, **main))
+    e_main_parent_ms = cuda_ms(parent_run(
+        cuda_engine, lambda: cuda_engine.engine_corr_rows(0, *book100, **main)), 1)
+    log(f"  the parent (mc_engine_corr_kernel) at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: "
+        f"{e_main_parent_ms:.3f} ms")
     sc = sc.cpu()
     # the sample's work, for all 100 symbols' paths
     e_ops = engine_ops(BOOK_SYMBOLS * BOOK_PATHS, sc[:-1].sum(0),
@@ -2576,7 +2593,7 @@ def book_phases(dev, card, reset, cli) -> list:
             f"{BOOK_PATHS} paths x {NUM_BARS} bars")
         lines, e_secs, e_launches = run_cli(
             cli, db + book_argv(True), reset,
-            {"mc_engine_corr": 1, "mc_engine_corr_reduce_rows": 1},
+            {"mc_engine_rows_corr": 1, "mc_engine_corr_reduce_rows": 1},
             work=BOOK_SYMBOLS * BOOK_PATHS, unit="paths x symbols")
         check_book_output(lines, BOOK_SYMBOLS, True)
         log(f"  book row: {json.dumps(lines[-1])}")
@@ -2611,12 +2628,13 @@ def book_phases(dev, card, reset, cli) -> list:
                             grid_size(BOOK_PATHS)))
     log(f"  the harvest book kernel alone at {BOOK_SYMBOLS} x {BOOK_PATHS} paths: "
         f"{h_t['harvest']:.3f} ms, the envelope kernel without the harvest {h_t['wide']:.3f} ms "
-        f"({h_t['harvest'] / h_t['wide']:.4f}x; the parent {e_main_ms:.3f} ms)")
-    out += [entry("mc_engine_corr", ENGINE_CORR_SOURCE, ENGINE_CORR_REPLACES,
-                  e_launches["mc_engine_corr"], e_err, e_main_ms, e_plain_ms, e_bound,
+        f"({h_t['harvest'] / h_t['wide']:.4f}x; the book rows kernel {e_main_ms:.3f} ms, "
+        f"the parent {e_main_parent_ms:.3f} ms)")
+    out += [entry("mc_engine_rows_corr", BOOK_ROWS_SOURCE, ENGINE_CORR_REPLACES,
+                  e_launches["mc_engine_rows_corr"], e_err, e_main_ms, e_plain_ms, e_bound,
                   symbols=BOOK_SYMBOLS, paths=BOOK_PATHS, plain_paths=BOOK_SAMPLE_PATHS,
                   plain_symbols=n_cmp, kernel_ms_at_plain_size=e_sample_ms,
-                  cli_s=e_secs[1:]),
+                  parent_ms=e_main_parent_ms, envelope_ms=h_t["wide"], cli_s=e_secs[1:]),
             entry("mc_engine_corr_reduce_rows", ENGINE_SOURCE, ENGINE_CORR_REPLACES,
                   e_launches["mc_engine_corr_reduce_rows"], e_red_err, e_red_ms,
                   e_red_plain_ms, e_red_bound, rows=int(e_rows[0].shape[1]),
@@ -3704,7 +3722,6 @@ def sampler_rows_phases(dev, card, reset, cli) -> list:
 # ---- the samplers of the books (kernels #7 and #12): joint recorded days from
 # the market stream, Heston's second market pair
 GATED_CORR_SAMPLER_SOURCE = CSRC + "mc_gated_corr_samplers.cu"
-ENGINE_CORR_SAMPLER_SOURCE = CSRC + "mc_engine_corr_samplers.cu"
 BOOK_SAMPLER_INJECT_BLOCKS = {"gated": 1, "engine": 1}
 BOOK_SAMPLER_PHILOX_PATHS = 1 << 16
 
@@ -3811,8 +3828,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
         mod = cuda_engine if eng else cuda_gated
         lanes = ENGINE_LANES if eng else GATED_LANES
         p3f = p3.replace(q_min_prob=[0.60, 0.40, 0.55]) if eng else p3
-        kname = f"mc_{family}_corr_sampler"
-        source = ENGINE_CORR_SAMPLER_SOURCE if eng else GATED_CORR_SAMPLER_SOURCE
+        kname = "mc_engine_rows_corr_sampler" if eng else "mc_gated_corr_sampler"
+        source = BOOK_ROWS_SOURCE if eng else GATED_CORR_SAMPLER_SOURCE
         replaces = ENGINE_CORR_REPLACES if eng else GATED_CORR_REPLACES
         Lay = EngineLayout if eng else GatedLayout
 
@@ -3837,10 +3854,13 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
         err = {s: 0.0 for s in SAMPLERS}
         nb = BOOK_SAMPLER_INJECT_BLOCKS[family]
         n_inj = nb * 8 * lanes
-        log(f"[{ph}] {family} book samplers ({kname}_kernel, {source.split('/')[-1]}): "
+        log(f"[{ph}] {family} book samplers "
+            f"({'mc_engine_book_rows' if eng else kname}_kernel, {source.split('/')[-1]}): "
             f"injected uniforms, 3 symbols x {n_inj} paths (own histories, levels, s0, "
             "sigma, beta, weight, knobs; [S] noise stds), kernel vs plain on CPU copies path "
-            "by path, every differing path traced")
+            "by path, every differing path traced"
+            + ("; kernel vs the parent (mc_engine_corr_sampler_kernel) bit for bit" if eng
+               else ""))
         for s in SAMPLERS:
             samp = make_sampler(s, tables=tables3, block_len=SAMPLER_BLOCK_LEN, symbols=3)
             for nz in (None, noise3):
@@ -3855,6 +3875,11 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
                                 per_path=True)
                 pc, pf, prow = rows_fn(0, book3, n_inj, s, tables3, nz, u.to(dev), um.to(dev),
                                        per_path=True)
+                if eng:
+                    same_as_parent(f"engine book {case}", cuda_engine,
+                                   lambda s=s, nz=nz, u=u, um=um: rows_fn(
+                                       0, book3, n_inj, s, tables3, nz, u.to(dev), um.to(dev),
+                                       per_path=True))
                 got = (*mod.reduce_rows(pc, pf), prow)
                 torch.cuda.synchronize()
 
@@ -3945,6 +3970,9 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
         for s in SAMPLERS:
             want = plain_fn(3, book3, n_ph, s, tables3, per_path=True, chunk_blocks=64)
             pc, pf, prow = rows_fn(3, book3, n_ph, s, tables3, per_path=True)
+            if eng:
+                same_as_parent(f"engine book {s} philox", cuda_engine,
+                               lambda s=s: rows_fn(3, book3, n_ph, s, tables3, per_path=True))
             err[s] = max(err[s], same_on_card(f"{s} philox", want,
                                               (*mod.reduce_rows(pc, pf), prow), 4, n_ph,
                                               lambda i: "book" if i == 3 else f"symbol {i}",
@@ -4003,6 +4031,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
             sample_ms = cuda_ms(lambda: rows_fn(0, cmp_book, BOOK_SAMPLE_PATHS, s, tb), 1)
             rows_fn(0, book100, BOOK_PATHS, s, tb)                     # warm
             main_ms = cuda_ms(lambda: rows_fn(0, book100, BOOK_PATHS, s, tb), 2)
+            parent_ms = (cuda_ms(parent_run(cuda_engine, lambda: rows_fn(
+                0, book100, BOOK_PATHS, s, tb)), 1) if eng else None)
             sc = res[0].cpu()
             scale = BOOK_PATHS / BOOK_SAMPLE_PATHS * BOOK_SYMBOLS / n_cmp
             # the sample's work (its n_cmp symbols, for the engine) scaled to
@@ -4024,7 +4054,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
                 f"({BOOK_SYMBOLS * BOOK_PATHS / main_ms * 1e3:.6e} paths x symbols/s), bound "
                 f"{bound['bound_ms']:.3f} ms {bound['bound_parts']}; at {n_cmp} x "
                 f"{BOOK_SAMPLE_PATHS}: kernel {sample_ms:.3f} ms, plain on the card "
-                f"{plain_ms:.3f} ms")
+                f"{plain_ms:.3f} ms" + (f"; the parent at {BOOK_SYMBOLS} x {BOOK_PATHS} "
+                                        f"{parent_ms:.3f} ms" if eng else ""))
             with tempfile.TemporaryDirectory() as db:
                 argv = ["--db", os.path.join(db, "smoke.db")] + book_sampler_argv(eng, s, csv)
                 log(f"  main path: cli book{' --engine' if eng else ''} --backend cuda "
@@ -4038,7 +4069,8 @@ def book_sampler_phases(dev, card, reset, cli) -> list:
                                  main_ms, plain_ms, bound, sampler=s, symbols=BOOK_SYMBOLS,
                                  paths=BOOK_PATHS, plain_symbols=n_cmp,
                                  plain_paths=BOOK_SAMPLE_PATHS,
-                                 kernel_ms_at_plain_size=sample_ms, cli_s=secs[1:]))
+                                 kernel_ms_at_plain_size=sample_ms, cli_s=secs[1:],
+                                 **({"parent_ms": parent_ms} if eng else {})))
     tmp.cleanup()
     return entries
 
@@ -4119,9 +4151,9 @@ def parent_run(CE, fn):
 
 
 def same_as_parent(name: str, CE, launch) -> None:
-    """``launch()`` on the rows kernel (mc_engine_rows.cu) and on the parent
-    it replaced: every output tensor (partial rows, per-path rows) equal bit
-    for bit, or raise."""
+    """``launch()`` on the rows kernel (mc_engine_rows.cu; a book's
+    mc_engine_book_rows.cu) and on the parent it replaced: every output
+    tensor (partial rows, per-path rows) equal bit for bit, or raise."""
     import torch
 
     got = launch()
@@ -5382,10 +5414,10 @@ def count_digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def ptxas_resources(log: str) -> dict:
-    """{function: {registers, stack, spill}} of the ``mc_engine_wide*``
-    kernels and the bar steps (their stack frames) in an nvcc ``-Xptxas -v``
-    log."""
+def ptxas_resources(log: str, names=("mc_engine_wide", "bar_step")) -> dict:
+    """{function: {registers, stack, spill}} of the functions whose mangled
+    names hold one of ``names`` (the ``mc_engine_wide*`` kernels and the bar
+    steps: their stack frames) in an nvcc ``-Xptxas -v`` log."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line) or \
@@ -5393,7 +5425,7 @@ def ptxas_resources(log: str) -> dict:
         if m:
             fn = m.group(1)
             continue
-        if fn and ("mc_engine_wide" in fn or "bar_step" in fn):
+        if fn and any(n in fn for n in names):
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
             if m:
                 out.setdefault(fn, {}).update(stack=int(m.group(1)), spill=int(m.group(2)))
@@ -5456,8 +5488,11 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
     round); the books (``mc_engine_wide_corr_kernel``) under gbm and the three
     samplers at 10 symbols x 30 levels x 390 x 2^20 (and the harvest builds
     under gbm and block bootstrap), their digests with every path's row of a
-    2^16-path run, and at the parents' 100 x 2^20 x 40 each book forced
-    beside its parent.  With ``no_guard`` the tree's gbm envelope kernel is
+    2^16-path run, and at the parents' 100 x 2^20 x 40 the parent book
+    (``parent_run``), the book as routed (the book rows kernel) and the
+    envelope book forced, timed in turns (parent, rows, forced, forced, rows,
+    parent, one run each), their digests with every path's row of a
+    2^13-path run, which must agree.  With ``no_guard`` the tree's gbm envelope kernel is
     built without the windowed guard (``no_guard_tree``) and only gbm at 390
     bars is timed; with ``min_blocks`` (gbm, sampler[, book]) the tree's
     envelope kernels are built with those ``__launch_bounds__`` CTAs an SM
@@ -5494,11 +5529,13 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
              ["mc_engine", "mc_engine_wide", "mc_engine_wide_samplers", "mc_engine_wide_harvest",
               "mc_engine_wide_samplers_harvest", "mc_engine_corr", "mc_engine_corr_samplers",
               "mc_engine_wide_corr", "mc_engine_wide_corr_samplers",
-              "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest"])
+              "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest"]
+             + ([CE.BOOK_ROWS_SOURCE] if hasattr(CE, "BOOK_ROWS_SOURCE") else []))
     build.build_all(names)
     ptxas = {}
     for name in names:
-        ptxas.update(ptxas_resources(build.BUILD_LOG[name]["log"]))
+        ptxas.update(ptxas_resources(build.BUILD_LOG[name]["log"],
+                                     ("mc_engine_wide", "bar_step", "mc_engine_book_rows")))
     for fn, r in sorted(ptxas.items()):
         print(f"  ptxas {fn[:70]}: {r}", flush=True)
     dev = torch.device("cuda", 0)
@@ -5522,7 +5559,7 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
             return count_digest(c, h.ml_counts, h.pol_counts, *extra)
         return run, digest
 
-    cases = {}
+    cases, turns = {}, []                    # turns: groups of cases timed in turns
     for n in () if books_only else ENV_TIMES_LEVELS:
         cases[f"gbm {n} x {ENV_BARS} x {ENV_PATHS}"] = rows_case(
             lambda n=n: CE.engine_rows(0, ladder(n), params, num_paths=ENV_PATHS,
@@ -5590,17 +5627,34 @@ def envelope_times(tree: str, no_guard: bool = False, min_blocks=None,
                     lambda n, pp, bkw=bkw: CE.engine_corr_rows(
                         0, *book, paths_per_symbol=n, num_bars=ENV_BARS, per_path=pp,
                         harvest=True, **bkw), harvest=True)
-            pkw = dict(bkw, paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS)
-            cases[f"book parent {smp} {BOOK_SYMBOLS} x {NUM_BARS} x {BOOK_PATHS}"] = rows_case(
-                lambda pkw=pkw: CE.engine_corr_rows(0, *par_book, **pkw))
-            cases[f"book forced {smp} {BOOK_SYMBOLS} x {NUM_BARS} x {BOOK_PATHS}"] = rows_case(
-                forced(CE, lambda pkw=pkw: CE.engine_corr_rows(0, *par_book, **pkw)))
+            group = []
+            for form, wrap in (("parent", lambda fn: parent_run(CE, fn)), ("rows", lambda fn: fn),
+                               ("forced", lambda fn: forced(CE, fn))):
+                name = f"book {form} {smp} {BOOK_SYMBOLS} x {NUM_BARS} x {BOOK_PATHS}"
+                cases[name] = rows_case(
+                    wrap(lambda bkw=bkw: CE.engine_corr_rows(
+                        0, *par_book, paths_per_symbol=BOOK_PATHS, num_bars=NUM_BARS, **bkw)),
+                    also=wrap(lambda bkw=bkw: (CE.engine_corr_rows(
+                        0, *par_book, paths_per_symbol=1 << 13, num_bars=NUM_BARS,
+                        per_path=True, **bkw)[2],)))
+                group.append(name)
+            turns.append(group)
     ms, digests = {}, {}
+    in_turns = {name for group in turns for name in group}
     for name, (run, digest) in cases.items():
         digests[name] = digest()             # also the warm-up
         torch.cuda.synchronize()
-        ms[name] = cuda_ms(run, 2)
-        print(f"  {name}: {ms[name]:.3f} ms, counts {digests[name]}", flush=True)
+        if name not in in_turns:
+            ms[name] = cuda_ms(run, 2)
+            print(f"  {name}: {ms[name]:.3f} ms, counts {digests[name]}", flush=True)
+    for group in turns:
+        for name in group + group[::-1]:
+            ms.setdefault(name, []).append(cuda_ms(cases[name][0], 1))
+        for name in group:
+            print(f"  {name}: {', '.join(f'{t:.3f}' for t in ms[name])} ms, "
+                  f"counts {digests[name]}", flush=True)
+        if len({digests[name] for name in group}) != 1:
+            raise AssertionError(f"{group}: the count digests differ")
     print(json.dumps({"tree": tree, "no_guard": no_guard, "min_blocks": min_blocks,
                       "card": smi, "ms": ms,
                       "digest": digests, "ptxas": ptxas}))
@@ -6024,7 +6078,7 @@ def main() -> int:
                      "mc_engine_wide_harvest", "mc_engine_wide_samplers_harvest",
                      "mc_engine_wide_corr_harvest", "mc_engine_wide_corr_samplers_harvest",
                      "mc_first_contact_sweep", "mc_gated_sampler_sweep",
-                     "mc_engine_bar_sweep", "mc_engine_rows"])
+                     "mc_engine_bar_sweep", "mc_engine_rows", "mc_engine_book_rows"])
     log(f"[2] build: {time.perf_counter() - t0:.2f} s wall")
     for name, info in build.BUILD_LOG.items():
         log(f"  {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")

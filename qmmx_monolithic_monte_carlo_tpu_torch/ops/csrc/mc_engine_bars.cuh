@@ -84,6 +84,21 @@ __device__ __forceinline__ void heston_bar(const EngineArgs& a, const SamplerArg
     put_bar(b, plane, c, h, l, v);
 }
 
+// make_bars' hook on what it draws: a gbm double bar's two price normals,
+// a Heston double bar's price and variance normals, a recorded bar's index
+// uniform.  BarsAsDrawn leaves them as drawn (the single run's, the
+// universes' and the sweep's bars); the book's (mc_engine_book_rows.cu)
+// mixes the market's in.  ``mixes``: whether the normals' hooks are called
+// (not for BarsAsDrawn, so its kernels compile as they did before the hook).
+struct BarsAsDrawn {
+    static constexpr bool mixes = false;
+    __device__ __forceinline__ void gbm(int t2, float& z0, float& z1) {}
+    __device__ __forceinline__ void heston(int t2, float2& z, float2& q) {}
+    __device__ __forceinline__ float index_uniform(const EngineArgs& a, Draws& dr, int t) {
+        return dr.at((t >> 1) * a.stride + (t & 1));
+    }
+};
+
 // Bars t0 .. t1 - 1 (t0 even) of one path under sampler KIND into a store
 // (``out``: this path's close of bar t0; bars ``step`` floats apart, planes
 // ``plane`` floats apart), from the uniform rows the walks read (the tie and
@@ -95,11 +110,11 @@ __device__ __forceinline__ void heston_bar(const EngineArgs& a, const SamplerArg
 // the H100).  t1 is a reference: the engine sweep passes its arguments'
 // num_bars, which its loops then read from shared memory at each step as
 // they did before this function was shared (held in a register instead,
-// its bootstrap build ran 0.4% slower on the H100).
-template <int KIND, bool PAIRS>
+// its bootstrap build ran 0.4% slower on the H100).  ``mix``: the draws' hook.
+template <int KIND, bool PAIRS, class Mix>
 __device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs& s, Draws& dr,
                                           float& log_s, float& carry, int t0, const int& t1,
-                                          float* out, int step, int plane) {
+                                          float* out, int step, int plane, Mix& mix) {
     if constexpr (KIND == ENV_GBM) {
         const int half_lanes = a.lanes >> 1;
         const bool mirror = a.antithetic && (dr.col % a.lanes) >= half_lanes;
@@ -123,6 +138,7 @@ __device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs
             sincosf(two_pi() * u[1], &sn, &cs);
             float z0 = rad * cs, z1 = rad * sn;
             if (mirror) { z0 = -z0; z1 = -z1; }
+            if constexpr (Mix::mixes) mix.gbm(t2, z0, z1);
             const float vrad = sqrtf(-2.0f * logf(u[2]));
             float vsn, vcs;
             sincosf(two_pi() * u[3], &vsn, &vcs);
@@ -133,15 +149,16 @@ __device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs
     } else if constexpr (KIND == SAMPLER_RESAMPLE) {
 #pragma unroll 1
         for (int t = t0; t < t1; ++t)
-            resample_bar(s, log_s, t, dr.at((t >> 1) * a.stride + (t & 1)), carry,
+            resample_bar(s, log_s, t, mix.index_uniform(a, dr, t), carry,
                          out + (long long)(t - t0) * step, plane);
     } else {
 #pragma unroll 1
         for (int t2 = t0 >> 1; t2 < ((t1 + 1) >> 1); ++t2) {
             const int r = t2 * a.stride;
-            const float2 z = normal_pair(dr.at(r), dr.at(r + 1));
+            float2 z = normal_pair(dr.at(r), dr.at(r + 1));
             const float2 zv = normal_pair(dr.at(r + 2), dr.at(r + 3));
-            const float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
+            float2 q = normal_pair(dr.at(r + 4), dr.at(r + 5));
+            if constexpr (Mix::mixes) mix.heston(t2, z, q);
             float* const b = out + (long long)(2 * t2 - t0) * step;
             heston_bar(a, s, log_s, 2 * t2, z.x, zv.x, q.x, dr.at(r + 6), dr.at(r + 7), carry, b,
                        plane);
@@ -150,4 +167,13 @@ __device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs
                            carry, b + step, plane);
         }
     }
+}
+
+// make_bars with the draws as drawn.
+template <int KIND, bool PAIRS>
+__device__ __forceinline__ void make_bars(const EngineArgs& a, const SamplerArgs& s, Draws& dr,
+                                          float& log_s, float& carry, int t0, const int& t1,
+                                          float* out, int step, int plane) {
+    BarsAsDrawn as_drawn;
+    make_bars<KIND, PAIRS>(a, s, dr, log_s, carry, t0, t1, out, step, plane, as_drawn);
 }

@@ -13,10 +13,13 @@ run, the universe and the sweep of universes go to the rows kernel
 (``ops/csrc/mc_engine_rows.cu``: producer warpgroups make the bars, two
 consumer warpgroups run the lifecycle; equal to the parents
 ``mc_engine_sweep_kernel`` and ``mc_engine_sampler_kernel`` bit for bit),
-counted under the parent's name with ``_rows`` (``mc_engine_rows``,
-``mc_engine_rows_sampler``, ``mc_engine_rows_universe``, ...; the parents
-stay built, as the checks' A/B, ``_FORCE_PARENT``), the books to their
-parents (``ops/csrc/mc_engine_corr*.cu``); elsewhere each launch goes to the
+the books to the book rows kernel (``ops/csrc/mc_engine_book_rows.cu``, the
+same design through every symbol of a chunk; equal to the parents
+``mc_engine_corr_kernel`` and ``mc_engine_corr_sampler_kernel`` bit for
+bit), counted under the parent's name with ``_rows`` (``mc_engine_rows``,
+``mc_engine_rows_sampler``, ``mc_engine_rows_universe``, ...,
+``mc_engine_rows_corr[_sampler]``; the parents stay built, as the checks'
+A/B, ``_FORCE_PARENT``); elsewhere each launch goes to the
 envelope kernel (``ops/csrc/mc_engine_wide*.cu``, ``needs_envelope``), counted
 under the parent's name with ``_wide`` (``mc_engine_wide``,
 ``mc_engine_wide_sampler``, ...).  ``harvest=True`` (the single run, the
@@ -144,12 +147,13 @@ LAUNCHES.update({k + "_harvest": 0 for k in (
 LAUNCHES["mc_engine_harvest_reduce_rows"] = 0
 # the engine sweep (every launch of engine_sweep_rows): gbm, and the samplers
 LAUNCHES.update({"mc_engine_bar_sweep": 0, "mc_engine_bar_sweep_sampler": 0})
-# the single-run rows kernel (ops/csrc/mc_engine_rows.cu): each launch counter
-# of the parents it takes, with "_rows" (mc_engine_rows, mc_engine_rows_sampler,
-# mc_engine_rows_universe, ...)
+# the single-run rows kernel (ops/csrc/mc_engine_rows.cu) and the book rows
+# kernel (ops/csrc/mc_engine_book_rows.cu): each launch counter of the parents
+# they take, with "_rows" (mc_engine_rows, mc_engine_rows_sampler,
+# mc_engine_rows_universe, ..., mc_engine_rows_corr, mc_engine_rows_corr_sampler)
 LAUNCHES.update({"mc_engine_rows" + k: 0 for k in (
     "", "_sampler", "_universe", "_universe_sampler", "_universe_sweep",
-    "_universe_sweep_sampler")})
+    "_universe_sweep_sampler", "_corr", "_corr_sampler")})
 HV_COUNTS, HV_SUMS = HV.COUNT_COLS, HV.SUM_COLS   # a harvest partial row's columns
 
 
@@ -591,6 +595,32 @@ def _rows_library() -> ctypes.CDLL:
     return lib
 
 
+BOOK_ROWS_SOURCE = "mc_engine_book_rows"
+
+
+def _book_rows_library() -> ctypes.CDLL:
+    """The book rows kernel's library (``ops/csrc/mc_engine_book_rows.cu``),
+    built at first use, with its C signatures set and its struct layouts
+    checked against the host's; the engine library first (the fold and the
+    error strings are its)."""
+    _library()
+    lib = build.load(BOOK_ROWS_SOURCE)
+    if id(lib) not in _BOUND:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.qmmx_engine_book_rows_size, lib.qmmx_engine_book_rows_scratch):
+            fn.argtypes = [ci]
+            fn.restype = ci
+        lib.qmmx_mc_engine_book_rows.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp,
+                                                 ctypes.c_uint, vp, ci, vp, vp, vp, ci, vp]
+        lib.qmmx_mc_engine_book_rows.restype = ci
+        if [lib.qmmx_engine_book_rows_size(i) for i in range(2)] != [
+                ctypes.sizeof(_EngineArgs), ctypes.sizeof(SamplerArgs)]:
+            raise RuntimeError("the struct layouts differ between mc_engine_book_rows.cu "
+                               "and cuda_engine.py")
+        _BOUND.add(id(lib))
+    return lib
+
+
 _WIDE_SIGNATURES = {   # the envelope libraries' C entries (ops/csrc/mc_engine_wide*.cu)
     # v: a pointer (or the stream), i: an int, u: an unsigned (the market key)
     # (every entry ends with the scratch and the cell counter before the
@@ -813,9 +843,10 @@ def needs_envelope(max_levels: int, num_bars: int) -> bool:
 _FORCE_ENVELOPE = False
 
 
-# A check's hook: while true, the launches the rows kernel takes go to the
-# parents it replaced (mc_engine_sweep_kernel, mc_engine_sampler_kernel), to
-# hold the two against each other bit for bit.
+# A check's hook: while true, the launches the rows kernels take go to the
+# parents they replaced (mc_engine_sweep_kernel, mc_engine_sampler_kernel,
+# mc_engine_corr_kernel, mc_engine_corr_sampler_kernel), to hold the two
+# against each other bit for bit.
 _FORCE_PARENT = False
 
 
@@ -1688,18 +1719,21 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
                      hist_bars=None, tables=None, block_len: int = 10, heston=None,
                      device=None, per_path: bool = False):
     """Launch the engine book's pass 1 on a CUDA device, one launch of
-    ``mc_engine_corr_kernel`` (or under the other samplers
-    ``mc_engine_corr_sampler_kernel``, symbol s reading its own history or
-    the one every symbol shares; where the parents do not take the shape,
-    ``mc_engine_wide_corr_kernel``, counted under
-    ``mc_engine_wide_corr(_sampler)``): int64 [S + 1, grid, 151] and f32
-    [S + 1, grid, 6] partial rows (the symbols', then the book's), plus f32[S + 1,
-    P, PATH_COLS] per-path rows when ``per_path``, plus the symbols' int64
-    [S, grid, 72] and f32 [S, grid, 16] harvest rows with ``harvest`` (the
-    harvest builds ``mc_engine_wide_corr_harvest_kernel``, at every shape,
-    counted under ``mc_engine_wide_corr(_sampler)_harvest``; with ``env_tail``'s
-    scratch).  The book curves lie in a device-memory buffer (the engine's
-    rings already take 25 KB of shared memory a CTA)."""
+    ``mc_engine_book_rows_kernel`` under gbm or the other samplers (symbol s
+    reading its own history or the one every symbol shares), counted under
+    ``mc_engine_rows_corr(_sampler)``, with the scratch the library sizes
+    (the curves and market draws of its resident threads; under
+    ``_FORCE_PARENT`` the parent it replaced, ``mc_engine_corr_kernel`` or
+    ``mc_engine_corr_sampler_kernel``, counted under
+    ``mc_engine_corr(_sampler)``, the curves in a [W, grid x 256] buffer);
+    where the parents do not take the shape, ``mc_engine_wide_corr_kernel``,
+    counted under ``mc_engine_wide_corr(_sampler)``: int64 [S + 1, grid, 151]
+    and f32 [S + 1, grid, 6] partial rows (the symbols', then the book's), plus
+    f32[S + 1, P, PATH_COLS] per-path rows when ``per_path``, plus the
+    symbols' int64 [S, grid, 72] and f32 [S, grid, 16] harvest rows with
+    ``harvest`` (the harvest builds ``mc_engine_wide_corr_harvest_kernel``, at
+    every shape, counted under ``mc_engine_wide_corr(_sampler)_harvest``; with
+    ``env_tail``'s scratch)."""
     kw = engine_knobs(policy, ml_model, touch_params, guard_params,
                       policy_gate_disabled, escalation, bar0_minute)
     layout, _, cols, samp = _check_corr(
@@ -1724,23 +1758,40 @@ def engine_corr_rows(seed, levels: Levels, params, s0, sigma, beta, weights, *, 
     part_floats = torch.empty((n_sym + 1, grid, ROW_FLOATS), dtype=_F32, device=device)
     path_rows_ = (torch.empty((n_sym + 1, paths_per_symbol, PATH_COLS), dtype=_F32,
                               device=device) if per_path else None)
-    curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
     bw = book_pairs(cols, device)
-    hv = _harvest_rows(n_sym, grid, device) if harvest else ()
     stream = torch.cuda.current_stream(device).cuda_stream
-    head = (prng.stream_key(MARKET_STREAM, 0), curve_mem.data_ptr(), part_counts.data_ptr(),
-            part_floats.data_ptr(), path_rows_.data_ptr() if per_path else None,
-            *(x.data_ptr() for x in hv), grid)
+    m_stream = prng.stream_key(MARKET_STREAM, 0)
+    path_ptr = path_rows_.data_ptr() if per_path else None
     wide = _use_envelope(levels.max_levels, num_bars, harvest)
+    gbm = samp.kind == "gbm"
+    if not gbm:
+        samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
+    if not (wide or _FORCE_PARENT):
+        what = _rows("mc_engine_corr" + ("" if gbm else "_sampler"))
+        lib = _book_rows_library()
+        ctas = min(grid, torch.cuda.get_device_properties(device).multi_processor_count)
+        scratch = torch.empty(lib.qmmx_engine_book_rows_scratch(num_bars) * ctas * BLOCK,
+                              dtype=_F32, device=device)
+        rc = lib.qmmx_mc_engine_book_rows(
+            args_dev.data_ptr(), None if gbm else samp_dev.data_ptr(), bw.data_ptr(), n_sym,
+            _GBM_KIND if gbm else SAMPLER_KINDS[samp.kind], levels.max_levels, num_bars,
+            ext_ptr, m_ptr, m_stream, scratch.data_ptr(), ctas, part_counts.data_ptr(),
+            part_floats.data_ptr(), path_ptr, grid, stream)
+        _raise_on(rc, what)
+        LAUNCHES[what] += 1
+        return (part_counts, part_floats) + ((path_rows_,) if per_path else ())
+    curve_mem = torch.empty((num_bars, grid * BLOCK), dtype=_F32, device=device)
+    hv = _harvest_rows(n_sym, grid, device) if harvest else ()
+    head = (m_stream, curve_mem.data_ptr(), part_counts.data_ptr(), part_floats.data_ptr(),
+            path_ptr, *(x.data_ptr() for x in hv), grid)
     if wide:
         lv_dev = device_rows(level_table(levels, n_sym), device)
         env, _keep = env_tail(levels.max_levels, num_bars, device)
         tail = head + env + (stream,)
     else:
         tail = head + (stream,)
-    if samp.kind != "gbm":
+    if not gbm:
         what = "mc_engine_corr_sampler"
-        samp_dev, _tables = sampler_args(samp, device, samp.table_rows(n_sym))
         kind = SAMPLER_KINDS[samp.kind]
         if harvest:
             what = _wide(what) + "_harvest"

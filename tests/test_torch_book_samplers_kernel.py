@@ -134,8 +134,9 @@ def test_fused_book_samplers_launch_their_kernel_and_fold_once(mod, lanes):
                     BETAS, WEIGHTS, paths_per_symbol=8 * lanes, num_bars=W, lanes=lanes,
                     sampler=sampler, tables=TABLES, block_len=10)
         torch.cuda.synchronize()
+        kernel = "mc_gated_corr_sampler" if mod is cuda_gated else "mc_engine_rows_corr_sampler"
         assert {k: v for k, v in mod.LAUNCHES.items() if v} == {
-            f"mc_{family}_corr_sampler": 1, f"mc_{family}_corr_reduce_rows": 1}
+            kernel: 1, f"mc_{family}_corr_reduce_rows": 1}
         assert float(out[1].n) == 8 * lanes and bool((out[0].n == 8 * lanes).all())
     with pytest.raises(ValueError, match="antithetic"):
         fused(0, stack_levels(SYM_ROWS, max_levels=8), EngineParams.default(), S0, SIGMAS,

@@ -71,7 +71,7 @@ def _defines(source: str) -> dict:
     return {k: int(v) for k, v in re.findall(r"^#define (\w+) (\d+)\b", text, re.M)}
 
 
-ROWS = _defines("mc_engine_rows.cu")
+ROWS = {**_defines("mc_engine_rows.cuh"), **_defines("mc_engine_rows.cu")}
 ENGINE = _defines("mc_engine.cuh")
 
 
